@@ -1,0 +1,383 @@
+// Fused merged-KV projection forward: one read of the context for the row
+// statistics, the GEMM against the merged folded weights, and the folded
+// LayerNorm.
+//
+// Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
+// launched by _pallas_call). Forward only; the int8 (quantized context)
+// branch is not ported yet.
+//
+// What it computes, per context row r (token tok = r % T):
+//   s1 = sum_c x[r, c] + encs[0, tok]        (f32 sums of the stored values)
+//   s2 = sum_c x[r, c]^2 + encs[1, tok]
+//   mu = s1 / D, inv = rsqrt(s2 / D - mu^2 + eps)
+//   acc[r, n] = sum_c x[r, c] * W[c, n]      (f32 accumulation)
+//   low = round_cdt(round_cdt(acc) + encp[tok, n])   (the rounding contract)
+//   kv[r, n] = inv * (low - mu * aux[0, n]) + aux[1, n]
+//
+// Bound on an H100 SXM at the serving shape (8 x 4096 x 2048 bf16 context,
+// F = 252): the context read is 134 MB of the ~154 MB the function must move,
+// about 46 us at 3.35 TB/s, against 33.8 GFLOP, about 34 us at 989 TFLOP/s
+// bf16 -- so it is bound by bytes, and only if the GEMM runs on the tensor
+// cores. The design answers both: each block (512 threads) owns 128 whole
+// rows and up to 256 output columns, so it streams its rows of the context
+// exactly once (the statistics are taken from the same registers that feed
+// shared memory), runs the product with mma.sync m16n8k16 bf16 -> f32 (B
+// fragments by ldmatrix.trans from a row-major tile), and applies the
+// normalization in the epilogue on the accumulators. F is not padded: the
+// ragged column edge is masked in the loads and the stores. The weights
+// (about 1 MB) are re-read from L2 by every block, which the 128-row tile
+// halves against a 64-row one; only the next tile is prefetched, into
+// registers. A deeper cp.async/TMA pipeline and wgmma are later work.
+//
+// The float32 variant is the same schedule with FMA on the CUDA cores (no
+// TF32), so that an f32 model keeps full precision.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBN = 256;  // output columns per block
+constexpr int kRows = 128;       // context rows per bf16 block (4 threads a row)
+constexpr int kF32Threads = 256;
+constexpr int kF32Rows = 64;     // context rows per f32 block
+constexpr int kBK = 32;   // context channels per k-step
+constexpr int kPad = 8;   // bf16 padding per shared row: conflict-free fragments
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Reduces a row's partial sums over the 4 lanes that loaded it, adds the
+// encoding statistics, stores s1/s2 (first column block only) and the row's
+// (mu, inv) for the epilogue.
+__device__ __forceinline__ void finish_row_stats(float st1, float st2, int tid, int row,
+                                                 int local_row, int M, int T,
+                                                 const float* encs, float* s1_out,
+                                                 float* s2_out, float d_total, float eps,
+                                                 float* row_mu, float* row_inv) {
+  st1 += __shfl_xor_sync(0xffffffffu, st1, 1);
+  st1 += __shfl_xor_sync(0xffffffffu, st1, 2);
+  st2 += __shfl_xor_sync(0xffffffffu, st2, 1);
+  st2 += __shfl_xor_sync(0xffffffffu, st2, 2);
+  if ((tid & 3) == 0) {
+    float mu = 0.f, inv = 0.f;
+    if (row < M) {
+      const int tok = row % T;
+      const float s1 = st1 + encs[tok];
+      const float s2 = st2 + encs[T + tok];
+      if (blockIdx.y == 0) {
+        s1_out[row] = s1;
+        s2_out[row] = s2;
+      }
+      mu = s1 / d_total;
+      inv = rsqrtf(s2 / d_total - mu * mu + eps);
+    }
+    row_mu[local_row] = mu;
+    row_inv[local_row] = inv;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 8 consecutive channels of one context row (zeros past the row's end)
+__device__ __forceinline__ uint4 load_a8(const __nv_bfloat16* row, bool valid, int c, int C,
+                                         int vec) {
+  union {
+    uint4 u;
+    __nv_bfloat16 h[8];
+  } r;
+  if (valid && vec && c < C) {
+    r.u = *reinterpret_cast<const uint4*>(row + c);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) r.h[e] = (valid && c + e < C) ? row[c + e] : __float2bfloat16(0.f);
+  }
+  return r.u;
+}
+
+// weights W[gk, gn:gn+2] packed in one word (zeros past the edges)
+__device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int gn, int C,
+                                            int F, bool pair_ok) {
+  if (gk >= C) return 0u;
+  const __nv_bfloat16* src = w + (size_t)gk * F + gn;
+  if (pair_ok) return *reinterpret_cast<const uint32_t*>(src);
+  union {
+    uint32_t u;
+    __nv_bfloat16 h[2];
+  } r;
+  r.u = 0u;  // +0.0 in both halves
+  if (gn < F) r.h[0] = src[0];
+  if (gn + 1 < F) r.h[1] = src[1];
+  return r.u;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(BM * 4, 128 / BM)
+    project_bf16(const __nv_bfloat16* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
+                 const __nv_bfloat16* __restrict__ encp, const float* __restrict__ encs,
+                 const float* __restrict__ aux, __nv_bfloat16* __restrict__ kv,
+                 float* __restrict__ s1_out, float* __restrict__ s2_out, int M, int C, int F,
+                 int T, float d_total, float eps, int vec_a) {
+  constexpr int kRowsPerPass = BM / 32;  // weight rows one pass of the block loads
+  __shared__ __align__(16) __nv_bfloat16 As[BM][kBK + kPad];
+  __shared__ __align__(16) __nv_bfloat16 Bs[kBK][kBN + kPad];  // row-major [k][n]
+  __shared__ float row_mu[BM], row_inv[BM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // (BM / 32) x 4 warps over BM x 256
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * kBN;
+
+  // A loader: 8 consecutive channels of one row per thread
+  const int a_r = tid >> 2, a_c = (tid & 3) * 8;
+  const int a_row = row0 + a_r;
+  const bool a_valid = a_row < M;
+  const __nv_bfloat16* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
+  // B loader: one pair of output columns, k rows b_k + kRowsPerPass * i
+  const int b_n = (tid & 127) * 2, b_k = tid >> 7;
+  const int gn = col0 + b_n;
+  const bool pair_ok = ((F & 1) == 0) && (gn + 1 < F);
+
+  float st1 = 0.f, st2 = 0.f;
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  uint4 a_reg = load_a8(a_src, a_valid, a_c, C, vec_a);
+  uint32_t b_reg[kBK / kRowsPerPass];
+#pragma unroll
+  for (int i = 0; i < kBK / kRowsPerPass; ++i)
+    b_reg[i] = load_w2(w, b_k + kRowsPerPass * i, gn, C, F, pair_ok);
+
+  for (int k0 = 0; k0 < C; k0 += kBK) {
+    *reinterpret_cast<uint4*>(&As[a_r][a_c]) = a_reg;
+    {
+      union {
+        uint4 u;
+        __nv_bfloat16 h[8];
+      } x;
+      x.u = a_reg;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float f = __bfloat162float(x.h[e]);
+        st1 += f;
+        st2 += f * f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / kRowsPerPass; ++i)
+      *reinterpret_cast<uint32_t*>(&Bs[b_k + kRowsPerPass * i][b_n]) = b_reg[i];
+    __syncthreads();
+    if (k0 + kBK < C) {  // next tile in flight during the MMAs
+      a_reg = load_a8(a_src, a_valid, k0 + kBK + a_c, C, vec_a);
+#pragma unroll
+      for (int i = 0; i < kBK / kRowsPerPass; ++i)
+        b_reg[i] = load_w2(w, k0 + kBK + b_k + kRowsPerPass * i, gn, C, F, pair_ok);
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + gid;
+        af[mi][0] = ld32(&As[r][kk + tig * 2]);
+        af[mi][1] = ld32(&As[r + 8][kk + tig * 2]);
+        af[mi][2] = ld32(&As[r][kk + tig * 2 + 8]);
+        af[mi][3] = ld32(&As[r + 8][kk + tig * 2 + 8]);
+      }
+      const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {  // two n8 tiles per ldmatrix
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, &Bs[krow][wn * 64 + (nj * 2 + (lane >> 4)) * 8]);
+        mma_bf16(acc[0][2 * nj], af[0], bf[0], bf[1]);
+        mma_bf16(acc[1][2 * nj], af[1], bf[0], bf[1]);
+        mma_bf16(acc[0][2 * nj + 1], af[0], bf[2], bf[3]);
+        mma_bf16(acc[1][2 * nj + 1], af[1], bf[2], bf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, s1_out, s2_out, d_total, eps,
+                   row_mu, row_inv);
+  __syncthreads();
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lr = wm * 32 + mi * 16 + gid + half * 8;
+      const int r = row0 + lr;
+      if (r >= M) continue;
+      const int tok = r % T;
+      const float mu = row_mu[lr], inv = row_inv[lr];
+      const __nv_bfloat16* ep = encp + (size_t)tok * F;
+      __nv_bfloat16* out = kv + (size_t)r * F;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = col0 + wn * 64 + ni * 8 + tig * 2 + j;
+          if (n >= F) continue;
+          const float low =
+              round_bf16(round_bf16(acc[mi][ni][half * 2 + j]) + __bfloat162float(ep[n]));
+          out[n] = __float2bfloat16(inv * (low - mu * aux[n]) + aux[F + n]);
+        }
+      }
+    }
+  }
+}
+
+// one k-step of the f32 kernel's operands into registers: 8 channels of
+// one context row, and one weight column over kBK rows
+__device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[kBK],
+                                              const float* a_src, bool a_valid, int a_c,
+                                              int k0, const float* w, int gn, int C, int F,
+                                              int vec_a) {
+  const int c = k0 + a_c;
+  if (a_valid && vec_a && c < C) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a_src + c);
+    const float4 x1 = *reinterpret_cast<const float4*>(a_src + c + 4);
+    a_reg[0] = x0.x; a_reg[1] = x0.y; a_reg[2] = x0.z; a_reg[3] = x0.w;
+    a_reg[4] = x1.x; a_reg[5] = x1.y; a_reg[6] = x1.z; a_reg[7] = x1.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a_reg[e] = (a_valid && c + e < C) ? a_src[c + e] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kBK; ++i) {
+    const int gk = k0 + i;
+    b_reg[i] = (gk < C && gn < F) ? w[(size_t)gk * F + gn] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    project_f32(const float* __restrict__ dat, const float* __restrict__ w,
+                const float* __restrict__ encp, const float* __restrict__ encs,
+                const float* __restrict__ aux, float* __restrict__ kv,
+                float* __restrict__ s1_out, float* __restrict__ s2_out, int M, int C, int F,
+                int T, float d_total, float eps, int vec_a) {
+  __shared__ __align__(16) float As[kF32Rows][kBK + 4];
+  __shared__ __align__(16) float Bs[kBK][kBN];
+  __shared__ float row_mu[kF32Rows], row_inv[kF32Rows];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ty = tid >> 5;  // rows ty*8 .. ty*8+7
+  const int row0 = blockIdx.x * kF32Rows, col0 = blockIdx.y * kBN;
+
+  const int a_r = tid >> 2, a_c = (tid & 3) * 8;
+  const int a_row = row0 + a_r;
+  const bool a_valid = a_row < M;
+  const float* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
+  const int gn = col0 + tid;  // B loader: one column, all 32 k rows
+
+  float a_reg[8];
+  float b_reg[kBK];
+  float st1 = 0.f, st2 = 0.f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load_f32_tile(a_reg, b_reg, a_src, a_valid, a_c, 0, w, gn, C, F, vec_a);
+  for (int k0 = 0; k0 < C; k0 += kBK) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      As[a_r][a_c + e] = a_reg[e];
+      st1 += a_reg[e];
+      st2 += a_reg[e] * a_reg[e];
+    }
+#pragma unroll
+    for (int i = 0; i < kBK; ++i) Bs[i][tid] = b_reg[i];
+    __syncthreads();
+    if (k0 + kBK < C) load_f32_tile(a_reg, b_reg, a_src, a_valid, a_c, k0 + kBK, w, gn, C, F, vec_a);
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, s1_out, s2_out, d_total, eps,
+                   row_mu, row_inv);
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int lr = ty * 8 + i;
+    const int r = row0 + lr;
+    if (r >= M) continue;
+    const int tok = r % T;
+    const float mu = row_mu[lr], inv = row_inv[lr];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = col0 + lane + 32 * j;
+      if (n >= F) continue;
+      const float low = acc[i][j] + encp[(size_t)tok * F + n];
+      kv[(size_t)r * F + n] = inv * (low - mu * aux[n]) + aux[F + n];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int healnet_fused_project(const void* dat, const void* w, const void* encp,
+                                     const float* encs, const float* aux, void* kv, float* s1,
+                                     float* s2, int M, int C, int F, int T, float d_total,
+                                     float eps, int is_bf16, int vec_a, void* stream) {
+  if (M <= 0 || F <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int col_blocks = (F + kBN - 1) / kBN;
+  if (is_bf16) {
+    project_bf16<kRows><<<dim3((M + kRows - 1) / kRows, col_blocks), kRows * 4, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dat), static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(encp), encs, aux, static_cast<__nv_bfloat16*>(kv),
+        s1, s2, M, C, F, T, d_total, eps, vec_a);
+  } else {
+    project_f32<<<dim3((M + kF32Rows - 1) / kF32Rows, col_blocks), kF32Threads, 0, s>>>(
+        static_cast<const float*>(dat), static_cast<const float*>(w),
+        static_cast<const float*>(encp), encs, aux, static_cast<float*>(kv), s1, s2, M, C, F,
+        T, d_total, eps, vec_a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* healnet_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

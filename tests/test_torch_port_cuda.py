@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
+
+These tests need an NVIDIA GPU and nvcc; without a GPU the ``gen`` fixture
+skips them. On such a machine run them with
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py
+
+(``--noconftest``: the suite's conftest configures JAX, which the GPU
+machine need not have). Tolerances: float32 kernels agree with the plain
+version to the order of f32 rounding of sums taken in another order; bf16
+kernels to a few bf16 ulps (the kernels round where the plain version does,
+but sum in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.ops.attention import multihead_attention
+from healnet_tpu_torch.ops.flash_attention import flash_attention_kernel
+from healnet_tpu_torch.ops.fused_project import _prep, fused_project_kernel, project_plain
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _bf16_tol(ref: torch.Tensor, ulps: int = 4) -> float:
+    top = max(ref.float().abs().max().item(), 2.0**-126)
+    return ulps * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,t,c,f",
+    [(2, 300, 200, 70), (3, 129, 203, 300), (8, 1, 64, 252)],
+    ids=["ragged_rows", "two_column_blocks_unaligned_rows", "one_token"],
+)
+def test_projection_kernel_matches_plain(gen, dtype, b, t, c, f):
+    dat = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+    enc = torch.randn((t, 5), generator=gen, device="cuda").to(dtype)
+    w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    kv, s1, s2 = fused_project_kernel(dat, *_prep(dat, enc, w_all, b_all, dtype), c + 5, 1e-5)
+    ref = project_plain(dat, enc, w_all, b_all)
+    assert kv.dtype == dtype and kv.shape == (b, t, f)
+    tol = 1e-4 if dtype == torch.float32 else _bf16_tol(ref)
+    assert (kv.float() - ref.float()).abs().max().item() <= tol
+    xf = torch.cat([dat.float(), enc.float().expand(b, t, 5)], dim=-1)
+    torch.testing.assert_close(s1, xf.sum(-1), rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(s2, (xf * xf).sum(-1), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,lq,lkv,d,rate",
+    [(2, 1, 17, 1000, 63, 0.0), (2, 1, 17, 1000, 63, 0.3), (3, 8, 17, 17, 20, 0.0),
+     (1, 2, 1, 33, 27, 0.5)],
+    ids=["cross", "cross_dropout", "self_8_heads", "one_query"],
+)
+def test_flash_kernel_matches_plain(gen, dtype, b, h, lq, lkv, d, rate):
+    q = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(dtype)
+    kv = torch.randn((b, lkv, 2 * h * d + 3), generator=gen, device="cuda").to(dtype)
+    split = lambda x: x.reshape(x.shape[0], x.shape[1], h, d).transpose(1, 2)
+    qh, kh, vh = split(q), split(kv[..., 3:3 + h * d]), split(kv[..., 3 + h * d:])
+    mask = torch.rand((b, lkv), generator=gen, device="cuda") > 0.3
+    mask[0] = False  # a fully masked row outputs zero
+    out, lse = flash_attention_kernel(qh, kh, vh, mask, d**-0.5 / 0.5, rate, 1234)
+    ref, _ = multihead_attention(qh.float(), kh.float(), vh.float(), scale=d**-0.5,
+                                 kv_mask=mask, dropout_rate=rate, dropout_seed=1234)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert out[0].abs().max().item() == 0.0
+    assert lse.shape == (b, h, lq) and torch.isfinite(lse[1:]).all()
+
+
+def test_model_kernel_path_matches_plain_path(gen):
+    cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
+               depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
+               latent_dim_head=8, self_per_cross_attn=1, max_freq=2.0)
+    kernel = HealNetModule(**cfg, attention_impl="flash", projection_impl="auto",
+                           device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    plain = HealNetModule(**cfg, attention_impl="xla", projection_impl="xla",
+                          device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
+         torch.randn((3, 200, 24), generator=gen, device="cuda")]
+    mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
+    fused_project_kernel.launches = flash_attention_kernel.launches = 0
+    with torch.inference_mode():
+        got = kernel(x, kv_masks=[None, mask])
+        ref = plain(x, kv_masks=[None, mask])
+    assert fused_project_kernel.launches == 2  # one merged projection per modality
+    assert flash_attention_kernel.launches == 8  # 2 layers x 2 modalities x (cross + self)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = torch.randn((1, 1, 4, 8), generator=gen, device="cuda").half()
+    with pytest.raises(TypeError):
+        flash_attention_kernel(q, q, q, None, 1.0)
+    k = torch.randn((1, 1, 8, 4), generator=gen, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError):
+        flash_attention_kernel(q.float(), k, k, None, 1.0)
+    dat = torch.randn((1, 4, 8), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        fused_project_kernel(dat, torch.zeros((8, 3), device="cuda"),
+                             torch.zeros((4, 2), device="cuda"),
+                             torch.zeros((2, 4), device="cuda"),
+                             torch.zeros((2, 3), device="cuda"), 8, 1e-5)

@@ -1,0 +1,246 @@
+"""PyTorch port ops (healnet_tpu_torch.ops) against the JAX package on CPU.
+
+The same numpy inputs, made from a seed, go through the JAX function and its
+port. Unless a test says otherwise, float32 results agree to 1e-5 relative /
+1e-6 absolute; hash keep masks must be bit-equal.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from healnet_tpu.ops import activations as jact
+from healnet_tpu.ops import attention as jatt
+from healnet_tpu.ops import fourier as jfour
+from healnet_tpu.ops import hash_dropout as jhash
+from healnet_tpu.ops.flash_attention import flash_cross_attention as jflash
+from healnet_tpu.ops.fused_project import fused_kv_project as jproject
+from healnet_tpu.ops.hash_dropout import seed_from_rng
+from healnet_tpu_torch import device as tdevice
+from healnet_tpu_torch.ops import activations as tact
+from healnet_tpu_torch.ops import attention as tatt
+from healnet_tpu_torch.ops import fourier as tfour
+from healnet_tpu_torch.ops import hash_dropout as thash
+from healnet_tpu_torch.ops.flash_attention import (
+    flash_attention_kernel,
+    flash_cross_attention as tflash,
+)
+from healnet_tpu_torch.ops.fused_project import (
+    fused_kv_project as tproject,
+    fused_project_kernel,
+    split_columns,
+)
+
+RTOL, ATOL = 1e-5, 1e-6
+SEEDS = [0, 1, 12345, 2**31 - 1, 2**31, 2**31 + 7, 0xDEADBEEF, 2**32 - 1]
+
+
+def _close(port, ref, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(
+        port.detach().float().numpy(), np.asarray(ref, np.float32), rtol=rtol, atol=atol
+    )
+
+
+# ------------------------------------------------------------ hash dropout
+
+
+@pytest.mark.parametrize("rate", [0.083, 0.3, 0.5])
+@pytest.mark.parametrize("shape", [(2, 17, 300), (3, 5, 1024)])
+def test_dense_keep_mask_bit_equal(rate, shape):
+    bh, lq, lkv = shape
+    for seed in SEEDS:
+        ref = np.asarray(jhash.dense_keep_mask(jnp.asarray(np.uint32(seed)), bh, lq, lkv, rate))
+        got = thash.dense_keep_mask(seed, bh, lq, lkv, rate).numpy()
+        assert np.array_equal(got, ref), f"seed {seed}"
+    assert thash.keep_threshold(rate) == int(jhash.keep_threshold(rate))
+
+
+def test_hash_keep_bit_equal_full_range_coordinates(rng):
+    # coordinates and seeds across all 32 bits exercise every carry of the
+    # int64-held multiply
+    ids = rng.integers(0, 2**32, size=(3, 4096), dtype=np.uint64).astype(np.uint32)
+    for seed in SEEDS:
+        ref = np.asarray(jhash.hash_keep(
+            jnp.asarray(np.uint32(seed)), jnp.asarray(ids[0]), jnp.asarray(ids[1]),
+            jnp.asarray(ids[2]), 0.3,
+        ))
+        t = [torch.from_numpy(ids[i].astype(np.int64)) for i in range(3)]
+        got = thash.hash_keep(seed, t[0], t[1], t[2], 0.3).numpy()
+        assert np.array_equal(got, ref), f"seed {seed}"
+
+
+# ------------------------------------------------------ fourier/activations
+
+
+@pytest.mark.parametrize(
+    "spatial,max_freq,bands", [((7,), 2.0, 2), ((4, 5), 10.0, 4), ((3, 4, 2), 6.0, 3)]
+)
+def test_positional_encoding(spatial, max_freq, bands):
+    ref = jfour.positional_encoding(spatial, max_freq, bands)
+    got = tfour.positional_encoding(spatial, max_freq, bands)
+    assert tuple(got.shape) == ref.shape
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("name", ["gelu", "selu", "relu"])
+def test_gated_activations(rng, name):
+    x = rng.normal(size=(4, 6, 10)).astype(np.float32)
+    ref = jact.GATED_ACTIVATIONS[name](jnp.asarray(x))
+    got = tact.GATED_ACTIVATIONS[name](torch.from_numpy(x))
+    _close(got, ref)
+    assert tact.mask_value(torch.float32) == jact.mask_value(jnp.float32)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def _qkv(rng, b=2, h=2, lq=17, lkv=300, d=63):
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((b, h, lq, d), (b, h, lkv, d), (b, h, lkv, d))]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_multihead_attention(rng, masked):
+    q, k, v = _qkv(rng)
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(2, 300)) > 0.4
+        mask[1] = False  # a fully masked row outputs zero
+    scale = 63**-0.5
+    ref, ref_w = jatt.multihead_attention(
+        *map(jnp.asarray, (q, k, v)), scale=scale, temperature=0.5,
+        kv_mask=None if mask is None else jnp.asarray(mask), return_weights=True,
+    )
+    got, got_w = tatt.multihead_attention(
+        *map(torch.from_numpy, (q, k, v)), scale=scale, temperature=0.5,
+        kv_mask=None if mask is None else torch.from_numpy(mask), return_weights=True,
+    )
+    _close(got, ref)
+    _close(got_w, ref_w)
+    if masked:
+        assert float(got[1].abs().max()) == 0.0
+
+
+# --------------------------------------------------------- fused projection
+
+
+def _proj_inputs(rng, b=2, t=384, c=256, e=10, f=252):
+    dat = rng.normal(size=(b, t, c)).astype(np.float32)
+    enc = rng.normal(size=(t, e)).astype(np.float32) if e else None
+    w = (rng.normal(size=(c + e, f)) * 0.05).astype(np.float32)
+    bias = (rng.normal(size=(f,)) * 0.1).astype(np.float32)
+    return dat, enc, w, bias
+
+
+def _both_projections(dat, enc, w, bias, dtype):
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jenc = None if enc is None else jnp.asarray(enc)
+    tenc = None if enc is None else torch.from_numpy(enc)
+    jargs = (jnp.asarray(dat, jd), jenc, jnp.asarray(w), jnp.asarray(bias))
+    refs = {
+        "xla": jproject(*jargs, impl="xla"),
+        "pallas": jproject(*jargs, impl="pallas", interpret=True, tile=128),
+    }
+    got = tproject(
+        torch.from_numpy(dat).to(td), tenc, torch.from_numpy(w), torch.from_numpy(bias),
+        impl="auto",
+    )
+    return got, refs
+
+
+@pytest.mark.parametrize("case", ["enc", "no_enc", "ragged_tokens"])
+def test_fused_kv_project_f32(rng, case):
+    kw = {"enc": {}, "no_enc": {"e": 0}, "ragged_tokens": {"t": 200}}[case]
+    got, refs = _both_projections(*_proj_inputs(rng, **kw), "f32")
+    for name, ref in refs.items():
+        assert tuple(got.shape) == ref.shape, name
+        _close(got, ref)
+
+
+def test_fused_kv_project_bf16(rng):
+    got, refs = _both_projections(*_proj_inputs(rng), "bf16")
+    assert got.dtype == torch.bfloat16
+    for ref in refs.values():
+        # bf16 keeps 8 bits of mantissa: outputs of magnitude ~1-4 round at
+        # up to 1.6e-2; the two frameworks round the product at the same
+        # places, so they agree to within two bf16 ulps
+        _close(got, ref, rtol=2e-2, atol=2e-2)
+
+
+def test_split_columns():
+    x = torch.arange(2 * 3 * 10, dtype=torch.float32).reshape(2, 3, 10)
+    a, b, c = split_columns(x, (4, 4, 2))
+    assert torch.equal(torch.cat([a, b, c], dim=-1), x)
+    with pytest.raises(ValueError):
+        split_columns(x, (4, 4))
+
+
+# ----------------------------------------------------------- flash attention
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+def test_flash_cross_attention_vs_jax_interpret(rng, dropout):
+    q, k, v = _qkv(rng, lkv=384)
+    mask = rng.uniform(size=(2, 384)) > 0.3
+    scale = 63**-0.5
+    seed = seed_from_rng(jax.random.PRNGKey(42)) if dropout else None
+    ref = jflash(
+        *map(jnp.asarray, (q, k, v)), scale=scale, temperature=0.5,
+        kv_mask=jnp.asarray(mask), dropout_rate=dropout, dropout_seed=seed, kv_chunk=128,
+    )
+    port_seed = None if seed is None else int(np.asarray(seed).view(np.uint32)[0, 0])
+    got = tflash(
+        *map(torch.from_numpy, (q, k, v)), scale=scale, temperature=0.5,
+        kv_mask=torch.from_numpy(mask), dropout_rate=dropout, dropout_seed=port_seed,
+    )
+    # online softmax (JAX kernel) against materialised weights (the port's
+    # plain version): the JAX package's own flash tests hold this pair to
+    # 2e-5
+    _close(got, ref, rtol=2e-5, atol=2e-5)
+    if dropout:
+        nodrop = tflash(*map(torch.from_numpy, (q, k, v)), scale=scale,
+                        kv_mask=torch.from_numpy(mask))
+        assert float((got - nodrop).abs().max()) > 1e-3
+
+
+# ------------------------------------------------------ devices and imports
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError):
+        fused_project_kernel(x, torch.zeros(8, 4), torch.zeros(2, 4), torch.zeros(2, 2),
+                             torch.zeros(2, 4), 8, 1e-5)
+    q = torch.zeros(1, 1, 2, 4)
+    with pytest.raises(ValueError):
+        flash_attention_kernel(q, q, q, None, 1.0)
+
+
+def test_resolve_device():
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    assert tdevice.round_up(17, 16) == 32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdevice.resolve_device()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import healnet_tpu_torch\n"
+        "for m in pkgutil.walk_packages(healnet_tpu_torch.__path__, 'healnet_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'healnet_tpu')]\n"
+        "print(len([n for n in sys.modules if n.startswith('healnet_tpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
