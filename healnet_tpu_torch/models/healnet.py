@@ -1,4 +1,4 @@
-"""HealNet fusion model (forward, inference).
+"""HealNet fusion model (forward, for inference and training).
 
 Counterpart of ``healnet_tpu/models/healnet.py::HealNetModule``: a shared
 latent bottleneck array, per-modality cross-attention and feed-forward with
@@ -18,8 +18,13 @@ encodings, and a mean-pool -> LayerNorm -> Linear head.
 Submodules are named after the Flax scopes (``layer{key}_cross_attn_m{m}``,
 ``layer{key}_cross_ff_m{m}`` / ``_shared``, ``layer{key}_self_attn_b{blk}``,
 ``layer{key}_self_ff_b{blk}``, ``latents``, ``final_norm``, ``final_head``).
-Training (dropout), rematerialisation, meshes, int8 contexts and attention
-capture are not ported yet: the module serves inference.
+- Dropout (``.train()`` with a rate above 0): every attention call, tied
+  layers included, gets a fresh 32-bit hash seed (JAX's ``make_rng`` gives
+  each call its own stream) and the feed-forward masks come from an
+  explicit ``torch.Generator``; see :meth:`HealNetModule.forward`.
+
+Rematerialisation, meshes, int8 contexts and attention capture are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -124,27 +129,30 @@ class HealNetModule(nn.Module):
                 name = f"layer{key}_cross_attn_m{m}"
                 self.add_module(name, PreNormAttention(
                     l_d, input_dims[m], heads=x_heads, dim_head=cross_dim_head,
-                    attention_impl=attention_impl, dtype=dtype,
+                    dropout=attn_dropout, attention_impl=attention_impl, dtype=dtype,
                 ))
                 group["cross_attns"].append(name)
             if key >= 1 and weight_tie_layers:
                 name = f"layer{key}_cross_ff_shared"
-                self.add_module(name, PreNormFeedForward(l_d, snn=snn, dtype=dtype))
+                self.add_module(name, PreNormFeedForward(
+                    l_d, dropout=ff_dropout, snn=snn, dtype=dtype))
                 group["cross_ffs"] = [name] * n_modalities
             else:
                 for m in range(n_modalities):
                     name = f"layer{key}_cross_ff_m{m}"
-                    self.add_module(name, PreNormFeedForward(l_d, snn=snn, dtype=dtype))
+                    self.add_module(name, PreNormFeedForward(
+                        l_d, dropout=ff_dropout, snn=snn, dtype=dtype))
                     group["cross_ffs"].append(name)
             for blk in range(self_per_cross_attn):
                 name = f"layer{key}_self_attn_b{blk}"
                 self.add_module(name, PreNormAttention(
                     l_d, heads=l_heads, dim_head=latent_dim_head,
-                    attention_impl=attention_impl, dtype=dtype,
+                    dropout=attn_dropout, attention_impl=attention_impl, dtype=dtype,
                 ))
                 group["self_attns"].append(name)
                 name = f"layer{key}_self_ff_b{blk}"
-                self.add_module(name, PreNormFeedForward(l_d, snn=snn, dtype=dtype))
+                self.add_module(name, PreNormFeedForward(
+                    l_d, dropout=ff_dropout, snn=snn, dtype=dtype))
                 group["self_ffs"].append(name)
             self.groups[key] = group
 
@@ -178,11 +186,28 @@ class HealNetModule(nn.Module):
         presence: Optional[torch.Tensor] = None,
         kv_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
         return_embeddings: bool = False,
+        generator: Optional[torch.Generator] = None,
+        seed_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """Logits ``(b, out_dims)``, or the latents with ``return_embeddings``.
+
+        In training (``.train()``) with a dropout rate above 0, ``generator``
+        (on the inputs' device) draws the feed-forward keep masks, and
+        ``seed_generator`` (default: ``generator``) one 32-bit hash seed for
+        every attention call, all drawn at once. A CPU ``seed_generator``
+        keeps that draw off the device; one on the card costs a host read.
+        """
         if len(tensors) != self.n_modalities:
             raise ValueError(f"expected {self.n_modalities} modalities, got {len(tensors)}")
-        if self.training and (self.attn_dropout > 0 or self.ff_dropout > 0):
-            raise NotImplementedError("dropout (training) is not ported yet; call .eval()")
+        dropout_on = self.training and (self.attn_dropout > 0 or self.ff_dropout > 0)
+        if dropout_on and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        seeds = iter(())
+        if self.training and self.attn_dropout > 0:
+            src = seed_generator if seed_generator is not None else generator
+            calls = self.depth * self.n_modalities * (1 + self.self_per_cross_attn)
+            seeds = iter(torch.randint(0, 2**32, (calls,), generator=src, device=src.device,
+                                       dtype=torch.int64).tolist())
         b = tensors[0].shape[0]
 
         # raw data and the batch-shared positional encoding stay separate:
@@ -237,15 +262,17 @@ class HealNetModule(nn.Module):
             for i in range(self.n_modalities):
                 pres = presence[:, i][:, None, None]
                 update, _ = self._mod(group["cross_attns"][i])(
-                    x, kv_mask=kv_masks[i], kv=kv_cache[(key, i)]
+                    x, kv_mask=kv_masks[i], kv=kv_cache[(key, i)],
+                    dropout_seed=next(seeds, None),
                 )
                 x = pres * update + x
-                x = pres * self._mod(group["cross_ffs"][i])(x) + x
+                x = pres * self._mod(group["cross_ffs"][i])(x, generator) + x
                 # self-attention runs once per modality iteration
                 for blk in range(self.self_per_cross_attn):
-                    update, _ = self._mod(group["self_attns"][blk])(x)
+                    update, _ = self._mod(group["self_attns"][blk])(
+                        x, dropout_seed=next(seeds, None))
                     x = update + x
-                    x = self._mod(group["self_ffs"][blk])(x) + x
+                    x = self._mod(group["self_ffs"][blk])(x, generator) + x
 
         if return_embeddings or not self.final_classifier_head:
             return x

@@ -101,19 +101,34 @@ class LayerNormAffine(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear(d -> 2 d mult) -> gated SELU/GELU -> Linear(d mult -> d)."""
+    """Linear(d -> 2 d mult) -> gated SELU/GELU -> Linear(d mult -> d) ->
+    dropout.
 
-    def __init__(self, dim: int, mult: int = 4, snn: bool = False,
+    Dropout (training only) follows Flax's ``nn.Dropout``: keep with
+    probability ``1 - rate``, kept values divided by ``1 - rate``. The keep
+    mask is drawn from the ``generator`` passed to :meth:`forward` (on the
+    input's device), never from the global RNG; Flax's threefry masks are
+    not reproduced.
+    """
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, snn: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.snn = snn
+        self.snn, self.dropout = snn, dropout
         self.net_0 = torch_dense(dim * mult * 2, dim, dtype=dtype)
         self.net_2 = torch_dense(dim, dim * mult, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.net_0(x)
         h = gated_selu(h) if self.snn else gated_gelu(h)
-        return self.net_2(h)
+        h = self.net_2(h)
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("FeedForward dropout needs a generator")
+            keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - self.dropout
+            h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
+        return h
 
 
 class FoldedKV(nn.Module):
@@ -146,19 +161,21 @@ class Attention(nn.Module):
     """Cross/self attention with temperature-0.5 softmax.
 
     ``attention_impl``: ``"xla"`` the plain path, ``"flash"`` the flash
-    kernel (plain version on the CPU), ``"auto"`` flash on the card where
-    the JAX package's rule picks it.
+    kernels (plain version on the CPU), ``"auto"`` flash on the card where
+    the JAX package's rule picks it. ``dropout`` applies in training to the
+    normalised probabilities, with the coordinate-hash keep mask of the
+    per-call ``dropout_seed``, on both paths.
     """
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
-                 dim_head: int = 64, temperature: float = 0.5,
+                 dim_head: int = 64, dropout: float = 0.0, temperature: float = 0.5,
                  attention_impl: str = "xla", dtype: Optional[torch.dtype] = None):
         super().__init__()
         if attention_impl not in ("xla", "flash", "auto"):
             raise ValueError(f"unknown attention impl: {attention_impl!r}")
         inner = dim_head * heads
         ctx_dim = context_dim if context_dim is not None else query_dim
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.temperature, self.attention_impl = temperature, attention_impl
         self.to_q = torch_dense(inner, query_dim, use_bias=False, dtype=dtype)
         self.to_kv = FoldedKV(inner * 2, in_features=ctx_dim, dtype=dtype)
@@ -167,24 +184,27 @@ class Attention(nn.Module):
     def kv_fold(self, scale, bias):
         return self.to_kv.fold(scale, bias)
 
-    def forward(self, x, context=None, kv_mask=None, kv=None):
-        """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice.
-        Returns ``(out, None)``."""
+    def forward(self, x, context=None, kv_mask=None, kv=None,
+                dropout_seed: Optional[int] = None):
+        """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice;
+        ``dropout_seed``: the raw 32-bit hash seed of this call, required
+        in training when ``dropout > 0``. Returns ``(out, None)``."""
         inner = self.dim_head * self.heads
         scale = self.dim_head**-0.5
+        rate = self.dropout if self.training else 0.0
+        if rate > 0.0 and dropout_seed is None:
+            raise ValueError("attention dropout needs a dropout_seed")
         q = self.to_q(x)
         if kv is None:
             kv = self.to_kv(x if context is None else context)
         k, v = split_columns(kv, (inner, inner))
         qh, kh, vh = (split_heads(t, self.heads) for t in (q, k, v))
-        if self._should_use_flash(0.0, qh.shape[0], qh.shape[2], kh.shape[2], qh.is_cuda):
-            out = flash_cross_attention(
-                qh, kh, vh, scale=scale, temperature=self.temperature, kv_mask=kv_mask
-            )
+        kw = dict(scale=scale, temperature=self.temperature, kv_mask=kv_mask,
+                  dropout_rate=rate, dropout_seed=dropout_seed)
+        if self._should_use_flash(rate, qh.shape[0], qh.shape[2], kh.shape[2], qh.is_cuda):
+            out = flash_cross_attention(qh, kh, vh, **kw)
         else:
-            out, _ = multihead_attention(
-                qh, kh, vh, scale=scale, temperature=self.temperature, kv_mask=kv_mask
-            )
+            out, _ = multihead_attention(qh, kh, vh, **kw)
         return F.leaky_relu(self.to_out(out), negative_slope=1e-2), None
 
     def _should_use_flash(self, dropout_rate: float, b: int, lq: int, lkv: int,
@@ -212,21 +232,22 @@ class PreNormAttention(nn.Module):
     """
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
-                 dim_head: int = 64, temperature: float = 0.5,
+                 dim_head: int = 64, dropout: float = 0.0, temperature: float = 0.5,
                  attention_impl: str = "xla", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         self.norm = LayerNorm(query_dim, dtype=dtype)
         self.norm_context = LayerNormAffine(context_dim) if context_dim is not None else None
-        self.fn = Attention(query_dim, context_dim, heads, dim_head, temperature,
-                            attention_impl, dtype)
+        self.fn = Attention(query_dim, context_dim, heads=heads, dim_head=dim_head,
+                            dropout=dropout, temperature=temperature,
+                            attention_impl=attention_impl, dtype=dtype)
 
     def kv_fold(self):
         """This layer's context-KV weights with its LayerNorm affine folded."""
         scale, bias = self.norm_context()
         return self.fn.kv_fold(scale, bias)
 
-    def forward(self, x, context=None, kv_mask=None, kv=None):
+    def forward(self, x, context=None, kv_mask=None, kv=None, dropout_seed=None):
         normed = self.norm(x)
         normed_ctx = None
         if kv is None and context is not None:
@@ -236,17 +257,18 @@ class PreNormAttention(nn.Module):
             var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
             xhat = (xf - mu) * torch.rsqrt(var + 1e-5)
             normed_ctx = (xhat * scale_p + bias_p).to(self.dtype or context.dtype)
-        return self.fn(normed, context=normed_ctx, kv_mask=kv_mask, kv=kv)
+        return self.fn(normed, context=normed_ctx, kv_mask=kv_mask, kv=kv,
+                       dropout_seed=dropout_seed)
 
 
 class PreNormFeedForward(nn.Module):
     """LayerNorm before FeedForward."""
 
-    def __init__(self, dim: int, mult: int = 4, snn: bool = False,
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, snn: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm = LayerNorm(dim, dtype=dtype)
-        self.fn = FeedForward(dim, mult=mult, snn=snn, dtype=dtype)
+        self.fn = FeedForward(dim, mult=mult, dropout=dropout, snn=snn, dtype=dtype)
 
-    def forward(self, x):
-        return self.fn(self.norm(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.fn(self.norm(x), generator=generator)

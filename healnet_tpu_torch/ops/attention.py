@@ -32,8 +32,9 @@ def attention_scores(
     """
     sim = torch.einsum("bhid,bhjd->bhij", q, k) * scale / temperature
     if kv_mask is not None:
-        fill = torch.tensor(mask_value(sim.dtype), dtype=sim.dtype, device=sim.device)
-        sim = torch.where(kv_mask[:, None, None, :], sim, fill)
+        # a Python fill value: a device scalar made from the host would be a
+        # blocking copy
+        sim = sim.masked_fill(~kv_mask[:, None, None, :], mask_value(sim.dtype))
     return torch.softmax(sim, dim=-1)
 
 

@@ -1,17 +1,24 @@
-"""Flash cross-attention forward.
+"""Flash cross-attention, forward and backward.
 
-Counterpart of ``healnet_tpu/ops/flash_attention.py`` (forward). A small
-latent query array attends to a long per-modality context; the CUDA kernel
+Counterpart of ``healnet_tpu/ops/flash_attention.py``. A small latent query
+array attends to a long per-modality context; the forward CUDA kernel
 (``csrc/flash_attention.cu``) streams KV tiles with an online softmax so the
-(lq x lkv) weights never reach device memory. The plain version is
-:func:`healnet_tpu_torch.ops.attention.multihead_attention`, which computes
-the same function with materialised weights.
+(lq x lkv) weights never reach device memory, and writes the per-row
+log-sum-exp; the backward kernel (``csrc/flash_attention_bwd.cu``) rebuilds
+the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
+:class:`FlashAttentionFunction` ties the two together for autograd.
 
-Semantics shared with the TPU kernel: temperature folded into the scale,
-masked keys contribute zero, a row with every key masked outputs zero,
-dropout multiplies the normalised probabilities by ``keep / (1 - rate)``
-with ``keep`` from the coordinate hash over absolute (batch*head row, query,
-key) coordinates, and the denominator is taken before dropout.
+The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
+(forward, materialised weights; its autograd gradient is the same function
+as the kernels' backward) and :func:`flash_backward_plain`, which carries
+the backward kernel's formulas with materialised probabilities.
+
+Semantics shared with the TPU kernels: temperature folded into the scale,
+masked keys contribute zero, a row with every key masked outputs zero and
+gets zero gradients, dropout multiplies the normalised probabilities by
+``keep / (1 - rate)`` with ``keep`` from the coordinate hash over absolute
+(batch*head row, query, key) coordinates, and the denominator is taken
+before dropout.
 """
 
 from __future__ import annotations
@@ -24,10 +31,16 @@ import torch
 
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
-from healnet_tpu_torch.ops.hash_dropout import keep_threshold
+from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_threshold
 
-_KEY_TILE = 32  # keys per tile in the kernel (kTile)
+_KEY_TILE = 32  # keys per tile in both kernels (kTile)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
+_NEG_BIG = -1e30
+
+
+def _keep_scale(rate: float) -> float:
+    """The kept probabilities' multiplier, f32(1 / (1 - rate)) as in JAX."""
+    return float(np.float32(1.0 / (1.0 - rate))) if rate > 0 else 1.0
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,6 +58,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("flash_attention_bwd")
+    fn = lib.healnet_flash_backward
+    if fn.argtypes is None:
+        p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float, ctypes.c_uint32)
+        fn.argtypes = (
+            [p] * 11 + [i] * 7 + [ll] * 13 + [f, i, u, u, f, i, p]
+        )
+        fn.restype = ctypes.c_int
+        lib.healnet_flash_bwd_smem_bytes.argtypes = [i, i]
+        lib.healnet_flash_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _n_split(rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
     """Key splits per row: enough blocks for two on every SM (a block is
     latency-bound on its own), each split a whole number of key tiles.
@@ -56,6 +84,28 @@ def _n_split(rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
     return max(1, -(-lkv // split_len)), split_len
 
 
+def _check_qkv(q, k, v, extra=()) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v), *extra):
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
+        if x.dtype != q.dtype or x.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"q, k, v must share bf16 or f32, got {x.dtype}")
+        if x.ndim != 4 or x.stride(-1) != 1:
+            raise ValueError(f"{name} must be (b, h, n, d) with unit stride on d")
+    b, h, _, d = q.shape
+    lkv = k.shape[2]
+    if tuple(k.shape) != (b, h, lkv, d) or tuple(v.shape) != (b, h, lkv, d):
+        raise ValueError(f"k, v must be {(b, h, lkv, d)}: {k.shape}, {v.shape}")
+
+
+def _float_mask(kv_mask, b, lkv, device):
+    if kv_mask is None:
+        return None
+    if tuple(kv_mask.shape) != (b, lkv):
+        raise ValueError(f"kv_mask must be {(b, lkv)}, got {tuple(kv_mask.shape)}")
+    return kv_mask.to(device=device, dtype=torch.float32).contiguous()
+
+
 def flash_attention_kernel(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -65,39 +115,26 @@ def flash_attention_kernel(
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: returns ``(out (b, lq, h*d), lse (b, h, lq))``.
+    """Launch the forward kernel: returns ``(out (b, lq, h*d), lse (b, h, lq))``.
 
     q: (b, h, lq, d); k, v: (b, h, lkv, d), any strides with a unit stride
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
     """
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
-        if x.dtype != q.dtype or x.dtype not in (torch.bfloat16, torch.float32):
-            raise TypeError(f"q, k, v must share bf16 or f32, got {x.dtype}")
-        if x.ndim != 4 or x.stride(-1) != 1:
-            raise ValueError(f"{name} must be (b, h, n, d) with unit stride on d")
+    _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
-    if tuple(k.shape) != (b, h, lkv, d) or tuple(v.shape) != (b, h, lkv, d):
-        raise ValueError(f"k, v must be {(b, h, lkv, d)}: {k.shape}, {v.shape}")
     lib = _lib()
     smem = lib.healnet_flash_smem_bytes(lq, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
-    mask = None
-    if kv_mask is not None:
-        if tuple(kv_mask.shape) != (b, lkv):
-            raise ValueError(f"kv_mask must be {(b, lkv)}, got {tuple(kv_mask.shape)}")
-        mask = kv_mask.to(device=q.device, dtype=torch.float32).contiguous()
+    mask = _float_mask(kv_mask, b, lkv, q.device)
     n_split, split_len = _n_split(b * h, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b * h, n_split, 2, lq), dtype=torch.float32, device=q.device)
     rate = float(dropout_rate)
-    keep_scale = float(np.float32(1.0 / (1.0 - rate))) if rate > 0 else 1.0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.healnet_flash_forward(
@@ -108,7 +145,7 @@ def flash_attention_kernel(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             0 if mask is None else mask.stride(0),
             float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
-            keep_threshold(rate), keep_scale, int(q.dtype == torch.bfloat16), stream,
+            keep_threshold(rate), _keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
         )
     flash_attention_kernel.launches += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
@@ -116,6 +153,174 @@ def flash_attention_kernel(
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_attention_bwd_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    eff_scale: float,
+    dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: returns ``(dq, dk, dv)``, contiguous
+    ``(b, h, lq, d)`` / ``(b, h, lkv, d)`` in q's dtype.
+
+    q, k, v, kv_mask, eff_scale and the dropout arguments as for the
+    forward; do: (b, h, lq, d) in q's dtype, any strides with a unit stride
+    on d; lse, delta: (b, h, lq) f32 (the forward's log-sum-exp and
+    rowsum(dO * O)).
+    """
+    _check_qkv(q, k, v, extra=(("do", do),))
+    b, h, lq, d = q.shape
+    lkv = k.shape[2]
+    if tuple(do.shape) != (b, h, lq, d):
+        raise ValueError(f"do must be {(b, h, lq, d)}, got {tuple(do.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (b, h, lq) or x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(f"{name} must be {(b, h, lq)} f32 on {q.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _bwd_lib()
+    smem = lib.healnet_flash_bwd_smem_bytes(lq, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
+    mask = _float_mask(kv_mask, b, lkv, q.device)
+    n_split, split_len = _n_split(b * h, lkv, q.device)
+    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
+    part_dq = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
+    rate = float(dropout_rate)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.healnet_flash_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part_dq.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, lq, lkv, d, n_split, split_len,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            0 if mask is None else mask.stride(0),
+            float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
+            keep_threshold(rate), _keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
+        )
+    flash_attention_bwd_kernel.launches += 1
+    cuda_build.check(lib, code, "flash_attention_bwd_kernel")
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+def _scores(q, k, kv_mask, eff_scale):
+    """The kernels' f32 scores: ``q k^T * scale`` with masked keys at
+    -1e30, and the f32 mask ((b, 1, 1, lkv), ones without a mask)."""
+    b, _, _, _ = q.shape
+    lkv = k.shape[2]
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * eff_scale
+    mask = torch.ones((b, lkv), dtype=torch.float32, device=q.device) if kv_mask is None \
+        else kv_mask.to(torch.float32)
+    mask = mask[:, None, None, :]
+    return s + (mask - 1.0) * -_NEG_BIG, mask
+
+
+def flash_lse_plain(q, k, kv_mask, eff_scale) -> torch.Tensor:
+    """The forward kernel's log-sum-exp ``(b, h, lq)``: ``m + log(max(l,
+    1e-30))`` over the masked scores (about -1e30 for a fully masked row)."""
+    s, mask = _scores(q, k, kv_mask, eff_scale)
+    m = torch.amax(s, dim=-1)
+    l = torch.sum(torch.exp(s - m[..., None]) * mask, dim=-1)
+    return m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def flash_backward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    eff_scale: float,
+    dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel, with materialised
+    probabilities (the formulas of the JAX package's ``_bwd_kernel``):
+
+        p   = exp(s - lse) * mask,   e = keep * f32(1 / (1 - rate))
+        dv  = round_do(p * e)^T dO
+        ds  = round_q(p * (e * (V dO^T)^T - delta))
+        dk  = ds^T q * scale,  dq = ds k * scale
+
+    Shapes as :func:`flash_attention_bwd_kernel`; returns dq, dk, dv in q's
+    dtype.
+    """
+    b, h, lq, _ = q.shape
+    lkv = k.shape[2]
+    s, mask = _scores(q, k, kv_mask, eff_scale)
+    p = torch.exp(s - lse[..., None]) * mask
+    rate = float(dropout_rate)
+    if rate > 0:
+        keep = dense_keep_mask(dropout_seed, b * h, lq, lkv, rate, device=q.device)
+        e = keep.reshape(b, h, lq, lkv).float() * _keep_scale(rate)
+    else:
+        e = torch.ones((), dtype=torch.float32, device=q.device)
+    dof = do.float()
+    p_drop = (p * e).to(do.dtype).float()
+    dv = torch.einsum("bhij,bhid->bhjd", p_drop, dof)
+    dp = torch.einsum("bhid,bhjd->bhij", dof, v.float()) * e
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q.float()) * eff_scale
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k.float()) * eff_scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash cross-attention with its backward, for autograd.
+
+    ``apply(q, k, v, kv_mask, eff_scale, rate, seed)`` -> (b, lq, h * d).
+    CUDA tensors launch the forward and backward kernels; CPU tensors take
+    the plain versions (:func:`multihead_attention` with
+    :func:`flash_lse_plain`, and :func:`flash_backward_plain`), which the
+    tests use to check the backward's formulas. The residuals are q, k, v,
+    the mask, the output and the log-sum-exp; the backward computes
+    ``delta = rowsum(dO * O)`` in f32 before its kernel, as the JAX package
+    does outside its backward kernel.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed):
+        if q.is_cuda:
+            out, lse = flash_attention_kernel(q, k, v, kv_mask, eff_scale, rate, seed)
+        else:
+            # multihead_attention's scale / temperature is eff_scale
+            out, _ = multihead_attention(
+                q, k, v, scale=eff_scale, temperature=1.0, kv_mask=kv_mask,
+                dropout_rate=rate, dropout_seed=seed if rate > 0 else None,
+            )
+            lse = flash_lse_plain(q, k, kv_mask, eff_scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.eff_scale, ctx.rate, ctx.seed = eff_scale, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        b, h, lq, d = q.shape
+        # (b, lq, h * d) -> (b, h, lq, d), a view of the contiguous cotangent
+        g = g.contiguous().to(q.dtype)
+        do = g.reshape(b, lq, h, d).transpose(1, 2)
+        delta = torch.sum(
+            g.float().reshape(b, lq, h, d) * out.float().reshape(b, lq, h, d), dim=-1
+        ).transpose(1, 2)
+        bwd = flash_attention_bwd_kernel if q.is_cuda else flash_backward_plain
+        dq, dk, dv = bwd(q, k, v, kv_mask, do, lse, delta, ctx.eff_scale, ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_cross_attention(
@@ -130,9 +335,10 @@ def flash_cross_attention(
     dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused cross-attention: q (b, h, lq, d), k/v (b, h, lkv, d) ->
-    (b, lq, h * d). CUDA tensors launch the kernel; CPU tensors take the
-    plain version. ``dropout_seed`` is the raw 32-bit hash seed, required
-    when ``dropout_rate > 0``."""
+    (b, lq, h * d). CUDA tensors go through :class:`FlashAttentionFunction`
+    (the kernels, forward and backward); CPU tensors take the plain version,
+    whose autograd gradient is the same function. ``dropout_seed`` is the
+    raw 32-bit hash seed, required when ``dropout_rate > 0``."""
     dropout_rate = float(dropout_rate)
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
@@ -142,8 +348,7 @@ def flash_cross_attention(
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         )
         return out
-    out, _ = flash_attention_kernel(
+    return FlashAttentionFunction.apply(
         q, k, v, kv_mask, float(scale) / float(temperature), dropout_rate,
         0 if dropout_seed is None else int(dropout_seed),
     )
-    return out

@@ -1,3 +1,34 @@
-from healnet_tpu_torch.train.losses import hazards_survival_risk
+from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
+from healnet_tpu_torch.train.losses import (
+    CoxPHSurvLoss,
+    CrossEntropySurvLoss,
+    ce_loss,
+    cox_ph_loss,
+    hazards_survival_risk,
+    nll_loss,
+    nll_loss_from_logits,
+    survival_loss,
+)
+from healnet_tpu_torch.train.schedule import (
+    make_optimizer,
+    onecycle_beta1_at,
+    onecycle_lr_at,
+    progress_hyperparams,
+)
 
-__all__ = ["hazards_survival_risk"]
+__all__ = [
+    "CoxPHSurvLoss",
+    "CrossEntropySurvLoss",
+    "SurvivalTrainer",
+    "ce_loss",
+    "cox_ph_loss",
+    "hazards_survival_risk",
+    "iterate_batches",
+    "make_optimizer",
+    "nll_loss",
+    "nll_loss_from_logits",
+    "onecycle_beta1_at",
+    "onecycle_lr_at",
+    "progress_hyperparams",
+    "survival_loss",
+]

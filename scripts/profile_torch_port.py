@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time goes in one serving micro-batch of the PyTorch port.
+"""Where the time goes in the PyTorch port: one serving micro-batch and
+one training step.
 
-    python3 scripts/profile_torch_port.py [--reps 5]
+    python3 scripts/profile_torch_port.py [--mode serving|training|all] [--reps 5]
 
 Needs one CUDA GPU. Builds the full-width BRCA-tuned HealNet of
 ``chip_smoke.py`` (bf16, flash attention, fused projection kernel, batch 8,
 4096-token WSI bag, random weights from a seeded generator) and profiles,
 with ``torch.profiler``:
 
-- the model's forward on inputs already on the card;
-- one ``Predictor`` micro-batch from host arrays (upload included).
+- serving: the model's forward on inputs already on the card, and one
+  ``Predictor`` micro-batch from host arrays (upload included);
+- training: one ``SurvivalTrainer.train_step`` (forward with dropout,
+  NLL/16 + L1, backward through both kernels' backwards, Adam under
+  OneCycle) on a batch already on the card.
 
 For each it prints the wall time per pass, the device's busy time per pass
 (the sum of kernel and copy times), the idle share (1 - busy / wall), the
 kernels and copies per pass, and those by device time. Then it prints the
-host time to enqueue the forward and each of its kernel wrappers, with the
+host time to enqueue each piece (the serving forward and its kernel
+wrappers; the training step's forward, backward and update), with the
 device queue absorbing the work.
 """
 
@@ -28,11 +33,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import BATCH, OMIC, PATCH, TOKENS, brca_predictor  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH,
+    HORIZON,
+    OMIC,
+    PATCH,
+    TOKENS,
+    device_us,
+    brca_predictor,
+    brca_trainer,
+    device_profile,
+    train_batch,
+)
 from healnet_tpu_torch.ops.flash_attention import flash_attention_kernel  # noqa: E402
 from healnet_tpu_torch.ops.fourier import positional_encoding  # noqa: E402
 from healnet_tpu_torch.ops.fused_project import (  # noqa: E402
@@ -42,23 +57,14 @@ from healnet_tpu_torch.ops.fused_project import (  # noqa: E402
 )
 
 
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total", 0.0)
-                 or getattr(evt, "self_cuda_time_total", 0.0))
-
-
-def _on_device(evt) -> bool:
-    """Kernels and copies themselves, not the host-side operators that
-    launched them (which carry the same device time again)."""
-    return evt.device_type == torch.autograd.DeviceType.CUDA and _device_us(evt) > 0
-
-
 def host_ms(fn, reps: int = 30) -> float:
-    """Host milliseconds to enqueue one call, with the device queue absorbing
-    the work (no synchronisation inside the timed loop)."""
+    """Host milliseconds to enqueue one call, nothing synchronised inside
+    the timed loop. The device keeps up with these host-bound passes, so
+    the launch queue stays short and the host never waits on it (a device
+    held asleep instead would fill the queue, about a thousand launches,
+    and block the host)."""
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e9 * 0.2))  # keep the device busy: nothing drains
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -68,43 +74,23 @@ def host_ms(fn, reps: int = 30) -> float:
 
 
 def report(name: str, fn, reps: int) -> None:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = [e for e in prof.key_averages() if _on_device(e)]
-    busy_ms = sum(_device_us(e) for e in rows) / 1e3 / reps
-    ops = sum(e.count for e in rows) / reps
+    wall_ms, busy_ms, ops, rows = device_profile(fn, reps)
     print(f"{name}: wall {wall_ms:.4f} ms per pass, device busy {busy_ms:.4f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}, {ops:.0f} kernels and copies per pass "
           "(profiler on)")
-    for e in sorted(rows, key=_device_us, reverse=True)[:15]:
-        print(f"  {_device_us(e) / 1e3 / reps:9.4f} ms  x{e.count / reps:5.1f}  {e.key[:90]}")
+    for e in sorted(rows, key=device_us, reverse=True)[:15]:
+        print(f"  {device_us(e) / 1e3 / reps:9.4f} ms  x{e.count / reps:5.1f}  {e.key[:90]}")
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--reps", type=int, default=5)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_port: no CUDA device is available", file=sys.stderr)
-        return 1
+def profile_serving(reps: int) -> None:
     pred = brca_predictor(torch.bfloat16, "flash", "auto")
     rng = np.random.default_rng(0)
     omic = rng.standard_normal((BATCH, 1, OMIC), dtype=np.float32)
     wsi = rng.standard_normal((BATCH, TOKENS, PATCH), dtype=np.float32)
     x = [torch.as_tensor(omic, device="cuda"), torch.as_tensor(wsi, device="cuda")]
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
     with torch.inference_mode():
-        report("model forward, inputs on the card", lambda: pred.module(x), args.reps)
-    report("Predictor micro-batch from host arrays", lambda: pred([omic, wsi]), args.reps)
+        report("model forward, inputs on the card", lambda: pred.module(x), reps)
+    report("Predictor micro-batch from host arrays", lambda: pred([omic, wsi]), reps)
 
     # host cost of enqueueing each piece of the forward (profiler off)
     attn = pred.module.layer0_cross_attn_m1
@@ -129,6 +115,46 @@ def main() -> int:
         }
         for name, fn in pieces.items():
             print(f"host time to enqueue {name}: {host_ms(fn):.4f} ms")
+
+
+def profile_training(reps: int) -> None:
+    trainer = brca_trainer(torch.bfloat16, "flash", "auto")
+    batch = train_batch(np.random.default_rng(1), torch.bfloat16)
+    report("train step (forward + backward + Adam), inputs on the card",
+           lambda: trainer.train_step(batch, HORIZON), reps)
+
+    # host cost of enqueueing the step's pieces (profiler off)
+    placed = trainer._place(batch)
+    trainer.module.train()
+    forward = lambda: trainer._loss(placed)[0]
+    update = lambda: (trainer.grad_stats(), trainer.optimizer.step())
+    forward_ms = host_ms(forward)
+    with_backward_ms = host_ms(lambda: forward().backward())
+    pieces = {
+        "train step": host_ms(lambda: trainer.train_step(batch, HORIZON)),
+        "forward + loss": forward_ms,
+        "backward (forward + loss + backward, less forward + loss)": with_backward_ms - forward_ms,
+        "grad norms + Adam update": host_ms(update),
+    }
+    for name, ms in pieces.items():
+        print(f"host time to enqueue {name}: {ms:.4f} ms")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--mode", choices=("serving", "training", "all"), default="all")
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    if args.mode in ("serving", "all"):
+        profile_serving(args.reps)
+    if args.mode in ("training", "all"):
+        profile_training(args.reps)
     return 0
 
 

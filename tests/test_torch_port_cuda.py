@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
+"""The port's CUDA kernels (forward and backward) against their plain
+PyTorch versions, and the kernel path's gradients against the plain path's,
+on the GPU.
 
 These tests need an NVIDIA GPU and nvcc; without a GPU the ``gen`` fixture
 skips them. On such a machine run them with
@@ -18,8 +20,20 @@ import torch
 
 from healnet_tpu_torch.models.healnet import HealNetModule
 from healnet_tpu_torch.ops.attention import multihead_attention
-from healnet_tpu_torch.ops.flash_attention import flash_attention_kernel
-from healnet_tpu_torch.ops.fused_project import _prep, fused_project_kernel, project_plain
+from healnet_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+    flash_backward_plain,
+    flash_cross_attention,
+)
+from healnet_tpu_torch.ops.fused_project import (
+    _prep,
+    fused_kv_project,
+    fused_project_bwd_kernel,
+    fused_project_kernel,
+    project_bwd_plain,
+    project_plain,
+)
 
 
 @pytest.fixture
@@ -78,6 +92,83 @@ def test_flash_kernel_matches_plain(gen, dtype, b, h, lq, lkv, d, rate):
     assert lse.shape == (b, h, lq) and torch.isfinite(lse[1:]).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,lq,lkv,d,rate",
+    [(2, 1, 17, 1000, 63, 0.0), (2, 1, 17, 1000, 63, 0.3), (3, 8, 17, 17, 20, 0.0),
+     (8, 1, 17, 1, 63, 0.083)],
+    ids=["cross", "cross_dropout", "self_8_heads", "one_key"],
+)
+def test_flash_bwd_kernel_matches_plain(gen, dtype, b, h, lq, lkv, d, rate):
+    q = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(dtype)
+    kv = torch.randn((b, lkv, 2 * h * d + 3), generator=gen, device="cuda").to(dtype)
+    split = lambda x: x.reshape(x.shape[0], x.shape[1], h, d).transpose(1, 2)
+    qh, kh, vh = split(q), split(kv[..., 3:3 + h * d]), split(kv[..., 3 + h * d:])
+    mask = torch.rand((b, lkv), generator=gen, device="cuda") > 0.3
+    mask[:, 0] = True
+    mask[0] = False  # a fully masked row gets zero gradients
+    scale = d**-0.5 / 0.5
+    out, lse = flash_attention_kernel(qh, kh, vh, mask, scale, rate, 99)
+    do = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(dtype)
+    delta = (do.float() * out.float()).reshape(b, lq, h, d).sum(-1).transpose(1, 2)
+    doh = split(do)
+    got = flash_attention_bwd_kernel(qh, kh, vh, mask, doh, lse, delta, scale, rate, 99)
+    ref = flash_backward_plain(qh, kh, vh, mask, doh, lse, delta, scale, rate, 99)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        # f32: sums in another order; bf16: both round p and ds to bf16 at
+        # the same places, so a few ulps of the largest gradient
+        tol = (1e-5 * max(1.0, r.abs().max().item()) if dtype == torch.float32
+               else _bf16_tol(r))
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+    assert got[0][0].abs().max().item() == 0.0
+    assert got[1][0].abs().max().item() == 0.0 and got[2][0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,f", [(2, 300, 70), (3, 129, 300), (8, 1, 252)],
+                         ids=["ragged_rows", "wide", "one_token"])
+def test_projection_bwd_kernel_matches_plain(gen, dtype, b, t, f):
+    g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((b, t, 40), generator=gen, device="cuda") * 2 + 0.5
+    s1, s2 = x.sum(-1), (x * x).sum(-1)
+    d_raw, dsum2 = fused_project_bwd_kernel(g, s1, s2, 40, 1e-5)
+    ref_raw, ref_sum = project_bwd_plain(g, s1, s2, 40, 1e-5)
+    assert d_raw.dtype == dtype and dsum2.shape == (2, f)
+    tol = 1e-6 if dtype == torch.float32 else _bf16_tol(ref_raw, ulps=1)
+    assert (d_raw.float() - ref_raw.float()).abs().max().item() <= tol
+    torch.testing.assert_close(dsum2, ref_sum, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_flash_function_grads_match_plain_autograd(gen, rate):
+    q = torch.randn((2, 2, 17, 20), generator=gen, device="cuda", requires_grad=True)
+    k = torch.randn((2, 2, 500, 20), generator=gen, device="cuda", requires_grad=True)
+    v = torch.randn((2, 2, 500, 20), generator=gen, device="cuda", requires_grad=True)
+    mask = torch.rand((2, 500), generator=gen, device="cuda") > 0.3
+    g = torch.randn((2, 17, 40), generator=gen, device="cuda")
+    kw = dict(scale=20**-0.5, kv_mask=mask, dropout_rate=rate, dropout_seed=7)
+    got = torch.autograd.grad(flash_cross_attention(q, k, v, **kw), (q, k, v), g)
+    ref = torch.autograd.grad(multihead_attention(q, k, v, **kw)[0], (q, k, v), g)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("enc_on", [True, False])
+def test_projection_function_grads_match_plain_autograd(gen, enc_on):
+    dat = torch.randn((2, 300, 64), generator=gen, device="cuda", requires_grad=True)
+    enc = torch.randn((300, 5), generator=gen, device="cuda", requires_grad=True) if enc_on else None
+    w = (torch.randn((64 + (5 if enc_on else 0), 70), generator=gen, device="cuda") * 0.05
+         ).requires_grad_()
+    bias = torch.randn((70,), generator=gen, device="cuda", requires_grad=True)
+    g = torch.randn((2, 300, 70), generator=gen, device="cuda")
+    inputs = [x for x in (dat, enc, w, bias) if x is not None]
+    got = torch.autograd.grad(fused_kv_project(dat, enc, w, bias, impl="auto"), inputs, g)
+    ref = torch.autograd.grad(project_plain(dat, enc, w, bias), inputs, g)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
 def test_model_kernel_path_matches_plain_path(gen):
     cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
                depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
@@ -98,6 +189,35 @@ def test_model_kernel_path_matches_plain_path(gen):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+def test_model_kernel_path_grads_match_plain_path(gen, rate):
+    """Parameter gradients through both kernels' backwards against the
+    plain path's autograd, same weights and same dropout draws (f32)."""
+    cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
+               depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
+               latent_dim_head=8, self_per_cross_attn=1, max_freq=2.0,
+               attn_dropout=rate, ff_dropout=rate)
+    models = [HealNetModule(**cfg, attention_impl=a, projection_impl=p, device="cuda",
+                            generator=torch.Generator().manual_seed(0)).train()
+              for a, p in (("flash", "auto"), ("xla", "xla"))]
+    x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
+         torch.randn((3, 200, 24), generator=gen, device="cuda")]
+    mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
+    fused_project_bwd_kernel.launches = flash_attention_bwd_kernel.launches = 0
+    grads = []
+    for model in models:
+        gens = dict(generator=torch.Generator(device="cuda").manual_seed(5),
+                    seed_generator=torch.Generator().manual_seed(6))
+        model(x, kv_masks=[None, mask], **gens).square().sum().backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert fused_project_bwd_kernel.launches == 2
+    assert flash_attention_bwd_kernel.launches == 8
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        assert got is not None and ref is not None, name
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-5, msg=name)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = torch.randn((1, 1, 4, 8), generator=gen, device="cuda").half()
     with pytest.raises(TypeError):
@@ -106,6 +226,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         flash_attention_kernel(q.float(), k, k, None, 1.0)
     dat = torch.randn((1, 4, 8), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        flash_attention_bwd_kernel(q.float(), q.float(), q.float(), None, q.float()[..., :2],
+                                   torch.zeros((1, 1, 4), device="cuda"),
+                                   torch.zeros((1, 1, 4), device="cuda"), 1.0)
+    with pytest.raises(TypeError):
+        fused_project_bwd_kernel(torch.zeros((1, 4, 3), device="cuda", dtype=torch.half),
+                                 torch.zeros((1, 4), device="cuda"),
+                                 torch.zeros((1, 4), device="cuda"), 8)
     with pytest.raises(ValueError):
         fused_project_kernel(dat, torch.zeros((8, 3), device="cuda"),
                              torch.zeros((4, 2), device="cuda"),

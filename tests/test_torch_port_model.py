@@ -166,6 +166,23 @@ def test_auto_attention_rule():
     assert not attn._should_use_flash(0.0, 8, 126, 4096, on_card=True)
     assert attn._should_use_flash(0.083, 64, 512, 65536, on_card=True)
     assert not attn._should_use_flash(0.0, 64, 512, 65536, on_card=False)
+    # JAX's rule with dropout on: flash only when the weights exceed 2 GiB
+    assert not attn._should_use_flash(0.083, 8, 126, 65536, on_card=True)
+    assert not attn._should_use_flash(0.3, 8, 512, 65536, on_card=True)  # 1 GiB of weights
+    assert attn._should_use_flash(0.3, 17, 512, 65536, on_card=True)  # 2.1 GiB
+
+
+def test_attention_passes_its_dropout_rate_to_the_rule(monkeypatch):
+    seen = []
+    monkeypatch.setattr(Attention, "_should_use_flash",
+                        lambda self, rate, *a: seen.append(rate) or False)
+    attn = Attention(8, 10, heads=2, dim_head=6, dropout=0.25, attention_impl="auto")
+    x, kv = torch.randn(2, 5, 8), torch.randn(2, 7, 24)
+    attn.train()(x, kv=kv, dropout_seed=3)
+    attn.eval()(x, kv=kv)
+    assert seen == [0.25, 0.0]
+    with pytest.raises(ValueError, match="dropout_seed"):
+        attn.train()(x, kv=kv)
 
 
 def test_model_entry_point_needs_a_gpu_or_cpu_request():

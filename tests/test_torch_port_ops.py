@@ -20,6 +20,7 @@ from healnet_tpu.ops import attention as jatt
 from healnet_tpu.ops import fourier as jfour
 from healnet_tpu.ops import hash_dropout as jhash
 from healnet_tpu.ops.flash_attention import flash_cross_attention as jflash
+from healnet_tpu.ops.fused_project import _pallas_bwd_call as jproject_bwd_call
 from healnet_tpu.ops.fused_project import fused_kv_project as jproject
 from healnet_tpu.ops.hash_dropout import seed_from_rng
 from healnet_tpu_torch import device as tdevice
@@ -28,12 +29,19 @@ from healnet_tpu_torch.ops import attention as tatt
 from healnet_tpu_torch.ops import fourier as tfour
 from healnet_tpu_torch.ops import hash_dropout as thash
 from healnet_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention_bwd_kernel,
     flash_attention_kernel,
+    flash_backward_plain,
     flash_cross_attention as tflash,
+    flash_lse_plain,
 )
 from healnet_tpu_torch.ops.fused_project import (
+    FusedProjectFunction,
     fused_kv_project as tproject,
+    fused_project_bwd_kernel,
     fused_project_kernel,
+    project_bwd_plain,
     split_columns,
 )
 
@@ -209,6 +217,112 @@ def test_flash_cross_attention_vs_jax_interpret(rng, dropout):
         assert float((got - nodrop).abs().max()) > 1e-3
 
 
+def _flash_case(rng, case):
+    """q, k, v, mask, seed and rate of a backward case, f32, lkv = 256."""
+    q, k, v = _qkv(rng, lkv=256)
+    mask = rng.uniform(size=(2, 256)) > 0.3
+    if case == "unmasked":
+        mask = None
+    if case == "fully_masked_row":
+        mask[1] = False
+    rate = 0.3 if case == "dropout" else 0.0
+    seed = seed_from_rng(jax.random.PRNGKey(7)) if rate else None
+    return q, k, v, mask, seed, rate
+
+
+@pytest.mark.parametrize("case", ["unmasked", "masked", "fully_masked_row", "dropout"])
+def test_flash_gradients_vs_jax_interpret(rng, case):
+    """The flash Function (plain forward and backward on the CPU), the plain
+    backward alone, and the CPU path's autograd, against ``jax.grad`` of the
+    JAX flash kernel in interpret mode; same hash seed. f32, 1e-5."""
+    q, k, v, mask, seed, rate = _flash_case(rng, case)
+    g = rng.normal(size=(2, 17, 2 * 63)).astype(np.float32)
+    scale, eff = 63**-0.5, 63**-0.5 / 0.5
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jloss(q_, k_, v_):
+        out = jflash(q_, k_, v_, scale=scale, temperature=0.5, kv_mask=jmask,
+                     dropout_rate=rate, dropout_seed=seed, kv_chunk=128)
+        return jnp.sum(out * jnp.asarray(g))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    port_seed = 0 if seed is None else int(np.asarray(seed).view(np.uint32)[0, 0])
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    tg = torch.from_numpy(g)
+
+    out = FlashAttentionFunction.apply(tq, tk, tv, tmask, eff, rate, port_seed)
+    fn_grads = torch.autograd.grad(out, (tq, tk, tv), tg)
+    assert all(x is not None for x in fn_grads)
+    path_out = tflash(tq, tk, tv, scale=scale, kv_mask=tmask, dropout_rate=rate,
+                      dropout_seed=port_seed if rate else None)
+    path_grads = torch.autograd.grad(path_out, (tq, tk, tv), tg)
+    with torch.no_grad():
+        do = tg.reshape(2, 17, 2, 63).transpose(1, 2)
+        delta = (do * out.reshape(2, 17, 2, 63).transpose(1, 2)).sum(-1)
+        lse = flash_lse_plain(tq, tk, tmask, eff)
+        plain = flash_backward_plain(tq, tk, tv, tmask, do, lse, delta, eff, rate, port_seed)
+    for grads in (fn_grads, path_grads, plain):
+        for got, want in zip(grads, ref):
+            _close(got, want, rtol=1e-5, atol=1e-5)
+    if case == "fully_masked_row":
+        assert float(fn_grads[0][1].abs().max()) == 0.0
+        assert float(fn_grads[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_project_bwd_plain_vs_jax_kernel(rng, dtype):
+    """The cotangent pass against the JAX backward kernel (interpret mode),
+    called directly: d_raw and dsum2 = [sum g; sum inv * mu * g]."""
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    b, t, f, d_total = 2, 256, 252, 261
+    g = rng.normal(size=(b, t, f)).astype(np.float32)
+    x = rng.normal(size=(b, t, d_total)).astype(np.float32) * 1.5 + 0.3
+    s1, s2 = x.sum(-1), (x * x).sum(-1)
+    jg = jnp.pad(jnp.asarray(g, jd), ((0, 0), (0, 0), (0, 4)))  # F padded to 256 lanes
+    ref_raw, ref_sum = jproject_bwd_call(jg, jnp.asarray(s1), jnp.asarray(s2), None, d_total,
+                                         1e-5, 128, True, False, jd)
+    d_raw, dsum2 = project_bwd_plain(torch.from_numpy(g).to(td), torch.from_numpy(s1),
+                                     torch.from_numpy(s2), d_total, 1e-5)
+    assert d_raw.dtype == td
+    # d_raw rounds inv * g once in both: equal in f32, at most one bf16 ulp
+    # apart (the rsqrt may differ in its last f32 bit)
+    tol = (1e-6, 1e-6) if dtype == "f32" else (8e-3, 1e-6)
+    _close(d_raw, np.asarray(ref_raw[..., :f], np.float32), rtol=tol[0], atol=tol[1])
+    # sums of 512 terms in another order
+    _close(dsum2, np.asarray(ref_sum[:, :f]), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["enc", "no_enc", "params_only"])
+def test_projection_function_vjp_vs_jax(rng, case):
+    """FusedProjectFunction's gradients (plain versions on the CPU) against
+    ``jax.vjp`` of the JAX projection; d_dat / d_enc only when asked for."""
+    dat, enc, w, bias = _proj_inputs(rng, t=128, c=64, e=0 if case == "no_enc" else 10, f=70)
+    g = rng.normal(size=(2, 128, 70)).astype(np.float32)
+    jenc = None if enc is None else jnp.asarray(enc)
+    _, vjp = jax.vjp(
+        lambda d_, e_, w_, b_: jproject(d_, e_, w_, b_, impl="pallas", interpret=True, tile=128),
+        jnp.asarray(dat), jenc, jnp.asarray(w), jnp.asarray(bias))
+    ref = vjp(jnp.asarray(g))
+    inputs = [torch.from_numpy(a) if a is not None else None for a in (dat, enc, w, bias)]
+    for i, x in enumerate(inputs):
+        if x is not None and (case != "params_only" or i >= 2):
+            x.requires_grad_()
+    out = FusedProjectFunction.apply(*inputs, 1e-5)
+    out.backward(torch.from_numpy(g))
+    for name, x, want in zip(("dat", "enc", "w", "bias"), inputs, ref):
+        if x is None:
+            continue
+        if not x.requires_grad:
+            assert x.grad is None, name
+            continue
+        # d_w sums 256 rows of products in another order: entries up to ~50
+        # agree to f32 rounding of the largest, so the absolute tolerance
+        # scales with it
+        top = max(1.0, float(np.abs(np.asarray(want)).max()))
+        _close(x.grad, want, rtol=1e-5, atol=1e-6 * top)
+
+
 # ------------------------------------------------------ devices and imports
 
 
@@ -217,9 +331,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         fused_project_kernel(x, torch.zeros(8, 4), torch.zeros(2, 4), torch.zeros(2, 2),
                              torch.zeros(2, 4), 8, 1e-5)
+    with pytest.raises(ValueError):
+        fused_project_bwd_kernel(torch.zeros(1, 2, 4), torch.zeros(1, 2), torch.zeros(1, 2), 8)
     q = torch.zeros(1, 1, 2, 4)
     with pytest.raises(ValueError):
         flash_attention_kernel(q, q, q, None, 1.0)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_kernel(q, q, q, None, q, torch.zeros(1, 1, 2),
+                                   torch.zeros(1, 1, 2), 1.0)
 
 
 def test_resolve_device():
@@ -236,11 +355,14 @@ def test_port_imports_no_jax():
         "import healnet_tpu_torch\n"
         "for m in pkgutil.walk_packages(healnet_tpu_torch.__path__, 'healnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'healnet_tpu')]\n"
+        "bad = [n for n in sys.modules\n"
+        "       if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'healnet_tpu')]\n"
         "print(len([n for n in sys.modules if n.startswith('healnet_tpu_torch')]))\n"
         "assert not bad, bad\n"
+        "for name in ('train.loop', 'train.schedule', 'train.losses', 'utils.train_utils'):\n"
+        "    assert 'healnet_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 18
