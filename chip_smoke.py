@@ -32,7 +32,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the main path's run, which must launch all four kernels and give finite
    losses; step time, samples/s and peak memory, and one step with plain
    attention for comparison;
-8. print the kernels line, then the device line.
+8. hold the int8 branch of the projection kernel against its plain version
+   at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
+   and f32 compute (kv, s1, s2), and time kernel, plain version, the library
+   GEMM on the dequantized bf16 context and the bound;
+9. the same for the scaled cotangent pass with its batch-sum at
+   (8, 4096, 252) bf16, and a small f32 shape; and the time of the d_W_c
+   GEMM that follows it (the int8 context cast to bf16, then the GEMM);
+10. the feature-arena path at full width: 48 bags of 1024-4096 patches
+   packed into an arena, quantized to int8 on the host by the trainer and
+   uploaded once; step-1 gradients of the kernel path against the plain
+   projection (same flash attention) in f32, and both paths' bf16 gradients
+   against those f32 ones; then 5 bf16 training steps from the arena, which
+   must launch both int8 kernel variants and give finite losses, with wall,
+   device busy, idle share and the largest device items per step; then
+   ``Predictor.predict_from_arena`` over the 48 bags (buckets 1024/2048/
+   4096) against the kernel-free path and against ``predict_ragged`` on the
+   dequantized bags, with wall per micro-batch and per request from the
+   arena and from host arrays;
+11. print the kernels line (every kernel variant, with its launches in the
+   run of its path), then the device line.
 
 Needs one CUDA GPU, nvcc, and the repository around this file.
 """
@@ -59,18 +78,26 @@ from healnet_tpu_torch.ops.flash_attention import (
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
+    _gemm_f32,
     _prep,
+    _project_plain,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
     project_plain,
 )
+from healnet_tpu_torch.ops.quantize import quantize_context
 from healnet_tpu_torch.serving import Predictor
-from healnet_tpu_torch.train.loop import SurvivalTrainer
+from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 
-KERNELS = {"fused_project": fused_project_kernel, "fused_project_bwd": fused_project_bwd_kernel,
-           "flash_attention": flash_attention_kernel,
-           "flash_attention_bwd": flash_attention_bwd_kernel}
+# kernel variant -> (its wrapper, the wrapper's launch counter for it)
+KERNELS = {"fused_project": (fused_project_kernel, "launches"),
+           "fused_project_bwd": (fused_project_bwd_kernel, "launches"),
+           "flash_attention": (flash_attention_kernel, "launches"),
+           "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
+           "fused_project_int8": (fused_project_kernel, "launches_int8"),
+           "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8")}
+FLOAT_KERNELS = ("fused_project", "fused_project_bwd", "flash_attention", "flash_attention_bwd")
 
 # H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per type
 PEAK_BYTES = 3.35e12
@@ -179,14 +206,14 @@ def check(name: str, err: float, tol: float) -> None:
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, counter in KERNELS.values():
+        setattr(fn, counter, 0)
 
 
 def read_launches(run: str, names) -> dict:
-    """The named kernels' launch counts since :func:`reset_launches`; fails
-    if one of them was never launched."""
-    launches = {name: KERNELS[name].launches for name in names}
+    """The named kernel variants' launch counts since
+    :func:`reset_launches`; fails if one of them was never launched."""
+    launches = {name: getattr(*KERNELS[name]) for name in names}
     log(f"  launches in {run}: {launches}")
     for name, count in launches.items():
         if count <= 0:
@@ -328,12 +355,12 @@ def brca_predictor(dtype, attention_impl, projection_impl, state_dict=None):
                      bucket_boundaries=BUCKETS, device="cuda")
 
 
-def compare(name, got, ref, tol_logits):
+def compare(name, got, ref, tol_logits, against="plain path"):
     for key in ("logits", "hazards", "survival", "risk"):
         if not np.isfinite(got[key]).all():
             raise AssertionError(f"{name}: non-finite {key}")
     err = float(np.abs(got["logits"] - ref["logits"]).max())
-    check(f"{name} logits vs plain path", err, tol_logits)
+    check(f"{name} logits vs {against}", err, tol_logits)
 
 
 def phase_serving(host_rng) -> dict:
@@ -565,15 +592,26 @@ def compare_gradients(label, kernel, plain, batch, tol_loss, tol_grad) -> None:
     loss_p = plain.train_step(batch, HORIZON)[0].item()
     check(f"{label} step-1 loss {loss_k:.6f} vs {loss_p:.6f} (relative)",
           abs(loss_k - loss_p) / abs(loss_p), tol_loss)
-    grads_p = {n: p.grad.float() for n, p in plain.module.named_parameters()}
-    floor = 0.01 * torch.sqrt(sum(g.square().sum() for g in grads_p.values())).item()
+    worst, where = worst_grad_error(kernel.module, gradients(plain.module))
+    check(f"{label} step-1 gradients, worst relative L2 error ({where})", worst, tol_grad)
+
+
+def gradients(module) -> dict:
+    return {n: p.grad.float() for n, p in module.named_parameters()}
+
+
+def worst_grad_error(module, ref: dict):
+    """(worst error, parameter name): each parameter's gradient against
+    ``ref``'s, as an L2 error relative to the reference gradient's norm or
+    to 1% of the global reference norm, whichever is larger (see
+    :func:`compare_gradients`)."""
+    floor = 0.01 * torch.sqrt(sum(g.square().sum() for g in ref.values())).item()
     worst, where = 0.0, ""
-    for name, p in kernel.module.named_parameters():
-        ref = grads_p[name]
-        err = ((p.grad.float() - ref).norm() / max(ref.norm().item(), floor)).item()
+    for name, p in module.named_parameters():
+        err = ((p.grad.float() - ref[name]).norm() / max(ref[name].norm().item(), floor)).item()
         if not err < worst:
             worst, where = err, name
-    check(f"{label} step-1 gradients, worst relative L2 error ({where})", worst, tol_grad)
+    return worst, where
 
 
 def step_times(trainer, batch):
@@ -606,7 +644,7 @@ def phase_training(host_rng) -> dict:
     reset_launches()
     losses = [kernel.train_step(batch, HORIZON)[0] for _ in range(5)]
     losses = [x.item() for x in losses]
-    launches = read_launches("the training run (5 steps, kernel path)", KERNELS)
+    launches = read_launches("the training run (5 steps, kernel path)", FLOAT_KERNELS)
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"  losses of 5 steps: {losses}")
     if not all(np.isfinite(losses)):
@@ -621,6 +659,308 @@ def phase_training(host_rng) -> dict:
     log(f"  the same step with plain attention (attention_impl='xla'): wall {x_wall:.4f} ms, "
         f"device busy {x_busy:.4f} ms, idle share {x_idle:.4f}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def int8_projection_case(gen, b, t, c, f, cdt):
+    """An int8 context (per-token scales, one zero row) with the encoding,
+    the kernel's operands in compute dtype ``cdt``, and both versions."""
+    qc = quantize_context(torch.randn((b, t, c), generator=gen, device="cuda"))
+    qc.scale[0, 0] = 0.0
+    qc.data[0, 0] = 0
+    enc = positional_encoding((t,), 2.0, 2, dtype=cdt, device="cuda")
+    w_all = torch.randn((c + enc.shape[-1], f), generator=gen, device="cuda") * 0.02
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    ops = _prep(qc.data, enc, w_all, b_all, cdt)
+    run = lambda: fused_project_kernel(qc.data, *ops, w_all.shape[0], 1e-5, scale=qc.scale)
+    plain = lambda: _project_plain(qc.data, enc, w_all, b_all, 1e-5, qc.scale, cdt)
+    return qc, ops, run, plain
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def phase_projection_int8(gen) -> dict:
+    log("phase 8: int8 projection forward kernel vs plain version")
+    for cdt in (torch.bfloat16, torch.float32):
+        qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, 252, cdt)
+        (kv, s1, s2), (ref, r1, r2) = run(), plain()
+        torch.cuda.synchronize()
+        err = (kv.float() - ref.float()).abs().max().item()
+        # bf16: as phase 2, 4 ulps of the largest output; f32: sums of 2048
+        # products in another order than cuBLAS's, outputs of magnitude ~1-5
+        tol = 4 * bf16_ulp(ref.float().abs().max().item()) if cdt == torch.bfloat16 else 1e-4
+        check(f"int8 (8, 4096, 2048) -> {str(cdt)[6:]} kv", err, tol)
+        if cdt == torch.bfloat16:
+            worst = err
+        # s1: integer sums, exact in both, then the same f32 operations; s2:
+        # the kernel's integer sum of q^2 is exact, the plain version's f32
+        # sum of 2048 terms is not (pairwise: ~11 roundings of 2^-24)
+        check(f"int8 {str(cdt)[6:]} s1 (relative)", rel_err(s1, r1), 1e-6)
+        check(f"int8 {str(cdt)[6:]} s2 (relative)", rel_err(s2, r2), 2e-6)
+
+    qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, 252, torch.bfloat16)
+    kv, s1, s2 = run()
+    deq2d = qc.dequantize(torch.bfloat16).reshape(-1, PATCH)
+    (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(lambda: plain()[0])
+    t_library, _ = time_ms(lambda: torch.matmul(deq2d, ops[0]))
+    flops = 2.0 * deq2d.shape[0] * PATCH * ops[0].shape[1]
+    bound, by = bound_ms(nbytes(qc.data, qc.scale, *ops, kv, s1, s2), flops, torch.bfloat16)
+    log(f"  device time at (8, 4096, 2048) int8 -> bf16 F=252: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, torch.matmul GEMM alone on the dequantized bf16 context "
+        f"{t_library:.4f} ms, bound {bound:.4f} ms ({by}; "
+        f"{nbytes(qc.data, qc.scale, *ops, kv, s1, s2) / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); "
+        f"wall per call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms")
+    return dict(name="fused_project_int8", route="cuda",
+                source="healnet_tpu_torch/ops/csrc/fused_project.cu",
+                replaces="healnet_tpu/ops/fused_project.py:171",
+                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                bound_ms=bound, bound_by=by, library_ms=t_library)
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def phase_projection_bwd_int8(gen) -> dict:
+    log("phase 9: scaled cotangent pass (int8 context, with bsum) vs plain version")
+    cases = {"bf16 (8, 4096, 252)": (BATCH, TOKENS, PATCH, 252, torch.bfloat16),
+             "f32 (2, 300, 70)": (2, 300, 200, 70, torch.float32)}
+    for label, (b, t, c, f, dtype) in cases.items():
+        qc, _, run, _ = int8_projection_case(gen, b, t, c, f, dtype)
+        _, s1, s2 = run()  # the int8 forward kernel's saved row statistics
+        d_total = c + 5
+        g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
+        got = fused_project_bwd_kernel(g, s1, s2, d_total, scale=qc.scale, with_bsum=True)
+        ref = project_bwd_plain(g, s1, s2, d_total, scale=qc.scale, with_bsum=True)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        top = ref[0].float().abs().max().item()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        # d_raw rounds (scale * inv) * g once in both (phase 6's tolerance)
+        check(f"{label} d_raw", err, bf16_ulp(top) if bf16 else 1e-6 * top)
+        mu = s1 / d_total
+        imu = mu * torch.rsqrt(s2 / d_total - mu * mu + 1e-5)
+        weight = torch.clamp(imu.abs().max(), min=1.0).item()
+        bound_err = b * t * 2.0**-24 * weight * g.float().abs().sum(dim=(0, 1)).max().item()
+        check(f"{label} dsum2", (got[1] - ref[1]).abs().max().item(), bound_err)
+        # bsum: b terms round(inv * g) rounded at the same place, a term at
+        # most one ulp apart: b ulps of the largest term
+        term = project_bwd_plain(g, s1, s2, d_total)[0].float().abs().max().item()
+        check(f"{label} bsum", (got[2] - ref[2]).abs().max().item(),
+              b * bf16_ulp(term) if bf16 else 1e-5 * max(1.0, term))
+        if bf16:
+            worst = err
+            run_k = lambda: fused_project_bwd_kernel(g, s1, s2, d_total, scale=qc.scale,
+                                                     with_bsum=True)
+            d_raw, dsum2, bsum = run_k()
+            t_kernel, w_kernel = time_ms(run_k)
+            t_plain, w_plain = time_ms(lambda: project_bwd_plain(
+                g, s1, s2, d_total, scale=qc.scale, with_bsum=True))
+            moved = nbytes(g, s1, s2, qc.scale, d_raw, dsum2, bsum)
+            bound, by = bound_ms(moved, 5.0 * g.numel(), dtype)
+            log(f"  device time at (8, 4096, 252) bf16 with scale and bsum: kernel "
+                f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.5f} ms ({by}; "
+                f"{moved / 1e6:.1f} MB); wall per call: kernel {w_kernel:.4f} ms, plain "
+                f"{w_plain:.4f} ms; library: none")
+            # the d_W_c GEMM that follows the pass in the backward, q^T d_raw:
+            # torch.mm takes no int8 operand, so the int8 context is cast to
+            # bf16 first (a 134 MB copy), then the f32-output GEMM
+            q2d, d2d = qc.data.reshape(-1, c), d_raw.reshape(-1, f)
+            t_cast, _ = time_ms(lambda: q2d.t().to(dtype))
+            q_bf16 = q2d.t().to(dtype)
+            t_gemm, _ = time_ms(lambda: _gemm_f32(q_bf16, d2d))
+            g_bound, g_by = bound_ms(nbytes(q2d, d2d) + 4 * c * f, 2.0 * q2d.numel() * f, dtype)
+            log(f"  d_W_c GEMM at ({c} x {q2d.shape[0]}) x ({q2d.shape[0]} x {f}): cast of the "
+                f"int8 context to bf16 {t_cast:.4f} ms + GEMM {t_gemm:.4f} ms; bound of an "
+                f"int8-operand GEMM {g_bound:.4f} ms ({g_by})")
+            del q_bf16
+    return dict(name="fused_project_bwd_int8", route="cuda",
+                source="healnet_tpu_torch/ops/csrc/fused_project_bwd.cu",
+                replaces="healnet_tpu/ops/fused_project.py:281",
+                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+# --------------------------------------------------------------- phase 10
+
+ARENA_BAGS = 48
+ARENA_BUCKETS = [TOKENS // 4, TOKENS // 2, TOKENS]  # 1024, 2048, 4096
+
+
+def build_arena(host_rng):
+    """48 bags of 1024-4096 patch features packed back to back, then
+    TOKENS zero rows (the arena layout of ``healnet_tpu/etl/tcga.py``), and
+    arena-indexed survival data for them."""
+    lengths = host_rng.integers(TOKENS // 4, TOKENS + 1, size=ARENA_BAGS).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int32)
+    rows = int(lengths.sum())
+    arena = np.zeros((rows + TOKENS, PATCH), np.float32)
+    arena[:rows] = host_rng.standard_normal((rows, PATCH), dtype=np.float32)
+    data = {
+        "tensors": (host_rng.standard_normal((ARENA_BAGS, 1, OMIC), dtype=np.float32),),
+        "kv_masks": (None, np.arange(TOKENS)[None, :] < lengths[:, None]),
+        "patch_offsets": offsets, "patch_lengths": lengths,
+        "y_disc": host_rng.integers(0, 4, size=ARENA_BAGS),
+        "censorship": host_rng.integers(0, 2, size=ARENA_BAGS).astype(np.float32),
+        "event_time": host_rng.uniform(1, 100, size=ARENA_BAGS).astype(np.float32),
+    }
+    return arena, data
+
+
+def arena_trainer(dtype, projection_impl, state, **arena):
+    module = HealNetModule(**BRCA, dtype=dtype, attention_impl="flash",
+                           projection_impl=projection_impl, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    module.load_state_dict(state)
+    return SurvivalTrainer(module, l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda",
+                           arena_quant=True, **arena)
+
+
+def arena_predictor(attention_impl, projection_impl, state, arena):
+    module = HealNetModule(**BRCA, dtype=torch.bfloat16, attention_impl=attention_impl,
+                           projection_impl=projection_impl, device="cuda")
+    return Predictor(module, state, batch_size=BATCH, bucket_boundaries=ARENA_BUCKETS,
+                     device="cuda", feature_arena=arena)
+
+
+def timed(fn, reps=3):
+    """(result, median wall seconds) of ``reps`` synchronised calls."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, statistics.median(walls)
+
+
+def phase_arena(host_rng) -> dict:
+    log("phase 10: the int8 feature-arena path at full width (training and serving)")
+    t0 = time.perf_counter()
+    arena, data = build_arena(host_rng)
+    log(f"  arena {arena.shape} f32 on the host ({arena.nbytes / 1e9:.3f} GB, "
+        f"{time.perf_counter() - t0:.2f} s to make)")
+    state = HealNetModule(**BRCA, device="cuda",
+                          generator=torch.Generator().manual_seed(0)).state_dict()
+    kernel = arena_trainer(torch.bfloat16, "auto", state,
+                           feature_arena=(arena, data["patch_offsets"], data["patch_lengths"]))
+    t0 = time.perf_counter()
+    dev = kernel._device_arena()
+    torch.cuda.synchronize()
+    log(f"  quantized on the host and uploaded once in {time.perf_counter() - t0:.2f} s: "
+        f"int8 {tuple(dev.data.shape)} ({nbytes(dev.data) / 1e6:.1f} MB) + scales "
+        f"({nbytes(dev.scale) / 1e6:.1f} MB) on the card")
+    del arena
+    batches = list(iterate_batches(data, BATCH))
+
+    # only the projection differs between the two paths (flash attention on
+    # both). f32: the int8 kernels held alone, as tight as phase 7.
+    k32 = arena_trainer(None, "auto", state, arena_device=dev)
+    compare_gradients("arena f32", k32, arena_trainer(None, "xla", state, arena_device=dev),
+                      batches[0], 1e-5, 1e-4)
+    # bf16: both paths are held against the f32 gradients (same weights and
+    # dropout draws). The omic branch dominates the gradient norm and moves
+    # 5-15% in bf16 on either path, so kernel against plain would compare
+    # two bf16 errors with each other; instead the kernel path must be no
+    # further from f32 than 1.5 times the plain path is.
+    truth = gradients(k32.module)
+    del k32
+    plain16 = arena_trainer(torch.bfloat16, "xla", state, arena_device=dev)
+    loss_k = kernel.train_step(batches[0], HORIZON)[0].item()
+    loss_p = plain16.train_step(batches[0], HORIZON)[0].item()
+    check(f"arena bf16 step-1 loss {loss_k:.6f} vs {loss_p:.6f} (relative)",
+          abs(loss_k - loss_p) / abs(loss_p), 2e-2)
+    err_p, at_p = worst_grad_error(plain16.module, truth)
+    err_k, at_k = worst_grad_error(kernel.module, truth)
+    log(f"  arena bf16 step-1 gradients against f32, worst relative L2 error: plain path "
+        f"{err_p:.4g} ({at_p}), kernel path {err_k:.4g} ({at_k})")
+    check("arena bf16 kernel path's gradient error against f32 (tolerance: 1.5x the plain "
+          "path's)", err_k, 1.5 * err_p)
+    del plain16, truth
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [kernel.train_step(batch, HORIZON)[0] for batch in batches[1:6]]
+    losses = [x.item() for x in losses]
+    launches = read_launches("the arena training run (5 steps, kernel path)",
+                             FLOAT_KERNELS + ("fused_project_int8", "fused_project_bwd_int8"))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  losses of 5 arena steps: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("an arena training loss is not finite")
+    step = lambda: kernel.train_step(batches[1], HORIZON)
+    wall = wall_ms(step)
+    _, busy, count, rows = device_profile(step)
+    log(f"  arena train step, batch {BATCH}, bf16, gather width {TOKENS}, host batches (omic, "
+        f"labels, offsets): wall {wall:.4f} ms per synchronous step, "
+        f"{BATCH / wall * 1e3:.2f} samples/s; device busy {busy:.4f} ms per step (profiler), "
+        f"idle share {1.0 - busy / wall:.4f}, {count:.0f} launches; peak memory {peak:.1f} MiB "
+        "(the arena included)")
+    top = sorted(rows, key=device_us, reverse=True)[:8]
+    log("  its largest device items, ms per step (launches): " + "; ".join(
+        f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:64]} "
+        f"{device_us(e) / 3e3:.4f} ({e.count / 3:.0f})" for e in top))
+
+    pred = arena_predictor("flash", "auto", state, dev)
+    ref = arena_predictor("xla", "xla", state, dev)
+    warm = pred.warmup([(1, OMIC), (TOKENS, PATCH)])
+    ref.warmup([(1, OMIC), (TOKENS, PATCH)], arena=True)
+    log(f"  warmup: {warm['programs']} shapes in {warm['seconds']:.3f} s")
+    omic = data["tensors"][0]
+    offsets, lengths = data["patch_offsets"], data["patch_lengths"]
+    reset_launches()
+    got = pred.predict_from_arena([omic], offsets, lengths)
+    read_launches("the arena serving run", ("fused_project", "fused_project_int8",
+                                            "flash_attention"))
+    assert got["logits"].shape == (ARENA_BAGS, 4) and got["risk"].shape == (ARENA_BAGS,)
+    compare("arena serving", got, ref.predict_from_arena([omic], offsets, lengths), 0.1)
+    q, scale = dev.data.cpu().numpy(), dev.scale.cpu().numpy()
+    bags = [q[o:o + n].astype(np.float32) * scale[o:o + n, None] for o, n in zip(offsets, lengths)]
+    del q
+    # the dequantized bags, cast to bf16 by the model, against the int8 path
+    # (the scale applied on the accumulator): bf16-level differences
+    ragged = pred.predict_ragged([omic, bags])
+    compare("arena serving", got, ragged, 0.1, against="predict_ragged on the dequantized bags")
+    _, s_arena = timed(lambda: pred.predict_from_arena([omic], offsets, lengths))
+    _, s_host = timed(lambda: pred.predict_ragged([omic, bags]))
+    micro = sum(-(-sum(pred._bucket_width(int(n)) == w for n in lengths) // BATCH)
+                for w in ARENA_BUCKETS)
+    log(f"  {ARENA_BAGS} requests in {micro} micro-batches: from the arena {s_arena * 1e3:.2f} "
+        f"ms wall ({s_arena * 1e3 / micro:.2f} ms per micro-batch, "
+        f"{s_arena * 1e3 / ARENA_BAGS:.2f} ms per request); from host arrays "
+        f"(predict_ragged, f32 bags uploaded) {s_host * 1e3:.2f} ms "
+        f"({s_host * 1e3 / micro:.2f} ms per micro-batch, {s_host * 1e3 / ARENA_BAGS:.2f} ms "
+        "per request); median of 3")
+    return {name: launches[name] for name in ("fused_project_int8", "fused_project_bwd_int8")}
+
+
+def chain_bound():
+    """(bound ms, what bounds it, MB, GFLOP) of the JAX package's fused
+    latent chain (``healnet_tpu/ops/fused_chain.py::_fwd_kernel``, not ported
+    yet) at this model's dims, from its operands' shapes: each input read
+    once and the output written once; the latent-side products in f32, the
+    scores and the value product on the bf16 merged KV."""
+    b, depth, mods, lc, ld = BATCH, BRCA["depth"], BRCA["n_modalities"], BRCA["l_c"], BRCA["l_d"]
+    inner, mult, tokens = BRCA["cross_dim_head"], 4, (1, TOKENS)
+    sites, width = depth * mods, 2 * depth * BRCA["cross_dim_head"]  # merged KV columns
+    per_site = 6 * ld + 2 * ld * inner + 2 * mult * ld * (ld + 1) + mult * ld * ld
+    moved = (2 * b * lc * ld * 2                      # latents in and out, bf16
+             + sum(b * t * width * 2 for t in tokens)  # merged KV, bf16
+             + b * TOKENS * 4                          # the WSI mask, f32
+             + b * sites * lc * ld * 4                 # FF keep multipliers, f32
+             + 4 * sites * per_site                    # weights, f32
+             + 4 * (b * mods + sites))                 # presence, seeds
+    f32_ops = b * sites * 2 * lc * (2 * ld * inner + 3 * mult * ld * ld)
+    bf16_ops = b * depth * sum(4 * lc * t * inner for t in tokens)
+    t_bytes = moved / PEAK_BYTES
+    t_ops = f32_ops / PEAK_FLOPS[torch.float32] + bf16_ops / PEAK_FLOPS[torch.bfloat16]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            moved / 1e6, (f32_ops + bf16_ops) / 1e9)
 
 
 def main() -> int:
@@ -650,10 +990,15 @@ def main() -> int:
     phase_serving(np.random.default_rng(0))
     kernels += [phase_flash_bwd(gen), phase_projection_bwd(gen)]
     launches = phase_training(np.random.default_rng(1))
+    kernels += [phase_projection_int8(gen), phase_projection_bwd_int8(gen)]
+    launches.update(phase_arena(np.random.default_rng(2)))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}
                for k in kernels]
+    bound, by, mb, gflop = chain_bound()
+    log(f"not ported yet: the fused latent chain (healnet_tpu/ops/fused_chain.py:288) at these "
+        f"dims would be bound at {bound:.5f} ms ({by}; {mb:.2f} MB, {gflop:.3f} GFLOP)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -23,8 +23,13 @@ Submodules are named after the Flax scopes (``layer{key}_cross_attn_m{m}``,
   each call its own stream) and the feed-forward masks come from an
   explicit ``torch.Generator``; see :meth:`HealNetModule.forward`.
 
-Rematerialisation, meshes, int8 contexts and attention capture are not
-ported yet.
+- Int8 contexts: a modality may arrive as a
+  :class:`healnet_tpu_torch.ops.quantize.QuantizedContext` (per-token int8
+  values and f32 scales). It is not cast; its encoding and its projection
+  are in the compute dtype (``dtype``, float32 when None), and the merged
+  projection reads the int8 values and rescales on the accumulator.
+
+Rematerialisation, meshes and attention capture are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from healnet_tpu_torch.models.layers import (
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import fused_kv_project, split_columns
+from healnet_tpu_torch.ops.quantize import QuantizedContext
 
 
 def _tie_key(layer: int, weight_tie_layers: bool) -> int:
@@ -56,7 +62,8 @@ def _tie_key(layer: int, weight_tie_layers: bool) -> int:
 class HealNetModule(nn.Module):
     """HealNet core. ``forward(tensors, presence=None, kv_masks=None)``:
 
-    tensors: one tensor per modality, ``(b, *spatial_i, channels_i)``;
+    tensors: one tensor per modality, ``(b, *spatial_i, channels_i)``, or a
+    :class:`QuantizedContext` of that shape;
     presence: optional ``(b, n_modalities)``, 1 where the modality exists;
     kv_masks: optional per-modality bool masks ``(b, tokens_i)`` (True =
     attend) for padded contexts.
@@ -212,26 +219,34 @@ class HealNetModule(nn.Module):
 
         # raw data and the batch-shared positional encoding stay separate:
         # the merged projection normalizes on its output
+        compute_dt = self.dtype if self.dtype is not None else torch.float32
         context_parts = []
         for i, data in enumerate(tensors):
+            quantized = isinstance(data, QuantizedContext)
             spatial = tuple(data.shape[1:-1])
             if len(spatial) != self.num_spatial_axes[i]:
                 raise ValueError(
                     f"input data for modality {i + 1} must have the same number of "
                     "axes as the num_spatial_axes parameter"
                 )
-            if self.dtype is not None:
+            if self.dtype is not None and not quantized:
                 data = data.to(self.dtype)
             enc_flat = None
             if self.fourier_encode_data:
                 enc = positional_encoding(
                     spatial, self.max_freq, self.num_freq_bands,
-                    dtype=data.dtype, device=data.device,
+                    dtype=compute_dt if quantized else data.dtype, device=data.device,
                 )
                 enc_flat = enc.reshape(-1, enc.shape[-1])  # (tokens, E)
-            context_parts.append((data.reshape(b, -1, data.shape[-1]), enc_flat))
+            if quantized:
+                flat = QuantizedContext(data.data.reshape(b, -1, data.shape[-1]),
+                                        data.scale.reshape(b, -1))
+            else:
+                flat = data.reshape(b, -1, data.shape[-1])
+            context_parts.append((flat, enc_flat))
 
-        cdt = context_parts[0][0].dtype
+        first = context_parts[0][0]
+        cdt = compute_dt if isinstance(first, QuantizedContext) else first.dtype
         if presence is None:
             presence = torch.ones((b, self.n_modalities), dtype=cdt, device=tensors[0].device)
         presence = presence.to(cdt)
@@ -246,7 +261,8 @@ class HealNetModule(nn.Module):
             w_all = torch.cat([w for w, _ in folds], dim=1)  # (D, F) f32
             b_all = torch.cat([fb for _, fb in folds])       # (F,)
             kv_all = fused_kv_project(
-                dat, enc_flat, w_all, b_all, eps=1e-5, impl=self.projection_impl
+                dat, enc_flat, w_all, b_all, eps=1e-5, impl=self.projection_impl,
+                out_dtype=compute_dt if isinstance(dat, QuantizedContext) else None,
             )
             widths = [w.shape[1] for w, _ in folds]
             rem = kv_all.shape[-1] - sum(widths)

@@ -17,9 +17,15 @@ from healnet_tpu_torch.ops.fourier import (
     positional_encoding,
 )
 from healnet_tpu_torch.ops.fused_project import fused_kv_project
+from healnet_tpu_torch.ops.quantize import (
+    QuantizedContext,
+    quantize_context,
+    quantize_context_host,
+)
 
 __all__ = [
     "GATED_ACTIVATIONS",
+    "QuantizedContext",
     "attention_scores",
     "flash_cross_attention",
     "fourier_channels",
@@ -31,5 +37,7 @@ __all__ = [
     "mask_value",
     "multihead_attention",
     "positional_encoding",
+    "quantize_context",
+    "quantize_context_host",
     "split_heads",
 ]

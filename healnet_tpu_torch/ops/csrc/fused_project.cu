@@ -3,8 +3,8 @@
 // LayerNorm.
 //
 // Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
-// launched by _pallas_call). Forward only; the int8 (quantized context)
-// branch is not ported yet.
+// launched by _pallas_call), its bf16/f32 contexts and its int8 (quantized
+// context) branch. Forward only.
 //
 // What it computes, per context row r (token tok = r % T):
 //   s1 = sum_c x[r, c] + encs[0, tok]        (f32 sums of the stored values)
@@ -13,6 +13,13 @@
 //   acc[r, n] = sum_c x[r, c] * W[c, n]      (f32 accumulation)
 //   low = round_cdt(round_cdt(acc) + encp[tok, n])   (the rounding contract)
 //   kv[r, n] = inv * (low - mu * aux[0, n]) + aux[1, n]
+// For an int8 context x = q (|q| <= 127) with a per-row f32 scale s, the
+// sums of q and q^2 are taken exactly in int32 and rescaled,
+//   s1 = s * sum q + encs[0, tok],  s2 = (s * s) * sum q^2 + encs[1, tok],
+// and the scale applies on the accumulator, rounded on both sides:
+//   low = round_cdt(round_cdt(round_cdt(acc) * s) + encp[tok, n]).
+// The JAX package sums q^2 in f32 (order-dependent past 2^24); the integer
+// sum is exact, so s2 may differ from it in its last bits.
 //
 // Bound on an H100 SXM at the serving shape (8 x 4096 x 2048 bf16 context,
 // F = 252): the context read is 134 MB of the ~154 MB the function must move,
@@ -31,6 +38,13 @@
 //
 // The float32 variant is the same schedule with FMA on the CUDA cores (no
 // TF32), so that an f32 model keeps full precision.
+//
+// int8 contexts (both variants): a thread loads its 8 channels of a row as
+// one 8-byte word (16 bytes for bf16), so the context read is halved: about
+// 67 MB at the serving shape against 33.8 GFLOP, which makes the bf16
+// variant's bound the tensor cores' (about 34 us), not the bytes. The
+// values are converted in registers before shared memory, to bf16 (exact
+// for |q| <= 127) or f32, so the product runs as for a bf16 or f32 context.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,24 +76,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Reduces a row's partial sums over the 4 lanes that loaded it, adds the
-// encoding statistics, stores s1/s2 (first column block only) and the row's
-// (mu, inv) for the epilogue.
-__device__ __forceinline__ void finish_row_stats(float st1, float st2, int tid, int row,
+// Reduces a row's partial sums over the 4 lanes that loaded it (f32 sums of
+// bf16/f32 values, exact int32 sums of int8 ones), rescales an int8 row,
+// adds the encoding statistics, stores s1/s2 (first column block only) and
+// the row's (mu, inv, scale) for the epilogue.
+template <typename Acc>
+__device__ __forceinline__ void finish_row_stats(Acc st1, Acc st2, int tid, int row,
                                                  int local_row, int M, int T,
-                                                 const float* encs, float* s1_out,
-                                                 float* s2_out, float d_total, float eps,
-                                                 float* row_mu, float* row_inv) {
+                                                 const float* encs, const float* scale,
+                                                 float* s1_out, float* s2_out, float d_total,
+                                                 float eps, float* row_mu, float* row_inv,
+                                                 float* row_scale) {
   st1 += __shfl_xor_sync(0xffffffffu, st1, 1);
   st1 += __shfl_xor_sync(0xffffffffu, st1, 2);
   st2 += __shfl_xor_sync(0xffffffffu, st2, 1);
   st2 += __shfl_xor_sync(0xffffffffu, st2, 2);
   if ((tid & 3) == 0) {
-    float mu = 0.f, inv = 0.f;
+    float mu = 0.f, inv = 0.f, sc = 1.f;
     if (row < M) {
       const int tok = row % T;
-      const float s1 = st1 + encs[tok];
-      const float s2 = st2 + encs[T + tok];
+      float a = static_cast<float>(st1), q = static_cast<float>(st2);
+      if (scale != nullptr) {
+        sc = scale[row];
+        a = sc * a;
+        q = sc * sc * q;
+      }
+      const float s1 = a + encs[tok];
+      const float s2 = q + encs[T + tok];
       if (blockIdx.y == 0) {
         s1_out[row] = s1;
         s2_out[row] = s2;
@@ -89,6 +112,7 @@ __device__ __forceinline__ void finish_row_stats(float st1, float st2, int tid, 
     }
     row_mu[local_row] = mu;
     row_inv[local_row] = inv;
+    row_scale[local_row] = sc;
   }
 }
 
@@ -99,9 +123,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(addr));
 }
 
-// 8 consecutive channels of one context row (zeros past the row's end)
-__device__ __forceinline__ uint4 load_a8(const __nv_bfloat16* row, bool valid, int c, int C,
-                                         int vec) {
+// 8 consecutive channels of one context row (zeros past the row's end): 16
+// bytes of bf16, or 8 bytes of int8
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, bool valid, int c, int C,
+                                       int vec) {
   union {
     uint4 u;
     __nv_bfloat16 h[8];
@@ -114,6 +139,84 @@ __device__ __forceinline__ uint4 load_a8(const __nv_bfloat16* row, bool valid, i
   }
   return r.u;
 }
+
+union I8x8 {
+  uint2 u;
+  int8_t q[8];
+};
+
+__device__ __forceinline__ uint2 load8(const int8_t* row, bool valid, int c, int C, int vec) {
+  I8x8 r;
+  if (valid && vec && c < C) {
+    r.u = *reinterpret_cast<const uint2*>(row + c);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) r.q[e] = (valid && c + e < C) ? row[c + e] : int8_t(0);
+  }
+  return r.u;
+}
+
+// the 8 loaded values as bf16 for shared memory (int8 converts exactly), and
+// their contribution to the row sums
+__device__ __forceinline__ uint4 as_bf16x8(uint4 x) { return x; }
+
+__device__ __forceinline__ uint4 as_bf16x8(uint2 x) {
+  I8x8 in;
+  in.u = x;
+  union {
+    uint4 u;
+    __nv_bfloat16 h[8];
+  } out;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) out.h[e] = __float2bfloat16(static_cast<float>(in.q[e]));
+  return out.u;
+}
+
+__device__ __forceinline__ void add_stats(uint4 x, float& st1, float& st2) {
+  union {
+    uint4 u;
+    __nv_bfloat16 h[8];
+  } v;
+  v.u = x;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float f = __bfloat162float(v.h[e]);
+    st1 += f;
+    st2 += f * f;
+  }
+}
+
+__device__ __forceinline__ void add_stats(uint2 x, int& st1, int& st2) {
+  I8x8 v;
+  v.u = x;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int q = v.q[e];
+    st1 += q;
+    st2 += q * q;
+  }
+}
+
+// input type -> (what a thread loads per k-step, how its row sums add up)
+template <typename TIn>
+struct Input;
+template <>
+struct Input<__nv_bfloat16> {
+  using Raw = uint4;
+  using Acc = float;
+  static constexpr bool kQuant = false;
+};
+template <>
+struct Input<int8_t> {
+  using Raw = uint2;
+  using Acc = int;
+  static constexpr bool kQuant = true;
+};
+template <>
+struct Input<float> {
+  using Acc = float;
+  static constexpr bool kQuant = false;
+};
 
 // weights W[gk, gn:gn+2] packed in one word (zeros past the edges)
 __device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int gn, int C,
@@ -131,17 +234,20 @@ __device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int 
   return r.u;
 }
 
-template <int BM>
+template <int BM, typename TIn>
 __global__ void __launch_bounds__(BM * 4, 128 / BM)
-    project_bf16(const __nv_bfloat16* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
+    project_bf16(const TIn* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
                  const __nv_bfloat16* __restrict__ encp, const float* __restrict__ encs,
-                 const float* __restrict__ aux, __nv_bfloat16* __restrict__ kv,
-                 float* __restrict__ s1_out, float* __restrict__ s2_out, int M, int C, int F,
-                 int T, float d_total, float eps, int vec_a) {
+                 const float* __restrict__ aux, const float* __restrict__ scale,
+                 __nv_bfloat16* __restrict__ kv, float* __restrict__ s1_out,
+                 float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
+                 float eps, int vec_a) {
+  using Acc = typename Input<TIn>::Acc;
+  constexpr bool kQuant = Input<TIn>::kQuant;
   constexpr int kRowsPerPass = BM / 32;  // weight rows one pass of the block loads
   __shared__ __align__(16) __nv_bfloat16 As[BM][kBK + kPad];
   __shared__ __align__(16) __nv_bfloat16 Bs[kBK][kBN + kPad];  // row-major [k][n]
-  __shared__ float row_mu[BM], row_inv[BM];
+  __shared__ float row_mu[BM], row_inv[BM], row_scale[BM];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -152,13 +258,13 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
   const int a_r = tid >> 2, a_c = (tid & 3) * 8;
   const int a_row = row0 + a_r;
   const bool a_valid = a_row < M;
-  const __nv_bfloat16* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
+  const TIn* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
   // B loader: one pair of output columns, k rows b_k + kRowsPerPass * i
   const int b_n = (tid & 127) * 2, b_k = tid >> 7;
   const int gn = col0 + b_n;
   const bool pair_ok = ((F & 1) == 0) && (gn + 1 < F);
 
-  float st1 = 0.f, st2 = 0.f;
+  Acc st1 = 0, st2 = 0;
   float acc[2][8][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -167,33 +273,21 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  uint4 a_reg = load_a8(a_src, a_valid, a_c, C, vec_a);
+  typename Input<TIn>::Raw a_reg = load8(a_src, a_valid, a_c, C, vec_a);
   uint32_t b_reg[kBK / kRowsPerPass];
 #pragma unroll
   for (int i = 0; i < kBK / kRowsPerPass; ++i)
     b_reg[i] = load_w2(w, b_k + kRowsPerPass * i, gn, C, F, pair_ok);
 
   for (int k0 = 0; k0 < C; k0 += kBK) {
-    *reinterpret_cast<uint4*>(&As[a_r][a_c]) = a_reg;
-    {
-      union {
-        uint4 u;
-        __nv_bfloat16 h[8];
-      } x;
-      x.u = a_reg;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float f = __bfloat162float(x.h[e]);
-        st1 += f;
-        st2 += f * f;
-      }
-    }
+    *reinterpret_cast<uint4*>(&As[a_r][a_c]) = as_bf16x8(a_reg);
+    add_stats(a_reg, st1, st2);
 #pragma unroll
     for (int i = 0; i < kBK / kRowsPerPass; ++i)
       *reinterpret_cast<uint32_t*>(&Bs[b_k + kRowsPerPass * i][b_n]) = b_reg[i];
     __syncthreads();
     if (k0 + kBK < C) {  // next tile in flight during the MMAs
-      a_reg = load_a8(a_src, a_valid, k0 + kBK + a_c, C, vec_a);
+      a_reg = load8(a_src, a_valid, k0 + kBK + a_c, C, vec_a);
 #pragma unroll
       for (int i = 0; i < kBK / kRowsPerPass; ++i)
         b_reg[i] = load_w2(w, k0 + kBK + b_k + kRowsPerPass * i, gn, C, F, pair_ok);
@@ -224,8 +318,8 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
     __syncthreads();
   }
 
-  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, s1_out, s2_out, d_total, eps,
-                   row_mu, row_inv);
+  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, kQuant ? scale : nullptr, s1_out,
+                   s2_out, d_total, eps, row_mu, row_inv, row_scale);
   __syncthreads();
 
 #pragma unroll
@@ -236,7 +330,7 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
       const int r = row0 + lr;
       if (r >= M) continue;
       const int tok = r % T;
-      const float mu = row_mu[lr], inv = row_inv[lr];
+      const float mu = row_mu[lr], inv = row_inv[lr], sc = row_scale[lr];
       const __nv_bfloat16* ep = encp + (size_t)tok * F;
       __nv_bfloat16* out = kv + (size_t)r * F;
 #pragma unroll
@@ -245,8 +339,9 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
         for (int j = 0; j < 2; ++j) {
           const int n = col0 + wn * 64 + ni * 8 + tig * 2 + j;
           if (n >= F) continue;
-          const float low =
-              round_bf16(round_bf16(acc[mi][ni][half * 2 + j]) + __bfloat162float(ep[n]));
+          float a = round_bf16(acc[mi][ni][half * 2 + j]);
+          if (kQuant) a = round_bf16(a * sc);
+          const float low = round_bf16(a + __bfloat162float(ep[n]));
           out[n] = __float2bfloat16(inv * (low - mu * aux[n]) + aux[F + n]);
         }
       }
@@ -254,22 +349,35 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
   }
 }
 
-// one k-step of the f32 kernel's operands into registers: 8 channels of
-// one context row, and one weight column over kBK rows
-__device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[kBK],
-                                              const float* a_src, bool a_valid, int a_c,
-                                              int k0, const float* w, int gn, int C, int F,
-                                              int vec_a) {
-  const int c = k0 + a_c;
-  if (a_valid && vec_a && c < C) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a_src + c);
-    const float4 x1 = *reinterpret_cast<const float4*>(a_src + c + 4);
-    a_reg[0] = x0.x; a_reg[1] = x0.y; a_reg[2] = x0.z; a_reg[3] = x0.w;
-    a_reg[4] = x1.x; a_reg[5] = x1.y; a_reg[6] = x1.z; a_reg[7] = x1.w;
+// 8 channels of one context row as f32 (zeros past the row's end)
+__device__ __forceinline__ void load_row8(float (&a)[8], const float* src, bool valid, int c,
+                                          int C, int vec) {
+  if (valid && vec && c < C) {
+    const float4 x0 = *reinterpret_cast<const float4*>(src + c);
+    const float4 x1 = *reinterpret_cast<const float4*>(src + c + 4);
+    a[0] = x0.x; a[1] = x0.y; a[2] = x0.z; a[3] = x0.w;
+    a[4] = x1.x; a[5] = x1.y; a[6] = x1.z; a[7] = x1.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) a_reg[e] = (a_valid && c + e < C) ? a_src[c + e] : 0.f;
+    for (int e = 0; e < 8; ++e) a[e] = (valid && c + e < C) ? src[c + e] : 0.f;
   }
+}
+
+__device__ __forceinline__ void load_row8(float (&a)[8], const int8_t* src, bool valid, int c,
+                                          int C, int vec) {
+  I8x8 r;
+  r.u = load8(src, valid, c, C, vec);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a[e] = static_cast<float>(r.q[e]);
+}
+
+// one k-step of the f32 kernel's operands into registers: 8 channels of
+// one context row, and one weight column over kBK rows
+template <typename TIn>
+__device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[kBK],
+                                              const TIn* a_src, bool a_valid, int a_c, int k0,
+                                              const float* w, int gn, int C, int F, int vec_a) {
+  load_row8(a_reg, a_src, a_valid, k0 + a_c, C, vec_a);
 #pragma unroll
   for (int i = 0; i < kBK; ++i) {
     const int gk = k0 + i;
@@ -277,15 +385,18 @@ __device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[
   }
 }
 
+template <typename TIn>
 __global__ void __launch_bounds__(kF32Threads)
-    project_f32(const float* __restrict__ dat, const float* __restrict__ w,
+    project_f32(const TIn* __restrict__ dat, const float* __restrict__ w,
                 const float* __restrict__ encp, const float* __restrict__ encs,
-                const float* __restrict__ aux, float* __restrict__ kv,
-                float* __restrict__ s1_out, float* __restrict__ s2_out, int M, int C, int F,
-                int T, float d_total, float eps, int vec_a) {
+                const float* __restrict__ aux, const float* __restrict__ scale,
+                float* __restrict__ kv, float* __restrict__ s1_out, float* __restrict__ s2_out,
+                int M, int C, int F, int T, float d_total, float eps, int vec_a) {
+  using Acc = typename Input<TIn>::Acc;
+  constexpr bool kQuant = Input<TIn>::kQuant;
   __shared__ __align__(16) float As[kF32Rows][kBK + 4];
   __shared__ __align__(16) float Bs[kBK][kBN];
-  __shared__ float row_mu[kF32Rows], row_inv[kF32Rows];
+  __shared__ float row_mu[kF32Rows], row_inv[kF32Rows], row_scale[kF32Rows];
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int ty = tid >> 5;  // rows ty*8 .. ty*8+7
@@ -294,12 +405,12 @@ __global__ void __launch_bounds__(kF32Threads)
   const int a_r = tid >> 2, a_c = (tid & 3) * 8;
   const int a_row = row0 + a_r;
   const bool a_valid = a_row < M;
-  const float* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
+  const TIn* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
   const int gn = col0 + tid;  // B loader: one column, all 32 k rows
 
   float a_reg[8];
   float b_reg[kBK];
-  float st1 = 0.f, st2 = 0.f;
+  Acc st1 = 0, st2 = 0;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -311,8 +422,8 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       As[a_r][a_c + e] = a_reg[e];
-      st1 += a_reg[e];
-      st2 += a_reg[e] * a_reg[e];
+      st1 += static_cast<Acc>(a_reg[e]);  // exact integers for an int8 row
+      st2 += static_cast<Acc>(a_reg[e] * a_reg[e]);
     }
 #pragma unroll
     for (int i = 0; i < kBK; ++i) Bs[i][tid] = b_reg[i];
@@ -334,8 +445,8 @@ __global__ void __launch_bounds__(kF32Threads)
     __syncthreads();
   }
 
-  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, s1_out, s2_out, d_total, eps,
-                   row_mu, row_inv);
+  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, kQuant ? scale : nullptr, s1_out,
+                   s2_out, d_total, eps, row_mu, row_inv, row_scale);
   __syncthreads();
 
 #pragma unroll
@@ -344,36 +455,63 @@ __global__ void __launch_bounds__(kF32Threads)
     const int r = row0 + lr;
     if (r >= M) continue;
     const int tok = r % T;
-    const float mu = row_mu[lr], inv = row_inv[lr];
+    const float mu = row_mu[lr], inv = row_inv[lr], sc = row_scale[lr];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = col0 + lane + 32 * j;
       if (n >= F) continue;
-      const float low = acc[i][j] + encp[(size_t)tok * F + n];
+      const float a = kQuant ? __fmul_rn(acc[i][j], sc) : acc[i][j];
+      const float low = a + encp[(size_t)tok * F + n];
       kv[(size_t)r * F + n] = inv * (low - mu * aux[n]) + aux[F + n];
     }
   }
 }
 
+template <typename TIn>
+void launch_bf16(const void* dat, const void* w, const void* encp, const float* encs,
+                 const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
+                 int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
+  const dim3 grid((M + kRows - 1) / kRows, (F + kBN - 1) / kBN);
+  project_bf16<kRows, TIn><<<grid, kRows * 4, 0, s>>>(
+      static_cast<const TIn*>(dat), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(encp), encs, aux, scale,
+      static_cast<__nv_bfloat16*>(kv), s1, s2, M, C, F, T, d_total, eps, vec_a);
+}
+
+template <typename TIn>
+void launch_f32(const void* dat, const void* w, const void* encp, const float* encs,
+                const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
+                int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
+  const dim3 grid((M + kF32Rows - 1) / kF32Rows, (F + kBN - 1) / kBN);
+  project_f32<TIn><<<grid, kF32Threads, 0, s>>>(
+      static_cast<const TIn*>(dat), static_cast<const float*>(w),
+      static_cast<const float*>(encp), encs, aux, scale, static_cast<float*>(kv), s1, s2, M, C,
+      F, T, d_total, eps, vec_a);
+}
+
 }  // namespace
 
+// is_bf16: the compute (and output) dtype is bf16, else f32; is_int8: the
+// context is int8 with a per-row scale, else it is in the compute dtype.
 extern "C" int healnet_fused_project(const void* dat, const void* w, const void* encp,
-                                     const float* encs, const float* aux, void* kv, float* s1,
-                                     float* s2, int M, int C, int F, int T, float d_total,
-                                     float eps, int is_bf16, int vec_a, void* stream) {
+                                     const float* encs, const float* aux, const float* scale,
+                                     void* kv, float* s1, float* s2, int M, int C, int F, int T,
+                                     float d_total, float eps, int is_bf16, int is_int8,
+                                     int vec_a, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int col_blocks = (F + kBN - 1) / kBN;
-  if (is_bf16) {
-    project_bf16<kRows><<<dim3((M + kRows - 1) / kRows, col_blocks), kRows * 4, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(dat), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(encp), encs, aux, static_cast<__nv_bfloat16*>(kv),
-        s1, s2, M, C, F, T, d_total, eps, vec_a);
+  if (is_bf16 && is_int8) {
+    launch_bf16<int8_t>(dat, w, encp, encs, aux, scale, kv, s1, s2, M, C, F, T, d_total, eps,
+                        vec_a, s);
+  } else if (is_bf16) {
+    launch_bf16<__nv_bfloat16>(dat, w, encp, encs, aux, nullptr, kv, s1, s2, M, C, F, T,
+                               d_total, eps, vec_a, s);
+  } else if (is_int8) {
+    launch_f32<int8_t>(dat, w, encp, encs, aux, scale, kv, s1, s2, M, C, F, T, d_total, eps,
+                       vec_a, s);
   } else {
-    project_f32<<<dim3((M + kF32Rows - 1) / kF32Rows, col_blocks), kF32Threads, 0, s>>>(
-        static_cast<const float*>(dat), static_cast<const float*>(w),
-        static_cast<const float*>(encp), encs, aux, static_cast<float*>(kv), s1, s2, M, C, F,
-        T, d_total, eps, vec_a);
+    launch_f32<float>(dat, w, encp, encs, aux, nullptr, kv, s1, s2, M, C, F, T, d_total, eps,
+                      vec_a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,17 @@ context once for the statistics, the product and the normalization.
 second kernel (``csrc/fused_project_bwd.cu``, plain version
 :func:`project_bwd_plain`).
 
-Rounding contract, identical in both: the product accumulates in f32 and is
-rounded to the compute dtype, the encoding projection is added in the
-compute dtype, and the sum is widened to f32 before the normalization. The
-statistics are f32 sums of the stored context values.
+Quantized contexts (:class:`healnet_tpu_torch.ops.quantize.QuantizedContext`):
+int8 values with one f32 scale per token. The statistics and the product
+commute with the per-token rescale, so both run on the int8 values and the
+scale applies to the (tokens x F) accumulator; the output is in the compute
+dtype (``out_dtype``, float32 unless given).
+
+Rounding contract, identical in both versions: the product accumulates in
+f32 and is rounded to the compute dtype (for an int8 context, widened to
+f32, multiplied by the scale and rounded again), the encoding projection is
+added in the compute dtype, and the sum is widened to f32 before the
+normalization. The statistics are f32 sums of the stored context values.
 """
 
 from __future__ import annotations
@@ -29,16 +36,23 @@ from typing import Optional, Tuple
 import torch
 
 from healnet_tpu_torch.ops import cuda_build
+from healnet_tpu_torch.ops.quantize import QuantizedContext
 
 _IMPLS = ("auto", "xla", "kernel", "pallas")
+# int8 rows: the kernel's per-thread integer sums of q^2 (|q| <= 127) stay
+# below 2^31 for rows of up to this many channels
+_MAX_INT8_CHANNELS = (2**31 - 1) // (127 * 127)
 
 
-def _row_stats(dat, enc):
-    """f32 row sums and sums of squares of the stored context values, the
-    encoding's added on: ``(s1, s2)``, each (b, t)."""
+def _row_stats(dat, enc, scale=None):
+    """f32 row sums and sums of squares of the stored context values, scaled
+    for an int8 context, the encoding's added on: ``(s1, s2)``, each (b, t)."""
     xf = dat.float()
     s1 = torch.sum(xf, dim=-1)
     s2 = torch.sum(xf * xf, dim=-1)
+    if scale is not None:
+        s1 = scale * s1
+        s2 = (scale * scale) * s2
     if enc is not None:
         ef = enc.float()
         s1 = s1 + torch.sum(ef, dim=-1)
@@ -51,22 +65,21 @@ def _mu_inv(s1, s2, d_total, eps):
     return mu, torch.rsqrt(s2 / d_total - mu * mu + eps)
 
 
-def _raw(dat, enc, w_all, cdt):
-    """The pre-normalization product in f32, with the rounding contract."""
+def _project_plain(dat, enc, w_all, b_all, eps, scale=None, cdt=None):
+    """``(kv, s1, s2)`` of the plain version, as the kernel returns them;
+    ``cdt`` is the compute and output dtype (default: dat's)."""
+    cdt = dat.dtype if cdt is None else cdt
     c_dim = dat.shape[-1]
-    raw = dat.to(cdt) @ w_all[:c_dim].to(cdt)
-    if enc is not None:
-        raw = raw + enc.to(cdt) @ w_all[c_dim:].to(cdt)
-    return raw.float()
-
-
-def _project_plain(dat, enc, w_all, b_all, eps):
-    """``(kv, s1, s2)`` of the plain version, as the kernel returns them."""
-    s1, s2 = _row_stats(dat, enc)
+    s1, s2 = _row_stats(dat, enc, scale)
     mu, inv = _mu_inv(s1, s2, w_all.shape[0], eps)
     colsum = torch.sum(w_all, dim=0)
-    raw = _raw(dat, enc, w_all, dat.dtype)
-    return (inv[..., None] * (raw - mu[..., None] * colsum) + b_all).to(dat.dtype), s1, s2
+    raw = dat.to(cdt) @ w_all[:c_dim].to(cdt)
+    if scale is not None:
+        raw = (raw.float() * scale[..., None]).to(cdt)
+    if enc is not None:
+        raw = raw + enc.to(cdt) @ w_all[c_dim:].to(cdt)
+    kv = inv[..., None] * (raw.float() - mu[..., None] * colsum) + b_all
+    return kv.to(cdt), s1, s2
 
 
 def project_plain(
@@ -75,14 +88,17 @@ def project_plain(
     w_all: torch.Tensor,
     b_all: torch.Tensor,
     eps: float = 1e-5,
+    scale: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version: a statistics pass plus a matmul pass.
 
-    dat: (b, t, C); enc: optional (t, E) shared across the batch;
-    w_all: (C + E, F) f32; b_all: (F,). Returns (b, t, F) in the context
-    dtype, which is also the compute dtype.
+    dat: (b, t, C), or int8 values with ``scale`` (b, t) f32; enc: optional
+    (t, E) shared across the batch; w_all: (C + E, F) f32; b_all: (F,).
+    Returns (b, t, F) in ``out_dtype`` (default: the context dtype), which is
+    also the compute dtype.
     """
-    return _project_plain(dat, enc, w_all, b_all, eps)[0]
+    return _project_plain(dat, enc, w_all, b_all, eps, scale, out_dtype)[0]
 
 
 def project_bwd_plain(
@@ -91,22 +107,32 @@ def project_bwd_plain(
     s2: torch.Tensor,
     d_total: int,
     eps: float = 1e-5,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    scale: Optional[torch.Tensor] = None,
+    with_bsum: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward kernel: the cotangent pass.
 
-    g: (b, t, F) cotangent of the projection, in the compute dtype; s1, s2:
-    (b, t) f32 saved row statistics. Returns ``d_raw = round(inv * g)``
-    (b, t, F) in g's dtype and ``dsum2 = [sum g; sum inv * mu * g]`` (2, F)
-    f32, which are ``[d_bias; -d_colsum]``.
+    g: (b, t, F) cotangent of the projection, in the compute dtype; s1, s2
+    (and an int8 context's ``scale``): (b, t) f32. Returns ``d_raw =
+    round((scale *) inv * g)`` (b, t, F) in g's dtype, with the scale and
+    inv multiplied first, and ``dsum2 = [sum g; sum inv * mu * g]`` (2, F)
+    f32, which are ``[d_bias; -d_colsum]``; with ``with_bsum`` also ``bsum =
+    sum_b round(inv * g)`` (t, F) f32, unscaled, for the encoding weights'
+    gradient. That sum rounds each term to g's dtype first, as the JAX
+    package's default backward (its ``_BWD_KERNEL = False`` path) does.
     """
     mu, inv = _mu_inv(s1, s2, d_total, eps)
     gf = g.float()
-    d_raw = (inv[..., None] * gf).to(g.dtype)
+    factor = inv if scale is None else scale * inv
+    d_raw = (factor[..., None] * gf).to(g.dtype)
     dsum2 = torch.stack([
         torch.sum(gf, dim=(0, 1)),
         torch.sum((inv * mu)[..., None] * gf, dim=(0, 1)),
     ])
-    return d_raw, dsum2
+    if not with_bsum:
+        return d_raw, dsum2
+    plain = d_raw if scale is None else (inv[..., None] * gf).to(g.dtype)
+    return d_raw, dsum2, torch.sum(plain.float(), dim=0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -114,9 +140,19 @@ def _lib() -> ctypes.CDLL:
     fn = lib.healnet_fused_project
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_operands(device, expect) -> None:
+    for name, (x, shape, dtype) in expect.items():
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(
+                f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}"
+            )
+        if x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
 
 
 def fused_project_kernel(
@@ -127,60 +163,81 @@ def fused_project_kernel(
     aux: torch.Tensor,
     d_total: int,
     eps: float,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel: returns ``(kv, s1, s2)``.
 
-    dat: (b, t, C) bf16 or f32; w_c: (C, F) in dat's dtype; enc_proj: (t, F)
-    in dat's dtype; enc_stats: (2, t) f32 [row sums; row sums of squares] of
-    the encoding; aux: (2, F) f32 [colsum(W); folded bias]. All contiguous
-    and on one CUDA device. kv: (b, t, F) in dat's dtype; s1, s2: (b, t) f32.
+    dat: (b, t, C) bf16 or f32, or int8 with ``scale`` (b, t) f32; w_c:
+    (C, F) in the compute dtype (dat's, or bf16/f32 for an int8 context);
+    enc_proj: (t, F) in the compute dtype; enc_stats: (2, t) f32 [row sums;
+    row sums of squares] of the encoding; aux: (2, F) f32 [colsum(W); folded
+    bias]. All contiguous and on one CUDA device. kv: (b, t, F) in the
+    compute dtype; s1, s2: (b, t) f32.
+
+    Launches are counted per variant: ``launches`` (bf16 and f32 contexts)
+    and ``launches_int8`` (int8 contexts).
     """
     if not dat.is_cuda:
         raise ValueError("fused_project_kernel takes CUDA tensors")
-    if dat.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_project_kernel takes bf16 or f32, got {dat.dtype}")
     if dat.ndim != 3:
         raise ValueError(f"dat must be (b, t, C), got {tuple(dat.shape)}")
     b, t, c = dat.shape
-    f = w_c.shape[1]
+    f = w_c.shape[1] if w_c.ndim == 2 else -1
+    quantized = dat.dtype == torch.int8
+    cdt = w_c.dtype
+    if quantized:
+        if cdt not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"an int8 context computes in bf16 or f32, got {cdt}")
+        if scale is None:
+            raise ValueError("an int8 context needs its per-token scale")
+        if c > _MAX_INT8_CHANNELS:
+            raise ValueError(f"int8 rows of {c} channels overflow the integer sums")
+    else:
+        if dat.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"fused_project_kernel takes bf16, f32 or int8, got {dat.dtype}")
+        if scale is not None:
+            raise ValueError("a scale goes with an int8 context only")
+        cdt = dat.dtype
     expect = {
-        "w_c": (w_c, (c, f), dat.dtype),
-        "enc_proj": (enc_proj, (t, f), dat.dtype),
+        "w_c": (w_c, (c, f), cdt),
+        "enc_proj": (enc_proj, (t, f), cdt),
         "enc_stats": (enc_stats, (2, t), torch.float32),
         "aux": (aux, (2, f), torch.float32),
     }
-    for name, (x, shape, dtype) in expect.items():
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(
-                f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}"
-            )
-        if x.device != dat.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dat.device}")
+    if quantized:
+        expect["scale"] = (scale, (b, t), torch.float32)
+    _check_operands(dat.device, expect)
     if not dat.is_contiguous():
         raise ValueError("dat must be contiguous")
-    kv = torch.empty((b, t, f), dtype=dat.dtype, device=dat.device)
+    kv = torch.empty((b, t, f), dtype=cdt, device=dat.device)
     s1 = torch.empty((b, t), dtype=torch.float32, device=dat.device)
     s2 = torch.empty((b, t), dtype=torch.float32, device=dat.device)
     if kv.numel() == 0:
         return kv, s1, s2
-    is_bf16 = dat.dtype == torch.bfloat16
-    # 16-byte row loads need 8-element rows and an aligned base
-    vec = int(c % 8 == 0 and dat.data_ptr() % 16 == 0)
+    # the kernels load 8 channels of a row at once (16 bytes of bf16, 8 of
+    # int8, two 16-byte words of f32): 8-channel rows and an aligned base
+    vec = int(c % 8 == 0 and dat.data_ptr() % (8 if quantized else 16) == 0)
     lib = _lib()
     with torch.cuda.device(dat.device):
         stream = torch.cuda.current_stream(dat.device).cuda_stream
         code = lib.healnet_fused_project(
             dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(),
-            enc_stats.data_ptr(), aux.data_ptr(), kv.data_ptr(),
+            enc_stats.data_ptr(), aux.data_ptr(),
+            scale.data_ptr() if quantized else None, kv.data_ptr(),
             s1.data_ptr(), s2.data_ptr(), b * t, c, f, t,
-            float(d_total), float(eps), int(is_bf16), vec, stream,
+            float(d_total), float(eps), int(cdt == torch.bfloat16), int(quantized),
+            vec, stream,
         )
-    fused_project_kernel.launches += 1
+    if quantized:
+        fused_project_kernel.launches_int8 += 1
+    else:
+        fused_project_kernel.launches += 1
     cuda_build.check(lib, code, "fused_project_kernel")
     return kv, s1, s2
 
 
 fused_project_kernel.launches = 0
+fused_project_kernel.launches_int8 = 0
 
 
 def _prep(dat, enc, w_all, b_all, cdt):
@@ -205,10 +262,12 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.healnet_fused_project_bwd
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, f, f, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, i, p]
         fn.restype = ctypes.c_int
-        lib.healnet_fused_project_bwd_tiles.argtypes = [i]
+        lib.healnet_fused_project_bwd_tiles.argtypes = [i, i]
         lib.healnet_fused_project_bwd_tiles.restype = i
+        lib.healnet_fused_project_bwd_max_batch.argtypes = []
+        lib.healnet_fused_project_bwd_max_batch.restype = i
     return lib
 
 
@@ -218,12 +277,16 @@ def fused_project_bwd_kernel(
     s2: torch.Tensor,
     d_total: int,
     eps: float = 1e-5,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    scale: Optional[torch.Tensor] = None,
+    with_bsum: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Launch the backward (cotangent pass) kernel: returns ``(d_raw,
-    dsum2)`` as :func:`project_bwd_plain` does.
+    dsum2)``, or ``(d_raw, dsum2, bsum)`` with ``with_bsum``, as
+    :func:`project_bwd_plain` does.
 
-    g: (b, t, F) bf16 or f32, contiguous; s1, s2: (b, t) f32, contiguous;
-    all on one CUDA device.
+    g: (b, t, F) bf16 or f32, contiguous; s1, s2 and an int8 context's
+    ``scale``: (b, t) f32, contiguous; all on one CUDA device. Launches are
+    counted per variant: ``launches`` (no scale) and ``launches_int8``.
     """
     if not g.is_cuda:
         raise ValueError("fused_project_bwd_kernel takes CUDA tensors")
@@ -232,31 +295,37 @@ def fused_project_bwd_kernel(
     if g.ndim != 3 or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous (b, t, F), got {tuple(g.shape)}")
     b, t, f = g.shape
-    for name, x in (("s1", s1), ("s2", s2)):
-        if (tuple(x.shape) != (b, t) or x.dtype != torch.float32
-                or x.device != g.device or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {(b, t)} f32 on {g.device}")
+    stats = {"s1": s1, "s2": s2} if scale is None else {"s1": s1, "s2": s2, "scale": scale}
+    _check_operands(g.device, {k: (x, (b, t), torch.float32) for k, x in stats.items()})
     lib = _bwd_lib()
-    m = b * t
-    tiles = lib.healnet_fused_project_bwd_tiles(m)
+    if b > lib.healnet_fused_project_bwd_max_batch():
+        raise ValueError(f"batch {b} exceeds the kernel's shared-memory row table")
+    tiles = lib.healnet_fused_project_bwd_tiles(b, t)
     d_raw = torch.empty_like(g)
     part = torch.empty((tiles, 2, f), dtype=torch.float32, device=g.device)
     dsum2 = torch.zeros((2, f), dtype=torch.float32, device=g.device)
-    if m == 0 or f == 0:
-        return d_raw, dsum2
+    bsum = torch.zeros((t, f), dtype=torch.float32, device=g.device) if with_bsum else None
+    outs = (d_raw, dsum2) if bsum is None else (d_raw, dsum2, bsum)
+    if g.numel() == 0:
+        return outs
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         code = lib.healnet_fused_project_bwd(
-            g.data_ptr(), s1.data_ptr(), s2.data_ptr(), d_raw.data_ptr(),
-            part.data_ptr(), dsum2.data_ptr(), m, f, float(d_total), float(eps),
-            int(g.dtype == torch.bfloat16), stream,
+            g.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            None if scale is None else scale.data_ptr(), d_raw.data_ptr(),
+            part.data_ptr(), dsum2.data_ptr(), None if bsum is None else bsum.data_ptr(),
+            b, t, f, float(d_total), float(eps), int(g.dtype == torch.bfloat16), stream,
         )
-    fused_project_bwd_kernel.launches += 1
+    if scale is None:
+        fused_project_bwd_kernel.launches += 1
+    else:
+        fused_project_bwd_kernel.launches_int8 += 1
     cuda_build.check(lib, code, "fused_project_bwd_kernel")
-    return d_raw, dsum2
+    return outs
 
 
 fused_project_bwd_kernel.launches = 0
+fused_project_bwd_kernel.launches_int8 = 0
 
 
 def _gemm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -272,86 +341,114 @@ def _gemm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class FusedProjectFunction(torch.autograd.Function):
     """The merged folded-KV projection with its backward, for autograd.
 
-    ``apply(dat, enc, w_all, b_all, eps)`` -> (b, t, F) in dat's dtype.
-    CUDA tensors launch the forward kernel and, in the backward, the
-    cotangent-pass kernel; CPU tensors take the plain versions, which the
-    tests use to check the formulas. The residuals are the inputs and the
-    two (b, t) row statistics, never a (b, t, F) tensor.
+    ``apply(dat, enc, w_all, b_all, eps, scale=None, out_dtype=None)`` ->
+    (b, t, F) in the compute dtype: dat's, or ``out_dtype`` (default f32)
+    for an int8 ``dat`` with its (b, t) ``scale``. CUDA tensors launch the
+    forward kernel and, in the backward, the cotangent-pass kernel; CPU
+    tensors take the plain versions, which the tests use to check the
+    formulas. The residuals are the inputs and the two (b, t) row
+    statistics, never a (b, t, F) tensor.
 
-    Backward (the JAX package's ``_pallas_bwd``): with ``d_raw = inv * g``
-    and ``dsum2 = [sum g; sum inv * mu * g]`` from the cotangent pass,
-    ``d_W_c = dat^T d_raw`` (a library GEMM, as JAX leaves it to XLA),
-    ``d_W_e = enc^T sum_b d_raw`` in f32, ``d_bias = dsum2[0]`` and
-    ``-dsum2[1]`` added to every row of ``d_W``. The input cotangents
-    ``d_dat`` and ``d_enc`` are plain ops, computed only when asked for:
-    training never needs them.
+    Backward (the JAX package's ``_pallas_bwd``): with ``d_raw = (scale *)
+    inv * g`` and ``dsum2 = [sum g; sum inv * mu * g]`` from the cotangent
+    pass, ``d_W_c = dat^T d_raw`` (a library GEMM, as JAX leaves it to XLA;
+    an int8 context is cast to the compute dtype for it), ``d_W_e = enc^T
+    sum_b round(inv * g)`` in f32 (the pass's ``bsum`` for an int8 context),
+    ``d_bias = dsum2[0]`` and ``-dsum2[1]`` added to every row of ``d_W``.
+    The input cotangents ``d_dat`` (none for int8 values), ``d_enc`` and
+    ``d_scale`` are plain ops, computed only when asked for: training never
+    needs them.
     """
 
     @staticmethod
-    def forward(ctx, dat, enc, w_all, b_all, eps):
+    def forward(ctx, dat, enc, w_all, b_all, eps, scale=None, out_dtype=None):
+        cdt = out_dtype or (torch.float32 if scale is not None else dat.dtype)
         if dat.is_cuda:
+            if scale is None and cdt != dat.dtype:
+                raise ValueError("a bf16/f32 context computes in its own dtype")
             dat = dat.contiguous()
-            ops = _prep(dat, enc, w_all, b_all, dat.dtype)
-            kv, s1, s2 = fused_project_kernel(dat, *ops, w_all.shape[0], eps)
+            ops = _prep(dat, enc, w_all, b_all, cdt)
+            kv, s1, s2 = fused_project_kernel(
+                dat, *ops, w_all.shape[0], eps,
+                scale=None if scale is None else scale.contiguous())
         else:
-            kv, s1, s2 = _project_plain(dat, enc, w_all, b_all, eps)
-        ctx.save_for_backward(dat, enc, w_all, s1, s2)
+            kv, s1, s2 = _project_plain(dat, enc, w_all, b_all, eps, scale, cdt)
+        ctx.save_for_backward(dat, enc, w_all, s1, s2, scale)
         ctx.eps, ctx.b_dtype = eps, b_all.dtype
         return kv
 
     @staticmethod
     def backward(ctx, g):
-        dat, enc, w_all, s1, s2 = ctx.saved_tensors
+        dat, enc, w_all, s1, s2, scale = ctx.saved_tensors
         eps = ctx.eps
         need_dat, need_enc, need_w, need_b = ctx.needs_input_grad[:4]
+        need_scale = any(ctx.needs_input_grad[5:6])  # apply() may leave the scale out
         need_enc = need_enc and enc is not None
-        cdt = dat.dtype
+        quantized = scale is not None
+        cdt = g.dtype if quantized else dat.dtype
         c, d_total, f = dat.shape[-1], w_all.shape[0], w_all.shape[1]
         g = g.contiguous().to(cdt)
-        d_dat = d_enc = d_w = d_bias = None
+        d_dat = d_enc = d_w = d_bias = d_scale = None
 
         if need_w or need_b:
             bwd = fused_project_bwd_kernel if g.is_cuda else project_bwd_plain
-            d_raw, dsum2 = bwd(g, s1, s2, d_total, eps)
+            with_bsum = quantized and enc is not None
+            outs = bwd(g, s1, s2, d_total, eps, scale=scale, with_bsum=with_bsum)
+            d_raw, dsum2 = outs[0], outs[1]
             d_bias = dsum2[0].to(ctx.b_dtype)
             d_w = torch.zeros_like(w_all)
-            d_w[:c] = _gemm_f32(dat.reshape(-1, c).t(), d_raw.reshape(-1, f))
+            d_w[:c] = _gemm_f32(dat.reshape(-1, c).t().to(cdt), d_raw.reshape(-1, f))
             if enc is not None:
-                d_raw_t = torch.sum(d_raw.float(), dim=0)  # (t, F)
-                d_w[c:] = enc.float().t() @ d_raw_t
+                d_raw_t = outs[2] if with_bsum else torch.sum(d_raw.float(), dim=0)
+                d_w[c:] = enc.float().t() @ d_raw_t  # (E, F)
             d_w -= dsum2[1]
 
-        if need_dat or need_enc:
+        if need_dat or need_enc or need_scale:
             mu, inv = _mu_inv(s1, s2, d_total, eps)
             colsum = torch.sum(w_all, dim=0)
             gf = g.float()
-            p_term = _raw(dat, enc, w_all, cdt) - mu[..., None] * colsum
-            d_inv = torch.sum(gf * p_term, dim=-1)
+            # the pre-normalization product in f32, as JAX's backward forms it
+            raw = (dat.to(cdt) @ w_all[:c].to(cdt)).float()
+            if quantized:
+                raw = raw * scale[..., None]
+            if enc is not None:
+                raw = raw + (enc.to(cdt) @ w_all[c:].to(cdt)).float()
+            d_inv = torch.sum(gf * (raw - mu[..., None] * colsum), dim=-1)
             d_p = inv[..., None] * gf
             d_var = d_inv * -0.5 * inv * inv * inv
             d_s2 = d_var / d_total
             d_s1 = (-torch.sum(d_p * colsum, dim=-1) - 2.0 * mu * d_var) / d_total
-            if need_dat:
-                d_dat = (d_p @ w_all[:c].t().float() + d_s1[..., None]
-                         + 2.0 * dat.float() * d_s2[..., None]).to(dat.dtype)
+            if need_dat or need_scale:
+                x_eff = dat.float() if not quantized else dat.float() * scale[..., None]
+                d_x = d_p @ w_all[:c].t().float() + d_s1[..., None] + 2.0 * x_eff * d_s2[..., None]
+                if quantized:  # int8 values carry no gradient; the scale's is
+                    d_scale = torch.sum(d_x * dat.float(), dim=-1).to(scale.dtype)
+                else:
+                    d_dat = d_x.to(dat.dtype)
             if need_enc:
                 d_enc = (torch.sum(d_p, dim=0) @ w_all[c:].t().float()
                          + torch.sum(d_s1, dim=0)[..., None]
                          + 2.0 * enc.float() * torch.sum(d_s2, dim=0)[..., None]
                          ).to(enc.dtype)
-        return d_dat, d_enc, d_w, d_bias, None
+        return d_dat, d_enc, d_w, d_bias, None, d_scale, None
 
 
 def fused_kv_project(
-    dat: torch.Tensor,
+    dat,
     enc: Optional[torch.Tensor],
     w_all: torch.Tensor,
     b_all: torch.Tensor,
     *,
     eps: float = 1e-5,
     impl: str = "auto",
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Merged folded-KV projection of a raw context: (b, t, F).
+
+    dat: (b, t, C) tensor or a :class:`QuantizedContext` (int8 values and
+    per-token f32 scales: half the context bytes, the scale applied on the
+    accumulator). Returns ``out_dtype``, by default the context's dtype, or
+    float32 for a quantized context.
 
     impl: ``"xla"`` is the plain two-pass version anywhere; ``"kernel"``
     (also spelt ``"pallas"``, the JAX package's name) and ``"auto"`` run a
@@ -359,11 +456,16 @@ def fused_kv_project(
     and the cotangent-pass kernel in the backward). A CPU tensor always
     takes the plain version.
     """
+    scale = None
+    if isinstance(dat, QuantizedContext):
+        scale, dat = dat.scale, dat.data
+        if out_dtype is None:
+            out_dtype = torch.float32
     if impl not in _IMPLS:
         raise ValueError(f"unknown fused projection impl: {impl!r}")
     if impl == "xla" or not dat.is_cuda:
-        return project_plain(dat, enc, w_all, b_all, eps)
-    return FusedProjectFunction.apply(dat, enc, w_all, b_all, eps)
+        return project_plain(dat, enc, w_all, b_all, eps, scale, out_dtype)
+    return FusedProjectFunction.apply(dat, enc, w_all, b_all, eps, scale, out_dtype)
 
 
 def split_columns(x: torch.Tensor, widths) -> Tuple[torch.Tensor, ...]:

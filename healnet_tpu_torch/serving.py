@@ -5,10 +5,12 @@ are split into fixed micro-batches (the last one padded by repeating its
 last row), missing modalities become zero tensors with their presence
 column zeroed, ragged patch bags pad to length buckets with KV masks built
 automatically, and the outputs are the survival head: logits, hazards,
-survival curves and risk. Outputs are float32 numpy arrays.
+survival curves and risk. Outputs are float32 numpy arrays. Arena mode
+(``feature_arena=``, :meth:`Predictor.predict_from_arena`) serves from the
+training-time feature arena, plain or int8, uploaded to the device once: a
+request carries bag offsets and lengths, and no patch features.
 
-Not ported yet: parameters from a checkpoint directory, serving from a
-device-resident feature arena, and artifact export.
+Not ported yet: parameters from a checkpoint directory, and artifact export.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from healnet_tpu_torch.compat.flax_params import is_flax_tree, state_dict_from_flax
 from healnet_tpu_torch.device import DeviceLike, resolve_device, round_up
+from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
 from healnet_tpu_torch.train.losses import hazards_survival_risk
 from healnet_tpu_torch.utils.train_utils import accepts_kv_masks
 
@@ -37,6 +40,7 @@ class Predictor:
         compute_dtype: Optional[torch.dtype] = None,
         bucket_boundaries: Optional[Sequence[int]] = None,
         device: DeviceLike = None,
+        feature_arena: Optional[Any] = None,
     ):
         """
         Args:
@@ -51,6 +55,9 @@ class Predictor:
                 patch bags; each bag pads to the smallest boundary >= its
                 length.
             device: the GPU unless ``"cpu"`` is asked for.
+            feature_arena: the training-time packed feature arena (numpy,
+                tensor, or a ``QuantizedContext`` of int8 rows and scales);
+                enables :meth:`predict_from_arena`. Uploaded once.
         """
         if isinstance(params, (str, Path)):
             raise NotImplementedError("checkpoint-directory params are not ported yet")
@@ -66,6 +73,7 @@ class Predictor:
             sorted(int(b) for b in bucket_boundaries) if bucket_boundaries else None
         )
         self._accepts_kv_masks = accepts_kv_masks(module)
+        self._arena = None if feature_arena is None else place_arena(feature_arena, self.device)
         # distinct micro-batch input signatures served so far
         self._signatures: set = set()
 
@@ -197,14 +205,70 @@ class Predictor:
             for k in next(iter(slot_outs.values()))
         }
 
+    def predict_from_arena(
+        self,
+        tensors: Sequence[Optional[np.ndarray]],
+        patch_offsets: np.ndarray,
+        patch_lengths: np.ndarray,
+        presence: Optional[np.ndarray] = None,
+    ) -> Dict[str, np.ndarray]:
+        """Arena-mode prediction: no per-request feature upload.
+
+        ``tensors`` carries the modalities other than the slide (as in
+        training's arena batches); each sample's bag is gathered on the
+        device from the resident arena by (offset, length). Samples are
+        grouped by bucket width, each micro-batch is padded by repeating its
+        last row, and the slide's KV mask comes from the lengths. Needs
+        ``feature_arena`` at construction.
+        """
+        if self._arena is None:
+            raise ValueError("predict_from_arena needs Predictor(feature_arena=...)")
+        offsets = np.asarray(patch_offsets, np.int32)
+        lengths = np.asarray(patch_lengths, np.int32)
+        n = offsets.shape[0]
+        pres = (
+            np.ones((n, len(tensors) + 1), np.float32)
+            if presence is None
+            else np.asarray(presence, np.float32).copy()
+        )
+        lead = self._materialize(list(tensors), n, pres)
+        dtype = self.compute_dtype or torch.float32
+        to_dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+
+        groups: Dict[int, List[int]] = {}
+        for i, ln in enumerate(lengths):
+            groups.setdefault(self._bucket_width(int(ln)), []).append(i)
+        bs = self.batch_size
+        slot_outs: Dict[int, Dict[str, np.ndarray]] = {}
+        for width, idxs in groups.items():
+            for start in range(0, len(idxs), bs):
+                sel = idxs[start:start + bs]
+                rows = sel + [sel[-1]] * (bs - len(sel))
+                mask = to_dev(np.arange(width)[None, :]
+                              < np.minimum(lengths[rows], width)[:, None], torch.bool)
+                slide = gather_bag(self._arena, to_dev(offsets[rows], torch.int32), mask)
+                cur = tuple(to_dev(t[rows], dtype) for t in lead) + (slide,)
+                kv = tuple([None] * len(lead) + [mask])
+                res = self._predict(cur, to_dev(pres[rows], torch.float32), kv)
+                res = {k: v.cpu().numpy() for k, v in res.items()}
+                for j, i in enumerate(sel):
+                    slot_outs[i] = {k: v[j] for k, v in res.items()}
+        return {
+            k: np.stack([slot_outs[i][k] for i in range(n)])
+            for k in next(iter(slot_outs.values()))
+        }
+
     def warmup(
         self,
         example_shapes: Sequence[Sequence[int]],
         widths: Optional[Sequence[int]] = None,
+        arena: Optional[bool] = None,
     ) -> Dict[str, float]:
         """Run every serving shape once before live traffic: the mask-free
-        dense micro-batch at the declared shapes, and one masked micro-batch
-        per bucket width (which also builds the CUDA kernels on first use).
+        dense micro-batch at the declared shapes, one masked micro-batch per
+        bucket width (which also builds the CUDA kernels on first use), and
+        with an arena (``arena``: default, iff ``feature_arena`` was given)
+        one arena micro-batch per width.
 
         ``example_shapes`` are per-sample trailing shapes, one per modality,
         e.g. ``[(1, 2000), (4096, 2048)]``. Returns ``{"programs": distinct
@@ -229,6 +293,11 @@ class Predictor:
             bag = np.zeros((bs, w, dim), np.float32)
             masks = [None] * (n_mod - 1) + [np.ones((bs, w), bool)]
             self._microbatched(bs, lead + [bag], pres, masks, False)
+        warm_arena = (self._arena is not None) if arena is None else arena
+        if warm_arena:
+            for w in widths:
+                self.predict_from_arena(lead, np.zeros(bs, np.int32), np.full(bs, w, np.int32),
+                                        presence=pres)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return {"programs": len(self._signatures), "seconds": time.perf_counter() - t0}

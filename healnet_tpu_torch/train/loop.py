@@ -13,9 +13,17 @@ Static batch shapes as in the JAX package: :func:`iterate_batches` pads the
 trailing batch by repeating its last row and masks the padding through
 ``sample_mask``.
 
+Feature arena (``feature_arena=``): every slide's patch features packed into
+one array uploaded to the device once, as plain values or, with
+``arena_quant``, as per-token int8 values and f32 scales (quantized on the
+host). Batches then carry ``patch_offsets`` / ``patch_lengths`` instead of
+the slide tensor, and each step gathers its bags on the device
+(:func:`healnet_tpu_torch.parallel.arena.gather_bag`), appending the slide
+as the last modality.
+
 Not ported yet: ``fit`` / ``evaluate`` and metrics, checkpoints, streaming
-datasets, the feature arena, fused epochs, meshes, and modules with their
-own auxiliary loss.
+datasets, fused epochs, meshes with row-sharded arenas, and modules with
+their own auxiliary loss.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from healnet_tpu_torch.device import DeviceLike, resolve_device
+from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_context_host
+from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
 from healnet_tpu_torch.train.losses import (
     CoxPHSurvLoss,
     ce_loss,
@@ -44,7 +54,9 @@ def iterate_batches(
 ) -> Iterator[Dict[str, Any]]:
     """Yield static-shape numpy batches from a dict of whole-split arrays
     (``tensors``, ``y_disc``, ``censorship``, ``event_time``, optional
-    ``presence`` and ``kv_masks``); the trailing batch is padded and masked."""
+    ``presence`` and ``kv_masks``, and for arena-indexed data
+    ``patch_offsets`` / ``patch_lengths``, carried as int32); the trailing
+    batch is padded and masked."""
     n = data["y_disc"].shape[0]
     idx = np.arange(n)
     if shuffle:
@@ -69,6 +81,9 @@ def iterate_batches(
             batch["kv_masks"] = tuple(
                 None if m is None else np.asarray(m)[sel] for m in data["kv_masks"]
             )
+        for key in ("patch_offsets", "patch_lengths"):  # arena-indexed data
+            if key in data:
+                batch[key] = np.asarray(data[key])[sel].astype(np.int32)
         yield batch
 
 
@@ -101,6 +116,13 @@ class SurvivalTrainer:
             feed-forward dropout masks, one on the host for the attention
             hash seeds (so drawing them needs no device read).
         device: the GPU unless ``"cpu"`` is asked for.
+        feature_arena: the packed feature arena, as ``(arena, offsets,
+            lengths)`` or the bare arena (numpy, tensor, or a
+            ``QuantizedContext``); uploaded to the device once, on first use.
+        arena_quant: store the arena as per-token int8 values and f32 scales
+            (quantized on the host): half the device bytes and half the
+            context bytes each step reads.
+        arena_device: an arena already on the device, used as it is.
 
     ``batch_size``, ``epochs``, ``patience``, ``early_stopping``,
     ``eval_interval`` and ``tracker`` are kept for ``fit``, which is not
@@ -129,6 +151,9 @@ class SurvivalTrainer:
         sources: Optional[List[str]] = None,
         accum_steps: int = 1,
         device: DeviceLike = None,
+        feature_arena: Optional[Any] = None,
+        arena_quant: bool = False,
+        arena_device: Optional[Any] = None,
     ):
         if loss_type not in ("nll", "ce_survival", "cox"):
             raise ValueError(f"unknown loss_type {loss_type}")
@@ -156,11 +181,27 @@ class SurvivalTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed + 1)
         self._norm_groups = None  # (names, group names, group index) of grad_stats
+        if feature_arena is not None and not isinstance(feature_arena, (tuple, list)):
+            feature_arena = (feature_arena, None, None)
+        self._arena_host = None if feature_arena is None else feature_arena[0]
+        self._arena = arena_device  # placed on first use when None
+        self.arena_quant = bool(arena_quant) or isinstance(self._arena_host, QuantizedContext)
+
+    def _device_arena(self):
+        """The feature arena on the device, uploaded on the first call (int8
+        values and scales when ``arena_quant``), or None without one."""
+        if self._arena is None and self._arena_host is not None:
+            host = self._arena_host
+            if self.arena_quant and not isinstance(host, QuantizedContext):
+                host = QuantizedContext(*quantize_context_host(np.asarray(host)))
+            self._arena = place_arena(host, self.device)
+        return self._arena
 
     # ------------------------------------------------------------ pieces
     def _place(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """Host batch (numpy or tensors) -> tensors on the trainer's device;
-        float64 arrives as float32, as in JAX."""
+        float64 arrives as float32, as in JAX, and integers (labels, arena
+        offsets) keep their type."""
         def put(x):
             if x is None:
                 return None
@@ -188,6 +229,11 @@ class SurvivalTrainer:
         return loss, risk
 
     def _forward(self, batch, train: bool) -> torch.Tensor:
+        if batch.get("patch_offsets") is not None and self._device_arena() is not None:
+            # the slide modality comes from the arena: (b, width, dim) bags,
+            # width fixed by the last KV mask
+            slide = gather_bag(self._arena, batch["patch_offsets"], batch["kv_masks"][-1])
+            batch = dict(batch, tensors=tuple(batch["tensors"]) + (slide,))
         kwargs = {}
         if batch.get("kv_masks") is not None and self._accepts_kv_masks:
             kwargs["kv_masks"] = batch["kv_masks"]

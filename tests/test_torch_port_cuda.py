@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.ops import QuantizedContext, quantize_context
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_kernel,
@@ -67,6 +68,89 @@ def test_projection_kernel_matches_plain(gen, dtype, b, t, c, f):
     xf = torch.cat([dat.float(), enc.float().expand(b, t, 5)], dim=-1)
     torch.testing.assert_close(s1, xf.sum(-1), rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(s2, (xf * xf).sum(-1), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,t,c,f",
+    [(2, 300, 200, 70), (3, 129, 203, 300), (8, 1, 64, 252)],
+    ids=["ragged_rows", "two_column_blocks_unaligned_rows", "one_token"],
+)
+def test_projection_kernel_int8_matches_plain(gen, cdt, b, t, c, f):
+    """The int8 branch in bf16 and f32 compute. kv: as the bf16/f32 cases
+    (the integer sum of q^2 is exact where the plain version's f32 sum is
+    not, which moves inv in its last bits); s1 equal up to f32 rounding of
+    the scale product, s2 to 1e-6 relative."""
+    qc = quantize_context(torch.randn((b, t, c), generator=gen, device="cuda") * 3)
+    qc.scale[0, 0] = 0.0  # a zero row
+    qc.data[0, 0] = 0
+    enc = torch.randn((t, 5), generator=gen, device="cuda").to(cdt)
+    w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    fused_project_kernel.launches_int8 = 0
+    kv, s1, s2 = fused_project_kernel(qc.data, *_prep(qc.data, enc, w_all, b_all, cdt), c + 5,
+                                      1e-5, scale=qc.scale)
+    assert fused_project_kernel.launches_int8 == 1
+    ref = project_plain(qc.data, enc, w_all, b_all, scale=qc.scale, out_dtype=cdt)
+    assert kv.dtype == cdt and kv.shape == (b, t, f)
+    tol = 1e-4 if cdt == torch.float32 else _bf16_tol(ref)
+    assert (kv.float() - ref.float()).abs().max().item() <= tol
+    xq = qc.data.float()
+    ef = enc.float().expand(b, t, 5)
+    torch.testing.assert_close(s1, qc.scale * xq.sum(-1) + ef.sum(-1), rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(s2, qc.scale * qc.scale * (xq * xq).sum(-1) + (ef * ef).sum(-1),
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bsum", [True, False], ids=["bsum", "no_bsum"])
+@pytest.mark.parametrize("b,t,f", [(2, 300, 70), (8, 129, 300), (200, 3, 20)],
+                         ids=["ragged_rows", "wide", "batch_over_a_block"])
+def test_projection_bwd_kernel_scale_matches_plain(gen, dtype, with_bsum, b, t, f):
+    g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((b, t, 40), generator=gen, device="cuda") * 2 + 0.5
+    s1, s2 = x.sum(-1), (x * x).sum(-1)
+    scale = torch.rand((b, t), generator=gen, device="cuda") * 0.05
+    fused_project_bwd_kernel.launches_int8 = 0
+    got = fused_project_bwd_kernel(g, s1, s2, 40, 1e-5, scale=scale, with_bsum=with_bsum)
+    assert fused_project_bwd_kernel.launches_int8 == 1
+    ref = project_bwd_plain(g, s1, s2, 40, 1e-5, scale=scale, with_bsum=with_bsum)
+    assert len(got) == len(ref) == (3 if with_bsum else 2)
+    tol = 1e-6 if dtype == torch.float32 else _bf16_tol(ref[0], ulps=1)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= tol
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
+    if with_bsum:
+        # sums over the batch of terms rounded at the same place; a term may
+        # round one bf16 ulp apart (rsqrtf vs torch's rsqrt): b ulps of the
+        # largest term round(inv * g)
+        terms = project_bwd_plain(g, s1, s2, 40, 1e-5)[0]
+        atol = 1e-5 if dtype == torch.float32 else b * _bf16_tol(terms, ulps=1)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_projection_function_int8_grads_match_plain_autograd(gen, cdt):
+    """w, bias and scale gradients through the int8 kernels (forward, the
+    scaled cotangent pass with its batch-sum, the d_W GEMM on the int8
+    values cast to the compute dtype) against the plain path's autograd."""
+    qc = quantize_context(torch.randn((2, 300, 64), generator=gen, device="cuda"))
+    enc = torch.randn((300, 5), generator=gen, device="cuda").to(cdt)
+    w = (torch.randn((69, 70), generator=gen, device="cuda") * 0.05).requires_grad_()
+    bias = torch.randn((70,), generator=gen, device="cuda", requires_grad=True)
+    scale = qc.scale.clone().requires_grad_()
+    g = torch.randn((2, 300, 70), generator=gen, device="cuda").to(cdt)
+    inputs = (w, bias, scale)
+    fused_project_bwd_kernel.launches_int8 = 0
+    got = torch.autograd.grad(fused_kv_project(QuantizedContext(qc.data, scale), enc, w, bias,
+                                               out_dtype=cdt), inputs, g)
+    assert fused_project_bwd_kernel.launches_int8 == 1
+    ref = torch.autograd.grad(project_plain(qc.data, enc, w, bias, scale=scale, out_dtype=cdt),
+                              inputs, g)
+    for name, a, r in zip(("w", "bias", "scale"), got, ref):
+        # bf16: the plain path's autograd differentiates through its bf16
+        # roundings, the kernel path's formulas do not: 2% of the largest
+        rel = 1e-4 if cdt == torch.float32 else 2e-2
+        torch.testing.assert_close(a, r, rtol=rel, atol=rel * r.abs().max().item(), msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -218,6 +302,25 @@ def test_model_kernel_path_grads_match_plain_path(gen, rate):
         torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-5, msg=name)
 
 
+def test_model_int8_slide_kernel_path_matches_plain_path(gen):
+    """A quantized slide through the model: the int8 projection kernel on
+    the slide, the bf16/f32 one on the omic vector, logits against the
+    plain path (f32)."""
+    cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
+               depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
+               latent_dim_head=8, self_per_cross_attn=0, max_freq=2.0)
+    kernel, plain = (HealNetModule(**cfg, attention_impl=a, projection_impl=p, device="cuda",
+                                   generator=torch.Generator().manual_seed(0)).eval()
+                     for a, p in (("flash", "auto"), ("xla", "xla")))
+    x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
+         quantize_context(torch.randn((3, 200, 24), generator=gen, device="cuda"))]
+    fused_project_kernel.launches = fused_project_kernel.launches_int8 = 0
+    with torch.inference_mode():
+        got, ref = kernel(x), plain(x)
+    assert fused_project_kernel.launches == 1 and fused_project_kernel.launches_int8 == 1
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = torch.randn((1, 1, 4, 8), generator=gen, device="cuda").half()
     with pytest.raises(TypeError):
@@ -239,3 +342,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                              torch.zeros((4, 2), device="cuda"),
                              torch.zeros((2, 4), device="cuda"),
                              torch.zeros((2, 3), device="cuda"), 8, 1e-5)
+    q = torch.zeros((1, 4, 8), device="cuda", dtype=torch.int8)
+    ops = (torch.zeros((8, 3), device="cuda"), torch.zeros((4, 3), device="cuda"),
+           torch.zeros((2, 4), device="cuda"), torch.zeros((2, 3), device="cuda"), 8, 1e-5)
+    with pytest.raises(ValueError):  # int8 without its scale
+        fused_project_kernel(q, *ops)
+    with pytest.raises(ValueError):  # a scale with a float context
+        fused_project_kernel(dat, *ops, scale=torch.zeros((1, 4), device="cuda"))
+    with pytest.raises(ValueError):  # the scale's shape
+        fused_project_kernel(q, *ops, scale=torch.zeros((4,), device="cuda"))
