@@ -18,7 +18,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    4096-token request of 20 samples, a request without the omic modality,
    and ragged bags across the 1024/2048/4096/8192 buckets; check the outputs
    against the same weights on the plain path, and that both kernels were
-   launched by that run;
+   launched by that run; then the kirp row (depth 5, l_d 62, inner 27) and
+   the trimodal row (a third 1024 x 1024 bag) on one dense micro-batch of
+   8, kernel path against plain path in bf16 and f32;
 5. hold the flash cross-attention backward kernel against its plain version
    at (8, 17, 4096, 63) bf16 (unmasked, masked with a fully masked row,
    dropout 0.083), at the one-token omic context, and at a small f32 shape;
@@ -50,7 +52,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    4096) against the kernel-free path and against ``predict_ragged`` on the
    dequantized bags, with wall per micro-batch and per request from the
    arena and from host arrays;
-11. print the kernels line (every kernel variant, with its launches in the
+11. the fused latent chain at the brca, kirp and trimodal rows: the
+   served model's merged KV (``project_contexts``) and stacked weights, a
+   ragged WSI mask with a fully masked row, presence zeros, the row's
+   attention dropout and FF keep multipliers; the chain's entry point once
+   per row (the run whose launches count), held against the plain version
+   in bf16 (in ulps of the output) and f32, and the f32 chain's logits
+   against ``module(x)``; times of kernel, plain version and the module
+   path's latent loop (device time and launches), and each row's bound;
+12. print the kernels line (every kernel variant, with its launches in the
    run of its path), then the device line.
 
 Needs one CUDA GPU, nvcc, and the repository around this file.
@@ -71,6 +81,13 @@ from torch.profiler import ProfilerActivity, profile
 from healnet_tpu_torch.models.healnet import HealNetModule
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
+from healnet_tpu_torch.ops.fused_chain import (
+    chain_reference,
+    chain_spec,
+    fused_chain_kernel,
+    fused_latent_chain,
+    stack_chain_weights,
+)
 from healnet_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
@@ -96,7 +113,8 @@ KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "flash_attention": (flash_attention_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
            "fused_project_int8": (fused_project_kernel, "launches_int8"),
-           "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8")}
+           "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8"),
+           "fused_chain": (fused_chain_kernel, "launches")}
 FLOAT_KERNELS = ("fused_project", "fused_project_bwd", "flash_attention", "flash_attention_bwd")
 
 # H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per type
@@ -112,6 +130,16 @@ BRCA = dict(
 )
 BATCH, TOKENS, OMIC, PATCH = 8, 4096, 2000, 2048
 BUCKETS = [1024, 2048, 4096, 8192]
+# bench.py's rows (bench.py:55-69) at full width: brca is the dict above,
+# kirp the tuned depth-5 model, trimodal brca with a third 1024 x 1024 bag
+EXTRA = (1024, 1024)
+ROWS = {
+    "brca": {},
+    "kirp": dict(depth=5, l_d=62, cross_dim_head=27, latent_dim_head=113,
+                 attn_dropout=0.31789955176609086, ff_dropout=0.04735283995174411),
+    "trimodal": dict(n_modalities=3, channel_dims=(OMIC, PATCH, EXTRA[1]),
+                     num_spatial_axes=(1, 1, 1)),
+}
 
 
 def log(msg: str) -> None:
@@ -345,14 +373,18 @@ def phase_flash(gen) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def brca_predictor(dtype, attention_impl, projection_impl, state_dict=None):
-    module = HealNetModule(
-        **BRCA, dtype=dtype, attention_impl=attention_impl,
+def row_model(row, dtype, attention_impl="flash", projection_impl="auto"):
+    """The row's model at full width, random weights from seed 0."""
+    return HealNetModule(
+        **{**BRCA, **ROWS[row]}, dtype=dtype, attention_impl=attention_impl,
         projection_impl=projection_impl, device="cuda",
         generator=torch.Generator().manual_seed(0),
     )
-    return Predictor(module, state_dict, batch_size=BATCH,
-                     bucket_boundaries=BUCKETS, device="cuda")
+
+
+def predictor(dtype, attention_impl, projection_impl, state_dict=None, row="brca"):
+    return Predictor(row_model(row, dtype, attention_impl, projection_impl), state_dict,
+                     batch_size=BATCH, bucket_boundaries=BUCKETS, device="cuda")
 
 
 def compare(name, got, ref, tol_logits, against="plain path"):
@@ -365,8 +397,8 @@ def compare(name, got, ref, tol_logits, against="plain path"):
 
 def phase_serving(host_rng) -> dict:
     log("phase 4: serving the full-width BRCA model through Predictor")
-    pred = brca_predictor(torch.bfloat16, "flash", "auto")
-    ref = brca_predictor(torch.bfloat16, "xla", "xla", pred.module.state_dict())
+    pred = predictor(torch.bfloat16, "flash", "auto")
+    ref = predictor(torch.bfloat16, "xla", "xla", pred.module.state_dict())
     warm = pred.warmup([(1, OMIC), (TOKENS, PATCH)])
     ref.warmup([(1, OMIC), (TOKENS, PATCH)])
     log(f"  warmup: {warm['programs']} shapes in {warm['seconds']:.3f} s")
@@ -415,13 +447,47 @@ def phase_serving(host_rng) -> dict:
         f"{w_model:.4f} ms, plain path {w_plain:.4f} ms")
 
     # float32: the same weights, kernel path against plain path, tight
-    pred32 = brca_predictor(None, "flash", "auto", pred.module.state_dict())
-    ref32 = brca_predictor(None, "xla", "xla", pred.module.state_dict())
+    pred32 = predictor(None, "flash", "auto", pred.module.state_dict())
+    ref32 = predictor(None, "xla", "xla", pred.module.state_dict())
     mask = np.arange(TOKENS)[None, :] < np.array([4096, 3000, 1, 2048, 4096, 100, 4096, 17])[:, None]
     got32 = pred32([omic[:8], wsi[:8]], kv_masks=[None, mask])
     compare("f32 masked micro-batch", got32, ref32([omic[:8], wsi[:8]], kv_masks=[None, mask]),
             1e-3)
     return launches
+
+
+def phase_serving_rows(host_rng) -> None:
+    """The kirp and trimodal rows through Predictor: one dense micro-batch
+    of 8 at full width, kernel path against plain path (same weights), in
+    bf16 and f32, with phase 4's tolerances."""
+    log("phase 4 (continued): serving the kirp and trimodal rows through Predictor")
+    for row in ("kirp", "trimodal"):
+        shapes = [(BATCH, 1, OMIC), (BATCH, TOKENS, PATCH)]
+        shapes += [(BATCH, *EXTRA)] if row == "trimodal" else []
+        x = [host_rng.standard_normal(sh, dtype=np.float32) for sh in shapes]
+        pred = predictor(torch.bfloat16, "flash", "auto", row=row)
+        ref = predictor(torch.bfloat16, "xla", "xla", pred.module.state_dict(), row=row)
+        state = pred.module.state_dict()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pred(x)
+        wall = time.perf_counter() - t0
+        read_launches(f"the {row} serving run", ("fused_project", "flash_attention"))
+        assert got["logits"].shape == (BATCH, 4) and got["risk"].shape == (BATCH,), row
+        compare(f"{row} bf16 dense micro-batch of 8", got, ref(x), 0.1)
+        xd = [torch.as_tensor(a, device="cuda") for a in x]
+        with torch.inference_mode():
+            (t_model, w_model), (t_plain, w_plain) = (
+                time_ms(lambda: pred.module(xd)), time_ms(lambda: ref.module(xd)))
+        log(f"  {row}: {wall * 1e3:.2f} ms wall for the micro-batch from host arrays (first "
+            f"call); inputs on the card: device time kernel path {t_model:.4f} ms, plain path "
+            f"{t_plain:.4f} ms; wall per call kernel path {w_model:.4f} ms, plain path "
+            f"{w_plain:.4f} ms")
+        del ref, xd
+        compare(f"{row} f32 dense micro-batch of 8", predictor(None, "flash", "auto", state,
+                                                               row=row)(x),
+                predictor(None, "xla", "xla", state, row=row)(x), 1e-3)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -939,28 +1005,171 @@ def phase_arena(host_rng) -> dict:
     return {name: launches[name] for name in ("fused_project_int8", "fused_project_bwd_int8")}
 
 
-def chain_bound():
-    """(bound ms, what bounds it, MB, GFLOP) of the JAX package's fused
-    latent chain (``healnet_tpu/ops/fused_chain.py::_fwd_kernel``, not ported
-    yet) at this model's dims, from its operands' shapes: each input read
-    once and the output written once; the latent-side products in f32, the
-    scores and the value product on the bf16 merged KV."""
-    b, depth, mods, lc, ld = BATCH, BRCA["depth"], BRCA["n_modalities"], BRCA["l_c"], BRCA["l_d"]
-    inner, mult, tokens = BRCA["cross_dim_head"], 4, (1, TOKENS)
-    sites, width = depth * mods, 2 * depth * BRCA["cross_dim_head"]  # merged KV columns
-    per_site = 6 * ld + 2 * ld * inner + 2 * mult * ld * (ld + 1) + mult * ld * ld
-    moved = (2 * b * lc * ld * 2                      # latents in and out, bf16
-             + sum(b * t * width * 2 for t in tokens)  # merged KV, bf16
-             + b * TOKENS * 4                          # the WSI mask, f32
-             + b * sites * lc * ld * 4                 # FF keep multipliers, f32
-             + 4 * sites * per_site                    # weights, f32
-             + 4 * (b * mods + sites))                 # presence, seeds
-    f32_ops = b * sites * 2 * lc * (2 * ld * inner + 3 * mult * ld * ld)
-    bf16_ops = b * depth * sum(4 * lc * t * inner for t in tokens)
+# --------------------------------------------------------------- phase 11
+
+
+def chain_bound(spec, b, itemsize):
+    """(bound ms, what bounds it, MB, GFLOP) of one fused-chain call of
+    ``spec`` at batch ``b`` with latents and merged KV of ``itemsize`` bytes:
+    each input read once and the output written once (the merged KV whole,
+    masks and FF keep multipliers where the call has them, the stacked f32
+    weights, presence and int64 seeds); the latent-side products in f32, the
+    scores and the value product at the KV dtype's rate."""
+    lc, ld, inner, f = spec.l_c, spec.l_d, spec.inner, spec.mult * spec.l_d
+    width = max(spec.offsets) + 2 * inner  # the merged KV's columns
+    per_site = 6 * ld + 2 * ld * inner + 2 * f * (ld + 1) + f * ld
+    moved = (2 * b * lc * ld * itemsize
+             + sum(b * t * width * itemsize for t in spec.tokens)
+             + sum(b * t * 4 for t, m in zip(spec.tokens, spec.has_mask) if m)
+             + (b * spec.sites * lc * ld * 4 if spec.ff_dropout > 0 else 0)
+             + 4 * spec.sites * per_site + 4 * b * spec.n_modalities + 8 * spec.sites)
+    f32_ops = b * spec.sites * 2 * lc * (2 * ld * inner + 3 * f * ld)
+    kv_ops = b * spec.depth * sum(4 * lc * t * inner for t in spec.tokens)
+    kv_peak = PEAK_FLOPS[torch.bfloat16 if itemsize == 2 else torch.float32]
     t_bytes = moved / PEAK_BYTES
-    t_ops = f32_ops / PEAK_FLOPS[torch.float32] + bf16_ops / PEAK_FLOPS[torch.bfloat16]
+    t_ops = f32_ops / PEAK_FLOPS[torch.float32] + kv_ops / kv_peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            moved / 1e6, (f32_ops + bf16_ops) / 1e9)
+            moved / 1e6, (f32_ops + kv_ops) / 1e9)
+
+
+def row_inputs(gen, row, dtype):
+    shapes = [(BATCH, 1, OMIC), (BATCH, TOKENS, PATCH)]
+    shapes += [(BATCH, *EXTRA)] if row == "trimodal" else []
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in shapes]
+
+
+def chain_extras(gen, module):
+    """The chain's data-side operands for a row: a ragged WSI mask with one
+    fully masked row, presence with zeros, FF keep multipliers at the row's
+    rate and one attention seed per (layer, modality), all on the card."""
+    b, n, sites = BATCH, module.n_modalities, module.depth * module.n_modalities
+    lengths = torch.randint(1, TOKENS + 1, (b,), generator=gen, device="cuda")
+    lengths[2] = 0
+    masks = [None, torch.arange(TOKENS, device="cuda")[None, :] < lengths[:, None]]
+    masks += [None] * (n - 2)
+    presence = torch.ones((b, n), device="cuda")
+    presence[1, 0] = presence[5, n - 1] = 0.0
+    rate = module.ff_dropout
+    keep = (torch.rand((b, sites, module.l_c, module.l_d), generator=gen, device="cuda")
+            >= rate) / (1.0 - rate)
+    seeds = torch.randint(0, 2**32, (module.depth, n), generator=gen, device="cuda",
+                          dtype=torch.int64)
+    return masks, presence, keep, seeds
+
+
+def chain_case(module, x, extras, training):
+    """(operands, spec) of the chain on the served model: the merged KV from
+    ``project_contexts`` (the projection kernel) and the stacked weights;
+    with ``training`` the row's dropout rates and the FF keep multipliers."""
+    masks, presence, keep, seeds = extras
+    with torch.no_grad():
+        kvs, cdt = module.project_contexts(x)
+        weights = stack_chain_weights(module)
+        x0 = module.latents.to(cdt).expand(BATCH, module.l_c, module.l_d)
+    spec = chain_spec(module, [kv.shape[1] for kv in kvs], [m is not None for m in masks],
+                      training=training)
+    return (x0, kvs, masks, keep if training else None, presence, seeds, weights), spec
+
+
+def module_loop_profile(module, x, ops, out):
+    """(device ms, launches) per call of the module path's latent loop at
+    the chain's inputs: the forward on the cached merged KV, less the head
+    alone."""
+    masks, presence = ops[2], ops[4]
+    module.project_contexts = lambda tensors: (ops[1], ops[0].dtype)
+    try:
+        with torch.inference_mode():
+            _, busy, count, _ = device_profile(
+                lambda: module(x, presence=presence, kv_masks=masks))
+            _, h_busy, h_count, _ = device_profile(
+                lambda: module.final_head(module.final_norm(out.mean(dim=1))))
+    finally:
+        del module.project_contexts
+    return busy - h_busy, count - h_count
+
+
+def phase_chain(gen):
+    """Returns (the kernels-line entry, the chain run's launches)."""
+    log("phase 11: the fused latent chain at the brca, kirp and trimodal rows")
+    cases = {}
+    for row in ROWS:
+        module = row_model(row, torch.bfloat16).eval()
+        x = row_inputs(gen, row, torch.bfloat16)
+        extras = chain_extras(gen, module)
+        cases[row] = (module, x, extras, *chain_case(module, x, extras, training=True))
+    # the main path's run: the chain's entry point once per row, in bf16
+    # with the row's dropout rates, FF keep multipliers, masks and presence
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        outs = {row: fused_latent_chain(*c[3], c[4]) for row, c in cases.items()}
+    launches = read_launches("the chain run (brca, kirp, trimodal; bf16, dropout on)",
+                             ("fused_chain",))
+
+    worst, entry = 0.0, None
+    for row, (module, x, extras, ops, spec) in cases.items():
+        with torch.no_grad():
+            out, ref = outs[row], chain_reference(*ops, spec)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or out.shape != ref.shape:
+            raise AssertionError(f"{row}: the chain's output is not finite or misshapen")
+        # bf16: q and the dropped probabilities round to bf16 at the same
+        # places in both, sums run in another order, the output rounds once:
+        # 4 bf16 ulps of the largest output
+        top = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(f"{row} bf16 chain kernel vs plain ({err / bf16_ulp(top):.2f} bf16 ulps of the "
+              f"largest output, {top:.4g})", err, 4 * bf16_ulp(top))
+        worst = max(worst, err)
+
+        # f32: the same weights and (bf16-valued) inputs
+        m32 = row_model(row, None).eval()
+        m32.load_state_dict(module.state_dict())
+        x32 = [t.float() for t in x]
+        ops32, spec32 = chain_case(m32, x32, extras, training=True)
+        with torch.no_grad():
+            got32, ref32 = fused_latent_chain(*ops32, spec32), chain_reference(*ops32, spec32)
+        top32 = ref32.abs().max().item()
+        # sums of the same products in another order
+        check(f"{row} f32 chain kernel vs plain", (got32 - ref32).abs().max().item(),
+              2e-5 * max(1.0, top32))
+        # the chain path against the module path, f32, dropout off: logits
+        ops_e, spec_e = chain_case(m32, x32, extras, training=False)
+        with torch.no_grad():
+            emb = fused_latent_chain(*ops_e, spec_e)
+            logits = m32.final_head(m32.final_norm(emb.mean(dim=1)))
+            want = m32(x32, presence=ops_e[4], kv_masks=ops_e[2])
+        # the module path's LayerNorm clamps the variance and its softmax
+        # fills masked scores, the chain's does neither: f32 rounding apart
+        check(f"{row} f32 chain logits vs module(x) logits", (logits - want).abs().max().item(),
+              1e-4)
+        del m32, ops32, ops_e, got32, ref32
+
+        # times at serving (bf16, dropout off), inputs on the card
+        ops_s, spec_s = chain_case(module, x, extras, training=False)
+        with torch.no_grad():
+            run = lambda: fused_latent_chain(*ops_s, spec_s)
+            out_s = run()
+            (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(
+                lambda: chain_reference(*ops_s, spec_s))
+        t_loop, n_loop = module_loop_profile(module, x, ops_s, out_s)
+        bound, by, mb, gflop = chain_bound(spec_s, BATCH, 2)
+        log(f"  {row} (depth {spec_s.depth}, {spec_s.n_modalities} modalities, l_d "
+            f"{spec_s.l_d}, inner {spec_s.inner}, KV widths "
+            f"{[kv.shape[-1] for kv in ops_s[1]]}) bf16, dropout off: kernel {t_kernel:.4f} ms "
+            f"(1 launch), plain {t_plain:.4f} ms, the module path's latent loop {t_loop:.4f} ms "
+            f"device time in {n_loop:.0f} launches (profiler); bound {bound:.5f} ms ({by}; "
+            f"{mb:.2f} MB, {gflop:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, "
+            f"plain {w_plain:.4f} ms")
+        if row == "brca":
+            entry = dict(name="fused_chain", route="cuda",
+                         source="healnet_tpu_torch/ops/csrc/fused_chain.cu",
+                         replaces="healnet_tpu/ops/fused_chain.py:288", ms=t_kernel,
+                         plain_ms=t_plain, bound_ms=bound, bound_by=by, library_ms=None)
+            log("  library: none (no single PyTorch call computes the chain); the module "
+                f"path's latent loop at brca: {t_loop:.4f} ms, {n_loop:.0f} launches")
+    entry["max_abs_err"] = worst
+    return entry, launches
 
 
 def main() -> int:
@@ -988,17 +1197,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [phase_projection(gen), phase_flash(gen)]
     phase_serving(np.random.default_rng(0))
+    phase_serving_rows(np.random.default_rng(3))
     kernels += [phase_flash_bwd(gen), phase_projection_bwd(gen)]
     launches = phase_training(np.random.default_rng(1))
     kernels += [phase_projection_int8(gen), phase_projection_bwd_int8(gen)]
     launches.update(phase_arena(np.random.default_rng(2)))
+    chain, chain_launches = phase_chain(gen)
+    kernels.append(chain)
+    launches.update(chain_launches)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}
                for k in kernels]
-    bound, by, mb, gflop = chain_bound()
-    log(f"not ported yet: the fused latent chain (healnet_tpu/ops/fused_chain.py:288) at these "
-        f"dims would be bound at {bound:.5f} ms ({by}; {mb:.2f} MB, {gflop:.3f} GFLOP)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ Rematerialisation, meshes and attention capture are not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -216,7 +216,57 @@ class HealNetModule(nn.Module):
             seeds = iter(torch.randint(0, 2**32, (calls,), generator=src, device=src.device,
                                        dtype=torch.int64).tolist())
         b = tensors[0].shape[0]
+        kvs, cdt = self.project_contexts(tensors)
+        if presence is None:
+            presence = torch.ones((b, self.n_modalities), dtype=cdt, device=tensors[0].device)
+        presence = presence.to(cdt)
+        if kv_masks is None:
+            kv_masks = [None] * self.n_modalities
 
+        # each group's K|V columns of the merged buffers
+        group_keys = list(self.groups)
+        width = 2 * self.cross_dim_head * self.x_heads
+        kv_cache = {}
+        for i, kv_all in enumerate(kvs):
+            for key, sl in zip(group_keys, split_columns(kv_all, [width] * len(group_keys))):
+                kv_cache[(key, i)] = sl
+
+        x = self.latents.to(cdt).expand(b, self.l_c, self.l_d)
+
+        for layer in range(self.depth):
+            key = _tie_key(layer, self.weight_tie_layers)
+            group = self.groups[key]
+            for i in range(self.n_modalities):
+                pres = presence[:, i][:, None, None]
+                update, _ = self._mod(group["cross_attns"][i])(
+                    x, kv_mask=kv_masks[i], kv=kv_cache[(key, i)],
+                    dropout_seed=next(seeds, None),
+                )
+                x = pres * update + x
+                x = pres * self._mod(group["cross_ffs"][i])(x, generator) + x
+                # self-attention runs once per modality iteration
+                for blk in range(self.self_per_cross_attn):
+                    update, _ = self._mod(group["self_attns"][blk])(
+                        x, dropout_seed=next(seeds, None))
+                    x = update + x
+                    x = self._mod(group["self_ffs"][blk])(x, generator) + x
+
+        if return_embeddings or not self.final_classifier_head:
+            return x
+        pooled = torch.mean(x, dim=1)
+        return self.final_head(self.final_norm(pooled))
+
+    def project_contexts(
+        self, tensors: Sequence[torch.Tensor]
+    ) -> Tuple[List[torch.Tensor], torch.dtype]:
+        """Each modality's merged KV buffer and the compute dtype.
+
+        One merged folded-KV projection per modality: every layer group's
+        K|V columns side by side, in ``self.groups`` order, ``(b, tokens_i,
+        n_groups * 2 * inner)``. The compute dtype is the module's ``dtype``,
+        else the first input's (float32 for a quantized one).
+        """
+        b = tensors[0].shape[0]
         # raw data and the batch-shared positional encoding stay separate:
         # the merged projection normalizes on its output
         compute_dt = self.dtype if self.dtype is not None else torch.float32
@@ -247,53 +297,16 @@ class HealNetModule(nn.Module):
 
         first = context_parts[0][0]
         cdt = compute_dt if isinstance(first, QuantizedContext) else first.dtype
-        if presence is None:
-            presence = torch.ones((b, self.n_modalities), dtype=cdt, device=tensors[0].device)
-        presence = presence.to(cdt)
-        if kv_masks is None:
-            kv_masks = [None] * self.n_modalities
-
-        # one merged folded-KV projection per modality, sliced per group
-        group_keys = list(self.groups)
-        kv_cache = {}
+        kvs = []
         for i, (dat, enc_flat) in enumerate(context_parts):
-            folds = [self._mod(self.groups[key]["cross_attns"][i]).kv_fold() for key in group_keys]
+            folds = [self._mod(group["cross_attns"][i]).kv_fold() for group in self.groups.values()]
             w_all = torch.cat([w for w, _ in folds], dim=1)  # (D, F) f32
             b_all = torch.cat([fb for _, fb in folds])       # (F,)
-            kv_all = fused_kv_project(
+            kvs.append(fused_kv_project(
                 dat, enc_flat, w_all, b_all, eps=1e-5, impl=self.projection_impl,
                 out_dtype=compute_dt if isinstance(dat, QuantizedContext) else None,
-            )
-            widths = [w.shape[1] for w, _ in folds]
-            rem = kv_all.shape[-1] - sum(widths)
-            slices = split_columns(kv_all, widths + ([rem] if rem else []))
-            for key, sl in zip(group_keys, slices):
-                kv_cache[(key, i)] = sl
-
-        x = self.latents.to(cdt).expand(b, self.l_c, self.l_d)
-
-        for layer in range(self.depth):
-            key = _tie_key(layer, self.weight_tie_layers)
-            group = self.groups[key]
-            for i in range(self.n_modalities):
-                pres = presence[:, i][:, None, None]
-                update, _ = self._mod(group["cross_attns"][i])(
-                    x, kv_mask=kv_masks[i], kv=kv_cache[(key, i)],
-                    dropout_seed=next(seeds, None),
-                )
-                x = pres * update + x
-                x = pres * self._mod(group["cross_ffs"][i])(x, generator) + x
-                # self-attention runs once per modality iteration
-                for blk in range(self.self_per_cross_attn):
-                    update, _ = self._mod(group["self_attns"][blk])(
-                        x, dropout_seed=next(seeds, None))
-                    x = update + x
-                    x = self._mod(group["self_ffs"][blk])(x, generator) + x
-
-        if return_embeddings or not self.final_classifier_head:
-            return x
-        pooled = torch.mean(x, dim=1)
-        return self.final_head(self.final_norm(pooled))
+            ))
+        return kvs, cdt
 
     def _mod(self, name: str) -> nn.Module:
         return self._modules[name]

@@ -11,6 +11,15 @@ from healnet_tpu_torch.ops.attention import (
     split_heads,
 )
 from healnet_tpu_torch.ops.flash_attention import flash_cross_attention
+from healnet_tpu_torch.ops.fused_chain import (
+    WEIGHT_FIELDS,
+    ChainSpec,
+    chain_reference,
+    chain_spec,
+    fused_chain_kernel,
+    fused_latent_chain,
+    stack_chain_weights,
+)
 from healnet_tpu_torch.ops.fourier import (
     fourier_channels,
     fourier_encode,
@@ -25,12 +34,18 @@ from healnet_tpu_torch.ops.quantize import (
 
 __all__ = [
     "GATED_ACTIVATIONS",
+    "WEIGHT_FIELDS",
+    "ChainSpec",
     "QuantizedContext",
     "attention_scores",
+    "chain_reference",
+    "chain_spec",
     "flash_cross_attention",
     "fourier_channels",
     "fourier_encode",
+    "fused_chain_kernel",
     "fused_kv_project",
+    "fused_latent_chain",
     "gated_gelu",
     "gated_relu",
     "gated_selu",
@@ -40,4 +55,5 @@ __all__ = [
     "quantize_context",
     "quantize_context_host",
     "split_heads",
+    "stack_chain_weights",
 ]

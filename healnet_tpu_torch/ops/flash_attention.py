@@ -26,21 +26,15 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
-from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_threshold
+from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep_threshold
 
 _KEY_TILE = 32  # keys per tile in both kernels (kTile)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
 _NEG_BIG = -1e30
-
-
-def _keep_scale(rate: float) -> float:
-    """The kept probabilities' multiplier, f32(1 / (1 - rate)) as in JAX."""
-    return float(np.float32(1.0 / (1.0 - rate))) if rate > 0 else 1.0
 
 
 def _lib() -> ctypes.CDLL:
@@ -145,7 +139,7 @@ def flash_attention_kernel(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             0 if mask is None else mask.stride(0),
             float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
-            keep_threshold(rate), _keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
+            keep_threshold(rate), keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
         )
     flash_attention_kernel.launches += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
@@ -206,7 +200,7 @@ def flash_attention_bwd_kernel(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             0 if mask is None else mask.stride(0),
             float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
-            keep_threshold(rate), _keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
+            keep_threshold(rate), keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
         )
     flash_attention_bwd_kernel.launches += 1
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")
@@ -267,7 +261,7 @@ def flash_backward_plain(
     rate = float(dropout_rate)
     if rate > 0:
         keep = dense_keep_mask(dropout_seed, b * h, lq, lkv, rate, device=q.device)
-        e = keep.reshape(b, h, lq, lkv).float() * _keep_scale(rate)
+        e = keep.reshape(b, h, lq, lkv).float() * keep_scale(rate)
     else:
         e = torch.ones((), dtype=torch.float32, device=q.device)
     dof = do.float()

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 _MASK32 = 0xFFFFFFFF
@@ -46,6 +47,12 @@ def keep_threshold(dropout_rate: float) -> int:
     """uint32 threshold t with P(mix < t) = 1 - rate."""
     keep = max(0.0, min(1.0, 1.0 - float(dropout_rate)))
     return min(int(keep * 2.0**32), 2**32 - 1)
+
+
+def keep_scale(dropout_rate: float) -> float:
+    """The kept values' multiplier, f32(1 / (1 - rate)) as in JAX (1 at rate 0)."""
+    rate = float(dropout_rate)
+    return float(np.float32(1.0 / (1.0 - rate))) if rate > 0 else 1.0
 
 
 def _u32(x: Union[int, torch.Tensor]) -> Union[int, torch.Tensor]:

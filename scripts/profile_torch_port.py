@@ -43,7 +43,7 @@ from chip_smoke import (  # noqa: E402
     PATCH,
     TOKENS,
     device_us,
-    brca_predictor,
+    predictor,
     brca_trainer,
     device_profile,
     train_batch,
@@ -83,7 +83,7 @@ def report(name: str, fn, reps: int) -> None:
 
 
 def profile_serving(reps: int) -> None:
-    pred = brca_predictor(torch.bfloat16, "flash", "auto")
+    pred = predictor(torch.bfloat16, "flash", "auto")
     rng = np.random.default_rng(0)
     omic = rng.standard_normal((BATCH, 1, OMIC), dtype=np.float32)
     wsi = rng.standard_normal((BATCH, TOKENS, PATCH), dtype=np.float32)

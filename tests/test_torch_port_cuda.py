@@ -27,6 +27,14 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_backward_plain,
     flash_cross_attention,
 )
+from healnet_tpu_torch.ops.fused_chain import (
+    WEIGHT_FIELDS,
+    ChainSpec,
+    chain_reference,
+    fused_chain_kernel,
+    fused_latent_chain,
+    weight_shapes,
+)
 from healnet_tpu_torch.ops.fused_project import (
     _prep,
     fused_kv_project,
@@ -351,3 +359,74 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fused_project_kernel(dat, *ops, scale=torch.zeros((1, 4), device="cuda"))
     with pytest.raises(ValueError):  # the scale's shape
         fused_project_kernel(q, *ops, scale=torch.zeros((4,), device="cuda"))
+
+
+def _chain_operands(gen, dtype, spec):
+    """Seeded operands of one chain call on the card: a ragged mask with a
+    fully masked row on the bag, presence zeros, FF keep multipliers when
+    the spec's FF dropout is on."""
+    b, dev = 3, "cuda"
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    width = max(spec.offsets) + 2 * spec.inner + 3
+    x0 = rand(b, spec.l_c, spec.l_d).to(dtype)
+    # K|V slices at odd element offsets, as the merged KV gives them
+    kvs = [rand(b, t, width + 1)[..., 1:].to(dtype) for t in spec.tokens]
+    lengths = torch.randint(1, spec.tokens[1] + 1, (b,), generator=gen, device=dev)
+    lengths[1] = 0
+    masks = [None, torch.arange(spec.tokens[1], device=dev)[None, :] < lengths[:, None]]
+    keep = None
+    if spec.ff_dropout > 0:
+        keep = (torch.rand((b, spec.sites, spec.l_c, spec.l_d), generator=gen, device=dev)
+                > spec.ff_dropout) / (1.0 - spec.ff_dropout)
+    presence = torch.ones((b, 2), device=dev)
+    presence[0, 1] = presence[2, 0] = 0.0
+    seeds = torch.randint(0, 2**32, (spec.depth, 2), generator=gen, device=dev,
+                          dtype=torch.int64)
+    weights = []
+    for name, shape in zip(WEIGHT_FIELDS, weight_shapes(spec)):
+        w = rand(*shape)
+        weights.append(1.0 + 0.1 * w if name in ("ln1_s", "ln2_s") else
+                       w / shape[-2] ** 0.5 if name in ("wq", "wout", "w0", "w2") else 0.1 * w)
+    return x0, kvs, masks, keep, presence, seeds, weights
+
+
+CHAIN_SPECS = {  # l_c 17 and inner 15 unless given; 24 and 70 take the other instantiations
+    "dropout_ff_keep": dict(depth=2, act="selu", offsets=(0, 30), attn_dropout=0.3,
+                            ff_dropout=0.2),
+    "tied_gelu": dict(depth=3, act="gelu", offsets=(0, 30, 30), attn_dropout=0.0,
+                      ff_dropout=0.0),
+    "wide_rows_and_heads": dict(depth=2, act="selu", offsets=(0, 140), attn_dropout=0.3,
+                                ff_dropout=0.0, l_c=24, inner=70),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(CHAIN_SPECS))
+def test_chain_kernel_matches_plain(gen, dtype, case):
+    dims = {"l_c": 17, "inner": 15, **CHAIN_SPECS[case]}
+    spec = ChainSpec(n_modalities=2, l_d=32, mult=4, scale=dims["inner"]**-0.5 / 0.5,
+                     tokens=(1, 300), has_mask=(False, True), out_dtype=str(dtype)[6:], **dims)
+    ops = _chain_operands(gen, dtype, spec)
+    fused_chain_kernel.launches = 0
+    got = fused_latent_chain(*ops, spec)
+    assert fused_chain_kernel.launches == 1
+    ref = chain_reference(*ops, spec)
+    assert got.dtype == dtype and got.shape == ref.shape
+    # f32: sums in another order; bf16: q and the dropped probabilities
+    # round at the same places in both, the output once: 4 ulps of the
+    # largest value
+    tol = 2e-5 * max(1.0, ref.abs().max().item()) if dtype == torch.float32 else _bf16_tol(ref)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_chain_kernel_is_forward_only(gen):
+    spec = ChainSpec(depth=1, n_modalities=2, l_c=5, l_d=16, inner=8, mult=4, act="selu",
+                     scale=8**-0.5 / 0.5, attn_dropout=0.0, ff_dropout=0.0, tokens=(1, 40),
+                     offsets=(0,), has_mask=(False, True), out_dtype="float32")
+    x0, kvs, masks, keep, presence, seeds, weights = _chain_operands(gen, torch.float32, spec)
+    weights[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_latent_chain(x0, kvs, masks, keep, presence, seeds, weights, spec)
+    with torch.no_grad():
+        assert fused_latent_chain(x0, kvs, masks, keep, presence, seeds, weights,
+                                  spec).shape == x0.shape

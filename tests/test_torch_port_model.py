@@ -26,17 +26,20 @@ BASE = dict(
 )
 
 
-def _inputs(rng, b=3):
-    return [
+def _inputs(rng, b=3, n=2):
+    x = [
         rng.normal(size=(b, 1, 12)).astype(np.float32),
         rng.normal(size=(b, 4, 5, 10)).astype(np.float32),
     ]
+    if n == 3:  # a third bag, as bench.py's trimodal row adds one
+        x.append(rng.normal(size=(b, 16, 7)).astype(np.float32))
+    return x
 
 
 def _pair(rng, torch_kw=None, **kw):
     cfg = {**BASE, **kw}
     jmod = JaxHealNet(**cfg, projection_impl="xla")
-    x = _inputs(rng)
+    x = _inputs(rng, n=cfg["n_modalities"])
     params = jmod.init(jax.random.PRNGKey(0), tuple(map(jnp.asarray, x)))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     tmod = TorchHealNet(**cfg, **(torch_kw or {}), device="cpu").eval()
@@ -68,8 +71,10 @@ def _run_both(jmod, params, tmod, x, presence=None, kv_masks=None):
         dict(self_per_cross_attn=1, snn=True),
         dict(self_per_cross_attn=0, snn=False),
         dict(self_per_cross_attn=1, snn=False, depth=3, weight_tie_layers=True),
+        dict(self_per_cross_attn=0, snn=True, x_heads=1, n_modalities=3,
+             channel_dims=(12, 10, 7), num_spatial_axes=(1, 2, 1)),
     ],
-    ids=["d2_s0_snn", "d2_s1_snn", "d2_s0_gelu", "d3_tied_s1_gelu"],
+    ids=["d2_s0_snn", "d2_s1_snn", "d2_s0_gelu", "d3_tied_s1_gelu", "trimodal_s0_snn"],
 )
 def test_logits_match_jax(rng, kw):
     jmod, params, tmod, x = _pair(rng, **kw)

@@ -36,21 +36,29 @@ TOPOLOGIES = {
                  latent_dim_head=113, self_per_cross_attn=0),
     "tied": dict(depth=3, l_c=9, l_d=16, x_heads=2, cross_dim_head=6, l_heads=2,
                  latent_dim_head=4, self_per_cross_attn=1, weight_tie_layers=True, snn=False),
+    "trimodal": dict(depth=2, l_c=17, l_d=126, x_heads=1, cross_dim_head=63, l_heads=8,
+                     latent_dim_head=20, self_per_cross_attn=0, n_modalities=3,
+                     channel_dims=(40, 32, 24), num_spatial_axes=(1, 1, 1)),
 }
 COMMON = dict(n_modalities=2, channel_dims=(40, 32), num_spatial_axes=(1, 1), out_dims=4,
               num_freq_bands=2, max_freq=2.0)
 B, TOKENS = 4, 24
 
 
-def _inputs(rng, b=B):
-    return [rng.normal(size=(b, 1, 40)).astype(np.float32),
-            rng.normal(size=(b, TOKENS, 32)).astype(np.float32)]
+def _inputs(rng, b=B, n=2):
+    """The omic vector and the WSI bag; a third modality (16 x 24) for n=3."""
+    x = [rng.normal(size=(b, 1, 40)).astype(np.float32),
+         rng.normal(size=(b, TOKENS, 32)).astype(np.float32)]
+    if n == 3:
+        x.append(rng.normal(size=(b, 16, 24)).astype(np.float32))
+    return x
 
 
 def _pair(rng, topo, **kw):
     cfg = {**COMMON, **TOPOLOGIES[topo], **kw}
     jmod = JaxHealNet(**cfg, projection_impl="xla")
-    params = jmod.init(jax.random.PRNGKey(0), tuple(map(jnp.asarray, _inputs(rng))))["params"]
+    x = _inputs(rng, n=cfg["n_modalities"])
+    params = jmod.init(jax.random.PRNGKey(0), tuple(map(jnp.asarray, x)))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     tmod = TorchHealNet(**cfg, device="cpu")
     tmod.load_state_dict(state_dict_from_flax(params))
@@ -76,19 +84,23 @@ def _batch(rng, b=B, pad=0):
 @pytest.mark.parametrize("topo", list(TOPOLOGIES))
 def test_model_param_grads_match_jax(rng, topo, gated):
     jmod, params, tmod = _pair(rng, topo)
-    x = _inputs(rng)
+    n = tmod.n_modalities
+    x = _inputs(rng, n=n)
     weight = rng.normal(size=(B, 4)).astype(np.float32)
     presence = mask = None
     if gated:
-        presence = np.array([[1, 1], [1, 0], [0, 1], [1, 1]], np.float32)
+        presence = np.ones((B, n), np.float32)
+        presence[1, 1] = presence[2, 0] = 0.0
         mask = rng.uniform(size=(B, TOKENS)) > 0.3
         mask[3] = False  # a sample whose whole bag is masked
+    masks = None if mask is None else (None, mask) + (None,) * (n - 2)
 
     def jloss(p):
         logits = jmod.apply(
             {"params": p}, tuple(map(jnp.asarray, x)),
             presence=None if presence is None else jnp.asarray(presence),
-            kv_masks=None if mask is None else (None, jnp.asarray(mask)),
+            kv_masks=None if masks is None else tuple(
+                None if m is None else jnp.asarray(m) for m in masks),
         )
         return jnp.sum(logits * jnp.asarray(weight))
 
@@ -97,7 +109,8 @@ def test_model_param_grads_match_jax(rng, topo, gated):
     logits = tmod(
         [torch.from_numpy(a) for a in x],
         presence=None if presence is None else torch.from_numpy(presence),
-        kv_masks=None if mask is None else [None, torch.from_numpy(mask)],
+        kv_masks=None if masks is None else [
+            None if m is None else torch.from_numpy(m) for m in masks],
     )
     torch.sum(logits * torch.from_numpy(weight)).backward()
     got = dict(tmod.named_parameters())
