@@ -12,7 +12,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    f32 shape, and time kernel, plain version, the library GEMM and the bound;
 3. the same for the flash cross-attention kernel at (8, 17, 4096, 63) bf16:
    unmasked, masked with ragged lengths and one fully masked row, and with
-   hash dropout, plus a small f32 case;
+   hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
+   f32 case; then at brca and kirp in bf16 (the tensor-core variant, which
+   must be one kernel launch per call) and brca in f32 (the FMA variant),
+   unmasked: each call's kernels on the profiler, and the times of kernel,
+   plain version, SDPA and the bound;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -23,17 +27,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    8, kernel path against plain path in bf16 and f32;
 5. hold the flash cross-attention backward kernel against its plain version
    at (8, 17, 4096, 63) bf16 (unmasked, masked with a fully masked row,
-   dropout 0.083), at the one-token omic context, and at a small f32 shape;
-   time kernel, plain version, SDPA's backward and the bound;
+   dropout 0.083), at the one-token omic context, at kirp's shape and at a
+   small f32 shape; profile and time it as phase 3 does the forward, with
+   SDPA's backward as the library call;
 6. the same for the projection backward (cotangent pass) kernel at
    (8, 4096, 252) bf16 and a small f32 shape;
 7. train the full-width BRCA model through ``SurvivalTrainer.train_step``
    (dropout 0.083 / 0.473, NLL/16 + L1, Adam under OneCycle): step-1 loss and
    gradients of the kernel path against the plain path with the same weights
-   and dropout draws, in f32 and bf16; then 5 bf16 steps on the kernel path,
-   the main path's run, which must launch all four kernels and give finite
-   losses; step time, samples/s and peak memory, and one step with plain
-   attention for comparison;
+   and dropout draws, in f32 (the run of the flash kernels' FMA variants)
+   and bf16; then 5 bf16 steps on the kernel path, the main path's run,
+   which must launch all four kernels (the flash kernels' tensor-core
+   variants) and give finite losses; step time, samples/s, peak memory and
+   the flash kernels' share of the step's device time, and one step with
+   plain attention for comparison;
 8. hold the int8 branch of the projection kernel against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
    and f32 compute (kv, s1, s2), and time kernel, plain version, the library
@@ -112,6 +119,8 @@ KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "fused_project_bwd": (fused_project_bwd_kernel, "launches"),
            "flash_attention": (flash_attention_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
+           "flash_attention_fma": (flash_attention_kernel, "launches_fma"),
+           "flash_attention_bwd_fma": (flash_attention_bwd_kernel, "launches_fma"),
            "fused_project_int8": (fused_project_kernel, "launches_int8"),
            "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8"),
            "fused_chain": (fused_chain_kernel, "launches")}
@@ -310,64 +319,115 @@ def phase_projection(gen) -> dict:
 # ---------------------------------------------------------------- phase 3
 
 
-def attention_inputs(gen, b, lq, lkv, d, dtype):
-    """q (b, 1, lq, d), and k/v as the column slices of a merged KV buffer
-    (b, lkv, 4 d), as the model hands them to the kernel."""
+def attention_inputs(gen, b, lq, lkv, d, dtype, width=None):
+    """q (b, 1, lq, d), and k/v as the column slices at element offsets d
+    and 2 d of a merged KV buffer (b, lkv, width), 4 d wide unless given
+    (brca's is 252 = 4 x 63, kirp's 270), as the model hands them over."""
     q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
-    kv = torch.randn((b, lkv, 4 * d), generator=gen, device="cuda").to(dtype)
+    kv = torch.randn((b, lkv, width or 4 * d), generator=gen, device="cuda").to(dtype)
     return q, kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
 
 
-def phase_flash(gen) -> dict:
+def launch_profile(fn):
+    """(device kernels a call launches, a line naming each with its mean
+    device microseconds per launch and its launches per call), from
+    :func:`device_profile` over 3 calls (the profiler may drop an event,
+    so times are per launch seen)."""
+    _, _, _, rows = device_profile(fn)
+    parts = [f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:48]} "
+             f"{device_us(e) / e.count:.2f} us per launch ({e.count / 3:.2f} per call)"
+             for e in rows]
+    return len(rows), "; ".join(parts)
+
+
+# the flash kernels' timed shapes: (8, 17, 4096, d), K and V slices of a
+# merged KV buffer of the row's width, unmasked
+FLASH_SHAPES = {"brca": (63, 252, torch.bfloat16), "kirp": (27, 270, torch.bfloat16),
+                "brca f32": (63, 252, torch.float32)}
+
+
+def flash_entry(name, source, replaces, err, timing) -> dict:
+    t_kernel, t_plain, t_library, bound, by = timing
+    return dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
+                ms=t_kernel, plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                library_ms=t_library)
+
+
+def time_flash(label, run, plain, library, moved, flops, dtype, library_name):
+    """Profile one call (a bf16 call must be one kernel launch), then time
+    kernel, plain version and library call; returns the kernels-line times."""
+    kinds, prof = launch_profile(run)
+    log(f"  {label}: kernels on the profiler: {prof}")
+    if dtype == torch.bfloat16 and kinds != 1:
+        raise AssertionError(f"{label}: a bf16 call launched {kinds} kernels, not 1")
+    (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(plain)
+    t_library, _ = time_ms(library)
+    bound, by = bound_ms(moved, flops, dtype)
+    log(f"  {label}: device time kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+        f"{library_name} {t_library:.4f} ms, bound {bound:.5f} ms ({by}; {moved / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, plain "
+        f"{w_plain:.4f} ms")
+    return t_kernel, t_plain, t_library, bound, by
+
+
+def phase_flash(gen):
+    """Returns the kernels-line entries of the tensor-core (bf16) and FMA
+    (f32) variants."""
     log("phase 3: flash cross-attention kernel vs plain version")
-    b, lq, lkv, d = BATCH, 17, TOKENS, 63
-    scale = d**-0.5
-    q, k, v = attention_inputs(gen, b, lq, lkv, d, torch.bfloat16)
+    b, lq, lkv = BATCH, 17, TOKENS
     lengths = torch.randint(1, lkv, (b,), generator=gen, device="cuda")
     lengths[0] = 0  # a sample whose whole bag is masked
     mask = torch.arange(lkv, device="cuda")[None, :] < lengths[:, None]
-    cases = {"unmasked": (None, 0.0), "masked": (mask, 0.0), "dropout 0.083": (mask, 0.083)}
+    # (head dim, KV width, mask, dropout rate); kirp's rate is its row's
+    cases = {"(8, 17, 4096, 63) unmasked": (63, 252, None, 0.0),
+             "(8, 17, 4096, 63) masked": (63, 252, mask, 0.0),
+             "(8, 17, 4096, 63) dropout 0.083": (63, 252, mask, 0.083),
+             "kirp (8, 17, 4096, 27) masked, dropout 0.318": (
+                 27, 270, mask, ROWS["kirp"]["attn_dropout"])}
     seed = 0x9E3779B9
     worst = 0.0
-    for label, (m, rate) in cases.items():
-        out, _ = flash_attention_kernel(q, k, v, m, scale / 0.5, rate, seed)
+    for label, (d, width, m, rate) in cases.items():
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, torch.bfloat16, width=width)
+        out, _ = flash_attention_kernel(q, k, v, m, d**-0.5 / 0.5, rate, seed)
         # plain version on the same (bf16) values, held in f32
-        ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=scale,
+        ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5,
                                      temperature=0.5, kv_mask=m, dropout_rate=rate,
                                      dropout_seed=seed)
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
         # bf16: the kernel rounds the probabilities to bf16 before the value
         # product (as the TPU kernel does) and rounds the output
-        check(f"bf16 (8, 17, 4096, 63) {label}", err, 2e-2)
+        check(f"bf16 {label}", err, 2e-2)
         if m is not None:
             assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
-        worst = max(worst, err)
+        if d == 63:
+            worst = max(worst, err)
     qf, kf, vf = attention_inputs(gen, 2, 17, 300, 63, torch.float32)
     mf = torch.rand((2, 300), generator=gen, device="cuda") > 0.3
-    out, _ = flash_attention_kernel(qf, kf, vf, mf, scale / 0.5, 0.3, seed)
-    ref, _ = multihead_attention(qf, kf, vf, scale=scale, kv_mask=mf, dropout_rate=0.3,
+    out, _ = flash_attention_kernel(qf, kf, vf, mf, 63**-0.5 / 0.5, 0.3, seed)
+    ref, _ = multihead_attention(qf, kf, vf, scale=63**-0.5, kv_mask=mf, dropout_rate=0.3,
                                  dropout_seed=seed)
-    # f32: online softmax against materialised weights, as the JAX package's
-    # own flash tests hold them
-    check("f32 (2, 17, 300, 63) masked, dropout 0.3", (out - ref).abs().max().item(), 2e-5)
+    # f32 (the FMA variant): online softmax against materialised weights, as
+    # the JAX package's own flash tests hold them
+    err_f32 = (out - ref).abs().max().item()
+    check("f32 (2, 17, 300, 63) masked, dropout 0.3", err_f32, 2e-5)
 
-    run = lambda: flash_attention_kernel(q, k, v, None, scale / 0.5)
-    out, lse = run()
-    t_kernel, w_kernel = time_ms(run)
-    t_plain, w_plain = time_ms(lambda: multihead_attention(q, k, v, scale=scale))
-    t_library, _ = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, scale=scale / 0.5))
-    flops = 4.0 * b * lq * lkv * d
-    bound, by = bound_ms(nbytes(q, out, lse) + 2 * b * lkv * d * 2, flops, torch.bfloat16)
-    log(f"  device time at (8, 17, 4096, 63) bf16 unmasked: kernel {t_kernel:.4f} ms, "
-        f"plain {t_plain:.4f} ms, SDPA {t_library:.4f} ms, bound {bound:.5f} ms ({by}); "
-        f"wall per call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms")
-    return dict(name="flash_attention", route="cuda",
-                source="healnet_tpu_torch/ops/csrc/flash_attention.cu",
-                replaces="healnet_tpu/ops/flash_attention.py:98",
-                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=t_library)
+    timings = {}
+    for label, (d, width, dtype) in FLASH_SHAPES.items():
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
+        run = lambda: flash_attention_kernel(q, k, v, None, d**-0.5 / 0.5)
+        out, lse = run()
+        timings[label] = time_flash(
+            f"{label} ({b}, {lq}, {lkv}, {d}) {str(dtype)[6:]} unmasked", run,
+            lambda: multihead_attention(q, k, v, scale=d**-0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                     scale=d**-0.5 / 0.5),
+            nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
+    source = "healnet_tpu_torch/ops/csrc/flash_attention.cu"
+    return (flash_entry("flash_attention", source, "healnet_tpu/ops/flash_attention.py:98",
+                        worst, timings["brca"]),
+            flash_entry("flash_attention_fma", source, "healnet_tpu/ops/flash_attention.py:98",
+                        err_f32, timings["brca f32"]))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -493,36 +553,41 @@ def phase_serving_rows(host_rng) -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def flash_bwd_inputs(gen, b, lkv, dtype, mask, rate, seed):
+def flash_bwd_inputs(gen, b, lkv, dtype, mask, rate, seed, d=63, width=None):
     """The backward's inputs at the model's layout: q, k, v, dO and the
     forward kernel's lse, and delta = rowsum(dO * O)."""
-    d = 63
-    q, k, v = attention_inputs(gen, b, 17, lkv, d, dtype)
+    q, k, v = attention_inputs(gen, b, 17, lkv, d, dtype, width=width)
     out, lse = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, rate, seed)
     do = torch.randn((b, 17, d), generator=gen, device="cuda").to(dtype)
     delta = (do.float() * out.float()).sum(-1)[:, None]
     return q, k, v, do[:, None], lse, delta
 
 
-def phase_flash_bwd(gen) -> dict:
+def phase_flash_bwd(gen):
+    """Returns the kernels-line entries of the tensor-core (bf16) and FMA
+    (f32) variants."""
     log("phase 5: flash cross-attention backward kernel vs plain version")
-    b, lq, lkv, d = BATCH, 17, TOKENS, 63
-    eff = d**-0.5 / 0.5
+    b, lq, lkv = BATCH, 17, TOKENS
     seed = 0x2545F491
     lengths = torch.randint(1, lkv, (b,), generator=gen, device="cuda")
     lengths[0] = 0  # a sample whose whole bag is masked
     mask = torch.arange(lkv, device="cuda")[None, :] < lengths[:, None]
-    cases = {"unmasked": (b, lkv, torch.bfloat16, None, 0.0),
-             "masked": (b, lkv, torch.bfloat16, mask, 0.0),
-             "dropout 0.083": (b, lkv, torch.bfloat16, mask, 0.083),
-             "omic lkv=1, dropout 0.083": (b, 1, torch.bfloat16, None, 0.083),
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (batch, keys, dtype, mask, dropout rate, head dim, KV width)
+    cases = {"unmasked": (b, lkv, bf16, None, 0.0, 63, 252),
+             "masked": (b, lkv, bf16, mask, 0.0, 63, 252),
+             "dropout 0.083": (b, lkv, bf16, mask, 0.083, 63, 252),
+             "omic lkv=1, dropout 0.083": (b, 1, bf16, None, 0.083, 63, 252),
+             "kirp (8, 17, 4096, 27) masked, dropout 0.318": (
+                 b, lkv, bf16, mask, ROWS["kirp"]["attn_dropout"], 27, 270),
              "f32 (2, 17, 300, 63) masked, dropout 0.3": (
-                 2, 300, torch.float32, torch.rand((2, 300), generator=gen, device="cuda") > 0.3,
-                 0.3)}
-    worst = 0.0
-    for label, (nb, n, dtype, m, rate) in cases.items():
-        args = flash_bwd_inputs(gen, nb, n, dtype, m, rate, seed)
+                 2, 300, f32, torch.rand((2, 300), generator=gen, device="cuda") > 0.3, 0.3,
+                 63, 252)}
+    worst = {bf16: 0.0, f32: 0.0}
+    for label, (nb, n, dtype, m, rate, d, width) in cases.items():
+        args = flash_bwd_inputs(gen, nb, n, dtype, m, rate, seed, d, width)
         q, k, v, do, lse, delta = args
+        eff = d**-0.5 / 0.5
         got = flash_attention_bwd_kernel(q, k, v, m, do, lse, delta, eff, rate, seed)
         ref = flash_backward_plain(q, k, v, m, do, lse, delta, eff, rate, seed)
         torch.cuda.synchronize()
@@ -532,36 +597,36 @@ def phase_flash_bwd(gen) -> dict:
             # f32: sums in another order; bf16: kernel and plain version round
             # p and ds to bf16 at the same places and sum in another order,
             # so a term may round one ulp apart: 4 ulps of the largest value
-            tol = 1e-5 * max(1.0, top) if dtype == torch.float32 else 4 * bf16_ulp(top)
+            tol = 1e-5 * max(1.0, top) if dtype == f32 else 4 * bf16_ulp(top)
             check(f"{label} {name}", err, tol)
-            if dtype == torch.bfloat16 and n == lkv:
-                worst = max(worst, err)
+            if (dtype == f32 or n == lkv) and d == 63:
+                worst[dtype] = max(worst[dtype], err)
         if m is not None and m.shape[0] == b:
             assert all(g[0].abs().max().item() == 0.0 for g in got), \
                 "a fully masked row must get zero gradients"
 
-    q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, torch.bfloat16, None, 0.0, seed)
-    run = lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff)
-    dq, dk, dv = run()
-    t_kernel, w_kernel = time_ms(run)
-    t_plain, w_plain = time_ms(
-        lambda: flash_backward_plain(q, k, v, None, do, lse, delta, eff))
-    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=eff)
-    t_library, _ = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
-                                                       retain_graph=True))
-    # five (lq x lkv x d) products: scores, dO V^T, dV, dK, dQ
-    flops = 10.0 * b * lq * lkv * d
-    bound, by = bound_ms(nbytes(q, k, v, do, lse, delta, dq, dk, dv), flops, torch.bfloat16)
-    log(f"  device time at (8, 17, 4096, 63) bf16 unmasked: kernel {t_kernel:.4f} ms, "
-        f"plain {t_plain:.4f} ms, SDPA backward {t_library:.4f} ms, bound {bound:.5f} ms "
-        f"({by}; {flops / 1e9:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, "
-        f"plain {w_plain:.4f} ms")
-    return dict(name="flash_attention_bwd", route="cuda",
-                source="healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-                replaces="healnet_tpu/ops/flash_attention.py:201",
-                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=t_library)
+    timings = {}
+    for label, (d, width, dtype) in FLASH_SHAPES.items():
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.0, seed, d,
+                                                   width)
+        eff = d**-0.5 / 0.5
+        run = lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff)
+        dq, dk, dv = run()
+        ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=eff)
+        # five (lq x lkv x d) products: scores, dO V^T, dV, dK, dQ
+        timings[label] = time_flash(
+            f"{label} ({b}, {lq}, {lkv}, {d}) {str(dtype)[6:]} unmasked", run,
+            lambda: flash_backward_plain(q, k, v, None, do, lse, delta, eff),
+            lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+            nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * d, dtype,
+            "SDPA backward")
+    source = "healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
+    return (flash_entry("flash_attention_bwd", source, "healnet_tpu/ops/flash_attention.py:201",
+                        worst[bf16], timings["brca"]),
+            flash_entry("flash_attention_bwd_fma", source,
+                        "healnet_tpu/ops/flash_attention.py:201", worst[f32],
+                        timings["brca f32"]))
 
 
 # ---------------------------------------------------------------- phase 6
@@ -681,12 +746,12 @@ def worst_grad_error(module, ref: dict):
 
 
 def step_times(trainer, batch):
-    """(wall ms per synchronous step, device busy ms per step, idle share),
-    inputs on the card."""
+    """(wall ms per synchronous step, device busy ms per step, idle share,
+    the profiler's device events over 3 steps), inputs on the card."""
     step = lambda: trainer.train_step(batch, HORIZON)
     wall = wall_ms(step)
-    _, busy, _, _ = device_profile(step)
-    return wall, busy, 1.0 - busy / wall
+    _, busy, _, rows = device_profile(step)
+    return wall, busy, 1.0 - busy / wall, rows
 
 
 def phase_training(host_rng) -> dict:
@@ -694,10 +759,15 @@ def phase_training(host_rng) -> dict:
     batch32 = train_batch(host_rng, torch.float32)
     k32 = brca_trainer(None, "flash", "auto")
     state = {k: v.clone() for k, v in k32.module.state_dict().items()}
+    plain32 = brca_trainer(None, "xla", "xla", state)
     # f32: both paths in full f32 (no TF32), differing in summation order
-    # only, and drawing the same dropout masks: tight
-    compare_gradients("f32", k32, brca_trainer(None, "xla", "xla", state), batch32, 1e-5, 1e-4)
-    del batch32, k32
+    # only, and drawing the same dropout masks: tight. The f32 kernel-path
+    # step is the run of the flash kernels' FMA variants.
+    reset_launches()
+    compare_gradients("f32", k32, plain32, batch32, 1e-5, 1e-4)
+    fma = read_launches("the f32 kernel-path step",
+                        ("flash_attention_fma", "flash_attention_bwd_fma"))
+    del batch32, k32, plain32
     batch = train_batch(host_rng, torch.bfloat16)
     kernel = brca_trainer(torch.bfloat16, "flash", "auto", state)
     # bf16: the plain path takes its attention scores and softmax in bf16,
@@ -717,14 +787,19 @@ def phase_training(host_rng) -> dict:
         raise AssertionError("a training loss is not finite")
 
     plain_attention = brca_trainer(torch.bfloat16, "xla", "auto", state)
-    t_wall, t_busy, t_idle = step_times(kernel, batch)
-    x_wall, x_busy, x_idle = step_times(plain_attention, batch)
+    t_wall, t_busy, t_idle, rows = step_times(kernel, batch)
+    x_wall, x_busy, x_idle, _ = step_times(plain_attention, batch)
     log(f"  train step, batch {BATCH}, bf16, inputs on the card: wall {t_wall:.4f} ms per "
         f"synchronous step, {BATCH / t_wall * 1e3:.2f} samples/s; device busy {t_busy:.4f} ms "
         f"per step (profiler), idle share {t_idle:.4f}; peak memory {peak:.1f} MiB")
     log(f"  the same step with plain attention (attention_impl='xla'): wall {x_wall:.4f} ms, "
         f"device busy {x_busy:.4f} ms, idle share {x_idle:.4f}")
-    return launches
+    flash = [e for e in rows if "flash" in e.key]
+    log(f"  flash kernels in the kernel-path step: {sum(map(device_us, flash)) / 3e3:.4f} ms of "
+        f"{t_busy:.4f} ms device busy per step (profiler); " + "; ".join(
+            f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
+            f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in flash))
+    return {**launches, **fma}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1195,10 +1270,10 @@ def main() -> int:
         log(f"  {name}: {info['ptxas']}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_projection(gen), phase_flash(gen)]
+    kernels = [phase_projection(gen), *phase_flash(gen)]
     phase_serving(np.random.default_rng(0))
     phase_serving_rows(np.random.default_rng(3))
-    kernels += [phase_flash_bwd(gen), phase_projection_bwd(gen)]
+    kernels += [*phase_flash_bwd(gen), phase_projection_bwd(gen)]
     launches = phase_training(np.random.default_rng(1))
     kernels += [phase_projection_int8(gen), phase_projection_bwd_int8(gen)]
     launches.update(phase_arena(np.random.default_rng(2)))

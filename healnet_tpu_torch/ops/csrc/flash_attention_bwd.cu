@@ -17,23 +17,39 @@
 //
 // Bound on an H100 SXM at the training shape (b*h = 8, lq = 17, lkv = 4096,
 // d = 63, bf16): reading k and v and writing dk and dv moves 16.5 MB, about
-// 5 us at 3.35 TB/s, against about 0.28 GFLOP. As in the forward, eight
-// (batch*head) rows are far fewer than the 132 SMs, so the keys of each row
-// are split over blocks (grid = rows x splits, two blocks per SM). A block
-// owns its keys outright: it writes their dk and dv directly, and keeps a
-// partial dq for its keys in shared memory, which it writes to a
-// (rows, splits, lq, d) f32 buffer. A second kernel sums those partials in
-// split order, so the result does not depend on scheduling and no float
-// atomics are used. K and V are the strided column slices of the merged KV
-// buffer (row stride 252 in bf16, not 16-byte aligned) and are loaded
-// element by element with their strides, one key row per warp. The products
-// run as f32 FMA from shared memory: lq = 17 and d = 63 are far from
-// tensor-core tiles.
+// 5 us at 3.35 TB/s, against about 0.35 GFLOP (0.35 us of bf16 tensor-core
+// time). As in the forward, eight (batch*head) rows are far fewer than the
+// 132 SMs: latency, not bytes or operations, sets the time, and 17 queries
+// and d = 63 pad to tensor-core tiles (two m16 or four n8 tiles, k16 steps).
+//
+// Two variants, chosen by the wrapper from the dtype and d before launch:
+//
+// flash_bwd_tc (bf16, d <= 128; the model's path). One launch per call, the
+// forward's cluster plan: one thread-block cluster per row, each block
+// owning a contiguous range of keys that it streams through the same
+// cp.async ring (flash_tc.cuh). The products run on mma.sync m16n8k16 in
+// the transposed layout of the JAX kernel: s^T = K Q^T and dp^T = V dO^T
+// with keys on M (each warp owns 16 keys of a 64-key tile) and queries on
+// N; dv = round(p e)^T dO and dk = round(ds)^T q with keys on M, their A
+// fragments read from p^T and ds^T tiles in shared memory; dq += round(ds) K
+// with queries on M. A block stages each tile's dk and dv in the tile's
+// spent ring stage and writes them with coalesced stores, and keeps its
+// partial dq in shared memory; at the end each block pushes its partial dq
+// of each element to the block of the cluster that owns the element
+// (distributed shared memory stores), and after one cluster barrier the
+// owner adds the parts in rank order, scales once and writes them: no
+// partial buffer in device memory, no second kernel, no float atomics.
+// q, dO, lse and delta are loaded once per block.
+//
+// flash_bwd_split + flash_bwd_merge (f32, and bf16 with d > 128): the first
+// port's f32 FMA kernels; keys split over blocks (two per SM), partial dq
+// written to a buffer and summed in split order by a second kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
 #include "hash_dropout.cuh"
 
 namespace {
@@ -226,6 +242,320 @@ cudaError_t launch(const Params& p, int rows, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- tensor-core variant (bf16)
+
+namespace tc = healnet::tc;
+
+constexpr int kDsPitch = tc::kQGroup + 8;  // bf16 row pitch of the p^T and ds^T tiles
+
+struct TcParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* mask;          // (B, lkv) or null
+  const __nv_bfloat16* dout;  // (B, H, lq, d), strided
+  const float* lse;           // (B*H, lq)
+  const float* delta;         // (B*H, lq)
+  __nv_bfloat16* dq;          // (B, H, lq, d) contiguous
+  __nv_bfloat16* dk;          // (B, H, lkv, d) contiguous
+  __nv_bfloat16* dv;          // (B, H, lkv, d) contiguous
+  int H, lq, lkv, d, keys_per_cta, stages;
+  long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
+  float scale;
+  int dropout;
+  uint32_t seed, threshold;
+  float keep_scale;
+};
+
+__host__ __device__ inline int pad_queries(int lq) {
+  return (lq + tc::kQGroup - 1) / tc::kQGroup * tc::kQGroup;
+}
+
+// Byte offsets into the block's shared memory (lqp = lq padded to 32).
+template <int DP>
+struct BwdLayout {
+  size_t ks, vs, qs, dos, lse, del, mk, pt, dst, dq, rdq, total;
+  __host__ __device__ BwdLayout(int stages, int lqp) {
+    constexpr int P = tc::Dims<DP>::kPitch;
+    ks = tc::align16(sizeof(uint32_t) * (size_t)stages * tc::Dims<DP>::kStageWords);
+    vs = ks + 2 * tc::kKeyTile * P;
+    qs = vs + 2 * tc::kKeyTile * P;
+    dos = qs + 2 * (size_t)lqp * P;
+    lse = dos + 2 * (size_t)lqp * P;
+    del = lse + sizeof(float) * lqp;
+    mk = del + sizeof(float) * lqp;
+    pt = mk + sizeof(float) * tc::kKeyTile;
+    dst = pt + 2 * tc::kKeyTile * kDsPitch;
+    dq = dst + 2 * tc::kKeyTile * kDsPitch;
+    rdq = dq + sizeof(float) * (size_t)lqp * tc::Dims<DP>::kAccPitch;
+    total = rdq + sizeof(float) * ((size_t)lqp * DP + tc::kMaxCluster);
+  }
+};
+
+template <int DP>
+int bwd_stages(int lq) {
+  return tc::pick_stages([lq](int s) { return BwdLayout<DP>(s, pad_queries(lq)).total; });
+}
+
+// Per 64-key tile and 32-query group, warp w takes keys 16 (w % 4) ..
+// + 15 and queries 16 (w / 4) .. + 15 for s^T and dp^T, writes round(p e)
+// and round(ds) to the p^T and ds^T tiles; after a barrier it computes dv
+// and dk of the same keys on the n-tiles n = w / 4 (mod 2) of the head dim
+// over all 32 queries, and dq for query tile w % 2 on the n-tiles
+// n = w / 2 (mod 4) over all 64 keys.
+template <int DP>
+__global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(TcParams p) {
+  using D = tc::Dims<DP>;
+  constexpr int P = D::kPitch, AP = D::kAccPitch, NT = DP / 8, KS = DP / 16;
+  constexpr int NV = NT / 2, NQ = (NT + 3) / 4;  // n-tiles per warp for dv/dk and for dq
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int lqp = pad_queries(p.lq), ngroups = lqp / tc::kQGroup;
+  const BwdLayout<DP> L(p.stages, lqp);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(tc_smem);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.ks);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.vs);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.qs);
+  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.dos);
+  float* lse_s = reinterpret_cast<float*>(tc_smem + L.lse);
+  float* del_s = reinterpret_cast<float*>(tc_smem + L.del);
+  float* mk = reinterpret_cast<float*>(tc_smem + L.mk);                 // the tile's key mask
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.pt);   // round(p e) [key][query]
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.dst); // round(ds) [key][query]
+  float* dq_s = reinterpret_cast<float*>(tc_smem + L.dq);  // the block's partial dq [query][AP]
+  float* rdq = reinterpret_cast<float*>(tc_smem + L.rdq);  // pushed parts [rank][share]
+
+  tc::cg::cluster_group cluster = tc::cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wk = (warp & 3) * 16, qh = warp >> 2;
+  const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* k = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* v = p.v + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* dout = p.dout + b * p.o_sb + h * p.o_sh;
+  const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
+  __nv_bfloat16* dk = p.dk + (size_t)row * p.lkv * p.d;
+  __nv_bfloat16* dv = p.dv + (size_t)row * p.lkv * p.d;
+  const int kv_begin = rank * p.keys_per_cta;
+  const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
+  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + tc::kKeyTile - 1) / tc::kKeyTile : 0;
+  const int S = p.stages;
+
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles)
+      tc::stage_tile<DP>(ring + s * D::kStageWords, k, p.k_st, v, p.v_st, mask,
+                         kv_begin + s * tc::kKeyTile, kv_end, p.d, tid);
+    tc::cp_async_commit();
+  }
+  // q, dO, lse and delta once per block; padded queries get q = dO = 0 and
+  // lse = 1e30, so their probabilities are exactly 0
+  for (int r0 = 0; r0 < lqp; r0 += tc::kQGroup) {
+    tc::load_rows<DP>(qs + r0 * P, q, p.q_st, r0, p.lq, p.d, tid);
+    tc::load_rows<DP>(dos + r0 * P, dout, p.o_st, r0, p.lq, p.d, tid);
+  }
+  for (int i = tid; i < lqp; i += tc::kThreads) {
+    lse_s[i] = i < p.lq ? p.lse[(size_t)row * p.lq + i] : 1e30f;
+    del_s[i] = i < p.lq ? p.delta[(size_t)row * p.lq + i] : 0.f;
+  }
+  for (int i = tid; i < lqp * AP; i += tc::kThreads) dq_s[i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    tc::cp_async_wait(S - 2);
+    if (tid == 0) tc::bulk_wait_read();  // the stage of tile it - 1 is read out
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    const int nxt = it + S - 1;
+    if (nxt < ntiles)
+      tc::stage_tile<DP>(ring + (nxt % S) * D::kStageWords, k, p.k_st, v, p.v_st, mask,
+                         kv_begin + nxt * tc::kKeyTile, kv_end, p.d, tid);
+    tc::cp_async_commit();
+    const int k0 = kv_begin + it * tc::kKeyTile;
+    tc::unpack_tile<DP>(ring + (it % S) * D::kStageWords, ks, vs, mk, k, p.k_st, v, p.v_st,
+                        mask != nullptr, k0, kv_end, p.d, tid);
+    __syncthreads();
+
+    // dv and dk of the warp's keys on its n-tiles, summed over the groups
+    float dva[NV][4], dka[NV][4];
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
+
+    for (int grp = 0; grp < ngroups; ++grp) {
+      const int q0 = grp * tc::kQGroup, qw = q0 + qh * 16;  // the warp's 16 queries
+      // s^T = K Q^T and dp^T = V dO^T: keys on M, queries on N (2 x 8)
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      if (qw < p.lq) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t ka[4], va[4], qb[4], ob[4];
+          tc::ldsm_x4(ka, ks + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+          tc::ldsm_x4(va, vs + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+          const int r = qw + ((lane >> 4) << 3) + (lane & 7), c = kk * 16 + ((lane >> 3) & 1) * 8;
+          tc::ldsm_x4(qb, qs + r * P + c);
+          tc::ldsm_x4(ob, dos + r * P + c);
+          tc::mma_bf16(st[0], ka, qb[0], qb[1]);
+          tc::mma_bf16(st[1], ka, qb[2], qb[3]);
+          tc::mma_bf16(dpt[0], va, ob[0], ob[1]);
+          tc::mma_bf16(dpt[1], va, ob[2], ob[3]);
+        }
+        // p = exp(s - lse) * mask; st <- p * e, dpt <- p * (dp * e - delta)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int kc = wk + g + 8 * hr;
+          const float mkv = mk[kc];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int qi = qw + n * 8 + 2 * t + e;
+              const float x = st[n][2 * hr + e] * p.scale + (mkv - 1.f) * 1e30f;
+              const float pr = __expf(x - lse_s[qi]) * mkv;
+              float ev = 1.f;
+              if (p.dropout)
+                ev = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)qi,
+                                        (uint32_t)(k0 + kc), p.threshold)
+                         ? p.keep_scale
+                         : 0.f;
+              st[n][2 * hr + e] = pr * ev;
+              dpt[n][2 * hr + e] = pr * (dpt[n][2 * hr + e] * ev - del_s[qi]);
+            }
+          }
+        }
+      }
+      // round(p e) and round(ds) into the [key][query] tiles
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int off = (wk + g + 8 * hr) * kDsPitch + qh * 16 + n * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(pt + off) = tc::pack_bf16(st[n][2 * hr], st[n][2 * hr + 1]);
+          *reinterpret_cast<uint32_t*>(dst + off) =
+              tc::pack_bf16(dpt[n][2 * hr], dpt[n][2 * hr + 1]);
+        }
+      }
+      __syncthreads();  // the tile's p^T and ds^T are complete
+
+      // dv += round(p e)^T dO, dk += round(ds)^T q over the group's 32
+      // queries: keys on M, the head dim on N, queries on K
+#pragma unroll
+      for (int kq = 0; kq < 2; ++kq) {
+        uint32_t pa[4], da[4];
+        tc::ldsm_x4(pa, pt + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
+        tc::ldsm_x4(da, dst + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
+        const int r = q0 + kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int n = qh + 2 * i;
+          uint32_t ob[2], qb[2];
+          tc::ldsm_x2_t(ob, dos + r * P + n * 8);
+          tc::ldsm_x2_t(qb, qs + r * P + n * 8);
+          tc::mma_bf16(dva[i], pa, ob[0], ob[1]);
+          tc::mma_bf16(dka[i], da, qb[0], qb[1]);
+        }
+      }
+      // dq += round(ds) K over the tile's 64 keys: queries on M (tile
+      // warp % 2 of the group), the head dim on N, keys on K
+      {
+        const int mq = warp & 1;
+        float dqa[NQ][4];
+#pragma unroll
+        for (int i = 0; i < NQ; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < tc::kKeyTile / 16; ++kk) {
+          uint32_t a[4];
+          tc::ldsm_x4_t(a, dst + (kk * 16 + ((lane >> 4) << 3) + (lane & 7)) * kDsPitch +
+                               mq * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            const int n = (warp >> 1) + 4 * i;
+            if (n < NT) {
+              uint32_t kb[2];
+              tc::ldsm_x2_t(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n * 8);
+              tc::mma_bf16(dqa[i], a, kb[0], kb[1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          const int n = (warp >> 1) + 4 * i;
+          if (n < NT) {
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              float2* acc = reinterpret_cast<float2*>(
+                  dq_s + (q0 + mq * 16 + g + 8 * hr) * AP + n * 8 + 2 * t);
+              *acc = make_float2(acc->x + dqa[i][2 * hr], acc->y + dqa[i][2 * hr + 1]);
+            }
+          }
+        }
+      }
+      if (grp + 1 < ngroups) __syncthreads();  // p^T and ds^T are rewritten by the next group
+    }
+
+    // the tile's dk and dv: the warps' fragments into the tile's ring stage
+    // (unpacked, and not staged again before the next tile's first
+    // barrier), packed at pitch d as the rows lie in device memory, then
+    // written out by one bulk asynchronous copy each where the rows start
+    // and end on 16 bytes, else with coalesced stores
+    __nv_bfloat16* dvs = reinterpret_cast<__nv_bfloat16*>(ring + (it % S) * D::kStageWords);
+    __nv_bfloat16* dks = dvs + tc::kKeyTile * DP;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = wk + g + 8 * hr;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = (qh + 2 * i) * 8 + 2 * t + e;
+          if (c < p.d) {
+            dvs[j * p.d + c] = __float2bfloat16(dva[i][2 * hr + e]);
+            dks[j * p.d + c] = __float2bfloat16(dka[i][2 * hr + e] * p.scale);
+          }
+        }
+      }
+    }
+    const int n = min(tc::kKeyTile, kv_end - k0) * p.d;
+    __nv_bfloat16 *dv_out = dv + (size_t)k0 * p.d, *dk_out = dk + (size_t)k0 * p.d;
+    const bool bulk =
+        ((reinterpret_cast<uintptr_t>(dv_out) | reinterpret_cast<uintptr_t>(dk_out)) & 15) == 0 &&
+        n % 8 == 0;
+    if (bulk) tc::fence_proxy_async();
+    __syncthreads();
+    if (!bulk) {
+      tc::store_rows(dv_out, dvs, n, tid);
+      tc::store_rows(dk_out, dks, n, tid);
+    } else if (tid == 0) {
+      tc::bulk_store(dv_out, dvs, 2 * n);
+      tc::bulk_store(dk_out, dks, 2 * n);
+      tc::bulk_commit();
+    }
+  }
+  if (tid == 0) tc::bulk_wait();
+  tc::cp_async_wait(0);
+  __syncthreads();  // every warp's dq sums are in
+  // the row's dq: each block pushes its partial dq of element e = r d + c
+  // to the block that owns e (rank e / share) through distributed shared
+  // memory; the owner adds the parts in rank order, scales once and writes
+  // them. No block touches another's shared memory after the barrier.
+  const int ne = p.lq * p.d, share = (ne + csize - 1) / csize;
+  for (int e = tid; e < ne; e += tc::kThreads) {
+    const int r = e / p.d, c = e - r * p.d, owner = e / share;
+    tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);
+  }
+  cluster.sync();
+  __nv_bfloat16* dq = p.dq + (size_t)row * ne;
+  for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
+    float a = 0.f;
+    for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
+    dq[e] = __float2bfloat16(a * p.scale);
+  }
+}
+
 }  // namespace
 
 extern "C" long long healnet_flash_bwd_smem_bytes(int lq, int d) {
@@ -280,6 +610,73 @@ extern "C" int healnet_flash_backward(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(p, B * H, s) : launch<float>(p, B * H, s);
   return static_cast<int>(e);
+}
+
+extern "C" long long healnet_flash_bwd_tc_smem_bytes(int lq, int d) {
+  return tc::with_dp(d, [&](auto dp) -> long long {
+    constexpr int DP = decltype(dp)::value;
+    return (long long)BwdLayout<DP>(bwd_stages<DP>(lq), pad_queries(lq)).total;
+  });
+}
+
+extern "C" int healnet_flash_bwd_tc_max_clusters(int lq, int d, int cluster) {
+  return tc::with_dp(d, [&](auto dp) -> int {
+    constexpr int DP = decltype(dp)::value;
+    return tc::max_active_clusters(flash_bwd_tc<DP>, cluster,
+                                   BwdLayout<DP>(bwd_stages<DP>(lq), pad_queries(lq)).total);
+  });
+}
+
+extern "C" int healnet_flash_backward_tc(
+    const void* q, const void* k, const void* v, const float* mask, const void* dout,
+    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B, int H, int lq,
+    int lkv, int d, int cluster, int keys_per_cta, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
+    long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
+    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    float keep_scale, void* stream) {
+  if (B * H <= 0 || lq <= 0) return 0;
+  TcParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.mask = mask;
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.H = H;
+  p.lq = lq;
+  p.lkv = lkv;
+  p.d = d;
+  p.keys_per_cta = keys_per_cta;
+  p.q_sb = q_sb;
+  p.q_sh = q_sh;
+  p.q_st = q_st;
+  p.k_sb = k_sb;
+  p.k_sh = k_sh;
+  p.k_st = k_st;
+  p.v_sb = v_sb;
+  p.v_sh = v_sh;
+  p.v_st = v_st;
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_st = o_st;
+  p.mask_sb = mask_sb;
+  p.scale = scale;
+  p.dropout = dropout;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.keep_scale = keep_scale;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return static_cast<int>(tc::with_dp(d, [&](auto dp) -> cudaError_t {
+    constexpr int DP = decltype(dp)::value;
+    p.stages = bwd_stages<DP>(lq);
+    return tc::launch_clustered(flash_bwd_tc<DP>, p, cluster, B * H,
+                                BwdLayout<DP>(p.stages, pad_queries(lq)).total, s);
+  }));
 }
 
 extern "C" const char* healnet_cuda_error_string(int code) {

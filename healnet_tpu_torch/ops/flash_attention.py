@@ -8,6 +8,13 @@ log-sum-exp; the backward kernel (``csrc/flash_attention_bwd.cu``) rebuilds
 the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
 :class:`FlashAttentionFunction` ties the two together for autograd.
 
+Each kernel has two variants, chosen by :func:`flash_variant` from the
+dtype and head dim before the launch: bf16 with d <= 128 (the model's
+path) takes the tensor-core kernel, one clustered launch per call sized by
+:func:`flash_plan`; f32, and bf16 with d > 128, take the f32 FMA kernels
+(a split kernel and a merge kernel). Each wrapper counts the launches of
+each variant (``launches``, ``launches_fma``).
+
 The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
 (forward, materialised weights; its autograd gradient is the same function
 as the kernels' backward) and :func:`flash_backward_plain`, which carries
@@ -24,7 +31,8 @@ before dropout.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,7 +40,10 @@ from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep_threshold
 
-_KEY_TILE = 32  # keys per tile in both kernels (kTile)
+_KEY_TILE = 32  # keys per tile of the FMA kernels (kTile)
+_TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
+_TC_MAX_D = 128  # widest head the tensor-core kernels take
+_CLUSTER_SIZES = (16, 8, 4, 2, 1)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
 _NEG_BIG = -1e30
 
@@ -49,6 +60,10 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.healnet_flash_smem_bytes.argtypes = [i, i]
         lib.healnet_flash_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, p]
+        lib.healnet_flash_forward_tc.restype = ctypes.c_int
+        lib.healnet_flash_tc_max_clusters.argtypes = [i, i]
+        lib.healnet_flash_tc_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -64,16 +79,66 @@ def _bwd_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.healnet_flash_bwd_smem_bytes.argtypes = [i, i]
         lib.healnet_flash_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_flash_backward_tc.argtypes = [p] * 10 + [i] * 7 + [ll] * 13 + [f, i, u, u, f, p]
+        lib.healnet_flash_backward_tc.restype = ctypes.c_int
+        lib.healnet_flash_bwd_tc_smem_bytes.argtypes = [i, i]
+        lib.healnet_flash_bwd_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_flash_bwd_tc_max_clusters.argtypes = [i, i, i]
+        lib.healnet_flash_bwd_tc_max_clusters.restype = ctypes.c_int
     return lib
 
 
+def flash_variant(dtype: torch.dtype, d: int) -> str:
+    """Which kernel pair a call takes, from its dtype and head dim alone:
+    ``"tc"`` (tensor cores) for bf16 with d <= 128, else ``"fma"`` (f32
+    FMA; tensor cores would mean TF32 for f32)."""
+    return "tc" if dtype == torch.bfloat16 and d <= _TC_MAX_D else "fma"
+
+
+def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int) -> Tuple[int, int]:
+    """Launch plan of the tensor-core kernels: ``(cluster, keys_per_block)``.
+
+    One cluster of ``cluster`` blocks per (batch*head) row, block ``r``
+    owning keys ``[r * keys_per_block, (r + 1) * keys_per_block)``: enough
+    blocks for one on every SM, each a whole number of 64-key tiles, at most
+    ``max_cluster`` (the largest cluster of which ``rows`` fit on the card
+    at once), and no block without keys (so ``lkv <= 64`` gives 1).
+    """
+    tiles = max(1, -(-lkv // _TC_TILE))
+    want = max(1, -(-sms // max(rows, 1)))
+    per = -(-tiles // max(1, min(want, tiles, max_cluster))) * _TC_TILE
+    return max(1, -(-lkv // per)), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (kernel, device, padded d[, padded lq]) -> {cluster size: clusters resident at once}
+_RESIDENT: Dict[tuple, Dict[int, int]] = {}
+
+
+def _tc_plan(query, key: tuple, rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
+    """:func:`flash_plan` on ``device``, with its SM count and the kernel's
+    cluster occupancy (``query(size)``, ``cudaOccupancyMaxActiveClusters``)
+    cached per device and shape class."""
+    counts = _RESIDENT.get(key)
+    if counts is None:
+        counts = {c: int(query(c)) for c in _CLUSTER_SIZES}
+        if min(counts.values()) < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
+        _RESIDENT[key] = counts
+    max_cluster = next((c for c in _CLUSTER_SIZES if counts[c] >= rows), 1)
+    return flash_plan(rows, lkv, _sm_count(device.index), max_cluster)
+
+
 def _n_split(rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
-    """Key splits per row: enough blocks for two on every SM (a block is
-    latency-bound on its own), each split a whole number of key tiles.
-    Returns (n_split, split_len)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """Key splits per row of the FMA kernels: enough blocks for two on
+    every SM (a block is latency-bound on its own), each split a whole
+    number of key tiles. Returns (n_split, split_len)."""
     tiles = max(1, -(-lkv // _KEY_TILE))
-    want = max(1, min(tiles, -(-2 * sms // max(rows, 1))))
+    want = max(1, min(tiles, -(-2 * _sm_count(device.index) // max(rows, 1))))
     split_len = -(-tiles // want) * _KEY_TILE
     return max(1, -(-lkv // split_len)), split_len
 
@@ -100,6 +165,10 @@ def _float_mask(kv_mask, b, lkv, device):
     return kv_mask.to(device=device, dtype=torch.float32).contiguous()
 
 
+def _dropout_args(rate: float, seed: int):
+    return int(rate > 0), int(seed) & 0xFFFFFFFF, keep_threshold(rate), keep_scale(rate)
+
+
 def flash_attention_kernel(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -114,39 +183,54 @@ def flash_attention_kernel(
     q: (b, h, lq, d); k, v: (b, h, lkv, d), any strides with a unit stride
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
+    bf16 with d <= 128 launches the tensor-core kernel (counted in
+    ``launches``), anything else the FMA kernels (``launches_fma``).
     """
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
     lib = _lib()
-    smem = lib.healnet_flash_smem_bytes(lq, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
+    tc = flash_variant(q.dtype, d) == "tc"
+    if not tc:
+        smem = lib.healnet_flash_smem_bytes(lq, d)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
     mask = _float_mask(kv_mask, b, lkv, q.device)
-    n_split, split_len = _n_split(b * h, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * h, n_split, 2, lq), dtype=torch.float32, device=q.device)
-    rate = float(dropout_rate)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               0 if mask is None else mask.stride(0))
+    drop = _dropout_args(float(dropout_rate), dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.healnet_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, lq, lkv, d, n_split, split_len,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            0 if mask is None else mask.stride(0),
-            float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
-            keep_threshold(rate), keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
-        )
-    flash_attention_kernel.launches += 1
+        if tc:
+            cluster, per = _tc_plan(lambda c: lib.healnet_flash_tc_max_clusters(d, c),
+                                    ("fwd", q.device.index, -(-d // 16)), b * h, lkv, q.device)
+            code = lib.healnet_flash_forward_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
+                *drop, stream,
+            )
+            flash_attention_kernel.launches += 1
+        else:
+            n_split, split_len = _n_split(b * h, lkv, q.device)
+            part_acc = torch.empty((b * h, n_split, lq, d), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((b * h, n_split, 2, lq), dtype=torch.float32, device=q.device)
+            code = lib.healnet_flash_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                b, h, lq, lkv, d, n_split, split_len, *strides, float(eff_scale), *drop,
+                int(q.dtype == torch.bfloat16), stream,
+            )
+            flash_attention_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
     return out.reshape(b, lq, h * d), lse
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_fma = 0
 
 
 def flash_attention_bwd_kernel(
@@ -167,7 +251,7 @@ def flash_attention_bwd_kernel(
     q, k, v, kv_mask, eff_scale and the dropout arguments as for the
     forward; do: (b, h, lq, d) in q's dtype, any strides with a unit stride
     on d; lse, delta: (b, h, lq) f32 (the forward's log-sum-exp and
-    rowsum(dO * O)).
+    rowsum(dO * O)). The variant and its counter as for the forward.
     """
     _check_qkv(q, k, v, extra=(("do", do),))
     b, h, lq, d = q.shape
@@ -179,35 +263,47 @@ def flash_attention_bwd_kernel(
             raise ValueError(f"{name} must be {(b, h, lq)} f32 on {q.device}")
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = _bwd_lib()
-    smem = lib.healnet_flash_bwd_smem_bytes(lq, d)
+    tc = flash_variant(q.dtype, d) == "tc"
+    smem = (lib.healnet_flash_bwd_tc_smem_bytes if tc else lib.healnet_flash_bwd_smem_bytes)(lq, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
     mask = _float_mask(kv_mask, b, lkv, q.device)
-    n_split, split_len = _n_split(b * h, lkv, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
-    part_dq = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
-    rate = float(dropout_rate)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+               0 if mask is None else mask.stride(0))
+    drop = _dropout_args(float(dropout_rate), dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.healnet_flash_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part_dq.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, lq, lkv, d, n_split, split_len,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            0 if mask is None else mask.stride(0),
-            float(eff_scale), int(rate > 0), int(dropout_seed) & 0xFFFFFFFF,
-            keep_threshold(rate), keep_scale(rate), int(q.dtype == torch.bfloat16), stream,
-        )
-    flash_attention_bwd_kernel.launches += 1
+        if tc:
+            cluster, per = _tc_plan(
+                lambda c: lib.healnet_flash_bwd_tc_max_clusters(lq, d, c),
+                ("bwd", q.device.index, -(-d // 16), -(-lq // 32)), b * h, lkv, q.device)
+            code = lib.healnet_flash_backward_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale), *drop, stream,
+            )
+            flash_attention_bwd_kernel.launches += 1
+        else:
+            n_split, split_len = _n_split(b * h, lkv, q.device)
+            part_dq = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
+            code = lib.healnet_flash_backward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part_dq.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, lq, lkv, d, n_split, split_len, *strides, float(eff_scale), *drop,
+                int(q.dtype == torch.bfloat16), stream,
+            )
+            flash_attention_bwd_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_fma = 0
 
 
 def _scores(q, k, kv_mask, eff_scale):

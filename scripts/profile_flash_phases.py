@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""Where the time goes inside the tensor-core flash kernels.
+
+    python3 scripts/profile_flash_phases.py [--d 63]
+
+Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
+builds instrumented copies of ``healnet_tpu_torch/ops/csrc/flash_attention.cu``
+and ``flash_attention_bwd.cu`` into ``build/flash-phases/``: at each phase
+boundary thread 0 of every block adds the ``clock64()`` cycles since the
+previous boundary to that phase's counter in shared memory, and adds the
+counters to device memory at the block's end. It runs the forward and the
+backward at (8, 17, 4096, d) bf16, unmasked, K and V as slices of a merged
+KV buffer (``chip_smoke.attention_inputs``), 20 times each, and prints each
+phase's cycles per block and call (averaged over the blocks) and its share.
+Thread 0 is in warp 0, so a phase that ends at a barrier includes the wait
+for the slowest warp.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import attention_inputs  # noqa: E402
+from healnet_tpu_torch.ops import cuda_build  # noqa: E402
+from healnet_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+)
+
+HEADER = '''
+__device__ unsigned long long g_prof[4096][16];
+#define PROF(k) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
+  prof_s[k] += t_ - t_last; t_last = t_; } } while (0)
+#define PROF_FLUSH() do { if (threadIdx.x == 0) for (int k_ = 0; k_ < 16; ++k_) { \\
+  g_prof[blockIdx.y * gridDim.x + blockIdx.x][k_] += prof_s[k_]; prof_s[k_] = 0; } } while (0)
+'''
+FOOTER = '''
+extern "C" void prof_read(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+}
+extern "C" void prof_reset() {
+  static unsigned long long z[4096][16];
+  cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+'''
+START = ("  const int S = p.stages;\n",
+         "  __shared__ long long prof_s[16];\n"
+         "  if (threadIdx.x == 0) for (int k_ = 0; k_ < 16; ++k_) prof_s[k_] = 0;\n"
+         "  long long t_last = clock64();\n")
+# (text after which a marker goes, marker), in source order
+FWD = {
+    "phases": {1: "prologue and q load", 2: "wait for the tile", 10: "issue the next tile",
+               3: "unpack", 4: "scores, softmax, @V", 5: "warp states",
+               6: "block merge and push", 7: "cluster barrier", 8: "merge and store",
+               9: "next-group barrier"},
+    "markers": [
+        ("    const bool active = g0 + mt * 16 < p.lq;  // the warp's query tile holds a query\n",
+         "PROF(1);"),
+        ("      __syncthreads();  // tile `it` has landed; every warp is done with it - 1\n",
+         "PROF(2);"),
+        ("      tc::cp_async_commit();\n      const int k0 = kv_begin + it * tc::kKeyTile;\n",
+         "PROF(10);"),
+        ("                          mask != nullptr, k0, kv_end, p.d, tid);\n      __syncthreads();\n",
+         "PROF(3);"),
+        ("        tc::mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);\n      }\n", "PROF(4);"),
+        ("            make_float2(acc[n][2 * hr], acc[n][2 * hr + 1]);\n    }\n    __syncthreads();\n",
+         "PROF(5);"),
+        ("        tc::st_cluster(rl + rank * QG + r, j, ls);\n      }\n    }\n", "PROF(6);"),
+        ("    cluster.sync();\n    // this block's share of the row's output: the blocks' states merged in\n",
+         "PROF(7);"),
+        ("      if (c == 0) p.lse[(size_t)row * p.lq + g0 + r] = mx + logf(lc);\n    }\n",
+         "PROF(8);"),
+        ("    if (g0 + QG < p.lq) cluster.sync();\n", "PROF(9); PROF_FLUSH();"),
+    ],
+}
+BWD = {
+    "phases": {1: "prologue, q/dO load", 2: "wait for the tile", 10: "issue the next tile",
+               3: "unpack", 4: "s^T, dp^T, p, ds", 5: "dv, dk, dq products",
+               6: "dk, dv staged and stored", 7: "dq push", 8: "cluster barrier",
+               9: "dq merge and store"},
+    "markers": [
+        ("  for (int i = tid; i < lqp * AP; i += tc::kThreads) dq_s[i] = 0.f;\n", "PROF(1);"),
+        ("    __syncthreads();  // tile `it` has landed; every warp is done with it - 1\n",
+         "PROF(2);"),
+        ("    tc::cp_async_commit();\n    const int k0 = kv_begin + it * tc::kKeyTile;\n",
+         "PROF(10);"),
+        ("                        mask != nullptr, k0, kv_end, p.d, tid);\n    __syncthreads();\n",
+         "PROF(3);"),
+        ("      __syncthreads();  // the tile's p^T and ds^T are complete\n", "PROF(4);"),
+        ("      if (grp + 1 < ngroups) __syncthreads();  // p^T and ds^T are rewritten by the next group\n",
+         "PROF(5);"),
+        ("      tc::bulk_commit();\n    }\n", "PROF(6);"),
+        ("    tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);\n  }\n",
+         "PROF(7);"),
+        ("  cluster.sync();\n  __nv_bfloat16* dq = p.dq + (size_t)row * ne;\n", "PROF(8);"),
+        ("    dq[e] = __float2bfloat16(a * p.scale);\n  }\n", "PROF(9); PROF_FLUSH();"),
+    ],
+}
+
+
+def build_instrumented(name: str, spec: dict) -> ctypes.CDLL:
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER)
+    head, tail = src.split("// ------------------------------------------------- tensor-core", 1)
+    if START[0] not in tail:
+        raise RuntimeError(f"{name}.cu changed; no place for the start marker")
+    tail = tail.replace(START[0], START[0] + START[1], 1)
+    for anchor, marker in spec["markers"]:
+        if anchor not in tail:
+            raise RuntimeError(f"{name}.cu changed; no marker place for {marker}")
+        tail = tail.replace(anchor, f"{anchor}{marker}\n", 1)
+    out = ROOT / "build" / "flash-phases"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}_phases.cu"
+    path.write_text(head + "// ------------------------------------------------- tensor-core" + tail
+                    + FOOTER)
+    lib_path = out / f"lib{name}_phases.so"
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                           "-o", str(lib_path), str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path.name}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.healnet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.healnet_cuda_error_string.restype = ctypes.c_char_p
+    lib.prof_read.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def report(label: str, lib: ctypes.CDLL, fn, spec: dict, calls: int = 20) -> None:
+    fn()
+    torch.cuda.synchronize()
+    lib.prof_reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    counts = (ctypes.c_ulonglong * (4096 * 16))()
+    lib.prof_read(ctypes.cast(counts, ctypes.c_void_p))
+    cycles = np.array(counts, dtype=np.float64).reshape(4096, 16)
+    cycles = cycles[cycles.sum(axis=1) > 0].mean(axis=0) / calls
+    total = cycles.sum()
+    print(f"{label}: {start.elapsed_time(end) / calls * 1e3:.2f} us per call (instrumented, "
+          f"{calls} calls back to back), {total:.0f} cycles per block and call")
+    for k, name in spec["phases"].items():
+        print(f"  {name:28s} {cycles[k]:8.0f} cycles {100 * cycles[k] / total:6.2f}%")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--d", type=int, default=63)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_flash_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    fwd_lib = build_instrumented("flash_attention", FWD)
+    bwd_lib = build_instrumented("flash_attention_bwd", BWD)
+    # the wrappers load their libraries through this cache
+    cuda_build._LIBS["flash_attention"] = fwd_lib
+    cuda_build._LIBS["flash_attention_bwd"] = bwd_lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = args.d
+    q, k, v = attention_inputs(gen, 8, 17, 4096, d, torch.bfloat16)
+    eff = d**-0.5 / 0.5
+    out, lse = flash_attention_kernel(q, k, v, None, eff)
+    do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(torch.bfloat16)
+    delta = (do.float() * out.float().reshape(8, 1, 17, d)).sum(-1)
+    shape = f"(8, 17, 4096, {d}) bf16"
+    report(f"forward {shape}", fwd_lib, lambda: flash_attention_kernel(q, k, v, None, eff), FWD)
+    report(f"backward {shape}", bwd_lib,
+           lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff), BWD)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

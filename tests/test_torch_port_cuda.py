@@ -217,6 +217,81 @@ def test_flash_bwd_kernel_matches_plain(gen, dtype, b, h, lq, lkv, d, rate):
     assert got[1][0].abs().max().item() == 0.0 and got[2][0].abs().max().item() == 0.0
 
 
+def _odd_pitch_case(gen, b, h, lq, lkv, d):
+    """bf16 q (b, h, lq, d) and k/v as head-split column slices of a merged
+    KV buffer of width 2 h d + 3 (an odd pitch: rows alternate between 2-
+    and 4-byte alignment), a random mask with row 0 fully masked."""
+    q = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn((b, lkv, 2 * h * d + 3), generator=gen, device="cuda").to(torch.bfloat16)
+    split = lambda x: x.reshape(x.shape[0], x.shape[1], h, d).transpose(1, 2)
+    mask = torch.rand((b, lkv), generator=gen, device="cuda") > 0.3
+    mask[0] = False
+    return split(q), split(kv[..., 3:3 + h * d]), split(kv[..., 3 + h * d:]), mask, split
+
+
+@pytest.mark.parametrize("h", [1, 8])
+@pytest.mark.parametrize("lkv", [1, 17, 1000, 4096, 8192])
+@pytest.mark.parametrize("lq", [1, 17, 33])
+@pytest.mark.parametrize("d", [63, 27, 20, 113, 128])
+def test_flash_tc_kernels_match_plain(gen, d, lq, lkv, h):
+    """The tensor-core variants (bf16, d <= 128) forward and backward on
+    the odd-pitch KV layout, masked with a fully masked row, dropout 0.2:
+    the forward to 2e-2 of the f32 plain version (p rounds to bf16 before
+    @V), the backward to 4 ulps of the largest gradient (p e and ds round
+    to bf16 at the same places, sums run in another order)."""
+    b, rate, seed = 2, 0.2, 4321
+    qh, kh, vh, mask, split = _odd_pitch_case(gen, b, h, lq, lkv, d)
+    eff = d**-0.5 / 0.5
+    flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+    out, lse = flash_attention_kernel(qh, kh, vh, mask, eff, rate, seed)
+    ref, _ = multihead_attention(qh.float(), kh.float(), vh.float(), scale=d**-0.5,
+                                 kv_mask=mask, dropout_rate=rate, dropout_seed=seed)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert out[0].abs().max().item() == 0.0
+    do = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    delta = (do.float() * out.float()).reshape(b, lq, h, d).sum(-1).transpose(1, 2)
+    got = flash_attention_bwd_kernel(qh, kh, vh, mask, split(do), lse, delta, eff, rate, seed)
+    want = flash_backward_plain(qh, kh, vh, mask, split(do), lse, delta, eff, rate, seed)
+    assert flash_attention_kernel.launches == 1 and flash_attention_bwd_kernel.launches == 1
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape, name
+        assert (a.float() - r.float()).abs().max().item() <= _bf16_tol(r), name
+        assert a[0].abs().max().item() == 0.0, name
+
+
+def test_flash_tc_calls_are_bit_identical(gen):
+    """No float atomics: two calls give the same bits (brca's shape)."""
+    qh, kh, vh, mask, split = _odd_pitch_case(gen, 8, 1, 17, 4096, 63)
+    do = split(torch.randn((8, 17, 63), generator=gen, device="cuda").to(torch.bfloat16))
+    args = (qh, kh, vh, mask, 63**-0.5 / 0.5, 0.083, 99)
+    out1, lse1 = flash_attention_kernel(*args)
+    out2, lse2 = flash_attention_kernel(*args)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    delta = (do.float() * split(out1).float()).sum(-1)
+    g1 = flash_attention_bwd_kernel(qh, kh, vh, mask, do, lse1, delta, *args[4:])
+    g2 = flash_attention_bwd_kernel(qh, kh, vh, mask, do, lse1, delta, *args[4:])
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("dtype,d,variant", [(torch.float32, 63, "launches_fma"),
+                                             (torch.bfloat16, 160, "launches_fma"),
+                                             (torch.bfloat16, 128, "launches"),
+                                             (torch.bfloat16, 63, "launches")])
+def test_flash_variant_counters(gen, dtype, d, variant):
+    """f32 and bf16 d > 128 take the FMA variant, bf16 d <= 128 the tensor
+    cores; each wrapper counts the variant it launched, and only that."""
+    q = torch.randn((2, 1, 17, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((2, 1, 300, d), generator=gen, device="cuda").to(dtype)
+    for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
+        fn.launches = fn.launches_fma = 0
+    out, lse = flash_attention_kernel(q, k, k, None, 0.1)
+    delta = torch.zeros((2, 1, 17), device="cuda")
+    flash_attention_bwd_kernel(q, k, k, None, q, lse, delta, 0.1)
+    other = "launches" if variant == "launches_fma" else "launches_fma"
+    for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
+        assert getattr(fn, variant) == 1 and getattr(fn, other) == 0, fn.__name__
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,f", [(2, 300, 70), (3, 129, 300), (8, 1, 252)],
                          ids=["ragged_rows", "wide", "one_token"])
@@ -273,11 +348,13 @@ def test_model_kernel_path_matches_plain_path(gen):
          torch.randn((3, 200, 24), generator=gen, device="cuda")]
     mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
     fused_project_kernel.launches = flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_fma = 0
     with torch.inference_mode():
         got = kernel(x, kv_masks=[None, mask])
         ref = plain(x, kv_masks=[None, mask])
     assert fused_project_kernel.launches == 2  # one merged projection per modality
-    assert flash_attention_kernel.launches == 8  # 2 layers x 2 modalities x (cross + self)
+    # f32: 2 layers x 2 modalities x (cross + self) on the FMA variant
+    assert flash_attention_kernel.launches_fma == 8 and flash_attention_kernel.launches == 0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
@@ -295,7 +372,7 @@ def test_model_kernel_path_grads_match_plain_path(gen, rate):
     x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
          torch.randn((3, 200, 24), generator=gen, device="cuda")]
     mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
-    fused_project_bwd_kernel.launches = flash_attention_bwd_kernel.launches = 0
+    fused_project_bwd_kernel.launches = flash_attention_bwd_kernel.launches_fma = 0
     grads = []
     for model in models:
         gens = dict(generator=torch.Generator(device="cuda").manual_seed(5),
@@ -303,7 +380,7 @@ def test_model_kernel_path_grads_match_plain_path(gen, rate):
         model(x, kv_masks=[None, mask], **gens).square().sum().backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
     assert fused_project_bwd_kernel.launches == 2
-    assert flash_attention_bwd_kernel.launches == 8
+    assert flash_attention_bwd_kernel.launches_fma == 8  # f32: the FMA variant
     for name, ref in grads[1].items():
         got = grads[0][name]
         assert got is not None and ref is not None, name

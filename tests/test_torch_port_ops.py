@@ -35,6 +35,8 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_backward_plain,
     flash_cross_attention as tflash,
     flash_lse_plain,
+    flash_plan,
+    flash_variant,
 )
 from healnet_tpu_torch.ops.fused_project import (
     FusedProjectFunction,
@@ -268,6 +270,35 @@ def test_flash_gradients_vs_jax_interpret(rng, case):
     if case == "fully_masked_row":
         assert float(fn_grads[0][1].abs().max()) == 0.0
         assert float(fn_grads[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+@pytest.mark.parametrize("rows,lkv", [(8, 4096), (8, 1), (8, 17), (24, 17), (64, 4096),
+                                      (2, 1000)])
+def test_flash_plan_covers_every_key_once(rows, lkv, max_cluster):
+    """The tensor-core kernels' launch plan on a 132-SM card: block r of a
+    row's cluster owns keys [r * per, (r + 1) * per) clipped to lkv. Every
+    key is owned exactly once, every block owns at least one, ranges are
+    whole 64-key tiles, and the cluster fits the largest resident one."""
+    cluster, per = flash_plan(rows, lkv, 132, max_cluster)
+    assert 1 <= cluster <= max_cluster and per % 64 == 0
+    owned = np.concatenate([np.arange(r * per, min(lkv, (r + 1) * per)) for r in range(cluster)])
+    np.testing.assert_array_equal(owned, np.arange(lkv))
+    assert (cluster - 1) * per < lkv
+    if lkv <= 64:
+        assert cluster == 1
+    if (rows, lkv) == (8, 4096):  # the brca shape fills the card: 8 x 16 blocks
+        assert cluster == max_cluster
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 63, "tc"), (torch.bfloat16, 27, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 129, "fma"), (torch.bfloat16, 160, "fma"), (torch.float32, 63, "fma"),
+    (torch.float32, 16, "fma")])
+def test_flash_variant_rule(dtype, d, variant):
+    """bf16 with d <= 128 takes the tensor-core kernels; f32 (no TF32) and
+    wider bf16 heads the FMA kernels, by dtype and d alone."""
+    assert flash_variant(dtype, d) == variant
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
