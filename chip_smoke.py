@@ -7,9 +7,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build the CUDA kernels from ``healnet_tpu_torch/ops/csrc`` (nvcc, one
    process per source, started together);
-2. hold the fused KV projection kernel against its plain PyTorch version at
-   the serving shapes (bf16 WSI bag and omic vector) and at a small ragged
-   f32 shape, and time kernel, plain version, the library GEMM and the bound;
+2. hold the fused KV projection kernels against their plain PyTorch version:
+   the Hopper kernel at the bf16 shapes of ``PROJECT_SHAPES`` (brca's and
+   kirp's WSI bag, F 252 and 270, the trimodal third bag, the omic vector)
+   and the generic kernel at small ragged f32 shapes; profile one call of
+   each bf16 shape (one launch) and time kernel, the generic kernel on the
+   same inputs, plain version, the library GEMM alone and the bound; and
+   the generic kernel at the brca shape in f32, held and timed;
 3. the same for the flash cross-attention kernel at (8, 17, 4096, 63) bf16:
    unmasked, masked with ragged lengths and one fully masked row, and with
    hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
@@ -29,22 +33,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    at (8, 17, 4096, 63) bf16 (unmasked, masked with a fully masked row,
    dropout 0.083), at the one-token omic context, at kirp's shape and at a
    small f32 shape; profile and time it as phase 3 does the forward, with
-   SDPA's backward as the library call;
+   SDPA's backward as the library call; then forward and backward at latent
+   counts past a block's shared memory (lq 64, 128, 130, 256 at d 27, 63,
+   96, 113, 128, bf16 and f32, masked with a fully masked row, dropout);
 6. the same for the projection backward (cotangent pass) kernel at
    (8, 4096, 252) bf16 and a small f32 shape;
 7. train the full-width BRCA model through ``SurvivalTrainer.train_step``
    (dropout 0.083 / 0.473, NLL/16 + L1, Adam under OneCycle): step-1 loss and
    gradients of the kernel path against the plain path with the same weights
    and dropout draws, in f32 (the run of the flash kernels' FMA variants)
-   and bf16; then 5 bf16 steps on the kernel path, the main path's run,
+   and bf16 (the f32 step also runs the generic projection kernel); then 5
+   bf16 steps on the kernel path, the main path's run,
    which must launch all four kernels (the flash kernels' tensor-core
    variants) and give finite losses; step time, samples/s, peak memory and
    the flash kernels' share of the step's device time, and one step with
    plain attention for comparison;
-8. hold the int8 branch of the projection kernel against its plain version
+8. hold the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
-   and f32 compute (kv, s1, s2), and time kernel, plain version, the library
-   GEMM on the dequantized bf16 context and the bound;
+   (the Hopper kernel) and f32 compute (the generic one), kv, s1, s2, and at
+   kirp's F 270 in bf16; time kernel, plain version, the library GEMM on the
+   dequantized bf16 context and the bound at both, and fail if the int8
+   brca call is more than ``INT8_MARGIN`` slower than phase 2's bf16 one;
 9. the same for the scaled cotangent pass with its batch-sum at
    (8, 4096, 252) bf16, and a small f32 shape; and the time of the d_W_c
    GEMM that follows it (the int8 context cast to bf16, then the GEMM);
@@ -104,6 +113,7 @@ from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
     _gemm_f32,
     _prep,
+    _project_launch,
     _project_plain,
     fused_project_bwd_kernel,
     fused_project_kernel,
@@ -116,6 +126,7 @@ from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 
 # kernel variant -> (its wrapper, the wrapper's launch counter for it)
 KERNELS = {"fused_project": (fused_project_kernel, "launches"),
+           "fused_project_generic": (fused_project_kernel, "launches_generic"),
            "fused_project_bwd": (fused_project_bwd_kernel, "launches"),
            "flash_attention": (flash_attention_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
@@ -274,46 +285,139 @@ def projection_case(gen, b, t, c, f, dtype, enc_on=True):
     return dat, enc, w_all, b_all, ops, run, plain
 
 
-def phase_projection(gen) -> dict:
-    log("phase 2: fused KV projection kernel vs plain version")
+# the projection's timed shapes: (b, t, C, F, context dtype), int8 computing
+# in bf16: brca's and kirp's WSI bag (the merged F of the row), the trimodal
+# row's third bag and the omic vector
+PROJECT_SHAPES = {"brca": (BATCH, TOKENS, PATCH, 252, torch.bfloat16),
+                  "kirp": (BATCH, TOKENS, PATCH, 270, torch.bfloat16),
+                  "trimodal bag": (BATCH, *EXTRA, 252, torch.bfloat16),
+                  "omic": (BATCH, 1, OMIC, 252, torch.bfloat16),
+                  "brca int8": (BATCH, TOKENS, PATCH, 252, torch.int8),
+                  "kirp int8": (BATCH, TOKENS, PATCH, 270, torch.int8)}
+
+
+def projection_timing(gen, b, t, c, f, dtype):
+    """(times, run) of one projection shape: a seeded context (int8 with
+    per-token scales and a zero row, computing in bf16), the encoding and
+    merged weights; ``run()`` launches the kernel of the call's route,
+    ``run("generic")`` the generic one on the same inputs. Times: the
+    kernel, the plain version, ``torch.matmul`` of the GEMM alone (on the
+    dequantized bf16 context for int8) and the bound (every input read once,
+    the output written once; 2 C F operations a row at the compute dtype's
+    rate). Also the kernel's largest difference from the plain version
+    (``err``) and the plain output's largest magnitude (``ref_max``)."""
+    x = torch.randn((b, t, c), generator=gen, device="cuda")
+    scale, cdt = None, dtype
+    if dtype == torch.int8:
+        qc = quantize_context(x)
+        qc.scale[0, 0] = 0.0
+        qc.data[0, 0] = 0
+        dat, scale, cdt = qc.data, qc.scale, torch.bfloat16
+        a2d = qc.dequantize(cdt).reshape(-1, c)
+    else:
+        dat = x.to(dtype)
+        a2d = dat.reshape(-1, c)
+    enc = positional_encoding((t,), 2.0, 2, dtype=cdt, device="cuda")
+    w_all = torch.randn((c + enc.shape[-1], f), generator=gen, device="cuda") * 0.02
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    ops = _prep(dat, enc, w_all, b_all, cdt)
+    w = w_all[:c].to(cdt)
+    generic_ops = (w.contiguous(), *ops[1:])
+
+    def run(route=None):
+        args = ops if route is None else generic_ops
+        return _project_launch(dat, *args, w_all.shape[0], 1e-5, scale, route)
+
+    plain = lambda: _project_plain(dat, enc, w_all, b_all, 1e-5, scale, cdt)[0]
+    kv, s1, s2 = run()
+    ref = plain()
+    err = (kv.float() - ref.float()).abs().max().item()
+    (t_kernel, w_kernel), (t_plain, _) = time_ms(run), time_ms(plain)
+    t_library, _ = time_ms(lambda: torch.matmul(a2d, w))
+    moved = nbytes(dat, *ops, kv, s1, s2) + (0 if scale is None else nbytes(scale))
+    bound, by = bound_ms(moved, 2.0 * b * t * c * f, cdt)
+    return dict(ms=t_kernel, wall_ms=w_kernel, plain_ms=t_plain, library_ms=t_library,
+                bound_ms=bound, bound_by=by, mb=moved / 1e6, err=err,
+                ref_max=ref.float().abs().max().item()), run
+
+
+def time_projection(gen, label):
+    """Profile one call of a ``PROJECT_SHAPES`` entry (a Hopper-kernel call
+    must be one launch) and time it, and the generic kernel (the kernel
+    these calls took before the Hopper one) on the same inputs; returns its
+    times."""
+    b, t, c, f, dtype = PROJECT_SHAPES[label]
+    timing, run = projection_timing(gen, b, t, c, f, dtype)
+    kinds, prof = launch_profile(run)
+    log(f"  {label} ({b}, {t}, {c}) {str(dtype)[6:]} -> F {f}: kernels on the profiler: {prof}")
+    if kinds != 1:
+        raise AssertionError(f"{label}: a projection call launched {kinds} kernels, not 1")
+    timing["generic_ms"] = time_ms(lambda: run("generic"))[0]
+    log(f"  {label}: device time kernel {timing['ms']:.4f} ms, generic kernel "
+        f"{timing['generic_ms']:.4f} ms, plain {timing['plain_ms']:.4f} "
+        f"ms, torch.matmul GEMM alone {timing['library_ms']:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; {timing['mb']:.1f} MB, "
+        f"{2.0 * b * t * c * f / 1e9:.1f} GFLOP); wall per call {timing['wall_ms']:.4f} ms")
+    return timing
+
+
+def projection_entry(name, source, replaces, err, timing) -> dict:
+    return dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
+                ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+                bound_by=timing["bound_by"], library_ms=timing["library_ms"])
+
+
+def phase_projection(gen):
+    """Returns the kernels-line entries of the Hopper kernel (bf16 contexts)
+    and of the generic kernels (f32 at the brca shape), each with its error
+    at the shape it is timed at."""
+    log("phase 2: fused KV projection kernels vs plain version")
     # bf16 tolerance: the kernel and the plain version round the product to
     # bf16 at the same place but sum it in another order, so a raw value may
     # round one bf16 ulp apart, and the output rounds once more: 4 ulps of
     # the largest output leaves a margin of two
-    worst = {}
-    for label, (b, t, c) in {"wsi": (BATCH, TOKENS, PATCH), "omic": (BATCH, 1, OMIC)}.items():
-        *_, ops, run, plain = projection_case(gen, b, t, c, 252, torch.bfloat16)
+    worst = 0.0
+    for label, (b, t, c, f, dtype) in PROJECT_SHAPES.items():
+        if dtype != torch.bfloat16:
+            continue
+        reset_launches()
+        *_, ops, run, plain = projection_case(gen, b, t, c, f, dtype)
         kv, s1, s2 = run()
         ref = plain()
         torch.cuda.synchronize()
         err = (kv.float() - ref.float()).abs().max().item()
-        check(f"bf16 {label} {(b, t, c)} F=252", err, 4 * bf16_ulp(ref.float().abs().max().item()))
-        worst[label] = err
-    # f32: the same schedule with FMA; sums of ~200 products in another
-    # order than cuBLAS's full-f32 GEMM agree to ~1e-6 of values ~1
+        check(f"bf16 {label} {(b, t, c)} F={f}", err, 4 * bf16_ulp(ref.float().abs().max().item()))
+        read_launches(f"the bf16 {label} call", ("fused_project",))
+        if label == "brca":
+            worst = err
+    # f32 (the generic kernel): the same schedule with FMA; sums of ~200
+    # products in another order than cuBLAS's full-f32 GEMM agree to ~1e-6
+    # of values ~1
     for c in (200, 203):  # 16-byte row loads, and the element-wise path
         *_, ops, run, plain = projection_case(gen, 2, 300, c, 70, torch.float32)
         err = (run()[0] - plain()).abs().max().item()
         check(f"f32 ragged (2, 300, {c}) F=70", err, 1e-4)
 
-    dat, enc, w_all, b_all, ops, run, plain = projection_case(
-        gen, BATCH, TOKENS, PATCH, 252, torch.bfloat16)
-    kv, s1, s2 = run()
-    w_c = ops[0]
-    dat2d = dat.reshape(-1, PATCH)
-    (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(plain)
-    t_library, _ = time_ms(lambda: torch.matmul(dat2d, w_c))
-    flops = 2.0 * dat2d.shape[0] * PATCH * w_c.shape[1]
-    bound, by = bound_ms(nbytes(dat, *ops, kv, s1, s2), flops, torch.bfloat16)
-    log(f"  device time at (8, 4096, 2048) bf16 F=252: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, torch.matmul GEMM alone {t_library:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}); wall per call: kernel {w_kernel:.4f} ms, plain "
-        f"{w_plain:.4f} ms")
-    return dict(name="fused_project", route="cuda",
-                source="healnet_tpu_torch/ops/csrc/fused_project.cu",
-                replaces="healnet_tpu/ops/fused_project.py:162",
-                max_abs_err=worst["wsi"], ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=t_library)
+    timings = {label: time_projection(gen, label)
+               for label, shape in PROJECT_SHAPES.items() if shape[-1] == torch.bfloat16}
+    brca = timings["brca"]
+    log(f"  kirp (F 270) against brca (F 252): {timings['kirp']['ms'] / brca['ms']:.3f}x the "
+        f"time; brca against torch.matmul of the GEMM alone: "
+        f"{brca['ms'] / brca['library_ms']:.3f}x")
+    reset_launches()
+    generic, _ = projection_timing(gen, BATCH, TOKENS, PATCH, 252, torch.float32)
+    read_launches("the f32 brca calls (check and timing)", ("fused_project_generic",))
+    # sums of 2048 products in another order than cuBLAS's full-f32 GEMM,
+    # outputs of magnitude ~1-5 (as phase 8's f32 case)
+    check("f32 generic (8, 4096, 2048) F=252", generic["err"], 1e-4)
+    log(f"  generic kernel, f32 (8, 4096, 2048) -> F 252: device time {generic['ms']:.4f} ms, "
+        f"plain {generic['plain_ms']:.4f} ms, torch.matmul GEMM alone {generic['library_ms']:.4f} "
+        f"ms, bound {generic['bound_ms']:.4f} ms ({generic['bound_by']})")
+    return (projection_entry("fused_project", "healnet_tpu_torch/ops/csrc/fused_project_tma.cu",
+                             "healnet_tpu/ops/fused_project.py:162", worst, timings["brca"]),
+            projection_entry("fused_project_generic",
+                             "healnet_tpu_torch/ops/csrc/fused_project.cu",
+                             "healnet_tpu/ops/fused_project.py:162", generic["err"], generic))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -332,8 +436,12 @@ def launch_profile(fn):
     """(device kernels a call launches, a line naming each with its mean
     device microseconds per launch and its launches per call), from
     :func:`device_profile` over 3 calls (the profiler may drop an event,
-    so times are per launch seen)."""
-    _, _, _, rows = device_profile(fn)
+    so times are per launch seen, and a window in which it saw no kernel at
+    all is profiled again, up to three times)."""
+    for _ in range(3):
+        _, _, _, rows = device_profile(fn)
+        if rows:
+            break
     parts = [f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:48]} "
              f"{device_us(e) / e.count:.2f} us per launch ({e.count / 3:.2f} per call)"
              for e in rows]
@@ -621,12 +729,57 @@ def phase_flash_bwd(gen):
             lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
             nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * d, dtype,
             "SDPA backward")
+    phase_flash_latents(gen)
     source = "healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     return (flash_entry("flash_attention_bwd", source, "healnet_tpu/ops/flash_attention.py:201",
                         worst[bf16], timings["brca"]),
             flash_entry("flash_attention_bwd_fma", source,
                         "healnet_tpu/ops/flash_attention.py:201", worst[f32],
                         timings["brca f32"]))
+
+
+def phase_flash_latents(gen) -> None:
+    """Forward and backward (both variants) at latent counts past a block's
+    shared memory, where the kernels walk the queries in chunks: K and V
+    slices of a merged KV buffer of width 4 d, a ragged mask with a fully
+    masked row, dropout 0.2; the forward to 2e-2 (bf16) / 2e-5 (f32) of the
+    plain version, the backward at phase 5's tolerances."""
+    b, lkv, rate, seed = 2, 1000, 0.2, 0x2545F491
+    mask = torch.arange(lkv, device="cuda")[None, :] < torch.tensor([[0], [777]], device="cuda")
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for lq in (64, 128, 130, 256):
+            for d in (27, 63, 96, 113, 128):
+                q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
+                kv = torch.randn((b, lkv, 4 * d), generator=gen, device="cuda").to(dtype)
+                k, v = kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
+                eff = d**-0.5 / 0.5
+                out, lse = flash_attention_kernel(q, k, v, mask, eff, rate, seed)
+                ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5,
+                                             temperature=0.5, kv_mask=mask, dropout_rate=rate,
+                                             dropout_seed=seed)
+                errs = [(out.float() - ref).abs().max().item()]
+                ftol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+                do = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)
+                delta = (do.float() * out.float()).sum(-1)[:, None]
+                got = flash_attention_bwd_kernel(q, k, v, mask, do[:, None], lse, delta, eff,
+                                                 rate, seed)
+                want = flash_backward_plain(q, k, v, mask, do[:, None], lse, delta, eff, rate,
+                                            seed)
+                torch.cuda.synchronize()
+                ok = errs[0] <= ftol and out[0].abs().max().item() == 0.0
+                for a, r in zip(got, want):
+                    top = r.float().abs().max().item()
+                    tol = 4 * bf16_ulp(top) if dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
+                    errs.append((a.float() - r.float()).abs().max().item())
+                    ok = ok and errs[-1] <= tol and a[0].abs().max().item() == 0.0
+                if not ok:
+                    raise AssertionError(f"latent count {lq}, d {d}, {dtype}: max|d| forward, "
+                                         f"dq, dk, dv = {errs}")
+                worst[dtype] = max(worst.get(dtype, 0.0), *errs[1:])
+    log(f"  forward and backward at lq 64, 128, 130, 256 x d 27, 63, 96, 113, 128 (lkv {lkv}, "
+        f"masked, dropout {rate}): all within tolerance; worst backward max|d| bf16 "
+        f"{worst[torch.bfloat16]:.6g}, f32 {worst[torch.float32]:.6g}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -766,7 +919,7 @@ def phase_training(host_rng) -> dict:
     reset_launches()
     compare_gradients("f32", k32, plain32, batch32, 1e-5, 1e-4)
     fma = read_launches("the f32 kernel-path step",
-                        ("flash_attention_fma", "flash_attention_bwd_fma"))
+                        ("flash_attention_fma", "flash_attention_bwd_fma", "fused_project_generic"))
     del batch32, k32, plain32
     batch = train_batch(host_rng, torch.bfloat16)
     kernel = brca_trainer(torch.bfloat16, "flash", "auto", state)
@@ -805,6 +958,11 @@ def phase_training(host_rng) -> dict:
 # ---------------------------------------------------------------- phase 8
 
 
+# how much slower than the bf16 brca call the int8 one may be: on one card
+# in one run, repeated timings of one projection kernel spread by under 1%
+INT8_MARGIN = 0.03
+
+
 def int8_projection_case(gen, b, t, c, f, cdt):
     """An int8 context (per-token scales, one zero row) with the encoding,
     the kernel's operands in compute dtype ``cdt``, and both versions."""
@@ -824,42 +982,40 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-def phase_projection_int8(gen) -> dict:
-    log("phase 8: int8 projection forward kernel vs plain version")
-    for cdt in (torch.bfloat16, torch.float32):
-        qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, 252, cdt)
+def phase_projection_int8(gen, bf16_ms: float) -> dict:
+    """``bf16_ms``: phase 2's time of the bf16 brca call, which the int8 one
+    must not exceed by more than ``INT8_MARGIN``."""
+    log("phase 8: int8 projection forward kernels vs plain version")
+    worst = 0.0
+    for cdt, f in ((torch.bfloat16, 252), (torch.bfloat16, 270), (torch.float32, 252)):
+        reset_launches()
+        qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, f, cdt)
         (kv, s1, s2), (ref, r1, r2) = run(), plain()
         torch.cuda.synchronize()
+        read_launches(f"the int8 -> {str(cdt)[6:]} F={f} call",
+                      ("fused_project_int8" if cdt == torch.bfloat16 else "fused_project_generic",))
         err = (kv.float() - ref.float()).abs().max().item()
         # bf16: as phase 2, 4 ulps of the largest output; f32: sums of 2048
         # products in another order than cuBLAS's, outputs of magnitude ~1-5
         tol = 4 * bf16_ulp(ref.float().abs().max().item()) if cdt == torch.bfloat16 else 1e-4
-        check(f"int8 (8, 4096, 2048) -> {str(cdt)[6:]} kv", err, tol)
+        check(f"int8 (8, 4096, 2048) -> {str(cdt)[6:]} F={f} kv", err, tol)
         if cdt == torch.bfloat16:
-            worst = err
+            worst = max(worst, err)
         # s1: integer sums, exact in both, then the same f32 operations; s2:
         # the kernel's integer sum of q^2 is exact, the plain version's f32
         # sum of 2048 terms is not (pairwise: ~11 roundings of 2^-24)
-        check(f"int8 {str(cdt)[6:]} s1 (relative)", rel_err(s1, r1), 1e-6)
-        check(f"int8 {str(cdt)[6:]} s2 (relative)", rel_err(s2, r2), 2e-6)
+        check(f"int8 {str(cdt)[6:]} F={f} s1 (relative)", rel_err(s1, r1), 1e-6)
+        check(f"int8 {str(cdt)[6:]} F={f} s2 (relative)", rel_err(s2, r2), 2e-6)
 
-    qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, 252, torch.bfloat16)
-    kv, s1, s2 = run()
-    deq2d = qc.dequantize(torch.bfloat16).reshape(-1, PATCH)
-    (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(lambda: plain()[0])
-    t_library, _ = time_ms(lambda: torch.matmul(deq2d, ops[0]))
-    flops = 2.0 * deq2d.shape[0] * PATCH * ops[0].shape[1]
-    bound, by = bound_ms(nbytes(qc.data, qc.scale, *ops, kv, s1, s2), flops, torch.bfloat16)
-    log(f"  device time at (8, 4096, 2048) int8 -> bf16 F=252: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, torch.matmul GEMM alone on the dequantized bf16 context "
-        f"{t_library:.4f} ms, bound {bound:.4f} ms ({by}; "
-        f"{nbytes(qc.data, qc.scale, *ops, kv, s1, s2) / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); "
-        f"wall per call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms")
-    return dict(name="fused_project_int8", route="cuda",
-                source="healnet_tpu_torch/ops/csrc/fused_project.cu",
-                replaces="healnet_tpu/ops/fused_project.py:171",
-                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=t_library)
+    timings = {label: time_projection(gen, label) for label in ("brca int8", "kirp int8")}
+    ratio = timings["brca int8"]["ms"] / bf16_ms
+    log(f"  int8 against bf16 at brca: {ratio:.3f}x the time "
+        f"({timings['brca int8']['ms']:.4f} ms against phase 2's {bf16_ms:.4f} ms)")
+    if ratio > 1.0 + INT8_MARGIN:
+        raise AssertionError(f"the int8 brca call is {ratio:.3f}x the bf16 one's time")
+    return projection_entry("fused_project_int8",
+                            "healnet_tpu_torch/ops/csrc/fused_project_tma.cu",
+                            "healnet_tpu/ops/fused_project.py:171", worst, timings["brca int8"])
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1270,12 +1426,12 @@ def main() -> int:
         log(f"  {name}: {info['ptxas']}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_projection(gen), *phase_flash(gen)]
+    kernels = [*phase_projection(gen), *phase_flash(gen)]
     phase_serving(np.random.default_rng(0))
     phase_serving_rows(np.random.default_rng(3))
     kernels += [*phase_flash_bwd(gen), phase_projection_bwd(gen)]
     launches = phase_training(np.random.default_rng(1))
-    kernels += [phase_projection_int8(gen), phase_projection_bwd_int8(gen)]
+    kernels += [phase_projection_int8(gen, kernels[0]["ms"]), phase_projection_bwd_int8(gen)]
     launches.update(phase_arena(np.random.default_rng(2)))
     chain, chain_launches = phase_chain(gen)
     kernels.append(chain)

@@ -52,7 +52,9 @@
 // first port's f32 FMA kernels. Keys split over blocks (two per SM), each
 // block's (m, l, acc) written to a partial buffer that a second kernel
 // merges in split order; tensor cores would mean TF32 for f32 and break its
-// 2e-5 contract.
+// 2e-5 contract. A block holds the queries of one chunk (grid axis z) in
+// shared memory; the wrapper sizes the chunks (query_chunks in
+// ops/flash_attention.py) from healnet_flash_max_queries, so any lq runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +90,7 @@ struct Params {
   float* part_ml;     // (B*H, n_split, 2, lq)
   void* out;          // (B, lq, H, d)
   float* lse;         // (B*H, lq)
-  int H, lq, lkv, d, n_split, split_len;
+  int H, lq, lkv, d, n_split, split_len, q_chunk;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
@@ -103,10 +105,13 @@ __host__ inline size_t split_smem_bytes(int lq, int d) {
          (size_t)(2 * lq * d + kTile * key_pitch(d) + kTile * d + lq * kTile + kTile + 3 * lq);
 }
 
+// Queries [q0, q0 + lq) of the chunk blockIdx.z; indices into shared
+// memory are relative to q0, the dropout hash and the outputs take q0 + qi.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_split(Params p) {
   extern __shared__ float smem[];
-  const int lq = p.lq, d = p.d, kp = key_pitch(d);
+  const int q0 = blockIdx.z * p.q_chunk, lq = min(p.q_chunk, p.lq - q0);
+  const int d = p.d, kp = key_pitch(d);
   float* qs = smem;              // lq * d
   float* acc = qs + lq * d;      // lq * d
   float* ks = acc + lq * d;      // kTile * kp
@@ -120,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split(Params p) {
   const int row = blockIdx.x, split = blockIdx.y;
   const int b = row / p.H, h = row - (row / p.H) * p.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
@@ -182,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split(Params p) {
       for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
       const float corr = expf(m_prev - m_new);
       if (p.dropout) {
-        const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)qi,
+        const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0 + qi),
                                              (uint32_t)(k0 + lane), p.threshold);
         pr *= keep ? p.keep_scale : 0.f;
       }
@@ -209,10 +214,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split(Params p) {
   }
 
   const size_t part = (size_t)row * p.n_split + split;
-  for (int i = tid; i < lq * d; i += kThreads) p.part_acc[part * lq * d + i] = acc[i];
+  float* pacc = p.part_acc + (part * p.lq + q0) * d;
+  float* pml = p.part_ml + part * 2 * p.lq + q0;
+  for (int i = tid; i < lq * d; i += kThreads) pacc[i] = acc[i];
   for (int i = tid; i < lq; i += kThreads) {
-    p.part_ml[part * 2 * lq + i] = m_s[i];
-    p.part_ml[part * 2 * lq + lq + i] = l_s[i];
+    pml[i] = m_s[i];
+    pml[p.lq + i] = l_s[i];
   }
 }
 
@@ -244,13 +251,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_combine(Params p) {
 
 template <typename T>
 cudaError_t launch(const Params& p, int rows, cudaStream_t s) {
-  const size_t smem = split_smem_bytes(p.lq, p.d);
+  const size_t smem = split_smem_bytes(p.q_chunk, p.d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  flash_fwd_split<T><<<dim3(rows, p.n_split), kThreads, smem, s>>>(p);
+  const int chunks = (p.lq + p.q_chunk - 1) / p.q_chunk;
+  flash_fwd_split<T><<<dim3(rows, p.n_split, chunks), kThreads, smem, s>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_fwd_combine<T><<<rows, kThreads, 0, s>>>(p);
@@ -509,14 +517,18 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
 
 }  // namespace
 
-extern "C" long long healnet_flash_smem_bytes(int lq, int d) {
-  return (long long)split_smem_bytes(lq, d);
+// The most queries a block of the FMA forward holds at head dim d (0 where
+// not even one fits).
+extern "C" int healnet_flash_max_queries(int d) {
+  const size_t fixed = split_smem_bytes(0, d);
+  const size_t per = split_smem_bytes(1, d) - fixed;
+  return fixed > tc::kMaxSmem ? 0 : (int)((tc::kMaxSmem - fixed) / per);
 }
 
 extern "C" int healnet_flash_forward(
     const void* q, const void* k, const void* v, const float* mask, float* part_acc,
     float* part_ml, void* out, float* lse, int B, int H, int lq, int lkv, int d, int n_split,
-    int split_len, long long q_sb, long long q_sh, long long q_st, long long k_sb,
+    int split_len, int q_chunk, long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
     long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
     float keep_scale, int is_bf16, void* stream) {
@@ -536,6 +548,7 @@ extern "C" int healnet_flash_forward(
   p.d = d;
   p.n_split = n_split;
   p.split_len = split_len;
+  p.q_chunk = q_chunk;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_st = q_st;

@@ -44,6 +44,16 @@
 // flash_bwd_split + flash_bwd_merge (f32, and bf16 with d > 128): the first
 // port's f32 FMA kernels; keys split over blocks (two per SM), partial dq
 // written to a buffer and summed in split order by a second kernel.
+//
+// Any latent count: both variants walk the queries in chunks that fit
+// shared memory (query_chunks in ops/flash_attention.py sizes them from
+// healnet_flash_bwd[_tc]_max_queries), a loop inside the block that streams
+// the block's keys once per chunk. dq is a chunk's own. dk and dv sum over
+// the chunks: with more than one chunk each thread carries its own elements'
+// f32 sums through a scratch buffer (dkv_acc, (2, B*H, lkv, pitch)) that
+// only it reads and writes, in chunk order, and rounds them on the last
+// chunk: no float atomics, the same bits on every call. One chunk (the
+// model's lq of 17) never touches the scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +94,8 @@ struct Params {
   void* dq;            // (B, H, lq, d) contiguous
   void* dk;            // (B, H, lkv, d) contiguous
   void* dv;            // (B, H, lkv, d) contiguous
-  int H, lq, lkv, d, n_split, split_len;
+  float* dkv_acc;      // (2, B*H, lkv, d) f32 when n_chunks > 1, else null
+  int H, lq, lkv, d, n_split, split_len, q_chunk, n_chunks;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
@@ -103,17 +114,17 @@ __host__ inline size_t bwd_smem_bytes(int lq, int d) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_split(Params p) {
   extern __shared__ float smem[];
-  const int lq = p.lq, d = p.d, kp = key_pitch(d);
-  float* qs = smem;               // lq * d
-  float* dos = qs + lq * d;       // lq * d
-  float* dqa = dos + lq * d;      // lq * d: this split's partial dq
-  float* ks = dqa + lq * d;       // kTile * kp
+  const int d = p.d, kp = key_pitch(d), lqc = p.q_chunk;
+  float* qs = smem;               // lqc * d
+  float* dos = qs + lqc * d;      // lqc * d
+  float* dqa = dos + lqc * d;     // lqc * d: this split's partial dq
+  float* ks = dqa + lqc * d;      // kTile * kp
   float* vs = ks + kTile * kp;    // kTile * kp
-  float* pd = vs + kTile * kp;    // lq * kTile: round_T(p * e)
-  float* dss = pd + lq * kTile;   // lq * kTile: round_T(ds)
-  float* mk = dss + lq * kTile;   // kTile
-  float* lse_s = mk + kTile;      // lq
-  float* del_s = lse_s + lq;      // lq
+  float* pd = vs + kTile * kp;    // lqc * kTile: round_T(p * e)
+  float* dss = pd + lqc * kTile;  // lqc * kTile: round_T(ds)
+  float* mk = dss + lqc * kTile;  // kTile
+  float* lse_s = mk + kTile;      // lqc
+  float* del_s = lse_s + lqc;     // lqc
 
   const int row = blockIdx.x, split = blockIdx.y;
   const int b = row / p.H, h = row - (row / p.H) * p.H;
@@ -127,89 +138,107 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_split(Params p) {
   T* dv = static_cast<T*>(p.dv) + (size_t)row * p.lkv * d;
   const int kv_begin = split * p.split_len;
   const int kv_end = min(p.lkv, kv_begin + p.split_len);
+  const size_t acc_half = (size_t)gridDim.x * p.lkv * d;  // dk's carry, then dv's
+  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)row * p.lkv * d : nullptr;
 
-  for (int i = tid; i < lq * d; i += kThreads) {
-    const int qi = i / d, dd = i - qi * d;
-    qs[i] = to_float(q[qi * p.q_st + dd]);
-    dos[i] = to_float(dout[qi * p.o_st + dd]);
-    dqa[i] = 0.f;
-  }
-  for (int i = tid; i < lq; i += kThreads) {
-    lse_s[i] = p.lse[(size_t)row * lq + i];
-    del_s[i] = p.delta[(size_t)row * lq + i];
-  }
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    // one key row per warp, lanes along d: coalesced reads, no division
-    for (int j = warp; j < kTile; j += kWarps) {
-      const int key = k0 + j;
-      const bool ok = key < kv_end;
-      const T* kr = k + (ok ? key : 0) * p.k_st;
-      const T* vr = v + (ok ? key : 0) * p.v_st;
-      for (int dd = lane; dd < d; dd += 32) {
-        ks[j * kp + dd] = ok ? to_float(kr[dd]) : 0.f;
-        vs[j * kp + dd] = ok ? to_float(vr[dd]) : 0.f;
-      }
-    }
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      mk[tid] = key < kv_end ? (mask ? mask[key] : 1.f) : 0.f;
-    }
-    __syncthreads();
-
-    // probabilities and score gradients: one (query, key) pair per thread
-    for (int i = tid; i < lq * kTile; i += kThreads) {
-      const int qi = i / kTile, j = i - qi * kTile;
-      const float* qr = qs + qi * d;
-      const float* orow = dos + qi * d;
-      const float* kr = ks + j * kp;
-      const float* vr = vs + j * kp;
-      float s = 0.f, dp = 0.f;
-      for (int dd = 0; dd < d; ++dd) {
-        s = fmaf(qr[dd], kr[dd], s);
-        dp = fmaf(orow[dd], vr[dd], dp);
-      }
-      s = s * p.scale + (mk[j] - 1.f) * 1e30f;
-      const float pr = expf(s - lse_s[qi]) * mk[j];
-      float e = 1.f;
-      if (p.dropout) {
-        const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)qi,
-                                             (uint32_t)(k0 + j), p.threshold);
-        e = keep ? p.keep_scale : 0.f;
-      }
-      pd[i] = round_to<T>(pr * e);
-      dss[i] = round_to<T>(pr * (dp * e - del_s[qi]));
-    }
-    __syncthreads();
-
-    // dv_j = sum_i pd_ij dO_i and dk_j = scale * sum_i ds_ij q_i, written out
-    const int n_keys = min(kTile, kv_end - k0);
-    for (int i = tid; i < n_keys * d; i += kThreads) {
-      const int j = i / d, dd = i - j * d;
-      float a = 0.f, c = 0.f;
-      for (int qi = 0; qi < lq; ++qi) {
-        a = fmaf(pd[qi * kTile + j], dos[qi * d + dd], a);
-        c = fmaf(dss[qi * kTile + j], qs[qi * d + dd], c);
-      }
-      const size_t off = (size_t)(k0 + j) * d + dd;
-      dv[off] = from_float<T>(a);
-      dk[off] = from_float<T>(c * p.scale);
-    }
-    // dq_i += sum_j ds_ij k_j (scaled once, in the merge)
+  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
+    const int q0 = chunk * lqc, lq = min(lqc, p.lq - q0);
+    const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
+    __syncthreads();  // the previous chunk's readers are done
     for (int i = tid; i < lq * d; i += kThreads) {
       const int qi = i / d, dd = i - qi * d;
-      const float* dr = dss + qi * kTile;
-      float a = dqa[i];
-#pragma unroll 8
-      for (int j = 0; j < kTile; ++j) a = fmaf(dr[j], ks[j * kp + dd], a);
-      dqa[i] = a;
+      qs[i] = to_float(q[(q0 + qi) * p.q_st + dd]);
+      dos[i] = to_float(dout[(q0 + qi) * p.o_st + dd]);
+      dqa[i] = 0.f;
     }
-  }
-  __syncthreads();
+    for (int i = tid; i < lq; i += kThreads) {
+      lse_s[i] = p.lse[(size_t)row * p.lq + q0 + i];
+      del_s[i] = p.delta[(size_t)row * p.lq + q0 + i];
+    }
 
-  float* part = p.part_dq + ((size_t)row * p.n_split + split) * lq * d;
-  for (int i = tid; i < lq * d; i += kThreads) part[i] = dqa[i];
+    for (int k0 = kv_begin; k0 < kv_end; k0 += kTile) {
+      __syncthreads();  // the previous tile's readers are done
+      // one key row per warp, lanes along d: coalesced reads, no division
+      for (int j = warp; j < kTile; j += kWarps) {
+        const int key = k0 + j;
+        const bool ok = key < kv_end;
+        const T* kr = k + (ok ? key : 0) * p.k_st;
+        const T* vr = v + (ok ? key : 0) * p.v_st;
+        for (int dd = lane; dd < d; dd += 32) {
+          ks[j * kp + dd] = ok ? to_float(kr[dd]) : 0.f;
+          vs[j * kp + dd] = ok ? to_float(vr[dd]) : 0.f;
+        }
+      }
+      if (tid < kTile) {
+        const int key = k0 + tid;
+        mk[tid] = key < kv_end ? (mask ? mask[key] : 1.f) : 0.f;
+      }
+      __syncthreads();
+
+      // probabilities and score gradients: one (query, key) pair per thread
+      for (int i = tid; i < lq * kTile; i += kThreads) {
+        const int qi = i / kTile, j = i - qi * kTile;
+        const float* qr = qs + qi * d;
+        const float* orow = dos + qi * d;
+        const float* kr = ks + j * kp;
+        const float* vr = vs + j * kp;
+        float s = 0.f, dp = 0.f;
+        for (int dd = 0; dd < d; ++dd) {
+          s = fmaf(qr[dd], kr[dd], s);
+          dp = fmaf(orow[dd], vr[dd], dp);
+        }
+        s = s * p.scale + (mk[j] - 1.f) * 1e30f;
+        const float pr = expf(s - lse_s[qi]) * mk[j];
+        float e = 1.f;
+        if (p.dropout) {
+          const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0 + qi),
+                                               (uint32_t)(k0 + j), p.threshold);
+          e = keep ? p.keep_scale : 0.f;
+        }
+        pd[i] = round_to<T>(pr * e);
+        dss[i] = round_to<T>(pr * (dp * e - del_s[qi]));
+      }
+      __syncthreads();
+
+      // dv_j = sum_i pd_ij dO_i and dk_j = scale * sum_i ds_ij q_i, written out
+      const int n_keys = min(kTile, kv_end - k0);
+      for (int i = tid; i < n_keys * d; i += kThreads) {
+        const int j = i / d, dd = i - j * d;
+        float a = 0.f, c = 0.f;
+        for (int qi = 0; qi < lq; ++qi) {
+          a = fmaf(pd[qi * kTile + j], dos[qi * d + dd], a);
+          c = fmaf(dss[qi * kTile + j], qs[qi * d + dd], c);
+        }
+        const size_t off = (size_t)(k0 + j) * d + dd;
+        if (dk_acc != nullptr) {  // carried over the chunks, by this thread alone
+          if (!first) {
+            c += dk_acc[off];
+            a += dk_acc[acc_half + off];
+          }
+          if (!last) {
+            dk_acc[off] = c;
+            dk_acc[acc_half + off] = a;
+            continue;
+          }
+        }
+        dv[off] = from_float<T>(a);
+        dk[off] = from_float<T>(c * p.scale);
+      }
+      // dq_i += sum_j ds_ij k_j (scaled once, in the merge)
+      for (int i = tid; i < lq * d; i += kThreads) {
+        const int qi = i / d, dd = i - qi * d;
+        const float* dr = dss + qi * kTile;
+        float a = dqa[i];
+#pragma unroll 8
+        for (int j = 0; j < kTile; ++j) a = fmaf(dr[j], ks[j * kp + dd], a);
+        dqa[i] = a;
+      }
+    }
+    __syncthreads();
+
+    float* part = p.part_dq + (((size_t)row * p.n_split + split) * p.lq + q0) * d;
+    for (int i = tid; i < lq * d; i += kThreads) part[i] = dqa[i];
+  }  // chunk
 }
 
 // Sums each row's partial dq over the splits in split order, scales, and
@@ -229,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_merge(Params p) {
 
 template <typename T>
 cudaError_t launch(const Params& p, int rows, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes(p.lq, p.d);
+  const size_t smem = bwd_smem_bytes(p.q_chunk, p.d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -259,7 +288,8 @@ struct TcParams {
   __nv_bfloat16* dq;          // (B, H, lq, d) contiguous
   __nv_bfloat16* dk;          // (B, H, lkv, d) contiguous
   __nv_bfloat16* dv;          // (B, H, lkv, d) contiguous
-  int H, lq, lkv, d, keys_per_cta, stages;
+  float* dkv_acc;             // (2, B*H, lkv, DP) f32 when n_chunks > 1, else null
+  int H, lq, lkv, d, keys_per_cta, stages, q_chunk, n_chunks;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
@@ -271,7 +301,8 @@ __host__ __device__ inline int pad_queries(int lq) {
   return (lq + tc::kQGroup - 1) / tc::kQGroup * tc::kQGroup;
 }
 
-// Byte offsets into the block's shared memory (lqp = lq padded to 32).
+// Byte offsets into the block's shared memory (lqp = the query chunk, a
+// multiple of 32).
 template <int DP>
 struct BwdLayout {
   size_t ks, vs, qs, dos, lse, del, mk, pt, dst, dq, rdq, total;
@@ -297,6 +328,16 @@ int bwd_stages(int lq) {
   return tc::pick_stages([lq](int s) { return BwdLayout<DP>(s, pad_queries(lq)).total; });
 }
 
+// The largest query chunk (a multiple of 32) whose layout fits a block at
+// two ring stages.
+template <int DP>
+int bwd_max_queries() {
+  int best = 0;
+  for (int lqp = tc::kQGroup; BwdLayout<DP>(2, lqp).total <= tc::kMaxSmem; lqp += tc::kQGroup)
+    best = lqp;
+  return best;
+}
+
 // Per 64-key tile and 32-query group, warp w takes keys 16 (w % 4) ..
 // + 15 and queries 16 (w / 4) .. + 15 for s^T and dp^T, writes round(p e)
 // and round(ds) to the p^T and ds^T tiles; after a barrier it computes dv
@@ -309,7 +350,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
   constexpr int P = D::kPitch, AP = D::kAccPitch, NT = DP / 8, KS = DP / 16;
   constexpr int NV = NT / 2, NQ = (NT + 3) / 4;  // n-tiles per warp for dv/dk and for dq
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int lqp = pad_queries(p.lq), ngroups = lqp / tc::kQGroup;
+  const int lqp = pad_queries(p.q_chunk);
   const BwdLayout<DP> L(p.stages, lqp);
   uint32_t* ring = reinterpret_cast<uint32_t*>(tc_smem);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.ks);
@@ -340,232 +381,277 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
   const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
   const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + tc::kKeyTile - 1) / tc::kKeyTile : 0;
   const int S = p.stages;
+  // the carry of dk and dv over the chunks: this row's (lkv, DP) halves
+  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)row * p.lkv * DP : nullptr;
+  float* dv_acc = p.dkv_acc ? dk_acc + (size_t)gridDim.y * p.lkv * DP : nullptr;
 
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < ntiles)
-      tc::stage_tile<DP>(ring + s * D::kStageWords, k, p.k_st, v, p.v_st, mask,
-                         kv_begin + s * tc::kKeyTile, kv_end, p.d, tid);
-    tc::cp_async_commit();
-  }
-  // q, dO, lse and delta once per block; padded queries get q = dO = 0 and
-  // lse = 1e30, so their probabilities are exactly 0
-  for (int r0 = 0; r0 < lqp; r0 += tc::kQGroup) {
-    tc::load_rows<DP>(qs + r0 * P, q, p.q_st, r0, p.lq, p.d, tid);
-    tc::load_rows<DP>(dos + r0 * P, dout, p.o_st, r0, p.lq, p.d, tid);
-  }
-  for (int i = tid; i < lqp; i += tc::kThreads) {
-    lse_s[i] = i < p.lq ? p.lse[(size_t)row * p.lq + i] : 1e30f;
-    del_s[i] = i < p.lq ? p.delta[(size_t)row * p.lq + i] : 0.f;
-  }
-  for (int i = tid; i < lqp * AP; i += tc::kThreads) dq_s[i] = 0.f;
+  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
+    // queries [q0c, q0c + nq) of the chunk; shared-memory rows are relative
+    const int q0c = chunk * p.q_chunk, nq = min(p.q_chunk, p.lq - q0c);
+    const int ngroups = (nq + tc::kQGroup - 1) / tc::kQGroup;
+    const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < ntiles)
+        tc::stage_tile<DP>(ring + s * D::kStageWords, k, p.k_st, v, p.v_st, mask,
+                           kv_begin + s * tc::kKeyTile, kv_end, p.d, tid);
+      tc::cp_async_commit();
+    }
+    // q, dO, lse and delta once per block and chunk; padded queries get
+    // q = dO = 0 and lse = 1e30, so their probabilities are exactly 0
+    for (int r0 = 0; r0 < ngroups * tc::kQGroup; r0 += tc::kQGroup) {
+      tc::load_rows<DP>(qs + r0 * P, q, p.q_st, q0c + r0, p.lq, p.d, tid);
+      tc::load_rows<DP>(dos + r0 * P, dout, p.o_st, q0c + r0, p.lq, p.d, tid);
+    }
+    for (int i = tid; i < lqp; i += tc::kThreads) {
+      lse_s[i] = i < nq ? p.lse[(size_t)row * p.lq + q0c + i] : 1e30f;
+      del_s[i] = i < nq ? p.delta[(size_t)row * p.lq + q0c + i] : 0.f;
+    }
+    for (int i = tid; i < lqp * AP; i += tc::kThreads) dq_s[i] = 0.f;
 
-  for (int it = 0; it < ntiles; ++it) {
-    tc::cp_async_wait(S - 2);
-    if (tid == 0) tc::bulk_wait_read();  // the stage of tile it - 1 is read out
-    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
-    const int nxt = it + S - 1;
-    if (nxt < ntiles)
-      tc::stage_tile<DP>(ring + (nxt % S) * D::kStageWords, k, p.k_st, v, p.v_st, mask,
-                         kv_begin + nxt * tc::kKeyTile, kv_end, p.d, tid);
-    tc::cp_async_commit();
-    const int k0 = kv_begin + it * tc::kKeyTile;
-    tc::unpack_tile<DP>(ring + (it % S) * D::kStageWords, ks, vs, mk, k, p.k_st, v, p.v_st,
-                        mask != nullptr, k0, kv_end, p.d, tid);
-    __syncthreads();
+    for (int it = 0; it < ntiles; ++it) {
+      tc::cp_async_wait(S - 2);
+      if (tid == 0) tc::bulk_wait_read();  // the stage of tile it - 1 is read out
+      __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+      const int nxt = it + S - 1;
+      if (nxt < ntiles)
+        tc::stage_tile<DP>(ring + (nxt % S) * D::kStageWords, k, p.k_st, v, p.v_st, mask,
+                           kv_begin + nxt * tc::kKeyTile, kv_end, p.d, tid);
+      tc::cp_async_commit();
+      const int k0 = kv_begin + it * tc::kKeyTile;
+      tc::unpack_tile<DP>(ring + (it % S) * D::kStageWords, ks, vs, mk, k, p.k_st, v, p.v_st,
+                          mask != nullptr, k0, kv_end, p.d, tid);
+      __syncthreads();
 
-    // dv and dk of the warp's keys on its n-tiles, summed over the groups
-    float dva[NV][4], dka[NV][4];
+      // dv and dk of the warp's keys on its n-tiles, summed over the groups
+      float dva[NV][4], dka[NV][4];
 #pragma unroll
-    for (int n = 0; n < NV; ++n)
+      for (int n = 0; n < NV; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
 
-    for (int grp = 0; grp < ngroups; ++grp) {
-      const int q0 = grp * tc::kQGroup, qw = q0 + qh * 16;  // the warp's 16 queries
-      // s^T = K Q^T and dp^T = V dO^T: keys on M, queries on N (2 x 8)
-      float st[2][4], dpt[2][4];
+      for (int grp = 0; grp < ngroups; ++grp) {
+        const int q0 = grp * tc::kQGroup, qw = q0 + qh * 16;  // the warp's 16 queries
+        // s^T = K Q^T and dp^T = V dO^T: keys on M, queries on N (2 x 8)
+        float st[2][4], dpt[2][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      if (qw < p.lq) {
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+        if (qw < nq) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t ka[4], va[4], qb[4], ob[4];
-          tc::ldsm_x4(ka, ks + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
-          tc::ldsm_x4(va, vs + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
-          const int r = qw + ((lane >> 4) << 3) + (lane & 7), c = kk * 16 + ((lane >> 3) & 1) * 8;
-          tc::ldsm_x4(qb, qs + r * P + c);
-          tc::ldsm_x4(ob, dos + r * P + c);
-          tc::mma_bf16(st[0], ka, qb[0], qb[1]);
-          tc::mma_bf16(st[1], ka, qb[2], qb[3]);
-          tc::mma_bf16(dpt[0], va, ob[0], ob[1]);
-          tc::mma_bf16(dpt[1], va, ob[2], ob[3]);
-        }
-        // p = exp(s - lse) * mask; st <- p * e, dpt <- p * (dp * e - delta)
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t ka[4], va[4], qb[4], ob[4];
+            tc::ldsm_x4(ka, ks + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+            tc::ldsm_x4(va, vs + (wk + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+            const int r = qw + ((lane >> 4) << 3) + (lane & 7), c = kk * 16 + ((lane >> 3) & 1) * 8;
+            tc::ldsm_x4(qb, qs + r * P + c);
+            tc::ldsm_x4(ob, dos + r * P + c);
+            tc::mma_bf16(st[0], ka, qb[0], qb[1]);
+            tc::mma_bf16(st[1], ka, qb[2], qb[3]);
+            tc::mma_bf16(dpt[0], va, ob[0], ob[1]);
+            tc::mma_bf16(dpt[1], va, ob[2], ob[3]);
+          }
+          // p = exp(s - lse) * mask; st <- p * e, dpt <- p * (dp * e - delta)
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int kc = wk + g + 8 * hr;
-          const float mkv = mk[kc];
+          for (int hr = 0; hr < 2; ++hr) {
+            const int kc = wk + g + 8 * hr;
+            const float mkv = mk[kc];
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
+            for (int n = 0; n < 2; ++n) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int qi = qw + n * 8 + 2 * t + e;
-              const float x = st[n][2 * hr + e] * p.scale + (mkv - 1.f) * 1e30f;
-              const float pr = __expf(x - lse_s[qi]) * mkv;
-              float ev = 1.f;
-              if (p.dropout)
-                ev = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)qi,
-                                        (uint32_t)(k0 + kc), p.threshold)
-                         ? p.keep_scale
-                         : 0.f;
-              st[n][2 * hr + e] = pr * ev;
-              dpt[n][2 * hr + e] = pr * (dpt[n][2 * hr + e] * ev - del_s[qi]);
+              for (int e = 0; e < 2; ++e) {
+                const int qi = qw + n * 8 + 2 * t + e;
+                const float x = st[n][2 * hr + e] * p.scale + (mkv - 1.f) * 1e30f;
+                const float pr = __expf(x - lse_s[qi]) * mkv;
+                float ev = 1.f;
+                if (p.dropout)
+                  ev = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0c + qi),
+                                          (uint32_t)(k0 + kc), p.threshold)
+                           ? p.keep_scale
+                           : 0.f;
+                st[n][2 * hr + e] = pr * ev;
+                dpt[n][2 * hr + e] = pr * (dpt[n][2 * hr + e] * ev - del_s[qi]);
+              }
             }
           }
         }
-      }
-      // round(p e) and round(ds) into the [key][query] tiles
+        // round(p e) and round(ds) into the [key][query] tiles
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+        for (int n = 0; n < 2; ++n) {
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int off = (wk + g + 8 * hr) * kDsPitch + qh * 16 + n * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(pt + off) = tc::pack_bf16(st[n][2 * hr], st[n][2 * hr + 1]);
-          *reinterpret_cast<uint32_t*>(dst + off) =
-              tc::pack_bf16(dpt[n][2 * hr], dpt[n][2 * hr + 1]);
+          for (int hr = 0; hr < 2; ++hr) {
+            const int off = (wk + g + 8 * hr) * kDsPitch + qh * 16 + n * 8 + 2 * t;
+            *reinterpret_cast<uint32_t*>(pt + off) =
+                tc::pack_bf16(st[n][2 * hr], st[n][2 * hr + 1]);
+            *reinterpret_cast<uint32_t*>(dst + off) =
+                tc::pack_bf16(dpt[n][2 * hr], dpt[n][2 * hr + 1]);
+          }
         }
-      }
-      __syncthreads();  // the tile's p^T and ds^T are complete
+        __syncthreads();  // the tile's p^T and ds^T are complete
 
-      // dv += round(p e)^T dO, dk += round(ds)^T q over the group's 32
-      // queries: keys on M, the head dim on N, queries on K
+        // dv += round(p e)^T dO, dk += round(ds)^T q over the group's 32
+        // queries: keys on M, the head dim on N, queries on K
 #pragma unroll
-      for (int kq = 0; kq < 2; ++kq) {
-        uint32_t pa[4], da[4];
-        tc::ldsm_x4(pa, pt + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
-        tc::ldsm_x4(da, dst + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
-        const int r = q0 + kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t pa[4], da[4];
+          tc::ldsm_x4(pa, pt + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
+          tc::ldsm_x4(da, dst + (wk + (lane & 15)) * kDsPitch + kq * 16 + (lane >> 4) * 8);
+          const int r = q0 + kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          const int n = qh + 2 * i;
-          uint32_t ob[2], qb[2];
-          tc::ldsm_x2_t(ob, dos + r * P + n * 8);
-          tc::ldsm_x2_t(qb, qs + r * P + n * 8);
-          tc::mma_bf16(dva[i], pa, ob[0], ob[1]);
-          tc::mma_bf16(dka[i], da, qb[0], qb[1]);
+          for (int i = 0; i < NV; ++i) {
+            const int n = qh + 2 * i;
+            uint32_t ob[2], qb[2];
+            tc::ldsm_x2_t(ob, dos + r * P + n * 8);
+            tc::ldsm_x2_t(qb, qs + r * P + n * 8);
+            tc::mma_bf16(dva[i], pa, ob[0], ob[1]);
+            tc::mma_bf16(dka[i], da, qb[0], qb[1]);
+          }
         }
-      }
-      // dq += round(ds) K over the tile's 64 keys: queries on M (tile
-      // warp % 2 of the group), the head dim on N, keys on K
-      {
-        const int mq = warp & 1;
-        float dqa[NQ][4];
+        // dq += round(ds) K over the tile's 64 keys: queries on M (tile
+        // warp % 2 of the group), the head dim on N, keys on K
+        {
+          const int mq = warp & 1;
+          float dqa[NQ][4];
 #pragma unroll
-        for (int i = 0; i < NQ; ++i)
+          for (int i = 0; i < NQ; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+            for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < tc::kKeyTile / 16; ++kk) {
-          uint32_t a[4];
-          tc::ldsm_x4_t(a, dst + (kk * 16 + ((lane >> 4) << 3) + (lane & 7)) * kDsPitch +
-                               mq * 16 + ((lane >> 3) & 1) * 8);
+          for (int kk = 0; kk < tc::kKeyTile / 16; ++kk) {
+            uint32_t a[4];
+            tc::ldsm_x4_t(a, dst + (kk * 16 + ((lane >> 4) << 3) + (lane & 7)) * kDsPitch +
+                                 mq * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+            for (int i = 0; i < NQ; ++i) {
+              const int n = (warp >> 1) + 4 * i;
+              if (n < NT) {
+                uint32_t kb[2];
+                tc::ldsm_x2_t(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n * 8);
+                tc::mma_bf16(dqa[i], a, kb[0], kb[1]);
+              }
+            }
+          }
 #pragma unroll
           for (int i = 0; i < NQ; ++i) {
             const int n = (warp >> 1) + 4 * i;
             if (n < NT) {
-              uint32_t kb[2];
-              tc::ldsm_x2_t(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n * 8);
-              tc::mma_bf16(dqa[i], a, kb[0], kb[1]);
+#pragma unroll
+              for (int hr = 0; hr < 2; ++hr) {
+                float2* acc = reinterpret_cast<float2*>(
+                    dq_s + (q0 + mq * 16 + g + 8 * hr) * AP + n * 8 + 2 * t);
+                *acc = make_float2(acc->x + dqa[i][2 * hr], acc->y + dqa[i][2 * hr + 1]);
+              }
             }
           }
         }
-#pragma unroll
-        for (int i = 0; i < NQ; ++i) {
-          const int n = (warp >> 1) + 4 * i;
-          if (n < NT) {
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              float2* acc = reinterpret_cast<float2*>(
-                  dq_s + (q0 + mq * 16 + g + 8 * hr) * AP + n * 8 + 2 * t);
-              *acc = make_float2(acc->x + dqa[i][2 * hr], acc->y + dqa[i][2 * hr + 1]);
-            }
-          }
-        }
+        if (grp + 1 < ngroups) __syncthreads();  // p^T and ds^T are rewritten by the next group
       }
-      if (grp + 1 < ngroups) __syncthreads();  // p^T and ds^T are rewritten by the next group
-    }
 
-    // the tile's dk and dv: the warps' fragments into the tile's ring stage
-    // (unpacked, and not staged again before the next tile's first
-    // barrier), packed at pitch d as the rows lie in device memory, then
-    // written out by one bulk asynchronous copy each where the rows start
-    // and end on 16 bytes, else with coalesced stores
-    __nv_bfloat16* dvs = reinterpret_cast<__nv_bfloat16*>(ring + (it % S) * D::kStageWords);
-    __nv_bfloat16* dks = dvs + tc::kKeyTile * DP;
+      if (dk_acc != nullptr) {
+        // this thread's fragments of dk and dv carried over the chunks in f32
+        // (its own elements only, in chunk order); rounded on the last chunk
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int j = wk + g + 8 * hr;
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = k0 + wk + g + 8 * hr;
+          if (key >= kv_end) continue;
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
+          for (int i = 0; i < NV; ++i) {
+            const size_t off = (size_t)key * DP + (qh + 2 * i) * 8 + 2 * t;
+            float2* ck = reinterpret_cast<float2*>(dk_acc + off);
+            float2* cv = reinterpret_cast<float2*>(dv_acc + off);
+            if (!first) {
+              const float2 a = *ck, b = *cv;
+              dka[i][2 * hr] += a.x;
+              dka[i][2 * hr + 1] += a.y;
+              dva[i][2 * hr] += b.x;
+              dva[i][2 * hr + 1] += b.y;
+            }
+            if (!last) {
+              *ck = make_float2(dka[i][2 * hr], dka[i][2 * hr + 1]);
+              *cv = make_float2(dva[i][2 * hr], dva[i][2 * hr + 1]);
+            }
+          }
+        }
+        if (!last) continue;  // uniform: dk and dv leave on the last chunk only
+      }
+
+      // the tile's dk and dv: the warps' fragments into the tile's ring stage
+      // (unpacked, and not staged again before the next tile's first
+      // barrier), packed at pitch d as the rows lie in device memory, then
+      // written out by one bulk asynchronous copy each where the rows start
+      // and end on 16 bytes, else with coalesced stores
+      __nv_bfloat16* dvs = reinterpret_cast<__nv_bfloat16*>(ring + (it % S) * D::kStageWords);
+      __nv_bfloat16* dks = dvs + tc::kKeyTile * DP;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = (qh + 2 * i) * 8 + 2 * t + e;
-          if (c < p.d) {
-            dvs[j * p.d + c] = __float2bfloat16(dva[i][2 * hr + e]);
-            dks[j * p.d + c] = __float2bfloat16(dka[i][2 * hr + e] * p.scale);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int j = wk + g + 8 * hr;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = (qh + 2 * i) * 8 + 2 * t + e;
+            if (c < p.d) {
+              dvs[j * p.d + c] = __float2bfloat16(dva[i][2 * hr + e]);
+              dks[j * p.d + c] = __float2bfloat16(dka[i][2 * hr + e] * p.scale);
+            }
           }
         }
       }
+      const int n = min(tc::kKeyTile, kv_end - k0) * p.d;
+      __nv_bfloat16 *dv_out = dv + (size_t)k0 * p.d, *dk_out = dk + (size_t)k0 * p.d;
+      const bool bulk =
+          ((reinterpret_cast<uintptr_t>(dv_out) | reinterpret_cast<uintptr_t>(dk_out)) & 15) == 0 &&
+          n % 8 == 0;
+      if (bulk) tc::fence_proxy_async();
+      __syncthreads();
+      if (!bulk) {
+        tc::store_rows(dv_out, dvs, n, tid);
+        tc::store_rows(dk_out, dks, n, tid);
+      } else if (tid == 0) {
+        tc::bulk_store(dv_out, dvs, 2 * n);
+        tc::bulk_store(dk_out, dks, 2 * n);
+        tc::bulk_commit();
+      }
     }
-    const int n = min(tc::kKeyTile, kv_end - k0) * p.d;
-    __nv_bfloat16 *dv_out = dv + (size_t)k0 * p.d, *dk_out = dk + (size_t)k0 * p.d;
-    const bool bulk =
-        ((reinterpret_cast<uintptr_t>(dv_out) | reinterpret_cast<uintptr_t>(dk_out)) & 15) == 0 &&
-        n % 8 == 0;
-    if (bulk) tc::fence_proxy_async();
-    __syncthreads();
-    if (!bulk) {
-      tc::store_rows(dv_out, dvs, n, tid);
-      tc::store_rows(dk_out, dks, n, tid);
-    } else if (tid == 0) {
-      tc::bulk_store(dv_out, dvs, 2 * n);
-      tc::bulk_store(dk_out, dks, 2 * n);
-      tc::bulk_commit();
+    if (tid == 0) tc::bulk_wait();
+    tc::cp_async_wait(0);
+    __syncthreads();  // every warp's dq sums are in
+    // the chunk's dq: each block pushes its partial dq of element e = r d + c
+    // to the block that owns e (rank e / share) through distributed shared
+    // memory; the owner adds the parts in rank order, scales once and writes
+    // them. No block touches another's shared memory after the last barrier.
+    const int ne = nq * p.d, share = (ne + csize - 1) / csize;
+    for (int e = tid; e < ne; e += tc::kThreads) {
+      const int r = e / p.d, c = e - r * p.d, owner = e / share;
+      tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);
     }
-  }
-  if (tid == 0) tc::bulk_wait();
-  tc::cp_async_wait(0);
-  __syncthreads();  // every warp's dq sums are in
-  // the row's dq: each block pushes its partial dq of element e = r d + c
-  // to the block that owns e (rank e / share) through distributed shared
-  // memory; the owner adds the parts in rank order, scales once and writes
-  // them. No block touches another's shared memory after the barrier.
-  const int ne = p.lq * p.d, share = (ne + csize - 1) / csize;
-  for (int e = tid; e < ne; e += tc::kThreads) {
-    const int r = e / p.d, c = e - r * p.d, owner = e / share;
-    tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);
-  }
-  cluster.sync();
-  __nv_bfloat16* dq = p.dq + (size_t)row * ne;
-  for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
-    float a = 0.f;
-    for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
-    dq[e] = __float2bfloat16(a * p.scale);
-  }
+    cluster.sync();
+    __nv_bfloat16* dq = p.dq + ((size_t)row * p.lq + q0c) * p.d;
+    for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
+      float a = 0.f;
+      for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
+      dq[e] = __float2bfloat16(a * p.scale);
+    }
+    // before the next chunk pushes, every block is done reading this one's
+    if (!last) cluster.sync();
+  }  // chunk
 }
 
 }  // namespace
 
-extern "C" long long healnet_flash_bwd_smem_bytes(int lq, int d) {
-  return (long long)bwd_smem_bytes(lq, d);
+// The most queries a block of the FMA backward holds at head dim d (0 where
+// not even one fits).
+extern "C" int healnet_flash_bwd_max_queries(int d) {
+  const size_t fixed = bwd_smem_bytes(0, d);
+  const size_t per = bwd_smem_bytes(1, d) - fixed;
+  return fixed > tc::kMaxSmem ? 0 : (int)((tc::kMaxSmem - fixed) / per);
 }
 
 extern "C" int healnet_flash_backward(
     const void* q, const void* k, const void* v, const float* mask, const void* dout,
-    const float* lse, const float* delta, float* part_dq, void* dq, void* dk, void* dv, int B,
-    int H, int lq, int lkv, int d, int n_split, int split_len, long long q_sb, long long q_sh,
+    const float* lse, const float* delta, float* part_dq, void* dq, void* dk, void* dv,
+    float* dkv_acc, int B, int H, int lq, int lkv, int d, int n_split, int split_len,
+    int q_chunk, int n_chunks, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
     long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
@@ -583,12 +669,15 @@ extern "C" int healnet_flash_backward(
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.dkv_acc = dkv_acc;
   p.H = H;
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
   p.n_split = n_split;
   p.split_len = split_len;
+  p.q_chunk = q_chunk;
+  p.n_chunks = n_chunks;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_st = q_st;
@@ -612,11 +701,8 @@ extern "C" int healnet_flash_backward(
   return static_cast<int>(e);
 }
 
-extern "C" long long healnet_flash_bwd_tc_smem_bytes(int lq, int d) {
-  return tc::with_dp(d, [&](auto dp) -> long long {
-    constexpr int DP = decltype(dp)::value;
-    return (long long)BwdLayout<DP>(bwd_stages<DP>(lq), pad_queries(lq)).total;
-  });
+extern "C" int healnet_flash_bwd_tc_max_queries(int d) {
+  return tc::with_dp(d, [&](auto dp) -> int { return bwd_max_queries<decltype(dp)::value>(); });
 }
 
 extern "C" int healnet_flash_bwd_tc_max_clusters(int lq, int d, int cluster) {
@@ -629,8 +715,9 @@ extern "C" int healnet_flash_bwd_tc_max_clusters(int lq, int d, int cluster) {
 
 extern "C" int healnet_flash_backward_tc(
     const void* q, const void* k, const void* v, const float* mask, const void* dout,
-    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B, int H, int lq,
-    int lkv, int d, int cluster, int keys_per_cta, long long q_sb, long long q_sh,
+    const float* lse, const float* delta, void* dq, void* dk, void* dv, float* dkv_acc, int B,
+    int H, int lq, int lkv, int d, int cluster, int keys_per_cta, int q_chunk, int n_chunks,
+    long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
     long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
@@ -647,11 +734,14 @@ extern "C" int healnet_flash_backward_tc(
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dkv_acc = dkv_acc;
   p.H = H;
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
   p.keys_per_cta = keys_per_cta;
+  p.q_chunk = q_chunk;
+  p.n_chunks = n_chunks;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_st = q_st;
@@ -673,9 +763,9 @@ extern "C" int healnet_flash_backward_tc(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return static_cast<int>(tc::with_dp(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;
-    p.stages = bwd_stages<DP>(lq);
+    p.stages = bwd_stages<DP>(q_chunk);
     return tc::launch_clustered(flash_bwd_tc<DP>, p, cluster, B * H,
-                                BwdLayout<DP>(p.stages, pad_queries(lq)).total, s);
+                                BwdLayout<DP>(p.stages, pad_queries(q_chunk)).total, s);
   }));
 }
 

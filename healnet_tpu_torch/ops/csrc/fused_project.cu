@@ -1,10 +1,14 @@
-// Fused merged-KV projection forward: one read of the context for the row
-// statistics, the GEMM against the merged folded weights, and the folded
-// LayerNorm.
+// Fused merged-KV projection forward, the generic kernels: one read of the
+// context for the row statistics, the GEMM against the merged folded
+// weights, and the folded LayerNorm.
 //
 // Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
 // launched by _pallas_call), its bf16/f32 contexts and its int8 (quantized
-// context) branch. Forward only.
+// context) branch. Forward only. The model's bf16 calls take the Hopper
+// kernel of fused_project_tma.cu; these take what it does not: f32 compute,
+// and rows TMA cannot describe (a base or row pitch off 16 bytes, such as
+// C = 203). The wrapper routes by ops/fused_project.py::project_route and
+// counts these launches in `launches_generic`.
 //
 // What it computes, per context row r (token tok = r % T):
 //   s1 = sum_c x[r, c] + encs[0, tok]        (f32 sums of the stored values)
@@ -34,7 +38,7 @@
 // ragged column edge is masked in the loads and the stores. The weights
 // (about 1 MB) are re-read from L2 by every block, which the 128-row tile
 // halves against a 64-row one; only the next tile is prefetched, into
-// registers. A deeper cp.async/TMA pipeline and wgmma are later work.
+// registers (fused_project_tma.cu answers both on the model's path).
 //
 // The float32 variant is the same schedule with FMA on the CUDA cores (no
 // TF32), so that an f32 model keeps full precision.
@@ -236,12 +240,12 @@ __device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int 
 
 template <int BM, typename TIn>
 __global__ void __launch_bounds__(BM * 4, 128 / BM)
-    project_bf16(const TIn* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
-                 const __nv_bfloat16* __restrict__ encp, const float* __restrict__ encs,
-                 const float* __restrict__ aux, const float* __restrict__ scale,
-                 __nv_bfloat16* __restrict__ kv, float* __restrict__ s1_out,
-                 float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
-                 float eps, int vec_a) {
+    project_generic_bf16(const TIn* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
+                         const __nv_bfloat16* __restrict__ encp, const float* __restrict__ encs,
+                         const float* __restrict__ aux, const float* __restrict__ scale,
+                         __nv_bfloat16* __restrict__ kv, float* __restrict__ s1_out,
+                         float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
+                         float eps, int vec_a) {
   using Acc = typename Input<TIn>::Acc;
   constexpr bool kQuant = Input<TIn>::kQuant;
   constexpr int kRowsPerPass = BM / 32;  // weight rows one pass of the block loads
@@ -387,11 +391,12 @@ __device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[
 
 template <typename TIn>
 __global__ void __launch_bounds__(kF32Threads)
-    project_f32(const TIn* __restrict__ dat, const float* __restrict__ w,
-                const float* __restrict__ encp, const float* __restrict__ encs,
-                const float* __restrict__ aux, const float* __restrict__ scale,
-                float* __restrict__ kv, float* __restrict__ s1_out, float* __restrict__ s2_out,
-                int M, int C, int F, int T, float d_total, float eps, int vec_a) {
+    project_generic_f32(const TIn* __restrict__ dat, const float* __restrict__ w,
+                        const float* __restrict__ encp, const float* __restrict__ encs,
+                        const float* __restrict__ aux, const float* __restrict__ scale,
+                        float* __restrict__ kv, float* __restrict__ s1_out,
+                        float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
+                        float eps, int vec_a) {
   using Acc = typename Input<TIn>::Acc;
   constexpr bool kQuant = Input<TIn>::kQuant;
   __shared__ __align__(16) float As[kF32Rows][kBK + 4];
@@ -472,7 +477,7 @@ void launch_bf16(const void* dat, const void* w, const void* encp, const float* 
                  const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
                  int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
   const dim3 grid((M + kRows - 1) / kRows, (F + kBN - 1) / kBN);
-  project_bf16<kRows, TIn><<<grid, kRows * 4, 0, s>>>(
+  project_generic_bf16<kRows, TIn><<<grid, kRows * 4, 0, s>>>(
       static_cast<const TIn*>(dat), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(encp), encs, aux, scale,
       static_cast<__nv_bfloat16*>(kv), s1, s2, M, C, F, T, d_total, eps, vec_a);
@@ -483,7 +488,7 @@ void launch_f32(const void* dat, const void* w, const void* encp, const float* e
                 const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
                 int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
   const dim3 grid((M + kF32Rows - 1) / kF32Rows, (F + kBN - 1) / kBN);
-  project_f32<TIn><<<grid, kF32Threads, 0, s>>>(
+  project_generic_f32<TIn><<<grid, kF32Threads, 0, s>>>(
       static_cast<const TIn*>(dat), static_cast<const float*>(w),
       static_cast<const float*>(encp), encs, aux, scale, static_cast<float*>(kv), s1, s2, M, C,
       F, T, d_total, eps, vec_a);
@@ -493,11 +498,11 @@ void launch_f32(const void* dat, const void* w, const void* encp, const float* e
 
 // is_bf16: the compute (and output) dtype is bf16, else f32; is_int8: the
 // context is int8 with a per-row scale, else it is in the compute dtype.
-extern "C" int healnet_fused_project(const void* dat, const void* w, const void* encp,
-                                     const float* encs, const float* aux, const float* scale,
-                                     void* kv, float* s1, float* s2, int M, int C, int F, int T,
-                                     float d_total, float eps, int is_bf16, int is_int8,
-                                     int vec_a, void* stream) {
+extern "C" int healnet_fused_project_generic(const void* dat, const void* w, const void* encp,
+                                             const float* encs, const float* aux,
+                                             const float* scale, void* kv, float* s1, float* s2,
+                                             int M, int C, int F, int T, float d_total, float eps,
+                                             int is_bf16, int is_int8, int vec_a, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && is_int8) {

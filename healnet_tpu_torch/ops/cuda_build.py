@@ -21,15 +21,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("fused_project", "fused_project_bwd", "flash_attention", "flash_attention_bwd",
-           "fused_chain")
+KERNELS = ("fused_project", "fused_project_tma", "fused_project_bwd", "flash_attention",
+           "flash_attention_bwd", "fused_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": compile time, "ptxas": register/spill report}
+# name -> {"seconds": compile time, "ptxas": register/spill report and warnings}
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
 
@@ -68,7 +68,8 @@ def _compile(name: str) -> Path:
         "seconds": time.perf_counter() - t0,
         "ptxas": "\n".join(
             line.strip() for line in proc.stderr.splitlines()
-            if any(key in line for key in ("Compiling entry", "Used", "stack frame"))
+            if any(key in line for key in ("Compiling entry", "Used", "stack frame", "arning",
+                                           "Performance Loss"))
         ),
     }
     return out

@@ -13,7 +13,9 @@ dtype and head dim before the launch: bf16 with d <= 128 (the model's
 path) takes the tensor-core kernel, one clustered launch per call sized by
 :func:`flash_plan`; f32, and bf16 with d > 128, take the f32 FMA kernels
 (a split kernel and a merge kernel). Each wrapper counts the launches of
-each variant (``launches``, ``launches_fma``).
+each variant (``launches``, ``launches_fma``). Every kernel takes any latent
+count: where a call's queries outgrow a block's shared memory, the kernels
+walk them in chunks sized by :func:`query_chunks`.
 
 The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
 (forward, materialised weights; its autograd gradient is the same function
@@ -43,8 +45,8 @@ from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep
 _KEY_TILE = 32  # keys per tile of the FMA kernels (kTile)
 _TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
 _TC_MAX_D = 128  # widest head the tensor-core kernels take
+_TC_QGROUP = 32  # queries per group of the tensor-core kernels (tc::kQGroup)
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)
-_MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
 _NEG_BIG = -1e30
 
 
@@ -55,11 +57,11 @@ def _lib() -> ctypes.CDLL:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
         fn.argtypes = (
-            [p] * 8 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, i, p]
+            [p] * 8 + [i] * 8 + [ll] * 10 + [f, i, u, u, f, i, p]
         )
         fn.restype = ctypes.c_int
-        lib.healnet_flash_smem_bytes.argtypes = [i, i]
-        lib.healnet_flash_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_flash_max_queries.argtypes = [i]
+        lib.healnet_flash_max_queries.restype = i
         lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, p]
         lib.healnet_flash_forward_tc.restype = ctypes.c_int
         lib.healnet_flash_tc_max_clusters.argtypes = [i, i]
@@ -74,15 +76,15 @@ def _bwd_lib() -> ctypes.CDLL:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
         fn.argtypes = (
-            [p] * 11 + [i] * 7 + [ll] * 13 + [f, i, u, u, f, i, p]
+            [p] * 12 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p]
         )
         fn.restype = ctypes.c_int
-        lib.healnet_flash_bwd_smem_bytes.argtypes = [i, i]
-        lib.healnet_flash_bwd_smem_bytes.restype = ctypes.c_longlong
-        lib.healnet_flash_backward_tc.argtypes = [p] * 10 + [i] * 7 + [ll] * 13 + [f, i, u, u, f, p]
+        lib.healnet_flash_bwd_max_queries.argtypes = [i]
+        lib.healnet_flash_bwd_max_queries.restype = i
+        lib.healnet_flash_backward_tc.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, p]
         lib.healnet_flash_backward_tc.restype = ctypes.c_int
-        lib.healnet_flash_bwd_tc_smem_bytes.argtypes = [i, i]
-        lib.healnet_flash_bwd_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_flash_bwd_tc_max_queries.argtypes = [i]
+        lib.healnet_flash_bwd_tc_max_queries.restype = i
         lib.healnet_flash_bwd_tc_max_clusters.argtypes = [i, i, i]
         lib.healnet_flash_bwd_tc_max_clusters.restype = ctypes.c_int
     return lib
@@ -108,6 +110,29 @@ def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int) -> Tuple[int, in
     want = max(1, -(-sms // max(rows, 1)))
     per = -(-tiles // max(1, min(want, tiles, max_cluster))) * _TC_TILE
     return max(1, -(-lkv // per)), per
+
+
+def query_chunks(lq: int, max_rows: int, align: int = 1) -> Tuple[int, int]:
+    """``(n_chunks, chunk)``: the fewest chunks of at most ``max_rows``
+    queries (the most a block's shared memory holds), each a multiple of
+    ``align`` (32 for the tensor-core backward's query groups), balanced so
+    that chunk ``i`` holds queries ``[i * chunk, min(lq, (i + 1) * chunk))``
+    and none is empty. Raises where ``max_rows`` holds no aligned chunk."""
+    cap = max_rows // align * align
+    if cap < 1:
+        raise ValueError(f"a block holds {max_rows} queries, fewer than one chunk of {align}")
+    n = max(1, -(-lq // cap))
+    chunk = -(-(-(-lq // n)) // align) * align
+    return n, chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _max_queries(name: str, d: int) -> int:
+    """The most queries a block of a kernel holds at head dim ``d``, from
+    the library's ``name`` query (``healnet_flash[_bwd[_tc]]_max_queries``),
+    cached."""
+    lib = _lib() if name == "healnet_flash_max_queries" else _bwd_lib()
+    return int(getattr(lib, name)(d))
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,10 +216,11 @@ def flash_attention_kernel(
     lkv = k.shape[2]
     lib = _lib()
     tc = flash_variant(q.dtype, d) == "tc"
-    if not tc:
-        smem = lib.healnet_flash_smem_bytes(lq, d)
-        if smem > _MAX_SMEM:
-            raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
+    if not tc:  # the FMA split kernel holds a chunk of queries in shared memory
+        max_rows = _max_queries("healnet_flash_max_queries", d)
+        if max_rows < 1:
+            raise ValueError(f"the FMA forward takes no head of d={d}")
+        _, chunk = query_chunks(lq, max_rows)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -221,8 +247,8 @@ def flash_attention_kernel(
             code = lib.healnet_flash_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
                 part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                b, h, lq, lkv, d, n_split, split_len, *strides, float(eff_scale), *drop,
-                int(q.dtype == torch.bfloat16), stream,
+                b, h, lq, lkv, d, n_split, split_len, chunk, *strides, float(eff_scale),
+                *drop, int(q.dtype == torch.bfloat16), stream,
             )
             flash_attention_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
@@ -251,7 +277,10 @@ def flash_attention_bwd_kernel(
     q, k, v, kv_mask, eff_scale and the dropout arguments as for the
     forward; do: (b, h, lq, d) in q's dtype, any strides with a unit stride
     on d; lse, delta: (b, h, lq) f32 (the forward's log-sum-exp and
-    rowsum(dO * O)). The variant and its counter as for the forward.
+    rowsum(dO * O)). The variant and its counter as for the forward. Both
+    variants walk the queries in :func:`query_chunks` of what a block holds;
+    with more than one chunk, dk and dv are carried over the chunks in an
+    f32 scratch buffer (each element by one thread, in chunk order).
     """
     _check_qkv(q, k, v, extra=(("do", do),))
     b, h, lq, d = q.shape
@@ -264,13 +293,21 @@ def flash_attention_bwd_kernel(
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = _bwd_lib()
     tc = flash_variant(q.dtype, d) == "tc"
-    smem = (lib.healnet_flash_bwd_tc_smem_bytes if tc else lib.healnet_flash_bwd_smem_bytes)(lq, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"lq={lq}, d={d} needs {smem} B of shared memory")
+    max_rows = _max_queries(
+        "healnet_flash_bwd_tc_max_queries" if tc else "healnet_flash_bwd_max_queries", d)
+    if max_rows < 1:
+        raise ValueError(f"the FMA backward takes no head of d={d}")
+    n_chunks, chunk = query_chunks(lq, max_rows, _TC_QGROUP if tc else 1)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
+    # dk and dv carried over the query chunks in f32 (the tensor-core kernel
+    # at the head dim padded to 16)
+    pitch = -(-d // 16) * 16 if tc else d
+    carry = (torch.empty((2, b * h, lkv, pitch), dtype=torch.float32, device=q.device)
+             if n_chunks > 1 else None)
+    carry_ptr = None if carry is None else carry.data_ptr()
     mask_ptr = None if mask is None else mask.data_ptr()
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
                0 if mask is None else mask.stride(0))
@@ -279,12 +316,13 @@ def flash_attention_bwd_kernel(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tc:
             cluster, per = _tc_plan(
-                lambda c: lib.healnet_flash_bwd_tc_max_clusters(lq, d, c),
-                ("bwd", q.device.index, -(-d // 16), -(-lq // 32)), b * h, lkv, q.device)
+                lambda c: lib.healnet_flash_bwd_tc_max_clusters(chunk, d, c),
+                ("bwd", q.device.index, -(-d // 16), chunk // _TC_QGROUP), b * h, lkv, q.device)
             code = lib.healnet_flash_backward_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale), *drop, stream,
+                carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
+                float(eff_scale), *drop, stream,
             )
             flash_attention_bwd_kernel.launches += 1
         else:
@@ -293,9 +331,9 @@ def flash_attention_bwd_kernel(
             code = lib.healnet_flash_backward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part_dq.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, lq, lkv, d, n_split, split_len, *strides, float(eff_scale), *drop,
-                int(q.dtype == torch.bfloat16), stream,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), carry_ptr,
+                b, h, lq, lkv, d, n_split, split_len, chunk, n_chunks, *strides,
+                float(eff_scale), *drop, int(q.dtype == torch.bfloat16), stream,
             )
             flash_attention_bwd_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")

@@ -9,8 +9,11 @@ layer's context-LayerNorm affine folded into the weights:
 so the normalization applies on the (tokens x F) output, never on the
 context itself. :func:`project_plain` is the two-pass PyTorch version (the
 math of the JAX package's ``_xla_project``); :func:`fused_project_kernel`
-launches the CUDA kernel (``csrc/fused_project.cu``), which reads the
-context once for the statistics, the product and the normalization.
+launches a CUDA kernel that reads the context once for the statistics, the
+product and the normalization: the Hopper kernel (``csrc/fused_project_tma.cu``:
+TMA ring, wgmma, persistent warp-specialised blocks) for every bf16-compute
+call whose context rows TMA can describe, the generic kernels
+(``csrc/fused_project.cu``) for the rest, by :func:`project_route`.
 :class:`FusedProjectFunction` gives it a backward whose cotangent pass is a
 second kernel (``csrc/fused_project_bwd.cu``, plain version
 :func:`project_bwd_plain`).
@@ -31,7 +34,8 @@ normalization. The statistics are f32 sums of the stored context values.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +46,79 @@ _IMPLS = ("auto", "xla", "kernel", "pallas")
 # int8 rows: the kernel's per-thread integer sums of q^2 (|q| <= 127) stay
 # below 2^31 for rows of up to this many channels
 _MAX_INT8_CHANNELS = (2**31 - 1) // (127 * 127)
+
+# the Hopper kernel (csrc/fused_project_tma.cu): output columns per pass it
+# is built for (one wgmma N-tile of up to 256, or two of 136: at 272 its
+# accumulators take 136 of the 168 registers ptxas gives a thread), rows per
+# tile and channels per k-step
+PROJECT_WIDTHS = (64, 128, 256, 272)
+_TILE_ROWS = 128
+_TILE_K = 64
+_MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
+
+
+def project_route(dtype: torch.dtype, cdt: torch.dtype, c: int, data_ptr: int) -> str:
+    """Which projection kernel a CUDA call takes: ``"tma"`` (the Hopper
+    kernel) for a bf16 or int8 context computed in bf16 whose rows TMA can
+    describe (a 16-byte aligned base and a row pitch ``c * itemsize`` that is
+    a multiple of 16 bytes: C = 2000, 2048, 1024 in either type), else
+    ``"generic"`` (f32 compute, and rows such as C = 203 or a misaligned
+    view)."""
+    itemsize = {torch.bfloat16: 2, torch.int8: 1}.get(dtype)
+    if cdt != torch.bfloat16 or itemsize is None or c < 1:
+        return "generic"
+    return "tma" if (c * itemsize) % 16 == 0 and data_ptr % 16 == 0 else "generic"
+
+
+class ProjectPlan(NamedTuple):
+    """A launch of the Hopper kernel (see :func:`project_plan`)."""
+
+    nb: int          # output columns per pass, the kernel's N (a PROJECT_WIDTHS entry)
+    n_col: int       # column passes; each reads the context once
+    row_tiles: int
+    pitch: int       # elements per staged output row (even)
+    stages: int      # ring stages
+    held_staging: bool  # the epilogue stages its rows in a spent ring stage
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def project_smem(nb: int, itemsize: int, stages: int, pitch: int,
+                 held_staging: bool = False) -> int:
+    """Bytes of shared memory a block takes (``Layout`` in
+    ``csrc/fused_project_tma.cu``): the ring (context tile of 128 x 64
+    channels, ``nb`` weight rows of 64 bf16 each); for an int8
+    context two 8 KB bf16 tiles per consumer warpgroup, which it converts
+    into; 8 staged output rows a warp at ``pitch`` (none with
+    ``held_staging``: a tile's epilogue then stages them in one of its spent
+    ring stages); [colsum; bias]; the barriers; and 1024 bytes of alignment
+    slack."""
+    stage = _TILE_ROWS * _TILE_K * itemsize + nb * _TILE_K * 2
+    conv = 2 * 2 * 64 * _TILE_K * 2 if itemsize == 1 else 0
+    staged = 0 if held_staging else -(-(8 * 8 * pitch * 2) // 16) * 16
+    return stages * stage + conv + staged + 8 * nb + 16 * stages + 1024
+
+
+def project_plan(m: int, f: int, itemsize: int) -> ProjectPlan:
+    """The Hopper kernel's plan for ``m`` context rows of ``itemsize`` bytes
+    per channel and ``f`` output columns.
+
+    Columns: as few passes as keep a pass within 272 columns (the most the
+    consumers' registers hold), each ``nb`` wide, the narrowest width the
+    kernel is built for. Rows: tiles of 128. Stages: as many (2 to 4) as
+    shared memory holds with the staged output rows in a region of their
+    own, or where that costs a stage, in a spent ring stage held until the
+    tile's rows are out (holding a stage thins the next tile's prefetch:
+    only worth a stage).
+    """
+    n_col = -(-f // PROJECT_WIDTHS[-1])
+    nb = next(w for w in PROJECT_WIDTHS if w >= -(-f // n_col))
+    pitch = f + f % 2 if n_col == 1 else nb  # even: the epilogue works on pairs
+    for stages in (4, 3, 2):
+        for held in (False, True):
+            smem = project_smem(nb, itemsize, stages, pitch, held)
+            if smem <= _MAX_SMEM:
+                return ProjectPlan(nb, n_col, -(-m // _TILE_ROWS), pitch, stages, held, smem)
+    raise ValueError(f"no ring fits shared memory at nb={nb}")
 
 
 def _row_stats(dat, enc, scale=None):
@@ -137,12 +214,35 @@ def project_bwd_plain(
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("fused_project")
-    fn = lib.healnet_fused_project
+    fn = lib.healnet_fused_project_generic
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _tma_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("fused_project_tma")
+    fn = lib.healnet_fused_project_tma
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 7 + [p]
+        fn.restype = ctypes.c_int
+        lib.healnet_fused_project_tma_max_blocks.argtypes = [i, i, ctypes.c_longlong]
+        lib.healnet_fused_project_tma_max_blocks.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: int, nb: int, quantized: bool, smem: int) -> int:
+    """Blocks of the Hopper kernel the card holds at once (one per SM),
+    cached per device and shape class; raises if the query fails."""
+    with torch.cuda.device(device):
+        n = _tma_lib().healnet_fused_project_tma_max_blocks(nb, int(quantized), smem)
+    if n < 1:
+        raise RuntimeError(f"the occupancy query failed for nb={nb}, {smem} B")
+    return n
 
 
 def _check_operands(device, expect) -> None:
@@ -165,24 +265,34 @@ def fused_project_kernel(
     eps: float,
     scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: returns ``(kv, s1, s2)``.
+    """Launch a CUDA kernel: returns ``(kv, s1, s2)``.
 
-    dat: (b, t, C) bf16 or f32, or int8 with ``scale`` (b, t) f32; w_c:
-    (C, F) in the compute dtype (dat's, or bf16/f32 for an int8 context);
-    enc_proj: (t, F) in the compute dtype; enc_stats: (2, t) f32 [row sums;
-    row sums of squares] of the encoding; aux: (2, F) f32 [colsum(W); folded
-    bias]. All contiguous and on one CUDA device. kv: (b, t, F) in the
-    compute dtype; s1, s2: (b, t) f32.
+    dat: (b, t, C) bf16 or f32, or int8 with ``scale`` (b, t) f32; w_c: the
+    weights in the compute dtype (dat's, or bf16/f32 for an int8 context),
+    laid out for the call's :func:`project_route` as :func:`_prep` lays them
+    out: (ceil(C / 64), F, 64) k-slices on the ``"tma"`` route, (C, F) on
+    the ``"generic"`` one; enc_proj: (t, F) in the compute dtype; enc_stats:
+    (2, t) f32 [row sums; row sums of squares] of the encoding; aux: (2, F)
+    f32 [colsum(W); folded bias]. All contiguous and on one CUDA device. kv: (b, t, F) in
+    the compute dtype; s1, s2: (b, t) f32.
 
-    Launches are counted per variant: ``launches`` (bf16 and f32 contexts)
-    and ``launches_int8`` (int8 contexts).
+    Launches are counted per variant: ``launches`` (the Hopper kernel, bf16
+    contexts), ``launches_int8`` (the Hopper kernel, int8 contexts) and
+    ``launches_generic`` (the generic kernels).
     """
+    return _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale)
+
+
+def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, route=None):
+    """:func:`fused_project_kernel` on ``route``: :func:`project_route`'s by
+    default, or ``"generic"`` for any call (with (C, F) weights), so that
+    ``chip_smoke.py`` can time both kernels on the same inputs."""
     if not dat.is_cuda:
         raise ValueError("fused_project_kernel takes CUDA tensors")
     if dat.ndim != 3:
         raise ValueError(f"dat must be (b, t, C), got {tuple(dat.shape)}")
     b, t, c = dat.shape
-    f = w_c.shape[1] if w_c.ndim == 2 else -1
+    f = aux.shape[1] if aux.ndim == 2 else -1
     quantized = dat.dtype == torch.int8
     cdt = w_c.dtype
     if quantized:
@@ -198,8 +308,12 @@ def fused_project_kernel(
         if scale is not None:
             raise ValueError("a scale goes with an int8 context only")
         cdt = dat.dtype
+    if route is None:
+        route = project_route(dat.dtype, cdt, c, dat.data_ptr())
+    elif route != "generic":
+        raise ValueError(f"a forced route is 'generic', got {route!r}")
     expect = {
-        "w_c": (w_c, (c, f), cdt),
+        "w_c": (w_c, (-(-c // _TILE_K), f, _TILE_K) if route == "tma" else (c, f), cdt),
         "enc_proj": (enc_proj, (t, f), cdt),
         "enc_stats": (enc_stats, (2, t), torch.float32),
         "aux": (aux, (2, f), torch.float32),
@@ -214,38 +328,59 @@ def fused_project_kernel(
     s2 = torch.empty((b, t), dtype=torch.float32, device=dat.device)
     if kv.numel() == 0:
         return kv, s1, s2
-    # the kernels load 8 channels of a row at once (16 bytes of bf16, 8 of
-    # int8, two 16-byte words of f32): 8-channel rows and an aligned base
-    vec = int(c % 8 == 0 and dat.data_ptr() % (8 if quantized else 16) == 0)
-    lib = _lib()
+    scale_ptr = scale.data_ptr() if quantized else None
     with torch.cuda.device(dat.device):
         stream = torch.cuda.current_stream(dat.device).cuda_stream
-        code = lib.healnet_fused_project(
-            dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(),
-            enc_stats.data_ptr(), aux.data_ptr(),
-            scale.data_ptr() if quantized else None, kv.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), b * t, c, f, t,
-            float(d_total), float(eps), int(cdt == torch.bfloat16), int(quantized),
-            vec, stream,
-        )
-    if quantized:
-        fused_project_kernel.launches_int8 += 1
-    else:
-        fused_project_kernel.launches += 1
+        if route == "tma":
+            plan = project_plan(b * t, f, dat.element_size())
+            resident = _resident_blocks(dat.device.index, plan.nb, quantized, plan.smem)
+            lib = _tma_lib()
+            code = lib.healnet_fused_project_tma(
+                dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(), enc_stats.data_ptr(),
+                aux.data_ptr(), scale_ptr, kv.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                b * t, c, f, t, float(d_total), float(eps), int(quantized), plan.nb,
+                plan.n_col, min(resident, plan.row_tiles * plan.n_col), plan.stages,
+                plan.pitch, int(plan.held_staging), stream,
+            )
+            counter = "launches_int8" if quantized else "launches"
+        else:
+            # the generic kernels load 8 channels of a row at once (16 bytes
+            # of bf16, 8 of int8, two 16-byte words of f32): 8-channel rows
+            # and an aligned base
+            vec = int(c % 8 == 0 and dat.data_ptr() % (8 if quantized else 16) == 0)
+            lib = _lib()
+            code = lib.healnet_fused_project_generic(
+                dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(),
+                enc_stats.data_ptr(), aux.data_ptr(), scale_ptr, kv.data_ptr(),
+                s1.data_ptr(), s2.data_ptr(), b * t, c, f, t,
+                float(d_total), float(eps), int(cdt == torch.bfloat16), int(quantized),
+                vec, stream,
+            )
+            counter = "launches_generic"
+    setattr(fused_project_kernel, counter, getattr(fused_project_kernel, counter) + 1)
     cuda_build.check(lib, code, "fused_project_kernel")
     return kv, s1, s2
 
 
 fused_project_kernel.launches = 0
 fused_project_kernel.launches_int8 = 0
+fused_project_kernel.launches_generic = 0
 
 
 def _prep(dat, enc, w_all, b_all, cdt):
-    """The kernel's small operands: weights in the compute dtype, the
-    encoding projection and statistics, and [colsum; bias]."""
+    """The kernel's small operands: weights in the compute dtype, laid out
+    for the call's :func:`project_route` (for the Hopper kernel (nk, F, 64):
+    k-slices of 64 channels, zero past C, each K-major and contiguous; (C, F)
+    for the generic kernels), the encoding projection and statistics, and
+    [colsum; bias]."""
     b, t, c = dat.shape
     f = w_all.shape[1]
-    w_c = w_all[:c].to(cdt).contiguous()
+    w_c = w_all[:c].to(cdt)
+    if dat.is_cuda and project_route(dat.dtype, cdt, c, dat.data_ptr()) == "tma":
+        nk = -(-c // _TILE_K)
+        w_c = torch.nn.functional.pad(w_c, (0, 0, 0, nk * _TILE_K - c))
+        w_c = w_c.reshape(nk, _TILE_K, f).transpose(1, 2)
+    w_c = w_c.contiguous()
     aux = torch.stack([torch.sum(w_all, dim=0), b_all]).float().contiguous()
     if enc is not None:
         enc_proj = (enc.to(cdt) @ w_all[c:].to(cdt)).contiguous()

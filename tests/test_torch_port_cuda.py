@@ -37,11 +37,13 @@ from healnet_tpu_torch.ops.fused_chain import (
 )
 from healnet_tpu_torch.ops.fused_project import (
     _prep,
+    _project_plain,
     fused_kv_project,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
     project_plain,
+    project_route,
 )
 
 
@@ -95,10 +97,14 @@ def test_projection_kernel_int8_matches_plain(gen, cdt, b, t, c, f):
     enc = torch.randn((t, 5), generator=gen, device="cuda").to(cdt)
     w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
     b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
-    fused_project_kernel.launches_int8 = 0
+    # the Hopper kernel's int8 variant, or the generic kernels (f32 compute,
+    # int8 rows off 16 bytes)
+    route = project_route(qc.data.dtype, cdt, c, qc.data.data_ptr())
+    counter = "launches_int8" if route == "tma" else "launches_generic"
+    setattr(fused_project_kernel, counter, 0)
     kv, s1, s2 = fused_project_kernel(qc.data, *_prep(qc.data, enc, w_all, b_all, cdt), c + 5,
                                       1e-5, scale=qc.scale)
-    assert fused_project_kernel.launches_int8 == 1
+    assert getattr(fused_project_kernel, counter) == 1
     ref = project_plain(qc.data, enc, w_all, b_all, scale=qc.scale, out_dtype=cdt)
     assert kv.dtype == cdt and kv.shape == (b, t, f)
     tol = 1e-4 if cdt == torch.float32 else _bf16_tol(ref)
@@ -347,12 +353,13 @@ def test_model_kernel_path_matches_plain_path(gen):
     x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
          torch.randn((3, 200, 24), generator=gen, device="cuda")]
     mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
-    fused_project_kernel.launches = flash_attention_kernel.launches = 0
+    fused_project_kernel.launches_generic = flash_attention_kernel.launches = 0
     flash_attention_kernel.launches_fma = 0
     with torch.inference_mode():
         got = kernel(x, kv_masks=[None, mask])
         ref = plain(x, kv_masks=[None, mask])
-    assert fused_project_kernel.launches == 2  # one merged projection per modality
+    # one merged projection per modality, f32: the generic kernels
+    assert fused_project_kernel.launches_generic == 2
     # f32: 2 layers x 2 modalities x (cross + self) on the FMA variant
     assert flash_attention_kernel.launches_fma == 8 and flash_attention_kernel.launches == 0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
@@ -388,9 +395,9 @@ def test_model_kernel_path_grads_match_plain_path(gen, rate):
 
 
 def test_model_int8_slide_kernel_path_matches_plain_path(gen):
-    """A quantized slide through the model: the int8 projection kernel on
-    the slide, the bf16/f32 one on the omic vector, logits against the
-    plain path (f32)."""
+    """A quantized slide through the model: the int8 branch of the
+    projection on the slide, the f32 one on the omic vector (both generic
+    kernels in f32 compute), logits against the plain path (f32)."""
     cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
                depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
                latent_dim_head=8, self_per_cross_attn=0, max_freq=2.0)
@@ -399,10 +406,11 @@ def test_model_int8_slide_kernel_path_matches_plain_path(gen):
                      for a, p in (("flash", "auto"), ("xla", "xla")))
     x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
          quantize_context(torch.randn((3, 200, 24), generator=gen, device="cuda"))]
-    fused_project_kernel.launches = fused_project_kernel.launches_int8 = 0
+    fused_project_kernel.launches_generic = fused_project_kernel.launches_int8 = 0
     with torch.inference_mode():
         got, ref = kernel(x), plain(x)
-    assert fused_project_kernel.launches == 1 and fused_project_kernel.launches_int8 == 1
+    assert fused_project_kernel.launches_generic == 2
+    assert fused_project_kernel.launches_int8 == 0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
@@ -436,6 +444,149 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fused_project_kernel(dat, *ops, scale=torch.zeros((1, 4), device="cuda"))
     with pytest.raises(ValueError):  # the scale's shape
         fused_project_kernel(q, *ops, scale=torch.zeros((4,), device="cuda"))
+
+
+# ------------------------------------------------ the Hopper projection kernel
+
+
+def _tma_case(gen, b, t, c, f, kind):
+    """A bf16 or int8 context (per-token scales, one zero row) with the
+    encoding, the Hopper kernel's operands, and the plain version's
+    ``(kv, s1, s2)``."""
+    x = torch.randn((b, t, c), generator=gen, device="cuda")
+    scale = None
+    if kind == "int8":
+        qc = quantize_context(x * 3)
+        qc.scale[0, 0] = 0.0
+        qc.data[0, 0] = 0
+        dat, scale = qc.data, qc.scale
+    else:
+        dat = x.to(torch.bfloat16)
+    enc = torch.randn((t, 5), generator=gen, device="cuda").to(torch.bfloat16)
+    w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.02
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    ops = _prep(dat, enc, w_all, b_all, torch.bfloat16)
+    ref = _project_plain(dat, enc, w_all, b_all, 1e-5, scale, torch.bfloat16)
+    return dat, scale, ops, ref
+
+
+def _check_projection(got, ref, kind):
+    """kv within 4 bf16 ulps of the largest output (the product rounds at
+    the same places, summed in another order); s1, s2 as the int8 branch's
+    contract (exact integer sums against the plain version's f32 sums) or
+    f32 sums of the same values in another order."""
+    (kv, s1, s2), (r, r1, r2) = got, ref
+    assert kv.dtype == torch.bfloat16 and kv.shape == r.shape
+    assert (kv.float() - r.float()).abs().max().item() <= _bf16_tol(r)
+    if kind == "int8":
+        assert ((s1 - r1).abs().max() / r1.abs().max()).item() <= 1e-6
+        assert ((s2 - r2).abs().max() / r2.abs().max()).item() <= 2e-6
+    else:
+        torch.testing.assert_close(s1, r1, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(s2, r2, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("b,t", [(3, 700), (8, 1)], ids=["ragged_rows", "one_token"])
+@pytest.mark.parametrize("f", [252, 270, 300, 71])
+@pytest.mark.parametrize("c", [2000, 2048, 1024])
+def test_projection_tma_kernel_matches_plain(gen, c, f, b, t, kind):
+    """The Hopper kernel at the model's widths (brca / trimodal F 252, kirp
+    270), at 300 (two column passes) and at an odd 71, with rows that are
+    not a multiple of the 128-row tile and one-token contexts: one launch of
+    the variant."""
+    dat, scale, ops, ref = _tma_case(gen, b, t, c, f, kind)
+    assert project_route(dat.dtype, torch.bfloat16, c, dat.data_ptr()) == "tma"
+    counter = "launches_int8" if kind == "int8" else "launches"
+    for name in ("launches", "launches_int8", "launches_generic"):
+        setattr(fused_project_kernel, name, 0)
+    got = fused_project_kernel(dat, *ops, c + 5, 1e-5, scale=scale)
+    assert getattr(fused_project_kernel, counter) == 1
+    assert fused_project_kernel.launches + fused_project_kernel.launches_int8 == 1
+    assert fused_project_kernel.launches_generic == 0
+    _check_projection(got, ref, kind)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_projection_tma_calls_are_bit_identical(gen, kind):
+    """No atomics, no order that changes between calls: the same bits."""
+    dat, scale, ops, _ = _tma_case(gen, 4, 1000, 2048, 270, kind)
+    one = fused_project_kernel(dat, *ops, 2053, 1e-5, scale=scale)
+    two = fused_project_kernel(dat, *ops, 2053, 1e-5, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("case", ["misaligned_view", "c_203"])
+def test_projection_generic_route(gen, case):
+    """bf16 rows TMA cannot describe take the generic kernel, counted in
+    ``launches_generic``: a contiguous view 2 bytes off 16, and C = 203."""
+    c = 2048 if case == "misaligned_view" else 203
+    b, t = 2, 300
+    if case == "misaligned_view":
+        buf = torch.randn((b * t * c + 8,), generator=gen, device="cuda").to(torch.bfloat16)
+        dat = buf[1:1 + b * t * c].view(b, t, c)
+    else:
+        dat = torch.randn((b, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+    assert project_route(dat.dtype, torch.bfloat16, c, dat.data_ptr()) == "generic"
+    enc = torch.randn((t, 5), generator=gen, device="cuda").to(torch.bfloat16)
+    w_all = torch.randn((c + 5, 252), generator=gen, device="cuda") * 0.02
+    b_all = torch.randn((252,), generator=gen, device="cuda") * 0.1
+    for name in ("launches", "launches_int8", "launches_generic"):
+        setattr(fused_project_kernel, name, 0)
+    got = fused_project_kernel(dat, *_prep(dat, enc, w_all, b_all, torch.bfloat16), c + 5, 1e-5)
+    assert fused_project_kernel.launches_generic == 1
+    assert fused_project_kernel.launches == fused_project_kernel.launches_int8 == 0
+    _check_projection(got, _project_plain(dat, enc, w_all, b_all, 1e-5), "bf16")
+
+
+# ------------------------------------------- flash kernels at any latent count
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [27, 63, 96, 113, 128])
+@pytest.mark.parametrize("lq", [64, 128, 130, 256])
+def test_flash_kernels_take_any_latent_count(gen, lq, d, dtype):
+    """Latent counts past a block's shared memory (the backward walks the
+    queries in chunks, carrying dk and dv over them; the FMA forward takes a
+    chunk per block): forward and backward against the plain versions on
+    the odd-pitch layout, masked with a fully masked row, dropout 0.2, at
+    chip_smoke's phase 5 tolerances (bf16: 2e-2 forward, 4 ulps of the
+    largest gradient backward; f32: 2e-5 and 1e-5 relative)."""
+    b, h, lkv, rate, seed = 2, 1, 700, 0.2, 77
+    qh, kh, vh, mask, split = _odd_pitch_case(gen, b, h, lq, lkv, d)
+    if dtype == torch.float32:
+        qh, kh, vh = qh.float(), kh.float(), vh.float()
+    eff = d**-0.5 / 0.5
+    out, lse = flash_attention_kernel(qh, kh, vh, mask, eff, rate, seed)
+    ref, _ = multihead_attention(qh.float(), kh.float(), vh.float(), scale=d**-0.5,
+                                 kv_mask=mask, dropout_rate=rate, dropout_seed=seed)
+    assert (out.float() - ref).abs().max().item() <= (2e-2 if dtype == torch.bfloat16 else 2e-5)
+    assert out[0].abs().max().item() == 0.0
+    do = split(torch.randn((b, lq, h * d), generator=gen, device="cuda").to(dtype))
+    delta = (do.float() * split(out).float()).sum(-1)
+    got = flash_attention_bwd_kernel(qh, kh, vh, mask, do, lse, delta, eff, rate, seed)
+    want = flash_backward_plain(qh, kh, vh, mask, do, lse, delta, eff, rate, seed)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        tol = (_bf16_tol(r) if dtype == torch.bfloat16
+               else 1e-5 * max(1.0, r.abs().max().item()))
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+        assert a[0].abs().max().item() == 0.0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_chunked_calls_are_bit_identical(gen, dtype):
+    """dk and dv summed over query chunks without atomics: two calls at
+    lq 256, d 128 (four chunks on the tensor cores) give the same bits."""
+    qh, kh, vh, mask, split = _odd_pitch_case(gen, 2, 1, 256, 2000, 128)
+    if dtype == torch.float32:
+        qh, kh, vh = qh.float(), kh.float(), vh.float()
+    out, lse = flash_attention_kernel(qh, kh, vh, mask, 0.1, 0.1, 5)
+    do = split(torch.randn((2, 256, 128), generator=gen, device="cuda").to(dtype))
+    delta = (do.float() * split(out).float()).sum(-1)
+    g1 = flash_attention_bwd_kernel(qh, kh, vh, mask, do, lse, delta, 0.1, 0.1, 5)
+    g2 = flash_attention_bwd_kernel(qh, kh, vh, mask, do, lse, delta, 0.1, 0.1, 5)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
 def _chain_operands(gen, dtype, spec):

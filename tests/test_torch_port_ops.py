@@ -19,6 +19,7 @@ from healnet_tpu.ops import activations as jact
 from healnet_tpu.ops import attention as jatt
 from healnet_tpu.ops import fourier as jfour
 from healnet_tpu.ops import hash_dropout as jhash
+from healnet_tpu.ops.flash_attention import _bwd_call as jflash_bwd_call
 from healnet_tpu.ops.flash_attention import flash_cross_attention as jflash
 from healnet_tpu.ops.fused_project import _pallas_bwd_call as jproject_bwd_call
 from healnet_tpu.ops.fused_project import fused_kv_project as jproject
@@ -37,13 +38,18 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_lse_plain,
     flash_plan,
     flash_variant,
+    query_chunks,
 )
 from healnet_tpu_torch.ops.fused_project import (
+    PROJECT_WIDTHS,
     FusedProjectFunction,
     fused_kv_project as tproject,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
+    project_plan,
+    project_route,
+    project_smem,
     split_columns,
 )
 
@@ -299,6 +305,119 @@ def test_flash_variant_rule(dtype, d, variant):
     """bf16 with d <= 128 takes the tensor-core kernels; f32 (no TF32) and
     wider bf16 heads the FMA kernels, by dtype and d alone."""
     assert flash_variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("align", [1, 32])
+@pytest.mark.parametrize("max_rows", [32, 64, 96, 110, 171, 192])
+def test_query_chunks_cover_every_query_once(max_rows, align):
+    """The flash kernels' query chunks: the fewest that fit a block (at most
+    max_rows, a multiple of align), chunk i holding [i * chunk, min(lq,
+    (i + 1) * chunk)), none empty; one chunk wherever lq fits (brca's 17)."""
+    cap = max_rows // align * align
+    for lq in list(range(1, 300, 7)) + [17, 64, 128, 130, 256, 1000]:
+        n, chunk = query_chunks(lq, max_rows, align)
+        assert chunk % align == 0 and 1 <= chunk <= cap
+        assert (n - 1) * chunk < lq <= n * chunk
+        assert n == -(-lq // cap)
+        if lq <= cap:
+            assert n == 1
+
+
+def test_query_chunks_refuse_a_block_without_room():
+    with pytest.raises(ValueError):
+        query_chunks(17, 31, 32)
+    with pytest.raises(ValueError):
+        query_chunks(17, 0, 1)
+
+
+@pytest.mark.parametrize("lq", [130, 256])
+def test_flash_backward_plain_vs_jax_at_long_latents(rng, lq):
+    """Latent counts past the card kernels' shared-memory table: the port's
+    plain backward (the formulas its chunked kernels keep) against the JAX
+    backward kernel in interpret mode, called directly as the JAX wrapper
+    calls it (queries padded to 16). d 96, f32, a fully masked row, dropout
+    0.3 with one hash seed: 1e-5."""
+    b, h, lkv, d, rate = 2, 1, 256, 96, 0.3
+    q, k, v = _qkv(rng, b=b, h=h, lq=lq, lkv=lkv, d=d)
+    do = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    mask = rng.uniform(size=(b, lkv)) > 0.3
+    mask[1] = False
+    eff, seed = d**-0.5 / 0.5, 0x2545F491
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    lse = flash_lse_plain(tq, tk, tmask, eff)
+    out = tatt.multihead_attention(tq, tk, tv, scale=eff, temperature=1.0, kv_mask=tmask,
+                                   dropout_rate=rate, dropout_seed=seed)[0]
+    delta = (tdo * out.reshape(b, lq, h, d).transpose(1, 2)).sum(-1)
+    got = flash_backward_plain(tq, tk, tv, tmask, tdo, lse, delta, eff, rate, seed)
+
+    lq_p = -(-lq // 16) * 16
+    pad = lambda x: np.pad(np.asarray(x, np.float32).reshape(b * h, lq, -1),
+                           ((0, 0), (0, lq_p - lq), (0, 0)))
+    jmask = np.repeat(mask.astype(np.float32)[:, None, :], h, axis=1).reshape(b * h, 1, lkv)
+    dq, dk, dv = jflash_bwd_call(
+        jnp.asarray(pad(q)), jnp.asarray(k.reshape(b * h, lkv, d)),
+        jnp.asarray(v.reshape(b * h, lkv, d)), jnp.asarray(jmask), jnp.asarray(pad(do)),
+        jnp.asarray(pad(lse.numpy()[..., None])), jnp.asarray(pad(delta.numpy()[..., None])),
+        jnp.asarray(np.array([[seed]], np.uint32)), eff, 128, True, rate)
+    want = (np.asarray(dq)[:, :lq], np.asarray(dk), np.asarray(dv))
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        top = max(1.0, float(np.abs(r).max()))
+        _close(a.reshape(r.shape), r, rtol=1e-5, atol=1e-5 * top)
+    assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
+
+
+# ----------------------------------------------------- the projection kernels
+
+
+@pytest.mark.parametrize("dtype,cdt,c,offset,route", [
+    (torch.bfloat16, torch.bfloat16, 2048, 0, "tma"),
+    (torch.bfloat16, torch.bfloat16, 2000, 0, "tma"),
+    (torch.bfloat16, torch.bfloat16, 1024, 256, "tma"),
+    (torch.int8, torch.bfloat16, 2048, 0, "tma"),
+    (torch.int8, torch.bfloat16, 2000, 0, "tma"),
+    (torch.int8, torch.bfloat16, 1024, 16, "tma"),
+    (torch.bfloat16, torch.bfloat16, 203, 0, "generic"),
+    (torch.bfloat16, torch.bfloat16, 2048, 2, "generic"),
+    (torch.int8, torch.bfloat16, 200, 0, "generic"),
+    (torch.int8, torch.bfloat16, 2048, 8, "generic"),
+    (torch.int8, torch.float32, 2048, 0, "generic"),
+    (torch.float32, torch.float32, 2048, 0, "generic"),
+])
+def test_project_route(dtype, cdt, c, offset, route):
+    """The Hopper kernel takes bf16 compute over bf16 or int8 rows that TMA
+    can describe (16-byte aligned base and row pitch); the rest is generic."""
+    assert project_route(dtype, cdt, c, 0x7F0000000000 + offset) == route
+
+
+@pytest.mark.parametrize("m,f,itemsize", [
+    (32768, 252, 2), (32768, 270, 2), (32768, 252, 1), (32768, 270, 1),
+    (8192, 252, 2), (8, 252, 2), (2100, 300, 2), (600, 70, 2),
+    (32768, 600, 2), (32768, 2000, 1), (129, 321, 2), (1, 8, 2)])
+def test_project_plan(m, f, itemsize):
+    """The Hopper kernel's plan: one column pass up to 272 columns (so each
+    context row is read once at brca, kirp and trimodal), tiles of 128 rows,
+    a ring that fills but fits shared memory, and the epilogue's rows staged
+    in a held ring stage only where their own region would cost a stage."""
+    plan = project_plan(m, f, itemsize)
+    assert plan.n_col == -(-f // 272) and plan.nb in PROJECT_WIDTHS
+    assert plan.nb * plan.n_col >= f and plan.nb >= -(-f // plan.n_col)
+    assert (plan.n_col - 1) * plan.nb < f  # no column pass starts past F
+    assert plan.row_tiles == -(-m // 128)
+    assert plan.pitch == (f + f % 2 if plan.n_col == 1 else plan.nb)
+    assert 2 <= plan.stages <= 4 and plan.smem <= 232448
+    smem = lambda stages, held: project_smem(plan.nb, itemsize, stages, plan.pitch, held)
+    assert plan.smem == smem(plan.stages, plan.held_staging)
+    if plan.stages < 4:  # no deeper ring fits, even with the rows staged in a held stage
+        assert smem(plan.stages + 1, True) > 232448
+    if plan.held_staging:  # a region of their own would have cost this stage
+        assert smem(plan.stages, False) > 232448
+    # the 8 warps' 8 staged rows fit in a ring stage, as the kernel checks
+    assert 8 * 8 * plan.pitch * 2 <= 128 * 64 * itemsize + plan.nb * 64 * 2
+    if f in (252, 270):  # brca / trimodal and kirp: one pass over the context
+        assert plan.n_col == 1 and plan.nb == (256 if f == 252 else 272)
+    if (m, f) == (32768, 270):  # kirp: the held stage buys its fourth stage
+        assert plan.stages == 4 and plan.held_staging
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
