@@ -9,11 +9,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    process per source, started together);
 2. hold the fused KV projection kernels against their plain PyTorch version:
    the Hopper kernel at the bf16 shapes of ``PROJECT_SHAPES`` (brca's and
-   kirp's WSI bag, F 252 and 270, the trimodal third bag, the omic vector)
-   and the generic kernel at small ragged f32 shapes; profile one call of
-   each bf16 shape (one launch) and time kernel, the generic kernel on the
-   same inputs, plain version, the library GEMM alone and the bound; and
-   the generic kernel at the brca shape in f32, held and timed;
+   kirp's WSI bag, F 252 and 270, the trimodal third bag, the omic vector),
+   the generic kernel at bf16 rows of 203 channels (its run, through
+   ``fused_kv_project``) and the f32 kernel at small ragged f32 shapes (C
+   200 and 203, F 70 to 600); profile one call of each bf16 shape and of
+   brca, kirp and the omic vector in f32 (one launch; two calls
+   bit-identical) and time kernel, the generic kernel on the same bf16
+   inputs, plain version, the library GEMM alone (``torch.matmul`` f32 for
+   f32) and the bound;
 3. the same for the flash cross-attention kernel at (8, 17, 4096, 63) bf16:
    unmasked, masked with ragged lengths and one fully masked row, and with
    hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
@@ -37,12 +40,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counts past a block's shared memory (lq 64, 128, 130, 256 at d 27, 63,
    96, 113, 128, bf16 and f32, masked with a fully masked row, dropout);
 6. the same for the projection backward (cotangent pass) kernel at
-   (8, 4096, 252) bf16 and a small f32 shape;
+   (8, 4096, 252) bf16 and f32, kirp's F 270, a small f32 shape, the
+   one-token omic context and batch 5000 of one token: one launch a call,
+   two calls bit-identical, the full-size ones timed;
 7. train the full-width BRCA model through ``SurvivalTrainer.train_step``
    (dropout 0.083 / 0.473, NLL/16 + L1, Adam under OneCycle): step-1 loss and
    gradients of the kernel path against the plain path with the same weights
    and dropout draws, in f32 (the run of the flash kernels' FMA variants)
-   and bf16 (the f32 step also runs the generic projection kernel); then 5
+   and bf16 (the f32 step also runs the f32 projection kernel; its wall,
+   device busy and the f32 projection kernels' share of it); then 5
    bf16 steps on the kernel path, the main path's run,
    which must launch all four kernels (the flash kernels' tensor-core
    variants) and give finite losses; step time, samples/s, peak memory and
@@ -50,17 +56,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain attention for comparison;
 8. hold the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
-   (the Hopper kernel) and f32 compute (the generic one), kv, s1, s2, and at
+   (the Hopper kernel) and f32 compute (the f32 kernel), kv, s1, s2, and at
    kirp's F 270 in bf16; time kernel, plain version, the library GEMM on the
-   dequantized bf16 context and the bound at both, and fail if the int8
-   brca call is more than ``INT8_MARGIN`` slower than phase 2's bf16 one;
+   dequantized context and the bound at brca and kirp in bf16 and at brca
+   in f32 compute, and fail if the int8 brca call is more than
+   ``INT8_MARGIN`` slower than phase 2's bf16 one;
 9. the same for the scaled cotangent pass with its batch-sum at
-   (8, 4096, 252) bf16, and a small f32 shape; and the time of the d_W_c
-   GEMM that follows it (the int8 context cast to bf16, then the GEMM);
+   (8, 4096, 252) bf16 (one launch, bit-identical, timed), and a small f32
+   shape; and the time of the d_W_c GEMM that follows it (the int8 context
+   cast to bf16, then the GEMM);
 10. the feature-arena path at full width: 48 bags of 1024-4096 patches
    packed into an arena, quantized to int8 on the host by the trainer and
    uploaded once; step-1 gradients of the kernel path against the plain
-   projection (same flash attention) in f32, and both paths' bf16 gradients
+   projection (same flash attention) in f32 (the run of the f32 kernel's
+   int8 variant), and both paths' bf16 gradients
    against those f32 ones; then 5 bf16 training steps from the arena, which
    must launch both int8 kernel variants and give finite losses, with wall,
    device busy, idle share and the largest device items per step; then
@@ -111,13 +120,17 @@ from healnet_tpu_torch.ops.flash_attention import (
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
+    F32_WIDTHS,
+    _f32_lib,
     _gemm_f32,
     _prep,
     _project_launch,
     _project_plain,
+    fused_kv_project,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
+    project_f32_smem,
     project_plain,
 )
 from healnet_tpu_torch.ops.quantize import quantize_context
@@ -127,6 +140,8 @@ from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 # kernel variant -> (its wrapper, the wrapper's launch counter for it)
 KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "fused_project_generic": (fused_project_kernel, "launches_generic"),
+           "fused_project_f32": (fused_project_kernel, "launches_f32"),
+           "fused_project_f32_int8": (fused_project_kernel, "launches_f32_int8"),
            "fused_project_bwd": (fused_project_bwd_kernel, "launches"),
            "flash_attention": (flash_attention_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
@@ -296,9 +311,9 @@ PROJECT_SHAPES = {"brca": (BATCH, TOKENS, PATCH, 252, torch.bfloat16),
                   "kirp int8": (BATCH, TOKENS, PATCH, 270, torch.int8)}
 
 
-def projection_timing(gen, b, t, c, f, dtype):
+def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16):
     """(times, run) of one projection shape: a seeded context (int8 with
-    per-token scales and a zero row, computing in bf16), the encoding and
+    per-token scales and a zero row, computing in ``int8_cdt``), the encoding and
     merged weights; ``run()`` launches the kernel of the call's route,
     ``run("generic")`` the generic one on the same inputs. Times: the
     kernel, the plain version, ``torch.matmul`` of the GEMM alone (on the
@@ -312,7 +327,7 @@ def projection_timing(gen, b, t, c, f, dtype):
         qc = quantize_context(x)
         qc.scale[0, 0] = 0.0
         qc.data[0, 0] = 0
-        dat, scale, cdt = qc.data, qc.scale, torch.bfloat16
+        dat, scale, cdt = qc.data, qc.scale, int8_cdt
         a2d = qc.dequantize(cdt).reshape(-1, c)
     else:
         dat = x.to(dtype)
@@ -341,23 +356,28 @@ def projection_timing(gen, b, t, c, f, dtype):
                 ref_max=ref.float().abs().max().item()), run
 
 
-def time_projection(gen, label):
-    """Profile one call of a ``PROJECT_SHAPES`` entry (a Hopper-kernel call
-    must be one launch) and time it, and the generic kernel (the kernel
-    these calls took before the Hopper one) on the same inputs; returns its
-    times."""
-    b, t, c, f, dtype = PROJECT_SHAPES[label]
-    timing, run = projection_timing(gen, b, t, c, f, dtype)
+def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, generic=True):
+    """Profile one call of a ``PROJECT_SHAPES`` entry (or of ``shape``; a
+    call must be one launch) and time it, and with ``generic`` the generic
+    kernel (the kernel bf16 calls took before the Hopper one) on the same
+    inputs; returns its times."""
+    b, t, c, f, dtype = shape or PROJECT_SHAPES[label]
+    timing, run = projection_timing(gen, b, t, c, f, dtype, int8_cdt)
     kinds, prof = launch_profile(run)
     log(f"  {label} ({b}, {t}, {c}) {str(dtype)[6:]} -> F {f}: kernels on the profiler: {prof}")
     if kinds != 1:
         raise AssertionError(f"{label}: a projection call launched {kinds} kernels, not 1")
-    timing["generic_ms"] = time_ms(lambda: run("generic"))[0]
-    log(f"  {label}: device time kernel {timing['ms']:.4f} ms, generic kernel "
-        f"{timing['generic_ms']:.4f} ms, plain {timing['plain_ms']:.4f} "
-        f"ms, torch.matmul GEMM alone {timing['library_ms']:.4f} ms, bound "
+    one, two = run(), run()
+    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+        raise AssertionError(f"{label}: two calls differ")
+    timing["generic_ms"] = time_ms(lambda: run("generic"))[0] if generic else None
+    log(f"  {label}: device time kernel {timing['ms']:.4f} ms"
+        + (f", generic kernel {timing['generic_ms']:.4f} ms" if generic else "")
+        + f", plain {timing['plain_ms']:.4f} ms, torch.matmul of the GEMM alone "
+        f"{timing['library_ms']:.4f} ms, bound "
         f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; {timing['mb']:.1f} MB, "
-        f"{2.0 * b * t * c * f / 1e9:.1f} GFLOP); wall per call {timing['wall_ms']:.4f} ms")
+        f"{2.0 * b * t * c * f / 1e9:.1f} GFLOP); two calls bit-identical; wall per call "
+        f"{timing['wall_ms']:.4f} ms")
     return timing
 
 
@@ -367,10 +387,19 @@ def projection_entry(name, source, replaces, err, timing) -> dict:
                 bound_by=timing["bound_by"], library_ms=timing["library_ms"])
 
 
+# the f32 route's timed shapes: brca's and kirp's WSI bag and the omic
+# vector in f32
+F32_SHAPES = {"brca f32": (BATCH, TOKENS, PATCH, 252, torch.float32),
+              "kirp f32": (BATCH, TOKENS, PATCH, 270, torch.float32),
+              "omic f32": (BATCH, 1, OMIC, 252, torch.float32)}
+
+
 def phase_projection(gen):
-    """Returns the kernels-line entries of the Hopper kernel (bf16 contexts)
-    and of the generic kernels (f32 at the brca shape), each with its error
-    at the shape it is timed at."""
+    """Returns the kernels-line entries of the Hopper kernel (bf16
+    contexts), the f32 kernel (f32 contexts at the brca shape) and the
+    generic kernel (bf16 rows TMA cannot describe), each with its error at
+    the shape it is timed or checked at, and the generic kernel's launches
+    in its run."""
     log("phase 2: fused KV projection kernels vs plain version")
     # bf16 tolerance: the kernel and the plain version round the product to
     # bf16 at the same place but sum it in another order, so a raw value may
@@ -390,13 +419,26 @@ def phase_projection(gen):
         read_launches(f"the bf16 {label} call", ("fused_project",))
         if label == "brca":
             worst = err
-    # f32 (the generic kernel): the same schedule with FMA; sums of ~200
-    # products in another order than cuBLAS's full-f32 GEMM agree to ~1e-6
-    # of values ~1
-    for c in (200, 203):  # 16-byte row loads, and the element-wise path
-        *_, ops, run, plain = projection_case(gen, 2, 300, c, 70, torch.float32)
-        err = (run()[0] - plain()).abs().max().item()
-        check(f"f32 ragged (2, 300, {c}) F=70", err, 1e-4)
+    # the generic kernel's run: bf16 rows of 203 channels (406 bytes, which
+    # TMA cannot describe) through the entry point
+    dat, enc, w_all, b_all, *_ = projection_case(gen, 2, 300, 203, 252, torch.bfloat16)
+    reset_launches()
+    kv = fused_kv_project(dat, enc, w_all, b_all)
+    generic_launches = read_launches("the bf16 C=203 call (rows TMA cannot describe)",
+                                     ("fused_project_generic",))
+    ref = project_plain(dat, enc, w_all, b_all)
+    err_generic = (kv.float() - ref.float()).abs().max().item()
+    check("bf16 generic (2, 300, 203) F=252", err_generic,
+          4 * bf16_ulp(ref.float().abs().max().item()))
+    # f32 (the f32 kernel): full f32 products summed in another order than
+    # cuBLAS's full-f32 GEMM agree to ~1e-6 of values ~1; C = 200 rows are
+    # staged by 16-byte copies, C = 203 element by element; F 600 takes
+    # three column passes
+    for c in (200, 203):
+        for f in (70, 252, 270, 600):
+            *_, ops, run, plain = projection_case(gen, 2, 300, c, f, torch.float32)
+            err = (run()[0] - plain()).abs().max().item()
+            check(f"f32 ragged (2, 300, {c}) F={f}", err, 1e-4)
 
     timings = {label: time_projection(gen, label)
                for label, shape in PROJECT_SHAPES.items() if shape[-1] == torch.bfloat16}
@@ -404,20 +446,35 @@ def phase_projection(gen):
     log(f"  kirp (F 270) against brca (F 252): {timings['kirp']['ms'] / brca['ms']:.3f}x the "
         f"time; brca against torch.matmul of the GEMM alone: "
         f"{brca['ms'] / brca['library_ms']:.3f}x")
+    # the f32 kernel's shared memory, as its plan reckons it
+    for nb in F32_WIDTHS:
+        for itemsize in (4, 1):
+            got = _f32_lib().healnet_fused_project_f32_smem(nb, int(itemsize == 1))
+            want = project_f32_smem(nb, itemsize)
+            if got != want:
+                raise AssertionError(f"f32 kernel nb={nb} itemsize={itemsize}: {got} B of "
+                                     f"shared memory, the plan reckons {want}")
     reset_launches()
-    generic, _ = projection_timing(gen, BATCH, TOKENS, PATCH, 252, torch.float32)
-    read_launches("the f32 brca calls (check and timing)", ("fused_project_generic",))
-    # sums of 2048 products in another order than cuBLAS's full-f32 GEMM,
-    # outputs of magnitude ~1-5 (as phase 8's f32 case)
-    check("f32 generic (8, 4096, 2048) F=252", generic["err"], 1e-4)
-    log(f"  generic kernel, f32 (8, 4096, 2048) -> F 252: device time {generic['ms']:.4f} ms, "
-        f"plain {generic['plain_ms']:.4f} ms, torch.matmul GEMM alone {generic['library_ms']:.4f} "
-        f"ms, bound {generic['bound_ms']:.4f} ms ({generic['bound_by']})")
-    return (projection_entry("fused_project", "healnet_tpu_torch/ops/csrc/fused_project_tma.cu",
-                             "healnet_tpu/ops/fused_project.py:162", worst, timings["brca"]),
-            projection_entry("fused_project_generic",
-                             "healnet_tpu_torch/ops/csrc/fused_project.cu",
-                             "healnet_tpu/ops/fused_project.py:162", generic["err"], generic))
+    f32 = {label: time_projection(gen, label, shape, generic=False)
+           for label, shape in F32_SHAPES.items()}
+    read_launches("the f32 brca, kirp and omic calls (checks and timing)", ("fused_project_f32",))
+    for label, timing in f32.items():
+        # sums of 2000-2048 products in another order than cuBLAS's
+        # full-f32 GEMM, outputs of magnitude ~1-5 (as phase 8's f32 case)
+        check(f"{label} {F32_SHAPES[label][:3]}", timing["err"], 1e-4)
+    log(f"  f32 kernel at brca: {f32['brca f32']['ms'] / f32['brca f32']['library_ms']:.3f}x "
+        f"torch.matmul f32's time, {f32['brca f32']['bound_ms'] / f32['brca f32']['ms']:.3f} of "
+        f"the bound; kirp against brca {f32['kirp f32']['ms'] / f32['brca f32']['ms']:.3f}x")
+    generic = dict(brca, ms=brca["generic_ms"])
+    source = "healnet_tpu_torch/ops/csrc/"
+    return (projection_entry("fused_project", source + "fused_project_tma.cu",
+                             "healnet_tpu/ops/fused_project.py:162", worst, brca),
+            projection_entry("fused_project_f32", source + "fused_project_f32.cu",
+                             "healnet_tpu/ops/fused_project.py:162", f32["brca f32"]["err"],
+                             f32["brca f32"]),
+            projection_entry("fused_project_generic", source + "fused_project.cu",
+                             "healnet_tpu/ops/fused_project.py:162", err_generic, generic),
+            ), generic_launches
 
 
 # ---------------------------------------------------------------- phase 3
@@ -785,46 +842,86 @@ def phase_flash_latents(gen) -> None:
 # ---------------------------------------------------------------- phase 6
 
 
+def dsum2_bound(g, s1, s2, d_total) -> float:
+    """The worst-case rounding error of dsum2's f32 sums of b*t terms taken
+    in another order: (terms) * 2^-24 * sum|terms|."""
+    b, t = s1.shape
+    mu = s1 / d_total
+    imu = mu * torch.rsqrt(s2 / d_total - mu * mu + 1e-5)
+    weight = torch.clamp(imu.abs().max(), min=1.0).item()
+    return b * t * 2.0**-24 * weight * g.float().abs().sum(dim=(0, 1)).max().item()
+
+
+def check_bwd(label, got, ref, g, s1, s2, d_total, plain_terms=None) -> float:
+    """Phases 6 and 9's tolerances; returns d_raw's error. d_raw rounds
+    ``(scale *) inv * g`` once in both, and rsqrtf may differ from torch's
+    rsqrt in its last bit, which can move a bf16 rounding by one ulp: 1 bf16
+    ulp of the largest value, 1e-6 relative in f32. bsum: b terms rounded at
+    the same place, each at most one ulp apart: b bf16 ulps of the largest
+    term (``plain_terms``: the unscaled d_raw)."""
+    bf16 = g.dtype == torch.bfloat16
+    top = ref[0].float().abs().max().item()
+    err = (got[0].float() - ref[0].float()).abs().max().item()
+    check(f"{label} d_raw", err, bf16_ulp(top) if bf16 else 1e-6 * top)
+    check(f"{label} dsum2", (got[1] - ref[1]).abs().max().item(), dsum2_bound(g, s1, s2, d_total))
+    if plain_terms is not None:
+        term = plain_terms.float().abs().max().item()
+        check(f"{label} bsum", (got[2] - ref[2]).abs().max().item(),
+              g.shape[0] * bf16_ulp(term) if bf16 else 1e-5 * max(1.0, term))
+    return err
+
+
+def time_bwd(label, run, plain, moved, elements, ops_per_element, dtype):
+    """Profile one backward call (one launch), check two calls are
+    bit-identical, and time kernel and plain version; returns the
+    kernels-line times."""
+    kinds, prof = launch_profile(run)
+    log(f"  {label}: kernels on the profiler: {prof}")
+    if kinds != 1:
+        raise AssertionError(f"{label}: a backward call launched {kinds} kernels, not 1")
+    one, two = run(), run()
+    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+        raise AssertionError(f"{label}: two calls differ")
+    (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(plain)
+    bound, by = bound_ms(moved, ops_per_element * elements, dtype)
+    log(f"  {label}: device time kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound "
+        f"{bound:.5f} ms ({by}; {moved / 1e6:.1f} MB); two calls bit-identical; wall per "
+        f"call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms; library: none (no single "
+        "PyTorch call computes d_raw and both column sums)")
+    return dict(ms=t_kernel, plain_ms=t_plain, bound_ms=bound, bound_by=by)
+
+
 def phase_projection_bwd(gen) -> dict:
     log("phase 6: projection backward (cotangent pass) kernel vs plain version")
-    worst = 0.0
-    cases = {"bf16 (8, 4096, 252)": (BATCH, TOKENS, PATCH, 252, torch.bfloat16),
-             "f32 (2, 300, 70)": (2, 300, 200, 70, torch.float32)}
-    for label, (b, t, c, f, dtype) in cases.items():
+    # (b, t, C, F, dtype, timed): brca bf16 and f32, kirp's F 270, a small
+    # f32 shape, the one-token omic context, and batch 5000 of one token
+    cases = {"bf16 (8, 4096, 252)": (BATCH, TOKENS, PATCH, 252, torch.bfloat16, True),
+             "f32 (8, 4096, 252)": (BATCH, TOKENS, PATCH, 252, torch.float32, True),
+             "kirp bf16 (8, 4096, 270)": (BATCH, TOKENS, PATCH, 270, torch.bfloat16, True),
+             "f32 (2, 300, 70)": (2, 300, 200, 70, torch.float32, False),
+             "bf16 omic (8, 1, 252)": (BATCH, 1, OMIC, 252, torch.bfloat16, False),
+             "bf16 batch 5000 (5000, 1, 252)": (5000, 1, 64, 252, torch.bfloat16, False)}
+    timings, worst = {}, 0.0
+    for label, (b, t, c, f, dtype, timed) in cases.items():
         *_, run, _ = projection_case(gen, b, t, c, f, dtype)
         _, s1, s2 = run()  # the forward kernel's saved row statistics
         g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
-        d_raw, dsum2 = fused_project_bwd_kernel(g, s1, s2, c + 5)
-        ref_raw, ref_sum = project_bwd_plain(g, s1, s2, c + 5)
-        torch.cuda.synchronize()
-        err = (d_raw.float() - ref_raw.float()).abs().max().item()
-        top = ref_raw.float().abs().max().item()
-        # d_raw rounds inv * g once in both; rsqrtf may differ from torch's
-        # rsqrt in its last bit, which can move a bf16 rounding by one ulp
-        check(f"{label} d_raw", err, bf16_ulp(top) if dtype == torch.bfloat16 else 1e-6 * top)
-        # dsum2: f32 sums of b*t terms in another order; the worst-case
-        # rounding error of such a sum is (terms) * 2^-24 * sum|terms|
-        mu = s1 / (c + 5)
-        imu = mu * torch.rsqrt(s2 / (c + 5) - mu * mu + 1e-5)
-        weight = torch.clamp(imu.abs().max(), min=1.0).item()
-        bound_err = b * t * 2.0**-24 * weight * g.float().abs().sum(dim=(0, 1)).max().item()
-        check(f"{label} dsum2", (dsum2 - ref_sum).abs().max().item(), bound_err)
-        if dtype == torch.bfloat16:
+        d_total = c + 5
+        reset_launches()
+        got = fused_project_bwd_kernel(g, s1, s2, d_total)
+        read_launches(f"the {label} call", ("fused_project_bwd",))
+        err = check_bwd(label, got, project_bwd_plain(g, s1, s2, d_total), g, s1, s2, d_total)
+        if label.startswith("bf16 (8, 4096"):
             worst = err
-            run_k = lambda: fused_project_bwd_kernel(g, s1, s2, c + 5)
-            t_kernel, w_kernel = time_ms(run_k)
-            t_plain, w_plain = time_ms(lambda: project_bwd_plain(g, s1, s2, c + 5))
-            # 4 operations per element (the JAX cost estimate)
-            bound, by = bound_ms(nbytes(g, s1, s2, d_raw, dsum2), 4.0 * g.numel(), dtype)
-            log(f"  device time at (8, 4096, 252) bf16: kernel {t_kernel:.4f} ms, plain "
-                f"{t_plain:.4f} ms, bound {bound:.5f} ms ({by}); wall per call: kernel "
-                f"{w_kernel:.4f} ms, plain {w_plain:.4f} ms; library: none (no single "
-                "PyTorch call computes d_raw and both column sums)")
+        if timed:
+            timings[label] = time_bwd(
+                label, lambda: fused_project_bwd_kernel(g, s1, s2, d_total),
+                lambda: project_bwd_plain(g, s1, s2, d_total),
+                nbytes(g, s1, s2, *got), g.numel(), 4.0, dtype)  # 4 operations an element
     return dict(name="fused_project_bwd", route="cuda",
                 source="healnet_tpu_torch/ops/csrc/fused_project_bwd.cu",
-                replaces="healnet_tpu/ops/fused_project.py:268",
-                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                replaces="healnet_tpu/ops/fused_project.py:268", max_abs_err=worst,
+                **timings["bf16 (8, 4096, 252)"], library_ms=None)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -919,8 +1016,16 @@ def phase_training(host_rng) -> dict:
     reset_launches()
     compare_gradients("f32", k32, plain32, batch32, 1e-5, 1e-4)
     fma = read_launches("the f32 kernel-path step",
-                        ("flash_attention_fma", "flash_attention_bwd_fma", "fused_project_generic"))
-    del batch32, k32, plain32
+                        ("flash_attention_fma", "flash_attention_bwd_fma", "fused_project_f32"))
+    del plain32
+    f_wall, f_busy, f_idle, rows = step_times(k32, batch32)
+    ours = [e for e in rows if "project_f32" in e.key or "project_bwd" in e.key]
+    log(f"  f32 train step, batch {BATCH}, inputs on the card: wall {f_wall:.4f} ms, device busy "
+        f"{f_busy:.4f} ms per step (profiler), idle share {f_idle:.4f}; the f32 projection "
+        f"forward and backward kernels {sum(map(device_us, ours)) / 3e3:.4f} ms of it: "
+        + "; ".join(f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
+                    f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in ours))
+    del batch32, k32
     batch = train_batch(host_rng, torch.bfloat16)
     kernel = brca_trainer(torch.bfloat16, "flash", "auto", state)
     # bf16: the plain path takes its attention scores and softmax in bf16,
@@ -982,9 +1087,11 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-def phase_projection_int8(gen, bf16_ms: float) -> dict:
+def phase_projection_int8(gen, bf16_ms: float, f32_ms: float):
     """``bf16_ms``: phase 2's time of the bf16 brca call, which the int8 one
-    must not exceed by more than ``INT8_MARGIN``."""
+    must not exceed by more than ``INT8_MARGIN``; ``f32_ms``: its time of the
+    f32 brca call, beside which the int8 call in f32 compute is timed.
+    Returns the kernels-line entries of both int8 variants."""
     log("phase 8: int8 projection forward kernels vs plain version")
     worst = 0.0
     for cdt, f in ((torch.bfloat16, 252), (torch.bfloat16, 270), (torch.float32, 252)):
@@ -992,8 +1099,8 @@ def phase_projection_int8(gen, bf16_ms: float) -> dict:
         qc, ops, run, plain = int8_projection_case(gen, BATCH, TOKENS, PATCH, f, cdt)
         (kv, s1, s2), (ref, r1, r2) = run(), plain()
         torch.cuda.synchronize()
-        read_launches(f"the int8 -> {str(cdt)[6:]} F={f} call",
-                      ("fused_project_int8" if cdt == torch.bfloat16 else "fused_project_generic",))
+        variant = "fused_project_int8" if cdt == torch.bfloat16 else "fused_project_f32_int8"
+        read_launches(f"the int8 -> {str(cdt)[6:]} F={f} call", (variant,))
         err = (kv.float() - ref.float()).abs().max().item()
         # bf16: as phase 2, 4 ulps of the largest output; f32: sums of 2048
         # products in another order than cuBLAS's, outputs of magnitude ~1-5
@@ -1001,6 +1108,8 @@ def phase_projection_int8(gen, bf16_ms: float) -> dict:
         check(f"int8 (8, 4096, 2048) -> {str(cdt)[6:]} F={f} kv", err, tol)
         if cdt == torch.bfloat16:
             worst = max(worst, err)
+        else:
+            err_f32 = err
         # s1: integer sums, exact in both, then the same f32 operations; s2:
         # the kernel's integer sum of q^2 is exact, the plain version's f32
         # sum of 2048 terms is not (pairwise: ~11 roundings of 2^-24)
@@ -1013,9 +1122,16 @@ def phase_projection_int8(gen, bf16_ms: float) -> dict:
         f"({timings['brca int8']['ms']:.4f} ms against phase 2's {bf16_ms:.4f} ms)")
     if ratio > 1.0 + INT8_MARGIN:
         raise AssertionError(f"the int8 brca call is {ratio:.3f}x the bf16 one's time")
-    return projection_entry("fused_project_int8",
-                            "healnet_tpu_torch/ops/csrc/fused_project_tma.cu",
-                            "healnet_tpu/ops/fused_project.py:171", worst, timings["brca int8"])
+    f32 = time_projection(gen, "brca int8 -> f32", (BATCH, TOKENS, PATCH, 252, torch.int8),
+                          torch.float32, generic=False)
+    log(f"  int8 -> f32 against f32 at brca: {f32['ms'] / f32_ms:.3f}x the time "
+        f"({f32['ms']:.4f} ms against phase 2's {f32_ms:.4f} ms)")
+    return (projection_entry("fused_project_int8",
+                             "healnet_tpu_torch/ops/csrc/fused_project_tma.cu",
+                             "healnet_tpu/ops/fused_project.py:171", worst, timings["brca int8"]),
+            projection_entry("fused_project_f32_int8",
+                             "healnet_tpu_torch/ops/csrc/fused_project_f32.cu",
+                             "healnet_tpu/ops/fused_project.py:171", err_f32, f32))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1030,55 +1146,35 @@ def phase_projection_bwd_int8(gen) -> dict:
         _, s1, s2 = run()  # the int8 forward kernel's saved row statistics
         d_total = c + 5
         g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
-        got = fused_project_bwd_kernel(g, s1, s2, d_total, scale=qc.scale, with_bsum=True)
-        ref = project_bwd_plain(g, s1, s2, d_total, scale=qc.scale, with_bsum=True)
-        torch.cuda.synchronize()
-        bf16 = dtype == torch.bfloat16
-        top = ref[0].float().abs().max().item()
-        err = (got[0].float() - ref[0].float()).abs().max().item()
-        # d_raw rounds (scale * inv) * g once in both (phase 6's tolerance)
-        check(f"{label} d_raw", err, bf16_ulp(top) if bf16 else 1e-6 * top)
-        mu = s1 / d_total
-        imu = mu * torch.rsqrt(s2 / d_total - mu * mu + 1e-5)
-        weight = torch.clamp(imu.abs().max(), min=1.0).item()
-        bound_err = b * t * 2.0**-24 * weight * g.float().abs().sum(dim=(0, 1)).max().item()
-        check(f"{label} dsum2", (got[1] - ref[1]).abs().max().item(), bound_err)
-        # bsum: b terms round(inv * g) rounded at the same place, a term at
-        # most one ulp apart: b ulps of the largest term
-        term = project_bwd_plain(g, s1, s2, d_total)[0].float().abs().max().item()
-        check(f"{label} bsum", (got[2] - ref[2]).abs().max().item(),
-              b * bf16_ulp(term) if bf16 else 1e-5 * max(1.0, term))
-        if bf16:
-            worst = err
-            run_k = lambda: fused_project_bwd_kernel(g, s1, s2, d_total, scale=qc.scale,
-                                                     with_bsum=True)
-            d_raw, dsum2, bsum = run_k()
-            t_kernel, w_kernel = time_ms(run_k)
-            t_plain, w_plain = time_ms(lambda: project_bwd_plain(
-                g, s1, s2, d_total, scale=qc.scale, with_bsum=True))
-            moved = nbytes(g, s1, s2, qc.scale, d_raw, dsum2, bsum)
-            bound, by = bound_ms(moved, 5.0 * g.numel(), dtype)
-            log(f"  device time at (8, 4096, 252) bf16 with scale and bsum: kernel "
-                f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.5f} ms ({by}; "
-                f"{moved / 1e6:.1f} MB); wall per call: kernel {w_kernel:.4f} ms, plain "
-                f"{w_plain:.4f} ms; library: none")
-            # the d_W_c GEMM that follows the pass in the backward, q^T d_raw:
-            # torch.mm takes no int8 operand, so the int8 context is cast to
-            # bf16 first (a 134 MB copy), then the f32-output GEMM
-            q2d, d2d = qc.data.reshape(-1, c), d_raw.reshape(-1, f)
-            t_cast, _ = time_ms(lambda: q2d.t().to(dtype))
-            q_bf16 = q2d.t().to(dtype)
-            t_gemm, _ = time_ms(lambda: _gemm_f32(q_bf16, d2d))
-            g_bound, g_by = bound_ms(nbytes(q2d, d2d) + 4 * c * f, 2.0 * q2d.numel() * f, dtype)
-            log(f"  d_W_c GEMM at ({c} x {q2d.shape[0]}) x ({q2d.shape[0]} x {f}): cast of the "
-                f"int8 context to bf16 {t_cast:.4f} ms + GEMM {t_gemm:.4f} ms; bound of an "
-                f"int8-operand GEMM {g_bound:.4f} ms ({g_by})")
-            del q_bf16
+        run_k = lambda: fused_project_bwd_kernel(g, s1, s2, d_total, scale=qc.scale,
+                                                 with_bsum=True)
+        plain = lambda: project_bwd_plain(g, s1, s2, d_total, scale=qc.scale, with_bsum=True)
+        reset_launches()
+        got = run_k()
+        read_launches(f"the {label} call", ("fused_project_bwd_int8",))
+        err = check_bwd(label, got, plain(), g, s1, s2, d_total,
+                        plain_terms=project_bwd_plain(g, s1, s2, d_total)[0])
+        if dtype != torch.bfloat16:
+            continue
+        worst = err
+        timing = time_bwd(f"{label} with scale and bsum", run_k, plain,
+                          nbytes(g, s1, s2, qc.scale, *got), g.numel(), 5.0, dtype)
+        # the d_W_c GEMM that follows the pass in the backward, q^T d_raw:
+        # torch.mm takes no int8 operand, so the int8 context is cast to
+        # bf16 first (a 134 MB copy), then the f32-output GEMM
+        q2d, d2d = qc.data.reshape(-1, c), got[0].reshape(-1, f)
+        t_cast, _ = time_ms(lambda: q2d.t().to(dtype))
+        q_bf16 = q2d.t().to(dtype)
+        t_gemm, _ = time_ms(lambda: _gemm_f32(q_bf16, d2d))
+        g_bound, g_by = bound_ms(nbytes(q2d, d2d) + 4 * c * f, 2.0 * q2d.numel() * f, dtype)
+        log(f"  d_W_c GEMM at ({c} x {q2d.shape[0]}) x ({q2d.shape[0]} x {f}): cast of the "
+            f"int8 context to bf16 {t_cast:.4f} ms + GEMM {t_gemm:.4f} ms; bound of an "
+            f"int8-operand GEMM {g_bound:.4f} ms ({g_by})")
+        del q_bf16
     return dict(name="fused_project_bwd_int8", route="cuda",
                 source="healnet_tpu_torch/ops/csrc/fused_project_bwd.cu",
-                replaces="healnet_tpu/ops/fused_project.py:281",
-                max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                replaces="healnet_tpu/ops/fused_project.py:281", max_abs_err=worst, **timing,
+                library_ms=None)
 
 
 # --------------------------------------------------------------- phase 10
@@ -1157,8 +1253,10 @@ def phase_arena(host_rng) -> dict:
     # only the projection differs between the two paths (flash attention on
     # both). f32: the int8 kernels held alone, as tight as phase 7.
     k32 = arena_trainer(None, "auto", state, arena_device=dev)
+    reset_launches()
     compare_gradients("arena f32", k32, arena_trainer(None, "xla", state, arena_device=dev),
                       batches[0], 1e-5, 1e-4)
+    f32_launches = read_launches("the f32 arena step (kernel path)", ("fused_project_f32_int8",))
     # bf16: both paths are held against the f32 gradients (same weights and
     # dropout draws). The omic branch dominates the gradient norm and moves
     # 5-15% in bf16 on either path, so kernel against plain would compare
@@ -1233,7 +1331,8 @@ def phase_arena(host_rng) -> dict:
         f"(predict_ragged, f32 bags uploaded) {s_host * 1e3:.2f} ms "
         f"({s_host * 1e3 / micro:.2f} ms per micro-batch, {s_host * 1e3 / ARENA_BAGS:.2f} ms "
         "per request); median of 3")
-    return {name: launches[name] for name in ("fused_project_int8", "fused_project_bwd_int8")}
+    return {**f32_launches,
+            **{name: launches[name] for name in ("fused_project_int8", "fused_project_bwd_int8")}}
 
 
 # --------------------------------------------------------------- phase 11
@@ -1426,12 +1525,14 @@ def main() -> int:
         log(f"  {name}: {info['ptxas']}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [*phase_projection(gen), *phase_flash(gen)]
+    projection, generic_launches = phase_projection(gen)
+    kernels = [*projection, *phase_flash(gen)]
     phase_serving(np.random.default_rng(0))
     phase_serving_rows(np.random.default_rng(3))
     kernels += [*phase_flash_bwd(gen), phase_projection_bwd(gen)]
-    launches = phase_training(np.random.default_rng(1))
-    kernels += [phase_projection_int8(gen, kernels[0]["ms"]), phase_projection_bwd_int8(gen)]
+    launches = {**generic_launches, **phase_training(np.random.default_rng(1))}
+    kernels += [*phase_projection_int8(gen, projection[0]["ms"], projection[1]["ms"]),
+                phase_projection_bwd_int8(gen)]
     launches.update(phase_arena(np.random.default_rng(2)))
     chain, chain_launches = phase_chain(gen)
     kernels.append(chain)

@@ -1,14 +1,15 @@
-// Fused merged-KV projection forward, the generic kernels: one read of the
+// Fused merged-KV projection forward, the generic kernel: one read of the
 // context for the row statistics, the GEMM against the merged folded
 // weights, and the folded LayerNorm.
 //
 // Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
-// launched by _pallas_call), its bf16/f32 contexts and its int8 (quantized
-// context) branch. Forward only. The model's bf16 calls take the Hopper
-// kernel of fused_project_tma.cu; these take what it does not: f32 compute,
-// and rows TMA cannot describe (a base or row pitch off 16 bytes, such as
-// C = 203). The wrapper routes by ops/fused_project.py::project_route and
-// counts these launches in `launches_generic`.
+// launched by _pallas_call), its bf16 contexts and its int8 (quantized
+// context) branch, computed in bf16. Forward only. The model's bf16 calls
+// take the Hopper kernel of fused_project_tma.cu, f32 compute takes
+// fused_project_f32.cu; this one takes bf16 rows TMA cannot describe (a base
+// or row pitch off 16 bytes, such as C = 203). The wrapper routes by
+// ops/fused_project.py::project_route and counts these launches in
+// `launches_generic`.
 //
 // What it computes, per context row r (token tok = r % T):
 //   s1 = sum_c x[r, c] + encs[0, tok]        (f32 sums of the stored values)
@@ -40,15 +41,12 @@
 // halves against a 64-row one; only the next tile is prefetched, into
 // registers (fused_project_tma.cu answers both on the model's path).
 //
-// The float32 variant is the same schedule with FMA on the CUDA cores (no
-// TF32), so that an f32 model keeps full precision.
-//
-// int8 contexts (both variants): a thread loads its 8 channels of a row as
-// one 8-byte word (16 bytes for bf16), so the context read is halved: about
-// 67 MB at the serving shape against 33.8 GFLOP, which makes the bf16
-// variant's bound the tensor cores' (about 34 us), not the bytes. The
-// values are converted in registers before shared memory, to bf16 (exact
-// for |q| <= 127) or f32, so the product runs as for a bf16 or f32 context.
+// int8 contexts: a thread loads its 8 channels of a row as one 8-byte word
+// (16 bytes for bf16), so the context read is halved: about 67 MB at the
+// serving shape against 33.8 GFLOP, which makes the bound the tensor cores'
+// (about 34 us), not the bytes. The values are converted to bf16 (exact for
+// |q| <= 127) in registers before shared memory, so the product runs as for
+// a bf16 context.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,9 +55,7 @@
 namespace {
 
 constexpr int kBN = 256;  // output columns per block
-constexpr int kRows = 128;       // context rows per bf16 block (4 threads a row)
-constexpr int kF32Threads = 256;
-constexpr int kF32Rows = 64;     // context rows per f32 block
+constexpr int kRows = 128;       // context rows per block (4 threads a row)
 constexpr int kBK = 32;   // context channels per k-step
 constexpr int kPad = 8;   // bf16 padding per shared row: conflict-free fragments
 
@@ -216,11 +212,6 @@ struct Input<int8_t> {
   using Acc = int;
   static constexpr bool kQuant = true;
 };
-template <>
-struct Input<float> {
-  using Acc = float;
-  static constexpr bool kQuant = false;
-};
 
 // weights W[gk, gn:gn+2] packed in one word (zeros past the edges)
 __device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int gn, int C,
@@ -353,125 +344,6 @@ __global__ void __launch_bounds__(BM * 4, 128 / BM)
   }
 }
 
-// 8 channels of one context row as f32 (zeros past the row's end)
-__device__ __forceinline__ void load_row8(float (&a)[8], const float* src, bool valid, int c,
-                                          int C, int vec) {
-  if (valid && vec && c < C) {
-    const float4 x0 = *reinterpret_cast<const float4*>(src + c);
-    const float4 x1 = *reinterpret_cast<const float4*>(src + c + 4);
-    a[0] = x0.x; a[1] = x0.y; a[2] = x0.z; a[3] = x0.w;
-    a[4] = x1.x; a[5] = x1.y; a[6] = x1.z; a[7] = x1.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] = (valid && c + e < C) ? src[c + e] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_row8(float (&a)[8], const int8_t* src, bool valid, int c,
-                                          int C, int vec) {
-  I8x8 r;
-  r.u = load8(src, valid, c, C, vec);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) a[e] = static_cast<float>(r.q[e]);
-}
-
-// one k-step of the f32 kernel's operands into registers: 8 channels of
-// one context row, and one weight column over kBK rows
-template <typename TIn>
-__device__ __forceinline__ void load_f32_tile(float (&a_reg)[8], float (&b_reg)[kBK],
-                                              const TIn* a_src, bool a_valid, int a_c, int k0,
-                                              const float* w, int gn, int C, int F, int vec_a) {
-  load_row8(a_reg, a_src, a_valid, k0 + a_c, C, vec_a);
-#pragma unroll
-  for (int i = 0; i < kBK; ++i) {
-    const int gk = k0 + i;
-    b_reg[i] = (gk < C && gn < F) ? w[(size_t)gk * F + gn] : 0.f;
-  }
-}
-
-template <typename TIn>
-__global__ void __launch_bounds__(kF32Threads)
-    project_generic_f32(const TIn* __restrict__ dat, const float* __restrict__ w,
-                        const float* __restrict__ encp, const float* __restrict__ encs,
-                        const float* __restrict__ aux, const float* __restrict__ scale,
-                        float* __restrict__ kv, float* __restrict__ s1_out,
-                        float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
-                        float eps, int vec_a) {
-  using Acc = typename Input<TIn>::Acc;
-  constexpr bool kQuant = Input<TIn>::kQuant;
-  __shared__ __align__(16) float As[kF32Rows][kBK + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  __shared__ float row_mu[kF32Rows], row_inv[kF32Rows], row_scale[kF32Rows];
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ty = tid >> 5;  // rows ty*8 .. ty*8+7
-  const int row0 = blockIdx.x * kF32Rows, col0 = blockIdx.y * kBN;
-
-  const int a_r = tid >> 2, a_c = (tid & 3) * 8;
-  const int a_row = row0 + a_r;
-  const bool a_valid = a_row < M;
-  const TIn* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
-  const int gn = col0 + tid;  // B loader: one column, all 32 k rows
-
-  float a_reg[8];
-  float b_reg[kBK];
-  Acc st1 = 0, st2 = 0;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  load_f32_tile(a_reg, b_reg, a_src, a_valid, a_c, 0, w, gn, C, F, vec_a);
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      As[a_r][a_c + e] = a_reg[e];
-      st1 += static_cast<Acc>(a_reg[e]);  // exact integers for an int8 row
-      st2 += static_cast<Acc>(a_reg[e] * a_reg[e]);
-    }
-#pragma unroll
-    for (int i = 0; i < kBK; ++i) Bs[i][tid] = b_reg[i];
-    __syncthreads();
-    if (k0 + kBK < C) load_f32_tile(a_reg, b_reg, a_src, a_valid, a_c, k0 + kBK, w, gn, C, F, vec_a);
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, kQuant ? scale : nullptr, s1_out,
-                   s2_out, d_total, eps, row_mu, row_inv, row_scale);
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int lr = ty * 8 + i;
-    const int r = row0 + lr;
-    if (r >= M) continue;
-    const int tok = r % T;
-    const float mu = row_mu[lr], inv = row_inv[lr], sc = row_scale[lr];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = col0 + lane + 32 * j;
-      if (n >= F) continue;
-      const float a = kQuant ? __fmul_rn(acc[i][j], sc) : acc[i][j];
-      const float low = a + encp[(size_t)tok * F + n];
-      kv[(size_t)r * F + n] = inv * (low - mu * aux[n]) + aux[F + n];
-    }
-  }
-}
-
 template <typename TIn>
 void launch_bf16(const void* dat, const void* w, const void* encp, const float* encs,
                  const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
@@ -483,40 +355,23 @@ void launch_bf16(const void* dat, const void* w, const void* encp, const float* 
       static_cast<__nv_bfloat16*>(kv), s1, s2, M, C, F, T, d_total, eps, vec_a);
 }
 
-template <typename TIn>
-void launch_f32(const void* dat, const void* w, const void* encp, const float* encs,
-                const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
-                int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
-  const dim3 grid((M + kF32Rows - 1) / kF32Rows, (F + kBN - 1) / kBN);
-  project_generic_f32<TIn><<<grid, kF32Threads, 0, s>>>(
-      static_cast<const TIn*>(dat), static_cast<const float*>(w),
-      static_cast<const float*>(encp), encs, aux, scale, static_cast<float*>(kv), s1, s2, M, C,
-      F, T, d_total, eps, vec_a);
-}
-
 }  // namespace
 
-// is_bf16: the compute (and output) dtype is bf16, else f32; is_int8: the
-// context is int8 with a per-row scale, else it is in the compute dtype.
+// bf16 compute and output; is_int8: the context is int8 with a per-row
+// scale, else bf16.
 extern "C" int healnet_fused_project_generic(const void* dat, const void* w, const void* encp,
                                              const float* encs, const float* aux,
                                              const float* scale, void* kv, float* s1, float* s2,
                                              int M, int C, int F, int T, float d_total, float eps,
-                                             int is_bf16, int is_int8, int vec_a, void* stream) {
+                                             int is_int8, int vec_a, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16 && is_int8) {
+  if (is_int8) {
     launch_bf16<int8_t>(dat, w, encp, encs, aux, scale, kv, s1, s2, M, C, F, T, d_total, eps,
                         vec_a, s);
-  } else if (is_bf16) {
+  } else {
     launch_bf16<__nv_bfloat16>(dat, w, encp, encs, aux, nullptr, kv, s1, s2, M, C, F, T,
                                d_total, eps, vec_a, s);
-  } else if (is_int8) {
-    launch_f32<int8_t>(dat, w, encp, encs, aux, scale, kv, s1, s2, M, C, F, T, d_total, eps,
-                       vec_a, s);
-  } else {
-    launch_f32<float>(dat, w, encp, encs, aux, nullptr, kv, s1, s2, M, C, F, T, d_total, eps,
-                      vec_a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,10 @@ math of the JAX package's ``_xla_project``); :func:`fused_project_kernel`
 launches a CUDA kernel that reads the context once for the statistics, the
 product and the normalization: the Hopper kernel (``csrc/fused_project_tma.cu``:
 TMA ring, wgmma, persistent warp-specialised blocks) for every bf16-compute
-call whose context rows TMA can describe, the generic kernels
-(``csrc/fused_project.cu``) for the rest, by :func:`project_route`.
+call whose context rows TMA can describe, the f32 kernel
+(``csrc/fused_project_f32.cu``: f32 FMA from a cp.async ring) for every
+f32-compute call, and the generic kernel (``csrc/fused_project.cu``) for
+bf16 rows TMA cannot describe, by :func:`project_route`.
 :class:`FusedProjectFunction` gives it a backward whose cotangent pass is a
 second kernel (``csrc/fused_project_bwd.cu``, plain version
 :func:`project_bwd_plain`).
@@ -57,13 +59,25 @@ _TILE_K = 64
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
 
 
+# the f32 kernel (csrc/fused_project_f32.cu): output columns per pass it is
+# built for (an 8 x 16 register microtile a thread, 8 x 17 at 272), rows per
+# block, channels per k-step and ring stages (f32 context; int8 context)
+F32_WIDTHS = (64, 128, 256, 272)
+_F32_ROWS = 128
+_F32_K = 32
+_F32_STAGES = {4: 3, 1: 4}
+
+
 def project_route(dtype: torch.dtype, cdt: torch.dtype, c: int, data_ptr: int) -> str:
-    """Which projection kernel a CUDA call takes: ``"tma"`` (the Hopper
-    kernel) for a bf16 or int8 context computed in bf16 whose rows TMA can
-    describe (a 16-byte aligned base and a row pitch ``c * itemsize`` that is
-    a multiple of 16 bytes: C = 2000, 2048, 1024 in either type), else
-    ``"generic"`` (f32 compute, and rows such as C = 203 or a misaligned
-    view)."""
+    """Which projection kernel a CUDA call takes: ``"f32"`` (the f32
+    kernel) for f32 compute, over an f32 or int8 context; ``"tma"`` (the
+    Hopper kernel) for a bf16 or int8 context computed in bf16 whose rows TMA
+    can describe (a 16-byte aligned base and a row pitch ``c * itemsize``
+    that is a multiple of 16 bytes: C = 2000, 2048, 1024 in either type);
+    else ``"generic"`` (bf16 compute over rows such as C = 203 or a
+    misaligned view)."""
+    if cdt == torch.float32:
+        return "f32"
     itemsize = {torch.bfloat16: 2, torch.int8: 1}.get(dtype)
     if cdt != torch.bfloat16 or itemsize is None or c < 1:
         return "generic"
@@ -119,6 +133,90 @@ def project_plan(m: int, f: int, itemsize: int) -> ProjectPlan:
             if smem <= _MAX_SMEM:
                 return ProjectPlan(nb, n_col, -(-m // _TILE_ROWS), pitch, stages, held, smem)
     raise ValueError(f"no ring fits shared memory at nb={nb}")
+
+
+class F32Plan(NamedTuple):
+    """A launch of the f32 kernel (see :func:`project_f32_plan`)."""
+
+    nb: int          # output columns per pass (an F32_WIDTHS entry)
+    n_col: int       # column passes (the grid's y axis); each reads the context once
+    row_tiles: int   # blocks per pass, 128 rows each
+    nk: int          # k-steps of 32 channels (the weights are padded to nk * 32 rows)
+    stages: int      # ring stages
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def project_f32_smem(nb: int, itemsize: int) -> int:
+    """Bytes of dynamic shared memory a block of the f32 kernel takes
+    (``Layout`` in ``csrc/fused_project_f32.cu``): per ring stage a context
+    tile of 128 rows x 32 channels (f32 rows padded to 36 floats, int8 rows
+    to 48 bytes) and 32 x ``nb`` f32 weights, 3 stages for f32 and 4 for
+    int8; and two channel-major f32 tiles of 32 x 128 the products read,
+    staged one k-step ahead."""
+    pitch = _F32_K + 4 if itemsize == 4 else _F32_K + 16
+    stage = _F32_ROWS * pitch * itemsize + _F32_K * nb * 4
+    return _F32_STAGES[itemsize] * stage + 2 * _F32_K * _F32_ROWS * 4
+
+
+def project_f32_plan(m: int, c: int, f: int, itemsize: int, sms: int = 132) -> F32Plan:
+    """The f32 kernel's plan for ``m`` context rows of ``c`` channels of
+    ``itemsize`` bytes (4: f32, 1: int8) and ``f`` output columns on a card
+    of ``sms`` SMs.
+
+    Columns: the pass width ``nb`` (an ``F32_WIDTHS`` entry, ceil(F / nb)
+    passes) whose blocks finish soonest, one block an SM: a block's time
+    grows with ``nb``, so the cost is waves x ``nb``, ties going to the
+    wider (fewer passes, fewer reads of the context). brca's and kirp's bag
+    (256 row tiles) take one pass of 256 or 272; the omic vector (one row
+    tile) four of 64, which spreads it over four SMs (:func:`project_f32_smem`
+    gives the shared memory).
+    """
+    if itemsize not in _F32_STAGES:
+        raise ValueError(f"the f32 kernel takes f32 or int8 contexts, got itemsize {itemsize}")
+    row_tiles = -(-m // _F32_ROWS)
+    nb = min(reversed(F32_WIDTHS), key=lambda w: -(-row_tiles * -(-f // w) // sms) * w)
+    return F32Plan(nb, -(-f // nb), row_tiles, -(-c // _F32_K), _F32_STAGES[itemsize],
+                   project_f32_smem(nb, itemsize))
+
+
+# the backward kernel (csrc/fused_project_bwd.cu): threads per block and
+# blocks per first-level group of its column sums
+_BWD_THREADS = 512
+_BWD_GROUP = 16
+
+
+class BwdPlan(NamedTuple):
+    """A launch of the backward kernel (see :func:`project_bwd_plan`)."""
+
+    vec: int      # columns per thread's vector access
+    w: int        # threads a token row of a block spans (a multiple of 32)
+    tokens: int   # tokens per tile (token rows x tokens a thread)
+    grid_x: int   # blocks over the token tiles, per column chunk
+    grid_y: int   # column chunks of w vectors
+    groups: int   # first-level groups of the column sums
+
+
+def project_bwd_plan(b: int, t: int, f: int, itemsize: int, data_ptr: int, sms: int) -> BwdPlan:
+    """The backward kernel's plan for a (b, t, f) cotangent of ``itemsize``
+    bytes at ``data_ptr`` on a card of ``sms`` SMs.
+
+    Vectors: the widest access of up to 4 columns whose column count
+    divides F and whose size divides the base's alignment (brca's F 252: 4
+    columns, 8 bytes of bf16, 16 of f32; kirp's 270: 2). A block's 512
+    threads span a token row with ``w`` threads (F / vec rounded up to a
+    warp, at most 512; wider rows take column chunks on the grid's y axis)
+    and hold 512 // w token rows, each thread 1, 2 or 4 tokens of a tile
+    (16-byte, 8-byte and narrower vectors). One block an SM, at most one
+    per tile; groups of 16 blocks.
+    """
+    vec = next(v for v in (4, 2, 1) if f % v == 0 and data_ptr % (v * itemsize) == 0)
+    nvec = f // vec
+    w = min(_BWD_THREADS, -(-nvec // 32) * 32)
+    grid_y = -(-nvec // w)
+    vec_bytes = vec * itemsize
+    tokens = (_BWD_THREADS // w) * (1 if vec_bytes >= 16 else 2 if vec_bytes >= 8 else 4)
+    grid_x = max(1, min(-(-t // tokens), sms // grid_y))
+    return BwdPlan(vec, w, tokens, grid_x, grid_y, -(-grid_x // _BWD_GROUP) * grid_y)
 
 
 def _row_stats(dat, enc, scale=None):
@@ -217,8 +315,20 @@ def _lib() -> ctypes.CDLL:
     fn = lib.healnet_fused_project_generic
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 2 + [p]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _f32_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("fused_project_f32")
+    fn = lib.healnet_fused_project_f32
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 4 + [p]
+        fn.restype = ctypes.c_int
+        lib.healnet_fused_project_f32_smem.argtypes = [i, i]
+        lib.healnet_fused_project_f32_smem.restype = i
     return lib
 
 
@@ -270,23 +380,28 @@ def fused_project_kernel(
     dat: (b, t, C) bf16 or f32, or int8 with ``scale`` (b, t) f32; w_c: the
     weights in the compute dtype (dat's, or bf16/f32 for an int8 context),
     laid out for the call's :func:`project_route` as :func:`_prep` lays them
-    out: (ceil(C / 64), F, 64) k-slices on the ``"tma"`` route, (C, F) on
-    the ``"generic"`` one; enc_proj: (t, F) in the compute dtype; enc_stats:
-    (2, t) f32 [row sums; row sums of squares] of the encoding; aux: (2, F)
-    f32 [colsum(W); folded bias]. All contiguous and on one CUDA device. kv: (b, t, F) in
-    the compute dtype; s1, s2: (b, t) f32.
+    out: (ceil(C / 64), F, 64) k-slices on the ``"tma"`` route, (n_col,
+    ceil(C / 32) * 32, nb) column passes (:func:`project_f32_plan`) on the
+    ``"f32"`` one, (C, F) on the ``"generic"`` one; enc_proj: (t, F) in
+    the compute dtype; enc_stats: (2, t) f32 [row sums; row sums of squares]
+    of the encoding; aux: (2, F) f32 [colsum(W); folded bias]. All
+    contiguous and on one CUDA device. kv: (b, t, F) in the compute dtype;
+    s1, s2: (b, t) f32.
 
     Launches are counted per variant: ``launches`` (the Hopper kernel, bf16
-    contexts), ``launches_int8`` (the Hopper kernel, int8 contexts) and
-    ``launches_generic`` (the generic kernels).
+    contexts), ``launches_int8`` (the Hopper kernel, int8 contexts),
+    ``launches_f32`` (the f32 kernel, f32 contexts), ``launches_f32_int8``
+    (the f32 kernel, int8 contexts) and ``launches_generic`` (the generic
+    kernel, bf16 rows TMA cannot describe).
     """
     return _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale)
 
 
 def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, route=None):
     """:func:`fused_project_kernel` on ``route``: :func:`project_route`'s by
-    default, or ``"generic"`` for any call (with (C, F) weights), so that
-    ``chip_smoke.py`` can time both kernels on the same inputs."""
+    default, or ``"generic"`` for any bf16-compute call (with (C, F)
+    weights), so that ``chip_smoke.py`` can time both bf16 kernels on the
+    same inputs."""
     if not dat.is_cuda:
         raise ValueError("fused_project_kernel takes CUDA tensors")
     if dat.ndim != 3:
@@ -310,10 +425,17 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
         cdt = dat.dtype
     if route is None:
         route = project_route(dat.dtype, cdt, c, dat.data_ptr())
-    elif route != "generic":
-        raise ValueError(f"a forced route is 'generic', got {route!r}")
+    elif route != "generic" or cdt != torch.bfloat16:
+        raise ValueError(f"a forced route is 'generic', for bf16 compute, got {route!r}")
+    if route == "tma":
+        w_shape = (-(-c // _TILE_K), f, _TILE_K)
+    elif route == "f32":
+        plan32 = project_f32_plan(b * t, c, f, dat.element_size(), _sm_count(dat.device.index))
+        w_shape = (plan32.n_col, plan32.nk * _F32_K, plan32.nb)
+    else:
+        w_shape = (c, f)
     expect = {
-        "w_c": (w_c, (-(-c // _TILE_K), f, _TILE_K) if route == "tma" else (c, f), cdt),
+        "w_c": (w_c, w_shape, cdt),
         "enc_proj": (enc_proj, (t, f), cdt),
         "enc_stats": (enc_stats, (2, t), torch.float32),
         "aux": (aux, (2, f), torch.float32),
@@ -343,6 +465,18 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
                 plan.pitch, int(plan.held_staging), stream,
             )
             counter = "launches_int8" if quantized else "launches"
+        elif route == "f32":
+            # 16-byte cp.async staging needs 16-byte rows and base (f32: C %
+            # 4, int8: C % 16); other rows are staged element by element
+            vec = int((c * dat.element_size()) % 16 == 0 and dat.data_ptr() % 16 == 0)
+            lib = _f32_lib()
+            code = lib.healnet_fused_project_f32(
+                dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(), enc_stats.data_ptr(),
+                aux.data_ptr(), scale_ptr, kv.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                b * t, c, f, t, float(d_total), float(eps), int(quantized), plan32.nb,
+                plan32.n_col, vec, stream,
+            )
+            counter = "launches_f32_int8" if quantized else "launches_f32"
         else:
             # the generic kernels load 8 channels of a row at once (16 bytes
             # of bf16, 8 of int8, two 16-byte words of f32): 8-channel rows
@@ -353,8 +487,7 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
                 dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(),
                 enc_stats.data_ptr(), aux.data_ptr(), scale_ptr, kv.data_ptr(),
                 s1.data_ptr(), s2.data_ptr(), b * t, c, f, t,
-                float(d_total), float(eps), int(cdt == torch.bfloat16), int(quantized),
-                vec, stream,
+                float(d_total), float(eps), int(quantized), vec, stream,
             )
             counter = "launches_generic"
     setattr(fused_project_kernel, counter, getattr(fused_project_kernel, counter) + 1)
@@ -364,22 +497,31 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
 
 fused_project_kernel.launches = 0
 fused_project_kernel.launches_int8 = 0
+fused_project_kernel.launches_f32 = 0
+fused_project_kernel.launches_f32_int8 = 0
 fused_project_kernel.launches_generic = 0
 
 
 def _prep(dat, enc, w_all, b_all, cdt):
     """The kernel's small operands: weights in the compute dtype, laid out
     for the call's :func:`project_route` (for the Hopper kernel (nk, F, 64):
-    k-slices of 64 channels, zero past C, each K-major and contiguous; (C, F)
-    for the generic kernels), the encoding projection and statistics, and
-    [colsum; bias]."""
+    k-slices of 64 channels, zero past C, each K-major and contiguous; for
+    the f32 kernel (n_col, nk * 32, nb): each column pass's weights, zero
+    past C and F; (C, F) for the generic kernel), the encoding projection
+    and statistics, and [colsum; bias]."""
     b, t, c = dat.shape
     f = w_all.shape[1]
     w_c = w_all[:c].to(cdt)
-    if dat.is_cuda and project_route(dat.dtype, cdt, c, dat.data_ptr()) == "tma":
+    route = project_route(dat.dtype, cdt, c, dat.data_ptr()) if dat.is_cuda else None
+    if route == "tma":
         nk = -(-c // _TILE_K)
         w_c = torch.nn.functional.pad(w_c, (0, 0, 0, nk * _TILE_K - c))
         w_c = w_c.reshape(nk, _TILE_K, f).transpose(1, 2)
+    elif route == "f32":
+        plan = project_f32_plan(b * t, c, f, dat.element_size(), _sm_count(dat.device.index))
+        w_c = torch.nn.functional.pad(
+            w_c, (0, plan.n_col * plan.nb - f, 0, plan.nk * _F32_K - c))
+        w_c = w_c.reshape(plan.nk * _F32_K, plan.n_col, plan.nb).transpose(0, 1)
     w_c = w_c.contiguous()
     aux = torch.stack([torch.sum(w_all, dim=0), b_all]).float().contiguous()
     if enc is not None:
@@ -397,13 +539,30 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.healnet_fused_project_bwd
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, i, p]
+        fn.argtypes = [p] * 9 + [i] * 3 + [f, f] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
-        lib.healnet_fused_project_bwd_tiles.argtypes = [i, i]
-        lib.healnet_fused_project_bwd_tiles.restype = i
-        lib.healnet_fused_project_bwd_max_batch.argtypes = []
-        lib.healnet_fused_project_bwd_max_batch.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (device, stream) -> the backward kernel's ticket counters, zeros between
+# calls (the kernel's last blocks reset the ones they took), so a call
+# launches nothing but the kernel; one buffer per stream, since two calls
+# running at once must not share counters
+_BWD_COUNTERS: dict = {}
+
+
+def _bwd_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _BWD_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _BWD_COUNTERS[key] = buf
+    return buf
 
 
 def fused_project_bwd_kernel(
@@ -417,7 +576,8 @@ def fused_project_bwd_kernel(
 ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward (cotangent pass) kernel: returns ``(d_raw,
     dsum2)``, or ``(d_raw, dsum2, bsum)`` with ``with_bsum``, as
-    :func:`project_bwd_plain` does.
+    :func:`project_bwd_plain` does, in one launch (sized by
+    :func:`project_bwd_plan`) for any batch.
 
     g: (b, t, F) bf16 or f32, contiguous; s1, s2 and an int8 context's
     ``scale``: (b, t) f32, contiguous; all on one CUDA device. Launches are
@@ -432,24 +592,28 @@ def fused_project_bwd_kernel(
     b, t, f = g.shape
     stats = {"s1": s1, "s2": s2} if scale is None else {"s1": s1, "s2": s2, "scale": scale}
     _check_operands(g.device, {k: (x, (b, t), torch.float32) for k, x in stats.items()})
-    lib = _bwd_lib()
-    if b > lib.healnet_fused_project_bwd_max_batch():
-        raise ValueError(f"batch {b} exceeds the kernel's shared-memory row table")
-    tiles = lib.healnet_fused_project_bwd_tiles(b, t)
     d_raw = torch.empty_like(g)
-    part = torch.empty((tiles, 2, f), dtype=torch.float32, device=g.device)
-    dsum2 = torch.zeros((2, f), dtype=torch.float32, device=g.device)
-    bsum = torch.zeros((t, f), dtype=torch.float32, device=g.device) if with_bsum else None
+    dsum2 = torch.empty((2, f), dtype=torch.float32, device=g.device)
+    bsum = torch.empty((t, f), dtype=torch.float32, device=g.device) if with_bsum else None
     outs = (d_raw, dsum2) if bsum is None else (d_raw, dsum2, bsum)
     if g.numel() == 0:
+        dsum2.zero_()
+        if bsum is not None:
+            bsum.zero_()
         return outs
+    plan = project_bwd_plan(b, t, f, g.element_size(), g.data_ptr(), _sm_count(g.device.index))
+    blocks = plan.grid_x * plan.grid_y
+    part = torch.empty((blocks + plan.groups, 2, f), dtype=torch.float32, device=g.device)
+    lib = _bwd_lib()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
+        counters = _bwd_counters(g.device, stream, plan.groups + 1)
         code = lib.healnet_fused_project_bwd(
             g.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            None if scale is None else scale.data_ptr(), d_raw.data_ptr(),
-            part.data_ptr(), dsum2.data_ptr(), None if bsum is None else bsum.data_ptr(),
-            b, t, f, float(d_total), float(eps), int(g.dtype == torch.bfloat16), stream,
+            None if scale is None else scale.data_ptr(), d_raw.data_ptr(), part.data_ptr(),
+            dsum2.data_ptr(), None if bsum is None else bsum.data_ptr(), counters.data_ptr(),
+            b, t, f, float(d_total), float(eps), int(g.dtype == torch.bfloat16), plan.vec,
+            plan.w, plan.grid_x, plan.grid_y, stream,
         )
     if scale is None:
         fused_project_bwd_kernel.launches += 1

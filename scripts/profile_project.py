@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Per-launch device profile of the fused KV projection forward kernels.
 
-    python3 scripts/profile_project.py [--stages 2,3,4]
+    python3 scripts/profile_project.py [--stages 2,3,4] [--dtype bf16|f32]
 
 Needs one CUDA GPU and nvcc. At the shapes of ``chip_smoke.PROJECT_SHAPES``
 (brca's WSI bag (8, 4096, 2048) -> F 252 in bf16 and int8, kirp's F 270 in
@@ -17,6 +17,13 @@ the weights take from L2 per call are reckoned from the tile plan
 64-channel k-step. With ``--stages`` the brca and kirp calls are timed
 again with the ring depth forced (a depth that does not fit shared memory
 is skipped).
+
+With ``--dtype f32`` it profiles the f32 route instead (the f32 kernel,
+``csrc/fused_project_f32.cu``) at brca and kirp's WSI bag in f32, brca's
+int8 bag computed in f32 and the omic vector in f32: each call's kernels
+on the profiler, its time beside ``torch.matmul`` f32 and the bound, the
+plan (``project_f32_plan``) and the weights it takes from L2, one tile of
+32 channels per row tile, column pass and k-step.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import PROJECT_SHAPES, launch_profile, projection_timing, time_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH, OMIC, PATCH, PROJECT_SHAPES, TOKENS, launch_profile, projection_timing, time_ms)
 from healnet_tpu_torch.ops import cuda_build  # noqa: E402
 from healnet_tpu_torch.ops import fused_project as fp  # noqa: E402
 
@@ -56,9 +64,35 @@ def forced_stages(stages: int):
     return plan
 
 
+def profile_f32() -> None:
+    """The f32 route at brca and kirp in f32 and brca int8 in f32 compute."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch.matmul f32 in full f32
+    cuda_build.build(("fused_project_f32",))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, (b, t, c, f, dtype) in {
+            "brca f32": (BATCH, TOKENS, PATCH, 252, torch.float32),
+            "kirp f32": (BATCH, TOKENS, PATCH, 270, torch.float32),
+            "brca int8 -> f32": (BATCH, TOKENS, PATCH, 252, torch.int8),
+            "omic f32": (BATCH, 1, OMIC, 252, torch.float32)}.items():
+        timing, run = projection_timing(gen, b, t, c, f, dtype, torch.float32)
+        itemsize = 1 if dtype == torch.int8 else 4
+        plan = fp.project_f32_plan(b * t, c, f, itemsize,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+        weights = plan.row_tiles * plan.n_col * plan.nk * 32 * plan.nb * 4
+        print(f"{label} ({b}, {t}, {c}) -> F {f}: {launch_profile(run)[1]}")
+        print(f"  kernel {timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
+              f"torch.matmul f32 {timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} "
+              f"ms ({timing['bound_by']}), {timing['bound_ms'] / timing['ms']:.3f} of it; plan nb "
+              f"{plan.nb}, {plan.n_col} column pass(es), {plan.row_tiles} row tiles, "
+              f"{plan.stages} stages, {plan.smem} B shared memory; weights from L2 "
+              f"{weights / 1e6:.1f} MB per call (reckoned)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("--stages", default="", help="ring depths to force, e.g. 2,3,4")
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                        help="the bf16 kernels (default) or the f32 route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_project: no CUDA device is available", file=sys.stderr)
@@ -66,6 +100,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
+    if args.dtype == "f32":
+        profile_f32()
+        return 0
     cuda_build.build(("fused_project", "fused_project_tma"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, (b, t, c, f, dtype) in PROJECT_SHAPES.items():

@@ -97,10 +97,10 @@ def test_projection_kernel_int8_matches_plain(gen, cdt, b, t, c, f):
     enc = torch.randn((t, 5), generator=gen, device="cuda").to(cdt)
     w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
     b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
-    # the Hopper kernel's int8 variant, or the generic kernels (f32 compute,
-    # int8 rows off 16 bytes)
+    # the Hopper kernel's int8 variant, the f32 kernel's (f32 compute), or
+    # the generic kernel (int8 rows off 16 bytes)
     route = project_route(qc.data.dtype, cdt, c, qc.data.data_ptr())
-    counter = "launches_int8" if route == "tma" else "launches_generic"
+    counter = {"tma": "launches_int8", "f32": "launches_f32_int8"}.get(route, "launches_generic")
     setattr(fused_project_kernel, counter, 0)
     kv, s1, s2 = fused_project_kernel(qc.data, *_prep(qc.data, enc, w_all, b_all, cdt), c + 5,
                                       1e-5, scale=qc.scale)
@@ -353,13 +353,13 @@ def test_model_kernel_path_matches_plain_path(gen):
     x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
          torch.randn((3, 200, 24), generator=gen, device="cuda")]
     mask = torch.rand((3, 200), generator=gen, device="cuda") > 0.2
-    fused_project_kernel.launches_generic = flash_attention_kernel.launches = 0
+    fused_project_kernel.launches_f32 = flash_attention_kernel.launches = 0
     flash_attention_kernel.launches_fma = 0
     with torch.inference_mode():
         got = kernel(x, kv_masks=[None, mask])
         ref = plain(x, kv_masks=[None, mask])
-    # one merged projection per modality, f32: the generic kernels
-    assert fused_project_kernel.launches_generic == 2
+    # one merged projection per modality, f32: the f32 kernel
+    assert fused_project_kernel.launches_f32 == 2
     # f32: 2 layers x 2 modalities x (cross + self) on the FMA variant
     assert flash_attention_kernel.launches_fma == 8 and flash_attention_kernel.launches == 0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
@@ -396,8 +396,8 @@ def test_model_kernel_path_grads_match_plain_path(gen, rate):
 
 def test_model_int8_slide_kernel_path_matches_plain_path(gen):
     """A quantized slide through the model: the int8 branch of the
-    projection on the slide, the f32 one on the omic vector (both generic
-    kernels in f32 compute), logits against the plain path (f32)."""
+    projection on the slide, the f32 one on the omic vector (both on the
+    f32 kernel), logits against the plain path (f32)."""
     cfg = dict(n_modalities=2, channel_dims=(40, 24), num_spatial_axes=(1, 1), out_dims=4,
                depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=15, l_heads=2,
                latent_dim_head=8, self_per_cross_attn=0, max_freq=2.0)
@@ -406,10 +406,11 @@ def test_model_int8_slide_kernel_path_matches_plain_path(gen):
                      for a, p in (("flash", "auto"), ("xla", "xla")))
     x = [torch.randn((3, 1, 40), generator=gen, device="cuda"),
          quantize_context(torch.randn((3, 200, 24), generator=gen, device="cuda"))]
-    fused_project_kernel.launches_generic = fused_project_kernel.launches_int8 = 0
+    for name in ("launches_f32", "launches_f32_int8", "launches_int8"):
+        setattr(fused_project_kernel, name, 0)
     with torch.inference_mode():
         got, ref = kernel(x), plain(x)
-    assert fused_project_kernel.launches_generic == 2
+    assert fused_project_kernel.launches_f32 == fused_project_kernel.launches_f32_int8 == 1
     assert fused_project_kernel.launches_int8 == 0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
@@ -537,6 +538,122 @@ def test_projection_generic_route(gen, case):
     assert fused_project_kernel.launches_generic == 1
     assert fused_project_kernel.launches == fused_project_kernel.launches_int8 == 0
     _check_projection(got, _project_plain(dat, enc, w_all, b_all, 1e-5), "bf16")
+
+
+# ------------------------------------------------ the f32 projection kernel
+
+
+def _f32_case(gen, b, t, c, f, kind):
+    """An f32 or int8 context (per-token scales, one zero row) with the
+    encoding, computed in f32: the f32 kernel's operands and the plain
+    version's ``(kv, s1, s2)``."""
+    x = torch.randn((b, t, c), generator=gen, device="cuda")
+    scale = None
+    if kind == "int8":
+        qc = quantize_context(x * 3)
+        qc.scale[0, 0] = 0.0
+        qc.data[0, 0] = 0
+        dat, scale = qc.data, qc.scale
+    else:
+        dat = x
+    enc = torch.randn((t, 5), generator=gen, device="cuda")
+    w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
+    b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    ops = _prep(dat, enc, w_all, b_all, torch.float32)
+    ref = _project_plain(dat, enc, w_all, b_all, 1e-5, scale, torch.float32)
+    return dat, scale, ops, ref
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("f", [70, 252, 270, 600])
+@pytest.mark.parametrize("b,t,c", [(3, 129, 203), (2, 300, 2048), (8, 1, 2000)],
+                         ids=["ragged_rows_c203", "c2048", "one_token"])
+def test_projection_f32_kernel_matches_plain(gen, b, t, c, f, kind):
+    """The f32 route at ragged rows (129 tokens, C = 203 staged element by
+    element), at 16-byte rows, and one token, over F up to 600 (three
+    column passes): one launch of the variant; kv to 1e-4 (f32 sums of the
+    same products in another order than the plain version's GEMM); s1, s2
+    as the f32 sums or the int8 branch's exact integer sums."""
+    dat, scale, ops, (r, r1, r2) = _f32_case(gen, b, t, c, f, kind)
+    assert project_route(dat.dtype, torch.float32, c, dat.data_ptr()) == "f32"
+    counter = "launches_f32_int8" if kind == "int8" else "launches_f32"
+    for name in ("launches", "launches_int8", "launches_generic", "launches_f32",
+                 "launches_f32_int8"):
+        setattr(fused_project_kernel, name, 0)
+    kv, s1, s2 = fused_project_kernel(dat, *ops, c + 5, 1e-5, scale=scale)
+    assert getattr(fused_project_kernel, counter) == 1
+    assert sum(getattr(fused_project_kernel, n) for n in (
+        "launches", "launches_int8", "launches_generic", "launches_f32", "launches_f32_int8")) == 1
+    assert kv.dtype == torch.float32 and kv.shape == r.shape
+    assert (kv - r).abs().max().item() <= 1e-4
+    if kind == "int8":
+        assert ((s1 - r1).abs().max() / r1.abs().max()).item() <= 1e-6
+        assert ((s2 - r2).abs().max() / r2.abs().max()).item() <= 2e-6
+    else:
+        torch.testing.assert_close(s1, r1, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(s2, r2, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_projection_f32_calls_are_bit_identical(gen, kind):
+    """No atomics, no order that changes between calls: the same bits."""
+    dat, scale, ops, _ = _f32_case(gen, 4, 1000, 2048, 270, kind)
+    one = fused_project_kernel(dat, *ops, 2053, 1e-5, scale=scale)
+    two = fused_project_kernel(dat, *ops, 2053, 1e-5, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+# ------------------------------------------ the projection backward kernel
+
+
+def _bwd_case(gen, b, t, f, dtype, kind):
+    g = torch.randn((b, t, f), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((b, t, 40), generator=gen, device="cuda") * 2 + 0.5
+    scale = torch.rand((b, t), generator=gen, device="cuda") * 0.05 if kind == "int8" else None
+    return g, x.sum(-1), (x * x).sum(-1), scale
+
+
+@pytest.mark.parametrize("kind", ["plain", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,f", [(8, 700, 252), (8, 700, 270), (8, 1, 252), (5000, 1, 252),
+                                   (3, 129, 2100)],
+                         ids=["brca_f", "kirp_f", "one_token", "batch_5000", "two_chunks"])
+def test_projection_bwd_kernel_any_batch_matches_plain(gen, b, t, f, dtype, kind):
+    """The cotangent pass at brca's and kirp's F (8- and 4-byte bf16
+    vectors), one token, batch 5000 (past any shared-memory row table), and
+    F 2100 (two column chunks): one launch; d_raw within 1 bf16 ulp (1e-6
+    in f32); dsum2 to f32 rounding of the sum; with the scale, bsum within
+    b bf16 ulps of the largest term, and in f32 within the worst-case
+    rounding of a sum of b terms in another order, b 2^-24 sum |term|."""
+    g, s1, s2, scale = _bwd_case(gen, b, t, f, dtype, kind)
+    counter = "launches_int8" if kind == "int8" else "launches"
+    fused_project_bwd_kernel.launches = fused_project_bwd_kernel.launches_int8 = 0
+    got = fused_project_bwd_kernel(g, s1, s2, 40, 1e-5, scale=scale, with_bsum=kind == "int8")
+    assert getattr(fused_project_bwd_kernel, counter) == 1
+    ref = project_bwd_plain(g, s1, s2, 40, 1e-5, scale=scale, with_bsum=kind == "int8")
+    tol = 1e-6 * ref[0].float().abs().max().item() if dtype == torch.float32 else \
+        _bf16_tol(ref[0], ulps=1)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= tol
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-3)
+    if kind == "int8":
+        terms = project_bwd_plain(g, s1, s2, 40, 1e-5)[0].float()
+        if dtype == torch.float32:
+            atol = b * 2.0**-24 * terms.abs().sum(dim=0).max().item()
+        else:
+            atol = b * _bf16_tol(terms, ulps=1)
+        assert (got[2] - ref[2]).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("kind", ["plain", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_projection_bwd_calls_are_bit_identical(gen, dtype, kind):
+    """Column sums finished by ticket in a fixed block order, no float
+    atomics: two calls give the same bits, and the ticket counters are left
+    at zero for the next call."""
+    g, s1, s2, scale = _bwd_case(gen, 8, 4096, 270, dtype, kind)
+    one = fused_project_bwd_kernel(g, s1, s2, 40, scale=scale, with_bsum=kind == "int8")
+    two = fused_project_bwd_kernel(g, s1, s2, 40, scale=scale, with_bsum=kind == "int8")
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 # ------------------------------------------- flash kernels at any latent count

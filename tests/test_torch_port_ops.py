@@ -47,6 +47,9 @@ from healnet_tpu_torch.ops.fused_project import (
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
+    F32_WIDTHS,
+    project_bwd_plan,
+    project_f32_plan,
     project_plan,
     project_route,
     project_smem,
@@ -381,12 +384,13 @@ def test_flash_backward_plain_vs_jax_at_long_latents(rng, lq):
     (torch.bfloat16, torch.bfloat16, 2048, 2, "generic"),
     (torch.int8, torch.bfloat16, 200, 0, "generic"),
     (torch.int8, torch.bfloat16, 2048, 8, "generic"),
-    (torch.int8, torch.float32, 2048, 0, "generic"),
-    (torch.float32, torch.float32, 2048, 0, "generic"),
+    (torch.int8, torch.float32, 2048, 0, "f32"),
+    (torch.float32, torch.float32, 2048, 0, "f32"),
 ])
 def test_project_route(dtype, cdt, c, offset, route):
     """The Hopper kernel takes bf16 compute over bf16 or int8 rows that TMA
-    can describe (16-byte aligned base and row pitch); the rest is generic."""
+    can describe (16-byte aligned base and row pitch), the f32 kernel every
+    f32 compute; the rest is generic."""
     assert project_route(dtype, cdt, c, 0x7F0000000000 + offset) == route
 
 
@@ -418,6 +422,65 @@ def test_project_plan(m, f, itemsize):
         assert plan.n_col == 1 and plan.nb == (256 if f == 252 else 272)
     if (m, f) == (32768, 270):  # kirp: the held stage buys its fourth stage
         assert plan.stages == 4 and plan.held_staging
+
+
+@pytest.mark.parametrize("m,c,f,itemsize", [
+    (32768, 2048, 252, 4), (32768, 2048, 270, 4), (32768, 2048, 252, 1), (32768, 2000, 270, 1),
+    (8, 2000, 252, 4), (8192, 1024, 252, 4), (387, 203, 70, 4), (387, 203, 600, 1),
+    (600, 64, 2100, 4), (32768, 2048, 70, 4), (1, 1, 1, 4)])
+def test_project_f32_plan(m, c, f, itemsize):
+    """The f32 kernel's plan: the pass width whose blocks finish soonest on
+    132 SMs (waves x width, ties to the wider), so brca's 252 and kirp's 270
+    read the context once and the omic vector spreads over four SMs; 128-row
+    tiles, k-steps of 32 channels, 3 ring stages for f32 and 4 for int8,
+    within a block's shared memory."""
+    plan = project_f32_plan(m, c, f, itemsize, sms=132)
+    cost = lambda w: -(-plan.row_tiles * -(-f // w) // 132) * w
+    assert plan.nb in F32_WIDTHS and plan.n_col == -(-f // plan.nb)
+    assert all(cost(plan.nb) < cost(w) or (cost(plan.nb) == cost(w) and plan.nb >= w)
+               for w in F32_WIDTHS)
+    assert plan.row_tiles == -(-m // 128) and plan.nk * 32 >= c > (plan.nk - 1) * 32
+    assert plan.stages == (3 if itemsize == 4 else 4)
+    ring = plan.stages * (128 * (36 * 4 if itemsize == 4 else 48) + 32 * plan.nb * 4)
+    assert plan.smem == ring + 2 * 32 * 128 * 4 <= 232448 - 4096  # static shared memory
+    if m == 32768 and f in (252, 270):  # brca and kirp: one pass over the context
+        assert plan.n_col == 1 and plan.nb == (256 if f == 252 else 272)
+    if (m, f) == (8, 252):  # the omic vector: four blocks of 64 columns
+        assert plan.n_col == 4 and plan.nb == 64
+
+
+def test_project_f32_plan_refuses_bf16():
+    with pytest.raises(ValueError):
+        project_f32_plan(8, 64, 64, 2)
+
+
+@pytest.mark.parametrize("b,t,f,itemsize,offset", [
+    (8, 4096, 252, 2, 0), (8, 4096, 270, 2, 0), (8, 4096, 252, 4, 0), (8, 4096, 270, 4, 0),
+    (8, 1, 252, 2, 0), (5000, 1, 252, 2, 0), (3, 129, 2100, 4, 0), (2, 300, 71, 2, 0),
+    (8, 4096, 252, 2, 4), (8, 4096, 252, 4, 8)])
+def test_project_bwd_plan(b, t, f, itemsize, offset):
+    """The backward kernel's plan: the widest vector (up to 4 columns) that
+    divides F and the base's alignment (brca bf16 8 bytes, f32 16; kirp
+    4 / 8), a token row spanned by whole warps, column chunks past 512
+    threads, one block an SM (132) and no more blocks than token tiles, and
+    the groups of 16 blocks the kernel finishes its column sums in."""
+    plan = project_bwd_plan(b, t, f, itemsize, 0x7F0000000000 + offset, 132)
+    vec_bytes = plan.vec * itemsize
+    assert plan.vec <= 4 and f % plan.vec == 0 and offset % vec_bytes == 0
+    wider = 2 * plan.vec
+    assert wider > 4 or f % wider or offset % (wider * itemsize)
+    nvec = f // plan.vec
+    assert plan.w % 32 == 0 and plan.w <= 512 and plan.w * plan.grid_y >= nvec
+    assert plan.grid_y == -(-nvec // plan.w) and (plan.grid_y - 1) * plan.w < nvec
+    per_thread = 1 if vec_bytes >= 16 else 2 if vec_bytes >= 8 else 4
+    assert plan.tokens == (512 // plan.w) * per_thread
+    assert 1 <= plan.grid_x * plan.grid_y <= max(132, plan.grid_y)
+    assert plan.grid_x <= -(-t // plan.tokens)
+    assert plan.groups == -(-plan.grid_x // 16) * plan.grid_y
+    if (f, offset) == (252, 0):  # brca: 8-byte bf16 and 16-byte f32 vectors
+        assert plan.vec == 4 and plan.w == 64
+    if (f, itemsize) == (270, 2):  # kirp bf16: 540-byte rows, 4-byte vectors
+        assert plan.vec == 2 and plan.w == 160
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
