@@ -42,7 +42,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. the same for the projection backward (cotangent pass) kernel at
    (8, 4096, 252) bf16 and f32, kirp's F 270, a small f32 shape, the
    one-token omic context and batch 5000 of one token: one launch a call,
-   two calls bit-identical, the full-size ones timed;
+   two calls bit-identical, the full-size ones timed; each row of the
+   column sums held column by column against an f64 sum, and the check
+   shown to refuse them with the second row zeroed or one block's partial
+   left out;
 7. train the full-width BRCA model through ``SurvivalTrainer.train_step``
    (dropout 0.083 / 0.473, NLL/16 + L1, Adam under OneCycle): step-1 loss and
    gradients of the kernel path against the plain path with the same weights
@@ -123,6 +126,7 @@ from healnet_tpu_torch.ops.fused_project import (
     F32_WIDTHS,
     _f32_lib,
     _gemm_f32,
+    _mu_inv,
     _prep,
     _project_launch,
     _project_plain,
@@ -130,6 +134,7 @@ from healnet_tpu_torch.ops.fused_project import (
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
+    project_bwd_plan,
     project_f32_smem,
     project_plain,
 )
@@ -320,7 +325,8 @@ def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16):
     dequantized bf16 context for int8) and the bound (every input read once,
     the output written once; 2 C F operations a row at the compute dtype's
     rate). Also the kernel's largest difference from the plain version
-    (``err``) and the plain output's largest magnitude (``ref_max``)."""
+    (``err``), the generic kernel's for bf16 compute (``generic_err``) and
+    the plain output's largest magnitude (``ref_max``)."""
     x = torch.randn((b, t, c), generator=gen, device="cuda")
     scale, cdt = None, dtype
     if dtype == torch.int8:
@@ -347,20 +353,23 @@ def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16):
     kv, s1, s2 = run()
     ref = plain()
     err = (kv.float() - ref.float()).abs().max().item()
+    generic_err = ((run("generic")[0].float() - ref.float()).abs().max().item()
+                   if cdt == torch.bfloat16 else None)
     (t_kernel, w_kernel), (t_plain, _) = time_ms(run), time_ms(plain)
     t_library, _ = time_ms(lambda: torch.matmul(a2d, w))
     moved = nbytes(dat, *ops, kv, s1, s2) + (0 if scale is None else nbytes(scale))
     bound, by = bound_ms(moved, 2.0 * b * t * c * f, cdt)
     return dict(ms=t_kernel, wall_ms=w_kernel, plain_ms=t_plain, library_ms=t_library,
-                bound_ms=bound, bound_by=by, mb=moved / 1e6, err=err,
+                bound_ms=bound, bound_by=by, mb=moved / 1e6, err=err, generic_err=generic_err,
                 ref_max=ref.float().abs().max().item()), run
 
 
 def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, generic=True):
     """Profile one call of a ``PROJECT_SHAPES`` entry (or of ``shape``; a
-    call must be one launch) and time it, and with ``generic`` the generic
-    kernel (the kernel bf16 calls took before the Hopper one) on the same
-    inputs; returns its times."""
+    call must be one launch) and time it, and with ``generic`` hold the
+    generic kernel (the kernel bf16 calls took before the Hopper one)
+    against the plain version on the same inputs, at phase 2's bf16
+    tolerance, and time it; returns its times."""
     b, t, c, f, dtype = shape or PROJECT_SHAPES[label]
     timing, run = projection_timing(gen, b, t, c, f, dtype, int8_cdt)
     kinds, prof = launch_profile(run)
@@ -370,7 +379,11 @@ def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, generic=Tru
     one, two = run(), run()
     if not all(torch.equal(x, y) for x, y in zip(one, two)):
         raise AssertionError(f"{label}: two calls differ")
-    timing["generic_ms"] = time_ms(lambda: run("generic"))[0] if generic else None
+    timing["generic_ms"] = None
+    if generic:
+        check(f"{label} generic kernel", timing["generic_err"],
+              4 * bf16_ulp(timing["ref_max"]))
+        timing["generic_ms"] = time_ms(lambda: run("generic"))[0]
     log(f"  {label}: device time kernel {timing['ms']:.4f} ms"
         + (f", generic kernel {timing['generic_ms']:.4f} ms" if generic else "")
         + f", plain {timing['plain_ms']:.4f} ms, torch.matmul of the GEMM alone "
@@ -398,8 +411,8 @@ def phase_projection(gen):
     """Returns the kernels-line entries of the Hopper kernel (bf16
     contexts), the f32 kernel (f32 contexts at the brca shape) and the
     generic kernel (bf16 rows TMA cannot describe), each with its error at
-    the shape it is timed or checked at, and the generic kernel's launches
-    in its run."""
+    the brca shape it is timed at, and the generic kernel's launches in its
+    run through the entry point."""
     log("phase 2: fused KV projection kernels vs plain version")
     # bf16 tolerance: the kernel and the plain version round the product to
     # bf16 at the same place but sum it in another order, so a raw value may
@@ -473,7 +486,8 @@ def phase_projection(gen):
                              "healnet_tpu/ops/fused_project.py:162", f32["brca f32"]["err"],
                              f32["brca f32"]),
             projection_entry("fused_project_generic", source + "fused_project.cu",
-                             "healnet_tpu/ops/fused_project.py:162", err_generic, generic),
+                             "healnet_tpu/ops/fused_project.py:162", brca["generic_err"],
+                             generic),
             ), generic_launches
 
 
@@ -842,28 +856,74 @@ def phase_flash_latents(gen) -> None:
 # ---------------------------------------------------------------- phase 6
 
 
-def dsum2_bound(g, s1, s2, d_total) -> float:
-    """The worst-case rounding error of dsum2's f32 sums of b*t terms taken
-    in another order: (terms) * 2^-24 * sum|terms|."""
-    b, t = s1.shape
-    mu = s1 / d_total
-    imu = mu * torch.rsqrt(s2 / d_total - mu * mu + 1e-5)
-    weight = torch.clamp(imu.abs().max(), min=1.0).item()
-    return b * t * 2.0**-24 * weight * g.float().abs().sum(dim=(0, 1)).max().item()
+def first_block(g):
+    """(rows, columns): the (b, t) rows and the leading columns whose sums
+    the backward kernel's first block adds into its partial
+    (``project_bwd_plan``: token tiles 0, grid_x, 2 grid_x, ..., every batch
+    element, the first column chunk)."""
+    b, t, f = g.shape
+    plan = project_bwd_plan(b, t, f, g.element_size(), g.data_ptr(),
+                            torch.cuda.get_device_properties(g.device).multi_processor_count)
+    tile = torch.arange(t, device=g.device) // plan.tokens
+    return (tile % plan.grid_x == 0)[None, :].expand(b, t), plan.w * plan.vec
 
 
-def check_bwd(label, got, ref, g, s1, s2, d_total, plain_terms=None) -> float:
+def check_dsum2(label, got, g, s1, s2, d_total, show_refusals=False) -> None:
+    """dsum2 = [sum g; sum inv mu g], each row and column held against an
+    f64 sum of the same terms (inv and mu as the plain version takes them).
+    The kernel adds n = b t terms in f32: each addition is off by at most
+    2^-24 of a partial sum no larger than sum|term|, and n such errors of
+    either sign add up to about sqrt(n) of them (twice that here); rsqrtf
+    (2 ulps) moves each term of the second row by up to 4 x 2^-24.
+    Tolerance of a column: (4 + 2 sqrt(n)) 2^-24 sum|term|. With
+    ``show_refusals``, fail unless the check refuses dsum2 with its second
+    row zeroed and with the first block's partial left out
+    (``first_block``)."""
+    n = s1.numel()
+    mu, inv = _mu_inv(s1, s2, d_total, 1e-5)
+    gd = g.double()
+    terms = torch.stack([gd, (inv * mu).double()[..., None] * gd])  # (2, b, t, F)
+    ref = terms.sum(dim=(1, 2))
+    tol = (4 + 2 * np.sqrt(n)) * 2.0**-24 * terms.abs().sum(dim=(1, 2))
+
+    def share(x):  # the largest |x - ref| / tol of each row
+        return ((x.double() - ref).abs() / tol).amax(dim=1).tolist()
+
+    for row, r in enumerate(share(got)):
+        err = (got[row].double() - ref[row]).abs()
+        log(f"  {label} dsum2[{row}]: max|d| = {err.max().item():.6g}, at most {r:.3g} of its "
+            f"column's tolerance ({tol[row].min().item():.3g}..{tol[row].max().item():.3g})")
+        if not bool((err <= tol[row]).all()):
+            raise AssertionError(f"{label} dsum2[{row}]: beyond its rounding bound ({r:.3g}x)")
+    if not show_refusals:
+        return
+    zeroed = got.clone()
+    zeroed[1] = 0.0
+    rows, cols = first_block(g)
+    partial = terms[:, rows].sum(dim=1)
+    partial[:, cols:] = 0.0
+    dropped = got.double() - partial
+    for what, x in (("its second row zeroed", zeroed),
+                    ("the first block's partial left out", dropped)):
+        r = max(share(x))
+        log(f"  {label} dsum2 with {what}: {r:.3g}x the tolerance, refused")
+        if not r > 1.0:
+            raise AssertionError(f"{label}: the dsum2 check passes a result with {what}")
+
+
+def check_bwd(label, got, ref, g, s1, s2, d_total, plain_terms=None,
+              show_refusals=False) -> float:
     """Phases 6 and 9's tolerances; returns d_raw's error. d_raw rounds
     ``(scale *) inv * g`` once in both, and rsqrtf may differ from torch's
     rsqrt in its last bit, which can move a bf16 rounding by one ulp: 1 bf16
-    ulp of the largest value, 1e-6 relative in f32. bsum: b terms rounded at
-    the same place, each at most one ulp apart: b bf16 ulps of the largest
-    term (``plain_terms``: the unscaled d_raw)."""
+    ulp of the largest value, 1e-6 relative in f32. dsum2: ``check_dsum2``.
+    bsum: b terms rounded at the same place, each at most one ulp apart: b
+    bf16 ulps of the largest term (``plain_terms``: the unscaled d_raw)."""
     bf16 = g.dtype == torch.bfloat16
     top = ref[0].float().abs().max().item()
     err = (got[0].float() - ref[0].float()).abs().max().item()
     check(f"{label} d_raw", err, bf16_ulp(top) if bf16 else 1e-6 * top)
-    check(f"{label} dsum2", (got[1] - ref[1]).abs().max().item(), dsum2_bound(g, s1, s2, d_total))
+    check_dsum2(label, got[1], g, s1, s2, d_total, show_refusals)
     if plain_terms is not None:
         term = plain_terms.float().abs().max().item()
         check(f"{label} bsum", (got[2] - ref[2]).abs().max().item(),
@@ -910,7 +970,8 @@ def phase_projection_bwd(gen) -> dict:
         reset_launches()
         got = fused_project_bwd_kernel(g, s1, s2, d_total)
         read_launches(f"the {label} call", ("fused_project_bwd",))
-        err = check_bwd(label, got, project_bwd_plain(g, s1, s2, d_total), g, s1, s2, d_total)
+        err = check_bwd(label, got, project_bwd_plain(g, s1, s2, d_total), g, s1, s2, d_total,
+                        show_refusals=timed)
         if label.startswith("bf16 (8, 4096"):
             worst = err
         if timed:
@@ -1153,7 +1214,8 @@ def phase_projection_bwd_int8(gen) -> dict:
         got = run_k()
         read_launches(f"the {label} call", ("fused_project_bwd_int8",))
         err = check_bwd(label, got, plain(), g, s1, s2, d_total,
-                        plain_terms=project_bwd_plain(g, s1, s2, d_total)[0])
+                        plain_terms=project_bwd_plain(g, s1, s2, d_total)[0],
+                        show_refusals=dtype == torch.bfloat16)
         if dtype != torch.bfloat16:
             continue
         worst = err

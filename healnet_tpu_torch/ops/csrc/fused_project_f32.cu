@@ -395,7 +395,7 @@ extern "C" int healnet_fused_project_f32_smem(int nb, int is_int8) {
   }
 }
 
-// dat: (M, C) f32, or int8 with scale (M,); w: (n_col, ceil(C / 16) * 16,
+// dat: (M, C) f32, or int8 with scale (M,); w: (n_col, ceil(C / 32) * 32,
 // nb) f32, zero-padded; encp (T, F) f32; encs (2, T); aux (2, F); kv (M, F)
 // f32; vec: 16-byte staging (rows and base on 16 bytes), else element loads.
 extern "C" int healnet_fused_project_f32(const void* dat, const float* w, const float* encp,

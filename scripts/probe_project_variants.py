@@ -37,6 +37,9 @@ brca int8 with the scale and bsum (8, 4096, F), beside ``torch.mul(g, 2.0)``
 
 - ``no tail``: each block returns after writing its partial column sums
   (no tickets, no second and third pass over the partials);
+- ``one level``: the column sums finished in one level in place of two:
+  one ticket, and the last block adds every block's partial of a column
+  in block order, 32 loads in flight a thread;
 - ``no row stats``: s1 and s2 not copied (the rows' factors come from
   whatever the ring holds);
 - ``no stores``: d_raw is not written.
@@ -103,6 +106,29 @@ VARIANTS = {
         "no tail": [
             ("  if (take_ticket(&counters[grp], &ticket) != (unsigned)g_size - 1) return;\n",
              "  if (n_groups >= 0) return;\n"),
+        ],
+        "one level": [
+            ("  // first level: the last block of each group of kGroup adds its group's\n",
+             "  {\n"
+             "    constexpr int kLoads = 32;\n"
+             "    if (take_ticket(&counters[0], &ticket) != (unsigned)n_blocks - 1) return;\n"
+             "    for (int j = threadIdx.x; j < 2 * F; j += kThreads) {\n"
+             "      const float* src = part + (size_t)(j % F / chunk_cols * gridDim.x) * 2 * F + j;\n"
+             "      float a = 0.f;\n"
+             "      for (int k0 = 0; k0 < (int)gridDim.x; k0 += kLoads) {\n"
+             "        float v[kLoads];\n"
+             "#pragma unroll\n"
+             "        for (int k = 0; k < kLoads; ++k)\n"
+             "          v[k] = k0 + k < (int)gridDim.x ? __ldcg(src + (size_t)(k0 + k) * 2 * F)"
+             " : 0.f;\n"
+             "#pragma unroll\n"
+             "        for (int k = 0; k < kLoads; ++k) a += v[k];\n"
+             "      }\n"
+             "      dsum2[j] = a;\n"
+             "    }\n"
+             "    if (threadIdx.x == 0) counters[0] = 0u;\n"
+             "    return;\n"
+             "  }\n"),
         ],
         "no row stats": [
             ("      copy_vec<4>(stat(i, 0), s1 + r, ok);\n"

@@ -47,7 +47,6 @@ from healnet_tpu_torch.ops.fused_project import (
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
-    F32_WIDTHS,
     project_bwd_plan,
     project_f32_plan,
     project_plan,
@@ -424,29 +423,32 @@ def test_project_plan(m, f, itemsize):
         assert plan.stages == 4 and plan.held_staging
 
 
-@pytest.mark.parametrize("m,c,f,itemsize", [
-    (32768, 2048, 252, 4), (32768, 2048, 270, 4), (32768, 2048, 252, 1), (32768, 2000, 270, 1),
-    (8, 2000, 252, 4), (8192, 1024, 252, 4), (387, 203, 70, 4), (387, 203, 600, 1),
-    (600, 64, 2100, 4), (32768, 2048, 70, 4), (1, 1, 1, 4)])
+# (m, c, f, itemsize) -> the f32 kernel's plan (nb, n_col, row_tiles, nk,
+# stages, smem): brca and kirp (f32 and int8) in one pass of 256 / 272
+# columns, the omic vector in four blocks of 64, smaller calls spread over
+# more passes, shared memory as the kernel lays it out
+F32_PLANS = {
+    (32768, 2048, 252, 4): (256, 1, 256, 64, 3, 186368),
+    (32768, 2048, 270, 4): (272, 1, 256, 64, 3, 192512),
+    (32768, 2048, 252, 1): (256, 1, 256, 64, 4, 188416),
+    (32768, 2000, 270, 1): (272, 1, 256, 63, 4, 196608),
+    (8, 2000, 252, 4): (64, 4, 1, 63, 3, 112640),
+    (8192, 1024, 252, 4): (128, 2, 64, 32, 3, 137216),
+    (387, 203, 70, 4): (64, 2, 4, 7, 3, 112640),
+    (387, 203, 600, 1): (64, 10, 4, 7, 4, 90112),
+    (600, 64, 2100, 4): (128, 17, 5, 2, 3, 137216),
+    (32768, 2048, 70, 4): (128, 1, 256, 64, 3, 137216),
+    (1, 1, 1, 4): (64, 1, 1, 1, 3, 112640),
+}
+
+
+@pytest.mark.parametrize("m,c,f,itemsize", list(F32_PLANS))
 def test_project_f32_plan(m, c, f, itemsize):
-    """The f32 kernel's plan: the pass width whose blocks finish soonest on
-    132 SMs (waves x width, ties to the wider), so brca's 252 and kirp's 270
-    read the context once and the omic vector spreads over four SMs; 128-row
-    tiles, k-steps of 32 channels, 3 ring stages for f32 and 4 for int8,
-    within a block's shared memory."""
+    """The f32 kernel's plan at brca, kirp, the omic vector and ragged
+    shapes, within a block's shared memory (less the kernel's static 4 KB)."""
     plan = project_f32_plan(m, c, f, itemsize, sms=132)
-    cost = lambda w: -(-plan.row_tiles * -(-f // w) // 132) * w
-    assert plan.nb in F32_WIDTHS and plan.n_col == -(-f // plan.nb)
-    assert all(cost(plan.nb) < cost(w) or (cost(plan.nb) == cost(w) and plan.nb >= w)
-               for w in F32_WIDTHS)
-    assert plan.row_tiles == -(-m // 128) and plan.nk * 32 >= c > (plan.nk - 1) * 32
-    assert plan.stages == (3 if itemsize == 4 else 4)
-    ring = plan.stages * (128 * (36 * 4 if itemsize == 4 else 48) + 32 * plan.nb * 4)
-    assert plan.smem == ring + 2 * 32 * 128 * 4 <= 232448 - 4096  # static shared memory
-    if m == 32768 and f in (252, 270):  # brca and kirp: one pass over the context
-        assert plan.n_col == 1 and plan.nb == (256 if f == 252 else 272)
-    if (m, f) == (8, 252):  # the omic vector: four blocks of 64 columns
-        assert plan.n_col == 4 and plan.nb == 64
+    assert tuple(plan) == F32_PLANS[(m, c, f, itemsize)]
+    assert plan.smem <= 232448 - 4096
 
 
 def test_project_f32_plan_refuses_bf16():
@@ -454,33 +456,32 @@ def test_project_f32_plan_refuses_bf16():
         project_f32_plan(8, 64, 64, 2)
 
 
-@pytest.mark.parametrize("b,t,f,itemsize,offset", [
-    (8, 4096, 252, 2, 0), (8, 4096, 270, 2, 0), (8, 4096, 252, 4, 0), (8, 4096, 270, 4, 0),
-    (8, 1, 252, 2, 0), (5000, 1, 252, 2, 0), (3, 129, 2100, 4, 0), (2, 300, 71, 2, 0),
-    (8, 4096, 252, 2, 4), (8, 4096, 252, 4, 8)])
+# (b, t, f, itemsize, base offset) -> the backward kernel's plan (vec, w,
+# tokens, grid_x, grid_y, groups): brca bf16 8-byte and f32 16-byte
+# vectors, kirp's 540-byte rows 4-byte ones, one block an SM (132) in 9
+# groups of 16, one token tile (one block) for a one-token context at any
+# batch, two column chunks past 512 threads a row, narrower vectors at a
+# less aligned base
+BWD_PLANS = {
+    (8, 4096, 252, 2, 0): (4, 64, 16, 132, 1, 9),
+    (8, 4096, 270, 2, 0): (2, 160, 12, 132, 1, 9),
+    (8, 4096, 252, 4, 0): (4, 64, 8, 132, 1, 9),
+    (8, 4096, 270, 4, 0): (2, 160, 6, 132, 1, 9),
+    (8, 1, 252, 2, 0): (4, 64, 16, 1, 1, 1),
+    (5000, 1, 252, 2, 0): (4, 64, 16, 1, 1, 1),
+    (3, 129, 2100, 4, 0): (4, 512, 1, 66, 2, 10),
+    (2, 300, 71, 2, 0): (1, 96, 20, 15, 1, 1),
+    (8, 4096, 252, 2, 4): (2, 128, 16, 132, 1, 9),
+    (8, 4096, 252, 4, 8): (2, 128, 8, 132, 1, 9),
+}
+
+
+@pytest.mark.parametrize("b,t,f,itemsize,offset", list(BWD_PLANS))
 def test_project_bwd_plan(b, t, f, itemsize, offset):
-    """The backward kernel's plan: the widest vector (up to 4 columns) that
-    divides F and the base's alignment (brca bf16 8 bytes, f32 16; kirp
-    4 / 8), a token row spanned by whole warps, column chunks past 512
-    threads, one block an SM (132) and no more blocks than token tiles, and
-    the groups of 16 blocks the kernel finishes its column sums in."""
+    """The backward kernel's plan at brca, kirp, the omic context, batch
+    5000, two column chunks and misaligned bases."""
     plan = project_bwd_plan(b, t, f, itemsize, 0x7F0000000000 + offset, 132)
-    vec_bytes = plan.vec * itemsize
-    assert plan.vec <= 4 and f % plan.vec == 0 and offset % vec_bytes == 0
-    wider = 2 * plan.vec
-    assert wider > 4 or f % wider or offset % (wider * itemsize)
-    nvec = f // plan.vec
-    assert plan.w % 32 == 0 and plan.w <= 512 and plan.w * plan.grid_y >= nvec
-    assert plan.grid_y == -(-nvec // plan.w) and (plan.grid_y - 1) * plan.w < nvec
-    per_thread = 1 if vec_bytes >= 16 else 2 if vec_bytes >= 8 else 4
-    assert plan.tokens == (512 // plan.w) * per_thread
-    assert 1 <= plan.grid_x * plan.grid_y <= max(132, plan.grid_y)
-    assert plan.grid_x <= -(-t // plan.tokens)
-    assert plan.groups == -(-plan.grid_x // 16) * plan.grid_y
-    if (f, offset) == (252, 0):  # brca: 8-byte bf16 and 16-byte f32 vectors
-        assert plan.vec == 4 and plan.w == 64
-    if (f, itemsize) == (270, 2):  # kirp bf16: 540-byte rows, 4-byte vectors
-        assert plan.vec == 2 and plan.w == 160
+    assert tuple(plan) == BWD_PLANS[(b, t, f, itemsize, offset)]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
