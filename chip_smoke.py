@@ -20,10 +20,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. the same for the flash cross-attention kernel at (8, 17, 4096, 63) bf16:
    unmasked, masked with ragged lengths and one fully masked row, and with
    hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
-   f32 case; then at brca and kirp in bf16 (the tensor-core variant, which
-   must be one kernel launch per call) and brca in f32 (the FMA variant),
-   unmasked: each call's kernels on the profiler, and the times of kernel,
-   plain version, SDPA and the bound;
+   f32 case; the FMA variant at full size: f32 (8, 17, 4096, 63) and kirp's
+   d 27, masked with a fully masked sample and dropout, and bf16 d 160 (the
+   tensor cores take bf16 up to 128), two calls bit-identical; then at brca
+   and kirp in bf16 (the tensor-core variant) and f32 (the FMA variant),
+   unmasked: each call must be one kernel launch on the profiler, and the
+   times of kernel, plain version, SDPA and the bound;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -34,10 +36,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    8, kernel path against plain path in bf16 and f32;
 5. hold the flash cross-attention backward kernel against its plain version
    at (8, 17, 4096, 63) bf16 (unmasked, masked with a fully masked row,
-   dropout 0.083), at the one-token omic context, at kirp's shape and at a
-   small f32 shape; profile and time it as phase 3 does the forward, with
+   dropout 0.083), at the one-token omic context, at kirp's shape, at a
+   small f32 shape and at phase 3's full-size FMA cases (two calls
+   bit-identical); profile and time it as phase 3 does the forward, with
    SDPA's backward as the library call; then forward and backward at latent
-   counts past a block's shared memory (lq 64, 128, 130, 256 at d 27, 63,
+   counts past a block's query chunk (lq 33, 64, 128, 130, 256 at d 27, 63,
    96, 113, 128, bf16 and f32, masked with a fully masked row, dropout);
 6. the same for the projection backward (cotangent pass) kernel at
    (8, 4096, 252) bf16 and f32, kirp's F 270, a small f32 shape, the
@@ -51,7 +54,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    gradients of the kernel path against the plain path with the same weights
    and dropout draws, in f32 (the run of the flash kernels' FMA variants)
    and bf16 (the f32 step also runs the f32 projection kernel; its wall,
-   device busy and the f32 projection kernels' share of it); then 5
+   device busy and the f32 projection and flash FMA kernels' shares of it); then 5
    bf16 steps on the kernel path, the main path's run,
    which must launch all four kernels (the flash kernels' tensor-core
    variants) and give finite losses; step time, samples/s, peak memory and
@@ -522,7 +525,7 @@ def launch_profile(fn):
 # the flash kernels' timed shapes: (8, 17, 4096, d), K and V slices of a
 # merged KV buffer of the row's width, unmasked
 FLASH_SHAPES = {"brca": (63, 252, torch.bfloat16), "kirp": (27, 270, torch.bfloat16),
-                "brca f32": (63, 252, torch.float32)}
+                "brca f32": (63, 252, torch.float32), "kirp f32": (27, 270, torch.float32)}
 
 
 def flash_entry(name, source, replaces, err, timing) -> dict:
@@ -533,12 +536,13 @@ def flash_entry(name, source, replaces, err, timing) -> dict:
 
 
 def time_flash(label, run, plain, library, moved, flops, dtype, library_name):
-    """Profile one call (a bf16 call must be one kernel launch), then time
-    kernel, plain version and library call; returns the kernels-line times."""
+    """Profile one call (it must be one kernel launch, in either variant),
+    then time kernel, plain version and library call; returns the
+    kernels-line times."""
     kinds, prof = launch_profile(run)
     log(f"  {label}: kernels on the profiler: {prof}")
-    if dtype == torch.bfloat16 and kinds != 1:
-        raise AssertionError(f"{label}: a bf16 call launched {kinds} kernels, not 1")
+    if kinds != 1:
+        raise AssertionError(f"{label}: a call launched {kinds} kernels, not 1")
     (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(plain)
     t_library, _ = time_ms(library)
     bound, by = bound_ms(moved, flops, dtype)
@@ -547,6 +551,18 @@ def time_flash(label, run, plain, library, moved, flops, dtype, library_name):
         f"{flops / 1e9:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, plain "
         f"{w_plain:.4f} ms")
     return t_kernel, t_plain, t_library, bound, by
+
+
+def fma_cases(mask) -> dict:
+    """The FMA variant's full-size cases of phases 3 and 5: (head dim, KV
+    width, dtype, mask, dropout rate) at (8, 17, 4096, d); the mask has a
+    fully masked sample, and the bf16 case's odd width puts its K and V rows
+    at 2-byte offsets."""
+    return {"f32 (8, 17, 4096, 63) masked, dropout 0.083": (63, 252, torch.float32, mask, 0.083),
+            "f32 kirp (8, 17, 4096, 27) masked, dropout 0.318": (
+                27, 270, torch.float32, mask, ROWS["kirp"]["attn_dropout"]),
+            "bf16 (8, 17, 4096, 160) masked, dropout 0.083": (
+                160, 641, torch.bfloat16, mask, 0.083)}
 
 
 def phase_flash(gen):
@@ -590,6 +606,25 @@ def phase_flash(gen):
     # the JAX package's own flash tests hold them
     err_f32 = (out - ref).abs().max().item()
     check("f32 (2, 17, 300, 63) masked, dropout 0.3", err_f32, 2e-5)
+    # the FMA variant at full size: f32 at brca's and kirp's shapes, and bf16
+    # with a head wider than the tensor-core kernel takes (4 ulps of the
+    # largest output); two calls give the same bits
+    for label, (d, width, dtype, m, rate) in fma_cases(mask).items():
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
+        out, lse = flash_attention_kernel(q, k, v, m, d**-0.5 / 0.5, rate, seed)
+        out2, lse2 = flash_attention_kernel(q, k, v, m, d**-0.5 / 0.5, rate, seed)
+        ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5,
+                                     temperature=0.5, kv_mask=m, dropout_rate=rate,
+                                     dropout_seed=seed)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        tol = 2e-5 if dtype == torch.float32 else 4 * bf16_ulp(ref.abs().max().item())
+        check(f"FMA {label}", err, tol)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"FMA {label}: two calls differ")
+        assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
+        if d == 63:
+            err_f32 = max(err_f32, err)
 
     timings = {}
     for label, (d, width, dtype) in FLASH_SHAPES.items():
@@ -602,6 +637,8 @@ def phase_flash(gen):
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                                      scale=d**-0.5 / 0.5),
             nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
+    log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA {timings['kirp f32'][2]:.4f}"
+        f" ms, bound {timings['kirp f32'][3]:.5f} ms")
     source = "healnet_tpu_torch/ops/csrc/flash_attention.cu"
     return (flash_entry("flash_attention", source, "healnet_tpu/ops/flash_attention.py:98",
                         worst, timings["brca"]),
@@ -783,6 +820,25 @@ def phase_flash_bwd(gen):
         if m is not None and m.shape[0] == b:
             assert all(g[0].abs().max().item() == 0.0 for g in got), \
                 "a fully masked row must get zero gradients"
+    # the FMA variant at full size (phase 3's cases); two calls give the same bits
+    for label, (d, width, dtype, m, rate) in fma_cases(mask).items():
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, m, rate, seed, d, width)
+        eff = d**-0.5 / 0.5
+        got = flash_attention_bwd_kernel(q, k, v, m, do, lse, delta, eff, rate, seed)
+        again = flash_attention_bwd_kernel(q, k, v, m, do, lse, delta, eff, rate, seed)
+        ref = flash_backward_plain(q, k, v, m, do, lse, delta, eff, rate, seed)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            tol = 1e-5 * max(1.0, top) if dtype == f32 else 4 * bf16_ulp(top)
+            check(f"FMA {label} {name}", err, tol)
+            if dtype == f32 and d == 63:
+                worst[f32] = max(worst[f32], err)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"FMA {label}: two calls differ")
+        assert all(g[0].abs().max().item() == 0.0 for g in got), \
+            "a fully masked row must get zero gradients"
 
     timings = {}
     for label, (d, width, dtype) in FLASH_SHAPES.items():
@@ -800,6 +856,8 @@ def phase_flash_bwd(gen):
             lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
             nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * d, dtype,
             "SDPA backward")
+    log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA backward "
+        f"{timings['kirp f32'][2]:.4f} ms, bound {timings['kirp f32'][3]:.5f} ms")
     phase_flash_latents(gen)
     source = "healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     return (flash_entry("flash_attention_bwd", source, "healnet_tpu/ops/flash_attention.py:201",
@@ -819,7 +877,7 @@ def phase_flash_latents(gen) -> None:
     mask = torch.arange(lkv, device="cuda")[None, :] < torch.tensor([[0], [777]], device="cuda")
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for lq in (64, 128, 130, 256):
+        for lq in (33, 64, 128, 130, 256):
             for d in (27, 63, 96, 113, 128):
                 q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
                 kv = torch.randn((b, lkv, 4 * d), generator=gen, device="cuda").to(dtype)
@@ -848,7 +906,7 @@ def phase_flash_latents(gen) -> None:
                     raise AssertionError(f"latent count {lq}, d {d}, {dtype}: max|d| forward, "
                                          f"dq, dk, dv = {errs}")
                 worst[dtype] = max(worst.get(dtype, 0.0), *errs[1:])
-    log(f"  forward and backward at lq 64, 128, 130, 256 x d 27, 63, 96, 113, 128 (lkv {lkv}, "
+    log(f"  forward and backward at lq 33, 64, 128, 130, 256 x d 27, 63, 96, 113, 128 (lkv {lkv}, "
         f"masked, dropout {rate}): all within tolerance; worst backward max|d| bf16 "
         f"{worst[torch.bfloat16]:.6g}, f32 {worst[torch.float32]:.6g}")
 
@@ -1081,11 +1139,15 @@ def phase_training(host_rng) -> dict:
     del plain32
     f_wall, f_busy, f_idle, rows = step_times(k32, batch32)
     ours = [e for e in rows if "project_f32" in e.key or "project_bwd" in e.key]
+    fma_rows = [e for e in rows if "flash" in e.key]
     log(f"  f32 train step, batch {BATCH}, inputs on the card: wall {f_wall:.4f} ms, device busy "
         f"{f_busy:.4f} ms per step (profiler), idle share {f_idle:.4f}; the f32 projection "
         f"forward and backward kernels {sum(map(device_us, ours)) / 3e3:.4f} ms of it: "
         + "; ".join(f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
                     f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in ours))
+    log(f"  the flash FMA kernels in the f32 step: {sum(map(device_us, fma_rows)) / 3e3:.4f} ms: "
+        + "; ".join(f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
+                    f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in fma_rows))
     del batch32, k32
     batch = train_batch(host_rng, torch.bfloat16)
     kernel = brca_trainer(torch.bfloat16, "flash", "auto", state)

@@ -48,13 +48,23 @@
 // buffer in device memory, no second kernel, no float atomics, and the
 // same bits on every call.
 //
-// flash_fwd_split + flash_fwd_combine (f32, and bf16 with d > 128): the
-// first port's f32 FMA kernels. Keys split over blocks (two per SM), each
-// block's (m, l, acc) written to a partial buffer that a second kernel
-// merges in split order; tensor cores would mean TF32 for f32 and break its
-// 2e-5 contract. A block holds the queries of one chunk (grid axis z) in
-// shared memory; the wrapper sizes the chunks (query_chunks in
-// ops/flash_attention.py) from healnet_flash_max_queries, so any lq runs.
+// flash_fwd_fma (f32, and bf16 with d > 128): tensor cores would mean TF32
+// for f32 and break its 2e-5 contract, so the products are f32 FMAs on the
+// CUDA cores. One launch per call on the same skeleton: one cluster per
+// row, each block owning a contiguous range of keys (flash_plan, sized by
+// this kernel's own occupancy), streamed in tiles of 32 keys through a
+// cp.async ring of 16-byte hull copies (flash_tc.cuh, fmav), each tile
+// shifted into an aligned f32 tile while the one before it is computed.
+// Each query row of a group of 32 is owned by one warp (row r by warp
+// r % 8), so its online softmax needs only warp shuffles and one block
+// barrier a tile, for the ring and the aligned tiles: each lane takes one
+// key for the scores (a float4 of its key row against broadcast float4s of
+// the warp's query rows), the softmax state stays in registers, p goes to
+// the warp's rows in shared memory, and acc += p V takes a lane's channels
+// of each value row as one vector load. At the end the blocks' (m, l, acc) merge
+// across the cluster in rank order through distributed shared memory, as
+// in flash_fwd_tc: no partial buffer, no second kernel, the same bits on
+// every call. Any lq: the block walks the queries in groups of 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,32 +75,19 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;  // keys per tile: one per lane in the softmax step
-constexpr float kNegBig = -1e30f;
+namespace tc = healnet::tc;
+namespace fv = healnet::tc::fmav;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---------------------------------------------- FMA variant (f32 compute)
 
-struct Params {
+struct FmaParams {
   const void* q;
   const void* k;
   const void* v;
   const float* mask;  // (B, lkv) or null
-  float* part_acc;    // (B*H, n_split, lq, d)
-  float* part_ml;     // (B*H, n_split, 2, lq)
   void* out;          // (B, lq, H, d)
   float* lse;         // (B*H, lq)
-  int H, lq, lkv, d, n_split, split_len, q_chunk;
+  int H, lq, lkv, d, keys_per_cta, stages;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
@@ -98,176 +95,221 @@ struct Params {
   float keep_scale;
 };
 
-__host__ __device__ inline int key_pitch(int d) { return (d & 1) ? d : d + 1; }
+// Byte offsets into the block's shared memory: the ring's stages (none
+// where the slice takes no ring), two aligned tiles, the group's query
+// rows, the warps' p rows and the cluster's pushed states.
+template <typename T, int DP>
+struct FmaFwdLayout {
+  size_t tiles, qs, ps, rm, rl, racc, total;
+  __host__ __device__ explicit FmaFwdLayout(int stages) {
+    using S = fv::Shape<T, DP>;
+    tiles = sizeof(float) * (size_t)stages * S::kTileFloats;
+    qs = tiles + sizeof(float) * 2 * S::kTileFloats;
+    ps = qs + sizeof(float) * fv::kGroup * S::kPitch;
+    rm = ps + sizeof(float) * fv::kGroup * fv::kKeys;
+    rl = rm + sizeof(float) * tc::kMaxCluster * fv::kGroup;
+    racc = rl + sizeof(float) * tc::kMaxCluster * fv::kGroup;
+    total = racc + sizeof(float) * (fv::kGroup * DP + tc::kMaxCluster);
+  }
+};
 
-__host__ inline size_t split_smem_bytes(int lq, int d) {
-  return sizeof(float) *
-         (size_t)(2 * lq * d + kTile * key_pitch(d) + kTile * d + lq * kTile + kTile + 3 * lq);
+template <typename T, int DP>
+int fma_fwd_stages() {
+  return fv::ring_stages<T, DP>([](int s) { return FmaFwdLayout<T, DP>(s).total; });
 }
 
-// Queries [q0, q0 + lq) of the chunk blockIdx.z; indices into shared
-// memory are relative to q0, the dropout hash and the outputs take q0 + qi.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_split(Params p) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.z * p.q_chunk, lq = min(p.q_chunk, p.lq - q0);
-  const int d = p.d, kp = key_pitch(d);
-  float* qs = smem;              // lq * d
-  float* acc = qs + lq * d;      // lq * d
-  float* ks = acc + lq * d;      // kTile * kp
-  float* vs = ks + kTile * kp;   // kTile * d
-  float* ps = vs + kTile * d;    // lq * kTile
-  float* mk = ps + lq * kTile;   // kTile
-  float* m_s = mk + kTile;       // lq
-  float* l_s = m_s + lq;         // lq
-  float* c_s = l_s + lq;         // lq
+// The key loop of one query group for a warp that owns NS of its rows.
+// Tile it's interval, after its one block barrier: the ring issues tile
+// it + stages, tile it + 1 is shifted into the other aligned tile, and the
+// warp takes scores of its rows against the lane's key, the online softmax
+// with warp shuffles, p (dropped, rounded to T) into its rows of ps, and
+// acc += p V over the lane's channels. (m, the lane's part of l, acc) stay
+// in registers; at the end they are pushed to the cluster.
+template <typename T, int DP, int NS>
+__device__ __forceinline__ void fwd_group(const FmaParams& p, const fv::RingCopies<T, DP>& rc,
+                                          float* raw, float* tiles,
+                                          const float* qs, float* ps, float* rm, float* rl,
+                                          float* racc, const T* k, const T* v, const float* mask,
+                                          int row, int g0, int nq, int kv_begin, int kv_end,
+                                          int ntiles, int rank, int csize) {
+  using S = fv::Shape<T, DP>;
+  constexpr int KT = fv::kKeys, P = S::kPitch, TF = S::kTileFloats, CPL = S::kChPerLane;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, St = p.stages;
+  float* pw = ps + warp * fv::kSlots * KT;  // the warp's p rows [slot][key]
+  float m[NS > 0 ? NS : 1], l[NS > 0 ? NS : 1], a[NS > 0 ? NS : 1][CPL];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    m[s] = tc::kNegBig, l[s] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) a[s][i] = 0.f;
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    if constexpr (S::kRing) tc::cp_async_wait(St - 2);
+    // tile it is unpacked and tile it + 1 has landed; every warp is done
+    // with tile it - 1 (its aligned tile is refilled below)
+    __syncthreads();
+    const float* ring1 = nullptr;
+    if constexpr (S::kRing) {
+      if (it + St < ntiles)
+        rc.issue(raw + (it % St) * TF, k, p.k_st, v, p.v_st, mask, kv_begin + (it + St) * KT,
+                 kv_end, tid);
+      tc::cp_async_commit();
+      ring1 = raw + ((it + 1) % St) * TF;
+    }
+    if (it + 1 < ntiles)
+      fv::unpack<T, DP>(tiles + ((it + 1) & 1) * TF, ring1, rc.shift, k, p.k_st, v, p.v_st, mask,
+                        kv_begin + (it + 1) * KT, kv_end, p.d, tid);
+    if constexpr (NS > 0) {
+      const float* ks = tiles + (it & 1) * TF;
+      const float* vs = ks + KT * P;
+      const float mkv = vs[KT * P + lane];
+      const int k0 = kv_begin + it * KT;
+      float sc[1][NS];
+      fv::tile_dots<DP, NS, 1>(sc, qs, nullptr, ks, nullptr, warp, lane);
+      // the rows' maxima first, their shuffle chains interleaved
+      float x[NS], mx[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) mx[s] = x[s] = sc[0][s] * p.scale + (mkv - 1.f) * 1e30f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) mx[s] = fmaxf(mx[s], __shfl_xor_sync(0xffffffffu, mx[s], off));
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float m_new = fmaxf(m[s], mx[s]), corr = __expf(m[s] - m_new);
+        m[s] = m_new;
+        x[s] = __expf(x[s] - m_new) * mkv;
+        l[s] = l[s] * corr + x[s];  // the lane's key; the warp sums at the end
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) a[s][i] *= corr;
+      }
+      if (p.dropout) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          x[s] *= healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(g0 + warp + tc::kWarps * s),
+                                     (uint32_t)(k0 + lane), p.threshold)
+                      ? p.keep_scale
+                      : 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) pw[s * KT + lane] = fv::round_to<T>(x[s]);
+      __syncwarp();
+      fv::tile_axpy<DP, NS>(a, pw, KT, vs, lane);
+    }
+  }
+  if constexpr (S::kRing) tc::cp_async_wait(0);  // only empty groups are left
+  // push the block's state of each of the warp's rows: (m, l) to every
+  // block of the cluster, acc of output element e = r d + c to the block
+  // that owns e (rank e / share)
+  const int share = (nq * p.d + csize - 1) / csize;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int r = warp + tc::kWarps * s;
+    float ls = l[s];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane * CPL + i;
+      if (c < p.d) {
+        const int e = r * p.d + c, owner = e / share;
+        tc::st_cluster(racc + rank * share + e - owner * share, owner, a[s][i]);
+      }
+    }
+    if (lane < csize) {
+      tc::st_cluster(rm + rank * fv::kGroup + r, lane, m[s]);
+      tc::st_cluster(rl + rank * fv::kGroup + r, lane, ls);
+    }
+  }
+}
 
-  const int row = blockIdx.x, split = blockIdx.y;
-  const int b = row / p.H, h = row - (row / p.H) * p.H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
+// One launch per call: grid (cluster, rows), one cluster per batch*head
+// row, block `rank` owning keys [rank * keys_per_cta, ...) (flash_plan).
+// For each group of up to 32 queries the block streams its keys once; each
+// query row is owned by one warp, so a block's state of a row needs no
+// merge inside the block. The blocks' states merge across the cluster in
+// rank order through distributed shared memory, as in flash_fwd_tc.
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_fma(FmaParams p) {
+  using S = fv::Shape<T, DP>;
+  constexpr int KT = fv::kKeys, QG = fv::kGroup, TF = S::kTileFloats;
+  extern __shared__ __align__(16) unsigned char fma_smem[];
+  const FmaFwdLayout<T, DP> L(p.stages);
+  float* raw = reinterpret_cast<float*>(fma_smem);
+  float* tiles = reinterpret_cast<float*>(fma_smem + L.tiles);
+  float* qs = reinterpret_cast<float*>(fma_smem + L.qs);
+  float* ps = reinterpret_cast<float*>(fma_smem + L.ps);
+  // pushed by the cluster's blocks: (m, l) [rank][query] and acc [rank][share]
+  float* rm = reinterpret_cast<float*>(fma_smem + L.rm);
+  float* rl = reinterpret_cast<float*>(fma_smem + L.rl);
+  float* racc = reinterpret_cast<float*>(fma_smem + L.racc);
+
+  tc::cg::cluster_group cluster = tc::cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const int tid = threadIdx.x, warp = tid >> 5, St = p.stages;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
-  const int kv_begin = split * p.split_len;
-  const int kv_end = min(p.lkv, kv_begin + p.split_len);
-
-  for (int i = tid; i < lq * d; i += kThreads) {
-    const int qi = i / d, dd = i - qi * d;
-    qs[i] = to_float(q[qi * p.q_st + dd]);
-    acc[i] = 0.f;
-  }
-  for (int i = tid; i < lq; i += kThreads) {
-    m_s[i] = kNegBig;
-    l_s[i] = 0.f;
-  }
-  __syncthreads();
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kTile) {
-    // one key row per warp, lanes along d: coalesced reads, no division
-    for (int j = warp; j < kTile; j += kWarps) {
-      const int key = k0 + j;
-      const bool ok = key < kv_end;
-      const T* kr = k + (ok ? key : 0) * p.k_st;
-      const T* vr = v + (ok ? key : 0) * p.v_st;
-      for (int dd = lane; dd < d; dd += 32) {
-        ks[j * kp + dd] = ok ? to_float(kr[dd]) : 0.f;
-        vs[j * d + dd] = ok ? to_float(vr[dd]) : 0.f;
-      }
-    }
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      mk[tid] = key < kv_end ? (mask ? mask[key] : 1.f) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: one (query, key) pair per thread and step
-    for (int i = tid; i < lq * kTile; i += kThreads) {
-      const int qi = i / kTile, j = i - qi * kTile;
-      const float* qr = qs + qi * d;
-      const float* kr = ks + j * kp;
-      float s = 0.f;
-      for (int dd = 0; dd < d; ++dd) s = fmaf(qr[dd], kr[dd], s);
-      ps[i] = s * p.scale + (mk[j] - 1.f) * 1e30f;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row, one key per lane
-    for (int qi = warp; qi < lq; qi += kWarps) {
-      const float s = ps[qi * kTile + lane];
-      float m_cur = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
-      const float m_prev = m_s[qi];
-      const float m_new = fmaxf(m_prev, m_cur);
-      float pr = expf(s - m_new) * mk[lane];
-      float psum = pr;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      const float corr = expf(m_prev - m_new);
-      if (p.dropout) {
-        const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0 + qi),
-                                             (uint32_t)(k0 + lane), p.threshold);
-        pr *= keep ? p.keep_scale : 0.f;
-      }
-      ps[qi * kTile + lane] = to_float(from_float<T>(pr));
-      __syncwarp();
-      if (lane == 0) {
-        m_s[qi] = m_new;
-        l_s[qi] = l_s[qi] * corr + psum;
-        c_s[qi] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V
-    for (int i = tid; i < lq * d; i += kThreads) {
-      const int qi = i / d, dd = i - qi * d;
-      const float* pr = ps + qi * kTile;
-      float a = acc[i] * c_s[qi];
-#pragma unroll 8
-      for (int j = 0; j < kTile; ++j) a = fmaf(pr[j], vs[j * d + dd], a);
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  const size_t part = (size_t)row * p.n_split + split;
-  float* pacc = p.part_acc + (part * p.lq + q0) * d;
-  float* pml = p.part_ml + part * 2 * p.lq + q0;
-  for (int i = tid; i < lq * d; i += kThreads) pacc[i] = acc[i];
-  for (int i = tid; i < lq; i += kThreads) {
-    pml[i] = m_s[i];
-    pml[p.lq + i] = l_s[i];
-  }
-}
-
-// Merges the splits of each row: rescale every split to the row maximum,
-// sum, divide by max(l, 1e-30), write (B, lq, H, d) and the log-sum-exp.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_combine(Params p) {
-  const int row = blockIdx.x;
-  const int b = row / p.H, h = row - (row / p.H) * p.H;
-  const int lq = p.lq, d = p.d, S = p.n_split;
-  const float* ml = p.part_ml + (size_t)row * S * 2 * lq;
-  const float* pa = p.part_acc + (size_t)row * S * lq * d;
   T* out = static_cast<T*>(p.out);
-  for (int i = threadIdx.x; i < lq * d; i += kThreads) {
-    const int qi = i / d, dd = i - qi * d;
-    float m = kNegBig;
-    for (int s = 0; s < S; ++s) m = fmaxf(m, ml[s * 2 * lq + qi]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float wgt = expf(ml[s * 2 * lq + qi] - m);
-      l += ml[s * 2 * lq + lq + qi] * wgt;
-      a += pa[((size_t)s * lq + qi) * d + dd] * wgt;
-    }
-    const float lc = fmaxf(l, 1e-30f);
-    out[((size_t)(b * lq + qi) * p.H + h) * d + dd] = from_float<T>(a / lc);
-    if (dd == 0) p.lse[(size_t)row * lq + qi] = m + logf(lc);
-  }
-}
+  const int kv_begin = rank * p.keys_per_cta;
+  const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
+  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
+  const fv::RingCopies<T, DP> rc(k, p.k_st, v, p.v_st, kv_begin, p.d, tid);
 
-template <typename T>
-cudaError_t launch(const Params& p, int rows, cudaStream_t s) {
-  const size_t smem = split_smem_bytes(p.q_chunk, p.d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  for (int g0 = 0; g0 < p.lq; g0 += QG) {
+    const int nq = min(QG, p.lq - g0);
+    if constexpr (S::kRing) {
+      for (int s = 0; s < St; ++s) {
+        if (s < ntiles)
+          rc.issue(raw + s * TF, k, p.k_st, v, p.v_st, mask, kv_begin + s * KT, kv_end, tid);
+        tc::cp_async_commit();
+      }
+    }
+    fv::load_rows_f32<DP, T>(qs, q, p.q_st, g0, QG, p.lq, p.d, tid);
+    if (ntiles > 0) {
+      if constexpr (S::kRing) tc::cp_async_wait(St - 1);
+      __syncthreads();  // tile 0 has landed
+      fv::unpack<T, DP>(tiles, raw, rc.shift, k, p.k_st, v, p.v_st, mask, kv_begin, kv_end,
+                        p.d, tid);
+    }
+    const int ns = fv::slots_of(warp, nq);
+#define FWD_GROUP(NS)                                                                         \
+  fwd_group<T, DP, NS>(p, rc, raw, tiles, qs, ps, rm, rl, racc, k, v, mask, row, g0, nq, kv_begin, \
+                       kv_end, ntiles, rank, csize)
+    switch (ns) {
+      case 0: FWD_GROUP(0); break;
+      case 1: FWD_GROUP(1); break;
+      case 2: FWD_GROUP(2); break;
+      case 3: FWD_GROUP(3); break;
+      default: FWD_GROUP(4); break;
+    }
+#undef FWD_GROUP
+    const int ne = nq * p.d, share = (ne + csize - 1) / csize;
+    cluster.sync();
+    // this block's share of the group's output: the blocks' states merged
+    // in rank order from its own shared memory
+    for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
+      const int r = e / p.d, c = e - r * p.d;
+      float mx = tc::kNegBig;
+      for (int j = 0; j < csize; ++j) mx = fmaxf(mx, rm[j * QG + r]);
+      float a = 0.f, ls = 0.f;
+      for (int j = 0; j < csize; ++j) {
+        const float f = expf(rm[j * QG + r] - mx);
+        a += racc[j * share + e - rank * share] * f;
+        ls += rl[j * QG + r] * f;
+      }
+      const float lc = fmaxf(ls, 1e-30f);
+      out[((size_t)(b * p.lq + g0 + r) * p.H + h) * p.d + c] = fv::from_float<T>(a / lc);
+      if (c == 0) p.lse[(size_t)row * p.lq + g0 + r] = mx + logf(lc);
+    }
+    // before the next group pushes, every block is done reading this one's
+    if (g0 + QG < p.lq) cluster.sync();
   }
-  const int chunks = (p.lq + p.q_chunk - 1) / p.q_chunk;
-  flash_fwd_split<T><<<dim3(rows, p.n_split, chunks), kThreads, smem, s>>>(p);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_fwd_combine<T><<<rows, kThreads, 0, s>>>(p);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------- tensor-core variant (bf16)
-
-namespace tc = healnet::tc;
 
 struct TcParams {
   const __nv_bfloat16* q;
@@ -517,38 +559,59 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
 
 }  // namespace
 
-// The most queries a block of the FMA forward holds at head dim d (0 where
-// not even one fits).
+// The most queries a block of the FMA forward holds at once at head dim d
+// (it walks any lq in groups of that many); 0 where d is too wide.
 extern "C" int healnet_flash_max_queries(int d) {
-  const size_t fixed = split_smem_bytes(0, d);
-  const size_t per = split_smem_bytes(1, d) - fixed;
-  return fixed > tc::kMaxSmem ? 0 : (int)((tc::kMaxSmem - fixed) / per);
+  return d >= 1 && d <= fv::kMaxD ? fv::kGroup : 0;
+}
+
+namespace {
+
+template <typename T, int DP>
+cudaError_t launch_fma_fwd(FmaParams p, int cluster, int rows, cudaStream_t s) {
+  p.stages = fma_fwd_stages<T, DP>();
+  return tc::launch_clustered(flash_fwd_fma<T, DP>, p, cluster, rows,
+                              FmaFwdLayout<T, DP>(p.stages).total, s);
+}
+
+}  // namespace
+
+// Clusters of `cluster` blocks of the FMA forward the card holds at once
+// (-1 where the query fails, or for bf16 heads the tensor cores take).
+extern "C" int healnet_flash_fma_max_clusters(int d, int is_bf16, int cluster) {
+  return fv::with_dp32(d, [&](auto dp) -> int {
+    constexpr int DP = decltype(dp)::value;
+    using B = __nv_bfloat16;
+    if (!is_bf16)
+      return tc::max_active_clusters(flash_fwd_fma<float, DP>, cluster,
+                                     FmaFwdLayout<float, DP>(fma_fwd_stages<float, DP>()).total);
+    if constexpr (DP > 128)
+      return tc::max_active_clusters(flash_fwd_fma<B, DP>, cluster,
+                                     FmaFwdLayout<B, DP>(fma_fwd_stages<B, DP>()).total);
+    return -1;
+  });
 }
 
 extern "C" int healnet_flash_forward(
-    const void* q, const void* k, const void* v, const float* mask, float* part_acc,
-    float* part_ml, void* out, float* lse, int B, int H, int lq, int lkv, int d, int n_split,
-    int split_len, int q_chunk, long long q_sb, long long q_sh, long long q_st, long long k_sb,
-    long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
-    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
-    float keep_scale, int is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, const float* mask, void* out, float* lse,
+    int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
+    long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
+    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  Params p;
+  if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128)) return (int)cudaErrorInvalidValue;
+  FmaParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.mask = mask;
-  p.part_acc = part_acc;
-  p.part_ml = part_ml;
   p.out = out;
   p.lse = lse;
   p.H = H;
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
-  p.n_split = n_split;
-  p.split_len = split_len;
-  p.q_chunk = q_chunk;
+  p.keys_per_cta = keys_per_cta;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.q_st = q_st;
@@ -565,8 +628,12 @@ extern "C" int healnet_flash_forward(
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(p, B * H, s) : launch<float>(p, B * H, s);
-  return static_cast<int>(e);
+  return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
+    constexpr int DP = decltype(dp)::value;
+    if (!is_bf16) return launch_fma_fwd<float, DP>(p, cluster, B * H, s);
+    if constexpr (DP > 128) return launch_fma_fwd<__nv_bfloat16, DP>(p, cluster, B * H, s);
+    return cudaErrorInvalidValue;
+  }));
 }
 
 extern "C" int healnet_flash_tc_max_clusters(int d, int cluster) {

@@ -41,9 +41,22 @@
 // partial buffer in device memory, no second kernel, no float atomics.
 // q, dO, lse and delta are loaded once per block.
 //
-// flash_bwd_split + flash_bwd_merge (f32, and bf16 with d > 128): the first
-// port's f32 FMA kernels; keys split over blocks (two per SM), partial dq
-// written to a buffer and summed in split order by a second kernel.
+// flash_bwd_fma (f32, and bf16 with d > 128): full f32 FMA products on the
+// CUDA cores, one launch per call on the same skeleton and plan as the
+// forward's FMA variant (flash_attention.cu; fmav in flash_tc.cuh: 32-key
+// tiles from a cp.async ring of 16-byte hulls, shifted into double-buffered
+// aligned tiles). Each query row of a chunk of at most 32 is owned by one
+// warp: each lane takes one key of the tile for s = q K^T and dp = dO V^T
+// (a float4 of its key row against broadcast float4s of the warp's rows),
+// writes round(p e) and round(ds) to shared memory, and adds dq += round(ds)
+// K over its channels in registers. After the next tile's one block
+// barrier, warp w takes keys 4w..4w+3 of the previous tile and each lane
+// its channels for dv = round(p e)^T dO and dk = round(ds)^T q over the
+// chunk's queries (pd and ds are double-buffered, so one block barrier a
+// tile suffices), and writes them, a warp's stores covering 32 consecutive
+// channels of a row: each block finishes the dk and dv of its own keys. dq
+// is summed across the cluster in rank order through distributed shared
+// memory: no partial buffer, no second kernel, no float atomics.
 //
 // Any latent count: both variants walk the queries in chunks that fit
 // shared memory (query_chunks in ops/flash_attention.py sizes them from
@@ -64,25 +77,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;  // keys per tile
-constexpr float kNegBig = -1e30f;
+namespace tc = healnet::tc;
+namespace fv = healnet::tc::fmav;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+// ---------------------------------------------- FMA variant (f32 compute)
 
-struct Params {
+struct FmaParams {
   const void* q;
   const void* k;
   const void* v;
@@ -90,12 +90,11 @@ struct Params {
   const void* dout;    // (B, H, lq, d), strided
   const float* lse;    // (B*H, lq)
   const float* delta;  // (B*H, lq)
-  float* part_dq;      // (B*H, n_split, lq, d)
   void* dq;            // (B, H, lq, d) contiguous
   void* dk;            // (B, H, lkv, d) contiguous
   void* dv;            // (B, H, lkv, d) contiguous
   float* dkv_acc;      // (2, B*H, lkv, d) f32 when n_chunks > 1, else null
-  int H, lq, lkv, d, n_split, split_len, q_chunk, n_chunks;
+  int H, lq, lkv, d, keys_per_cta, stages, q_chunk, n_chunks;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
@@ -103,177 +102,301 @@ struct Params {
   float keep_scale;
 };
 
-// odd pitch: lanes reading one column of consecutive key rows hit distinct banks
-__host__ __device__ inline int key_pitch(int d) { return (d & 1) ? d : d + 1; }
-
-__host__ inline size_t bwd_smem_bytes(int lq, int d) {
-  return sizeof(float) * (size_t)(3 * lq * d + 2 * kTile * key_pitch(d) + 2 * lq * kTile +
-                                  kTile + 2 * lq);
+// queries of a chunk rounded up to whole slot rows (8 warps)
+__host__ __device__ inline int fma_rows(int chunk) {
+  return (chunk + tc::kWarps - 1) / tc::kWarps * tc::kWarps;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_split(Params p) {
-  extern __shared__ float smem[];
-  const int d = p.d, kp = key_pitch(d), lqc = p.q_chunk;
-  float* qs = smem;               // lqc * d
-  float* dos = qs + lqc * d;      // lqc * d
-  float* dqa = dos + lqc * d;     // lqc * d: this split's partial dq
-  float* ks = dqa + lqc * d;      // kTile * kp
-  float* vs = ks + kTile * kp;    // kTile * kp
-  float* pd = vs + kTile * kp;    // lqc * kTile: round_T(p * e)
-  float* dss = pd + lqc * kTile;  // lqc * kTile: round_T(ds)
-  float* mk = dss + lqc * kTile;  // kTile
-  float* lse_s = mk + kTile;      // lqc
-  float* del_s = lse_s + lqc;     // lqc
+// Byte offsets into the block's shared memory (rows: fma_rows(q_chunk)):
+// the ring's stages (none where the slice takes no ring), two aligned
+// tiles, q, dO, lse, delta, pd and ds, and the cluster's pushed dq. pd and
+// ds of a tile are double-buffered: the dk/dv products of tile it - 1 read
+// one pair while the scores of tile it write the other.
+template <typename T, int DP>
+struct FmaBwdLayout {
+  size_t tiles, qs, dos, lse, del, pd, rdq, total;
+  __host__ __device__ FmaBwdLayout(int stages, int rows) {
+    using S = fv::Shape<T, DP>;
+    tiles = sizeof(float) * (size_t)stages * S::kTileFloats;
+    qs = tiles + sizeof(float) * 2 * S::kTileFloats;
+    dos = qs + sizeof(float) * (size_t)rows * S::kPitch;
+    lse = dos + sizeof(float) * (size_t)rows * S::kPitch;
+    del = lse + sizeof(float) * rows;
+    pd = del + sizeof(float) * rows;  // [buffer][pd, ds][row][key]
+    rdq = pd + sizeof(float) * 4 * (size_t)rows * fv::kKeys;
+    total = rdq + sizeof(float) * ((size_t)rows * DP + tc::kMaxCluster);
+  }
+};
 
-  const int row = blockIdx.x, split = blockIdx.y;
-  const int b = row / p.H, h = row - (row / p.H) * p.H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+template <typename T, int DP>
+int fma_bwd_stages(int chunk) {
+  return fv::ring_stages<T, DP>(
+      [chunk](int s) { return FmaBwdLayout<T, DP>(s, fma_rows(chunk)).total; });
+}
+
+// The most queries a chunk may hold (at most 32, a multiple of 8) whose
+// layout fits a block at the fewest ring stages.
+template <typename T, int DP>
+int fma_bwd_max_queries() {
+  const int stages = fv::Shape<T, DP>::kRing ? 2 : 0;
+  for (int rows = fv::kGroup; rows > 0; rows -= tc::kWarps)
+    if (FmaBwdLayout<T, DP>(stages, rows).total <= tc::kMaxSmem) return rows;
+  return 0;
+}
+
+// dv_j += sum_i pd_ij dO_i and dk_j += sum_i ds_ij q_i for tile keys
+// 4 warp .. 4 warp + 3 and the lane's channels lane + 32 c (pd, ds: [row]
+// [key] of the tile), over the chunk's nq queries, then written out (dk
+// scaled; a warp's stores cover 32 consecutive channels of a row), or
+// carried over the chunks in f32 by this thread alone, in chunk order.
+template <typename T, int DP>
+__device__ __forceinline__ void dkdv_tile(const FmaParams& p, const float* pd, const float* ds,
+                                          const float* qs, const float* dos, int nq, int k0,
+                                          int kv_end, T* dk, T* dv, float* dk_acc, float* dv_acc,
+                                          bool first, bool last) {
+  constexpr int KT = fv::kKeys, P = DP + 4, CW = DP / 32;
+  const int lane = threadIdx.x & 31, j0 = 4 * (threadIdx.x >> 5);
+  float av[4][CW], ak[4][CW];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) av[jj][c] = ak[jj][c] = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < nq; ++i) {
+    const float4 pv = *reinterpret_cast<const float4*>(pd + i * KT + j0);
+    const float4 sv = *reinterpret_cast<const float4*>(ds + i * KT + j0);
+    float o[CW], x[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) o[c] = dos[i * P + lane + 32 * c], x[c] = qs[i * P + lane + 32 * c];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        av[jj][c] = fmaf(fv::at(pv, jj), o[c], av[jj][c]);
+        ak[jj][c] = fmaf(fv::at(sv, jj), x[c], ak[jj][c]);
+      }
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int key = k0 + j0 + jj;
+    if (key >= kv_end) continue;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch >= p.d) continue;
+      const size_t off = (size_t)key * p.d + ch;
+      float a = av[jj][c], b = ak[jj][c];
+      if (dk_acc != nullptr) {
+        if (!first) {
+          b += dk_acc[off];
+          a += dv_acc[off];
+        }
+        if (!last) {
+          dk_acc[off] = b;
+          dv_acc[off] = a;
+          continue;
+        }
+      }
+      dv[off] = fv::from_float<T>(a);
+      dk[off] = fv::from_float<T>(b * p.scale);
+    }
+  }
+}
+
+// The key loop of one query chunk for a warp that owns NS of its rows.
+// Tile it's interval, after its one block barrier: the ring issues tile
+// it + stages, tile it + 1 is shifted into the other aligned tile, every
+// thread takes its dk/dv products of tile it - 1 (from that tile's pd/ds
+// buffer), and the warp takes s = q K^T and dp = dO V^T of its rows against
+// the lane's key of tile it, p, round(p e) and round(ds) into the other
+// buffer, and dq += round(ds) K over the lane's channels (its own rows
+// only: __syncwarp). dq stays in registers and is pushed at the end.
+template <typename T, int DP, int NS>
+__device__ __forceinline__ void bwd_chunk(const FmaParams& p, const fv::RingCopies<T, DP>& rc,
+                                          float* raw, float* tiles,
+                                          const float* qs, const float* dos, const float* lse_s,
+                                          const float* del_s, float* pdbuf, float* rdq,
+                                          const T* k, const T* v, const float* mask, T* dk,
+                                          T* dv, float* dk_acc, float* dv_acc, int row, int q0c,
+                                          int nq, int rows, int kv_begin, int kv_end,
+                                          int ntiles, int rank, int csize, bool first,
+                                          bool last) {
+  using S = fv::Shape<T, DP>;
+  constexpr int KT = fv::kKeys, P = S::kPitch, TF = S::kTileFloats, CPL = S::kChPerLane;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, St = p.stages;
+  const int buf = 2 * rows * KT;  // floats of one (pd, ds) buffer pair
+  float dqa[NS > 0 ? NS : 1][CPL];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) dqa[s][i] = 0.f;
+  for (int it = 0; it <= ntiles; ++it) {
+    if constexpr (S::kRing)
+      if (it < ntiles) tc::cp_async_wait(St - 2);
+    // tile it is unpacked and tile it + 1 has landed; every warp is done
+    // with tile it - 1's aligned tile and with the products of tile it - 2
+    // (the pd/ds buffer tile it writes)
+    __syncthreads();
+    if (it < ntiles) {
+      const float* ring1 = nullptr;
+      if constexpr (S::kRing) {
+        if (it + St < ntiles)
+          rc.issue(raw + (it % St) * TF, k, p.k_st, v, p.v_st, mask, kv_begin + (it + St) * KT,
+                   kv_end, tid);
+        tc::cp_async_commit();
+        ring1 = raw + ((it + 1) % St) * TF;
+      }
+      if (it + 1 < ntiles)
+        fv::unpack<T, DP>(tiles + ((it + 1) & 1) * TF, ring1, rc.shift, k, p.k_st, v, p.v_st,
+                          mask,
+                          kv_begin + (it + 1) * KT, kv_end, p.d, tid);
+    }
+    if (it > 0) {
+      const float* pd = pdbuf + ((it - 1) & 1) * buf;
+      dkdv_tile<T, DP>(p, pd, pd + rows * KT, qs, dos, nq, kv_begin + (it - 1) * KT, kv_end, dk,
+                       dv, dk_acc, dv_acc, first, last);
+    }
+    if constexpr (NS > 0) {
+      if (it < ntiles) {
+        const float* ks = tiles + (it & 1) * TF;
+        const float* vs = ks + KT * P;
+        const float mkv = vs[KT * P + lane];
+        const int k0 = kv_begin + it * KT;
+        float* pd = pdbuf + (it & 1) * buf;
+        float* ds = pd + rows * KT;
+        float sd[2][NS];
+        fv::tile_dots<DP, NS, 2>(sd, qs, dos, ks, vs, warp, lane);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const int r = warp + tc::kWarps * s;
+          const float x = sd[0][s] * p.scale + (mkv - 1.f) * 1e30f;
+          const float pr = __expf(x - lse_s[r]) * mkv;
+          float e = 1.f;
+          if (p.dropout)
+            e = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
+                                   p.threshold)
+                    ? p.keep_scale
+                    : 0.f;
+          pd[r * KT + lane] = fv::round_to<T>(pr * e);
+          ds[r * KT + lane] = fv::round_to<T>(pr * (sd[1][s] * e - del_s[r]));
+        }
+        __syncwarp();
+        fv::tile_axpy<DP, NS>(dqa, ds + warp * KT, tc::kWarps * KT, ks, lane);
+      }
+    }
+  }
+  // push the warp's partial dq of element e = r d + c to the block that
+  // owns e (rank e / share)
+  const int share = (nq * p.d + csize - 1) / csize;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int r = warp + tc::kWarps * s;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane * CPL + i;
+      if (c < p.d) {
+        const int e = r * p.d + c, owner = e / share;
+        tc::st_cluster(rdq + rank * share + e - owner * share, owner, dqa[s][i]);
+      }
+    }
+  }
+}
+
+// One launch per call, the forward's plan: one cluster per row, block
+// `rank` owning a contiguous range of keys, whose dk and dv it finishes
+// (sums over every query, in query order, by one thread an element). For
+// each chunk of at most 32 queries the block streams its keys once; dq is
+// summed across the cluster in rank order through distributed shared
+// memory. With more than one chunk, dk and dv are carried over the chunks
+// in the f32 scratch buffer, each element by one thread, in chunk order.
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_fma(FmaParams p) {
+  using S = fv::Shape<T, DP>;
+  constexpr int KT = fv::kKeys, TF = S::kTileFloats;
+  extern __shared__ __align__(16) unsigned char fma_smem[];
+  const int rows = fma_rows(p.q_chunk);
+  const FmaBwdLayout<T, DP> L(p.stages, rows);
+  float* raw = reinterpret_cast<float*>(fma_smem);
+  float* tiles = reinterpret_cast<float*>(fma_smem + L.tiles);
+  float* qs = reinterpret_cast<float*>(fma_smem + L.qs);
+  float* dos = reinterpret_cast<float*>(fma_smem + L.dos);
+  float* lse_s = reinterpret_cast<float*>(fma_smem + L.lse);
+  float* del_s = reinterpret_cast<float*>(fma_smem + L.del);
+  float* pdbuf = reinterpret_cast<float*>(fma_smem + L.pd);
+  float* rdq = reinterpret_cast<float*>(fma_smem + L.rdq);  // pushed parts [rank][share]
+
+  tc::cg::cluster_group cluster = tc::cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const int tid = threadIdx.x, warp = tid >> 5, St = p.stages;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
-  T* dk = static_cast<T*>(p.dk) + (size_t)row * p.lkv * d;
-  T* dv = static_cast<T*>(p.dv) + (size_t)row * p.lkv * d;
-  const int kv_begin = split * p.split_len;
-  const int kv_end = min(p.lkv, kv_begin + p.split_len);
-  const size_t acc_half = (size_t)gridDim.x * p.lkv * d;  // dk's carry, then dv's
-  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)row * p.lkv * d : nullptr;
+  T* dk = static_cast<T*>(p.dk) + (size_t)row * p.lkv * p.d;
+  T* dv = static_cast<T*>(p.dv) + (size_t)row * p.lkv * p.d;
+  const int kv_begin = rank * p.keys_per_cta;
+  const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
+  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
+  const fv::RingCopies<T, DP> rc(k, p.k_st, v, p.v_st, kv_begin, p.d, tid);
+  // the carry of dk and dv over the chunks: this row's (lkv, d) halves
+  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)row * p.lkv * p.d : nullptr;
+  float* dv_acc = p.dkv_acc ? dk_acc + (size_t)gridDim.y * p.lkv * p.d : nullptr;
 
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
-    const int q0 = chunk * lqc, lq = min(lqc, p.lq - q0);
+    const int q0c = chunk * p.q_chunk, nq = min(p.q_chunk, p.lq - q0c);
     const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < lq * d; i += kThreads) {
-      const int qi = i / d, dd = i - qi * d;
-      qs[i] = to_float(q[(q0 + qi) * p.q_st + dd]);
-      dos[i] = to_float(dout[(q0 + qi) * p.o_st + dd]);
-      dqa[i] = 0.f;
-    }
-    for (int i = tid; i < lq; i += kThreads) {
-      lse_s[i] = p.lse[(size_t)row * p.lq + q0 + i];
-      del_s[i] = p.delta[(size_t)row * p.lq + q0 + i];
-    }
-
-    for (int k0 = kv_begin; k0 < kv_end; k0 += kTile) {
-      __syncthreads();  // the previous tile's readers are done
-      // one key row per warp, lanes along d: coalesced reads, no division
-      for (int j = warp; j < kTile; j += kWarps) {
-        const int key = k0 + j;
-        const bool ok = key < kv_end;
-        const T* kr = k + (ok ? key : 0) * p.k_st;
-        const T* vr = v + (ok ? key : 0) * p.v_st;
-        for (int dd = lane; dd < d; dd += 32) {
-          ks[j * kp + dd] = ok ? to_float(kr[dd]) : 0.f;
-          vs[j * kp + dd] = ok ? to_float(vr[dd]) : 0.f;
-        }
-      }
-      if (tid < kTile) {
-        const int key = k0 + tid;
-        mk[tid] = key < kv_end ? (mask ? mask[key] : 1.f) : 0.f;
-      }
-      __syncthreads();
-
-      // probabilities and score gradients: one (query, key) pair per thread
-      for (int i = tid; i < lq * kTile; i += kThreads) {
-        const int qi = i / kTile, j = i - qi * kTile;
-        const float* qr = qs + qi * d;
-        const float* orow = dos + qi * d;
-        const float* kr = ks + j * kp;
-        const float* vr = vs + j * kp;
-        float s = 0.f, dp = 0.f;
-        for (int dd = 0; dd < d; ++dd) {
-          s = fmaf(qr[dd], kr[dd], s);
-          dp = fmaf(orow[dd], vr[dd], dp);
-        }
-        s = s * p.scale + (mk[j] - 1.f) * 1e30f;
-        const float pr = expf(s - lse_s[qi]) * mk[j];
-        float e = 1.f;
-        if (p.dropout) {
-          const bool keep = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0 + qi),
-                                               (uint32_t)(k0 + j), p.threshold);
-          e = keep ? p.keep_scale : 0.f;
-        }
-        pd[i] = round_to<T>(pr * e);
-        dss[i] = round_to<T>(pr * (dp * e - del_s[qi]));
-      }
-      __syncthreads();
-
-      // dv_j = sum_i pd_ij dO_i and dk_j = scale * sum_i ds_ij q_i, written out
-      const int n_keys = min(kTile, kv_end - k0);
-      for (int i = tid; i < n_keys * d; i += kThreads) {
-        const int j = i / d, dd = i - j * d;
-        float a = 0.f, c = 0.f;
-        for (int qi = 0; qi < lq; ++qi) {
-          a = fmaf(pd[qi * kTile + j], dos[qi * d + dd], a);
-          c = fmaf(dss[qi * kTile + j], qs[qi * d + dd], c);
-        }
-        const size_t off = (size_t)(k0 + j) * d + dd;
-        if (dk_acc != nullptr) {  // carried over the chunks, by this thread alone
-          if (!first) {
-            c += dk_acc[off];
-            a += dk_acc[acc_half + off];
-          }
-          if (!last) {
-            dk_acc[off] = c;
-            dk_acc[acc_half + off] = a;
-            continue;
-          }
-        }
-        dv[off] = from_float<T>(a);
-        dk[off] = from_float<T>(c * p.scale);
-      }
-      // dq_i += sum_j ds_ij k_j (scaled once, in the merge)
-      for (int i = tid; i < lq * d; i += kThreads) {
-        const int qi = i / d, dd = i - qi * d;
-        const float* dr = dss + qi * kTile;
-        float a = dqa[i];
-#pragma unroll 8
-        for (int j = 0; j < kTile; ++j) a = fmaf(dr[j], ks[j * kp + dd], a);
-        dqa[i] = a;
+    if constexpr (S::kRing) {
+      for (int s = 0; s < St; ++s) {
+        if (s < ntiles)
+          rc.issue(raw + s * TF, k, p.k_st, v, p.v_st, mask, kv_begin + s * KT, kv_end, tid);
+        tc::cp_async_commit();
       }
     }
-    __syncthreads();
-
-    float* part = p.part_dq + (((size_t)row * p.n_split + split) * p.lq + q0) * d;
-    for (int i = tid; i < lq * d; i += kThreads) part[i] = dqa[i];
-  }  // chunk
-}
-
-// Sums each row's partial dq over the splits in split order, scales, and
-// writes (B, H, lq, d).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_merge(Params p) {
-  const int row = blockIdx.x;
-  const int n = p.lq * p.d;
-  const float* part = p.part_dq + (size_t)row * p.n_split * n;
-  T* dq = static_cast<T*>(p.dq) + (size_t)row * n;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float a = 0.f;
-    for (int s = 0; s < p.n_split; ++s) a += part[(size_t)s * n + i];
-    dq[i] = from_float<T>(a * p.scale);
+    // q, dO, lse and delta once per block and chunk (seen after the first
+    // barrier of the key loop)
+    fv::load_rows_f32<DP, T>(qs, q, p.q_st, q0c, rows, p.lq, p.d, tid);
+    fv::load_rows_f32<DP, T>(dos, dout, p.o_st, q0c, rows, p.lq, p.d, tid);
+    for (int i = tid; i < rows; i += tc::kThreads) {
+      lse_s[i] = i < nq ? p.lse[(size_t)row * p.lq + q0c + i] : 0.f;
+      del_s[i] = i < nq ? p.delta[(size_t)row * p.lq + q0c + i] : 0.f;
+    }
+    if (ntiles > 0) {
+      if constexpr (S::kRing) tc::cp_async_wait(St - 1);
+      __syncthreads();  // tile 0 has landed
+      fv::unpack<T, DP>(tiles, raw, rc.shift, k, p.k_st, v, p.v_st, mask, kv_begin, kv_end,
+                        p.d, tid);
+    }
+    const int ns = fv::slots_of(warp, nq);
+#define BWD_CHUNK(NS)                                                                       \
+  bwd_chunk<T, DP, NS>(p, rc, raw, tiles, qs, dos, lse_s, del_s, pdbuf, rdq, k, v, mask, dk, dv,     \
+                       dk_acc, dv_acc, row, q0c, nq, rows, kv_begin, kv_end, ntiles, rank, \
+                       csize, first, last)
+    switch (ns) {
+      case 0: BWD_CHUNK(0); break;
+      case 1: BWD_CHUNK(1); break;
+      case 2: BWD_CHUNK(2); break;
+      case 3: BWD_CHUNK(3); break;
+      default: BWD_CHUNK(4); break;
+    }
+#undef BWD_CHUNK
+    if constexpr (S::kRing) tc::cp_async_wait(0);  // only empty groups are left
+    cluster.sync();
+    // the chunk's dq: the parts added in rank order, scaled once
+    const int ne = nq * p.d, share = (ne + csize - 1) / csize;
+    T* dq = static_cast<T*>(p.dq) + ((size_t)row * p.lq + q0c) * p.d;
+    for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
+      float a = 0.f;
+      for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
+      dq[e] = fv::from_float<T>(a * p.scale);
+    }
+    // before the next chunk pushes, every block is done reading this one's
+    if (!last) cluster.sync();
   }
-}
-
-template <typename T>
-cudaError_t launch(const Params& p, int rows, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes(p.q_chunk, p.d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  flash_bwd_split<T><<<dim3(rows, p.n_split), kThreads, smem, s>>>(p);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_bwd_merge<T><<<rows, kThreads, 0, s>>>(p);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------- tensor-core variant (bf16)
-
-namespace tc = healnet::tc;
 
 constexpr int kDsPitch = tc::kQGroup + 8;  // bf16 row pitch of the p^T and ds^T tiles
 
@@ -639,25 +762,57 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
 
 }  // namespace
 
-// The most queries a block of the FMA backward holds at head dim d (0 where
-// not even one fits).
+// The most queries a chunk of the FMA backward holds at head dim d (0
+// where d is too wide).
 extern "C" int healnet_flash_bwd_max_queries(int d) {
-  const size_t fixed = bwd_smem_bytes(0, d);
-  const size_t per = bwd_smem_bytes(1, d) - fixed;
-  return fixed > tc::kMaxSmem ? 0 : (int)((tc::kMaxSmem - fixed) / per);
+  if (d < 1 || d > fv::kMaxD) return 0;
+  return fv::with_dp32(d, [](auto dp) -> int {
+    return fma_bwd_max_queries<float, decltype(dp)::value>();
+  });
+}
+
+namespace {
+
+template <typename T, int DP>
+cudaError_t launch_fma_bwd(FmaParams p, int cluster, int rows, cudaStream_t s) {
+  p.stages = fma_bwd_stages<T, DP>(p.q_chunk);
+  return tc::launch_clustered(flash_bwd_fma<T, DP>, p, cluster, rows,
+                              FmaBwdLayout<T, DP>(p.stages, fma_rows(p.q_chunk)).total, s);
+}
+
+}  // namespace
+
+// Clusters of `cluster` blocks of the FMA backward (query chunk lq) the
+// card holds at once (-1 where the query fails, or for bf16 heads the
+// tensor cores take).
+extern "C" int healnet_flash_bwd_fma_max_clusters(int lq, int d, int is_bf16, int cluster) {
+  return fv::with_dp32(d, [&](auto dp) -> int {
+    constexpr int DP = decltype(dp)::value;
+    using B = __nv_bfloat16;
+    if (!is_bf16)
+      return tc::max_active_clusters(
+          flash_bwd_fma<float, DP>, cluster,
+          FmaBwdLayout<float, DP>(fma_bwd_stages<float, DP>(lq), fma_rows(lq)).total);
+    if constexpr (DP > 128)
+      return tc::max_active_clusters(
+          flash_bwd_fma<B, DP>, cluster,
+          FmaBwdLayout<B, DP>(fma_bwd_stages<B, DP>(lq), fma_rows(lq)).total);
+    return -1;
+  });
 }
 
 extern "C" int healnet_flash_backward(
     const void* q, const void* k, const void* v, const float* mask, const void* dout,
-    const float* lse, const float* delta, float* part_dq, void* dq, void* dk, void* dv,
-    float* dkv_acc, int B, int H, int lq, int lkv, int d, int n_split, int split_len,
-    int q_chunk, int n_chunks, long long q_sb, long long q_sh,
-    long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
-    long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
-    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
-    float keep_scale, int is_bf16, void* stream) {
+    const float* lse, const float* delta, void* dq, void* dk, void* dv, float* dkv_acc, int B,
+    int H, int lq, int lkv, int d, int cluster, int keys_per_cta, int q_chunk, int n_chunks,
+    long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
+    long long k_st, long long v_sb, long long v_sh, long long v_st, long long o_sb,
+    long long o_sh, long long o_st, long long mask_sb, float scale, int dropout,
+    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  Params p;
+  if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128) || q_chunk < 1 || q_chunk > fv::kGroup)
+    return (int)cudaErrorInvalidValue;
+  FmaParams p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -665,7 +820,6 @@ extern "C" int healnet_flash_backward(
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
-  p.part_dq = part_dq;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
@@ -674,8 +828,7 @@ extern "C" int healnet_flash_backward(
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
-  p.n_split = n_split;
-  p.split_len = split_len;
+  p.keys_per_cta = keys_per_cta;
   p.q_chunk = q_chunk;
   p.n_chunks = n_chunks;
   p.q_sb = q_sb;
@@ -697,8 +850,12 @@ extern "C" int healnet_flash_backward(
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(p, B * H, s) : launch<float>(p, B * H, s);
-  return static_cast<int>(e);
+  return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
+    constexpr int DP = decltype(dp)::value;
+    if (!is_bf16) return launch_fma_bwd<float, DP>(p, cluster, B * H, s);
+    if constexpr (DP > 128) return launch_fma_bwd<__nv_bfloat16, DP>(p, cluster, B * H, s);
+    return cudaErrorInvalidValue;
+  }));
 }
 
 extern "C" int healnet_flash_bwd_tc_max_queries(int d) {

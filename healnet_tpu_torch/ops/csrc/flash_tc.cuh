@@ -1,8 +1,10 @@
-// Building blocks of the tensor-core flash kernels (flash_attention.cu and
-// flash_attention_bwd.cu, bf16, head dims up to 128): bf16 mma.sync
-// m16n8k16 with f32 accumulators, ldmatrix fragment loads, a cp.async ring
-// that stages 64-key tiles of K, V and the key mask, and the thread-block
-// cluster launch.
+// Building blocks of the flash kernels (flash_attention.cu and
+// flash_attention_bwd.cu). For the tensor-core variants (bf16, head dims up
+// to 128): bf16 mma.sync m16n8k16 with f32 accumulators, ldmatrix fragment
+// loads, a cp.async ring that stages 64-key tiles of K, V and the key mask.
+// For both variants: the thread-block cluster launch and distributed
+// shared memory stores. For the FMA variants (f32, and bf16 heads wider
+// than 128): namespace fmav at the end of the file.
 //
 // K and V are column slices of the merged KV buffer: rows of d bf16 values
 // at any 2-byte-aligned address with any row stride (brca: pitch 252, V at
@@ -73,9 +75,11 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most n (0..2) of this thread's copy groups are in flight
+// wait until at most n (0..3) of this thread's copy groups are in flight
 __device__ __forceinline__ void cp_async_wait(int n) {
-  if (n >= 2) {
+  if (n >= 3) {
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  } else if (n == 2) {
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
   } else if (n == 1) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -408,6 +412,302 @@ cudaError_t launch_clustered(Kernel kern, const Params& p, int cluster, int rows
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+
+// ------------------------------------------- the FMA kernels' pieces (f32)
+//
+// The FMA variants (f32, and bf16 heads wider than 128) compute in full f32
+// on the CUDA cores. A head of d channels is padded to DP, a multiple of 32
+// (at most 256); keys come in tiles of 32. An f32 slice with DP <= 128 is
+// staged by a cp.async ring as the 16-byte chunks that cover each row (its
+// hull, as stage_tile does for bf16: brca's V at element 63 and kirp's
+// pitch 270 leave rows at 4-byte offsets that no 16-byte copy of the row
+// itself can take), and the next tile is shifted out of its hull into an
+// aligned f32 tile (pitch DP + 4: float4 reads of 8 consecutive rows fall
+// on distinct banks, columns d..DP-1 zero) while this one is computed:
+// aligned tiles are double-buffered, so one block barrier a tile serves
+// the ring and both buffers. bf16 rows and wider f32 heads are loaded,
+// converted and stored into the aligned tile by the threads, with no ring.
+// Query rows are owned by warps: row r of a group of kGroup queries by warp
+// r % 8, in its slot r / 8; the lanes split a tile's keys for the scores
+// and the head dim for the products with a tile (P V, dS K).
+namespace fmav {
+
+constexpr int kSlots = 4;                // query rows a warp owns at most
+constexpr int kGroup = kWarps * kSlots;  // queries a block holds at once
+constexpr int kMaxD = 256;
+constexpr int kKeys = 32;                // keys per tile, one a lane
+
+template <typename T, int DP>
+struct Shape {
+  static_assert(DP % 32 == 0 && DP <= kMaxD, "DP: a multiple of 32, at most 256");
+  // whether the slice is staged by the cp.async ring (else loaded by the threads)
+  static constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;
+  static constexpr int kPitch = DP + 4;    // an aligned row; a hull row has DP / 4 + 1 chunks
+  static constexpr int kChPerLane = DP / 32;  // a lane's channels of a row
+  static constexpr int kTileFloats = 2 * kKeys * kPitch + kKeys;  // K, V, mask
+};
+static_assert(kKeys == 4 * kWarps, "the backward's dk/dv products take four keys a warp");
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+// N consecutive floats from shared memory at p, as wide as its alignment
+// allows (16 bytes where N % 4 == 0, 8 where N % 2 == 0)
+template <int N>
+__device__ __forceinline__ void ld_floats(float (&x)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      x[i] = t.x, x[i + 1] = t.y, x[i + 2] = t.z, x[i + 3] = t.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i);
+      x[i] = t.x, x[i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
+  }
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* kv_row_of(const T* k, long long k_st, const T* v,
+                                              long long v_st, int r, int key) {
+  return r < kKeys ? k + key * k_st : v + key * v_st;
+}
+
+// A thread's share of the ring's copies and of the unpacking, the same for
+// every tile of a block: its tiles start a multiple of 32 keys apart, and
+// 32 rows of any f32 slice move a row's 16-byte phase by a multiple of 16
+// bytes. Ring row r is K (r < 32) or V of key k0 + r % 32, copied as the
+// 16-byte chunks that hold part of it (its hull: a chunk that holds one
+// byte of the row lies in the row's page, so the hull never faults);
+// consecutive threads take consecutive chunks of a row.
+template <typename T, int DP>
+struct RingCopies {
+  static constexpr int HC = DP / 4 + 1, P = Shape<T, DP>::kPitch, N = 2 * kKeys * HC;
+  static constexpr int NP = (N + kThreads - 1) / kThreads;
+  int off[NP];     // the chunk's byte offset from the start of its tile's first row
+  int packed[NP];  // -1, or the ring float offset | row key << 16 | V << 21
+  int shift;       // the 4-byte phase of the row this thread unpacks (row tid % 64)
+
+  __device__ RingCopies(const T* k, long long k_st, const T* v, long long v_st, int kv_begin,
+                        int d, int tid) {
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int i = tid + n * kThreads, r = i / HC, c = i - r * HC, j = r % kKeys;
+      const long long st = r < kKeys ? k_st : v_st;
+      const uintptr_t base =
+          reinterpret_cast<uintptr_t>(r < kKeys ? (const void*)k : (const void*)v) +
+          st * 4 * kv_begin;
+      const uintptr_t row = base + st * 4 * j;
+      off[n] = (int)((long long)(row & ~uintptr_t(15)) + 16 * c - (long long)base);
+      const bool part = i < N && c < (int)(((row >> 2) & 3) + d + 3) >> 2;
+      packed[n] = part ? (r * P + 4 * c) | (j << 16) | ((r >= kKeys) << 21) : -1;
+    }
+    const int r = tid % (2 * kKeys);
+    shift = (int)(((reinterpret_cast<uintptr_t>(r < kKeys ? (const void*)k : (const void*)v)) +
+                   (r < kKeys ? k_st : v_st) * 4 * (kv_begin + r % kKeys)) >> 2 & 3);
+  }
+
+  // Issue the copies of the tile of keys k0 onwards (a multiple of 32 past
+  // the block's first key; those at or past kv_end left out) and of its
+  // mask values into ring stage raw.
+  __device__ __forceinline__ void issue(float* raw, const T* k, long long k_st, const T* v,
+                                        long long v_st, const float* mask, int k0, int kv_end,
+                                        int tid) const {
+    const char* kb = reinterpret_cast<const char*>(k) + k_st * 4 * k0;
+    const char* vb = reinterpret_cast<const char*>(v) + v_st * 4 * k0;
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int q = packed[n];
+      if (q >= 0 && k0 + ((q >> 16) & 31) < kv_end)
+        cp_async16(raw + (q & 0xFFFF), ((q >> 21) ? vb : kb) + off[n]);
+    }
+    if (mask != nullptr && tid < kKeys && k0 + tid < kv_end)
+      cp_async4(raw + 2 * kKeys * P + tid, mask + k0 + tid);
+  }
+};
+
+// Fill the aligned tile `tile` with keys [k0, k0 + 32): K rows, V rows at
+// tile + 32 * kPitch, the mask after them (1 without a mask, 0 past
+// kv_end). Ring: each row shifted out of its landed hull in `raw` by its
+// phase (four threads a row, a float4 each step); columns d..DP-1 and keys
+// past kv_end are zero. Otherwise loaded, converted and stored by the
+// threads.
+template <typename T, int DP>
+__device__ __forceinline__ void unpack(float* tile, const float* raw, int shift, const T* k,
+                                       long long k_st, const T* v, long long v_st,
+                                       const float* mask, int k0, int kv_end, int d, int tid) {
+  using S = Shape<T, DP>;
+  constexpr int P = S::kPitch;
+  if constexpr (S::kRing) {
+    const int r = tid % (2 * kKeys), part = tid / (2 * kKeys), s = shift;
+    const bool ok = k0 + r % kKeys < kv_end;
+    const float4* hull = reinterpret_cast<const float4*>(raw + r * P);
+    float4* out = reinterpret_cast<float4*>(tile + r * P);
+#pragma unroll
+    for (int c = part; c < DP / 4; c += kThreads / (2 * kKeys)) {
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) {
+        const float4 a = hull[c], b = hull[c + 1];
+        o.x = s == 0 ? a.x : s == 1 ? a.y : s == 2 ? a.z : a.w;
+        o.y = s == 0 ? a.y : s == 1 ? a.z : s == 2 ? a.w : b.x;
+        o.z = s == 0 ? a.z : s == 1 ? a.w : s == 2 ? b.x : b.y;
+        o.w = s == 0 ? a.w : s == 1 ? b.x : s == 2 ? b.y : b.z;
+        if (4 * c + 3 >= d) {
+          o.x = 4 * c < d ? o.x : 0.f;
+          o.y = 4 * c + 1 < d ? o.y : 0.f;
+          o.z = 4 * c + 2 < d ? o.z : 0.f;
+          o.w = 0.f;
+        }
+      }
+      out[c] = o;
+    }
+    if (tid < kKeys) {
+      const int kt = k0 + tid;
+      tile[2 * kKeys * P + tid] = kt >= kv_end     ? 0.f
+                                  : mask != nullptr ? raw[2 * kKeys * P + tid]
+                                                    : 1.f;
+    }
+  } else {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int r = warp; r < 2 * kKeys; r += kWarps) {
+      const int key = k0 + r % kKeys;
+      const T* src = kv_row_of(k, k_st, v, v_st, r, key);
+#pragma unroll
+      for (int c = lane; c < DP; c += 32)
+        tile[r * P + c] = (key < kv_end && c < d) ? to_float(src[c]) : 0.f;
+    }
+    if (tid < kKeys) {
+      const int kt = k0 + tid;
+      tile[2 * kKeys * P + tid] = kt >= kv_end ? 0.f : mask != nullptr ? mask[kt] : 1.f;
+    }
+  }
+}
+
+// The warp's dot products with a tile: for matrix m (NM of them) and slot
+// s, out[m][s] = a_m[warp + 8 s] . b_m[lane] over the DP padded channels,
+// rows of both at pitch kPitch. a_m rows are read as broadcast float4s,
+// the lane's b_m row as one float4 (distinct banks).
+template <int DP, int NS, int NM>
+__device__ __forceinline__ void tile_dots(float (&out)[NM][NS], const float* a0, const float* a1,
+                                          const float* b0, const float* b1, int warp, int lane) {
+  constexpr int P = DP + 4;
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) out[m][s] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float* a = m ? a1 : a0;
+      const float4 bv = *reinterpret_cast<const float4*>((m ? b1 : b0) + lane * P + c);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float4 av = *reinterpret_cast<const float4*>(a + (warp + kWarps * s) * P + c);
+        float x = out[m][s];
+        x = fmaf(av.x, bv.x, x);
+        x = fmaf(av.y, bv.y, x);
+        x = fmaf(av.z, bv.z, x);
+        x = fmaf(av.w, bv.w, x);
+        out[m][s] = x;
+      }
+    }
+  }
+}
+
+// acc[s][i] += sum_j w[s][j] tile[j][lane * DP / 32 + i] over a tile's
+// keys: slot s's weights at w + s * w_stride (read as broadcast float4s),
+// the lane's channels of a tile row as one vector load.
+template <int DP, int NS>
+__device__ __forceinline__ void tile_axpy(float (&acc)[NS][DP / 32], const float* w, int w_stride,
+                                          const float* tile, int lane) {
+  constexpr int P = DP + 4, CPL = DP / 32;
+#pragma unroll 2
+  for (int j = 0; j < kKeys; j += 4) {
+    float4 wv[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) wv[s] = *reinterpret_cast<const float4*>(w + s * w_stride + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float t[CPL];
+      ld_floats<CPL>(t, tile + (j + jj) * P + lane * CPL);
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) acc[s][i] = fmaf(at(wv[s], jj), t[i], acc[s][i]);
+    }
+  }
+}
+
+// Rows [r0, r0 + rows) of a strided (n x d) matrix as f32 rows at pitch
+// DP + 4; rows at or past n, and columns d..DP-1, are zero.
+template <int DP, typename T>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, long long st, int r0,
+                                              int rows, int n, int d, int tid) {
+  for (int i = tid; i < rows * DP; i += kThreads) {
+    const int r = i / DP, c = i % DP;
+    dst[r * (DP + 4) + c] = (r0 + r < n && c < d) ? to_float(src[(r0 + r) * st + c]) : 0.f;
+  }
+}
+
+// The slots of warp `warp` among n query rows (row r in warp r % 8).
+__device__ __forceinline__ int slots_of(int warp, int n) {
+  return warp < n ? (n - 1 - warp) / kWarps + 1 : 0;
+}
+
+// Calls fn(std::integral_constant<int, DP>) with d padded to a multiple of
+// 32 (d <= 256).
+template <typename Fn>
+auto with_dp32(int d, Fn&& fn) {
+  switch ((d + 31) / 32) {
+    case 1: return fn(std::integral_constant<int, 32>{});
+    case 2: return fn(std::integral_constant<int, 64>{});
+    case 3: return fn(std::integral_constant<int, 96>{});
+    case 4: return fn(std::integral_constant<int, 128>{});
+    case 5: return fn(std::integral_constant<int, 160>{});
+    case 6: return fn(std::integral_constant<int, 192>{});
+    case 7: return fn(std::integral_constant<int, 224>{});
+    default: return fn(std::integral_constant<int, 256>{});
+  }
+}
+
+// The ring's depth: 0 where the slice takes no ring, else pick_stages's
+// (the most stages that leave room for two blocks on an SM, else the most
+// that fit one).
+template <typename T, int DP, typename Layout>
+int ring_stages(Layout layout) {
+  return Shape<T, DP>::kRing ? pick_stages(layout) : 0;
+}
+
+// Blocks an SM should hold: two where a slice's tiles are narrow enough for
+// two blocks' layouts (and 128 registers a thread), so that clusters of 16
+// stay resident for every row.
+template <int DP>
+constexpr int min_blocks() {
+  return DP <= 64 ? 2 : 1;
+}
+
+}  // namespace fmav
 
 }  // namespace tc
 }  // namespace healnet

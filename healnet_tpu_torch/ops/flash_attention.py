@@ -10,12 +10,13 @@ the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
 
 Each kernel has two variants, chosen by :func:`flash_variant` from the
 dtype and head dim before the launch: bf16 with d <= 128 (the model's
-path) takes the tensor-core kernel, one clustered launch per call sized by
-:func:`flash_plan`; f32, and bf16 with d > 128, take the f32 FMA kernels
-(a split kernel and a merge kernel). Each wrapper counts the launches of
-each variant (``launches``, ``launches_fma``). Every kernel takes any latent
-count: where a call's queries outgrow a block's shared memory, the kernels
-walk them in chunks sized by :func:`query_chunks`.
+path) takes the tensor-core kernel; f32, and bf16 with d > 128, take the
+f32 FMA kernel. Both are one clustered launch per call sized by
+:func:`flash_plan` (in key tiles of :func:`key_tile`) from the kernel's own
+cluster occupancy. Each wrapper counts the launches of each variant
+(``launches``, ``launches_fma``). Every kernel takes any latent count: the
+forward walks the queries in groups inside a block, and the backward walks
+them in chunks sized by :func:`query_chunks` from what a block holds.
 
 The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
 (forward, materialised weights; its autograd gradient is the same function
@@ -42,9 +43,10 @@ from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep_threshold
 
-_KEY_TILE = 32  # keys per tile of the FMA kernels (kTile)
 _TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
 _TC_MAX_D = 128  # widest head the tensor-core kernels take
+_FMA_MAX_D = 256  # widest head the FMA kernels take (fmav::kMaxD)
+_FMA_TILE = 32  # keys per tile of the FMA kernels (fmav::kKeys)
 _TC_QGROUP = 32  # queries per group of the tensor-core kernels (tc::kQGroup)
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)
 _NEG_BIG = -1e30
@@ -56,12 +58,12 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = (
-            [p] * 8 + [i] * 8 + [ll] * 10 + [f, i, u, u, f, i, p]
-        )
+        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_max_queries.argtypes = [i]
         lib.healnet_flash_max_queries.restype = i
+        lib.healnet_flash_fma_max_clusters.argtypes = [i, i, i]
+        lib.healnet_flash_fma_max_clusters.restype = i
         lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, p]
         lib.healnet_flash_forward_tc.restype = ctypes.c_int
         lib.healnet_flash_tc_max_clusters.argtypes = [i, i]
@@ -75,12 +77,12 @@ def _bwd_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = (
-            [p] * 12 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p]
-        )
+        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_bwd_max_queries.argtypes = [i]
         lib.healnet_flash_bwd_max_queries.restype = i
+        lib.healnet_flash_bwd_fma_max_clusters.argtypes = [i, i, i, i]
+        lib.healnet_flash_bwd_fma_max_clusters.restype = i
         lib.healnet_flash_backward_tc.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, p]
         lib.healnet_flash_backward_tc.restype = ctypes.c_int
         lib.healnet_flash_bwd_tc_max_queries.argtypes = [i]
@@ -97,18 +99,26 @@ def flash_variant(dtype: torch.dtype, d: int) -> str:
     return "tc" if dtype == torch.bfloat16 and d <= _TC_MAX_D else "fma"
 
 
-def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int) -> Tuple[int, int]:
-    """Launch plan of the tensor-core kernels: ``(cluster, keys_per_block)``.
+def key_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys per tile of the kernel a call takes: 64 for the tensor-core
+    kernels, 32 for the FMA ones."""
+    return _TC_TILE if flash_variant(dtype, d) == "tc" else _FMA_TILE
+
+
+def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int,
+               tile: int = _TC_TILE) -> Tuple[int, int]:
+    """Launch plan of both kernel variants: ``(cluster, keys_per_block)``.
 
     One cluster of ``cluster`` blocks per (batch*head) row, block ``r``
     owning keys ``[r * keys_per_block, (r + 1) * keys_per_block)``: enough
-    blocks for one on every SM, each a whole number of 64-key tiles, at most
-    ``max_cluster`` (the largest cluster of which ``rows`` fit on the card
-    at once), and no block without keys (so ``lkv <= 64`` gives 1).
+    blocks for one on every SM, each a whole number of ``tile``-key tiles,
+    at most ``max_cluster`` (the largest cluster of which ``rows`` fit on
+    the card at once), and no block without keys (so ``lkv <= tile`` gives
+    1).
     """
-    tiles = max(1, -(-lkv // _TC_TILE))
+    tiles = max(1, -(-lkv // tile))
     want = max(1, -(-sms // max(rows, 1)))
-    per = -(-tiles // max(1, min(want, tiles, max_cluster))) * _TC_TILE
+    per = -(-tiles // max(1, min(want, tiles, max_cluster))) * tile
     return max(1, -(-lkv // per)), per
 
 
@@ -144,10 +154,11 @@ def _sm_count(index: int) -> int:
 _RESIDENT: Dict[tuple, Dict[int, int]] = {}
 
 
-def _tc_plan(query, key: tuple, rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
+def _plan(query, key: tuple, rows: int, lkv: int, device: torch.device,
+          tile: int = _TC_TILE) -> Tuple[int, int]:
     """:func:`flash_plan` on ``device``, with its SM count and the kernel's
     cluster occupancy (``query(size)``, ``cudaOccupancyMaxActiveClusters``)
-    cached per device and shape class."""
+    cached per kernel, device and shape class."""
     counts = _RESIDENT.get(key)
     if counts is None:
         counts = {c: int(query(c)) for c in _CLUSTER_SIZES}
@@ -155,17 +166,7 @@ def _tc_plan(query, key: tuple, rows: int, lkv: int, device: torch.device) -> Tu
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
         _RESIDENT[key] = counts
     max_cluster = next((c for c in _CLUSTER_SIZES if counts[c] >= rows), 1)
-    return flash_plan(rows, lkv, _sm_count(device.index), max_cluster)
-
-
-def _n_split(rows: int, lkv: int, device: torch.device) -> Tuple[int, int]:
-    """Key splits per row of the FMA kernels: enough blocks for two on
-    every SM (a block is latency-bound on its own), each split a whole
-    number of key tiles. Returns (n_split, split_len)."""
-    tiles = max(1, -(-lkv // _KEY_TILE))
-    want = max(1, min(tiles, -(-2 * _sm_count(device.index) // max(rows, 1))))
-    split_len = -(-tiles // want) * _KEY_TILE
-    return max(1, -(-lkv // split_len)), split_len
+    return flash_plan(rows, lkv, _sm_count(device.index), max_cluster, tile)
 
 
 def _check_qkv(q, k, v, extra=()) -> None:
@@ -209,18 +210,16 @@ def flash_attention_kernel(
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
     bf16 with d <= 128 launches the tensor-core kernel (counted in
-    ``launches``), anything else the FMA kernels (``launches_fma``).
+    ``launches``), anything else the FMA kernel (``launches_fma``; heads up
+    to 256 wide). Either is one launch.
     """
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
     lib = _lib()
     tc = flash_variant(q.dtype, d) == "tc"
-    if not tc:  # the FMA split kernel holds a chunk of queries in shared memory
-        max_rows = _max_queries("healnet_flash_max_queries", d)
-        if max_rows < 1:
-            raise ValueError(f"the FMA forward takes no head of d={d}")
-        _, chunk = query_chunks(lq, max_rows)
+    if not tc and _max_queries("healnet_flash_max_queries", d) < 1:
+        raise ValueError(f"the FMA forward takes heads of 1 to {_FMA_MAX_D}, not d={d}")
     mask = _float_mask(kv_mask, b, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -231,8 +230,8 @@ def flash_attention_kernel(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tc:
-            cluster, per = _tc_plan(lambda c: lib.healnet_flash_tc_max_clusters(d, c),
-                                    ("fwd", q.device.index, -(-d // 16)), b * h, lkv, q.device)
+            cluster, per = _plan(lambda c: lib.healnet_flash_tc_max_clusters(d, c),
+                                 ("fwd", q.device.index, -(-d // 16)), b * h, lkv, q.device)
             code = lib.healnet_flash_forward_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
@@ -240,15 +239,14 @@ def flash_attention_kernel(
             )
             flash_attention_kernel.launches += 1
         else:
-            n_split, split_len = _n_split(b * h, lkv, q.device)
-            part_acc = torch.empty((b * h, n_split, lq, d), dtype=torch.float32,
-                                   device=q.device)
-            part_ml = torch.empty((b * h, n_split, 2, lq), dtype=torch.float32, device=q.device)
+            bf = int(q.dtype == torch.bfloat16)
+            cluster, per = _plan(lambda c: lib.healnet_flash_fma_max_clusters(d, bf, c),
+                                 ("fwd_fma", q.device.index, -(-d // 32), bf), b * h, lkv,
+                                 q.device, key_tile(q.dtype, d))
             code = lib.healnet_flash_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                b, h, lq, lkv, d, n_split, split_len, chunk, *strides, float(eff_scale),
-                *drop, int(q.dtype == torch.bfloat16), stream,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
+                *drop, bf, stream,
             )
             flash_attention_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
@@ -296,7 +294,7 @@ def flash_attention_bwd_kernel(
     max_rows = _max_queries(
         "healnet_flash_bwd_tc_max_queries" if tc else "healnet_flash_bwd_max_queries", d)
     if max_rows < 1:
-        raise ValueError(f"the FMA backward takes no head of d={d}")
+        raise ValueError(f"the FMA backward takes heads of 1 to {_FMA_MAX_D}, not d={d}")
     n_chunks, chunk = query_chunks(lq, max_rows, _TC_QGROUP if tc else 1)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
@@ -315,7 +313,7 @@ def flash_attention_bwd_kernel(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tc:
-            cluster, per = _tc_plan(
+            cluster, per = _plan(
                 lambda c: lib.healnet_flash_bwd_tc_max_clusters(chunk, d, c),
                 ("bwd", q.device.index, -(-d // 16), chunk // _TC_QGROUP), b * h, lkv, q.device)
             code = lib.healnet_flash_backward_tc(
@@ -326,14 +324,16 @@ def flash_attention_bwd_kernel(
             )
             flash_attention_bwd_kernel.launches += 1
         else:
-            n_split, split_len = _n_split(b * h, lkv, q.device)
-            part_dq = torch.empty((b * h, n_split, lq, d), dtype=torch.float32, device=q.device)
+            bf = int(q.dtype == torch.bfloat16)
+            cluster, per = _plan(
+                lambda c: lib.healnet_flash_bwd_fma_max_clusters(chunk, d, bf, c),
+                ("bwd_fma", q.device.index, -(-d // 32), bf, -(-chunk // 8)), b * h, lkv,
+                q.device, key_tile(q.dtype, d))
             code = lib.healnet_flash_backward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part_dq.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), carry_ptr,
-                b, h, lq, lkv, d, n_split, split_len, chunk, n_chunks, *strides,
-                float(eff_scale), *drop, int(q.dtype == torch.bfloat16), stream,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
+                float(eff_scale), *drop, bf, stream,
             )
             flash_attention_bwd_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")

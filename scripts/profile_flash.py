@@ -10,9 +10,11 @@ it profiles one forward and one backward call of the wrappers
 kernel of a call with its time per launch and launches per call, beside the
 times of the calls and of SDPA's forward and backward on the same inputs
 (``chip_smoke.time_ms``). K and V are the column slices of a merged KV
-buffer, as the model hands them over. With ``--clusters``, the bf16 calls
-are timed again with the tensor-core kernels' cluster forced to each size
-(keys split evenly in 64-key tiles) in place of ``flash_plan``'s choice.
+buffer, as the model hands them over. It prints each kernel's clusters
+resident at once per cluster size (``cudaOccupancyMaxActiveClusters``, the
+table ``flash_plan`` picks from). With ``--clusters``, every call is timed
+again with the cluster forced to each size (keys split evenly in whole
+tiles) in place of ``flash_plan``'s choice.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ from healnet_tpu_torch.ops.flash_attention import (  # noqa: E402
 
 def forced_plan(cluster: int):
     """A stand-in for ``flash_plan`` that always takes ``cluster`` blocks."""
-    def plan(rows, lkv, sms, max_cluster):
-        tiles = max(1, -(-lkv // 64))
-        per = -(-tiles // cluster) * 64
+    def plan(rows, lkv, sms, max_cluster, tile=64):
+        tiles = max(1, -(-lkv // tile))
+        per = -(-tiles // cluster) * tile
         return max(1, -(-lkv // per)), per
     return plan
 
@@ -77,7 +79,10 @@ def main() -> int:
               f"SDPA {time_ms(sdpa)[0]:.4f} ms")
         print(f"  backward {launch_profile(bwd)[1]}; kernel {time_ms(bwd)[0]:.4f} ms, "
               f"SDPA backward {time_ms(sdpa_bwd)[0]:.4f} ms")
-        for c in [int(x) for x in args.clusters.split(",") if x] if dtype == torch.bfloat16 else []:
+        for key, counts in fa._RESIDENT.items():
+            print(f"  clusters resident at once {key}: {counts}")
+        fa._RESIDENT.clear()
+        for c in [int(x) for x in args.clusters.split(",") if x]:
             fa.flash_plan, plan = forced_plan(c), fa.flash_plan
             try:
                 print(f"  cluster {c}: forward {time_ms(fwd)[0]:.4f} ms, backward "

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the tensor-core flash kernels.
+"""Where the time goes inside the flash kernels, either variant.
 
-    python3 scripts/profile_flash_phases.py [--d 63]
+    python3 scripts/profile_flash_phases.py [--variant tc|fma] [--d 63]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds instrumented copies of ``healnet_tpu_torch/ops/csrc/flash_attention.cu``
 and ``flash_attention_bwd.cu`` into ``build/flash-phases/``: at each phase
 boundary thread 0 of every block adds the ``clock64()`` cycles since the
 previous boundary to that phase's counter in shared memory, and adds the
-counters to device memory at the block's end. It runs the forward and the
-backward at (8, 17, 4096, d) bf16, unmasked, K and V as slices of a merged
-KV buffer (``chip_smoke.attention_inputs``), 20 times each, and prints each
-phase's cycles per block and call (averaged over the blocks) and its share.
-Thread 0 is in warp 0, so a phase that ends at a barrier includes the wait
-for the slowest warp.
+counters to device memory at the block's end. Only the chosen variant's
+section of each file is instrumented. It runs the forward and the backward
+at (8, 17, 4096, d), bf16 for the tensor-core variant and f32 for the FMA
+one, unmasked, K and V as slices of a merged KV buffer
+(``chip_smoke.attention_inputs``), 20 times each, and prints each phase's
+cycles per block and call (averaged over the blocks) and its share. Thread
+0 is in warp 0 (which owns three of 17 query rows in the FMA kernels), so
+a phase that ends at a barrier includes the wait for the slowest warp.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from healnet_tpu_torch.ops.flash_attention import (  # noqa: E402
 
 HEADER = '''
 __device__ unsigned long long g_prof[4096][16];
+__shared__ long long prof_s[16];
+__shared__ long long t_last;
 #define PROF(k) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
   prof_s[k] += t_ - t_last; t_last = t_; } } while (0)
 #define PROF_FLUSH() do { if (threadIdx.x == 0) for (int k_ = 0; k_ < 16; ++k_) { \\
@@ -53,12 +57,15 @@ extern "C" void prof_reset() {
   cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 '''
-START = ("  const int S = p.stages;\n",
-         "  __shared__ long long prof_s[16];\n"
-         "  if (threadIdx.x == 0) for (int k_ = 0; k_ < 16; ++k_) prof_s[k_] = 0;\n"
-         "  long long t_last = clock64();\n")
+INIT = ("  if (threadIdx.x == 0) { for (int k_ = 0; k_ < 16; ++k_) prof_s[k_] = 0; "
+        "t_last = clock64(); }\n")
+TC_SECTION = ("// ------------------------------------------------- tensor-core", None)
+FMA_SECTION = ("// ---------------------------------------------- FMA variant",
+               "// ------------------------------------------------- tensor-core")
+# the section instrumented, the line after which the counters start, and
 # (text after which a marker goes, marker), in source order
 FWD = {
+    "section": TC_SECTION, "start": "  const int S = p.stages;\n",
     "phases": {1: "prologue and q load", 2: "wait for the tile", 10: "issue the next tile",
                3: "unpack", 4: "scores, softmax, @V", 5: "warp states",
                6: "block merge and push", 7: "cluster barrier", 8: "merge and store",
@@ -84,6 +91,7 @@ FWD = {
     ],
 }
 BWD = {
+    "section": TC_SECTION, "start": "  const int S = p.stages;\n",
     "phases": {1: "prologue, q/dO load", 2: "wait for the tile", 10: "issue the next tile",
                3: "unpack", 4: "s^T, dp^T, p, ds", 5: "dv, dk, dq products",
                6: "dk, dv staged and stored", 7: "dq push", 8: "cluster barrier",
@@ -92,39 +100,94 @@ BWD = {
         ("  for (int i = tid; i < lqp * AP; i += tc::kThreads) dq_s[i] = 0.f;\n", "PROF(1);"),
         ("    __syncthreads();  // tile `it` has landed; every warp is done with it - 1\n",
          "PROF(2);"),
-        ("    tc::cp_async_commit();\n    const int k0 = kv_begin + it * tc::kKeyTile;\n",
+        ("      tc::cp_async_commit();\n      const int k0 = kv_begin + it * tc::kKeyTile;\n",
          "PROF(10);"),
-        ("                        mask != nullptr, k0, kv_end, p.d, tid);\n    __syncthreads();\n",
+        ("                          mask != nullptr, k0, kv_end, p.d, tid);\n      __syncthreads();\n",
          "PROF(3);"),
         ("      __syncthreads();  // the tile's p^T and ds^T are complete\n", "PROF(4);"),
         ("      if (grp + 1 < ngroups) __syncthreads();  // p^T and ds^T are rewritten by the next group\n",
          "PROF(5);"),
-        ("      tc::bulk_commit();\n    }\n", "PROF(6);"),
-        ("    tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);\n  }\n",
+        ("        tc::bulk_commit();\n      }\n", "PROF(6);"),
+        ("      tc::st_cluster(rdq + rank * share + e - owner * share, owner, dq_s[r * AP + c]);\n    }\n",
          "PROF(7);"),
-        ("  cluster.sync();\n  __nv_bfloat16* dq = p.dq + (size_t)row * ne;\n", "PROF(8);"),
-        ("    dq[e] = __float2bfloat16(a * p.scale);\n  }\n", "PROF(9); PROF_FLUSH();"),
+        ("    cluster.sync();\n    __nv_bfloat16* dq = p.dq + ((size_t)row * p.lq + q0c) * p.d;\n",
+         "PROF(8);"),
+        ("      dq[e] = __float2bfloat16(a * p.scale);\n    }\n", "PROF(9); PROF_FLUSH();"),
     ],
 }
 
 
-def build_instrumented(name: str, spec: dict) -> ctypes.CDLL:
+FMA_PROLOGUE = ("      fv::unpack<T, DP>(tiles, raw, rc.shift, k, p.k_st, v, p.v_st, mask, kv_begin,"
+                " kv_end,\n                        p.d, tid);\n    }\n")
+FMA_FWD = {
+    "section": FMA_SECTION,
+    "start": "  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;\n",
+    "phases": {1: "first tiles issued, q load, tile 0 unpacked", 2: "wait for the tile",
+               3: "issue a tile", 12: "unpack the next tile", 4: "scores",
+               5: "softmax, p stored", 6: "acc += p V", 7: "ring drained", 8: "state pushed",
+               9: "cluster barrier", 10: "merge and store", 11: "next-group barrier"},
+    "markers": [
+        (FMA_PROLOGUE, "PROF(1);"),
+        ("    // with tile it - 1 (its aligned tile is refilled below)\n    __syncthreads();\n",
+         "PROF(2);"),
+        ("      ring1 = raw + ((it + 1) % St) * TF;\n    }\n", "PROF(3);"),
+        ("                        kv_begin + (it + 1) * KT, kv_end, p.d, tid);\n", "PROF(12);"),
+        ("      fv::tile_dots<DP, NS, 1>(sc, qs, nullptr, ks, nullptr, warp, lane);\n",
+         "PROF(4);"),
+        ("      __syncwarp();\n", "PROF(5);"),
+        ("      fv::tile_axpy<DP, NS>(a, pw, KT, vs, lane);\n", "PROF(6);"),
+        ("  if constexpr (S::kRing) tc::cp_async_wait(0);  // only empty groups are left\n",
+         "PROF(7);"),
+        ("#undef FWD_GROUP\n", "PROF(8);"),
+        ("    cluster.sync();\n    // this block's share of the group's output: the blocks' states"
+         " merged\n    // in rank order from its own shared memory\n", "PROF(9);"),
+        ("      if (c == 0) p.lse[(size_t)row * p.lq + g0 + r] = mx + logf(lc);\n    }\n",
+         "PROF(10);"),
+        ("    if (g0 + QG < p.lq) cluster.sync();\n", "PROF(11); PROF_FLUSH();"),
+    ],
+}
+FMA_BWD = {
+    "section": FMA_SECTION,
+    "start": "  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;\n",
+    "phases": {1: "first tiles issued, q/dO load, tile 0 unpacked", 2: "wait for the tile",
+               3: "issue a tile", 12: "unpack the next tile", 4: "dk, dv products and stores",
+               5: "s, dp", 6: "p, round(p e), round(ds) stored", 7: "dq += ds K",
+               8: "dq pushed", 9: "cluster barrier", 10: "dq merge and store"},
+    "markers": [
+        (FMA_PROLOGUE, "PROF(1);"),
+        ("    // (the pd/ds buffer tile it writes)\n    __syncthreads();\n", "PROF(2);"),
+        ("        ring1 = raw + ((it + 1) % St) * TF;\n      }\n", "PROF(3);"),
+        ("                          kv_begin + (it + 1) * KT, kv_end, p.d, tid);\n    }\n",
+         "PROF(12);"),
+        ("                       dv, dk_acc, dv_acc, first, last);\n    }\n", "PROF(4);"),
+        ("        fv::tile_dots<DP, NS, 2>(sd, qs, dos, ks, vs, warp, lane);\n", "PROF(5);"),
+        ("        __syncwarp();\n", "PROF(6);"),
+        ("        fv::tile_axpy<DP, NS>(dqa, ds + warp * KT, tc::kWarps * KT, ks, lane);\n",
+         "PROF(7);"),
+        ("#undef BWD_CHUNK\n", "PROF(8);"),
+        ("    cluster.sync();\n    // the chunk's dq: the parts added in rank order, scaled once\n",
+         "PROF(9);"),
+        ("    if (!last) cluster.sync();\n", "PROF(10); PROF_FLUSH();"),
+    ],
+}
+
+
+def build_instrumented(name: str, spec: dict, tag: str) -> ctypes.CDLL:
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
     src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER)
-    head, tail = src.split("// ------------------------------------------------- tensor-core", 1)
-    if START[0] not in tail:
-        raise RuntimeError(f"{name}.cu changed; no place for the start marker")
-    tail = tail.replace(START[0], START[0] + START[1], 1)
-    for anchor, marker in spec["markers"]:
-        if anchor not in tail:
-            raise RuntimeError(f"{name}.cu changed; no marker place for {marker}")
-        tail = tail.replace(anchor, f"{anchor}{marker}\n", 1)
+    begin, end = spec["section"]
+    i = src.index(begin)
+    j = src.index(end, i) if end else len(src)
+    part = src[i:j]
+    for anchor, marker in [(spec["start"], None), *spec["markers"]]:
+        if part.count(anchor) != 1:
+            raise RuntimeError(f"{name}.cu changed; no single place for marker {marker or 'start'}")
+        part = part.replace(anchor, anchor + (INIT if marker is None else f"{marker}\n"), 1)
     out = ROOT / "build" / "flash-phases"
     out.mkdir(parents=True, exist_ok=True)
-    path = out / f"{name}_phases.cu"
-    path.write_text(head + "// ------------------------------------------------- tensor-core" + tail
-                    + FOOTER)
-    lib_path = out / f"lib{name}_phases.so"
+    path = out / f"{name}_{tag}_phases.cu"
+    path.write_text(src[:i] + part + src[j:] + FOOTER)
+    lib_path = out / f"lib{name}_{tag}_phases.so"
     proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
                            "-o", str(lib_path), str(path)], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -159,6 +222,7 @@ def report(label: str, lib: ctypes.CDLL, fn, spec: dict, calls: int = 20) -> Non
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--variant", choices=("tc", "fma"), default="tc")
     parser.add_argument("--d", type=int, default=63)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -166,22 +230,25 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    fwd_lib = build_instrumented("flash_attention", FWD)
-    bwd_lib = build_instrumented("flash_attention_bwd", BWD)
+    fwd_spec, bwd_spec = (FWD, BWD) if args.variant == "tc" else (FMA_FWD, FMA_BWD)
+    dtype = torch.bfloat16 if args.variant == "tc" else torch.float32
+    fwd_lib = build_instrumented("flash_attention", fwd_spec, args.variant)
+    bwd_lib = build_instrumented("flash_attention_bwd", bwd_spec, args.variant)
     # the wrappers load their libraries through this cache
     cuda_build._LIBS["flash_attention"] = fwd_lib
     cuda_build._LIBS["flash_attention_bwd"] = bwd_lib
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = args.d
-    q, k, v = attention_inputs(gen, 8, 17, 4096, d, torch.bfloat16)
+    q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype)
     eff = d**-0.5 / 0.5
     out, lse = flash_attention_kernel(q, k, v, None, eff)
-    do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(dtype)
     delta = (do.float() * out.float().reshape(8, 1, 17, d)).sum(-1)
-    shape = f"(8, 17, 4096, {d}) bf16"
-    report(f"forward {shape}", fwd_lib, lambda: flash_attention_kernel(q, k, v, None, eff), FWD)
+    shape = f"(8, 17, 4096, {d}) {str(dtype)[6:]}"
+    report(f"forward {shape}", fwd_lib, lambda: flash_attention_kernel(q, k, v, None, eff),
+           fwd_spec)
     report(f"backward {shape}", bwd_lib,
-           lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff), BWD)
+           lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff), bwd_spec)
     return 0
 
 

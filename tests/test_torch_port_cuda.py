@@ -298,6 +298,43 @@ def test_flash_variant_counters(gen, dtype, d, variant):
         assert getattr(fn, variant) == 1 and getattr(fn, other) == 0, fn.__name__
 
 
+@pytest.mark.parametrize("d,width,rate", [(63, 252, 0.083), (27, 270, 0.318)],
+                         ids=["brca", "kirp"])
+def test_flash_fma_kernels_full_size(gen, d, width, rate):
+    """The FMA variants at the model's full f32 size, (8, 17, 4096, d) with
+    K and V as column slices of the merged KV buffer (brca: pitch 252, V at
+    element 63; kirp: pitch 270), masked with a fully masked sample, the
+    row's dropout: one launch a call each (``launches_fma``), the forward to
+    2e-5 of the plain version, the backward to 1e-5 of the largest gradient,
+    and two calls bit-identical."""
+    b, lq, lkv, seed = 8, 17, 4096, 2024
+    q = torch.randn((b, lq, d), generator=gen, device="cuda")[:, None]
+    kv = torch.randn((b, lkv, width), generator=gen, device="cuda")
+    k, v = kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
+    lengths = torch.randint(1, lkv, (b,), generator=gen, device="cuda")
+    lengths[0] = 0
+    mask = torch.arange(lkv, device="cuda")[None, :] < lengths[:, None]
+    eff = d**-0.5 / 0.5
+    for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
+        fn.launches = fn.launches_fma = 0
+    out, lse = flash_attention_kernel(q, k, v, mask, eff, rate, seed)
+    assert flash_attention_kernel.launches_fma == 1 and flash_attention_kernel.launches == 0
+    ref, _ = multihead_attention(q, k, v, scale=d**-0.5, kv_mask=mask, dropout_rate=rate,
+                                 dropout_seed=seed)
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert out[0].abs().max().item() == 0.0
+    assert torch.equal(flash_attention_kernel(q, k, v, mask, eff, rate, seed)[0], out)
+    do = torch.randn((b, lq, d), generator=gen, device="cuda")[:, None]
+    delta = (do * out.reshape(b, 1, lq, d)).sum(-1)
+    got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    assert flash_attention_bwd_kernel.launches_fma == 1 and flash_attention_bwd_kernel.launches == 0
+    want = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    for name, a, r, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert (a - r).abs().max().item() <= 1e-5 * max(1.0, r.abs().max().item()), name
+        assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,f", [(2, 300, 70), (3, 129, 300), (8, 1, 252)],
                          ids=["ragged_rows", "wide", "one_token"])

@@ -38,6 +38,7 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_lse_plain,
     flash_plan,
     flash_variant,
+    key_tile,
     query_chunks,
 )
 from healnet_tpu_torch.ops.fused_project import (
@@ -299,6 +300,29 @@ def test_flash_plan_covers_every_key_once(rows, lkv, max_cluster):
         assert cluster == max_cluster
 
 
+@pytest.mark.parametrize("max_cluster", [4, 13, 16])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 63), (torch.float32, 27),
+                                     (torch.float32, 256), (torch.bfloat16, 160)])
+@pytest.mark.parametrize("rows,lkv", [(8, 4096), (8, 1), (8, 33), (64, 4096), (2, 1000)])
+def test_fma_plan_covers_every_key_once(rows, lkv, dtype, d, max_cluster):
+    """The FMA kernels' launch plan (``flash_plan`` in their 32-key tiles)
+    on a 132-SM card: every key
+    owned by exactly one block of the row's cluster, no block without keys,
+    ranges of whole tiles, the cluster within its limit; one block at the
+    omic vector's single key; brca fills the card."""
+    tile = key_tile(dtype, d)
+    assert flash_variant(dtype, d) == "fma" and tile == 32
+    cluster, per = flash_plan(rows, lkv, 132, max_cluster, tile)
+    assert 1 <= cluster <= max_cluster and per % tile == 0
+    owned = np.concatenate([np.arange(r * per, min(lkv, (r + 1) * per)) for r in range(cluster)])
+    np.testing.assert_array_equal(owned, np.arange(lkv))
+    assert all(r * per < lkv for r in range(cluster))
+    if lkv <= tile:
+        assert cluster == 1
+    if (rows, lkv) == (8, 4096):
+        assert cluster == max_cluster
+
+
 @pytest.mark.parametrize("dtype,d,variant", [
     (torch.bfloat16, 63, "tc"), (torch.bfloat16, 27, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 129, "fma"), (torch.bfloat16, 160, "fma"), (torch.float32, 63, "fma"),
@@ -330,6 +354,43 @@ def test_query_chunks_refuse_a_block_without_room():
         query_chunks(17, 31, 32)
     with pytest.raises(ValueError):
         query_chunks(17, 0, 1)
+
+
+@pytest.mark.parametrize("lq", [17, 130])
+def test_flash_plain_vs_jax_at_kirp_head(rng, lq):
+    """kirp's head dim 27, f32: the port's plain forward (with its
+    log-sum-exp) and plain backward against the JAX flash kernel in
+    interpret mode, forward and ``jax.grad``, at lq 17 and past a chunk
+    (130); masked with a fully masked row, dropout 0.318 with one hash
+    seed: 2e-5 forward, 1e-5 gradients."""
+    b, h, lkv, d, rate = 2, 1, 300, 27, 0.318
+    q, k, v = _qkv(rng, b=b, h=h, lq=lq, lkv=lkv, d=d)
+    mask = rng.uniform(size=(b, lkv)) > 0.3
+    mask[1] = False
+    g = rng.normal(size=(b, lq, h * d)).astype(np.float32)
+    scale, eff = d**-0.5, d**-0.5 / 0.5
+    seed = seed_from_rng(jax.random.PRNGKey(3))
+    port_seed = int(np.asarray(seed).view(np.uint32)[0, 0])
+
+    def jfwd(q_, k_, v_):
+        return jflash(q_, k_, v_, scale=scale, temperature=0.5, kv_mask=jnp.asarray(mask),
+                      dropout_rate=rate, dropout_seed=seed, kv_chunk=128)
+
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref = jfwd(jq, jk, jv)
+    ref_grads = jax.grad(lambda *a: jnp.sum(jfwd(*a) * jnp.asarray(g)), argnums=(0, 1, 2))(
+        jq, jk, jv)
+    tq, tk, tv, tmask = map(torch.from_numpy, (q, k, v, mask))
+    out = tflash(tq, tk, tv, scale=scale, kv_mask=tmask, dropout_rate=rate,
+                 dropout_seed=port_seed)
+    _close(out, ref, rtol=2e-5, atol=2e-5)
+    do = torch.from_numpy(g).reshape(b, lq, h, d).transpose(1, 2)
+    delta = (do * out.reshape(b, lq, h, d).transpose(1, 2)).sum(-1)
+    lse = flash_lse_plain(tq, tk, tmask, eff)
+    got = flash_backward_plain(tq, tk, tv, tmask, do, lse, delta, eff, rate, port_seed)
+    for a, r in zip(got, ref_grads):
+        _close(a, r, rtol=1e-5, atol=1e-5)
+    assert float(got[0][1].abs().max()) == 0.0 and float(out[1].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("lq", [130, 256])
