@@ -88,8 +88,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ragged WSI mask with a fully masked row, presence zeros, the row's
    attention dropout and FF keep multipliers; the chain's entry point once
    per row (the run whose launches count), held against the plain version
-   in bf16 (in ulps of the output) and f32, and the f32 chain's logits
-   against ``module(x)``; times of kernel, plain version and the module
+   in bf16 (in ulps of the output) and f32, one launch a call and two
+   calls bit-identical, with each row's launch plan (cluster, keys per
+   block), and the f32 chain's logits against ``module(x)``; times of kernel, plain version and the module
    path's latent loop (device time and launches), and each row's bound;
 12. print the kernels line (every kernel variant, with its launches in the
    run of its path), then the device line.
@@ -113,6 +114,7 @@ from healnet_tpu_torch.models.healnet import HealNetModule
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.fused_chain import (
+    chain_launch_plan,
     chain_reference,
     chain_spec,
     fused_chain_kernel,
@@ -1559,14 +1561,23 @@ def phase_chain(gen):
         outs = {row: fused_latent_chain(*c[3], c[4]) for row, c in cases.items()}
     launches = read_launches("the chain run (brca, kirp, trimodal; bf16, dropout on)",
                              ("fused_chain",))
+    if launches["fused_chain"] != len(cases):
+        raise AssertionError(f"the chain run took {launches['fused_chain']} launches for "
+                             f"{len(cases)} calls, not one a call")
 
     worst, entry = 0.0, None
     for row, (module, x, extras, ops, spec) in cases.items():
+        cluster, kpb, chunk = chain_launch_plan(spec, BATCH, ops[0].dtype, ops[0].device)
+        log(f"  {row} plan: clusters of {cluster} blocks, keys per block {kpb}, score chunk "
+            f"{chunk}")
         with torch.no_grad():
             out, ref = outs[row], chain_reference(*ops, spec)
+            again = fused_latent_chain(*ops, spec)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all() or out.shape != ref.shape:
             raise AssertionError(f"{row}: the chain's output is not finite or misshapen")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{row}: two bf16 chain calls differ")
         # bf16: q and the dropped probabilities round to bf16 at the same
         # places in both, sums run in another order, the output rounds once:
         # 4 bf16 ulps of the largest output
@@ -1583,6 +1594,8 @@ def phase_chain(gen):
         ops32, spec32 = chain_case(m32, x32, extras, training=True)
         with torch.no_grad():
             got32, ref32 = fused_latent_chain(*ops32, spec32), chain_reference(*ops32, spec32)
+            if not torch.equal(got32, fused_latent_chain(*ops32, spec32)):
+                raise AssertionError(f"{row}: two f32 chain calls differ")
         top32 = ref32.abs().max().item()
         # sums of the same products in another order
         check(f"{row} f32 chain kernel vs plain", (got32 - ref32).abs().max().item(),

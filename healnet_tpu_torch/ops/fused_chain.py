@@ -5,8 +5,9 @@ Counterpart of ``healnet_tpu/ops/fused_chain.py``. The HealNet fusion loop
 runs, per layer and per modality, a cross-attention and a feed-forward block
 over a tiny latent array (l_c x l_d, e.g. 17 x 126). The module path
 launches a dozen small kernels per block; :func:`fused_latent_chain` runs the
-whole chain in ONE CUDA kernel (``csrc/fused_chain.cu``), one block per
-batch element, over the merged KV buffers that
+whole chain in ONE CUDA kernel (``csrc/fused_chain.cu``), one thread-block
+cluster per batch element (sized by :func:`chain_plan`), over the merged KV
+buffers that
 :meth:`healnet_tpu_torch.models.healnet.HealNetModule.project_contexts`
 returns.
 
@@ -34,7 +35,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -193,6 +195,87 @@ def chain_reference(
     return x.to(cdt)
 
 
+# ------------------------------------------------------------ launch plan
+
+CHAIN_TILE = 64         # keys per tile of the kernel (its kTile)
+CHAIN_MAX_CHUNK = 512   # keys whose scores a block holds in shared memory at once
+_CLUSTER_SIZES = (16, 8, 4, 2, 1)
+
+
+def _keys_per_block(tokens: Sequence[int], cluster: int, tile: int) -> Tuple[int, ...]:
+    return tuple(max(1, -(-(-(-int(t) // cluster)) // tile)) * tile for t in tokens)
+
+
+def chain_plan(batch: int, tokens: Sequence[int], sms: int, max_cluster: int,
+               tile: int = CHAIN_TILE,
+               max_chunk: int = CHAIN_MAX_CHUNK) -> Tuple[int, Tuple[int, ...], int]:
+    """Launch plan of the chain kernel: ``(cluster, keys_per_block, chunk)``.
+
+    One cluster of ``cluster`` blocks per batch element: the fewest (a
+    power of two) that give every one of ``sms`` SMs a block, at most
+    ``max_cluster`` (the largest cluster of which ``batch`` fit on the card
+    at once) and 16. Block ``r`` owns keys ``[r * kpb, (r + 1) * kpb)`` of a
+    modality, ``kpb = keys_per_block[m]`` a whole number of ``tile``-key
+    tiles; blocks past the modality's last key own none. ``chunk``: the
+    keys whose scores a block holds at once, its longest range up to
+    ``max_chunk`` (a longer range takes chunks, scored twice).
+    """
+    want = max(1, -(-sms // max(batch, 1)))
+    cap = min(max_cluster, 16)
+    cluster = 1
+    while cluster * 2 <= cap and cluster < want:
+        cluster *= 2
+    kpb = _keys_per_block(tokens, cluster, tile)
+    return cluster, kpb, min(max(kpb), max_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device, l_c, l_d, inner, mult, bf16, cluster, chunk) -> clusters resident at once
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def chain_launch_plan(spec: ChainSpec, batch: int, dtype: torch.dtype,
+                      device: torch.device) -> Tuple[int, Tuple[int, ...], int]:
+    """:func:`chain_plan` on ``device`` (a CUDA device): ``max_cluster`` is
+    the largest cluster size of which ``batch`` clusters are resident at once
+    (``healnet_chain_max_clusters``, cached), and the chunk shrinks by tiles
+    until a block's shared memory fits. Raises where even one tile does not."""
+    lib = _lib()
+    dims = (spec.l_c, spec.l_d, spec.inner, spec.mult)
+    bf16 = int(dtype == torch.bfloat16)
+
+    def fit(cluster: int, chunk: int) -> int:
+        while chunk > CHAIN_TILE and lib.healnet_chain_smem_bytes(*dims, cluster,
+                                                                  chunk) > _MAX_SMEM:
+            chunk -= CHAIN_TILE
+        return chunk
+
+    max_cluster = 1
+    for c in _CLUSTER_SIZES:
+        chunk = fit(c, min(max(_keys_per_block(spec.tokens, c, CHAIN_TILE)), CHAIN_MAX_CHUNK))
+        if lib.healnet_chain_smem_bytes(*dims, c, chunk) > _MAX_SMEM:
+            continue
+        key = (device.index, *dims, bf16, c, chunk)
+        if key not in _RESIDENT:
+            _RESIDENT[key] = int(lib.healnet_chain_max_clusters(*dims, c, chunk, bf16))
+            if _RESIDENT[key] < 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
+        if _RESIDENT[key] >= batch:
+            max_cluster = c
+            break
+    cluster, kpb, chunk = chain_plan(batch, spec.tokens, _sm_count(device.index), max_cluster)
+    chunk = fit(cluster, chunk)
+    smem = lib.healnet_chain_smem_bytes(*dims, cluster, chunk)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"l_c={spec.l_c}, l_d={spec.l_d}, inner={spec.inner} needs {smem} B "
+                         "of shared memory")
+    return cluster, kpb, chunk
+
+
 # ----------------------------------------------------------------- kernel
 
 
@@ -201,10 +284,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.healnet_chain_forward
     if fn.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        fn.argtypes = [p] * 13 + [i] * 8 + [f, i, u, f, i, p]
+        fn.argtypes = [p] * 14 + [i] * 10 + [f, i, u, f, i, p]
         fn.restype = ctypes.c_int
-        lib.healnet_chain_smem_bytes.argtypes = [i, i, i, i]
+        lib.healnet_chain_smem_bytes.argtypes = [i] * 6
         lib.healnet_chain_smem_bytes.restype = ctypes.c_longlong
+        lib.healnet_chain_max_clusters.argtypes = [i] * 7
+        lib.healnet_chain_max_clusters.restype = i
         lib.healnet_chain_limits.argtypes = [p]
         lib.healnet_chain_limits.restype = None
     return lib
@@ -277,11 +362,9 @@ def fused_chain_kernel(x0, kvs, masks, ff_keep, presence, seeds, weights,
             or spec.inner > max_inner):
         raise ValueError(f"the kernel takes at most {max_mod} modalities, depth {max_depth}, "
                          f"l_c {max_lc} and inner {max_inner}")
-    smem = lib.healnet_chain_smem_bytes(spec.l_c, spec.l_d, spec.inner, spec.mult)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"l_c={spec.l_c}, l_d={spec.l_d} needs {smem} B of shared memory")
     dev = x0.device
     b = x0.shape[0]
+    cluster, kpb, chunk = chain_launch_plan(spec, b, x0.dtype, dev)
     x0 = x0.contiguous()
     fmasks = [None if mk is None else mk.to(device=dev, dtype=torch.float32).contiguous()
               for mk in masks]
@@ -300,14 +383,16 @@ def fused_chain_kernel(x0, kvs, masks, ff_keep, presence, seeds, weights,
     mask_sb = _c_array(ctypes.c_longlong, [0 if mk is None else mk.stride(0) for mk in fmasks])
     w_arr = _c_array(ctypes.c_void_p, [w.data_ptr() for w in weights])
     offsets = _c_array(ctypes.c_int, list(spec.offsets))
+    keys = _c_array(ctypes.c_int, list(kpb))
     rate = float(spec.attn_dropout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.healnet_chain_forward(
             x0.data_ptr(), out.data_ptr(), kv_arr[1], kv_sb[1], kv_st[1], tokens[1],
             mask_arr[1], mask_sb[1], ptr(keep), pres.data_ptr(), seeds.data_ptr(), w_arr[1],
-            offsets[1], b, spec.depth, spec.n_modalities, spec.l_c, spec.l_d, spec.inner,
-            spec.mult, int(spec.act == "gelu"), float(spec.scale), int(rate > 0),
+            offsets[1], keys[1], b, spec.depth, spec.n_modalities, spec.l_c, spec.l_d,
+            spec.inner, spec.mult, int(spec.act == "gelu"), cluster, chunk, float(spec.scale),
+            int(rate > 0),
             keep_threshold(rate), keep_scale(rate),
             int(x0.dtype == torch.bfloat16), stream,
         )

@@ -5,14 +5,15 @@
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds an instrumented copy of ``healnet_tpu_torch/ops/csrc/fused_chain.cu``
-into ``build/chain-phases/``: after each of the kernel's block-wide barriers
-thread 0 adds the ``clock64()`` cycles since the previous one to that
-phase's counter. It runs the chain once per row at ``chip_smoke.py``'s
-phase-11 inputs (bf16, dropout off) and prints the kernel's time (CUDA
-events) and each phase's share of the cycles, averaged over the blocks.
-A phase ends at a barrier, so its share includes the wait for the slowest
-warp; "loads" is the issue of a key tile's loads through its stores to
-shared memory.
+into ``build/chain-phases/``: after block-wide and cluster barriers that
+end a phase, thread 0 adds the ``clock64()`` cycles since the previous
+marker to that phase's counter. It runs the chain once per row at
+``chip_smoke.py``'s phase-11 inputs (bf16, dropout off) and prints the
+launch plan, the kernel's time (CUDA events) and each phase's share of the
+cycles, averaged over every block of every cluster. A phase ends at a
+barrier, so its share includes the wait for the slowest warp; a phase that
+ends at a cluster barrier (each exchange) includes the wait for the
+slowest block of the cluster.
 """
 
 from __future__ import annotations
@@ -31,18 +32,22 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import ROWS, chain_case, chain_extras, row_inputs, row_model  # noqa: E402
 from healnet_tpu_torch.ops import cuda_build  # noqa: E402
-from healnet_tpu_torch.ops.fused_chain import fused_latent_chain  # noqa: E402
+from healnet_tpu_torch.ops.fused_chain import (  # noqa: E402
+    chain_launch_plan,
+    fused_latent_chain,
+)
 
-PHASES = {1: "LN1", 2: "q product + rounding", 3: "pass 1 loads", 4: "pass 1 scores",
-          5: "pass 1 row max/sum", 6: "pass 2 @V", 7: "pass 2 loads",
-          8: "pass 2 scores + probabilities", 9: "out product + residual", 10: "LN2",
-          11: "FF first product", 12: "gating", 13: "FF second product + residual"}
+PHASES = {1: "LN1", 2: "q product + exchange", 3: "score pass (K loads, scores)",
+          4: "row max/sum", 5: "(max, sum) exchange + merge", 6: "probabilities + V loads",
+          7: "@V (V tiles, products)", 8: "@V exchange (partials, sums)",
+          9: "out product + residual + exchange", 10: "LN2", 11: "FF first product + exchange",
+          12: "FF second product + residual + exchange"}
 
 HEADER = '''
 __shared__ long long g_tlast;
 __device__ unsigned long long g_prof[256][16];
 #define PROF(k) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
-  g_prof[blockIdx.x][k] += t_ - g_tlast; g_tlast = t_; } } while (0)
+  g_prof[blockIdx.y * gridDim.x + blockIdx.x][k] += t_ - g_tlast; g_tlast = t_; } } while (0)
 '''
 FOOTER = '''
 extern "C" void prof_read(unsigned long long* out) {
@@ -53,25 +58,30 @@ extern "C" void prof_reset() {
   cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 '''
-# (text after which a marker goes, marker)
+# (text after which a marker goes, marker); each anchor is unique in the source
 MARKERS = [
-    ("      __syncthreads();  // the previous tile's readers are done", "PROF(pass ? 6 : 5);"),
-    ("      if (tid < kTile) mk[tid] = mtid;\n      __syncthreads();", "PROF(pass ? 7 : 3);"),
-    ("          if (i < lc) ps[i * kTile + sj] = sc[r];\n        }\n        __syncthreads();",
-     "PROF(4);"),
-    ("            ps[i * kTile + sj] = round_to<T>(pr);\n          }\n        }\n"
-     "        __syncthreads();", "PROF(8);"),
-    ("  for (int i = tid; i < n; i += kThreads) xs[i] = to_float(x0[i]);",
+    ("  cluster.sync();  // every block runs before the first remote store",
      "if (tid == 0) g_tlast = clock64();"),
     ("p.w[kLn1B] + site * ld, ys, lc, ld);\n      __syncthreads();", "PROF(1);"),
-    ("round_to<T>(qs[i]) : 0.f;\n      }\n      __syncthreads();", "PROF(2);"),
-    ("(uint32_t)p.seeds[site]);\n      __syncthreads();", "PROF(6);"),
-    ("xs[i] = pres * (o >= 0.f ? o : 0.01f * o) + xs[i];\n      }\n      __syncthreads();",
+    ("// q in the KV dtype\n                       });\n      cluster.sync();", "PROF(2);"),
+    ("    score_chunk<T, NS, AC>(qs, sc, mk, tile, kv, st, mask, c0, cn, chunk, lc, inner, kp,\n"
+     "                           p.scale);", "PROF(3);"),
+    ("        m_s[i] = m_new;\n      }\n    }\n    __syncthreads();", "PROF(4);"),
+    ("    l_s[i] = fmaxf(l, 1e-30f);\n  }\n  __syncthreads();", "PROF(5);"),
+    ("      __syncthreads();  // the probabilities are formed; the previous tile's readers done",
+     "PROF(t0 == 0 ? 6 : 7);"),
+    ("      ld.store(tile, kp);\n      __syncthreads();\n      if (t0 + kTile < cn) "
+     "ld.load(kv + inner, st, c0 + t0 + kTile, c0 + cn, inner, kp);", "PROF(7);"),
+    ("    __syncthreads();  // the chunk's readers are done before the next one's scores",
+     "PROF(7);"),
+    ("                           cluster);\n      cluster.sync();", "PROF(8);"),
+    ("put_all(avs + i * kp + q0 + c, cs, v);\n      }\n      cluster.sync();", "PROF(8);"),
+    ("0.01f * o) + xs[i * ld + c]);\n                       });\n      cluster.sync();",
      "PROF(9);"),
     ("p.w[kLn2B] + site * ld, ys, lc, ld);\n      __syncthreads();", "PROF(10);"),
-    ("2 * f, hid, 2 * f, lc, part);\n      __syncthreads();", "PROF(11);"),
-    ("activation(hid[r * 2 * f + f + c], p.gelu);\n      }\n      __syncthreads();", "PROF(12);"),
-    ("xs[i] = pres * h + xs[i];\n      }\n      __syncthreads();", "PROF(13);"),
+    ("g * activation(v, p.gelu));\n                      });\n      cluster.sync();", "PROF(11);"),
+    ("pres * h + xs[i * ld + c]);\n                       });\n      cluster.sync();",
+     "PROF(12);"),
 ]
 
 
@@ -79,8 +89,8 @@ def build_instrumented() -> ctypes.CDLL:
     src = (cuda_build.CSRC / "fused_chain.cu").read_text()
     src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER)
     for anchor, marker in MARKERS:
-        if anchor not in src:
-            raise RuntimeError(f"fused_chain.cu changed; no marker place for {marker}")
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"fused_chain.cu changed; no single marker place for {marker}")
         src = src.replace(anchor, f"{anchor}\n{marker}", 1)
     out = ROOT / "build" / "chain-phases"
     out.mkdir(parents=True, exist_ok=True)
@@ -125,12 +135,16 @@ def main() -> int:
             torch.cuda.synchronize()
         counts = (ctypes.c_ulonglong * (256 * 16))()
         lib.prof_read(ctypes.cast(counts, ctypes.c_void_p))
-        cycles = np.array(counts, dtype=np.float64).reshape(256, 16)[:x[0].shape[0]].mean(axis=0)
+        cluster, kpb, chunk = chain_launch_plan(spec, x[0].shape[0], ops[0].dtype,
+                                                ops[0].device)
+        per_block = np.array(counts, dtype=np.float64).reshape(256, 16)[:x[0].shape[0] * cluster]
+        cycles = per_block.mean(axis=0)
         total = cycles.sum()
-        print(f"{row}: {start.elapsed_time(end):.4f} ms (instrumented, one call), "
-              f"{total:.0f} cycles per block")
+        print(f"{row}: {start.elapsed_time(end):.4f} ms (instrumented, one call), clusters of "
+              f"{cluster}, keys per block {kpb}, chunk {chunk}; {total:.0f} cycles per block "
+              f"(slowest block {per_block.sum(axis=1).max():.0f})")
         for k, name in PHASES.items():
-            print(f"  {name:32s} {100 * cycles[k] / total:6.2f}%")
+            print(f"  {name:40s} {100 * cycles[k] / total:6.2f}%")
     return 0
 
 

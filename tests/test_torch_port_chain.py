@@ -26,6 +26,7 @@ from healnet_tpu.ops import fused_chain as jchain
 from healnet_tpu_torch.compat.flax_params import state_dict_from_flax
 from healnet_tpu_torch.models.healnet import HealNetModule as TorchHealNet
 from healnet_tpu_torch.ops import fused_chain as tchain
+from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale
 from healnet_tpu_torch.ops.fused_chain import (
     WEIGHT_FIELDS,
     ChainSpec,
@@ -301,3 +302,119 @@ def test_kernel_wrapper_takes_cuda_tensors_only(rng):
         fused_chain_kernel(*ops, spec)
     torch.testing.assert_close(fused_latent_chain(*ops, spec), chain_reference(*ops, spec),
                                rtol=0, atol=0)
+
+
+# ------------------------------------------------------- the launch plan
+
+PLAN_CASES = {  # (batch, tokens, max_cluster) -> (cluster, keys_per_block, chunk), 132 SMs
+    "brca_b1": ((1, (1, 4096), 16), (16, (64, 256), 256)),
+    "brca_b8": ((8, (1, 4096), 16), (16, (64, 256), 256)),
+    "kirp_b8": ((8, (1, 4096), 16), (16, (64, 256), 256)),
+    "trimodal_b1": ((1, (1, 4096, 1024), 16), (16, (64, 256, 64), 256)),
+    "trimodal_b8": ((8, (1, 4096, 1024), 16), (16, (64, 256, 64), 256)),
+    "omic_only": ((8, (1,), 16), (16, (64,), 64)),
+    "ragged_1000": ((3, (1, 1000), 16), (16, (64, 64), 64)),
+    "ragged_300": ((8, (1, 300), 16), (16, (64, 64), 64)),
+    "forced_8": ((8, (1, 4096), 8), (8, (64, 512), 512)),
+    "forced_1": ((8, (1, 4096, 1024), 1), (1, (64, 4096, 1024), 512)),
+    "batch_40": ((40, (1, 4096), 16), (4, (64, 1024), 512)),
+    "batch_132": ((132, (1, 4096), 16), (1, (64, 4096), 512)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_chain_plan(case):
+    (batch, tokens, max_cluster), want = PLAN_CASES[case]
+    plan = tchain.chain_plan(batch, tokens, 132, max_cluster)
+    assert plan == want
+    cluster, kpb, chunk = plan
+    for t, k in zip(tokens, kpb):
+        # the fewest whole tiles that cover the keys; each key owned by one block
+        tile = tchain.CHAIN_TILE
+        assert k % tile == 0 and t <= cluster * k and (k == tile or cluster * (k - tile) < t)
+        owners = [min(t, r * k + k) - min(t, r * k) for r in range(cluster)]
+        assert sum(owners) == t and all(n >= 0 for n in owners)
+    assert chunk % tchain.CHAIN_TILE == 0 and chunk <= tchain.CHAIN_MAX_CHUNK
+
+
+# ---------------------- the kernel's key-split merge, emulated in plain torch
+
+
+def _split_attention(q, k, v, mask, scale, keep, rate, cluster, kpb):
+    """The kernel's attention over keys spread on a cluster: each block's
+    range gives its rows' (max, sum) ((-inf, 0) when it owns no key), the
+    blocks merge them in rank order (skipping -inf), form the dropped
+    probabilities from their own scores and sum their partial @V in rank
+    order. q (b, lc, d) rounded as the kernel rounds it; k, v (b, t, d)."""
+    b, lc, t = q.shape[0], q.shape[1], k.shape[1]
+    s = q @ k.transpose(1, 2) * scale
+    mk = torch.ones((b, t)) if mask is None else mask.float()
+    s = s + (mk[:, None, :] - 1.0) * 1e30
+    ranges = [(min(t, r * kpb), min(t, (r + 1) * kpb)) for r in range(cluster)]
+    stats = []
+    for k0, k1 in ranges:
+        if k1 == k0:
+            stats.append((torch.full((b, lc), -float("inf")), torch.zeros((b, lc))))
+            continue
+        mr = s[..., k0:k1].amax(-1)
+        stats.append((mr, (torch.exp(s[..., k0:k1] - mr[..., None]) * mk[:, None, k0:k1]).sum(-1)))
+    m = stats[0][0]
+    for mr, _ in stats[1:]:
+        m = torch.maximum(m, mr)
+    l = torch.zeros((b, lc))
+    for mr, lr in stats:  # rank order
+        l = l + torch.where(mr == -float("inf"), torch.zeros_like(lr), lr * torch.exp(mr - m))
+    av = torch.zeros((b, lc, v.shape[-1]))
+    for k0, k1 in ranges:  # rank order; an empty range adds its zeros
+        p = torch.exp(s[..., k0:k1] - m[..., None]) * mk[:, None, k0:k1]
+        p = p / torch.clamp(l, min=1e-30)[..., None]
+        if keep is not None:
+            p = torch.where(keep[..., k0:k1], p * keep_scale(rate), torch.zeros_like(p))
+        av = av + p.to(v.dtype).float() @ v[:, k0:k1].float()
+    return av
+
+
+def _split_chain(x0, kvs, masks, ff_keep, presence, seeds, weights, spec, cluster, tile):
+    """chain_reference with its attention taken as the kernel takes it."""
+    w = dict(zip(WEIGHT_FIELDS, weights))
+    b = x0.shape[0]
+    _, kpb, _ = tchain.chain_plan(b, spec.tokens, cluster * b, cluster, tile=tile)
+    x = x0.float()
+    for l in range(spec.depth):
+        off = spec.offsets[l]
+        for m in range(spec.n_modalities):
+            pres = presence[:, m].float()[:, None, None]
+            y, _, _ = tchain._ln(x, w["ln1_s"][l, m], w["ln1_b"][l, m])
+            q = (y @ w["wq"][l, m]).to(kvs[m].dtype).float()
+            k = kvs[m][:, :, off:off + spec.inner].float()
+            v = kvs[m][:, :, off + spec.inner:off + 2 * spec.inner]
+            keep = None
+            if spec.attn_dropout > 0.0:
+                keep = dense_keep_mask(seeds[l, m], b, spec.l_c, spec.tokens[m],
+                                       spec.attn_dropout, device=x.device)
+            av = _split_attention(q, k, v, masks[m], spec.scale, keep, spec.attn_dropout,
+                                  cluster, kpb[m])
+            o = av @ w["wout"][l, m] + w["bout"][l, m]
+            x = pres * torch.where(o >= 0, o, 0.01 * o) + x
+            y2, _, _ = tchain._ln(x, w["ln2_s"][l, m], w["ln2_b"][l, m])
+            h1 = y2 @ w["w0"][l, m] + w["b0"][l, m]
+            f = spec.mult * spec.l_d
+            h2 = (h1[..., :f] * tchain._act(h1[..., f:], spec.act)) @ w["w2"][l, m] + w["b2"][l, m]
+            if ff_keep is not None:
+                h2 = h2 * ff_keep[:, l * spec.n_modalities + m].float()
+            x = pres * h2 + x
+    return x.to(x0.dtype)
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 8])
+@pytest.mark.parametrize("case", ["fully_masked_row", "dropout_ff_keep"])
+def test_key_split_merge_matches_chain_reference(rng, case, cluster):
+    """8-key tiles over 40 keys: at clusters of 8, three blocks own none of
+    the bag's keys and seven none of the omic token; a ragged mask leaves
+    some ranges only masked keys, and one sample has every key masked."""
+    spec, ops = _case(rng, case, "selu")
+    ops = _to_torch(ops)
+    got = _split_chain(*ops, spec, cluster=cluster, tile=8)
+    want = chain_reference(*ops, spec)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

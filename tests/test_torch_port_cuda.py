@@ -30,6 +30,7 @@ from healnet_tpu_torch.ops.flash_attention import (
 from healnet_tpu_torch.ops.fused_chain import (
     WEIGHT_FIELDS,
     ChainSpec,
+    chain_launch_plan,
     chain_reference,
     fused_chain_kernel,
     fused_latent_chain,
@@ -743,25 +744,27 @@ def test_flash_bwd_chunked_calls_are_bit_identical(gen, dtype):
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
-def _chain_operands(gen, dtype, spec):
+def _chain_operands(gen, dtype, spec, b=3):
     """Seeded operands of one chain call on the card: a ragged mask with a
     fully masked row on the bag, presence zeros, FF keep multipliers when
     the spec's FF dropout is on."""
-    b, dev = 3, "cuda"
+    dev = "cuda"
     rand = lambda *s: torch.randn(s, generator=gen, device=dev)
     width = max(spec.offsets) + 2 * spec.inner + 3
     x0 = rand(b, spec.l_c, spec.l_d).to(dtype)
     # K|V slices at odd element offsets, as the merged KV gives them
     kvs = [rand(b, t, width + 1)[..., 1:].to(dtype) for t in spec.tokens]
     lengths = torch.randint(1, spec.tokens[1] + 1, (b,), generator=gen, device=dev)
-    lengths[1] = 0
+    if b > 1:  # batch 1 keeps its one sample's keys
+        lengths[1] = 0
     masks = [None, torch.arange(spec.tokens[1], device=dev)[None, :] < lengths[:, None]]
     keep = None
     if spec.ff_dropout > 0:
         keep = (torch.rand((b, spec.sites, spec.l_c, spec.l_d), generator=gen, device=dev)
                 > spec.ff_dropout) / (1.0 - spec.ff_dropout)
     presence = torch.ones((b, 2), device=dev)
-    presence[0, 1] = presence[2, 0] = 0.0
+    if b > 2:
+        presence[0, 1] = presence[b - 1, 0] = 0.0
     seeds = torch.randint(0, 2**32, (spec.depth, 2), generator=gen, device=dev,
                           dtype=torch.int64)
     weights = []
@@ -812,3 +815,43 @@ def test_chain_kernel_is_forward_only(gen):
     with torch.no_grad():
         assert fused_latent_chain(x0, kvs, masks, keep, presence, seeds, weights,
                                   spec).shape == x0.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_chain_kernel_plans_match_plain(gen, dtype, b):
+    """Batch 1, 3 and 8 at brca's widths over a 1-token modality and a
+    ragged 1000-token bag with a fully masked sample (the bag's keys spread
+    over the cluster, most blocks owning no omic key), presence 0 for a
+    sample, dropout and FF keep multipliers: one launch a call, two calls
+    bit-identical, and the plain version's tolerances."""
+    spec = ChainSpec(depth=2, n_modalities=2, l_c=17, l_d=126, inner=63, mult=4, act="selu",
+                     scale=63**-0.5, attn_dropout=0.083, ff_dropout=0.473, tokens=(1, 1000),
+                     offsets=(0, 126), has_mask=(False, True), out_dtype=str(dtype)[6:])
+    ops = _chain_operands(gen, dtype, spec, b=b)
+    cluster, kpb, _ = chain_launch_plan(spec, b, dtype, ops[0].device)
+    assert cluster > 1 and kpb[0] == 64 and kpb[1] * cluster >= 1000
+    fused_chain_kernel.launches = 0
+    with torch.no_grad():
+        got, again = fused_latent_chain(*ops, spec), fused_latent_chain(*ops, spec)
+    assert fused_chain_kernel.launches == 2
+    assert torch.equal(got, again)
+    ref = chain_reference(*ops, spec)
+    tol = 2e-5 * max(1.0, ref.abs().max().item()) if dtype == torch.float32 else _bf16_tol(ref)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_chain_kernel_takes_long_ranges_in_chunks(gen):
+    """Clusters of 1 force a block's whole 1300-key range through the
+    512-key score buffer in three chunks (scores recomputed in the second
+    pass)."""
+    spec = ChainSpec(depth=1, n_modalities=2, l_c=17, l_d=32, inner=15, mult=4, act="gelu",
+                     scale=15**-0.5, attn_dropout=0.3, ff_dropout=0.0, tokens=(1, 1300),
+                     offsets=(0,), has_mask=(False, True), out_dtype="float32")
+    ops = _chain_operands(gen, torch.float32, spec, b=200)
+    cluster, kpb, chunk = chain_launch_plan(spec, 200, torch.float32, ops[0].device)
+    assert cluster == 1 and kpb[1] == 1344 and chunk == 512
+    with torch.no_grad():
+        got = fused_latent_chain(*ops, spec)
+    ref = chain_reference(*ops, spec)
+    assert (got - ref).abs().max().item() <= 2e-5 * max(1.0, ref.abs().max().item())
