@@ -21,7 +21,11 @@
 // against 0.5 GFLOP. The TPU kernel's grid (one block per batch element)
 // put 8 of 132 SMs to work; here a cluster of `cluster` blocks (16 at
 // brca; ops/fused_chain.py::chain_plan sizes it from the cluster occupancy)
-// shares each batch element, all products f32 FMA on the CUDA cores:
+// shares each batch element, all products f32 FMA on the CUDA cores. It
+// stays far above its bound: a site is some 13 phases, each a short chain
+// of dependent latencies over a few thousand FMAs a block, and seven of them
+// end at a cluster barrier that waits for the slowest block (PERF.md has
+// the breakdown of scripts/profile_chain_phases.py). What the design does:
 //   - keys: block r owns keys [r * kpb, (r + 1) * kpb) of each modality
 //     (kpb a multiple of the 64-key tile; a block may own none). It streams
 //     its K rows once (element loads into an aligned f32 tile, the next
@@ -38,17 +42,21 @@
 //     every block. A range longer than the score buffer (chunk keys, at
 //     most 512) takes chunks, and then the second pass recomputes each
 //     chunk's scores with the same code;
-//   - the latent-side products (q, the out projection, the FF's two) split
-//     by output column over the cluster: each element is computed by one
-//     block in one fixed k-order (a K split inside the block adds its
-//     partial sums in split order), its epilogue (rounding, residual,
-//     gating: an FF column c and its value column c + F stay on one block)
-//     applied there, and the result stored into every block's copy. So the
-//     latents stay identical across the cluster with no reduction, and two
-//     calls give the same bits: no float atomics anywhere;
+//   - the latent-side products split over the cluster: q, the out
+//     projection and the FF's first product by output column (an FF column
+//     c and its value column c + F on one block, so the gating stays
+//     local), each element computed by one block in one fixed k-order (a K
+//     split inside the block adds its partial sums in split order) with its
+//     epilogue (rounding, residual) there; q and x are then stored into
+//     every block's copy. The FF's second product splits by K instead: each
+//     block multiplies its own F columns of the hidden state (never
+//     exchanged) and sends the partial sums of each output column to the
+//     block that owns it, which adds them in rank order. So the latents
+//     stay identical across the cluster, and two calls give the same bits:
+//     no float atomics anywhere;
 //   - LN1 and LN2 run on every block (17 x 126 at brca); seven cluster
-//     barriers a site (q, (max, sum), partial @V, @V, out, FF, FF);
-//   - 256 threads, at most 128 registers and, at brca, 86 KB of shared
+//     barriers a site (q, (max, sum), partial @V, @V, out, FF partials, x);
+//   - 256 threads, at most 128 registers and, at brca, 91 KB of shared
 //     memory a block, so two blocks fit an SM and 8 clusters of 16 are
 //     resident at once (at one block an SM only 7 GPCs take a 16-cluster).
 
@@ -129,7 +137,7 @@ __host__ __device__ inline int key_pitch(int inner) {
 
 // K splits of a product of wc columns (a block's share) over lc rows
 __host__ __device__ inline int gemm_split(int wc, int k, int lc) {
-  if (wc <= 0) return 1;
+  if (wc <= 0 || k <= 0) return 1;
   const int groups = cdiv(lc, kRB);
   int s = kThreads / (wc * groups);
   s = s < 1 ? 1 : (s > kMaxSplit ? kMaxSplit : s);
@@ -137,7 +145,7 @@ __host__ __device__ inline int gemm_split(int wc, int k, int lc) {
 }
 
 struct Layout {  // offsets in floats into the dynamic shared memory
-  int kp, xs, ys, qs, avs, ml, ms, ls, pav, part, r, total;
+  int kp, xs, ys, qs, avs, ml, ms, ls, pbuf, part, r, total;
 };
 
 // cs: the cluster's size; chunk: the keys whose scores a block holds at once
@@ -146,9 +154,9 @@ __host__ __device__ inline Layout make_layout(int lc, int ld, int inner, int mul
   Layout L;
   L.kp = key_pitch(inner);
   const int f = mult * ld;
+  const int wa = cdiv(inner, cs), wl = cdiv(ld, cs), wf = cdiv(f, cs);
   // (K, columns of a block, values an item) of q, out, FF first, FF second
-  const int dims[4][3] = {{ld, cdiv(inner, cs), 1}, {inner, cdiv(ld, cs), 1},
-                          {ld, cdiv(f, cs), 2}, {f, cdiv(ld, cs), 1}};
+  const int dims[4][3] = {{ld, wa, 1}, {inner, wl, 1}, {ld, wf, 2}, {wf, ld, 1}};
   int part = 0;
   for (int g = 0; g < 4; ++g) {
     const int s = gemm_split(dims[g][1], dims[g][0], lc);
@@ -170,13 +178,15 @@ __host__ __device__ inline Layout make_layout(int lc, int ld, int inner, int mul
   o = align4(o + lc);
   L.ls = o;
   o = align4(o + lc);
-  L.pav = o;  // partial @V sums of this block's columns: [rank][row][column]
-  o = align4(o + cs * lc * cdiv(inner, cs));
+  // partial sums of this block's columns of @V (inner) and of the FF's
+  // second product (ld), from every block: [rank][row][column]
+  L.pbuf = o;
+  o = align4(o + cs * lc * (wa > wl ? wa : wl));
   L.part = o;
   o = align4(o + part);
-  L.r = o;  // scores, mask and a key tile; the FF hidden state (lc x F)
+  L.r = o;  // scores, mask and a key tile; the block's FF columns (lc x F / cs)
   const int attn = lc * chunk + chunk + kTile * L.kp;
-  o += lc * f > attn ? lc * f : attn;
+  o += lc * wf > attn ? lc * wf : attn;
   L.total = o;
   return L;
 }
@@ -398,7 +408,7 @@ __device__ void score_chunk(const float* qs, float* sc, float* mk, float* tile, 
 // One cross-attention of the chain: q (lc x kp in qs, rounded to T, zero
 // padded) against the block's keys of modality m's KV at column offset
 // `off`; ends with this block's partial @V sums stored into the pav of the
-// blocks that own their columns (visible after the next cluster barrier).
+// blocks that own their columns, in pbuf (visible after the next cluster barrier).
 template <typename T, int NS, int AC>
 __device__ void attention(const Params& p, const Layout& L, float* smem, int b, int m, int off,
                           uint32_t seed, int rank, int cs, cg::cluster_group& cluster) {
@@ -533,7 +543,7 @@ __device__ void attention(const Params& p, const Layout& L, float* smem, int b, 
       const int d = lane + 32 * c;
       if (i < lc && d < inner) {
         const int owner = d / wa;
-        tc::st_cluster(smem + L.pav + (rank * lc + i) * wa + d - owner * wa, owner, acc[r][c]);
+        tc::st_cluster(smem + L.pbuf + (rank * lc + i) * wa + d - owner * wa, owner, acc[r][c]);
       }
     }
   }
@@ -553,6 +563,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_fwd(Params p) {
   float* avs = smem + L.avs;
   float* part = smem + L.part;
   float* hid = smem + L.r;
+  float* pbuf = smem + L.pbuf;
   // each block's share of the columns of q and av (inner), of the out and
   // FF-second products (ld) and of the FF's gated columns (F)
   const int wq = cdiv(inner, cs), wl = cdiv(ld, cs), wf = cdiv(f, cs);
@@ -579,11 +590,10 @@ __global__ void __launch_bounds__(kThreads, 2) chain_fwd(Params p) {
       attention<T, NS, AC>(p, L, smem, b, m, p.offsets[l], (uint32_t)p.seeds[site], rank, cs,
                            cluster);
       cluster.sync();
-      const float* pav = smem + L.pav;
       for (int e = tid; e < lc * (q1 - q0); e += kThreads) {  // this block's av columns
         const int i = e / (q1 - q0), c = e - i * (q1 - q0);
         float v = 0.f;
-        for (int r = 0; r < cs; ++r) v += pav[(r * lc + i) * wq + c];
+        for (int r = 0; r < cs; ++r) v += pbuf[(r * lc + i) * wq + c];
         put_all(avs + i * kp + q0 + c, cs, v);
       }
       cluster.sync();
@@ -600,15 +610,26 @@ __global__ void __launch_bounds__(kThreads, 2) chain_fwd(Params p) {
       gemm_cols<true>(ys, ld, ld, p.w[kW0] + (size_t)site * ld * 2 * f, 2 * f,
                       p.w[kB0] + (size_t)site * 2 * f, f0, f1, f, lc, part,
                       [&](int i, int c, float g, float v) {
-                        put_all(hid + i * f + c, cs, g * activation(v, p.gelu));
+                        hid[i * wf + c - f0] = g * activation(v, p.gelu);
                       });
+      __syncthreads();
+      // this block's F columns' share of the second product, to the blocks
+      // that own its output columns
+      gemm_cols<false>(hid, wf, f1 - f0, p.w[kW2] + ((size_t)site * f + f0) * ld, ld, nullptr, 0,
+                       ld, 0, lc, part, [&](int i, int c, float h, float) {
+                         const int owner = c / wl;
+                         tc::st_cluster(pbuf + (rank * lc + i) * wl + c - owner * wl, owner, h);
+                       });
       cluster.sync();
       const float* keep = p.ffk ? p.ffk + ((size_t)b * p.depth * M + site) * n : nullptr;
-      gemm_cols<false>(hid, f, f, p.w[kW2] + (size_t)site * f * ld, ld, p.w[kB2] + site * ld,
-                       l0, l1, 0, lc, part, [&](int i, int c, float h, float) {
-                         if (keep) h *= keep[i * ld + c];
-                         put_all(xs + i * ld + c, cs, pres * h + xs[i * ld + c]);
-                       });
+      for (int e = tid; e < lc * (l1 - l0); e += kThreads) {  // this block's x columns
+        const int i = e / (l1 - l0), c = l0 + e - i * (l1 - l0);
+        float h = 0.f;
+        for (int r = 0; r < cs; ++r) h += pbuf[(r * lc + i) * wl + c - l0];
+        h += p.w[kB2][site * ld + c];
+        if (keep) h *= keep[i * ld + c];
+        put_all(xs + i * ld + c, cs, pres * h + xs[i * ld + c]);
+      }
       cluster.sync();
     }
   }

@@ -9,8 +9,9 @@ into ``build/chain-phases/``: after block-wide and cluster barriers that
 end a phase, thread 0 adds the ``clock64()`` cycles since the previous
 marker to that phase's counter. It runs the chain once per row at
 ``chip_smoke.py``'s phase-11 inputs (bf16, dropout off) and prints the
-launch plan, the kernel's time (CUDA events) and each phase's share of the
-cycles, averaged over every block of every cluster. A phase ends at a
+launch plan, how many SMs the blocks ran on, the kernel's time (CUDA
+events) and each phase's share of the cycles, averaged over every block of
+every cluster. A phase ends at a
 barrier, so its share includes the wait for the slowest warp; a phase that
 ends at a cluster barrier (each exchange) includes the wait for the
 slowest block of the cluster.
@@ -40,18 +41,22 @@ from healnet_tpu_torch.ops.fused_chain import (  # noqa: E402
 PHASES = {1: "LN1", 2: "q product + exchange", 3: "score pass (K loads, scores)",
           4: "row max/sum", 5: "(max, sum) exchange + merge", 6: "probabilities + V loads",
           7: "@V (V tiles, products)", 8: "@V exchange (partials, sums)",
-          9: "out product + residual + exchange", 10: "LN2", 11: "FF first product + exchange",
-          12: "FF second product + residual + exchange"}
+          9: "out product + residual + exchange", 10: "LN2", 11: "FF first product (local)",
+          12: "FF second product (partial) + exchange", 13: "FF sums + residual + exchange"}
 
 HEADER = '''
 __shared__ long long g_tlast;
 __device__ unsigned long long g_prof[256][16];
+__device__ unsigned int g_smid[256];
 #define PROF(k) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
   g_prof[blockIdx.y * gridDim.x + blockIdx.x][k] += t_ - g_tlast; g_tlast = t_; } } while (0)
 '''
 FOOTER = '''
 extern "C" void prof_read(unsigned long long* out) {
   cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+}
+extern "C" void prof_smids(unsigned int* out) {
+  cudaMemcpyFromSymbol(out, g_smid, sizeof(g_smid));
 }
 extern "C" void prof_reset() {
   static unsigned long long z[256][16];
@@ -61,7 +66,8 @@ extern "C" void prof_reset() {
 # (text after which a marker goes, marker); each anchor is unique in the source
 MARKERS = [
     ("  cluster.sync();  // every block runs before the first remote store",
-     "if (tid == 0) g_tlast = clock64();"),
+     "if (tid == 0) { unsigned s_; asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s_)); "
+     "g_smid[blockIdx.y * gridDim.x + blockIdx.x] = s_; g_tlast = clock64(); }"),
     ("p.w[kLn1B] + site * ld, ys, lc, ld);\n      __syncthreads();", "PROF(1);"),
     ("// q in the KV dtype\n                       });\n      cluster.sync();", "PROF(2);"),
     ("    score_chunk<T, NS, AC>(qs, sc, mk, tile, kv, st, mask, c0, cn, chunk, lc, inner, kp,\n"
@@ -79,9 +85,9 @@ MARKERS = [
     ("0.01f * o) + xs[i * ld + c]);\n                       });\n      cluster.sync();",
      "PROF(9);"),
     ("p.w[kLn2B] + site * ld, ys, lc, ld);\n      __syncthreads();", "PROF(10);"),
-    ("g * activation(v, p.gelu));\n                      });\n      cluster.sync();", "PROF(11);"),
-    ("pres * h + xs[i * ld + c]);\n                       });\n      cluster.sync();",
-     "PROF(12);"),
+    ("g * activation(v, p.gelu);\n                      });\n      __syncthreads();", "PROF(11);"),
+    ("owner, h);\n                       });\n      cluster.sync();", "PROF(12);"),
+    ("pres * h + xs[i * ld + c]);\n      }\n      cluster.sync();", "PROF(13);"),
 ]
 
 
@@ -103,6 +109,7 @@ def build_instrumented() -> ctypes.CDLL:
     lib.healnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.healnet_cuda_error_string.restype = ctypes.c_char_p
     lib.prof_read.argtypes = [ctypes.c_void_p]
+    lib.prof_smids.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -140,9 +147,14 @@ def main() -> int:
         per_block = np.array(counts, dtype=np.float64).reshape(256, 16)[:x[0].shape[0] * cluster]
         cycles = per_block.mean(axis=0)
         total = cycles.sum()
+        smids = (ctypes.c_uint * 256)()
+        lib.prof_smids(ctypes.cast(smids, ctypes.c_void_p))
+        blocks = x[0].shape[0] * cluster
+        per_sm = np.bincount(np.array(smids[:blocks]))
         print(f"{row}: {start.elapsed_time(end):.4f} ms (instrumented, one call), clusters of "
-              f"{cluster}, keys per block {kpb}, chunk {chunk}; {total:.0f} cycles per block "
-              f"(slowest block {per_block.sum(axis=1).max():.0f})")
+              f"{cluster}, keys per block {kpb}, chunk {chunk}; {blocks} blocks on "
+              f"{np.count_nonzero(per_sm)} SMs (at most {per_sm.max()} on one); {total:.0f} "
+              f"cycles per block (slowest block {per_block.sum(axis=1).max():.0f})")
         for k, name in PHASES.items():
             print(f"  {name:40s} {100 * cycles[k] / total:6.2f}%")
     return 0
