@@ -90,8 +90,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    per row (the run whose launches count), held against the plain version
    in bf16 (in ulps of the output) and f32, one launch a call and two
    calls bit-identical, with each row's launch plan (cluster, keys per
-   block), and the f32 chain's logits against ``module(x)``; times of kernel, plain version and the module
-   path's latent loop (device time and launches), and each row's bound;
+   block), and the f32 chain's logits against ``module(x)``; times of
+   kernel (also on the profiler), plain version and the module path's
+   latent loop (device time and launches), and each row's bound;
 12. print the kernels line (every kernel variant, with its launches in the
    run of its path), then the device line.
 
@@ -1619,15 +1620,19 @@ def phase_chain(gen):
             out_s = run()
             (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(
                 lambda: chain_reference(*ops_s, spec_s))
+        _, _, _, events = device_profile(run)
+        chain_events = [e for e in events if "chain_fwd" in e.key]
+        t_prof = (sum(device_us(e) for e in chain_events) / 1e3
+                  / max(1, sum(e.count for e in chain_events)))
         t_loop, n_loop = module_loop_profile(module, x, ops_s, out_s)
         bound, by, mb, gflop = chain_bound(spec_s, BATCH, 2)
         log(f"  {row} (depth {spec_s.depth}, {spec_s.n_modalities} modalities, l_d "
             f"{spec_s.l_d}, inner {spec_s.inner}, KV widths "
             f"{[kv.shape[-1] for kv in ops_s[1]]}) bf16, dropout off: kernel {t_kernel:.4f} ms "
-            f"(1 launch), plain {t_plain:.4f} ms, the module path's latent loop {t_loop:.4f} ms "
-            f"device time in {n_loop:.0f} launches (profiler); bound {bound:.5f} ms ({by}; "
-            f"{mb:.2f} MB, {gflop:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, "
-            f"plain {w_plain:.4f} ms")
+            f"(1 launch; {t_prof:.4f} ms a launch on the profiler), plain {t_plain:.4f} ms, "
+            f"the module path's latent loop {t_loop:.4f} ms device time in {n_loop:.0f} "
+            f"launches (profiler); bound {bound:.5f} ms ({by}; {mb:.2f} MB, {gflop:.3f} GFLOP); "
+            f"wall per call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms")
         if row == "brca":
             entry = dict(name="fused_chain", route="cuda",
                          source="healnet_tpu_torch/ops/csrc/fused_chain.cu",

@@ -35,12 +35,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from healnet_tpu_torch.ops import cuda_build
+from healnet_tpu_torch.ops.flash_attention import _CLUSTER_SIZES, _sm_count
 from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep_threshold
 
 _NEG_BIG = 1e30
@@ -199,7 +199,6 @@ def chain_reference(
 
 CHAIN_TILE = 64         # keys per tile of the kernel (its kTile)
 CHAIN_MAX_CHUNK = 512   # keys whose scores a block holds in shared memory at once
-_CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 
 def _keys_per_block(tokens: Sequence[int], cluster: int, tile: int) -> Tuple[int, ...]:
@@ -227,11 +226,6 @@ def chain_plan(batch: int, tokens: Sequence[int], sms: int, max_cluster: int,
         cluster *= 2
     kpb = _keys_per_block(tokens, cluster, tile)
     return cluster, kpb, min(max(kpb), max_chunk)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # (device, l_c, l_d, inner, mult, bf16, cluster, chunk) -> clusters resident at once
@@ -364,7 +358,8 @@ def fused_chain_kernel(x0, kvs, masks, ff_keep, presence, seeds, weights,
                          f"l_c {max_lc} and inner {max_inner}")
     dev = x0.device
     b = x0.shape[0]
-    cluster, kpb, chunk = chain_launch_plan(spec, b, x0.dtype, dev)
+    with torch.cuda.device(dev):  # the occupancy query runs on the current device
+        cluster, kpb, chunk = chain_launch_plan(spec, b, x0.dtype, dev)
     x0 = x0.contiguous()
     fmasks = [None if mk is None else mk.to(device=dev, dtype=torch.float32).contiguous()
               for mk in masks]

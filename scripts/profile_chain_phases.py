@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes inside the fused latent-chain kernel.
 
-    python3 scripts/profile_chain_phases.py [--rows brca kirp trimodal]
+    python3 scripts/profile_chain_phases.py [--rows brca kirp trimodal] [--sources A.cu ...]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds an instrumented copy of ``healnet_tpu_torch/ops/csrc/fused_chain.cu``
-into ``build/chain-phases/``: after block-wide and cluster barriers that
-end a phase, thread 0 adds the ``clock64()`` cycles since the previous
-marker to that phase's counter. It runs the chain once per row at
-``chip_smoke.py``'s phase-11 inputs (bf16, dropout off) and prints the
-launch plan, how many SMs the blocks ran on, the kernel's time (CUDA
-events) and each phase's share of the cycles, averaged over every block of
-every cluster. A phase ends at a
-barrier, so its share includes the wait for the slowest warp; a phase that
-ends at a cluster barrier (each exchange) includes the wait for the
-slowest block of the cluster.
+(or of each file given to ``--sources``, compiled in parallel) into
+``build/chain-phases/``: after block-wide and cluster barriers that end a
+phase, thread 0 adds the ``clock64()`` cycles since the previous marker to
+that phase's counter. For each row, at ``chip_smoke.py``'s phase-11 inputs
+(bf16, dropout off), and each source in turn, it prints the instrumented
+kernel's time (``chip_smoke.time_ms``), the launch plan, how many SMs the
+blocks ran on and each phase's share of the cycles of one call, averaged
+over every block of every cluster. A phase ends at a barrier, so its share
+includes the wait for the slowest warp; a phase that ends at a cluster
+barrier (each exchange) includes the wait for the slowest block of the
+cluster.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import argparse
 import ctypes
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +33,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import ROWS, chain_case, chain_extras, row_inputs, row_model  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ROWS,
+    chain_case,
+    chain_extras,
+    row_inputs,
+    row_model,
+    time_ms,
+)
 from healnet_tpu_torch.ops import cuda_build  # noqa: E402
 from healnet_tpu_torch.ops.fused_chain import (  # noqa: E402
     chain_launch_plan,
@@ -91,14 +100,14 @@ MARKERS = [
 ]
 
 
-def build_instrumented() -> ctypes.CDLL:
-    src = (cuda_build.CSRC / "fused_chain.cu").read_text()
+def build_instrumented(source: Path, tag: str) -> ctypes.CDLL:
+    src = source.read_text()
     src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER)
     for anchor, marker in MARKERS:
         if src.count(anchor) != 1:
-            raise RuntimeError(f"fused_chain.cu changed; no single marker place for {marker}")
+            raise RuntimeError(f"{source.name} changed; no single marker place for {marker}")
         src = src.replace(anchor, f"{anchor}\n{marker}", 1)
-    out = ROOT / "build" / "chain-phases"
+    out = ROOT / "build" / "chain-phases" / tag
     out.mkdir(parents=True, exist_ok=True)
     (out / "fused_chain_phases.cu").write_text(src + FOOTER)
     lib_path = out / "libfused_chain_phases.so"
@@ -116,6 +125,10 @@ def build_instrumented() -> ctypes.CDLL:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", nargs="+", default=list(ROWS), choices=list(ROWS))
+    parser.add_argument("--sources", nargs="+", type=Path,
+                        default=[cuda_build.CSRC / "fused_chain.cu"],
+                        help="copies of fused_chain.cu to profile in turns (the anchors must "
+                             "be in each; includes resolve in the package's csrc)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_chain_phases: no CUDA device is available", file=sys.stderr)
@@ -123,40 +136,42 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    lib = build_instrumented()
-    # the chain's wrapper loads its library through this cache
-    cuda_build._LIBS["fused_chain"] = lib
+    with ThreadPoolExecutor(max_workers=len(args.sources)) as pool:
+        libs = list(pool.map(lambda a: build_instrumented(*a),
+                             [(src, f"{i}-{src.stem}") for i, src in enumerate(args.sources)]))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for row in args.rows:
         module = row_model(row, torch.bfloat16).eval()
         x = row_inputs(gen, row, torch.bfloat16)
         ops, spec = chain_case(module, x, chain_extras(gen, module), training=False)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with torch.no_grad():
-            fused_latent_chain(*ops, spec)
-            torch.cuda.synchronize()
-            lib.prof_reset()
-            start.record()
-            fused_latent_chain(*ops, spec)
-            end.record()
-            torch.cuda.synchronize()
-        counts = (ctypes.c_ulonglong * (256 * 16))()
-        lib.prof_read(ctypes.cast(counts, ctypes.c_void_p))
-        cluster, kpb, chunk = chain_launch_plan(spec, x[0].shape[0], ops[0].dtype,
-                                                ops[0].device)
-        per_block = np.array(counts, dtype=np.float64).reshape(256, 16)[:x[0].shape[0] * cluster]
-        cycles = per_block.mean(axis=0)
-        total = cycles.sum()
-        smids = (ctypes.c_uint * 256)()
-        lib.prof_smids(ctypes.cast(smids, ctypes.c_void_p))
-        blocks = x[0].shape[0] * cluster
-        per_sm = np.bincount(np.array(smids[:blocks]))
-        print(f"{row}: {start.elapsed_time(end):.4f} ms (instrumented, one call), clusters of "
-              f"{cluster}, keys per block {kpb}, chunk {chunk}; {blocks} blocks on "
-              f"{np.count_nonzero(per_sm)} SMs (at most {per_sm.max()} on one); {total:.0f} "
-              f"cycles per block (slowest block {per_block.sum(axis=1).max():.0f})")
-        for k, name in PHASES.items():
-            print(f"  {name:40s} {100 * cycles[k] / total:6.2f}%")
+        for src, lib in zip(args.sources, libs):
+            # the chain's wrapper loads its library through this cache
+            cuda_build._LIBS["fused_chain"] = lib
+            with torch.no_grad():
+                run = lambda: fused_latent_chain(*ops, spec)
+                ms, _ = time_ms(run)
+                torch.cuda.synchronize()
+                lib.prof_reset()
+                run()
+                torch.cuda.synchronize()
+            counts = (ctypes.c_ulonglong * (256 * 16))()
+            lib.prof_read(ctypes.cast(counts, ctypes.c_void_p))
+            cluster, kpb, chunk = chain_launch_plan(spec, x[0].shape[0], ops[0].dtype,
+                                                    ops[0].device)
+            blocks = x[0].shape[0] * cluster
+            per_block = np.array(counts, dtype=np.float64).reshape(256, 16)[:blocks]
+            cycles = per_block.mean(axis=0)
+            total = cycles.sum()
+            smids = (ctypes.c_uint * 256)()
+            lib.prof_smids(ctypes.cast(smids, ctypes.c_void_p))
+            per_sm = np.bincount(np.array(smids[:blocks]))
+            print(f"{row} [{src.name}]: {ms:.4f} ms a call (instrumented; chip_smoke.time_ms), "
+                  f"clusters of {cluster}, keys per block {kpb}, chunk {chunk}; {blocks} blocks "
+                  f"on {np.count_nonzero(per_sm)} SMs (at most {per_sm.max()} on one); "
+                  f"{total:.0f} cycles per block (slowest block "
+                  f"{per_block.sum(axis=1).max():.0f})")
+            for k, name in PHASES.items():
+                print(f"  {name:40s} {100 * cycles[k] / total:6.2f}%")
     return 0
 
 
