@@ -1522,7 +1522,7 @@ def chain_case(module, x, extras, training):
     with torch.no_grad():
         kvs, cdt = module.project_contexts(x)
         weights = stack_chain_weights(module)
-        x0 = module.latents.to(cdt).expand(BATCH, module.l_c, module.l_d)
+        x0 = module.latents.to(cdt).expand(x[0].shape[0], module.l_c, module.l_d)
     spec = chain_spec(module, [kv.shape[1] for kv in kvs], [m is not None for m in masks],
                       training=training)
     return (x0, kvs, masks, keep if training else None, presence, seeds, weights), spec
@@ -1543,6 +1543,51 @@ def module_loop_profile(module, x, ops, out):
     finally:
         del module.project_contexts
     return busy - h_busy, count - h_count
+
+
+CHAIN_BATCHES = (1, 40, 132)
+
+
+def batch_of(t, b):
+    """``t`` with its batch (first) axis cycled to ``b`` rows."""
+    return t[torch.arange(b, device=t.device) % t.shape[0]]
+
+
+def chain_serving(row, module, x, extras, b):
+    """The chain at serving (bf16, dropout off, inputs on the card) at batch
+    ``b``, its inputs, masks and presence those of batch 8 cycled to ``b``
+    patients: its plan, held against the plain version, and its time beside
+    the plain version's and the module path's latent loop's (logged).
+    Returns (kernel ms, plain ms, loop ms, loop launches, bound ms, bound_by)."""
+    masks, presence, keep, seeds = extras
+    xb = [batch_of(t, b) for t in x]
+    eb = ([None if mk is None else batch_of(mk, b) for mk in masks], batch_of(presence, b),
+          batch_of(keep, b), seeds)
+    ops, spec = chain_case(module, xb, eb, training=False)
+    cluster, kpb, chunk = chain_launch_plan(spec, b, ops[0].dtype, ops[0].device)
+    with torch.no_grad():
+        run = lambda: fused_latent_chain(*ops, spec)
+        out, ref = run(), chain_reference(*ops, spec)
+        top = ref.float().abs().max().item()
+        check(f"{row} batch {b} bf16 chain kernel vs plain, dropout off",
+              (out.float() - ref.float()).abs().max().item(), 4 * bf16_ulp(top))
+        (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(
+            lambda: chain_reference(*ops, spec))
+    _, _, _, events = device_profile(run)
+    chain_events = [e for e in events if "chain_fwd" in e.key]
+    t_prof = (sum(device_us(e) for e in chain_events) / 1e3
+              / max(1, sum(e.count for e in chain_events)))
+    t_loop, n_loop = module_loop_profile(module, xb, ops, out)
+    bound, by, mb, gflop = chain_bound(spec, b, 2)
+    log(f"  {row} batch {b} (plan: clusters of {cluster}, keys per block {kpb}, score chunk "
+        f"{chunk}; depth {spec.depth}, {spec.n_modalities} modalities, l_d {spec.l_d}, "
+        f"inner {spec.inner}, KV widths {[kv.shape[-1] for kv in ops[1]]}) bf16, dropout "
+        f"off: kernel {t_kernel:.4f} ms (1 launch; {t_prof:.4f} ms a launch on the "
+        f"profiler), plain {t_plain:.4f} ms, the module path's latent loop {t_loop:.4f} ms "
+        f"device time in {n_loop:.0f} launches (profiler); bound {bound:.5f} ms ({by}; "
+        f"{mb:.2f} MB, {gflop:.3f} GFLOP); wall per call: kernel {w_kernel:.4f} ms, plain "
+        f"{w_plain:.4f} ms")
+    return t_kernel, t_plain, t_loop, n_loop, bound, by
 
 
 def phase_chain(gen):
@@ -1614,25 +1659,8 @@ def phase_chain(gen):
         del m32, ops32, ops_e, got32, ref32
 
         # times at serving (bf16, dropout off), inputs on the card
-        ops_s, spec_s = chain_case(module, x, extras, training=False)
-        with torch.no_grad():
-            run = lambda: fused_latent_chain(*ops_s, spec_s)
-            out_s = run()
-            (t_kernel, w_kernel), (t_plain, w_plain) = time_ms(run), time_ms(
-                lambda: chain_reference(*ops_s, spec_s))
-        _, _, _, events = device_profile(run)
-        chain_events = [e for e in events if "chain_fwd" in e.key]
-        t_prof = (sum(device_us(e) for e in chain_events) / 1e3
-                  / max(1, sum(e.count for e in chain_events)))
-        t_loop, n_loop = module_loop_profile(module, x, ops_s, out_s)
-        bound, by, mb, gflop = chain_bound(spec_s, BATCH, 2)
-        log(f"  {row} (depth {spec_s.depth}, {spec_s.n_modalities} modalities, l_d "
-            f"{spec_s.l_d}, inner {spec_s.inner}, KV widths "
-            f"{[kv.shape[-1] for kv in ops_s[1]]}) bf16, dropout off: kernel {t_kernel:.4f} ms "
-            f"(1 launch; {t_prof:.4f} ms a launch on the profiler), plain {t_plain:.4f} ms, "
-            f"the module path's latent loop {t_loop:.4f} ms device time in {n_loop:.0f} "
-            f"launches (profiler); bound {bound:.5f} ms ({by}; {mb:.2f} MB, {gflop:.3f} GFLOP); "
-            f"wall per call: kernel {w_kernel:.4f} ms, plain {w_plain:.4f} ms")
+        t_kernel, t_plain, t_loop, n_loop, bound, by = chain_serving(row, module, x, extras,
+                                                                     BATCH)
         if row == "brca":
             entry = dict(name="fused_chain", route="cuda",
                          source="healnet_tpu_torch/ops/csrc/fused_chain.cu",
@@ -1640,6 +1668,12 @@ def phase_chain(gen):
                          plain_ms=t_plain, bound_ms=bound, bound_by=by, library_ms=None)
             log("  library: none (no single PyTorch call computes the chain); the module "
                 f"path's latent loop at brca: {t_loop:.4f} ms, {n_loop:.0f} launches")
+    # the other plans that the batch gives at brca's widths (batch 8 takes
+    # clusters of 16): 1 patient (16), 40 (4; 1024-key ranges, scored in
+    # two chunks) and 132 (1; the whole bag a block)
+    module, x, extras = cases["brca"][:3]
+    for b in CHAIN_BATCHES:
+        chain_serving("brca", module, x, extras, b)
     entry["max_abs_err"] = worst
     return entry, launches
 

@@ -150,23 +150,29 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# (kernel, device, padded d[, padded lq]) -> {cluster size: clusters resident at once}
+# (kernel, device, shape class) -> {cluster size: clusters resident at once}
 _RESIDENT: Dict[tuple, Dict[int, int]] = {}
 
 
-def _plan(query, key: tuple, rows: int, lkv: int, device: torch.device,
-          tile: int = _TC_TILE) -> Tuple[int, int]:
-    """:func:`flash_plan` on ``device``, with its SM count and the kernel's
-    cluster occupancy (``query(size)``, ``cudaOccupancyMaxActiveClusters``)
-    cached per kernel, device and shape class."""
+def _max_cluster(query, key: tuple, rows: int) -> int:
+    """The largest cluster size of which ``rows`` clusters of a kernel are
+    resident at once (1 if none), from its cluster occupancy (``query(size)``,
+    ``cudaOccupancyMaxActiveClusters``) cached per kernel, device and shape
+    class (``key``). The fused chain sizes its clusters by it too."""
     counts = _RESIDENT.get(key)
     if counts is None:
         counts = {c: int(query(c)) for c in _CLUSTER_SIZES}
         if min(counts.values()) < 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
         _RESIDENT[key] = counts
-    max_cluster = next((c for c in _CLUSTER_SIZES if counts[c] >= rows), 1)
-    return flash_plan(rows, lkv, _sm_count(device.index), max_cluster, tile)
+    return next((c for c in _CLUSTER_SIZES if counts[c] >= rows), 1)
+
+
+def _plan(query, key: tuple, rows: int, lkv: int, device: torch.device,
+          tile: int = _TC_TILE) -> Tuple[int, int]:
+    """:func:`flash_plan` on ``device``, with its SM count and
+    :func:`_max_cluster`."""
+    return flash_plan(rows, lkv, _sm_count(device.index), _max_cluster(query, key, rows), tile)
 
 
 def _check_qkv(q, k, v, extra=()) -> None:

@@ -35,12 +35,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from healnet_tpu_torch.ops import cuda_build
-from healnet_tpu_torch.ops.flash_attention import _CLUSTER_SIZES, _sm_count
+from healnet_tpu_torch.ops.flash_attention import _CLUSTER_SIZES, _max_cluster, _sm_count
 from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep_threshold
 
 _NEG_BIG = 1e30
@@ -201,73 +201,59 @@ CHAIN_TILE = 64         # keys per tile of the kernel (its kTile)
 CHAIN_MAX_CHUNK = 512   # keys whose scores a block holds in shared memory at once
 
 
-def _keys_per_block(tokens: Sequence[int], cluster: int, tile: int) -> Tuple[int, ...]:
+def _keys_per_block(tokens: Sequence[int], cluster: int,
+                    tile: int = CHAIN_TILE) -> Tuple[int, ...]:
     return tuple(max(1, -(-(-(-int(t) // cluster)) // tile)) * tile for t in tokens)
 
 
-def chain_plan(batch: int, tokens: Sequence[int], sms: int, max_cluster: int,
-               tile: int = CHAIN_TILE,
-               max_chunk: int = CHAIN_MAX_CHUNK) -> Tuple[int, Tuple[int, ...], int]:
+def chain_plan(batch: int, tokens: Sequence[int], sms: int,
+               max_cluster: int) -> Tuple[int, Tuple[int, ...], int]:
     """Launch plan of the chain kernel: ``(cluster, keys_per_block, chunk)``.
 
     One cluster of ``cluster`` blocks per batch element: the fewest (a
     power of two) that give every one of ``sms`` SMs a block, at most
     ``max_cluster`` (the largest cluster of which ``batch`` fit on the card
     at once) and 16. Block ``r`` owns keys ``[r * kpb, (r + 1) * kpb)`` of a
-    modality, ``kpb = keys_per_block[m]`` a whole number of ``tile``-key
-    tiles; blocks past the modality's last key own none. ``chunk``: the
-    keys whose scores a block holds at once, its longest range up to
-    ``max_chunk`` (a longer range takes chunks, scored twice).
+    modality, ``kpb = keys_per_block[m]`` a whole number of
+    :data:`CHAIN_TILE`-key tiles; blocks past the modality's last key own
+    none. ``chunk``: the keys whose scores a block holds at once, its longest
+    range up to :data:`CHAIN_MAX_CHUNK` (a longer range takes chunks, scored
+    twice).
     """
     want = max(1, -(-sms // max(batch, 1)))
     cap = min(max_cluster, 16)
     cluster = 1
     while cluster * 2 <= cap and cluster < want:
         cluster *= 2
-    kpb = _keys_per_block(tokens, cluster, tile)
-    return cluster, kpb, min(max(kpb), max_chunk)
-
-
-# (device, l_c, l_d, inner, mult, bf16, cluster, chunk) -> clusters resident at once
-_RESIDENT: Dict[tuple, int] = {}
+    kpb = _keys_per_block(tokens, cluster)
+    return cluster, kpb, min(max(kpb), CHAIN_MAX_CHUNK)
 
 
 def chain_launch_plan(spec: ChainSpec, batch: int, dtype: torch.dtype,
                       device: torch.device) -> Tuple[int, Tuple[int, ...], int]:
-    """:func:`chain_plan` on ``device`` (a CUDA device): ``max_cluster`` is
-    the largest cluster size of which ``batch`` clusters are resident at once
-    (``healnet_chain_max_clusters``, cached), and the chunk shrinks by tiles
-    until a block's shared memory fits. Raises where even one tile does not."""
+    """:func:`chain_plan` on ``device`` (a CUDA device), with its SM count
+    and the kernel's cluster occupancy (``healnet_chain_max_clusters``,
+    through the flash kernels' ``_max_cluster``); the chunk shrinks by tiles
+    until a block's shared memory fits. Raises where even one tile does
+    not."""
     lib = _lib()
     dims = (spec.l_c, spec.l_d, spec.inner, spec.mult)
     bf16 = int(dtype == torch.bfloat16)
-
-    def fit(cluster: int, chunk: int) -> int:
-        while chunk > CHAIN_TILE and lib.healnet_chain_smem_bytes(*dims, cluster,
-                                                                  chunk) > _MAX_SMEM:
-            chunk -= CHAIN_TILE
-        return chunk
-
-    max_cluster = 1
+    smem = lambda cluster, chunk: lib.healnet_chain_smem_bytes(*dims, cluster, chunk)
+    chunks = {}
     for c in _CLUSTER_SIZES:
-        chunk = fit(c, min(max(_keys_per_block(spec.tokens, c, CHAIN_TILE)), CHAIN_MAX_CHUNK))
-        if lib.healnet_chain_smem_bytes(*dims, c, chunk) > _MAX_SMEM:
-            continue
-        key = (device.index, *dims, bf16, c, chunk)
-        if key not in _RESIDENT:
-            _RESIDENT[key] = int(lib.healnet_chain_max_clusters(*dims, c, chunk, bf16))
-            if _RESIDENT[key] < 0:
-                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
-        if _RESIDENT[key] >= batch:
-            max_cluster = c
-            break
-    cluster, kpb, chunk = chain_plan(batch, spec.tokens, _sm_count(device.index), max_cluster)
-    chunk = fit(cluster, chunk)
-    smem = lib.healnet_chain_smem_bytes(*dims, cluster, chunk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"l_c={spec.l_c}, l_d={spec.l_d}, inner={spec.inner} needs {smem} B "
-                         "of shared memory")
-    return cluster, kpb, chunk
+        chunks[c] = min(max(_keys_per_block(spec.tokens, c)), CHAIN_MAX_CHUNK)
+        while chunks[c] > CHAIN_TILE and smem(c, chunks[c]) > _MAX_SMEM:
+            chunks[c] -= CHAIN_TILE
+    resident = lambda c: (lib.healnet_chain_max_clusters(*dims, c, chunks[c], bf16)
+                          if smem(c, chunks[c]) <= _MAX_SMEM else 0)
+    key = ("chain", device.index, *dims, bf16, *chunks.values())
+    cluster, kpb, _ = chain_plan(batch, spec.tokens, _sm_count(device.index),
+                                 _max_cluster(resident, key, batch))
+    if smem(cluster, chunks[cluster]) > _MAX_SMEM:
+        raise ValueError(f"l_c={spec.l_c}, l_d={spec.l_d}, inner={spec.inner} needs "
+                         f"{smem(cluster, chunks[cluster])} B of shared memory")
+    return cluster, kpb, chunks[cluster]
 
 
 # ----------------------------------------------------------------- kernel

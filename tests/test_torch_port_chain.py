@@ -378,7 +378,7 @@ def _split_chain(x0, kvs, masks, ff_keep, presence, seeds, weights, spec, cluste
     """chain_reference with its attention taken as the kernel takes it."""
     w = dict(zip(WEIGHT_FIELDS, weights))
     b = x0.shape[0]
-    _, kpb, _ = tchain.chain_plan(b, spec.tokens, cluster * b, cluster, tile=tile)
+    kpb = tchain._keys_per_block(spec.tokens, cluster, tile)
     x = x0.float()
     for l in range(spec.depth):
         off = spec.offsets[l]
