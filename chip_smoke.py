@@ -22,10 +22,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
    f32 case; the FMA variant at full size: f32 (8, 17, 4096, 63) and kirp's
    d 27, masked with a fully masked sample and dropout, and bf16 d 160 (the
-   tensor cores take bf16 up to 128), two calls bit-identical; then at brca
-   and kirp in bf16 (the tensor-core variant) and f32 (the FMA variant),
-   unmasked: each call must be one kernel launch on the profiler, and the
-   times of kernel, plain version, SDPA and the bound;
+   tensor cores take bf16 up to 128), two calls bit-identical; heads wider
+   than 256 (d 257 and 320, f32 and bf16, masked, dropout 0.083: the FMA
+   kernels' column-chunked form), one launch a call, two calls
+   bit-identical; then at brca and kirp in bf16 (the tensor-core variant)
+   and f32 (the FMA variant), and at d 320 in f32 and bf16, unmasked: each
+   call must be one kernel launch on the profiler, and the times of kernel,
+   plain version, SDPA and the bound;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -37,8 +40,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 5. hold the flash cross-attention backward kernel against its plain version
    at (8, 17, 4096, 63) bf16 (unmasked, masked with a fully masked row,
    dropout 0.083), at the one-token omic context, at kirp's shape, at a
-   small f32 shape and at phase 3's full-size FMA cases (two calls
-   bit-identical); profile and time it as phase 3 does the forward, with
+   small f32 shape and at phase 3's full-size FMA and wide-head cases (two
+   calls bit-identical); profile and time it as phase 3 does the forward, with
    SDPA's backward as the library call; then forward and backward at latent
    counts past a block's query chunk (lq 33, 64, 128, 130, 256 at d 27, 63,
    96, 113, 128, bf16 and f32, masked with a fully masked row, dropout);
@@ -59,7 +62,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    which must launch all four kernels (the flash kernels' tensor-core
    variants) and give finite losses; step time, samples/s, peak memory and
    the flash kernels' share of the step's device time, and one step with
-   plain attention for comparison;
+   plain attention for comparison; then one f32 step of the brca model with
+   a 320-wide cross head, kernel path against plain path, the run of the
+   wide FMA kernels;
 8. hold the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
    (the Hopper kernel) and f32 compute (the f32 kernel), kv, s1, s2, and at
@@ -93,7 +98,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    block), and the f32 chain's logits against ``module(x)``; times of
    kernel (also on the profiler), plain version and the module path's
    latent loop (device time and launches), and each row's bound;
-12. print the kernels line (every kernel variant, with its launches in the
+12. the wrapper, remat, fit, resume and serving from a checkpoint, at the
+   brca row in f32 (full width, flash attention, dropout 0.083 / 0.473; 24
+   training, 8 validation and 8 test patients from the seed): ``HealNet``
+   on ``[omic, wsi]`` and ``[omic, None]`` against ``HealNetModule`` on the
+   plain path, with its lazy ``get_attention_weights``; one training step
+   with and without ``remat`` from the same weights, dropout off and on
+   (gradients, device time, peak memory); ``SurvivalTrainer.fit`` for 2
+   epochs with prefetch and checkpoints (epoch and step wall, val and test
+   c-index, the kernels it launched); a resumed trainer on the finished
+   fold (the same val loss and c-index); ``Predictor`` from the checkpoint
+   directory against the trained module; the idle share of one step; which
+   c-index implementation ran;
+13. print the kernels line (every kernel variant, with its launches in the
    run of its path), then the device line.
 
 Needs one CUDA GPU, nvcc, and the repository around this file.
@@ -105,13 +122,14 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.models.healnet import HealNet, HealNetModule
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.fused_chain import (
@@ -146,7 +164,9 @@ from healnet_tpu_torch.ops.fused_project import (
 )
 from healnet_tpu_torch.ops.quantize import quantize_context
 from healnet_tpu_torch.serving import Predictor
+from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
+from healnet_tpu_torch.train.metrics import cindex_implementation
 
 # kernel variant -> (its wrapper, the wrapper's launch counter for it)
 KERNELS = {"fused_project": (fused_project_kernel, "launches"),
@@ -158,6 +178,8 @@ KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
            "flash_attention_fma": (flash_attention_kernel, "launches_fma"),
            "flash_attention_bwd_fma": (flash_attention_bwd_kernel, "launches_fma"),
+           "flash_attention_fma_wide": (flash_attention_kernel, "launches_fma_wide"),
+           "flash_attention_bwd_fma_wide": (flash_attention_bwd_kernel, "launches_fma_wide"),
            "fused_project_int8": (fused_project_kernel, "launches_int8"),
            "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8"),
            "fused_chain": (fused_chain_kernel, "launches")}
@@ -568,9 +590,17 @@ def fma_cases(mask) -> dict:
                 160, 641, torch.bfloat16, mask, 0.083)}
 
 
+# heads wider than 256, which the FMA kernels take in column chunks: (head
+# dim, dtype) at (8, 17, 4096, d), K and V slices of a merged KV buffer of
+# width 4 d, masked with a fully masked sample, dropout 0.083
+WIDE_CASES = {f"{str(dt)[6:]} (8, 17, 4096, {d}) masked, dropout 0.083": (d, dt)
+              for dt in (torch.float32, torch.bfloat16) for d in (257, 320)}
+WIDE_D = 320  # the timed wide head
+
+
 def phase_flash(gen):
-    """Returns the kernels-line entries of the tensor-core (bf16) and FMA
-    (f32) variants."""
+    """Returns the kernels-line entries of the tensor-core (bf16), FMA (f32)
+    and wide-head FMA (f32, d 320) variants."""
     log("phase 3: flash cross-attention kernel vs plain version")
     b, lq, lkv = BATCH, 17, TOKENS
     lengths = torch.randint(1, lkv, (b,), generator=gen, device="cuda")
@@ -628,6 +658,27 @@ def phase_flash(gen):
         assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
         if d == 63:
             err_f32 = max(err_f32, err)
+    err_wide = 0.0
+    for label, (d, dtype) in WIDE_CASES.items():
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype)
+        reset_launches()
+        out, lse = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, 0.083, seed)
+        out2, lse2 = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, 0.083, seed)
+        if flash_attention_kernel.launches_fma_wide != 2:
+            raise AssertionError(f"FMA wide {label}: not one wide-kernel launch a call")
+        ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5,
+                                     temperature=0.5, kv_mask=mask, dropout_rate=0.083,
+                                     dropout_seed=seed)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        tol = 2e-5 if dtype == torch.float32 else 4 * bf16_ulp(ref.abs().max().item())
+        check(f"FMA wide {label}", err, tol)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"FMA wide {label}: two calls differ")
+        assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
+        if dtype == torch.float32 and d == WIDE_D:
+            err_wide = err
+        del q, k, v, out, out2, ref
 
     timings = {}
     for label, (d, width, dtype) in FLASH_SHAPES.items():
@@ -642,11 +693,24 @@ def phase_flash(gen):
             nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA {timings['kirp f32'][2]:.4f}"
         f" ms, bound {timings['kirp f32'][3]:.5f} ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(gen, b, lq, lkv, WIDE_D, dtype)
+        run = lambda: flash_attention_kernel(q, k, v, None, WIDE_D**-0.5 / 0.5)
+        out, lse = run()
+        timings[f"wide {dtype}"] = time_flash(
+            f"wide head ({b}, {lq}, {lkv}, {WIDE_D}) {str(dtype)[6:]} unmasked", run,
+            lambda: multihead_attention(q, k, v, scale=WIDE_D**-0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=WIDE_D**-0.5 / 0.5),
+            nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * WIDE_D, dtype, "SDPA")
     source = "healnet_tpu_torch/ops/csrc/flash_attention.cu"
     return (flash_entry("flash_attention", source, "healnet_tpu/ops/flash_attention.py:98",
                         worst, timings["brca"]),
             flash_entry("flash_attention_fma", source, "healnet_tpu/ops/flash_attention.py:98",
-                        err_f32, timings["brca f32"]))
+                        err_f32, timings["brca f32"]),
+            flash_entry("flash_attention_fma_wide", source,
+                        "healnet_tpu/ops/flash_attention.py:98", err_wide,
+                        timings[f"wide {torch.float32}"]))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -842,6 +906,29 @@ def phase_flash_bwd(gen):
             raise AssertionError(f"FMA {label}: two calls differ")
         assert all(g[0].abs().max().item() == 0.0 for g in got), \
             "a fully masked row must get zero gradients"
+    err_wide = 0.0
+    for label, (d, dtype) in WIDE_CASES.items():
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, mask, 0.083, seed, d)
+        eff = d**-0.5 / 0.5
+        reset_launches()
+        got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
+        again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
+        if flash_attention_bwd_kernel.launches_fma_wide != 2:
+            raise AssertionError(f"FMA wide {label}: not one wide-kernel launch a call")
+        ref = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            tol = 1e-5 * max(1.0, top) if dtype == f32 else 4 * bf16_ulp(top)
+            check(f"FMA wide {label} {name}", err, tol)
+            if dtype == f32 and d == WIDE_D:
+                err_wide = max(err_wide, err)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"FMA wide {label}: two calls differ")
+        assert all(g[0].abs().max().item() == 0.0 for g in got), \
+            "a fully masked row must get zero gradients"
+        del q, k, v, do, got, again, ref
 
     timings = {}
     for label, (d, width, dtype) in FLASH_SHAPES.items():
@@ -861,13 +948,29 @@ def phase_flash_bwd(gen):
             "SDPA backward")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA backward "
         f"{timings['kirp f32'][2]:.4f} ms, bound {timings['kirp f32'][3]:.5f} ms")
+    for dtype in (f32, bf16):
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.0, seed, WIDE_D)
+        eff = WIDE_D**-0.5 / 0.5
+        run = lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff)
+        dq, dk, dv = run()
+        ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=eff)
+        timings[f"wide {dtype}"] = time_flash(
+            f"wide head ({b}, {lq}, {lkv}, {WIDE_D}) {str(dtype)[6:]} unmasked", run,
+            lambda: flash_backward_plain(q, k, v, None, do, lse, delta, eff),
+            lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+            nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * WIDE_D, dtype,
+            "SDPA backward")
     phase_flash_latents(gen)
     source = "healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     return (flash_entry("flash_attention_bwd", source, "healnet_tpu/ops/flash_attention.py:201",
                         worst[bf16], timings["brca"]),
             flash_entry("flash_attention_bwd_fma", source,
                         "healnet_tpu/ops/flash_attention.py:201", worst[f32],
-                        timings["brca f32"]))
+                        timings["brca f32"]),
+            flash_entry("flash_attention_bwd_fma_wide", source,
+                        "healnet_tpu/ops/flash_attention.py:201", err_wide,
+                        timings[f"wide {f32}"]))
 
 
 def phase_flash_latents(gen) -> None:
@@ -1095,7 +1198,7 @@ def compare_gradients(label, kernel, plain, batch, tol_loss, tol_grad) -> None:
     loss_p = plain.train_step(batch, HORIZON)[0].item()
     check(f"{label} step-1 loss {loss_k:.6f} vs {loss_p:.6f} (relative)",
           abs(loss_k - loss_p) / abs(loss_p), tol_loss)
-    worst, where = worst_grad_error(kernel.module, gradients(plain.module))
+    worst, where = worst_grad_error(gradients(kernel.module), gradients(plain.module))
     check(f"{label} step-1 gradients, worst relative L2 error ({where})", worst, tol_grad)
 
 
@@ -1103,15 +1206,15 @@ def gradients(module) -> dict:
     return {n: p.grad.float() for n, p in module.named_parameters()}
 
 
-def worst_grad_error(module, ref: dict):
-    """(worst error, parameter name): each parameter's gradient against
+def worst_grad_error(grads: dict, ref: dict):
+    """(worst error, parameter name): each gradient of ``grads`` against
     ``ref``'s, as an L2 error relative to the reference gradient's norm or
     to 1% of the global reference norm, whichever is larger (see
     :func:`compare_gradients`)."""
     floor = 0.01 * torch.sqrt(sum(g.square().sum() for g in ref.values())).item()
     worst, where = 0.0, ""
-    for name, p in module.named_parameters():
-        err = ((p.grad.float() - ref[name]).norm() / max(ref[name].norm().item(), floor)).item()
+    for name, g in grads.items():
+        err = ((g - ref[name]).norm() / max(ref[name].norm().item(), floor)).item()
         if not err < worst:
             worst, where = err, name
     return worst, where
@@ -1184,6 +1287,173 @@ def phase_training(host_rng) -> dict:
             f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
             f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in flash))
     return {**launches, **fma}
+
+
+def phase_wide_step(host_rng) -> dict:
+    """The wide FMA kernels' path: one f32 training step of the brca model
+    with a 320-wide cross head, kernel path against plain path (phase 7's
+    f32 tolerances); the step must launch both wide kernels."""
+    log(f"phase 7 (continued): one f32 training step with a {WIDE_D}-wide cross head")
+    batch = train_batch(host_rng, torch.float32)
+    wide = dict(cross_dim_head=WIDE_D)
+    kernel = SurvivalTrainer(HealNetModule(**{**BRCA, **wide}, attention_impl="flash",
+                                           device="cuda",
+                                           generator=torch.Generator().manual_seed(0)),
+                             l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda")
+    plain = SurvivalTrainer(HealNetModule(**{**BRCA, **wide}, attention_impl="xla",
+                                          projection_impl="xla", device="cuda"),
+                            l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda")
+    plain.module.load_state_dict(kernel.module.state_dict())
+    reset_launches()
+    compare_gradients(f"f32 head {WIDE_D}", kernel, plain, batch, 1e-5, 1e-4)
+    return read_launches(f"the f32 step with a {WIDE_D}-wide head",
+                         ("flash_attention_fma_wide", "flash_attention_bwd_fma_wide"))
+
+
+# --------------------------------------------------------------- phase 12
+
+
+def fit_split(host_rng, n: int) -> dict:
+    """n synthetic patients at full brca width: omic 1 x 2000 and a WSI bag
+    of 4096 x 2048 (f32), 4-bin labels, censoring and event times."""
+    return {"tensors": (host_rng.standard_normal((n, 1, OMIC), dtype=np.float32),
+                        host_rng.standard_normal((n, TOKENS, PATCH), dtype=np.float32)),
+            "y_disc": host_rng.integers(0, 4, size=n),
+            "censorship": (host_rng.uniform(size=n) < 0.4).astype(np.float32),
+            "event_time": host_rng.uniform(1, 100, size=n).astype(np.float32)}
+
+
+def fit_trainer(module, **kw):
+    return SurvivalTrainer(module, l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, batch_size=BATCH,
+                           device="cuda", **kw)
+
+
+def phase_fit(host_rng) -> None:
+    """The wrapper, remat, fit, resume and serving from a checkpoint, at the
+    brca row in f32 (the JAX default precision) at full width, flash
+    attention, dropout 0.083 / 0.473."""
+    log("phase 12: the wrapper, remat, fit, resume and serving from a checkpoint (brca, f32)")
+    t_phase = time.perf_counter()
+    train, val, test = fit_split(host_rng, 24), fit_split(host_rng, 8), fit_split(host_rng, 8)
+    omic, wsi = val["tensors"]
+    dims = {k: v for k, v in BRCA.items() if k not in ("attn_dropout", "ff_dropout")}
+
+    # (a) the HealNet wrapper on the card against HealNetModule on the plain path
+    wrapper = HealNet(**BRCA, store_attention="lazy", attention_impl="flash", seed=0,
+                      device="cuda")
+    plain = HealNetModule(**BRCA, attention_impl="xla", projection_impl="xla", device="cuda")
+    plain.load_state_dict(wrapper.module.state_dict())
+    plain.eval()
+    with torch.no_grad():
+        x = [torch.as_tensor(omic, device="cuda"), torch.as_tensor(wsi, device="cuda")]
+        want = plain(x)
+        presence = torch.tensor([[1.0, 0.0]] * len(omic), device="cuda")
+        want_missing = plain([x[0], torch.zeros((len(omic), 1, PATCH), device="cuda")],
+                             presence=presence)
+    check("wrapper [omic, wsi] logits vs HealNetModule, plain path",
+          (wrapper([omic, wsi]) - want).abs().max().item(), 1e-3)
+    weights = wrapper.get_attention_weights()
+    shapes = [w.shape for w in weights]
+    want_shapes = [(len(omic), BRCA["l_c"], t) for _ in range(BRCA["depth"]) for t in (1, TOKENS)]
+    log(f"  get_attention_weights (lazy): {len(weights)} arrays, shapes {shapes}")
+    if shapes != want_shapes or not all(np.isfinite(w).all() for w in weights):
+        raise AssertionError(f"captured weights: shapes {shapes}, expected {want_shapes}")
+    check("wrapper [omic, None] logits vs HealNetModule, plain path",
+          (wrapper([omic, None]) - want_missing).abs().max().item(), 1e-3)
+    del wrapper, plain, x
+
+    # (b) one training step with and without remat, from the same weights
+    put = lambda a: torch.as_tensor(a[:BATCH], device="cuda")
+    batch = {k: tuple(map(put, v)) if k == "tensors" else put(v) for k, v in train.items()}
+    batch["sample_mask"] = torch.ones(BATCH, device="cuda")
+    state = None
+    for rates in ((0.0, 0.0), (BRCA["attn_dropout"], BRCA["ff_dropout"])):
+        runs = {}
+        for remat in (False, True):
+            module = HealNetModule(**dims, attn_dropout=rates[0], ff_dropout=rates[1],
+                                   attention_impl="flash", remat=remat, device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+            if state is None:
+                state = {k: v.clone() for k, v in module.state_dict().items()}
+            module.load_state_dict(state)
+            trainer = fit_trainer(module)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_step(batch, HORIZON)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            runs[remat] = gradients(module)
+            _, busy, _, _ = device_profile(lambda: trainer.train_step(batch, HORIZON))
+            log(f"  step, remat={remat}, dropout {rates}: device busy {busy:.4f} ms "
+                f"(profiler), peak memory {peak:.1f} MiB")
+            del trainer, module
+        # as phase 7: each gradient's L2 error relative to its norm or to 1%
+        # of the global norm (the omic query path's gradient is the L1 term
+        # plus the flash backward's rounding noise)
+        worst, where = worst_grad_error(runs[True], runs[False])
+        check(f"remat vs plain step gradients, dropout {rates} (worst relative L2, {where})",
+              worst, 1e-5)
+
+    # (c) fit for 2 epochs with checkpoints, then resume the finished fold
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        module = HealNetModule(**BRCA, attention_impl="flash", device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        trainer = fit_trainer(module, epochs=2, prefetch=2, checkpoint_dir=ckpt_dir,
+                              keep_checkpoints=2)
+        step_walls = []
+        step = trainer.train_step
+
+        def timed_step(*a, **kw):
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            step_walls.append(time.perf_counter() - t0)
+            return out
+
+        trainer.train_step = timed_step
+        reset_launches()
+        result = trainer.fit(train, val, test_data=test, verbose=False)
+        read_launches("the 2-epoch fit", ("fused_project_f32", "fused_project_bwd",
+                                          "flash_attention_fma", "flash_attention_bwd_fma"))
+        del trainer.train_step
+        hist = result["history"]
+        log(f"  fit: epoch walls {[round(h['seconds'], 4) for h in hist]} s, mean step wall "
+            f"{statistics.mean(step_walls) * 1e3:.4f} ms over {len(step_walls)} steps; "
+            f"train loss {[round(h['train_loss'], 6) for h in hist]}, val loss "
+            f"{result['val_loss']:.6f}, val c-index {result['val_c_index']:.6f}, test c-index "
+            f"{result['test_c_index']:.6f}")
+        if not all(np.isfinite([h["train_loss"] for h in hist] + [result["val_loss"]])):
+            raise AssertionError("fit gave a non-finite loss")
+        Checkpointer(ckpt_dir).save_best(trainer.module.state_dict())
+        resumed = fit_trainer(HealNetModule(**BRCA, attention_impl="flash", device="cuda"),
+                              epochs=2, checkpoint_dir=ckpt_dir, resume=True)
+        again = resumed.fit(train, val, verbose=False)
+        same = (again["history"][0].get("resumed_complete")
+                and again["val_loss"] == result["val_loss"]
+                and again["val_c_index"] == result["val_c_index"])
+        log(f"  resume of the finished fold: val loss {again['val_loss']:.6f}, c-index "
+            f"{again['val_c_index']:.6f} (the first run's last evaluation: "
+            f"{result['val_loss']:.6f}, {result['val_c_index']:.6f})")
+        if not same:
+            raise AssertionError("the resumed fold's evaluation differs from the first run's")
+
+        # (d) serving from the checkpoint directory against the trained module
+        pred = Predictor(HealNetModule(**BRCA, attention_impl="flash", device="cuda"),
+                         params=ckpt_dir, batch_size=BATCH, device="cuda")
+        served = pred([omic, wsi])["logits"]
+        module.eval()
+        with torch.no_grad():
+            direct = module([torch.as_tensor(omic, device="cuda"),
+                             torch.as_tensor(wsi, device="cuda")]).cpu().numpy()
+        check("Predictor(params=<checkpoint dir>) logits vs the trained module",
+              float(np.abs(served - direct).max()), 1e-6)
+
+        # the idle share of one step, as phase 7 reckons it
+        wall, busy, idle, _ = step_times(trainer, batch)
+        log(f"  one fit step, inputs on the card: wall {wall:.4f} ms, device busy {busy:.4f} ms, "
+            f"idle share {idle:.4f}")
+    log(f"  c-index implementation: {cindex_implementation()}")
+    log(f"  phase 12 wall: {time.perf_counter() - t_phase:.2f} s")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1396,8 +1666,8 @@ def phase_arena(host_rng) -> dict:
     loss_p = plain16.train_step(batches[0], HORIZON)[0].item()
     check(f"arena bf16 step-1 loss {loss_k:.6f} vs {loss_p:.6f} (relative)",
           abs(loss_k - loss_p) / abs(loss_p), 2e-2)
-    err_p, at_p = worst_grad_error(plain16.module, truth)
-    err_k, at_k = worst_grad_error(kernel.module, truth)
+    err_p, at_p = worst_grad_error(gradients(plain16.module), truth)
+    err_k, at_k = worst_grad_error(gradients(kernel.module), truth)
     log(f"  arena bf16 step-1 gradients against f32, worst relative L2 error: plain path "
         f"{err_p:.4g} ({at_p}), kernel path {err_k:.4g} ({at_k})")
     check("arena bf16 kernel path's gradient error against f32 (tolerance: 1.5x the plain "
@@ -1707,12 +1977,14 @@ def main() -> int:
     phase_serving_rows(np.random.default_rng(3))
     kernels += [*phase_flash_bwd(gen), phase_projection_bwd(gen)]
     launches = {**generic_launches, **phase_training(np.random.default_rng(1))}
+    launches.update(phase_wide_step(np.random.default_rng(4)))
     kernels += [*phase_projection_int8(gen, projection[0]["ms"], projection[1]["ms"]),
                 phase_projection_bwd_int8(gen)]
     launches.update(phase_arena(np.random.default_rng(2)))
     chain, chain_launches = phase_chain(gen)
     kernels.append(chain)
     launches.update(chain_launches)
+    phase_fit(np.random.default_rng(5))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

@@ -7,7 +7,7 @@ are built with nvcc on first use.
 """
 
 from healnet_tpu_torch.device import resolve_device, round_up
-from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.models.healnet import HealNet, HealNetModule
 from healnet_tpu_torch.serving import Predictor
 
-__all__ = ["HealNetModule", "Predictor", "resolve_device", "round_up"]
+__all__ = ["HealNet", "HealNetModule", "Predictor", "resolve_device", "round_up"]

@@ -1,3 +1,3 @@
-from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.models.healnet import HealNet, HealNetModule, attention_module_order
 
-__all__ = ["HealNetModule"]
+__all__ = ["HealNet", "HealNetModule", "attention_module_order"]

@@ -118,15 +118,26 @@ class FeedForward(nn.Module):
         self.net_0 = torch_dense(dim * mult * 2, dim, dtype=dtype)
         self.net_2 = torch_dense(dim, dim * mult, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draws_dropout(self) -> bool:
+        return self.training and self.dropout > 0.0
+
+    def keep_mask(self, shape, generator: Optional[torch.Generator],
+                  device: torch.device) -> torch.Tensor:
+        """The dropout keep mask of an output of ``shape``, from ``generator``."""
+        if generator is None:
+            raise ValueError("FeedForward dropout needs a generator")
+        return torch.rand(shape, generator=generator, device=device) < 1.0 - self.dropout
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: a keep mask drawn beforehand (:meth:`keep_mask`), else
+        one is drawn here from ``generator``."""
         h = self.net_0(x)
         h = gated_selu(h) if self.snn else gated_gelu(h)
         h = self.net_2(h)
-        if self.training and self.dropout > 0.0:
-            if generator is None:
-                raise ValueError("FeedForward dropout needs a generator")
-            keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - self.dropout
+        if self.draws_dropout():
+            if keep is None:
+                keep = self.keep_mask(h.shape, generator, h.device)
             h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
         return h
 
@@ -150,11 +161,17 @@ class FoldedKV(nn.Module):
         kernel = self.weight.t()
         return kernel * scale[:, None], bias @ kernel
 
-    def forward(self, x):
-        kernel = self.weight.t()
+    def forward(self, x, scale=None, bias=None):
+        """``x @ W``, or with a LayerNorm affine ``(scale, bias)`` folded in."""
+        kernel, folded_bias = self.weight.t(), None
+        if scale is not None:
+            kernel, folded_bias = self.fold(scale, bias)
         if self.dtype is not None:
             x, kernel = x.to(self.dtype), kernel.to(self.dtype)
-        return x @ kernel
+        y = x @ kernel
+        if folded_bias is not None:
+            y = y + folded_bias.to(y.dtype)
+        return y
 
 
 class Attention(nn.Module):
@@ -185,10 +202,15 @@ class Attention(nn.Module):
         return self.to_kv.fold(scale, bias)
 
     def forward(self, x, context=None, kv_mask=None, kv=None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, return_weights: bool = False,
+                ctx_scale=None, ctx_bias=None):
         """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice;
         ``dropout_seed``: the raw 32-bit hash seed of this call, required
-        in training when ``dropout > 0``. Returns ``(out, None)``."""
+        in training when ``dropout > 0``; ``ctx_scale`` / ``ctx_bias``: a
+        LayerNorm affine folded into ``to_kv`` over an already normalised
+        ``context``. Returns ``(out, weights)``: the post-softmax,
+        pre-dropout weights ``(b, h, lq, lkv)`` with ``return_weights``
+        (always on the plain path), else None."""
         inner = self.dim_head * self.heads
         scale = self.dim_head**-0.5
         rate = self.dropout if self.training else 0.0
@@ -196,16 +218,19 @@ class Attention(nn.Module):
             raise ValueError("attention dropout needs a dropout_seed")
         q = self.to_q(x)
         if kv is None:
-            kv = self.to_kv(x if context is None else context)
+            kv = self.to_kv(x if context is None else context, scale=ctx_scale, bias=ctx_bias)
         k, v = split_columns(kv, (inner, inner))
         qh, kh, vh = (split_heads(t, self.heads) for t in (q, k, v))
         kw = dict(scale=scale, temperature=self.temperature, kv_mask=kv_mask,
                   dropout_rate=rate, dropout_seed=dropout_seed)
-        if self._should_use_flash(rate, qh.shape[0], qh.shape[2], kh.shape[2], qh.is_cuda):
+        weights = None
+        # capture needs the materialised weights: the plain path, as in JAX
+        if not return_weights and self._should_use_flash(rate, qh.shape[0], qh.shape[2],
+                                                         kh.shape[2], qh.is_cuda):
             out = flash_cross_attention(qh, kh, vh, **kw)
         else:
-            out, _ = multihead_attention(qh, kh, vh, **kw)
-        return F.leaky_relu(self.to_out(out), negative_slope=1e-2), None
+            out, weights = multihead_attention(qh, kh, vh, return_weights=return_weights, **kw)
+        return F.leaky_relu(self.to_out(out), negative_slope=1e-2), weights
 
     def _should_use_flash(self, dropout_rate: float, b: int, lq: int, lkv: int,
                           on_card: bool) -> bool:
@@ -247,18 +272,27 @@ class PreNormAttention(nn.Module):
         scale, bias = self.norm_context()
         return self.fn.kv_fold(scale, bias)
 
-    def forward(self, x, context=None, kv_mask=None, kv=None, dropout_seed=None):
+    def forward(self, x, context=None, kv_mask=None, kv=None, dropout_seed=None,
+                return_weights: bool = False, context_normalized: bool = False):
+        """``context_normalized``: ``context`` is the shared normalised
+        context (the remat path); this layer's ``norm_context`` affine is
+        then folded into ``to_kv`` instead of applied over the context."""
         normed = self.norm(x)
-        normed_ctx = None
+        normed_ctx = ctx_scale = ctx_bias = None
         if kv is None and context is not None:
-            scale_p, bias_p = self.norm_context()
-            xf = context.float()
-            mu = xf.mean(dim=-1, keepdim=True)
-            var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
-            xhat = (xf - mu) * torch.rsqrt(var + 1e-5)
-            normed_ctx = (xhat * scale_p + bias_p).to(self.dtype or context.dtype)
+            if context_normalized:
+                ctx_scale, ctx_bias = self.norm_context()
+                normed_ctx = context
+            else:
+                scale_p, bias_p = self.norm_context()
+                xf = context.float()
+                mu = xf.mean(dim=-1, keepdim=True)
+                var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
+                xhat = (xf - mu) * torch.rsqrt(var + 1e-5)
+                normed_ctx = (xhat * scale_p + bias_p).to(self.dtype or context.dtype)
         return self.fn(normed, context=normed_ctx, kv_mask=kv_mask, kv=kv,
-                       dropout_seed=dropout_seed)
+                       dropout_seed=dropout_seed, return_weights=return_weights,
+                       ctx_scale=ctx_scale, ctx_bias=ctx_bias)
 
 
 class PreNormFeedForward(nn.Module):
@@ -270,5 +304,6 @@ class PreNormFeedForward(nn.Module):
         self.norm = LayerNorm(dim, dtype=dtype)
         self.fn = FeedForward(dim, mult=mult, dropout=dropout, snn=snn, dtype=dtype)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        return self.fn(self.norm(x), generator=generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None):
+        return self.fn(self.norm(x), generator=generator, keep=keep)

@@ -11,12 +11,15 @@ the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
 Each kernel has two variants, chosen by :func:`flash_variant` from the
 dtype and head dim before the launch: bf16 with d <= 128 (the model's
 path) takes the tensor-core kernel; f32, and bf16 with d > 128, take the
-f32 FMA kernel. Both are one clustered launch per call sized by
-:func:`flash_plan` (in key tiles of :func:`key_tile`) from the kernel's own
-cluster occupancy. Each wrapper counts the launches of each variant
-(``launches``, ``launches_fma``). Every kernel takes any latent count: the
-forward walks the queries in groups inside a block, and the backward walks
-them in chunks sized by :func:`query_chunks` from what a block holds.
+f32 FMA kernel, which takes heads wider than 256 in column chunks of 256
+(the scores summed over the chunks, the outputs written chunk by chunk).
+All are one clustered launch per call sized by :func:`flash_plan` (in key
+tiles of :func:`key_tile`) from the kernel's own cluster occupancy. Each
+wrapper counts the launches of each variant (``launches``,
+``launches_fma``, and ``launches_fma_wide`` for d > 256). Every kernel
+takes any latent count: the forward walks the queries in groups inside a
+block, and the backward walks them in chunks sized by :func:`query_chunks`
+from what a block holds.
 
 The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
 (forward, materialised weights; its autograd gradient is the same function
@@ -45,7 +48,7 @@ from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep
 
 _TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
 _TC_MAX_D = 128  # widest head the tensor-core kernels take
-_FMA_MAX_D = 256  # widest head the FMA kernels take (fmav::kMaxD)
+_FMA_CHUNK = 256  # column chunk of the FMA kernels for heads wider than it (fmav::kMaxD)
 _FMA_TILE = 32  # keys per tile of the FMA kernels (fmav::kKeys)
 _TC_QGROUP = 32  # queries per group of the tensor-core kernels (tc::kQGroup)
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)
@@ -216,16 +219,15 @@ def flash_attention_kernel(
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
     bf16 with d <= 128 launches the tensor-core kernel (counted in
-    ``launches``), anything else the FMA kernel (``launches_fma``; heads up
-    to 256 wide). Either is one launch.
+    ``launches``), anything else the FMA kernel (``launches_fma``; heads
+    wider than 256 take its chunked form, ``launches_fma_wide``). Either is
+    one launch.
     """
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
     lib = _lib()
     tc = flash_variant(q.dtype, d) == "tc"
-    if not tc and _max_queries("healnet_flash_max_queries", d) < 1:
-        raise ValueError(f"the FMA forward takes heads of 1 to {_FMA_MAX_D}, not d={d}")
     mask = _float_mask(kv_mask, b, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -254,13 +256,17 @@ def flash_attention_kernel(
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
                 *drop, bf, stream,
             )
-            flash_attention_kernel.launches_fma += 1
+            if d > _FMA_CHUNK:
+                flash_attention_kernel.launches_fma_wide += 1
+            else:
+                flash_attention_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_kernel")
     return out.reshape(b, lq, h * d), lse
 
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_fma = 0
+flash_attention_kernel.launches_fma_wide = 0
 
 
 def flash_attention_bwd_kernel(
@@ -299,8 +305,6 @@ def flash_attention_bwd_kernel(
     tc = flash_variant(q.dtype, d) == "tc"
     max_rows = _max_queries(
         "healnet_flash_bwd_tc_max_queries" if tc else "healnet_flash_bwd_max_queries", d)
-    if max_rows < 1:
-        raise ValueError(f"the FMA backward takes heads of 1 to {_FMA_MAX_D}, not d={d}")
     n_chunks, chunk = query_chunks(lq, max_rows, _TC_QGROUP if tc else 1)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
@@ -341,13 +345,17 @@ def flash_attention_bwd_kernel(
                 carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
                 float(eff_scale), *drop, bf, stream,
             )
-            flash_attention_bwd_kernel.launches_fma += 1
+            if d > _FMA_CHUNK:
+                flash_attention_bwd_kernel.launches_fma_wide += 1
+            else:
+                flash_attention_bwd_kernel.launches_fma += 1
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
 flash_attention_bwd_kernel.launches_fma = 0
+flash_attention_bwd_kernel.launches_fma_wide = 0
 
 
 def _scores(q, k, kv_mask, eff_scale):

@@ -10,7 +10,9 @@ survival curves and risk. Outputs are float32 numpy arrays. Arena mode
 training-time feature arena, plain or int8, uploaded to the device once: a
 request carries bag offsets and lengths, and no patch features.
 
-Not ported yet: parameters from a checkpoint directory, and artifact export.
+Parameters may come from a checkpoint directory: its ``best`` entry
+(:class:`healnet_tpu_torch.train.checkpoint.Checkpointer`). Not ported
+yet: artifact export.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from healnet_tpu_torch.compat.flax_params import is_flax_tree, state_dict_from_flax
 from healnet_tpu_torch.device import DeviceLike, resolve_device, round_up
 from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
+from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.losses import hazards_survival_risk
 from healnet_tpu_torch.utils.train_utils import accepts_kv_masks
 
@@ -45,8 +48,9 @@ class Predictor:
         """
         Args:
             module: a module with the HealNet call convention.
-            params: a port ``state_dict``, or a Flax ``params`` tree (nested
-                mappings of arrays) converted on load; None keeps the
+            params: a port ``state_dict``, a Flax ``params`` tree (nested
+                mappings of arrays) converted on load, or a checkpoint
+                directory whose ``best`` entry is loaded; None keeps the
                 module's own weights.
             batch_size: micro-batch; requests are padded/split to it.
             compute_dtype: dtype the input tensors are cast to (default
@@ -59,9 +63,9 @@ class Predictor:
                 tensor, or a ``QuantizedContext`` of int8 rows and scales);
                 enables :meth:`predict_from_arena`. Uploaded once.
         """
-        if isinstance(params, (str, Path)):
-            raise NotImplementedError("checkpoint-directory params are not ported yet")
         self.device = resolve_device(device)
+        if isinstance(params, (str, Path)):
+            params = Checkpointer(params).restore_best()
         if params is not None:
             module.load_state_dict(
                 state_dict_from_flax(params) if is_flax_tree(params) else params

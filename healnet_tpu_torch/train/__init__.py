@@ -1,3 +1,4 @@
+from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 from healnet_tpu_torch.train.losses import (
     CoxPHSurvLoss,
@@ -9,6 +10,11 @@ from healnet_tpu_torch.train.losses import (
     nll_loss_from_logits,
     survival_loss,
 )
+from healnet_tpu_torch.train.metrics import (
+    cindex_implementation,
+    concordance_index_censored,
+    concordance_index_native,
+)
 from healnet_tpu_torch.train.schedule import (
     make_optimizer,
     onecycle_beta1_at,
@@ -17,10 +23,14 @@ from healnet_tpu_torch.train.schedule import (
 )
 
 __all__ = [
+    "Checkpointer",
     "CoxPHSurvLoss",
     "CrossEntropySurvLoss",
     "SurvivalTrainer",
     "ce_loss",
+    "cindex_implementation",
+    "concordance_index_censored",
+    "concordance_index_native",
     "cox_ph_loss",
     "hazards_survival_risk",
     "iterate_batches",

@@ -1,8 +1,8 @@
-"""Survival training step on one device.
+"""Survival training on one device: the step and the fold loop.
 
-Counterpart of the step body of ``healnet_tpu/train/loop.py``
+Counterpart of ``healnet_tpu/train/loop.py``. The step
 (``SurvivalTrainer._surv_loss``, ``_forward`` and the ``train_step`` /
-``eval_step`` of ``_build_steps``): forward with dropout, the survival loss
+``eval_step`` of ``_build_steps`` there): forward with dropout, the survival loss
 divided by ``gc_compat`` plus ``l1`` times the L1 norm of the parameters,
 backward, gradient norms per top-level module, then Adam with the OneCycle
 lr and beta1 written for the step (:mod:`healnet_tpu_torch.train.schedule`).
@@ -21,42 +21,69 @@ the slide tensor, and each step gathers its bags on the device
 (:func:`healnet_tpu_torch.parallel.arena.gather_bag`), appending the slide
 as the last modality.
 
-Not ported yet: ``fit`` / ``evaluate`` and metrics, checkpoints, streaming
-datasets, fused epochs, meshes with row-sharded arenas, and modules with
-their own auxiliary loss.
+The fold loop (``fit`` and ``evaluate`` there): epochs of shuffled batches
+(``np.random.default_rng(seed + fold + 977 * epoch)``, as in JAX) through a
+:class:`healnet_tpu_torch.etl.DevicePrefetcher`, the train loss weighted by
+valid rows (events for cox), the censored c-index on the host
+(:mod:`healnet_tpu_torch.train.metrics`), validation every
+``eval_interval`` epochs, the tracker's ``log`` / ``watch``, a checkpoint a
+epoch (:class:`healnet_tpu_torch.train.checkpoint.Checkpointer`) with
+resume, early stopping with the best weights restored, and the test split
+with the missing-modality ablations. Each epoch reseeds the dropout
+generators from ``(seed + 1000 * fold, epoch)``, so a resumed run draws
+what an uninterrupted one would have.
+
+Not ported yet: fused epochs (a captured step), meshes and row-sharded
+arenas, and modules with their own auxiliary loss; each raises, naming the
+``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+import time
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from healnet_tpu_torch.device import DeviceLike, resolve_device
+from healnet_tpu_torch.etl.prefetch import DevicePrefetcher
 from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_context_host
 from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
+from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.losses import (
     CoxPHSurvLoss,
     ce_loss,
     hazards_survival_risk,
     nll_loss,
 )
+from healnet_tpu_torch.train.metrics import concordance_index_native
 from healnet_tpu_torch.train.schedule import make_optimizer, progress_hyperparams
-from healnet_tpu_torch.utils.train_utils import accepts_kv_masks, calc_reg_loss
+from healnet_tpu_torch.utils.train_utils import EarlyStopping, accepts_kv_masks, calc_reg_loss
+
+_META = ("censorship", "event_time", "sample_mask")
 
 
 def iterate_batches(
-    data: Mapping[str, Any],
+    data,
     batch_size: int,
     shuffle: bool = False,
     rng: Optional[np.random.Generator] = None,
+    bucket_boundaries: Optional[Sequence[int]] = None,
 ) -> Iterator[Dict[str, Any]]:
     """Yield static-shape numpy batches from a dict of whole-split arrays
     (``tensors``, ``y_disc``, ``censorship``, ``event_time``, optional
     ``presence`` and ``kv_masks``, and for arena-indexed data
     ``patch_offsets`` / ``patch_lengths``, carried as int32); the trailing
-    batch is padded and masked."""
+    batch is padded and masked.
+
+    ``data`` may instead be a streaming source with ``iter_batches(
+    batch_size, shuffle=, rng=[, bucket_boundaries=])``, whose batches are
+    passed on; ``bucket_boundaries`` only applies to such a source."""
+    if hasattr(data, "iter_batches"):
+        kw = {"bucket_boundaries": bucket_boundaries} if bucket_boundaries else {}
+        yield from data.iter_batches(batch_size, shuffle=shuffle, rng=rng, **kw)
+        return
     n = data["y_disc"].shape[0]
     idx = np.arange(n)
     if shuffle:
@@ -123,10 +150,20 @@ class SurvivalTrainer:
             (quantized on the host): half the device bytes and half the
             context bytes each step reads.
         arena_device: an arena already on the device, used as it is.
-
-    ``batch_size``, ``epochs``, ``patience``, ``early_stopping``,
-    ``eval_interval`` and ``tracker`` are kept for ``fit``, which is not
-    ported yet.
+        batch_size, epochs, patience, early_stopping, eval_interval: the
+            fold loop's (:meth:`fit`); validation runs every
+            ``eval_interval`` epochs and on the last.
+        tracker: an object with ``log(metrics, step=)`` and ``watch(params=,
+            grad_stats=, step=, prefix=)``, called once an epoch.
+        checkpoint_dir, resume, keep_checkpoints: a checkpoint each epoch
+            (the newest ``keep_checkpoints`` kept; None keeps all), and
+            whether :meth:`fit` resumes from the newest.
+        prefetch: host batches produced ahead on a background thread (0:
+            none), copied to the device one batch ahead.
+        bucket_boundaries: length buckets of a streaming ragged-bag source.
+        n_bins, tensor_parallel, arena_halo: kept from the JAX trainer's
+            signature; they act only with ``aux_loss``, ``mesh`` or
+            ``arena_sharded``, which are not ported and raise.
     """
 
     def __init__(
@@ -154,11 +191,35 @@ class SurvivalTrainer:
         feature_arena: Optional[Any] = None,
         arena_quant: bool = False,
         arena_device: Optional[Any] = None,
+        aux_loss: bool = False,
+        n_bins: Optional[int] = None,
+        checkpoint_dir=None,
+        resume: bool = False,
+        keep_checkpoints: Optional[int] = 3,
+        mesh=None,
+        tensor_parallel: bool = True,
+        prefetch: int = 2,
+        bucket_boundaries: Optional[Sequence[int]] = None,
+        fused_epochs: bool = False,
+        arena_sharded: bool = False,
+        arena_halo: Optional[int] = None,
     ):
         if loss_type not in ("nll", "ce_survival", "cox"):
             raise ValueError(f"unknown loss_type {loss_type}")
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError("batch_size must be divisible by accum_steps")
+        if fused_epochs:
+            raise NotImplementedError(
+                "fused epochs (the step captured as one CUDA graph) are not ported yet "
+                "(ROADMAP.md, Queue 1: the captured step)")
+        if aux_loss:
+            raise NotImplementedError(
+                "modules with their own auxiliary loss come with the baselines "
+                "(ROADMAP.md, Queue 1: baselines)")
+        if mesh is not None or arena_sharded:
+            raise NotImplementedError(
+                "meshes and row-sharded arenas come with the multi-device slice "
+                "(ROADMAP.md, Queue 1: multi-device)")
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.loss_type, self.alpha = loss_type, alpha
@@ -176,6 +237,11 @@ class SurvivalTrainer:
         self.seed, self.tracker = seed, tracker
         self.reg_topo, self.sources = reg_topo, sources
         self.accum_steps = accum_steps
+        self.checkpoint_dir, self.resume = checkpoint_dir, resume
+        self.keep_checkpoints = keep_checkpoints  # None keeps every epoch
+        self.prefetch = prefetch
+        self.bucket_boundaries = (
+            tuple(int(b) for b in bucket_boundaries) if bucket_boundaries else None)
         self._accepts_kv_masks = accepts_kv_masks(module)
         self.optimizer = make_optimizer(self.module.parameters(), cycle_momentum)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -186,6 +252,31 @@ class SurvivalTrainer:
         self._arena_host = None if feature_arena is None else feature_arena[0]
         self._arena = arena_device  # placed on first use when None
         self.arena_quant = bool(arena_quant) or isinstance(self._arena_host, QuantizedContext)
+
+    def set_fold(self, *, seed: int, class_weights=None, checkpoint_dir=None):
+        """Point the trainer at a new fold: the seed, class weights and
+        checkpoint directory; the module's weights drawn anew from a
+        generator seeded with ``seed`` and a fresh optimizer."""
+        self.seed = seed
+        self.class_weights = (
+            None if class_weights is None
+            else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
+                                 device=self.device)
+        )
+        self.checkpoint_dir = checkpoint_dir
+        self.module.reset_parameters(torch.Generator().manual_seed(seed))
+        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+        self.generator.manual_seed(seed)
+        self.seed_generator.manual_seed(seed + 1)
+        return self
+
+    def _seed_epoch(self, fold: int, epoch: int) -> None:
+        """Reseed the dropout generators from ``(seed + 1000 * fold,
+        epoch)``: an epoch draws the same masks whether or not the run
+        before it was interrupted."""
+        ff, seeds = np.random.SeedSequence([self.seed + 1000 * fold, epoch]).generate_state(2)
+        self.generator.manual_seed(int(ff))
+        self.seed_generator.manual_seed(int(seeds))
 
     def _device_arena(self):
         """The feature arena on the device, uploaded on the first call (int8
@@ -198,14 +289,15 @@ class SurvivalTrainer:
         return self._arena
 
     # ------------------------------------------------------------ pieces
-    def _place(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
+    def _place(self, batch: Mapping[str, Any], non_blocking: bool = False) -> Dict[str, Any]:
         """Host batch (numpy or tensors) -> tensors on the trainer's device;
         float64 arrives as float32, as in JAX, and integers (labels, arena
-        offsets) keep their type."""
+        offsets) keep their type. ``non_blocking`` copies pinned arrays
+        asynchronously (the prefetcher's side stream)."""
         def put(x):
             if x is None:
                 return None
-            x = torch.as_tensor(x, device=self.device)
+            x = torch.as_tensor(x).to(self.device, non_blocking=non_blocking)
             return x.float() if x.dtype == torch.float64 else x
 
         out = {k: put(v) for k, v in batch.items() if k not in ("tensors", "kv_masks")}
@@ -306,3 +398,240 @@ class SurvivalTrainer:
             logits = self._forward(batch, train=False)
             surv_loss, risk = self._surv_loss(logits, batch)
         return surv_loss, risk, logits
+
+    # ------------------------------------------------------------- fold loop
+    def _put(self, host_batch, non_blocking: bool = False):
+        """(the batch on the device, its survival metadata on the host)."""
+        meta = {k: np.asarray(host_batch[k]) for k in _META}
+        return self._place(host_batch, non_blocking=non_blocking), meta
+
+    def _weighted_loss(self, losses, cens, masks) -> float:
+        """Batch losses weighted by the count each one's normaliser used:
+        events for cox, valid rows otherwise."""
+        if self.loss_type == "cox":
+            valid = np.asarray([((1.0 - c) * m).sum() for c, m in zip(cens, masks)])
+        else:
+            valid = np.asarray([m.sum() for m in masks])
+        return float((np.asarray(losses) * valid).sum() / max(float(valid.sum()), 1.0))
+
+    @staticmethod
+    def _c_index(cens, times, risks: List[torch.Tensor], masks, what: str) -> float:
+        """The censored c-index over a split's valid rows (one host read of
+        the risks)."""
+        mask = np.concatenate(masks) > 0
+        risk = torch.cat(risks).float().cpu().numpy()
+        try:
+            return concordance_index_native(
+                (1 - np.concatenate(cens)[mask]).astype(bool), np.concatenate(times)[mask],
+                risk[mask], tied_tol=1e-8)[0]
+        except ValueError as exc:  # an all-censored or pair-free split
+            print(f"{what} c-index undefined: {exc}")
+            return float("nan")
+
+    def _steps_per_epoch(self, train_data) -> int:
+        """Exact optimizer steps an epoch (each bucket pads its own
+        remainder), so the OneCycle horizon matches the steps taken."""
+        if hasattr(train_data, "parent") and hasattr(train_data.parent, "count_batches"):
+            return train_data.parent.count_batches(train_data.indices, self.batch_size,
+                                                   self.bucket_boundaries)
+        if hasattr(train_data, "count_batches"):
+            return train_data.count_batches(None, self.batch_size, self.bucket_boundaries)
+        n = len(train_data) if hasattr(train_data, "iter_batches") else \
+            train_data["y_disc"].shape[0]
+        return int(np.ceil(n / self.batch_size))
+
+    def fit(
+        self,
+        train_data,
+        val_data,
+        test_data=None,
+        fold: int = 1,
+        missing_ablation: bool = False,
+        missing_semantics: str = "semantic",
+        verbose: bool = True,
+    ) -> Dict[str, Any]:
+        """Train one fold for ``epochs`` epochs (or until early stopping);
+        returns the last epoch's train and val loss and c-index,
+        ``stopped_epoch``, ``history`` (one dict an epoch), ``params`` (the
+        module's ``state_dict``), and with ``test_data`` the test loss and
+        c-index (and ``missing_performance``: the test c-index with modality
+        "50" / "omic" / "wsi" missing, with ``missing_ablation``)."""
+        horizon = float(self._steps_per_epoch(train_data) * self.epochs)
+        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+        stopper = EarlyStopping(patience=self.patience, mode="min", verbose=verbose)
+
+        ckpt, start_epoch = None, 1
+        if self.checkpoint_dir is not None:
+            ckpt = Checkpointer(self.checkpoint_dir)
+            latest = ckpt.latest_step() if self.resume else None
+            if latest is not None:
+                restored = ckpt.restore(step=latest, map_location=self.device)
+                self.module.load_state_dict(restored["params"])
+                self.optimizer.load_state_dict(restored["opt_state"])
+                start_epoch = latest + 1
+                if verbose:
+                    print(f"Resumed from checkpoint epoch {latest}")
+
+        history: List[Dict[str, Any]] = []
+        train_loss = train_c = val_loss = val_c = float("nan")
+        if start_epoch > self.epochs:
+            # the fold finished in an earlier run: evaluate the restored
+            # weights rather than report an empty loop
+            if verbose:
+                print(f"Fold already complete at epoch {start_epoch - 1}; "
+                      "re-evaluating restored checkpoint")
+            train_loss, train_c = self.evaluate(train_data)
+            val_loss, val_c = self.evaluate(val_data)
+            history.append(dict(epoch=start_epoch - 1, train_loss=train_loss,
+                                train_c_index=train_c, val_loss=val_loss, val_c_index=val_c,
+                                seconds=0.0, resumed_complete=True))
+        epoch = start_epoch - 1
+        for epoch in range(start_epoch, self.epochs + 1):
+            t0 = time.time()
+            self._seed_epoch(fold, epoch)
+            batches = iterate_batches(
+                train_data, self.batch_size, shuffle=True,
+                rng=np.random.default_rng(self.seed + fold + 977 * epoch),
+                bucket_boundaries=self.bucket_boundaries)
+            if self.prefetch > 0:
+                placed = DevicePrefetcher(
+                    batches, depth=2, buffer_size=self.prefetch, device=self.device,
+                    put_fn=lambda hb: self._put(hb, non_blocking=True))
+            else:
+                placed = (self._put(hb) for hb in batches)
+            losses, risks, cens, times, masks = [], [], [], [], []
+            gstats = None  # the epoch's last gradient norms, for the tracker
+            try:
+                for device_batch, meta in placed:
+                    loss, risk, gstats = self.train_step(device_batch, horizon=horizon)
+                    losses.append(loss)
+                    risks.append(risk)
+                    cens.append(meta["censorship"])
+                    times.append(meta["event_time"])
+                    masks.append(meta["sample_mask"])
+            finally:
+                # a failed step must not leave the producer thread holding batches
+                if hasattr(placed, "close"):
+                    placed.close()
+            train_loss = self._weighted_loss(torch.stack(losses).float().cpu().numpy(), cens,
+                                             masks)
+            train_c = self._c_index(cens, times, risks, masks, "train")
+
+            do_eval = epoch % self.eval_interval == 0 or epoch == self.epochs
+            val_loss, val_c = self.evaluate(val_data) if do_eval else (float("nan"),) * 2
+            history.append(dict(epoch=epoch, train_loss=train_loss, train_c_index=train_c,
+                                val_loss=val_loss, val_c_index=val_c, seconds=time.time() - t0))
+            if verbose:
+                val_str = f"val_loss {val_loss:.4f} c {val_c:.4f}" if do_eval else "val skipped"
+                print(f"Epoch {epoch}: train_loss {train_loss:.4f} c {train_c:.4f} | "
+                      f"{val_str} | {history[-1]['seconds']:.1f}s")
+            if self.tracker is not None:
+                step = epoch if fold == 1 else None
+                metrics_log = {f"fold_{fold}_train_loss": train_loss,
+                               f"fold_{fold}_train_c_index": train_c}
+                if do_eval:
+                    metrics_log[f"fold_{fold}_val_loss"] = val_loss
+                    metrics_log[f"fold_{fold}_val_c_index"] = val_c
+                self.tracker.log(metrics_log, step=step)
+                self.tracker.watch(
+                    params={k: v.detach().cpu().numpy()
+                            for k, v in self.module.state_dict().items()},
+                    grad_stats=None if gstats is None else {k: float(v)
+                                                            for k, v in gstats.items()},
+                    step=step, prefix=f"fold_{fold}_")
+            if ckpt is not None:
+                ckpt.save(step=epoch, params=self.module.state_dict(),
+                          opt_state=self.optimizer.state_dict(),
+                          metrics={"val_loss": val_loss, "val_c_index": val_c} if do_eval
+                          else None,
+                          keep_last=self.keep_checkpoints)
+            # patience counts evaluations
+            if do_eval and self.early_stopping and stopper.step(val_loss, self.module):
+                if verbose:
+                    print(f"Early stopping at epoch {epoch}")
+                best = stopper.load_best_weights()
+                if best is not None:
+                    self.module.load_state_dict(best)
+                break
+
+        results: Dict[str, Any] = {
+            "params": self.module.state_dict(),
+            "train_loss": train_loss, "train_c_index": train_c,
+            "val_loss": val_loss, "val_c_index": val_c,
+            "stopped_epoch": epoch,  # the last epoch run
+            "history": history,
+        }
+        if test_data is not None:
+            test_loss, test_c = self.evaluate(test_data)
+            results.update(test_loss=test_loss, test_c_index=test_c)
+            if self.tracker is not None:
+                self.tracker.log({f"fold_{fold}_test_loss": test_loss,
+                                  f"fold_{fold}_test_c_index": test_c})
+            if missing_ablation:
+                results["missing_performance"] = tuple(
+                    self.evaluate(test_data, missing_mode=m,
+                                  missing_semantics=missing_semantics)[1]
+                    for m in ("50", "omic", "wsi"))
+        return results
+
+    def _ablate(self, batch: Dict[str, Any], drop: int, n_mod: int,
+                missing_semantics: str) -> Dict[str, Any]:
+        """The batch with modality ``drop`` missing.
+
+        "semantic": its presence column is zero. "reference": what the
+        reference's evaluation runs, a one-element modality list: the kept
+        tensor goes through modality 0's tower with presence (1, 0, ...),
+        or, where its shape does not fit that tower (the reference's tower
+        raises inside a blanket ``except``), every presence is zero and the
+        latents are never updated."""
+        presence = np.ones((self.batch_size, n_mod), dtype=np.float32)
+        if missing_semantics == "reference":
+            if batch.get("patch_offsets") is not None:
+                raise ValueError("reference ablation semantics are defined on dense "
+                                 "tensor batches (the reference has no arena mode)")
+            kept = np.asarray(batch["tensors"][1 - drop])
+            dims, axes = self.module.channel_dims, self.module.num_spatial_axes
+            if kept.shape[-1] == dims[0] and kept.ndim - 2 == axes[0]:
+                b = kept.shape[0]
+                tensors = [kept] + [np.zeros((b,) + (1,) * axes[i] + (dims[i],), kept.dtype)
+                                    for i in range(1, len(dims))]
+                batch = dict(batch, tensors=tuple(tensors))
+                presence[:, 1:] = 0.0
+            else:
+                presence[:] = 0.0
+        else:
+            presence[:, drop] = 0.0
+        return dict(batch, presence=presence)
+
+    def evaluate(self, data, missing_mode: Optional[str] = None,
+                 missing_semantics: str = "semantic") -> Tuple[float, float]:
+        """(loss, c-index) over a split, the loss weighted as in training.
+
+        ``missing_mode``: "50" drops the omic and the WSI modality in turn
+        from batch to batch, "omic" drops modality 0, "wsi" modality 1,
+        under ``missing_semantics`` "semantic" or "reference"
+        (:meth:`_ablate`)."""
+        if missing_mode not in (None, "50", "omic", "wsi"):
+            raise ValueError(f"unknown missing_mode {missing_mode!r}")
+        if missing_semantics not in ("semantic", "reference"):
+            raise ValueError(f"unknown missing_semantics {missing_semantics!r}")
+        losses, risks, cens, times, masks = [], [], [], [], []
+        use_omic = True
+        for batch in iterate_batches(data, self.batch_size,
+                                     bucket_boundaries=self.bucket_boundaries):
+            n_mod = len(batch["tensors"]) + (1 if batch.get("patch_offsets") is not None else 0)
+            if missing_mode is not None and n_mod >= 2:
+                if missing_mode == "50":
+                    drop, use_omic = (1 if use_omic else 0), not use_omic
+                else:
+                    drop = 0 if missing_mode == "omic" else 1
+                batch = self._ablate(batch, drop, n_mod, missing_semantics)
+            loss, risk, _ = self.eval_step(batch)
+            losses.append(loss)
+            risks.append(risk)
+            cens.append(np.asarray(batch["censorship"]))
+            times.append(np.asarray(batch["event_time"]))
+            masks.append(np.asarray(batch["sample_mask"]))
+        c_index = self._c_index(cens, times, risks, masks, "split")
+        return self._weighted_loss(torch.stack(losses).float().cpu().numpy(), cens,
+                                   masks), c_index

@@ -336,6 +336,46 @@ def test_flash_fma_kernels_full_size(gen, d, width, rate):
         assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
 
 
+@pytest.mark.parametrize("lq", [17, 40])
+@pytest.mark.parametrize("d", [257, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fma_kernels_wide_heads(gen, dtype, d, lq):
+    """Heads wider than 256 (the FMA kernels' column chunks): K and V as
+    column slices of a merged KV buffer of width 4 d, masked with a fully
+    masked sample, dropout 0.083; one launch a call each
+    (``launches_fma_wide``), the forward to 2e-5 (f32) or 4 bf16 ulps of
+    the plain version, the backward to 1e-5 of the largest gradient or 4
+    ulps, two calls bit-identical; lq 40 takes two query chunks."""
+    b, lkv, rate, seed = 3, 1000, 0.083, 77
+    q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
+    kv = torch.randn((b, lkv, 4 * d), generator=gen, device="cuda").to(dtype)
+    k, v = kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
+    mask = torch.arange(lkv, device="cuda")[None, :] < torch.tensor([[0], [777], [1000]],
+                                                                     device="cuda")
+    eff = d**-0.5 / 0.5
+    for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
+        fn.launches = fn.launches_fma = fn.launches_fma_wide = 0
+    out, lse = flash_attention_kernel(q, k, v, mask, eff, rate, seed)
+    ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5, kv_mask=mask,
+                                 dropout_rate=rate, dropout_seed=seed)
+    tol = 2e-5 if dtype == torch.float32 else _bf16_tol(ref)
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert out[0].abs().max().item() == 0.0
+    assert torch.equal(flash_attention_kernel(q, k, v, mask, eff, rate, seed)[0], out)
+    do = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
+    delta = (do.float() * out.float().reshape(b, 1, lq, d)).sum(-1)
+    got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    want = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    for name, a, r, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        top = r.float().abs().max().item()
+        tol = 1e-5 * max(1.0, top) if dtype == torch.float32 else _bf16_tol(r)
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+        assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
+    for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
+        assert (fn.launches, fn.launches_fma, fn.launches_fma_wide) == (0, 0, 2), fn.__name__
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,f", [(2, 300, 70), (3, 129, 300), (8, 1, 252)],
                          ids=["ragged_rows", "wide", "one_token"])

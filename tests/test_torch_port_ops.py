@@ -20,6 +20,7 @@ from healnet_tpu.ops import attention as jatt
 from healnet_tpu.ops import fourier as jfour
 from healnet_tpu.ops import hash_dropout as jhash
 from healnet_tpu.ops.flash_attention import _bwd_call as jflash_bwd_call
+from healnet_tpu.ops.flash_attention import _fwd_call as jflash_fwd_call
 from healnet_tpu.ops.flash_attention import flash_cross_attention as jflash
 from healnet_tpu.ops.fused_project import _pallas_bwd_call as jproject_bwd_call
 from healnet_tpu.ops.fused_project import fused_kv_project as jproject
@@ -428,6 +429,51 @@ def test_flash_backward_plain_vs_jax_at_long_latents(rng, lq):
         top = max(1.0, float(np.abs(r).max()))
         _close(a.reshape(r.shape), r, rtol=1e-5, atol=1e-5 * top)
     assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [257, 320])
+def test_flash_plain_vs_jax_at_wide_heads(rng, d):
+    """Heads wider than 256 (the card kernels take them in column chunks):
+    the port's plain forward, log-sum-exp and backward against the JAX
+    kernels ``_fwd_call`` / ``_bwd_call`` in interpret mode, as the JAX
+    wrapper calls them (queries padded to 16). f32, lq 17, a fully masked
+    row, dropout 0.083 with one hash seed: 2e-5 forward, 1e-5 of the
+    largest gradient."""
+    b, h, lq, lkv, rate = 2, 1, 17, 256, 0.083
+    q, k, v = _qkv(rng, b=b, h=h, lq=lq, lkv=lkv, d=d)
+    do = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    mask = rng.uniform(size=(b, lkv)) > 0.3
+    mask[1] = False
+    eff, seed = d**-0.5 / 0.5, 0x2545F491
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    out = tatt.multihead_attention(tq, tk, tv, scale=eff, temperature=1.0, kv_mask=tmask,
+                                   dropout_rate=rate, dropout_seed=seed)[0]
+    lse = flash_lse_plain(tq, tk, tmask, eff)
+    delta = (tdo * out.reshape(b, lq, h, d).transpose(1, 2)).sum(-1)
+    got = flash_backward_plain(tq, tk, tv, tmask, tdo, lse, delta, eff, rate, seed)
+
+    lq_p = -(-lq // 16) * 16
+    pad = lambda x: np.pad(np.asarray(x, np.float32).reshape(b * h, lq, -1),
+                           ((0, 0), (0, lq_p - lq), (0, 0)))
+    jk, jv = jnp.asarray(k.reshape(b * h, lkv, d)), jnp.asarray(v.reshape(b * h, lkv, d))
+    jmask = jnp.asarray(mask.astype(np.float32).reshape(b * h, 1, lkv))
+    jseed = jnp.asarray(np.array([[seed]], np.uint32))
+    ref_out, ref_lse = jflash_fwd_call(jnp.asarray(pad(q)), jk, jv, jmask, jseed, eff, 128, True,
+                                       rate)
+    _close(out.reshape(b, lq, d), np.asarray(ref_out)[:, :lq], rtol=2e-5, atol=2e-5)
+    valid = ~np.repeat(~mask.any(-1), lq).reshape(b, lq)  # the fully masked row's lse differs
+    np.testing.assert_allclose(lse.numpy().reshape(b, lq)[valid],
+                               np.asarray(ref_lse)[:, :lq, 0][valid], rtol=1e-5, atol=1e-5)
+    dq, dk, dv = jflash_bwd_call(
+        jnp.asarray(pad(q)), jk, jv, jmask, jnp.asarray(pad(do)),
+        jnp.asarray(pad(lse.numpy()[..., None])), jnp.asarray(pad(delta.numpy()[..., None])),
+        jseed, eff, 128, True, rate)
+    want = (np.asarray(dq)[:, :lq], np.asarray(dk), np.asarray(dv))
+    for a, r in zip(got, want):
+        top = max(1.0, float(np.abs(r).max()))
+        _close(a.reshape(r.shape), r, rtol=1e-5, atol=1e-5 * top)
+    assert float(out[1].abs().max()) == 0.0 and float(got[0][1].abs().max()) == 0.0
 
 
 # ----------------------------------------------------- the projection kernels
