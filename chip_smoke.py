@@ -12,7 +12,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kirp's WSI bag, F 252 and 270, the trimodal third bag, the omic vector),
    the generic kernel at bf16 rows of 203 channels (its run, through
    ``fused_kv_project``) and the f32 kernel at small ragged f32 shapes (C
-   200 and 203, F 70 to 600); profile one call of each bf16 shape and of
+   200 and 203, F 70 to 600) and at the merged KV of a 576-wide head (F
+   2304, both contexts at full size); profile one call of each bf16 shape and of
    brca, kirp and the omic vector in f32 (one launch; two calls
    bit-identical) and time kernel, the generic kernel on the same bf16
    inputs, plain version, the library GEMM alone (``torch.matmul`` f32 for
@@ -23,12 +24,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    f32 case; the FMA variant at full size: f32 (8, 17, 4096, 63) and kirp's
    d 27, masked with a fully masked sample and dropout, and bf16 d 160 (the
    tensor cores take bf16 up to 128), two calls bit-identical; heads wider
-   than 256 (d 257 and 320, f32 and bf16, masked, dropout 0.083: the FMA
-   kernels' column-chunked form), one launch a call, two calls
-   bit-identical; then at brca and kirp in bf16 (the tensor-core variant)
-   and f32 (the FMA variant), and at d 320 in f32 and bf16, unmasked: each
-   call must be one kernel launch on the profiler, and the times of kernel,
-   plain version, SDPA and the bound;
+   than 256 (``wide_cases``: d 257, 320 and 512 at lq 17 and 40 and d 320
+   with K and V rows at odd offsets, the one-pass wide kernels; d 576, past
+   them, the FMA kernels' column-chunked form; and the one-token omic
+   context at d 320, 512 and 576; f32 and bf16, masked, dropout 0.083), one
+   launch a call counted by the kernel's own counter, two calls
+   bit-identical; then at brca and kirp in bf16 (the tensor-core
+   variant) and f32 (the FMA variant), at d 320 and 512 in f32 and bf16
+   (the wide kernels) and at d 576 in f32 (the chunked route), unmasked:
+   each call must be one kernel launch on the profiler, and the times of
+   kernel, plain version, SDPA and the bound;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -62,9 +67,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    which must launch all four kernels (the flash kernels' tensor-core
    variants) and give finite losses; step time, samples/s, peak memory and
    the flash kernels' share of the step's device time, and one step with
-   plain attention for comparison; then one f32 step of the brca model with
-   a 320-wide cross head, kernel path against plain path, the run of the
-   wide FMA kernels;
+   plain attention for comparison; then one step of the brca model with a
+   320-wide cross head in f32 and in bf16 (the runs of the one-pass wide
+   kernels, FMA and tensor-core) and one f32 step with a 576-wide head (the
+   run of the chunked route), kernel path against a reference step, with
+   each flash call of the step (WSI and omic contexts, forward and
+   backward) held against the plain version on its inputs;
 8. hold the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
    (the Hopper kernel) and f32 compute (the f32 kernel), kv, s1, s2, and at
@@ -110,14 +118,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    fold (the same val loss and c-index); ``Predictor`` from the checkpoint
    directory against the trained module; the idle share of one step; which
    c-index implementation ran;
-13. print the kernels line (every kernel variant, with its launches in the
-   run of its path), then the device line.
+13. print how many profiler windows saw no device kernel (each is logged
+   and profiled again), the kernels line (every kernel variant, with its
+   launches in the run of its path), then the device line.
 
 Needs one CUDA GPU, nvcc, and the repository around this file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -141,9 +151,13 @@ from healnet_tpu_torch.ops.fused_chain import (
     stack_chain_weights,
 )
 from healnet_tpu_torch.ops.flash_attention import (
+    LAUNCH_COUNTERS,
+    FlashAttentionFunction,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_backward_plain,
+    flash_lse_plain,
+    launch_counter,
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
@@ -178,8 +192,13 @@ KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "flash_attention_bwd": (flash_attention_bwd_kernel, "launches"),
            "flash_attention_fma": (flash_attention_kernel, "launches_fma"),
            "flash_attention_bwd_fma": (flash_attention_bwd_kernel, "launches_fma"),
-           "flash_attention_fma_wide": (flash_attention_kernel, "launches_fma_wide"),
-           "flash_attention_bwd_fma_wide": (flash_attention_bwd_kernel, "launches_fma_wide"),
+           "flash_attention_wide_fma": (flash_attention_kernel, "launches_wide_fma"),
+           "flash_attention_bwd_wide_fma": (flash_attention_bwd_kernel, "launches_wide_fma"),
+           "flash_attention_wide_tc": (flash_attention_kernel, "launches_wide_tc"),
+           "flash_attention_bwd_wide_tc": (flash_attention_bwd_kernel, "launches_wide_tc"),
+           "flash_attention_fma_chunked": (flash_attention_kernel, "launches_fma_chunked"),
+           "flash_attention_bwd_fma_chunked": (flash_attention_bwd_kernel,
+                                               "launches_fma_chunked"),
            "fused_project_int8": (fused_project_kernel, "launches_int8"),
            "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8"),
            "fused_chain": (fused_chain_kernel, "launches")}
@@ -258,12 +277,14 @@ def device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def device_profile(fn, reps: int = 3):
+def device_profile(fn, reps: int = 3, window: dict | None = None):
     """``torch.profiler`` over ``reps`` calls after three warm-up calls:
     (wall ms per call with the profiler on, device busy ms per call,
     kernels and copies per call, their averaged events). Busy time sums the
     kernels' and copies' own device times; annotation ranges (such as
-    ``Optimizer.step``) span kernels already counted and are left out."""
+    ``Optimizer.step``) span kernels already counted and are left out.
+    ``window``, where given, gets what the host side of the window saw: its
+    events and its kernel launch calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -277,6 +298,10 @@ def device_profile(fn, reps: int = 3):
             if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
             and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in rows) / 1e3 / reps
+    if window is not None:
+        window["events"] = len(prof.events())
+        window["launch_calls"] = sum(e.count for e in prof.key_averages()
+                                     if e.key.startswith("cudaLaunch"))
     return wall, busy, sum(e.count for e in rows) / reps, rows
 
 
@@ -480,6 +505,13 @@ def phase_projection(gen):
             *_, ops, run, plain = projection_case(gen, 2, 300, c, f, torch.float32)
             err = (run()[0] - plain()).abs().max().item()
             check(f"f32 ragged (2, 300, {c}) F={f}", err, 1e-4)
+    # the merged KV of phase 7's step with a CHUNKED_D-wide head (F 4 d over
+    # its two layers), both contexts at full size, as that step runs them
+    for b, t, c in ((BATCH, TOKENS, PATCH), (BATCH, 1, OMIC)):
+        *_, ops, run, plain = projection_case(gen, b, t, c, 4 * CHUNKED_D, torch.float32)
+        err = (run()[0] - plain()).abs().max().item()
+        check(f"f32 {(b, t, c)} F={4 * CHUNKED_D} (a {CHUNKED_D}-wide head)", err, 1e-4)
+        del ops, run, plain
 
     timings = {label: time_projection(gen, label)
                for label, shape in PROJECT_SHAPES.items() if shape[-1] == torch.bfloat16}
@@ -531,16 +563,26 @@ def attention_inputs(gen, b, lq, lkv, d, dtype, width=None):
     return q, kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
 
 
+# profiler windows that saw no device kernel: (the host's events, its kernel
+# launch calls), each logged where it happens and counted at the end
+EMPTY_WINDOWS = []
+
+
 def launch_profile(fn):
     """(device kernels a call launches, a line naming each with its mean
     device microseconds per launch and its launches per call), from
     :func:`device_profile` over 3 calls (the profiler may drop an event,
     so times are per launch seen, and a window in which it saw no kernel at
-    all is profiled again, up to three times)."""
-    for _ in range(3):
-        _, _, _, rows = device_profile(fn)
+    all is logged with what the host saw and profiled again, up to six
+    times)."""
+    for attempt in range(6):
+        window = {}
+        _, _, _, rows = device_profile(fn, window=window)
         if rows:
             break
+        EMPTY_WINDOWS.append((window["events"], window["launch_calls"]))
+        log(f"  profiler window {attempt + 1} saw no device kernel ({window['events']} host "
+            f"events, {window['launch_calls']} kernel launch calls); profiled again")
     parts = [f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:48]} "
              f"{device_us(e) / e.count:.2f} us per launch ({e.count / 3:.2f} per call)"
              for e in rows]
@@ -590,12 +632,39 @@ def fma_cases(mask) -> dict:
                 160, 641, torch.bfloat16, mask, 0.083)}
 
 
-# heads wider than 256, which the FMA kernels take in column chunks: (head
-# dim, dtype) at (8, 17, 4096, d), K and V slices of a merged KV buffer of
-# width 4 d, masked with a fully masked sample, dropout 0.083
-WIDE_CASES = {f"{str(dt)[6:]} (8, 17, 4096, {d}) masked, dropout 0.083": (d, dt)
-              for dt in (torch.float32, torch.bfloat16) for d in (257, 320)}
-WIDE_D = 320  # the timed wide head
+WIDE_D = 320  # the timed wide head (and the wide steps' cross head)
+WIDE_MAX_D = 512  # the widest head of the one-pass wide kernels, also timed
+CHUNKED_D = 576  # a head past them: the FMA kernels' column-chunked route
+
+
+def wide_cases() -> dict:
+    """Heads wider than 256 at (8, lq, lkv, d): (head dim, dtype, lq, KV
+    width, lkv, masked) with K and V slices of a merged KV buffer of width
+    4 d (1283 in the odd-pitch case, whose rows sit at odd 2-byte (bf16) or
+    4-byte (f32) offsets), dropout 0.083, masked with a fully masked sample
+    (the first ``lkv`` columns of the phase's mask) or unmasked. lkv 1 is
+    the omic context, half of a step's wide launches: one partial key tile
+    on a cluster of 1."""
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for d in (257, WIDE_D, WIDE_MAX_D):
+            for lq in (17, 40):
+                cases[f"{name} (8, {lq}, 4096, {d})"] = (d, dt, lq, 4 * d, TOKENS, True)
+        cases[f"{name} (8, 17, 4096, {WIDE_D}) KV pitch 1283"] = (
+            WIDE_D, dt, 17, 1283, TOKENS, True)
+        cases[f"{name} (8, 17, 4096, {CHUNKED_D}) chunked"] = (
+            CHUNKED_D, dt, 17, 4 * CHUNKED_D, TOKENS, True)
+        for d in (WIDE_D, WIDE_MAX_D, CHUNKED_D):
+            cases[f"{name} (8, 17, 1, {d})"] = (d, dt, 17, 4 * d, 1, True)
+        cases[f"{name} (8, 17, 1, {WIDE_D}) unmasked"] = (WIDE_D, dt, 17, 4 * WIDE_D, 1, False)
+    return cases
+
+
+# the wide heads' timed shapes: (label, head dim, dtype) at (8, 17, 4096, d)
+WIDE_TIMED = [(f"wide {str(dt)[6:]} d {d}", d, dt) for d in (WIDE_D, WIDE_MAX_D)
+              for dt in (torch.float32, torch.bfloat16)]
+WIDE_TIMED.append((f"chunked float32 d {CHUNKED_D}", CHUNKED_D, torch.float32))
 
 
 def phase_flash(gen):
@@ -658,26 +727,30 @@ def phase_flash(gen):
         assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
         if d == 63:
             err_f32 = max(err_f32, err)
-    err_wide = 0.0
-    for label, (d, dtype) in WIDE_CASES.items():
-        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype)
+    err_wide = {}
+    for label, (d, dtype, nq, width, n, masked) in wide_cases().items():
+        q, k, v = attention_inputs(gen, b, nq, n, d, dtype, width=width)
+        m = mask[:, :n] if masked else None
         reset_launches()
-        out, lse = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, 0.083, seed)
-        out2, lse2 = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, 0.083, seed)
-        if flash_attention_kernel.launches_fma_wide != 2:
-            raise AssertionError(f"FMA wide {label}: not one wide-kernel launch a call")
+        out, lse = flash_attention_kernel(q, k, v, m, d**-0.5 / 0.5, 0.083, seed)
+        out2, lse2 = flash_attention_kernel(q, k, v, m, d**-0.5 / 0.5, 0.083, seed)
+        counter = launch_counter(dtype, d)
+        counts = {c: getattr(flash_attention_kernel, c) for c in LAUNCH_COUNTERS}
+        if counts != {c: 2 if c == counter else 0 for c in counts}:
+            raise AssertionError(f"wide {label}: not one {counter} launch a call: {counts}")
         ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5,
-                                     temperature=0.5, kv_mask=mask, dropout_rate=0.083,
+                                     temperature=0.5, kv_mask=m, dropout_rate=0.083,
                                      dropout_seed=seed)
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
         tol = 2e-5 if dtype == torch.float32 else 4 * bf16_ulp(ref.abs().max().item())
-        check(f"FMA wide {label}", err, tol)
+        check(f"wide {label} ({counter})", err, tol)
         if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
-            raise AssertionError(f"FMA wide {label}: two calls differ")
-        assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
-        if dtype == torch.float32 and d == WIDE_D:
-            err_wide = err
+            raise AssertionError(f"wide {label}: two calls differ")
+        if masked:
+            assert out[0].abs().max().item() == 0.0, "fully masked row must output 0"
+        key = (counter, dtype)
+        err_wide[key] = max(err_wide.get(key, 0.0), err)
         del q, k, v, out, out2, ref
 
     timings = {}
@@ -693,24 +766,33 @@ def phase_flash(gen):
             nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA {timings['kirp f32'][2]:.4f}"
         f" ms, bound {timings['kirp f32'][3]:.5f} ms")
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = attention_inputs(gen, b, lq, lkv, WIDE_D, dtype)
-        run = lambda: flash_attention_kernel(q, k, v, None, WIDE_D**-0.5 / 0.5)
+    for label, d, dtype in WIDE_TIMED:
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype)
+        run = lambda: flash_attention_kernel(q, k, v, None, d**-0.5 / 0.5)
         out, lse = run()
-        timings[f"wide {dtype}"] = time_flash(
-            f"wide head ({b}, {lq}, {lkv}, {WIDE_D}) {str(dtype)[6:]} unmasked", run,
-            lambda: multihead_attention(q, k, v, scale=WIDE_D**-0.5),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, scale=WIDE_D**-0.5 / 0.5),
-            nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * WIDE_D, dtype, "SDPA")
+        timings[label] = time_flash(
+            f"{label} ({b}, {lq}, {lkv}, {d}) unmasked", run,
+            lambda: multihead_attention(q, k, v, scale=d**-0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                     scale=d**-0.5 / 0.5),
+            nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
     source = "healnet_tpu_torch/ops/csrc/flash_attention.cu"
+    wide = "healnet_tpu_torch/ops/csrc/flash_wide.cu"
+    f32, bf16 = torch.float32, torch.bfloat16
     return (flash_entry("flash_attention", source, "healnet_tpu/ops/flash_attention.py:98",
                         worst, timings["brca"]),
             flash_entry("flash_attention_fma", source, "healnet_tpu/ops/flash_attention.py:98",
                         err_f32, timings["brca f32"]),
-            flash_entry("flash_attention_fma_wide", source,
-                        "healnet_tpu/ops/flash_attention.py:98", err_wide,
-                        timings[f"wide {torch.float32}"]))
+            flash_entry("flash_attention_wide_fma", wide, "healnet_tpu/ops/flash_attention.py:98",
+                        err_wide[("launches_wide_fma", f32)],
+                        timings[f"wide float32 d {WIDE_D}"]),
+            flash_entry("flash_attention_wide_tc", wide, "healnet_tpu/ops/flash_attention.py:98",
+                        err_wide[("launches_wide_tc", bf16)],
+                        timings[f"wide bfloat16 d {WIDE_D}"]),
+            flash_entry("flash_attention_fma_chunked", source,
+                        "healnet_tpu/ops/flash_attention.py:98",
+                        err_wide[("launches_fma_chunked", f32)],
+                        timings[f"chunked float32 d {CHUNKED_D}"]))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -836,12 +918,12 @@ def phase_serving_rows(host_rng) -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def flash_bwd_inputs(gen, b, lkv, dtype, mask, rate, seed, d=63, width=None):
+def flash_bwd_inputs(gen, b, lkv, dtype, mask, rate, seed, d=63, width=None, lq=17):
     """The backward's inputs at the model's layout: q, k, v, dO and the
     forward kernel's lse, and delta = rowsum(dO * O)."""
-    q, k, v = attention_inputs(gen, b, 17, lkv, d, dtype, width=width)
+    q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
     out, lse = flash_attention_kernel(q, k, v, mask, d**-0.5 / 0.5, rate, seed)
-    do = torch.randn((b, 17, d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)
     delta = (do.float() * out.float()).sum(-1)[:, None]
     return q, k, v, do[:, None], lse, delta
 
@@ -906,28 +988,46 @@ def phase_flash_bwd(gen):
             raise AssertionError(f"FMA {label}: two calls differ")
         assert all(g[0].abs().max().item() == 0.0 for g in got), \
             "a fully masked row must get zero gradients"
-    err_wide = 0.0
-    for label, (d, dtype) in WIDE_CASES.items():
-        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, mask, 0.083, seed, d)
+    err_wide = {}
+    for label, (d, dtype, nq, width, n, masked) in wide_cases().items():
+        m = mask[:, :n] if masked else None
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, n, dtype, m, 0.083, seed, d,
+                                                   width, nq)
         eff = d**-0.5 / 0.5
         reset_launches()
-        got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
-        again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
-        if flash_attention_bwd_kernel.launches_fma_wide != 2:
-            raise AssertionError(f"FMA wide {label}: not one wide-kernel launch a call")
-        ref = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, 0.083, seed)
+        got = flash_attention_bwd_kernel(q, k, v, m, do, lse, delta, eff, 0.083, seed)
+        again = flash_attention_bwd_kernel(q, k, v, m, do, lse, delta, eff, 0.083, seed)
+        counter = launch_counter(dtype, d)
+        counts = {c: getattr(flash_attention_bwd_kernel, c) for c in LAUNCH_COUNTERS}
+        if counts != {c: 2 if c == counter else 0 for c in counts}:
+            raise AssertionError(f"wide {label}: not one {counter} launch a call: {counts}")
+        ref = flash_backward_plain(q, k, v, m, do, lse, delta, eff, 0.083, seed)
         torch.cuda.synchronize()
+        # at one key p = 1, so dq and dk are the f32 rounding residue of
+        # dp * e - delta, terms of dv's size: f32 holds them to 1e-5 of the
+        # call's largest gradient (dv's)
+        largest = max(r.float().abs().max().item() for r in ref)
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             err = (a.float() - r.float()).abs().max().item()
             top = r.float().abs().max().item()
-            tol = 1e-5 * max(1.0, top) if dtype == f32 else 4 * bf16_ulp(top)
-            check(f"FMA wide {label} {name}", err, tol)
-            if dtype == f32 and d == WIDE_D:
-                err_wide = max(err_wide, err)
+            tol = 1e-5 * max(1.0, largest if n == 1 else top) if dtype == f32 \
+                else 4 * bf16_ulp(top)
+            check(f"wide {label} ({counter}) {name}", err, tol)
+            err_wide[(counter, dtype)] = max(err_wide.get((counter, dtype), 0.0), err)
+        if dtype == f32 and n == 1:  # how far f32 itself lies from f64 there
+            q64, k64, v64, do64, delta64 = (x.double() for x in (q, k, v, do, delta))
+            ref64 = flash_backward_plain(q64, k64, v64, m, do64,
+                                         flash_lse_plain(q64, k64, m, eff), delta64, eff, 0.083,
+                                         seed)
+            log("    against f64: " + ", ".join(
+                f"{name} kernel {(a.double() - r).abs().max().item():.3g}, plain f32 "
+                f"{(p.double() - r).abs().max().item():.3g}"
+                for name, a, p, r in zip(("dq", "dk", "dv"), got, ref, ref64)))
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"FMA wide {label}: two calls differ")
-        assert all(g[0].abs().max().item() == 0.0 for g in got), \
-            "a fully masked row must get zero gradients"
+            raise AssertionError(f"wide {label}: two calls differ")
+        if masked:
+            assert all(g[0].abs().max().item() == 0.0 for g in got), \
+                "a fully masked row must get zero gradients"
         del q, k, v, do, got, again, ref
 
     timings = {}
@@ -948,29 +1048,39 @@ def phase_flash_bwd(gen):
             "SDPA backward")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA backward "
         f"{timings['kirp f32'][2]:.4f} ms, bound {timings['kirp f32'][3]:.5f} ms")
-    for dtype in (f32, bf16):
-        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.0, seed, WIDE_D)
-        eff = WIDE_D**-0.5 / 0.5
+    for label, d, dtype in WIDE_TIMED:
+        q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.0, seed, d)
+        eff = d**-0.5 / 0.5
         run = lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff)
         dq, dk, dv = run()
         ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=eff)
-        timings[f"wide {dtype}"] = time_flash(
-            f"wide head ({b}, {lq}, {lkv}, {WIDE_D}) {str(dtype)[6:]} unmasked", run,
+        timings[label] = time_flash(
+            f"{label} ({b}, {lq}, {lkv}, {d}) unmasked", run,
             lambda: flash_backward_plain(q, k, v, None, do, lse, delta, eff),
             lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
-            nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * WIDE_D, dtype,
+            nbytes(q, k, v, do, lse, delta, dq, dk, dv), 10.0 * b * lq * lkv * d, dtype,
             "SDPA backward")
+        del q, k, v, do, dq, dk, dv, ql, kl, vl, out
     phase_flash_latents(gen)
     source = "healnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
+    wide = "healnet_tpu_torch/ops/csrc/flash_wide.cu"
     return (flash_entry("flash_attention_bwd", source, "healnet_tpu/ops/flash_attention.py:201",
                         worst[bf16], timings["brca"]),
             flash_entry("flash_attention_bwd_fma", source,
                         "healnet_tpu/ops/flash_attention.py:201", worst[f32],
                         timings["brca f32"]),
-            flash_entry("flash_attention_bwd_fma_wide", source,
-                        "healnet_tpu/ops/flash_attention.py:201", err_wide,
-                        timings[f"wide {f32}"]))
+            flash_entry("flash_attention_bwd_wide_fma", wide,
+                        "healnet_tpu/ops/flash_attention.py:201",
+                        err_wide[("launches_wide_fma", f32)], timings[f"wide float32 d {WIDE_D}"]),
+            flash_entry("flash_attention_bwd_wide_tc", wide,
+                        "healnet_tpu/ops/flash_attention.py:201",
+                        err_wide[("launches_wide_tc", bf16)],
+                        timings[f"wide bfloat16 d {WIDE_D}"]),
+            flash_entry("flash_attention_bwd_fma_chunked", source,
+                        "healnet_tpu/ops/flash_attention.py:201",
+                        err_wide[("launches_fma_chunked", f32)],
+                        timings[f"chunked float32 d {CHUNKED_D}"]))
 
 
 def phase_flash_latents(gen) -> None:
@@ -1181,9 +1291,10 @@ def train_batch(host_rng, dtype) -> dict:
 HORIZON = 1000  # bench.py's schedule length
 
 
-def compare_gradients(label, kernel, plain, batch, tol_loss, tol_grad) -> None:
+def compare_gradients(label, kernel, plain, batch, tol_loss, tol_grad, plain_batch=None) -> None:
     """Step 1 on both paths (same weights, same generator seeds, so the same
-    dropout draws); the losses and every parameter's gradient, as L2 errors
+    dropout draws; ``plain_batch`` where the plain path takes its inputs in
+    another dtype); the losses and every parameter's gradient, as L2 errors
     relative to the plain path's gradient of that parameter, or to 1% of the
     global gradient norm where that is larger.
 
@@ -1195,7 +1306,7 @@ def compare_gradients(label, kernel, plain, batch, tol_loss, tol_grad) -> None:
     as the JAX package's kernel does. Relative to a zero gradient that
     noise would be unbounded."""
     loss_k = kernel.train_step(batch, HORIZON)[0].item()
-    loss_p = plain.train_step(batch, HORIZON)[0].item()
+    loss_p = plain.train_step(batch if plain_batch is None else plain_batch, HORIZON)[0].item()
     check(f"{label} step-1 loss {loss_k:.6f} vs {loss_p:.6f} (relative)",
           abs(loss_k - loss_p) / abs(loss_p), tol_loss)
     worst, where = worst_grad_error(gradients(kernel.module), gradients(plain.module))
@@ -1289,25 +1400,137 @@ def phase_training(host_rng) -> dict:
     return {**launches, **fma}
 
 
+@contextlib.contextmanager
+def held_flash_calls(label: str):
+    """Hold every flash call made inside against its plain version on the
+    same inputs: f32 calls against it in f64 (the backward's log-sum-exp
+    taken in f64 as well), the forward to 2e-5 as phase 3, each gradient to
+    1e-5 of its largest value (of the call's largest gradient at one key, as
+    phase 5), with no floor at 1: a step's gradients lie far below 1; bf16
+    calls against it in f32, to 4 bf16 ulps of the largest value. The calls
+    are caught at ``FlashAttentionFunction``, whose forward and backward
+    are swapped for the time of the block, so the wrappers count their
+    launches as on any path. Yields {direction: calls held}; logs the worst
+    error of each direction and key count."""
+    forward, backward = FlashAttentionFunction.forward, FlashAttentionFunction.backward
+    worst, held = {}, {"forward": 0, "backward": 0}
+
+    def hold(direction, name, keys, got, ref, largest=0.0) -> None:
+        top = ref.abs().max().item()
+        tol = (2e-5 if direction == "forward" else 1e-5 * (largest if keys == 1 else top)) \
+            if got.dtype == torch.float32 else 4 * bf16_ulp(top)
+        err = (got.double() - ref.double()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{label}: the {direction} call at {keys} keys, {name}: "
+                                 f"max|d| {err} exceeds {tol}")
+        key = (direction, keys)
+        worst[key] = max(worst.get(key, (0.0, tol)), (err, tol), key=lambda x: x[0] / x[1])
+
+    def ref_dtype(x):
+        return torch.float64 if x.dtype == torch.float32 else torch.float32
+
+    def checked_forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed):
+        out = forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed)
+        wide = ref_dtype(q)
+        ref, _ = multihead_attention(q.to(wide), k.to(wide), v.to(wide), scale=eff_scale,
+                                     temperature=1.0, kv_mask=kv_mask, dropout_rate=rate,
+                                     dropout_seed=seed if rate > 0 else None)
+        hold("forward", "out", k.shape[2], out, ref)
+        held["forward"] += 1
+        return out
+
+    def checked_backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        grads = backward(ctx, g)
+        b, h, lq, d = q.shape
+        # the kernel's inputs (dO in q's dtype, delta = rowsum(dO * O)), f32
+        # ones widened to f64, with the log-sum-exp taken in f64 (the f32
+        # kernel's -1e30 of a fully masked row is another number in f64)
+        wide = torch.float64 if q.dtype == torch.float32 else q.dtype
+        gw = g.to(q.dtype).to(torch.promote_types(wide, torch.float32)).reshape(b, lq, h, d)
+        delta = (gw * out.to(gw.dtype).reshape(b, lq, h, d)).sum(-1).transpose(1, 2)
+        q, k, v, do = q.to(wide), k.to(wide), v.to(wide), gw.to(wide).transpose(1, 2)
+        if wide == torch.float64:
+            lse = flash_lse_plain(q, k, kv_mask, ctx.eff_scale)
+        ref = flash_backward_plain(q, k, v, kv_mask, do, lse, delta, ctx.eff_scale, ctx.rate,
+                                   ctx.seed)
+        largest = max(r.abs().max().item() for r in ref)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            hold("backward", name, k.shape[2], got, want, largest)
+        held["backward"] += 1
+        return grads
+
+    FlashAttentionFunction.forward = staticmethod(checked_forward)
+    FlashAttentionFunction.backward = staticmethod(checked_backward)
+    try:
+        yield held
+    finally:
+        FlashAttentionFunction.forward = staticmethod(forward)
+        FlashAttentionFunction.backward = staticmethod(backward)
+    ref = "f64" if "float32" in label else "f32"
+    log(f"  {label}, each flash call against its plain version in {ref}: " + "; ".join(
+        f"{direction} at {keys} keys, worst {err:.4g} (tolerance {tol:.4g})"
+        for (direction, keys), (err, tol) in sorted(worst.items())))
+
+
 def phase_wide_step(host_rng) -> dict:
-    """The wide FMA kernels' path: one f32 training step of the brca model
-    with a 320-wide cross head, kernel path against plain path (phase 7's
-    f32 tolerances); the step must launch both wide kernels."""
-    log(f"phase 7 (continued): one f32 training step with a {WIDE_D}-wide cross head")
-    batch = train_batch(host_rng, torch.float32)
-    wide = dict(cross_dim_head=WIDE_D)
-    kernel = SurvivalTrainer(HealNetModule(**{**BRCA, **wide}, attention_impl="flash",
-                                           device="cuda",
-                                           generator=torch.Generator().manual_seed(0)),
-                             l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda")
-    plain = SurvivalTrainer(HealNetModule(**{**BRCA, **wide}, attention_impl="xla",
-                                          projection_impl="xla", device="cuda"),
-                            l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda")
-    plain.module.load_state_dict(kernel.module.state_dict())
-    reset_launches()
-    compare_gradients(f"f32 head {WIDE_D}", kernel, plain, batch, 1e-5, 1e-4)
-    return read_launches(f"the f32 step with a {WIDE_D}-wide head",
-                         ("flash_attention_fma_wide", "flash_attention_bwd_fma_wide"))
+    """The wide heads' paths: one training step of the brca model with a
+    320-wide cross head in f32 and in bf16 (the one-pass wide kernels, FMA
+    and tensor-core) and one f32 step with a 576-wide head (the chunked
+    route). Each step holds every flash call it makes (the WSI context and
+    the one-token omic one, forward and backward) against the plain version
+    on that call's inputs (:func:`held_flash_calls`), must launch its
+    route's forward and backward kernel (each launch held), and its
+    gradients are held against a reference step from the same weights and
+    dropout draws with phase 7's tolerances for its dtype.
+
+    Reference steps: the 320-wide f32 step, the plain path in f64; the bf16
+    step, the plain path in bf16 (as phase 7). The 576-wide step, the same
+    step with plain attention and the projection kernel, which phase 2
+    holds on its own at this head's width (F 2304): in that step one SELU
+    gate of the second layer's WSI feed-forward lies 2.9e-7 from the kink,
+    and the projection kernel's f32 rounding (unlike the plain projection's
+    and f64's) puts it on the other side, which moves that layer's
+    feed-forward gradients by 1.5e-3 from f64
+    (``scripts/check_wide_step_precision.py``)."""
+    launches = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for head, dtype, names, tols, ref in (
+            (WIDE_D, f32, ("flash_attention_wide_fma", "flash_attention_bwd_wide_fma"),
+             (1e-5, 1e-4), "plain path in f64"),
+            (WIDE_D, bf16, ("flash_attention_wide_tc", "flash_attention_bwd_wide_tc"),
+             (2e-2, 0.1), "plain path"),
+            (CHUNKED_D, f32, ("flash_attention_fma_chunked", "flash_attention_bwd_fma_chunked"),
+             (1e-5, 1e-4), "plain attention, projection kernel")):
+        name = str(dtype)[6:]
+        log(f"phase 7 (continued): one {name} training step with a {head}-wide cross head")
+        batch = train_batch(host_rng, dtype)
+        make = lambda dt, attention, projection: SurvivalTrainer(
+            HealNetModule(**{**BRCA, "cross_dim_head": head}, dtype=dt, attention_impl=attention,
+                          projection_impl=projection, device="cuda",
+                          generator=torch.Generator().manual_seed(0)),
+            l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0, device="cuda")
+        kernel = make(None if dtype == f32 else dtype, "flash", "auto")
+        state, plain_batch = kernel.module.state_dict(), None
+        if ref == "plain path in f64":
+            plain = make(torch.float64, "xla", "xla")
+            state = {n: v.double() for n, v in state.items()}
+            plain_batch = {**batch, "tensors": tuple(x.double() for x in batch["tensors"])}
+        else:
+            plain = make(None if dtype == f32 else dtype, "xla",
+                         "xla" if ref == "plain path" else "auto")
+        plain.module.load_state_dict(state)
+        reset_launches()
+        run = f"the {name} step with a {head}-wide head"
+        with held_flash_calls(run) as held:
+            compare_gradients(f"{name} head {head} (against the {ref})", kernel, plain, batch,
+                              *tols, plain_batch=plain_batch)
+        counts = read_launches(run, names)
+        if (held["forward"], held["backward"]) != tuple(counts[n] for n in names):
+            raise AssertionError(f"{run}: {held} calls held, {counts} launched")
+        launches.update(counts)
+        del batch, kernel, plain
+    return launches
 
 
 # --------------------------------------------------------------- phase 12
@@ -1989,6 +2212,8 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}
                for k in kernels]
+    log(f"profiler windows that saw no device kernel (each profiled again): "
+        f"{len(EMPTY_WINDOWS)}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

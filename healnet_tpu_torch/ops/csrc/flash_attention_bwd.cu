@@ -57,8 +57,13 @@
 // channels of a row: each block finishes the dk and dv of its own keys. dq
 // is summed across the cluster in rank order through distributed shared
 // memory: no partial buffer, no second kernel, no float atomics.
-// flash_bwd_fma_wide takes heads wider than 256 on the same plan, over
-// 256-column chunks of the head (see its section below).
+// flash_bwd_fma_chunked takes heads wider than 512 on the same plan, over
+// 256-column chunks of the head (see its section below), recomputing p and
+// ds for every output chunk and reloading q, dO and K for it (the chunked
+// route). Heads of 257-512 take the one-pass flash_bwd_wide_* kernels of
+// flash_wide.cu instead (q and dO staged once, s and dp once per tile, dk
+// and dv finished in one visit; bytes bound at (8, 17, 4096, 320): 0.0502 ms
+// f32, 0.0251 ms bf16).
 //
 // Any latent count: both variants walk the queries in chunks that fit
 // shared memory (query_chunks in ops/flash_attention.py sizes them from
@@ -401,6 +406,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
 
 // ------------------------------ FMA variant, heads wider than fmav::kMaxD
 //
+// The route of heads wider than flash_wide.cu takes (512); 257-512 go there.
 // A head of d > 256 channels is taken in column chunks of kWide. For each
 // query chunk and each output chunk [c0, c0 + kWide) the block streams its
 // keys once more: a tile's s = q K^T and dp = dO V^T are summed over the d
@@ -530,7 +536,7 @@ __device__ __forceinline__ void bwd_wide_chunk(const FmaParams& p, float* qs, fl
 // flash_bwd_fma for d > kWide: the same grid, plan and query chunks; each
 // chunk's dq is merged and written one output chunk at a time.
 template <typename T>
-__global__ void __launch_bounds__(tc::kThreads, 1) flash_bwd_fma_wide(FmaParams p) {
+__global__ void __launch_bounds__(tc::kThreads, 1) flash_bwd_fma_chunked(FmaParams p) {
   constexpr int KT = fv::kKeys;
   extern __shared__ __align__(16) unsigned char fma_smem[];
   const int rows = fma_rows(p.q_chunk);
@@ -989,7 +995,7 @@ cudaError_t launch_fma_bwd(FmaParams p, int cluster, int rows, cudaStream_t s) {
 template <typename T>
 cudaError_t launch_fma_bwd_wide(FmaParams p, int cluster, int rows, cudaStream_t s) {
   p.stages = 0;
-  return tc::launch_clustered(flash_bwd_fma_wide<T>, p, cluster, rows,
+  return tc::launch_clustered(flash_bwd_fma_chunked<T>, p, cluster, rows,
                               FmaWideBwdLayout(fma_rows(p.q_chunk)).total, s);
 }
 
@@ -1000,9 +1006,9 @@ cudaError_t launch_fma_bwd_wide(FmaParams p, int cluster, int rows, cudaStream_t
 // tensor cores take).
 extern "C" int healnet_flash_bwd_fma_max_clusters(int lq, int d, int is_bf16, int cluster) {
   if (d > fv::kMaxD)
-    return is_bf16 ? tc::max_active_clusters(flash_bwd_fma_wide<__nv_bfloat16>, cluster,
+    return is_bf16 ? tc::max_active_clusters(flash_bwd_fma_chunked<__nv_bfloat16>, cluster,
                                              FmaWideBwdLayout(fma_rows(lq)).total)
-                   : tc::max_active_clusters(flash_bwd_fma_wide<float>, cluster,
+                   : tc::max_active_clusters(flash_bwd_fma_chunked<float>, cluster,
                                              FmaWideBwdLayout(fma_rows(lq)).total);
   return fv::with_dp32(d, [&](auto dp) -> int {
     constexpr int DP = decltype(dp)::value;

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 KERNELS = ("fused_project", "fused_project_tma", "fused_project_f32", "fused_project_bwd",
-           "flash_attention", "flash_attention_bwd", "fused_chain")
+           "flash_attention", "flash_attention_bwd", "flash_wide", "fused_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

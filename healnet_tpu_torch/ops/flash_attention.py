@@ -8,18 +8,20 @@ log-sum-exp; the backward kernel (``csrc/flash_attention_bwd.cu``) rebuilds
 the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
 :class:`FlashAttentionFunction` ties the two together for autograd.
 
-Each kernel has two variants, chosen by :func:`flash_variant` from the
+Each kernel has four routes, chosen by :func:`flash_variant` from the
 dtype and head dim before the launch: bf16 with d <= 128 (the model's
-path) takes the tensor-core kernel; f32, and bf16 with d > 128, take the
-f32 FMA kernel, which takes heads wider than 256 in column chunks of 256
-(the scores summed over the chunks, the outputs written chunk by chunk).
-All are one clustered launch per call sized by :func:`flash_plan` (in key
-tiles of :func:`key_tile`) from the kernel's own cluster occupancy. Each
-wrapper counts the launches of each variant (``launches``,
-``launches_fma``, and ``launches_fma_wide`` for d > 256). Every kernel
-takes any latent count: the forward walks the queries in groups inside a
-block, and the backward walks them in chunks sized by :func:`query_chunks`
-from what a block holds.
+path) takes the tensor-core kernel (``"tc"``); f32 up to 256, and bf16 of
+129-256, the f32 FMA kernel (``"fma"``); heads of 257-512 the one-pass wide
+kernels of ``csrc/flash_wide.cu`` (``"wide"``: bf16 on tensor cores, f32 on
+FMAs, each tile's scores taken once over the whole head); wider heads the
+FMA kernel's column-chunked form (``"chunked"``: the scores summed over
+256-column chunks and recomputed for each output chunk). All are one
+clustered launch per call sized by :func:`flash_plan` (in key tiles of
+:func:`key_tile`) from the kernel's own cluster occupancy. Each wrapper
+counts the launches of each kernel in its own counter
+(:func:`launch_counter`). Every kernel takes any latent count: the forward
+walks the queries in groups inside a block, and the backward walks them in
+chunks sized by :func:`query_chunks` from what a block holds.
 
 The plain versions are :func:`healnet_tpu_torch.ops.attention.multihead_attention`
 (forward, materialised weights; its autograd gradient is the same function
@@ -48,10 +50,16 @@ from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask, keep_scale, keep
 
 _TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
 _TC_MAX_D = 128  # widest head the tensor-core kernels take
-_FMA_CHUNK = 256  # column chunk of the FMA kernels for heads wider than it (fmav::kMaxD)
+_FMA_CHUNK = 256  # widest head of the one-pass FMA kernels (fmav::kMaxD)
 _FMA_TILE = 32  # keys per tile of the FMA kernels (fmav::kKeys)
+_WIDE_MAX_D = 512  # widest head of the one-pass wide kernels (flash_wide.cu kMaxD)
+# keys per tile of the wide kernels (flash_wide.cu Wide<T>::kKeys)
+_WIDE_TILE = {torch.bfloat16: 32, torch.float32: 16}
 _TC_QGROUP = 32  # queries per group of the tensor-core kernels (tc::kQGroup)
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# the wide kernels run one block an SM, where 16-block clusters of brca's 8
+# rows are not all resident: they take any size up to 16
+_WIDE_CLUSTER_SIZES = tuple(range(16, 0, -1))
 _NEG_BIG = -1e30
 
 
@@ -97,15 +105,24 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def flash_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernel pair a call takes, from its dtype and head dim alone:
-    ``"tc"`` (tensor cores) for bf16 with d <= 128, else ``"fma"`` (f32
-    FMA; tensor cores would mean TF32 for f32)."""
-    return "tc" if dtype == torch.bfloat16 and d <= _TC_MAX_D else "fma"
+    ``"tc"`` (tensor cores) for bf16 with d <= 128; ``"fma"`` (f32 FMA;
+    tensor cores would mean TF32 for f32) for other heads up to 256;
+    ``"wide"`` (one pass, bf16 on tensor cores) for 257-512; ``"chunked"``
+    (the FMA kernels' 256-column chunks) above."""
+    if dtype == torch.bfloat16 and d <= _TC_MAX_D:
+        return "tc"
+    if d <= _FMA_CHUNK:
+        return "fma"
+    return "wide" if d <= _WIDE_MAX_D else "chunked"
 
 
 def key_tile(dtype: torch.dtype, d: int) -> int:
     """Keys per tile of the kernel a call takes: 64 for the tensor-core
-    kernels, 32 for the FMA ones."""
-    return _TC_TILE if flash_variant(dtype, d) == "tc" else _FMA_TILE
+    kernels, 32 (bf16) or 16 (f32) for the wide ones, 32 for the FMA ones."""
+    variant = flash_variant(dtype, d)
+    if variant == "tc":
+        return _TC_TILE
+    return _WIDE_TILE[dtype] if variant == "wide" else _FMA_TILE
 
 
 def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int,
@@ -139,13 +156,35 @@ def query_chunks(lq: int, max_rows: int, align: int = 1) -> Tuple[int, int]:
     return n, chunk
 
 
+def _wide_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("flash_wide")
+    fn = lib.healnet_flash_wide_forward
+    if fn.argtypes is None:
+        p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float, ctypes.c_uint32)
+        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, i, p]
+        fn.restype = i
+        lib.healnet_flash_wide_backward.argtypes = (
+            [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p])
+        lib.healnet_flash_wide_backward.restype = i
+        lib.healnet_flash_wide_max_d.restype = i
+        lib.healnet_flash_wide_fwd_max_clusters.argtypes = [i, i, i]
+        lib.healnet_flash_wide_fwd_max_clusters.restype = i
+        lib.healnet_flash_wide_bwd_max_queries.argtypes = [i, i]
+        lib.healnet_flash_wide_bwd_max_queries.restype = i
+        lib.healnet_flash_wide_bwd_max_clusters.argtypes = [i, i, i, i]
+        lib.healnet_flash_wide_bwd_max_clusters.restype = i
+        if lib.healnet_flash_wide_max_d() != _WIDE_MAX_D:
+            raise RuntimeError("flash_wide.cu's kMaxD and _WIDE_MAX_D disagree")
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
-def _max_queries(name: str, d: int) -> int:
-    """The most queries a block of a kernel holds at head dim ``d``, from
-    the library's ``name`` query (``healnet_flash[_bwd[_tc]]_max_queries``),
-    cached."""
-    lib = _lib() if name == "healnet_flash_max_queries" else _bwd_lib()
-    return int(getattr(lib, name)(d))
+def _max_queries(lib: ctypes.CDLL, name: str, *args: int) -> int:
+    """The most queries a block of a kernel holds, from ``lib``'s query
+    ``name`` (``args``: the head dim, and for the wide kernels whether it is
+    bf16), cached."""
+    return int(getattr(lib, name)(*args))
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,25 +196,32 @@ def _sm_count(index: int) -> int:
 _RESIDENT: Dict[tuple, Dict[int, int]] = {}
 
 
-def _max_cluster(query, key: tuple, rows: int) -> int:
-    """The largest cluster size of which ``rows`` clusters of a kernel are
-    resident at once (1 if none), from its cluster occupancy (``query(size)``,
-    ``cudaOccupancyMaxActiveClusters``) cached per kernel, device and shape
-    class (``key``). The fused chain sizes its clusters by it too."""
+def _max_cluster(query, key: tuple, rows: int, sizes: Tuple[int, ...] = _CLUSTER_SIZES) -> int:
+    """The largest cluster size of ``sizes`` of which ``rows`` clusters of a
+    kernel are resident at once (1 if none), from its cluster occupancy
+    (``query(size)``, ``cudaOccupancyMaxActiveClusters``) cached per kernel,
+    device and shape class (``key``). The fused chain sizes its clusters by
+    it too."""
     counts = _RESIDENT.get(key)
     if counts is None:
-        counts = {c: int(query(c)) for c in _CLUSTER_SIZES}
+        counts = {c: int(query(c)) for c in sizes}
         if min(counts.values()) < 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
         _RESIDENT[key] = counts
-    return next((c for c in _CLUSTER_SIZES if counts[c] >= rows), 1)
+    return next((c for c in sizes if counts[c] >= rows), 1)
 
 
 def _plan(query, key: tuple, rows: int, lkv: int, device: torch.device,
-          tile: int = _TC_TILE) -> Tuple[int, int]:
+          tile: int = _TC_TILE, sizes: Tuple[int, ...] = _CLUSTER_SIZES) -> Tuple[int, int]:
     """:func:`flash_plan` on ``device``, with its SM count and
-    :func:`_max_cluster`."""
-    return flash_plan(rows, lkv, _sm_count(device.index), _max_cluster(query, key, rows), tile)
+    :func:`_max_cluster` over ``sizes``."""
+    return flash_plan(rows, lkv, _sm_count(device.index),
+                      _max_cluster(query, key, rows, sizes), tile)
+
+
+def _sizes(variant: str) -> Tuple[int, ...]:
+    """The cluster sizes a route's plan may take."""
+    return _WIDE_CLUSTER_SIZES if variant == "wide" else _CLUSTER_SIZES
 
 
 def _check_qkv(q, k, v, extra=()) -> None:
@@ -218,16 +264,19 @@ def flash_attention_kernel(
     q: (b, h, lq, d); k, v: (b, h, lkv, d), any strides with a unit stride
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
-    bf16 with d <= 128 launches the tensor-core kernel (counted in
-    ``launches``), anything else the FMA kernel (``launches_fma``; heads
-    wider than 256 take its chunked form, ``launches_fma_wide``). Either is
-    one launch.
+    The route is :func:`flash_variant`'s: bf16 with d <= 128 launches the
+    tensor-core kernel (counted in ``launches``), other heads up to 256 the
+    FMA kernel (``launches_fma``), heads of 257-512 the one-pass wide kernel
+    (``launches_wide_fma`` in f32, ``launches_wide_tc`` in bf16), wider ones
+    the FMA kernel's chunked form (``launches_fma_chunked``). Each is one
+    launch.
     """
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
-    lib = _lib()
-    tc = flash_variant(q.dtype, d) == "tc"
+    variant = flash_variant(q.dtype, d)
+    lib = _wide_lib() if variant == "wide" else _lib()
+    bf = int(q.dtype == torch.bfloat16)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -237,7 +286,7 @@ def flash_attention_kernel(
     drop = _dropout_args(float(dropout_rate), dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if tc:
+        if variant == "tc":
             cluster, per = _plan(lambda c: lib.healnet_flash_tc_max_clusters(d, c),
                                  ("fwd", q.device.index, -(-d // 16)), b * h, lkv, q.device)
             code = lib.healnet_flash_forward_tc(
@@ -245,28 +294,48 @@ def flash_attention_kernel(
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
                 *drop, stream,
             )
-            flash_attention_kernel.launches += 1
         else:
-            bf = int(q.dtype == torch.bfloat16)
-            cluster, per = _plan(lambda c: lib.healnet_flash_fma_max_clusters(d, bf, c),
-                                 ("fwd_fma", q.device.index, -(-d // 32), bf), b * h, lkv,
-                                 q.device, key_tile(q.dtype, d))
-            code = lib.healnet_flash_forward(
+            if variant == "wide":
+                query, launch = (lib.healnet_flash_wide_fwd_max_clusters,
+                                 lib.healnet_flash_wide_forward)
+            else:
+                query, launch = lib.healnet_flash_fma_max_clusters, lib.healnet_flash_forward
+            cluster, per = _plan(lambda c: query(d, bf, c),
+                                 (f"fwd_{variant}", q.device.index, d, bf), b * h, lkv,
+                                 q.device, key_tile(q.dtype, d), _sizes(variant))
+            code = launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
                 *drop, bf, stream,
             )
-            if d > _FMA_CHUNK:
-                flash_attention_kernel.launches_fma_wide += 1
-            else:
-                flash_attention_kernel.launches_fma += 1
+        _count(flash_attention_kernel, q.dtype, d)
     cuda_build.check(lib, code, "flash_attention_kernel")
     return out.reshape(b, lq, h * d), lse
 
 
-flash_attention_kernel.launches = 0
-flash_attention_kernel.launches_fma = 0
-flash_attention_kernel.launches_fma_wide = 0
+# the wrappers' launch counters, one a kernel
+LAUNCH_COUNTERS = ("launches", "launches_fma", "launches_wide_fma", "launches_wide_tc",
+                   "launches_fma_chunked")
+
+
+def launch_counter(dtype: torch.dtype, d: int) -> str:
+    """The wrappers' counter of the kernel a call takes: ``launches`` (the
+    tensor-core kernel), ``launches_fma``, ``launches_wide_fma`` (the wide
+    route in f32), ``launches_wide_tc`` (in bf16) or
+    ``launches_fma_chunked``."""
+    variant = flash_variant(dtype, d)
+    if variant == "wide":
+        return "launches_wide_tc" if dtype == torch.bfloat16 else "launches_wide_fma"
+    return {"tc": "launches", "fma": "launches_fma", "chunked": "launches_fma_chunked"}[variant]
+
+
+def _count(wrapper, dtype: torch.dtype, d: int) -> None:
+    name = launch_counter(dtype, d)
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+for _name in LAUNCH_COUNTERS:
+    setattr(flash_attention_kernel, _name, 0)
 
 
 def flash_attention_bwd_kernel(
@@ -287,8 +356,8 @@ def flash_attention_bwd_kernel(
     q, k, v, kv_mask, eff_scale and the dropout arguments as for the
     forward; do: (b, h, lq, d) in q's dtype, any strides with a unit stride
     on d; lse, delta: (b, h, lq) f32 (the forward's log-sum-exp and
-    rowsum(dO * O)). The variant and its counter as for the forward. Both
-    variants walk the queries in :func:`query_chunks` of what a block holds;
+    rowsum(dO * O)). The route and its counter as for the forward. Every
+    route walks the queries in :func:`query_chunks` of what a block holds;
     with more than one chunk, dk and dv are carried over the chunks in an
     f32 scratch buffer (each element by one thread, in chunk order).
     """
@@ -301,11 +370,18 @@ def flash_attention_bwd_kernel(
         if tuple(x.shape) != (b, h, lq) or x.dtype != torch.float32 or x.device != q.device:
             raise ValueError(f"{name} must be {(b, h, lq)} f32 on {q.device}")
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _bwd_lib()
-    tc = flash_variant(q.dtype, d) == "tc"
-    max_rows = _max_queries(
-        "healnet_flash_bwd_tc_max_queries" if tc else "healnet_flash_bwd_max_queries", d)
-    n_chunks, chunk = query_chunks(lq, max_rows, _TC_QGROUP if tc else 1)
+    variant = flash_variant(q.dtype, d)
+    tc = variant == "tc"
+    bf = int(q.dtype == torch.bfloat16)
+    lib = _wide_lib() if variant == "wide" else _bwd_lib()
+    if variant == "wide":  # bf16 pads a chunk to m16 query tiles
+        max_rows = _max_queries(lib, "healnet_flash_wide_bwd_max_queries", d, bf)
+        align = 16 if bf else 1
+    else:
+        max_rows = _max_queries(
+            lib, "healnet_flash_bwd_tc_max_queries" if tc else "healnet_flash_bwd_max_queries", d)
+        align = _TC_QGROUP if tc else 1
+    n_chunks, chunk = query_chunks(lq, max_rows, align)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, lkv, d), dtype=q.dtype, device=q.device)
@@ -332,40 +408,46 @@ def flash_attention_bwd_kernel(
                 carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
                 float(eff_scale), *drop, stream,
             )
-            flash_attention_bwd_kernel.launches += 1
         else:
-            bf = int(q.dtype == torch.bfloat16)
+            if variant == "wide":
+                query, launch = (lib.healnet_flash_wide_bwd_max_clusters,
+                                 lib.healnet_flash_wide_backward)
+            else:
+                query, launch = lib.healnet_flash_bwd_fma_max_clusters, lib.healnet_flash_backward
             cluster, per = _plan(
-                lambda c: lib.healnet_flash_bwd_fma_max_clusters(chunk, d, bf, c),
-                ("bwd_fma", q.device.index, -(-d // 32), bf, -(-chunk // 8)), b * h, lkv,
-                q.device, key_tile(q.dtype, d))
-            code = lib.healnet_flash_backward(
+                lambda c: query(chunk, d, bf, c),
+                (f"bwd_{variant}", q.device.index, d, bf, chunk), b * h, lkv,
+                q.device, key_tile(q.dtype, d), _sizes(variant))
+            code = launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
                 float(eff_scale), *drop, bf, stream,
             )
-            if d > _FMA_CHUNK:
-                flash_attention_bwd_kernel.launches_fma_wide += 1
-            else:
-                flash_attention_bwd_kernel.launches_fma += 1
+        _count(flash_attention_bwd_kernel, q.dtype, d)
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")
     return dq, dk, dv
 
 
-flash_attention_bwd_kernel.launches = 0
-flash_attention_bwd_kernel.launches_fma = 0
-flash_attention_bwd_kernel.launches_fma_wide = 0
+for _name in LAUNCH_COUNTERS:
+    setattr(flash_attention_bwd_kernel, _name, 0)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 where it is f64 (a reference in f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _scores(q, k, kv_mask, eff_scale):
-    """The kernels' f32 scores: ``q k^T * scale`` with masked keys at
-    -1e30, and the f32 mask ((b, 1, 1, lkv), ones without a mask)."""
+    """The kernels' scores in f32 (f64 for f64 inputs): ``q k^T * scale``
+    with masked keys at -1e30, and the mask in that dtype ((b, 1, 1, lkv),
+    ones without a mask)."""
     b, _, _, _ = q.shape
     lkv = k.shape[2]
-    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * eff_scale
-    mask = torch.ones((b, lkv), dtype=torch.float32, device=q.device) if kv_mask is None \
-        else kv_mask.to(torch.float32)
+    q, k = _wide(q), _wide(k)
+    s = torch.einsum("bhid,bhjd->bhij", q, k) * eff_scale
+    mask = torch.ones((b, lkv), dtype=q.dtype, device=q.device) if kv_mask is None \
+        else kv_mask.to(q.dtype)
     mask = mask[:, None, None, :]
     return s + (mask - 1.0) * -_NEG_BIG, mask
 
@@ -400,7 +482,8 @@ def flash_backward_plain(
         dk  = ds^T q * scale,  dq = ds k * scale
 
     Shapes as :func:`flash_attention_bwd_kernel`; returns dq, dk, dv in q's
-    dtype.
+    dtype. Sums run in f32, or in f64 for f64 inputs (a reference for the
+    f32 kernels).
     """
     b, h, lq, _ = q.shape
     lkv = k.shape[2]
@@ -409,16 +492,16 @@ def flash_backward_plain(
     rate = float(dropout_rate)
     if rate > 0:
         keep = dense_keep_mask(dropout_seed, b * h, lq, lkv, rate, device=q.device)
-        e = keep.reshape(b, h, lq, lkv).float() * keep_scale(rate)
+        e = keep.reshape(b, h, lq, lkv).to(p.dtype) * keep_scale(rate)
     else:
-        e = torch.ones((), dtype=torch.float32, device=q.device)
-    dof = do.float()
-    p_drop = (p * e).to(do.dtype).float()
+        e = torch.ones((), dtype=p.dtype, device=q.device)
+    dof = _wide(do)
+    p_drop = _wide((p * e).to(do.dtype))
     dv = torch.einsum("bhij,bhid->bhjd", p_drop, dof)
-    dp = torch.einsum("bhid,bhjd->bhij", dof, v.float()) * e
-    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
-    dk = torch.einsum("bhij,bhid->bhjd", ds, q.float()) * eff_scale
-    dq = torch.einsum("bhij,bhjd->bhid", ds, k.float()) * eff_scale
+    dp = torch.einsum("bhid,bhjd->bhij", dof, _wide(v)) * e
+    ds = _wide((p * (dp - delta[..., None])).to(q.dtype))
+    dk = torch.einsum("bhij,bhid->bhjd", ds, _wide(q)) * eff_scale
+    dq = torch.einsum("bhij,bhjd->bhid", ds, _wide(k)) * eff_scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

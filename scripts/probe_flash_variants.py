@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the flash kernels' FMA variants: their time with a part taken out.
 
-    python3 scripts/probe_flash_variants.py [--kernel fwd|bwd]
+    python3 scripts/probe_flash_variants.py [--kernel fwd|bwd|wide]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds copies of ``flash_attention.cu`` (``fwd``) or
@@ -20,6 +20,11 @@ tiles), ``no scores`` (one shared load in place of a row's dot products),
 ``bwd``: ``no staging``, ``no unpack`` as above, ``no dk dv`` (no dk/dv
 products or stores), ``no s dp`` (one shared load in place of the two dot
 products of a row), ``no dq`` (one add in place of dq += dS K).
+
+``wide``: the one-pass wide kernels of ``flash_wide.cu``, forward and
+backward at (8, 17, 4096, 320) in f32 and bf16: ``no staging`` (no K/V
+copies after the first tiles, all four kernels), and per kernel the
+products or stores named (``tc``: the bf16 kernels, ``fma``: the f32 ones).
 """
 
 from __future__ import annotations
@@ -43,7 +48,12 @@ from healnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 CSRC = ROOT / "healnet_tpu_torch/ops/csrc"
 OUT = ROOT / "build/flash-variants"
-SOURCES = {"fwd": "flash_attention", "bwd": "flash_attention_bwd"}
+SOURCES = {"fwd": "flash_attention", "bwd": "flash_attention_bwd", "wide": "flash_wide"}
+# the f32 wide kernels' dot-product loop over a lane's half of the head, and
+# the same loop run for no channel
+FMA_DOTS = ("      for (int c = 4 * half; c < dp; c += 8) {\n"
+            "        const float4 kv = *reinterpret_cast<const float4*>(kr + c);")
+FMA_NO_DOTS = FMA_DOTS.replace("c < dp", "c < 0")
 # variant -> [(anchor, replacement)]
 VARIANTS = {
     "fwd": {
@@ -69,6 +79,32 @@ VARIANTS = {
                      "        for (int s = 0; s < NS; ++s) sd[0][s] = sd[1][s] = ks[lane * P + s];\n")],
         "no dq": [("        fv::tile_axpy<DP, NS>(dqa, ds + warp * KT, tc::kWarps * KT, ks, lane);\n",
                    "        dqa[0][0] += ds[lane];\n")],
+    },
+    "wide": {
+        "as is": [],
+        "no staging": [("  if (nxt < blk.ntiles)\n    stage_kv<T, NW>(",
+                        "  if (false)\n    stage_kv<T, NW>(")],
+        "no tc scores": [("kb_row + kk * 16);\n            tc::mma_bf16(s4,",
+                          "kb_row + kk * 16);\n            if (false) tc::mma_bf16(s4,")],
+        "no tc p V": [("tc::mma_bf16(acc[mt][i], pa,", "if (false) tc::mma_bf16(acc[mt][i], pa,")],
+        "no tc dq": [("tc::mma_bf16(dqa[mt][i], a,", "if (false) tc::mma_bf16(dqa[mt][i], a,")],
+        "no tc dk dv": [("tile_dkdv_tc(pt, dos, sdv,", "if (false) tile_dkdv_tc(pt, dos, sdv,"),
+                        ("tile_dkdv_tc(dst, qs, sdv", "if (false) tile_dkdv_tc(dst, qs, sdv")],
+        "no tc dk dv store": [("store_dkv<bf16, kWarps>(sdv, P, dk, dv, k0, blk.kv_end,",
+                               "if (last) __syncthreads(); if (false) store_dkv<bf16, kWarps>("
+                               "sdv, P, dk, dv, k0, blk.kv_end,")],
+        "no fma scores": [(FMA_DOTS + "\n#pragma", FMA_NO_DOTS + "\n#pragma")],
+        "no fma p V": [("j < KT; j += 4) {\n        float4 pv[NS];",
+                        "j < 0; j += 4) {\n        float4 pv[NS];")],
+        "no fma s dp": [(FMA_DOTS + "\n        const float4 vv",
+                         FMA_NO_DOTS + "\n        const float4 vv")],
+        "no fma dq": [("j < KT; j += 4) {\n        float4 dv4[NS];",
+                       "j < 0; j += 4) {\n        float4 dv4[NS];")],
+        "no fma dk dv": [("#pragma unroll 2\n      for (int i = 0; i < nq; ++i) {",
+                          "#pragma unroll 2\n      for (int i = 0; i < 0; ++i) {")],
+        "no fma dk dv store": [("store_dkv<float, NW>(sdv, P, dk, dv, k0, blk.kv_end,",
+                                "if (last) __syncthreads(); if (false) store_dkv<float, NW>("
+                                "sdv, P, dk, dv, k0, blk.kv_end,")],
     },
 }
 
@@ -103,6 +139,24 @@ def use(kernel: str, path: Path) -> None:
     fa._max_queries.cache_clear()
 
 
+def wide_runs(gen) -> dict:
+    """Forward and backward of the wide kernels at (8, 17, 4096, 320), f32
+    and bf16, unmasked."""
+    runs, d = {}, 320
+    for dtype in (torch.float32, torch.bfloat16):
+        name, eff = str(dtype)[6:], d**-0.5 / 0.5
+        q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype)
+        out, lse = fa.flash_attention_kernel(q, k, v, None, eff)
+        do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(dtype)
+        delta = (do.float() * out.float().reshape(8, 1, 17, d)).sum(-1)
+        runs[f"{name} forward"] = (lambda q=q, k=k, v=v:
+                                   fa.flash_attention_kernel(q, k, v, None, eff))
+        runs[f"{name} backward"] = (lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta:
+                                    fa.flash_attention_bwd_kernel(q, k, v, None, do, lse, delta,
+                                                                  eff))
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("--kernel", choices=sorted(SOURCES), default="fwd")
@@ -118,8 +172,8 @@ def main() -> int:
         libs = dict(zip(names, pool.map(lambda n: build(kernel, n), names)))
     cuda_build.build(tuple(SOURCES.values()))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = {}
-    for label in ("brca f32", "kirp f32"):
+    runs = wide_runs(gen) if kernel == "wide" else {}
+    for label in (() if kernel == "wide" else ("brca f32", "kirp f32")):
         d, width, dtype = FLASH_SHAPES[label]
         eff = d**-0.5 / 0.5
         q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype, width=width)

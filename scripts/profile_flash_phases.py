@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the flash kernels, either variant.
+"""Where the time goes inside the flash kernels, any variant.
 
-    python3 scripts/profile_flash_phases.py [--variant tc|fma] [--d 63]
+    python3 scripts/profile_flash_phases.py [--variant tc|fma|wide] [--d 63]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds instrumented copies of ``healnet_tpu_torch/ops/csrc/flash_attention.cu``
@@ -16,6 +16,12 @@ one, unmasked, K and V as slices of a merged KV buffer
 cycles per block and call (averaged over the blocks) and its share. Thread
 0 is in warp 0 (which owns three of 17 query rows in the FMA kernels), so
 a phase that ends at a barrier includes the wait for the slowest warp.
+
+``--variant wide`` profiles the one-pass wide kernels of
+``flash_wide.cu`` (heads of 257-512; ``--d`` defaults to 320 there), f32
+and bf16, forward and backward: that source carries its own markers
+(``WIDE_PHASE``, empty unless this script defines them), so no anchor moves
+with it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import attention_inputs  # noqa: E402
 from healnet_tpu_torch.ops import cuda_build  # noqa: E402
+from healnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from healnet_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd_kernel,
     flash_attention_kernel,
@@ -172,21 +179,40 @@ FMA_BWD = {
 }
 
 
+# flash_wide.cu's own markers, switched on
+WIDE_HEADER = ("#define WIDE_PHASE(k) PROF(k)\n"
+               "#define WIDE_PHASE_INIT() do {" + INIT.strip() + "} while (0)\n"
+               "#define WIDE_PHASE_FLUSH() PROF_FLUSH()\n")
+WIDE_FWD = {"phases": {1: "prologue: ring primed, q loaded", 2: "wait for the tile",
+                       3: "issue the next tile", 4: "shift the tile in place", 5: "scores",
+                       6: "softmax, p stored", 7: "acc += p V", 8: "state pushed",
+                       9: "cluster barrier", 10: "merge and store", 11: "next-group barrier"}}
+WIDE_BWD = {"phases": {1: "prologue: ring primed, q/dO loaded", 2: "wait for the tile",
+                       3: "issue the next tile", 4: "shift the tile in place",
+                       5: "s, dp, p, round(p e), round(ds)", 6: "dq += ds K",
+                       7: "dv, dk products and stores", 8: "dq pushed", 9: "cluster barrier",
+                       10: "dq merge and store"}}
+
+
 def build_instrumented(name: str, spec: dict, tag: str) -> ctypes.CDLL:
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
-    src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER)
-    begin, end = spec["section"]
-    i = src.index(begin)
-    j = src.index(end, i) if end else len(src)
-    part = src[i:j]
-    for anchor, marker in [(spec["start"], None), *spec["markers"]]:
-        if part.count(anchor) != 1:
-            raise RuntimeError(f"{name}.cu changed; no single place for marker {marker or 'start'}")
-        part = part.replace(anchor, anchor + (INIT if marker is None else f"{marker}\n"), 1)
+    src = src.replace('#include "hash_dropout.cuh"', '#include "hash_dropout.cuh"\n' + HEADER
+                      + (WIDE_HEADER if spec is None else ""))
+    if spec is not None:
+        begin, end = spec["section"]
+        i = src.index(begin)
+        j = src.index(end, i) if end else len(src)
+        part = src[i:j]
+        for anchor, marker in [(spec["start"], None), *spec["markers"]]:
+            if part.count(anchor) != 1:
+                raise RuntimeError(
+                    f"{name}.cu changed; no single place for marker {marker or 'start'}")
+            part = part.replace(anchor, anchor + (INIT if marker is None else f"{marker}\n"), 1)
+        src = src[:i] + part + src[j:]
     out = ROOT / "build" / "flash-phases"
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{name}_{tag}_phases.cu"
-    path.write_text(src[:i] + part + src[j:] + FOOTER)
+    path.write_text(src + FOOTER)
     lib_path = out / f"lib{name}_{tag}_phases.so"
     proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
                            "-o", str(lib_path), str(path)], capture_output=True, text=True)
@@ -222,14 +248,28 @@ def report(label: str, lib: ctypes.CDLL, fn, spec: dict, calls: int = 20) -> Non
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--variant", choices=("tc", "fma"), default="tc")
-    parser.add_argument("--d", type=int, default=63)
+    parser.add_argument("--variant", choices=("tc", "fma", "wide"), default="tc")
+    parser.add_argument("--d", type=int, default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_flash_phases: no CUDA device is available", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.variant == "wide":
+        lib = build_instrumented("flash_wide", None, "wide")
+        cuda_build._LIBS["flash_wide"] = lib
+        d = args.d or 320
+        for dtype in (torch.float32, torch.bfloat16):
+            bf = int(dtype == torch.bfloat16)
+            resident = {c: lib.healnet_flash_wide_fwd_max_clusters(d, bf, c)
+                        for c in fa._WIDE_CLUSTER_SIZES}
+            cluster = fa._max_cluster(lambda c: resident[c], ("profile", d, bf), 8,
+                                      fa._WIDE_CLUSTER_SIZES)
+            print(f"{str(dtype)[6:]} d {d}: forward clusters resident at once by size {resident}; "
+                  f"8 rows take clusters of {cluster}")
+            profile_pair(lib, lib, WIDE_FWD, WIDE_BWD, dtype, d)
+        return 0
     fwd_spec, bwd_spec = (FWD, BWD) if args.variant == "tc" else (FMA_FWD, FMA_BWD)
     dtype = torch.bfloat16 if args.variant == "tc" else torch.float32
     fwd_lib = build_instrumented("flash_attention", fwd_spec, args.variant)
@@ -237,8 +277,13 @@ def main() -> int:
     # the wrappers load their libraries through this cache
     cuda_build._LIBS["flash_attention"] = fwd_lib
     cuda_build._LIBS["flash_attention_bwd"] = bwd_lib
+    profile_pair(fwd_lib, bwd_lib, fwd_spec, bwd_spec, dtype, args.d or 63)
+    return 0
+
+
+def profile_pair(fwd_lib, bwd_lib, fwd_spec, bwd_spec, dtype, d) -> None:
+    """Forward and backward at (8, 17, 4096, d) in ``dtype``, unmasked."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = args.d
     q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype)
     eff = d**-0.5 / 0.5
     out, lse = flash_attention_kernel(q, k, v, None, eff)
@@ -249,7 +294,6 @@ def main() -> int:
            fwd_spec)
     report(f"backward {shape}", bwd_lib,
            lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff), bwd_spec)
-    return 0
 
 
 if __name__ == "__main__":

@@ -22,10 +22,12 @@ from healnet_tpu_torch.models.healnet import HealNetModule
 from healnet_tpu_torch.ops import QuantizedContext, quantize_context
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.flash_attention import (
+    LAUNCH_COUNTERS,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_backward_plain,
     flash_cross_attention,
+    launch_counter,
 )
 from healnet_tpu_torch.ops.fused_chain import (
     WEIGHT_FIELDS,
@@ -336,25 +338,40 @@ def test_flash_fma_kernels_full_size(gen, d, width, rate):
         assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
 
 
+# (head dim, KV buffer width or None for 4 d): the one-pass wide kernels
+# at 257-512, the chunked route past them, and rows at odd 2-byte (bf16) or
+# 4-byte (f32) offsets, whose 16-byte hulls the ring shifts into place
+WIDE_HEADS = [(257, None), (320, None), (512, None), (513, None), (320, 1283)]
+
+
+@pytest.mark.parametrize("lkv", [1000, 1])
 @pytest.mark.parametrize("lq", [17, 40])
-@pytest.mark.parametrize("d", [257, 320])
+@pytest.mark.parametrize("d,width", WIDE_HEADS, ids=["257", "320", "512", "513", "320-pitch1283"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_fma_kernels_wide_heads(gen, dtype, d, lq):
-    """Heads wider than 256 (the FMA kernels' column chunks): K and V as
-    column slices of a merged KV buffer of width 4 d, masked with a fully
-    masked sample, dropout 0.083; one launch a call each
-    (``launches_fma_wide``), the forward to 2e-5 (f32) or 4 bf16 ulps of
-    the plain version, the backward to 1e-5 of the largest gradient or 4
-    ulps, two calls bit-identical; lq 40 takes two query chunks."""
-    b, lkv, rate, seed = 3, 1000, 0.083, 77
+def test_flash_fma_kernels_wide_heads(gen, dtype, d, width, lq, lkv):
+    """Heads wider than 256: K and V as column slices of a merged KV buffer
+    (width 4 d unless given), masked with a fully masked sample, dropout
+    0.083; one launch a call each, counted by the kernel's own counter
+    (``launches_wide_fma`` / ``launches_wide_tc`` for the one-pass kernels
+    up to 512, ``launches_fma_chunked`` past them), the forward to 2e-5
+    (f32) or 4 bf16 ulps of the plain version, the backward to 1e-5 of the
+    largest gradient or 4 ulps, two calls bit-identical; lq 40 takes two
+    query groups (and two chunks where the backward holds 32 queries or
+    fewer). lkv 1 (the omic context) is one partial key tile on a cluster
+    of 1; there p = 1, so dq and dk are the f32 rounding residue of
+    dp * e - delta, terms of dv's size, and f32 holds them to 1e-5 of the
+    call's largest gradient (dv's)."""
+    b, rate, seed = 3, 0.083, 77
     q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
-    kv = torch.randn((b, lkv, 4 * d), generator=gen, device="cuda").to(dtype)
+    kv = torch.randn((b, lkv, width or 4 * d), generator=gen, device="cuda").to(dtype)
     k, v = kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
     mask = torch.arange(lkv, device="cuda")[None, :] < torch.tensor([[0], [777], [1000]],
                                                                      device="cuda")
     eff = d**-0.5 / 0.5
+    counters = LAUNCH_COUNTERS
     for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
-        fn.launches = fn.launches_fma = fn.launches_fma_wide = 0
+        for name in counters:
+            setattr(fn, name, 0)
     out, lse = flash_attention_kernel(q, k, v, mask, eff, rate, seed)
     ref, _ = multihead_attention(q.float(), k.float(), v.float(), scale=d**-0.5, kv_mask=mask,
                                  dropout_rate=rate, dropout_seed=seed)
@@ -367,13 +384,16 @@ def test_flash_fma_kernels_wide_heads(gen, dtype, d, lq):
     got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
     want = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, rate, seed)
     again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    largest = max(r.float().abs().max().item() for r in want)
     for name, a, r, a2 in zip(("dq", "dk", "dv"), got, want, again):
-        top = r.float().abs().max().item()
+        top = largest if lkv == 1 else r.float().abs().max().item()
         tol = 1e-5 * max(1.0, top) if dtype == torch.float32 else _bf16_tol(r)
         assert (a.float() - r.float()).abs().max().item() <= tol, name
         assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
+    moved = launch_counter(dtype, d)
     for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
-        assert (fn.launches, fn.launches_fma, fn.launches_fma_wide) == (0, 0, 2), fn.__name__
+        assert {name: getattr(fn, name) for name in counters} == {
+            name: 2 if name == moved else 0 for name in counters}, fn.__name__
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -31,7 +31,11 @@ from healnet_tpu_torch.ops import attention as tatt
 from healnet_tpu_torch.ops import fourier as tfour
 from healnet_tpu_torch.ops import hash_dropout as thash
 from healnet_tpu_torch.ops.flash_attention import (
+    LAUNCH_COUNTERS,
+    _RESIDENT,
+    _WIDE_CLUSTER_SIZES,
     FlashAttentionFunction,
+    _max_cluster,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_backward_plain,
@@ -40,6 +44,7 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_plan,
     flash_variant,
     key_tile,
+    launch_counter,
     query_chunks,
 )
 from healnet_tpu_torch.ops.fused_project import (
@@ -431,9 +436,52 @@ def test_flash_backward_plain_vs_jax_at_long_latents(rng, lq):
     assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("d", [257, 320])
+@pytest.mark.parametrize("dtype,d,variant,tile,counter", [
+    (torch.float32, 256, "fma", 32, "launches_fma"),
+    (torch.bfloat16, 256, "fma", 32, "launches_fma"),
+    (torch.float32, 257, "wide", 16, "launches_wide_fma"),
+    (torch.bfloat16, 257, "wide", 32, "launches_wide_tc"),
+    (torch.float32, 320, "wide", 16, "launches_wide_fma"),
+    (torch.bfloat16, 320, "wide", 32, "launches_wide_tc"),
+    (torch.float32, 512, "wide", 16, "launches_wide_fma"),
+    (torch.bfloat16, 512, "wide", 32, "launches_wide_tc"),
+    (torch.float32, 513, "chunked", 32, "launches_fma_chunked"),
+    (torch.bfloat16, 513, "chunked", 32, "launches_fma_chunked"),
+    (torch.float32, 1024, "chunked", 32, "launches_fma_chunked")])
+def test_flash_wide_route_rule(dtype, d, variant, tile, counter):
+    """Heads of 257-512 take the one-pass wide kernels (32-key tiles in
+    bf16, 16 in f32), wider heads the FMA kernels' column-chunked form (in
+    the FMA kernels' 32-key tiles), by dtype and d alone; 256 stays on the
+    FMA kernels. Each kernel has its own launch counter on both wrappers.
+    The launch plan covers every key once in the route's tiles."""
+    assert flash_variant(dtype, d) == variant and key_tile(dtype, d) == tile
+    assert launch_counter(dtype, d) == counter and counter in LAUNCH_COUNTERS
+    assert all(getattr(fn, name) >= 0 for fn in (flash_attention_kernel,
+                                                 flash_attention_bwd_kernel)
+               for name in LAUNCH_COUNTERS)
+    cluster, per = flash_plan(8, 4096, 132, 8, key_tile(dtype, d))
+    assert per % tile == 0 and (cluster - 1) * per < 4096 <= cluster * per
+
+
+@pytest.mark.parametrize("rows,want", [(8, 9), (7, 16), (9, 9), (10, 8), (16, 6), (133, 1)])
+def test_wide_cluster_is_the_largest_resident(rows, want):
+    """The wide kernels' clusters may take any size up to 16: the plan takes
+    the largest of which every row's cluster is resident (here the card's
+    table at one block an SM: 7 clusters of 10-16, 9 of 9, 15 of 8)."""
+    resident = {16: 7, 15: 7, 14: 7, 13: 7, 12: 7, 11: 7, 10: 7, 9: 9, 8: 15, 7: 15, 6: 17,
+                5: 22, 4: 30, 3: 39, 2: 66, 1: 132}
+    key = ("test_wide", rows)
+    try:
+        assert _max_cluster(resident.get, key, rows, _WIDE_CLUSTER_SIZES) == want
+        cluster, per = flash_plan(rows, 4096, 132, want, 32)
+        assert cluster <= want and (cluster - 1) * per < 4096 <= cluster * per
+    finally:
+        _RESIDENT.pop(key, None)
+
+
+@pytest.mark.parametrize("d", [257, 320, 512])
 def test_flash_plain_vs_jax_at_wide_heads(rng, d):
-    """Heads wider than 256 (the card kernels take them in column chunks):
+    """Heads wider than 256 (the card's one-pass wide kernels up to 512):
     the port's plain forward, log-sum-exp and backward against the JAX
     kernels ``_fwd_call`` / ``_bwd_call`` in interpret mode, as the JAX
     wrapper calls them (queries padded to 16). f32, lq 17, a fully masked
@@ -474,6 +522,33 @@ def test_flash_plain_vs_jax_at_wide_heads(rng, d):
         top = max(1.0, float(np.abs(r).max()))
         _close(a.reshape(r.shape), r, rtol=1e-5, atol=1e-5 * top)
     assert float(out[1].abs().max()) == 0.0 and float(got[0][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("lkv", [256, 1])
+def test_flash_backward_plain_in_f64(rng, lkv):
+    """The plain backward computes in f64 for f64 inputs (the reference the
+    card check holds the f32 kernels to) and agrees with itself in f32: 1e-5
+    of the call's largest gradient (at one key p = 1, and dq and dk are the
+    f32 rounding residue of dp * e - delta), zero for a fully masked row."""
+    b, h, lq, d, rate, seed = 2, 1, 17, 320, 0.083, 0x2545F491
+    q, k, v = _qkv(rng, b=b, h=h, lq=lq, lkv=lkv, d=d)
+    do = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    mask = np.ones((b, lkv), bool)
+    mask[1] = False
+    eff, tmask = d**-0.5 / 0.5, torch.from_numpy(mask)
+    got = {}
+    for dt in (torch.float32, torch.float64):
+        tq, tk, tv, tdo = (torch.from_numpy(x).to(dt) for x in (q, k, v, do))
+        out = tatt.multihead_attention(tq, tk, tv, scale=eff, temperature=1.0, kv_mask=tmask,
+                                       dropout_rate=rate, dropout_seed=seed)[0]
+        delta = (tdo * out.reshape(b, lq, h, d).transpose(1, 2)).sum(-1)
+        got[dt] = flash_backward_plain(tq, tk, tv, tmask, tdo, flash_lse_plain(tq, tk, tmask, eff),
+                                       delta, eff, rate, seed)
+    assert all(g.dtype == torch.float64 for g in got[torch.float64])
+    top = max(float(g.abs().max()) for g in got[torch.float64])
+    for a, r in zip(got[torch.float32], got[torch.float64]):
+        _close(a, r.numpy(), rtol=1e-5, atol=1e-5 * max(1.0, top))
+        assert float(r[1].abs().max()) == 0.0
 
 
 # ----------------------------------------------------- the projection kernels
