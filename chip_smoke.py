@@ -10,14 +10,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. hold the fused KV projection kernels against their plain PyTorch version:
    the Hopper kernel at the bf16 shapes of ``PROJECT_SHAPES`` (brca's and
    kirp's WSI bag, F 252 and 270, the trimodal third bag, the omic vector),
-   the generic kernel at bf16 rows of 203 channels (its run, through
-   ``fused_kv_project``) and the f32 kernel at small ragged f32 shapes (C
+   the generic route (rows at any byte offset) at bf16 rows of 203 channels
+   through ``fused_kv_project`` and at ``GENERIC_EDGES`` (bases 2, 6 and 14
+   bytes off 16, C % 64 of 0, 1 and 63, a context that ends where its
+   storage ends; many rows on the Hopper kernel's hull kinds, few on the
+   split kernel), and the f32 kernel at small ragged f32 shapes (C
    200 and 203, F 70 to 600) and at the merged KV of a 576-wide head (F
-   2304, both contexts at full size); profile one call of each bf16 shape and of
-   brca, kirp and the omic vector in f32 (one launch; two calls
-   bit-identical) and time kernel, the generic kernel on the same bf16
-   inputs, plain version, the library GEMM alone (``torch.matmul`` f32 for
-   f32) and the bound;
+   2304, both contexts at full size); each plan's shared memory against the
+   kernel's own; profile one call of each bf16 shape, of ``GENERIC_SHAPES``
+   (the parity-layout slide (8, 2048, 4095) and omic vector (8, 1, 2001),
+   the README's image modality (8, 50176, 3), int8 rows of 2040, and brca,
+   kirp and the aligned omic vector forced onto the generic route) and of
+   brca, kirp and the omic vector in f32 (one launch on the route's
+   counter; two calls bit-identical) and time kernel, plain version, the
+   library GEMM alone (``torch.matmul`` f32 for f32) and the bound;
 3. the same for the flash cross-attention kernel at (8, 17, 4096, 63) bf16:
    unmasked, masked with ragged lengths and one fully masked row, and with
    hash dropout, at kirp's (8, 17, 4096, 27) with its dropout, plus a small
@@ -72,7 +78,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kernels, FMA and tensor-core) and one f32 step with a 576-wide head (the
    run of the chunked route), kernel path against a reference step, with
    each flash call of the step (WSI and omic contexts, forward and
-   backward) held against the plain version on its inputs;
+   backward) held against the plain version on its inputs; then the
+   reference-parity layout (``patch_attention: false``): the brca model
+   over an omic vector of 2,001 columns and a slide of (dim, n_patches) =
+   (2048, 4095), one bf16 step through ``SurvivalTrainer.train_step`` on
+   each of three draws of data, the kernel path's and the bf16 plain
+   path's gradients against the plain path in f64 (the kernel path's worst
+   within 1.5x the plain path's worst over the draws, as phase 10 holds
+   its bf16 step), and one served batch through ``Predictor`` against the
+   plain path: the main path's run of the generic route (both kernels),
+   with its launches per step, wall, device busy and idle share;
 8. hold the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
    (the Hopper kernel) and f32 compute (the f32 kernel), kv, s1, s2, and at
@@ -119,8 +134,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    directory against the trained module; the idle share of one step; which
    c-index implementation ran;
 13. print how many profiler windows saw no device kernel (each is logged
-   and profiled again), the kernels line (every kernel variant, with its
-   launches in the run of its path), then the device line.
+   and profiled again; a call whose six windows all saw none fails), the
+   kernels line (every kernel variant, with its launches in the run of its
+   path, and that count), then the device line.
 
 Needs one CUDA GPU, nvcc, and the repository around this file.
 """
@@ -162,19 +178,25 @@ from healnet_tpu_torch.ops.flash_attention import (
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
     F32_WIDTHS,
+    PROJECT_WIDTHS,
+    SPLIT_SMEM,
     _f32_lib,
     _gemm_f32,
     _mu_inv,
     _prep,
     _project_launch,
     _project_plain,
+    _split_lib,
+    _tma_lib,
     fused_kv_project,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
     project_bwd_plan,
     project_f32_smem,
+    project_generic_plan,
     project_plain,
+    project_smem,
 )
 from healnet_tpu_torch.ops.quantize import quantize_context
 from healnet_tpu_torch.serving import Predictor
@@ -185,6 +207,7 @@ from healnet_tpu_torch.train.metrics import cindex_implementation
 # kernel variant -> (its wrapper, the wrapper's launch counter for it)
 KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "fused_project_generic": (fused_project_kernel, "launches_generic"),
+           "fused_project_generic_split": (fused_project_kernel, "launches_generic_split"),
            "fused_project_f32": (fused_project_kernel, "launches_f32"),
            "fused_project_f32_int8": (fused_project_kernel, "launches_f32_int8"),
            "fused_project_bwd": (fused_project_bwd_kernel, "launches"),
@@ -277,31 +300,48 @@ def device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def device_profile(fn, reps: int = 3, window: dict | None = None):
+# profiler windows that saw no device kernel: (the host's events, its kernel
+# launch calls), each logged where it happens and counted at the end
+EMPTY_WINDOWS = []
+
+
+def device_profile(fn, reps: int = 3):
     """``torch.profiler`` over ``reps`` calls after three warm-up calls:
     (wall ms per call with the profiler on, device busy ms per call,
     kernels and copies per call, their averaged events). Busy time sums the
     kernels' and copies' own device times; annotation ranges (such as
-    ``Optimizer.step``) span kernels already counted and are left out.
-    ``window``, where given, gets what the host side of the window saw: its
-    events and its kernel launch calls."""
+    ``Optimizer.step``) span kernels already counted and are left out. A
+    window in which the profiler saw no device kernel is logged with what
+    the host saw (its events, its kernel launch calls) and the memory the
+    caching allocator holds, which it then releases before profiling again;
+    why such windows happen is not known, so each is counted (the kernels
+    line gives the count) and a call whose six windows all saw no device
+    kernel fails."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
-            and not getattr(e, "is_user_annotation", False)]
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                and not getattr(e, "is_user_annotation", False)]
+        if rows:
+            break
+        launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch"))
+        EMPTY_WINDOWS.append((len(prof.events()), launches))
+        log(f"  profiler window {attempt + 1} saw no device kernel ({len(prof.events())} host "
+            f"events, {launches} kernel launch calls, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); profiled again after "
+            "releasing the allocator's cache")
+        torch.cuda.empty_cache()
+    if not rows:
+        raise AssertionError("six profiler windows in a row saw no device kernel")
     busy = sum(device_us(e) for e in rows) / 1e3 / reps
-    if window is not None:
-        window["events"] = len(prof.events())
-        window["launch_calls"] = sum(e.count for e in prof.key_averages()
-                                     if e.key.startswith("cudaLaunch"))
     return wall, busy, sum(e.count for e in rows) / reps, rows
 
 
@@ -369,17 +409,13 @@ PROJECT_SHAPES = {"brca": (BATCH, TOKENS, PATCH, 252, torch.bfloat16),
                   "kirp int8": (BATCH, TOKENS, PATCH, 270, torch.int8)}
 
 
-def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16):
-    """(times, run) of one projection shape: a seeded context (int8 with
-    per-token scales and a zero row, computing in ``int8_cdt``), the encoding and
-    merged weights; ``run()`` launches the kernel of the call's route,
-    ``run("generic")`` the generic one on the same inputs. Times: the
-    kernel, the plain version, ``torch.matmul`` of the GEMM alone (on the
-    dequantized bf16 context for int8) and the bound (every input read once,
-    the output written once; 2 C F operations a row at the compute dtype's
-    rate). Also the kernel's largest difference from the plain version
-    (``err``), the generic kernel's for bf16 compute (``generic_err``) and
-    the plain output's largest magnitude (``ref_max``)."""
+def projection_case_at(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16, offset=None):
+    """A seeded projection call: the context (int8 with per-token scales and
+    a zero row, computing in ``int8_cdt``; with ``offset``, placed that many
+    bytes past a 16-byte aligned base in a storage that ends where the
+    context ends), the encoding and merged weights. Returns (dat, scale, cdt, ops,
+    w_all, a2d: the context as the GEMM's bf16 or f32 operand, plain: the
+    plain version's ``(kv, s1, s2)`` as a function)."""
     x = torch.randn((b, t, c), generator=gen, device="cuda")
     scale, cdt = None, dtype
     if dtype == torch.int8:
@@ -391,40 +427,56 @@ def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16):
     else:
         dat = x.to(dtype)
         a2d = dat.reshape(-1, c)
+    if offset is not None:
+        lead = offset // dat.element_size()
+        store = torch.empty((lead + dat.numel(),), dtype=dat.dtype, device="cuda")
+        store[lead:] = dat.reshape(-1)
+        dat = store[lead:].view(b, t, c)
+        if dat.data_ptr() % 16 != offset % 16:
+            raise AssertionError(f"the context lies {dat.data_ptr() % 16} bytes off 16")
     enc = positional_encoding((t,), 2.0, 2, dtype=cdt, device="cuda")
     w_all = torch.randn((c + enc.shape[-1], f), generator=gen, device="cuda") * 0.02
     b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
     ops = _prep(dat, enc, w_all, b_all, cdt)
-    w = w_all[:c].to(cdt)
-    generic_ops = (w.contiguous(), *ops[1:])
+    plain = lambda: _project_plain(dat, enc, w_all, b_all, 1e-5, scale, cdt)
+    return dat, scale, cdt, ops, w_all, a2d, plain
 
-    def run(route=None):
-        args = ops if route is None else generic_ops
-        return _project_launch(dat, *args, w_all.shape[0], 1e-5, scale, route)
 
-    plain = lambda: _project_plain(dat, enc, w_all, b_all, 1e-5, scale, cdt)[0]
+def projection_timing(gen, b, t, c, f, dtype, int8_cdt=torch.bfloat16, route=None):
+    """(times, run) of one projection shape (:func:`projection_case_at`) on
+    ``route`` (the call's own, or ``"generic"`` forced); ``run()``
+    launches the kernel. Times: the kernel, the plain version,
+    ``torch.matmul`` of the GEMM alone (on the dequantized bf16 context for
+    int8) and the bound (every input read once, the weights as the (C, F)
+    the function needs and not the kernel's padded layout, the output
+    written once; 2 C F operations a row at the compute dtype's rate). Also the kernel's
+    largest difference from the plain version (``err``), the plain output's
+    largest magnitude (``ref_max``) and the row statistics' largest
+    relative differences (``stat_err``)."""
+    dat, scale, cdt, ops, w_all, a2d, plain = projection_case_at(gen, b, t, c, f, dtype,
+                                                                int8_cdt)
+    run = lambda: _project_launch(dat, *ops, w_all.shape[0], 1e-5, scale, route)
     kv, s1, s2 = run()
-    ref = plain()
+    ref, r1, r2 = plain()
     err = (kv.float() - ref.float()).abs().max().item()
-    generic_err = ((run("generic")[0].float() - ref.float()).abs().max().item()
-                   if cdt == torch.bfloat16 else None)
-    (t_kernel, w_kernel), (t_plain, _) = time_ms(run), time_ms(plain)
+    stat_err = max(((s - r).abs().max() / r.abs().max().clamp_min(1.0)).item()
+                   for s, r in ((s1, r1), (s2, r2)))
+    w = w_all[:c].to(cdt)
+    (t_kernel, w_kernel), (t_plain, _) = time_ms(run), time_ms(lambda: plain()[0])
     t_library, _ = time_ms(lambda: torch.matmul(a2d, w))
-    moved = nbytes(dat, *ops, kv, s1, s2) + (0 if scale is None else nbytes(scale))
+    moved = nbytes(dat, w, *ops[1:], kv, s1, s2) + (0 if scale is None else nbytes(scale))
     bound, by = bound_ms(moved, 2.0 * b * t * c * f, cdt)
     return dict(ms=t_kernel, wall_ms=w_kernel, plain_ms=t_plain, library_ms=t_library,
-                bound_ms=bound, bound_by=by, mb=moved / 1e6, err=err, generic_err=generic_err,
+                bound_ms=bound, bound_by=by, mb=moved / 1e6, err=err, stat_err=stat_err,
                 ref_max=ref.float().abs().max().item()), run
 
 
-def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, generic=True):
+def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, route=None):
     """Profile one call of a ``PROJECT_SHAPES`` entry (or of ``shape``; a
-    call must be one launch) and time it, and with ``generic`` hold the
-    generic kernel (the kernel bf16 calls took before the Hopper one)
-    against the plain version on the same inputs, at phase 2's bf16
-    tolerance, and time it; returns its times."""
+    call must be one launch) on ``route`` and time it; two calls must give
+    the same bits. Returns its times."""
     b, t, c, f, dtype = shape or PROJECT_SHAPES[label]
-    timing, run = projection_timing(gen, b, t, c, f, dtype, int8_cdt)
+    timing, run = projection_timing(gen, b, t, c, f, dtype, int8_cdt, route)
     kinds, prof = launch_profile(run)
     log(f"  {label} ({b}, {t}, {c}) {str(dtype)[6:]} -> F {f}: kernels on the profiler: {prof}")
     if kinds != 1:
@@ -432,15 +484,8 @@ def time_projection(gen, label, shape=None, int8_cdt=torch.bfloat16, generic=Tru
     one, two = run(), run()
     if not all(torch.equal(x, y) for x, y in zip(one, two)):
         raise AssertionError(f"{label}: two calls differ")
-    timing["generic_ms"] = None
-    if generic:
-        check(f"{label} generic kernel", timing["generic_err"],
-              4 * bf16_ulp(timing["ref_max"]))
-        timing["generic_ms"] = time_ms(lambda: run("generic"))[0]
-    log(f"  {label}: device time kernel {timing['ms']:.4f} ms"
-        + (f", generic kernel {timing['generic_ms']:.4f} ms" if generic else "")
-        + f", plain {timing['plain_ms']:.4f} ms, torch.matmul of the GEMM alone "
-        f"{timing['library_ms']:.4f} ms, bound "
+    log(f"  {label}: device time kernel {timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} "
+        f"ms, torch.matmul of the GEMM alone {timing['library_ms']:.4f} ms, bound "
         f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; {timing['mb']:.1f} MB, "
         f"{2.0 * b * t * c * f / 1e9:.1f} GFLOP); two calls bit-identical; wall per call "
         f"{timing['wall_ms']:.4f} ms")
@@ -460,12 +505,59 @@ F32_SHAPES = {"brca f32": (BATCH, TOKENS, PATCH, 252, torch.float32),
               "omic f32": (BATCH, 1, OMIC, 252, torch.float32)}
 
 
+# the generic route's timed shapes: (b, t, C, F, context dtype, forced onto
+# the route): the reference-parity layout's slide (dim, n_patches) with a
+# largest bag of 4,095 patches and its omic vector of 2,001 columns, the
+# README's image modality (224 x 224 tokens of 3 channels), int8 rows of
+# 2040 channels (8 bytes off 16), and brca's and kirp's bag and the aligned
+# omic vector, whose own route is the Hopper kernel's, forced onto it
+GENERIC_SHAPES = {"parity wsi": (BATCH, 2048, 4095, 252, torch.bfloat16, False),
+                  "parity omic": (BATCH, 1, 2001, 252, torch.bfloat16, False),
+                  "image": (BATCH, 224 * 224, 3, 252, torch.bfloat16, False),
+                  "int8 2040": (BATCH, TOKENS, 2040, 252, torch.int8, False),
+                  "brca forced": (BATCH, TOKENS, PATCH, 252, torch.bfloat16, True),
+                  "kirp forced": (BATCH, TOKENS, PATCH, 270, torch.bfloat16, True),
+                  "omic forced": (BATCH, 1, OMIC, 252, torch.bfloat16, True)}
+# the generic route's edges: (b, t, C, dtype, base offset in bytes); each
+# context ends where its storage ends. Many rows (the hull kinds) and few
+# (the split kernel); bases 2, 6 and 14 bytes off 16 (1, 3, 7 int8); C % 64
+# of 0, 1 and 63 (the k-tail); C 1 and 3
+GENERIC_EDGES = [(2, 300, c, dtype, off) for dtype, offs in
+                 ((torch.bfloat16, (2, 6, 14)), (torch.int8, (1, 3, 7)))
+                 for c in (2048, 2049, 2047) for off in offs]
+GENERIC_EDGES += [(BATCH, 1, c, torch.bfloat16, off) for c in (2048, 2049, 2047, 1, 3)
+                  for off in (2, 14)]
+GENERIC_EDGES += [(2, 300, c, torch.bfloat16, 0) for c in (1, 3, 203)]
+
+
+def generic_kernel(m, c, f, dtype):
+    """The ``KERNELS`` name of the generic route's kernel that the plan
+    picks for a call of ``m`` rows."""
+    counter = project_generic_plan(m, c, f, dtype.itemsize).counter
+    return next(name for name, (fn, attr) in KERNELS.items()
+                if fn is fused_project_kernel and attr == counter)
+
+
+def check_generic(label, got, ref, dtype):
+    """A generic call against the plain version: kv within 4 bf16 ulps of
+    the largest output; s1, s2 as f32 sums in another order, or (int8) the
+    exact integer sums scaled against the plain version's f32 sums."""
+    (kv, s1, s2), (r, r1, r2) = got, ref
+    check(f"{label} kv", (kv.float() - r.float()).abs().max().item(),
+          4 * bf16_ulp(r.float().abs().max().item()))
+    for name, a, b in (("s1", s1, r1), ("s2", s2, r2)):
+        check(f"{label} {name} (relative to max(1, |{name}|))",
+              ((a - b).abs() / b.abs().clamp_min(1.0)).max().item(),
+              2e-6 if dtype == torch.int8 else 1e-5)
+
+
 def phase_projection(gen):
     """Returns the kernels-line entries of the Hopper kernel (bf16
     contexts), the f32 kernel (f32 contexts at the brca shape) and the
-    generic kernel (bf16 rows TMA cannot describe), each with its error at
-    the brca shape it is timed at, and the generic kernel's launches in its
-    run through the entry point."""
+    generic route's two kernels (the Hopper kernel's hull kinds at the
+    parity layout's slide, the split kernel at its omic vector), each with
+    its error at the shape it is timed at, and the timings of every
+    ``GENERIC_SHAPES`` entry and of the Hopper kernel's bf16 shapes."""
     log("phase 2: fused KV projection kernels vs plain version")
     # bf16 tolerance: the kernel and the plain version round the product to
     # bf16 at the same place but sum it in another order, so a raw value may
@@ -485,17 +577,27 @@ def phase_projection(gen):
         read_launches(f"the bf16 {label} call", ("fused_project",))
         if label == "brca":
             worst = err
-    # the generic kernel's run: bf16 rows of 203 channels (406 bytes, which
-    # TMA cannot describe) through the entry point
+    # the generic route through the entry point: bf16 rows of 203 channels
+    # (406 bytes, which TMA cannot describe)
     dat, enc, w_all, b_all, *_ = projection_case(gen, 2, 300, 203, 252, torch.bfloat16)
     reset_launches()
     kv = fused_kv_project(dat, enc, w_all, b_all)
-    generic_launches = read_launches("the bf16 C=203 call (rows TMA cannot describe)",
-                                     ("fused_project_generic",))
+    read_launches("the bf16 C=203 call (rows TMA cannot describe)", ("fused_project_generic",))
     ref = project_plain(dat, enc, w_all, b_all)
-    err_generic = (kv.float() - ref.float()).abs().max().item()
-    check("bf16 generic (2, 300, 203) F=252", err_generic,
+    check("bf16 generic (2, 300, 203) F=252", (kv.float() - ref.float()).abs().max().item(),
           4 * bf16_ulp(ref.float().abs().max().item()))
+    # the generic route's edges: one launch a call on the plan's kernel
+    for b, t, c, dtype, off in GENERIC_EDGES:
+        dat, scale, cdt, ops, w_all, _, plain = projection_case_at(gen, b, t, c, 252, dtype,
+                                                                   offset=off)
+        name = generic_kernel(b * t, c, 252, dtype)
+        reset_launches()
+        got = _project_launch(dat, *ops, w_all.shape[0], 1e-5, scale)
+        counts = {k: getattr(*KERNELS[k]) for k in KERNELS}
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"generic ({b}, {t}, {c}) {dtype} +{off} B: launches {counts}")
+        check_generic(f"generic ({b}, {t}, {c}) {str(dtype)[6:]} {off} B off 16 [{name}]", got,
+                      plain(), dtype)
     # f32 (the f32 kernel): full f32 products summed in another order than
     # cuBLAS's full-f32 GEMM agree to ~1e-6 of values ~1; C = 200 rows are
     # staged by 16-byte copies, C = 203 element by element; F 600 takes
@@ -513,13 +615,7 @@ def phase_projection(gen):
         check(f"f32 {(b, t, c)} F={4 * CHUNKED_D} (a {CHUNKED_D}-wide head)", err, 1e-4)
         del ops, run, plain
 
-    timings = {label: time_projection(gen, label)
-               for label, shape in PROJECT_SHAPES.items() if shape[-1] == torch.bfloat16}
-    brca = timings["brca"]
-    log(f"  kirp (F 270) against brca (F 252): {timings['kirp']['ms'] / brca['ms']:.3f}x the "
-        f"time; brca against torch.matmul of the GEMM alone: "
-        f"{brca['ms'] / brca['library_ms']:.3f}x")
-    # the f32 kernel's shared memory, as its plan reckons it
+    # each kernel's shared memory as its plan reckons it
     for nb in F32_WIDTHS:
         for itemsize in (4, 1):
             got = _f32_lib().healnet_fused_project_f32_smem(nb, int(itemsize == 1))
@@ -527,8 +623,53 @@ def phase_projection(gen):
             if got != want:
                 raise AssertionError(f"f32 kernel nb={nb} itemsize={itemsize}: {got} B of "
                                      f"shared memory, the plan reckons {want}")
+    for nb in PROJECT_WIDTHS:
+        for itemsize in (2, 1):
+            for hull in (False, True):
+                for stages, held in ((2, False), (3, False), (4, True)):
+                    got = _tma_lib().healnet_fused_project_tma_smem(nb, itemsize, stages, nb,
+                                                                    int(held), int(hull))
+                    want = project_smem(nb, itemsize, stages, nb, held, hull)
+                    if got != want:
+                        raise AssertionError(f"Hopper kernel nb={nb} itemsize={itemsize} "
+                                             f"hull={hull}: {got} B, the plan reckons {want}")
+    for is_int8 in (0, 1):
+        got = _split_lib().healnet_fused_project_split_smem(is_int8)
+        if got != SPLIT_SMEM:
+            raise AssertionError(f"split kernel: {got} B of shared memory, the plan reckons "
+                                 f"{SPLIT_SMEM}")
+    log("  shared memory: every plan's reckoning is the kernels' own")
+
+    timings = {label: time_projection(gen, label)
+               for label, shape in PROJECT_SHAPES.items() if shape[-1] == torch.bfloat16}
+    brca = timings["brca"]
+    log(f"  kirp (F 270) against brca (F 252): {timings['kirp']['ms'] / brca['ms']:.3f}x the "
+        f"time; brca against torch.matmul of the GEMM alone: "
+        f"{brca['ms'] / brca['library_ms']:.3f}x")
+    generic = {}
+    for label, (b, t, c, f, dtype, forced) in GENERIC_SHAPES.items():
+        name = generic_kernel(b * t, c, f, dtype)
+        reset_launches()
+        generic[label] = time_projection(gen, label, (b, t, c, f, dtype),
+                                         route="generic" if forced else None)
+        counts = {k: getattr(*KERNELS[k]) for k in KERNELS}
+        if counts[name] == 0 or sum(counts.values()) != counts[name]:
+            raise AssertionError(f"{label}: the generic calls launched {counts}")
+        timing = generic[label]
+        check(f"{label} generic [{name}] kv", timing["err"], 4 * bf16_ulp(timing["ref_max"]))
+        check(f"{label} generic s1, s2 (relative)", timing["stat_err"],
+              2e-6 if dtype == torch.int8 else 1e-5)
+    for label, ref in (("brca forced", "brca"), ("kirp forced", "kirp"),
+                       ("omic forced", "omic")):
+        log(f"  {label} on the generic route: {generic[label]['ms'] / timings[ref]['ms']:.3f}x "
+            f"the Hopper kernel's time on its own route ({generic[label]['ms']:.4f} against "
+            f"{timings[ref]['ms']:.4f} ms)")
+    for label, timing in generic.items():
+        log(f"  {label}: generic {timing['ms']:.4f} ms, {timing['ms'] / timing['library_ms']:.3f}x "
+            f"torch.matmul's {timing['library_ms']:.4f} ms, {timing['ms'] / timing['bound_ms']:.2f}x "
+            f"the bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     reset_launches()
-    f32 = {label: time_projection(gen, label, shape, generic=False)
+    f32 = {label: time_projection(gen, label, shape)
            for label, shape in F32_SHAPES.items()}
     read_launches("the f32 brca, kirp and omic calls (checks and timing)", ("fused_project_f32",))
     for label, timing in f32.items():
@@ -538,17 +679,17 @@ def phase_projection(gen):
     log(f"  f32 kernel at brca: {f32['brca f32']['ms'] / f32['brca f32']['library_ms']:.3f}x "
         f"torch.matmul f32's time, {f32['brca f32']['bound_ms'] / f32['brca f32']['ms']:.3f} of "
         f"the bound; kirp against brca {f32['kirp f32']['ms'] / f32['brca f32']['ms']:.3f}x")
-    generic = dict(brca, ms=brca["generic_ms"])
     source = "healnet_tpu_torch/ops/csrc/"
-    return (projection_entry("fused_project", source + "fused_project_tma.cu",
-                             "healnet_tpu/ops/fused_project.py:162", worst, brca),
-            projection_entry("fused_project_f32", source + "fused_project_f32.cu",
-                             "healnet_tpu/ops/fused_project.py:162", f32["brca f32"]["err"],
-                             f32["brca f32"]),
-            projection_entry("fused_project_generic", source + "fused_project.cu",
-                             "healnet_tpu/ops/fused_project.py:162", brca["generic_err"],
-                             generic),
-            ), generic_launches
+    replaces = "healnet_tpu/ops/fused_project.py:162"
+    return (projection_entry("fused_project", source + "fused_project_tma.cu", replaces, worst,
+                             brca),
+            projection_entry("fused_project_f32", source + "fused_project_f32.cu", replaces,
+                             f32["brca f32"]["err"], f32["brca f32"]),
+            projection_entry("fused_project_generic", source + "fused_project_tma.cu", replaces,
+                             generic["parity wsi"]["err"], generic["parity wsi"]),
+            projection_entry("fused_project_generic_split", source + "fused_project.cu",
+                             replaces, generic["parity omic"]["err"], generic["parity omic"]),
+            )
 
 
 # ---------------------------------------------------------------- phase 3
@@ -563,26 +704,13 @@ def attention_inputs(gen, b, lq, lkv, d, dtype, width=None):
     return q, kv[..., d:2 * d][:, None], kv[..., 2 * d:3 * d][:, None]
 
 
-# profiler windows that saw no device kernel: (the host's events, its kernel
-# launch calls), each logged where it happens and counted at the end
-EMPTY_WINDOWS = []
-
 
 def launch_profile(fn):
     """(device kernels a call launches, a line naming each with its mean
     device microseconds per launch and its launches per call), from
     :func:`device_profile` over 3 calls (the profiler may drop an event,
-    so times are per launch seen, and a window in which it saw no kernel at
-    all is logged with what the host saw and profiled again, up to six
-    times)."""
-    for attempt in range(6):
-        window = {}
-        _, _, _, rows = device_profile(fn, window=window)
-        if rows:
-            break
-        EMPTY_WINDOWS.append((window["events"], window["launch_calls"]))
-        log(f"  profiler window {attempt + 1} saw no device kernel ({window['events']} host "
-            f"events, {window['launch_calls']} kernel launch calls); profiled again")
+    so times are per launch seen)."""
+    _, _, _, rows = device_profile(fn)
     parts = [f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:48]} "
              f"{device_us(e) / e.count:.2f} us per launch ({e.count / 3:.2f} per call)"
              for e in rows]
@@ -1533,6 +1661,130 @@ def phase_wide_step(host_rng) -> dict:
     return launches
 
 
+# the reference-parity layout (config/main.yml: patch_attention false): the
+# slide as (dim, n_patches), patches as channels; a cohort's largest bag
+# (max_patches) of 4,095 patches and an omic CSV of 2,001 columns stand in
+# for a cohort's widths
+PARITY_OMIC, PARITY_TOKENS, PARITY_PATCHES = 2001, 2048, 4095
+
+
+def kv_halves(name: str, got: dict, ref: dict) -> str:
+    """Where a ``to_kv`` gradient's error lies: the K rows' share of its
+    squared error, and the K rows' reference norm against the V rows'
+    (0 where the context has one token: softmax over one key has no score
+    gradient, so the K rows' gradient is rounding residue)."""
+    if not name.endswith("to_kv.weight"):
+        return ""
+    half = got[name].shape[0] // 2
+    d, r = got[name] - ref[name], ref[name]
+    return (f"; K rows {(d[:half].square().sum() / d.square().sum()).item():.3f} of its squared "
+            f"error, K / V reference norm {(r[:half].norm() / r[half:].norm()).item():.3g}")
+
+
+def phase_parity_step(seeds) -> dict:
+    """The brca model in the reference-parity layout at full width and depth
+    (only the bag width stands in for a cohort's): omic (8, 1, 2001) and
+    the slide (8, 2048, 4095) in bf16, rows at 2-byte offsets, so both
+    projections take the generic route (the split kernel for the omic
+    vector, the Hopper kernel's hull kinds for the slide).
+
+    One training step through ``SurvivalTrainer.train_step`` on each draw
+    of data (a host generator for each of ``seeds``; the same weights and
+    dropout draws), each held against the plain path (``impl="xla"`` for
+    both ops) in f64: the loss at phase 7's bf16 tolerance, and the
+    gradients as phase 10 holds its bf16 step: the kernel path's error
+    from f64 must be within 1.5x the plain path's in bf16. Both bf16 paths
+    swing from f64 with the draw (0.016-0.105 in the worst parameter), each
+    farther than the other on some draw, so the two are compared over all
+    draws: the kernel path's worst error must be within 1.5x the plain
+    path's worst. One served batch (the first draw) through ``Predictor``
+    against the plain path in bf16 at phase 4's tolerance. The step's
+    launches per counter (the main path's run of the generic route), wall,
+    device busy and idle share. Returns the step's launches."""
+    log("phase 7 (continued): a bf16 step and a served batch in the reference-parity layout "
+        f"(omic 1 x {PARITY_OMIC}, slide {PARITY_TOKENS} x {PARITY_PATCHES})")
+    dims = {**BRCA, "channel_dims": (PARITY_OMIC, PARITY_PATCHES)}
+
+    def module(attention, projection, state=None, dtype=torch.bfloat16):
+        m = HealNetModule(**dims, dtype=dtype, attention_impl=attention,
+                          projection_impl=projection, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+        if state is not None:
+            m.load_state_dict(state)
+        return m
+
+    trainer = lambda m: SurvivalTrainer(m, l1=1e-6, max_lr=8e-3, gc_compat=16, seed=0,
+                                        device="cuda")
+    state = {k: v.clone() for k, v in module("flash", "auto").state_dict().items()}
+    put = lambda a, dt=None: torch.as_tensor(a, device="cuda", dtype=dt)
+    names = ("fused_project_generic", "fused_project_generic_split", "fused_project_bwd",
+             "flash_attention", "flash_attention_bwd")
+    errors = []
+    for seed in seeds:
+        host_rng = np.random.default_rng(seed)
+        omic = host_rng.standard_normal((BATCH, 1, PARITY_OMIC), dtype=np.float32)
+        wsi = host_rng.standard_normal((BATCH, PARITY_TOKENS, PARITY_PATCHES), dtype=np.float32)
+        batch = {"tensors": (put(omic, torch.bfloat16), put(wsi, torch.bfloat16)),
+                 "y_disc": put(host_rng.integers(0, 4, size=BATCH)),
+                 "censorship": put(host_rng.integers(0, 2, size=BATCH).astype(np.float32)),
+                 "event_time": put(host_rng.uniform(1, 100, size=BATCH).astype(np.float32)),
+                 "sample_mask": put(np.ones(BATCH, np.float32))}
+        kernel = trainer(module("flash", "auto", state))
+        reset_launches()
+        loss = kernel.train_step(batch, HORIZON)[0].item()
+        step_launches = read_launches(f"the parity-layout step, draw {seed} (launches per step)",
+                                      names)
+        grads = gradients(kernel.module)
+        plain64 = trainer(module("xla", "xla", {k: v.double() for k, v in state.items()},
+                                 torch.float64))
+        loss64 = plain64.train_step(
+            {**batch, "tensors": tuple(x.double() for x in batch["tensors"])}, HORIZON)[0].item()
+        ref = {n: g.float() for n, g in gradients(plain64.module).items()}
+        del plain64
+        check(f"bf16 parity layout draw {seed} step-1 loss {loss:.6f} vs the plain path in f64 "
+              f"{loss64:.6f} (relative)", abs(loss - loss64) / abs(loss64), 2e-2)
+        plain = trainer(module("xla", "xla", state))
+        plain.train_step(batch, HORIZON)
+        plain_grads = gradients(plain.module)
+        del plain
+        (err_k, at_k), (err_p, at_p) = (worst_grad_error(g, ref) for g in (grads, plain_grads))
+        log(f"  draw {seed}: step-1 gradients against the plain path in f64, worst relative L2 "
+            f"error: kernel path {err_k:.4g} ({at_k}{kv_halves(at_k, grads, ref)}), plain path "
+            f"in bf16 {err_p:.4g} ({at_p}{kv_halves(at_p, plain_grads, ref)}); the kernel path "
+            "against the plain path in bf16: worst %.4g (%s)" % worst_grad_error(grads,
+                                                                                 plain_grads))
+        errors.append((err_k, err_p))
+        if seed == seeds[0]:  # timed and served below
+            first = (step_launches, kernel, batch, omic, wsi)
+        del kernel, batch, grads, plain_grads, ref
+    worst_k, worst_p = (max(e) for e in zip(*errors))
+    check(f"bf16 parity layout step-1 gradients: the kernel path's worst error from f64 over "
+          f"draws {tuple(seeds)} (tolerance: 1.5x the plain path's in bf16, {worst_p:.4g})",
+          worst_k, 1.5 * worst_p)
+    launches, kernel, batch, omic, wsi = first
+    del first
+    wall, busy, idle, rows = step_times(kernel, batch)
+    ours = [e for e in rows if "project" in e.key]
+    log(f"  parity-layout train step, batch {BATCH}, bf16, inputs on the card: wall {wall:.4f} ms, "
+        f"device busy {busy:.4f} ms per step (profiler), idle share {idle:.4f}; the projection "
+        "kernels: " + "; ".join(
+            f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')[:48]} "
+            f"{device_us(e) / 3e3:.4f} ms ({e.count / 3:.0f})" for e in ours))
+    del kernel, batch
+
+    serve = lambda attention, projection: Predictor(
+        module(attention, projection, state), batch_size=BATCH, bucket_boundaries=BUCKETS,
+        device="cuda")
+    pred, ref = serve("flash", "auto"), serve("xla", "xla")
+    reset_launches()
+    got = pred([omic, wsi])
+    read_launches("the parity-layout served batch", names[:2] + ("flash_attention",))
+    if got["logits"].shape != (BATCH, 4):
+        raise AssertionError(f"parity-layout logits of shape {got['logits'].shape}")
+    compare("parity-layout served batch", got, ref([omic, wsi]), 0.1)
+    return {name: launches[name] for name in names[:2]}
+
+
 # --------------------------------------------------------------- phase 12
 
 
@@ -1742,7 +1994,7 @@ def phase_projection_int8(gen, bf16_ms: float, f32_ms: float):
     if ratio > 1.0 + INT8_MARGIN:
         raise AssertionError(f"the int8 brca call is {ratio:.3f}x the bf16 one's time")
     f32 = time_projection(gen, "brca int8 -> f32", (BATCH, TOKENS, PATCH, 252, torch.int8),
-                          torch.float32, generic=False)
+                          torch.float32)
     log(f"  int8 -> f32 against f32 at brca: {f32['ms'] / f32_ms:.3f}x the time "
         f"({f32['ms']:.4f} ms against phase 2's {f32_ms:.4f} ms)")
     return (projection_entry("fused_project_int8",
@@ -2194,12 +2446,13 @@ def main() -> int:
         log(f"  {name}: {info['ptxas']}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    projection, generic_launches = phase_projection(gen)
+    projection = phase_projection(gen)
     kernels = [*projection, *phase_flash(gen)]
     phase_serving(np.random.default_rng(0))
     phase_serving_rows(np.random.default_rng(3))
     kernels += [*phase_flash_bwd(gen), phase_projection_bwd(gen)]
-    launches = {**generic_launches, **phase_training(np.random.default_rng(1))}
+    launches = phase_training(np.random.default_rng(1))
+    launches.update(phase_parity_step((6, 1, 7)))
     launches.update(phase_wide_step(np.random.default_rng(4)))
     kernels += [*phase_projection_int8(gen, projection[0]["ms"], projection[1]["ms"]),
                 phase_projection_bwd_int8(gen)]
@@ -2214,7 +2467,7 @@ def main() -> int:
                for k in kernels]
     log(f"profiler windows that saw no device kernel (each profiled again): "
         f"{len(EMPTY_WINDOWS)}")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "empty_profiler_windows": len(EMPTY_WINDOWS)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,379 +1,362 @@
-// Fused merged-KV projection forward, the generic kernel: one read of the
-// context for the row statistics, the GEMM against the merged folded
-// weights, and the folded LayerNorm.
+// Fused merged-KV projection forward for few rows: the row statistics, the
+// GEMM against the merged folded weights and the folded LayerNorm, split
+// over the channels across a thread-block cluster.
 //
 // Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
-// launched by _pallas_call), its bf16 contexts and its int8 (quantized
-// context) branch, computed in bf16. Forward only. The model's bf16 calls
-// take the Hopper kernel of fused_project_tma.cu, f32 compute takes
-// fused_project_f32.cu; this one takes bf16 rows TMA cannot describe (a base
-// or row pitch off 16 bytes, such as C = 203). The wrapper routes by
-// ops/fused_project.py::project_route and counts these launches in
-// `launches_generic`.
+// launched by _pallas_call) for bf16 compute over bf16 and int8 contexts of
+// few rows at any byte offset: the omic vector (8, 1, C) of a cohort whose
+// omic width is not a multiple of 8. ops/fused_project.py routes a call
+// here by project_route ("generic") and project_generic_plan (at most
+// SPLIT_MAX_ROWS rows; more take the hull kinds of fused_project_tma.cu)
+// and counts the launches in `launches_generic_split`.
 //
-// What it computes, per context row r (token tok = r % T):
-//   s1 = sum_c x[r, c] + encs[0, tok]        (f32 sums of the stored values)
-//   s2 = sum_c x[r, c]^2 + encs[1, tok]
+// What it computes, per context row r (token tok = r % T), with the
+// rounding contract of fused_project_tma.cu and the JAX kernel:
+//   s1 = sum_c x[r, c] + encs[0, tok], s2 = sum_c x[r, c]^2 + encs[1, tok]
+//   (int8, x = q with a per-row scale s: the sums of q and q^2 exact in
+//   int32, then s * sum q, (s * s) * sum q^2)
 //   mu = s1 / D, inv = rsqrt(s2 / D - mu^2 + eps)
-//   acc[r, n] = sum_c x[r, c] * W[c, n]      (f32 accumulation)
-//   low = round_cdt(round_cdt(acc) + encp[tok, n])   (the rounding contract)
+//   acc[r, n] = sum_c x[r, c] * W[c, n]          (f32 accumulation)
+//   low = round(round(acc) [* s, rounded] + encp[tok, n])
 //   kv[r, n] = inv * (low - mu * aux[0, n]) + aux[1, n]
-// For an int8 context x = q (|q| <= 127) with a per-row f32 scale s, the
-// sums of q and q^2 are taken exactly in int32 and rescaled,
-//   s1 = s * sum q + encs[0, tok],  s2 = (s * s) * sum q^2 + encs[1, tok],
-// and the scale applies on the accumulator, rounded on both sides:
-//   low = round_cdt(round_cdt(round_cdt(acc) * s) + encp[tok, n]).
-// The JAX package sums q^2 in f32 (order-dependent past 2^24); the integer
-// sum is exact, so s2 may differ from it in its last bits.
 //
-// Bound on an H100 SXM at the serving shape (8 x 4096 x 2048 bf16 context,
-// F = 252): the context read is 134 MB of the ~154 MB the function must move,
-// about 46 us at 3.35 TB/s, against 33.8 GFLOP, about 34 us at 989 TFLOP/s
-// bf16 -- so it is bound by bytes, and only if the GEMM runs on the tensor
-// cores. The design answers both: each block (512 threads) owns 128 whole
-// rows and up to 256 output columns, so it streams its rows of the context
-// exactly once (the statistics are taken from the same registers that feed
-// shared memory), runs the product with mma.sync m16n8k16 bf16 -> f32 (B
-// fragments by ldmatrix.trans from a row-major tile), and applies the
-// normalization in the epilogue on the accumulators. F is not padded: the
-// ragged column edge is masked in the loads and the stores. The weights
-// (about 1 MB) are re-read from L2 by every block, which the 128-row tile
-// halves against a 64-row one; only the next tile is prefetched, into
-// registers (fused_project_tma.cu answers both on the model's path).
-//
-// int8 contexts: a thread loads its 8 channels of a row as one 8-byte word
-// (16 bytes for bf16), so the context read is halved: about 67 MB at the
-// serving shape against 33.8 GFLOP, which makes the bound the tensor cores'
-// (about 34 us), not the bytes. The values are converted to bf16 (exact for
-// |q| <= 127) in registers before shared memory, so the product runs as for
-// a bf16 context.
+// Bound on an H100 SXM at the omic vector (8 x 1 x 2001 bf16, F 252): the
+// weights are 1 MB of the 1.05 MB the function must move (0.3 us at
+// 3.35 TB/s) against 8 MFLOP; what a call costs is its latency, and one
+// block walking all of C (the tiled kernel's one row tile on one SM) pays
+// every k-step's load latency in turn. Design:
+// - The channels are split over a cluster of up to 16 blocks and the
+//   columns over blocks of 64 (and the rows over blocks of 8): a block
+//   reads its 64-channel k-slices of the weights (the wrapper's (nk, F, 64)
+//   layout, a slice row of a column one contiguous 128 bytes) once, 16
+//   bytes a load, all of a thread's loads in flight before the context
+//   arrives.
+// - Each warp stages one row's 16-byte hull of the block's channels with
+//   16-byte loads (only the context's last row may end inside a 16-byte
+//   word: those bytes are loaded one by one up to its end, never past it),
+//   then widens it to f32 in shared memory, taking the row sums on the way
+//   and zeroing the channels at or past C.
+// - The products are f32 FMAs on the CUDA cores (bf16 and int8 products
+//   are exact in f32): thread (column, part) sums a quarter of the block's
+//   channels for the 8 rows; the parts add up in shared memory in a fixed
+//   order, then block 0 of the cluster adds the blocks' partial products
+//   and row sums through distributed shared memory, in rank order, and runs
+//   the epilogue. No atomics: two calls give the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBN = 256;  // output columns per block
-constexpr int kRows = 128;       // context rows per block (4 threads a row)
-constexpr int kBK = 32;   // context channels per k-step
-constexpr int kPad = 8;   // bf16 padding per shared row: conflict-free fragments
+constexpr int kThreads = 256;
+constexpr int kRows = 8;          // rows a block (a warp stages each)
+constexpr int kCols = 64;         // columns a block
+constexpr int kParts = 4;         // threads over a column's channels
+constexpr int kSlice = 64;        // channels of a weight k-slice
+constexpr int kGroupSlices = 4;   // k-slices staged at once
+constexpr int kGroup = kGroupSlices * kSlice;
+constexpr int kChunksPerThread = kGroup / 8 / kParts;  // 16-byte weight loads a group
+constexpr int kMaxCluster = 16;
+
+// Shared memory (static; ops/fused_project.py::SPLIT_SMEM mirrors it): the
+// staged hulls (a row's bf16 channels of a group and 32 bytes of slack:
+// alignment and the 16-byte tail), the rows widened to f32, the parts'
+// products, the block's sums and its row sums.
+struct Smem {
+  alignas(16) unsigned char hull[kRows][kGroup * 2 + 32];
+  alignas(16) float xs[kRows][kGroup];
+  alignas(16) float red[kRows][kCols][kParts];
+  float part[kRows][kCols];
+  float stats[kRows][2];  // f32 sums, or int32 ones by their bits
+};
+
+struct SplitParams {
+  const unsigned char* dat;   // (M, C) context, bf16 or int8, any byte offset
+  const unsigned char* end;   // one past the context's last byte (dat + M C itemsize)
+  const __nv_bfloat16* w;     // (nk, F, 64) weight k-slices, zero past C
+  const __nv_bfloat16* encp;  // (T, F) encoding projection
+  const float* encs;          // (2, T) encoding row sums, sums of squares
+  const float* aux;           // (2, F) [colsum(W); folded bias]
+  const float* scale;         // (M) int8 per-row scales, or null
+  __nv_bfloat16* kv;          // (M, F)
+  float* s1;                  // (M)
+  float* s2;                  // (M)
+  int M, C, F, T, nk, slices;  // slices: k-slices a block of the cluster takes
+  float d_total, eps;
+};
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Reduces a row's partial sums over the 4 lanes that loaded it (f32 sums of
-// bf16/f32 values, exact int32 sums of int8 ones), rescales an int8 row,
-// adds the encoding statistics, stores s1/s2 (first column block only) and
-// the row's (mu, inv, scale) for the epilogue.
-template <typename Acc>
-__device__ __forceinline__ void finish_row_stats(Acc st1, Acc st2, int tid, int row,
-                                                 int local_row, int M, int T,
-                                                 const float* encs, const float* scale,
-                                                 float* s1_out, float* s2_out, float d_total,
-                                                 float eps, float* row_mu, float* row_inv,
-                                                 float* row_scale) {
-  st1 += __shfl_xor_sync(0xffffffffu, st1, 1);
-  st1 += __shfl_xor_sync(0xffffffffu, st1, 2);
-  st2 += __shfl_xor_sync(0xffffffffu, st2, 1);
-  st2 += __shfl_xor_sync(0xffffffffu, st2, 2);
-  if ((tid & 3) == 0) {
-    float mu = 0.f, inv = 0.f, sc = 1.f;
-    if (row < M) {
-      const int tok = row % T;
-      float a = static_cast<float>(st1), q = static_cast<float>(st2);
-      if (scale != nullptr) {
-        sc = scale[row];
-        a = sc * a;
-        q = sc * sc * q;
-      }
-      const float s1 = a + encs[tok];
-      const float s2 = q + encs[T + tok];
-      if (blockIdx.y == 0) {
-        s1_out[row] = s1;
-        s2_out[row] = s2;
-      }
-      mu = s1 / d_total;
-      inv = rsqrtf(s2 / d_total - mu * mu + eps);
-    }
-    row_mu[local_row] = mu;
-    row_inv[local_row] = inv;
-    row_scale[local_row] = sc;
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 8 consecutive channels of one context row (zeros past the row's end): 16
-// bytes of bf16, or 8 bytes of int8
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, bool valid, int c, int C,
-                                       int vec) {
-  union {
-    uint4 u;
-    __nv_bfloat16 h[8];
-  } r;
-  if (valid && vec && c < C) {
-    r.u = *reinterpret_cast<const uint4*>(row + c);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) r.h[e] = (valid && c + e < C) ? row[c + e] : __float2bfloat16(0.f);
-  }
-  return r.u;
-}
-
-union I8x8 {
-  uint2 u;
-  int8_t q[8];
-};
-
-__device__ __forceinline__ uint2 load8(const int8_t* row, bool valid, int c, int C, int vec) {
-  I8x8 r;
-  if (valid && vec && c < C) {
-    r.u = *reinterpret_cast<const uint2*>(row + c);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) r.q[e] = (valid && c + e < C) ? row[c + e] : int8_t(0);
-  }
-  return r.u;
-}
-
-// the 8 loaded values as bf16 for shared memory (int8 converts exactly), and
-// their contribution to the row sums
-__device__ __forceinline__ uint4 as_bf16x8(uint4 x) { return x; }
-
-__device__ __forceinline__ uint4 as_bf16x8(uint2 x) {
-  I8x8 in;
-  in.u = x;
-  union {
-    uint4 u;
-    __nv_bfloat16 h[8];
-  } out;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) out.h[e] = __float2bfloat16(static_cast<float>(in.q[e]));
-  return out.u;
-}
-
-__device__ __forceinline__ void add_stats(uint4 x, float& st1, float& st2) {
-  union {
-    uint4 u;
-    __nv_bfloat16 h[8];
-  } v;
-  v.u = x;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float f = __bfloat162float(v.h[e]);
-    st1 += f;
-    st2 += f * f;
-  }
-}
-
-__device__ __forceinline__ void add_stats(uint2 x, int& st1, int& st2) {
-  I8x8 v;
-  v.u = x;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int q = v.q[e];
-    st1 += q;
-    st2 += q * q;
-  }
-}
-
-// input type -> (what a thread loads per k-step, how its row sums add up)
 template <typename TIn>
 struct Input;
 template <>
 struct Input<__nv_bfloat16> {
-  using Raw = uint4;
-  using Acc = float;
-  static constexpr bool kQuant = false;
+  using Sum = float;
+  static constexpr int kSize = 2;
+  static __device__ __forceinline__ float value(const unsigned char* p) {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  }
+  static __device__ __forceinline__ void add(float v, float& s1, float& s2) {
+    s1 += v;
+    s2 = fmaf(v, v, s2);
+  }
+  static __device__ __forceinline__ float pack(float s) { return s; }
+  static __device__ __forceinline__ float unpack(float s) { return s; }
 };
 template <>
 struct Input<int8_t> {
-  using Raw = uint2;
-  using Acc = int;
-  static constexpr bool kQuant = true;
+  using Sum = int;
+  static constexpr int kSize = 1;
+  static __device__ __forceinline__ float value(const unsigned char* p) {
+    return static_cast<float>(*reinterpret_cast<const int8_t*>(p));
+  }
+  static __device__ __forceinline__ void add(float v, int& s1, int& s2) {
+    const int q = static_cast<int>(v);
+    s1 += q;
+    s2 += q * q;
+  }
+  static __device__ __forceinline__ float pack(int s) { return __int_as_float(s); }
+  static __device__ __forceinline__ int unpack(float s) { return __float_as_int(s); }
 };
 
-// weights W[gk, gn:gn+2] packed in one word (zeros past the edges)
-__device__ __forceinline__ uint32_t load_w2(const __nv_bfloat16* w, int gk, int gn, int C,
-                                            int F, bool pair_ok) {
-  if (gk >= C) return 0u;
-  const __nv_bfloat16* src = w + (size_t)gk * F + gn;
-  if (pair_ok) return *reinterpret_cast<const uint32_t*>(src);
-  union {
-    uint32_t u;
-    __nv_bfloat16 h[2];
-  } r;
-  r.u = 0u;  // +0.0 in both halves
-  if (gn < F) r.h[0] = src[0];
-  if (gn + 1 < F) r.h[1] = src[1];
-  return r.u;
+template <typename Sum>
+__device__ __forceinline__ Sum warp_sum(Sum v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
 }
 
-template <int BM, typename TIn>
-__global__ void __launch_bounds__(BM * 4, 128 / BM)
-    project_generic_bf16(const TIn* __restrict__ dat, const __nv_bfloat16* __restrict__ w,
-                         const __nv_bfloat16* __restrict__ encp, const float* __restrict__ encs,
-                         const float* __restrict__ aux, const float* __restrict__ scale,
-                         __nv_bfloat16* __restrict__ kv, float* __restrict__ s1_out,
-                         float* __restrict__ s2_out, int M, int C, int F, int T, float d_total,
-                         float eps, int vec_a) {
-  using Acc = typename Input<TIn>::Acc;
-  constexpr bool kQuant = Input<TIn>::kQuant;
-  constexpr int kRowsPerPass = BM / 32;  // weight rows one pass of the block loads
-  __shared__ __align__(16) __nv_bfloat16 As[BM][kBK + kPad];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBK][kBN + kPad];  // row-major [k][n]
-  __shared__ float row_mu[BM], row_inv[BM], row_scale[BM];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // (BM / 32) x 4 warps over BM x 256
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * kBN;
-
-  // A loader: 8 consecutive channels of one row per thread
-  const int a_r = tid >> 2, a_c = (tid & 3) * 8;
-  const int a_row = row0 + a_r;
-  const bool a_valid = a_row < M;
-  const TIn* a_src = dat + (size_t)(a_valid ? a_row : 0) * C;
-  // B loader: one pair of output columns, k rows b_k + kRowsPerPass * i
-  const int b_n = (tid & 127) * 2, b_k = tid >> 7;
-  const int gn = col0 + b_n;
-  const bool pair_ok = ((F & 1) == 0) && (gn + 1 < F);
-
-  Acc st1 = 0, st2 = 0;
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  typename Input<TIn>::Raw a_reg = load8(a_src, a_valid, a_c, C, vec_a);
-  uint32_t b_reg[kBK / kRowsPerPass];
-#pragma unroll
-  for (int i = 0; i < kBK / kRowsPerPass; ++i)
-    b_reg[i] = load_w2(w, b_k + kRowsPerPass * i, gn, C, F, pair_ok);
-
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    *reinterpret_cast<uint4*>(&As[a_r][a_c]) = as_bf16x8(a_reg);
-    add_stats(a_reg, st1, st2);
-#pragma unroll
-    for (int i = 0; i < kBK / kRowsPerPass; ++i)
-      *reinterpret_cast<uint32_t*>(&Bs[b_k + kRowsPerPass * i][b_n]) = b_reg[i];
-    __syncthreads();
-    if (k0 + kBK < C) {  // next tile in flight during the MMAs
-      a_reg = load8(a_src, a_valid, k0 + kBK + a_c, C, vec_a);
-#pragma unroll
-      for (int i = 0; i < kBK / kRowsPerPass; ++i)
-        b_reg[i] = load_w2(w, k0 + kBK + b_k + kRowsPerPass * i, gn, C, F, pair_ok);
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + gid;
-        af[mi][0] = ld32(&As[r][kk + tig * 2]);
-        af[mi][1] = ld32(&As[r + 8][kk + tig * 2]);
-        af[mi][2] = ld32(&As[r][kk + tig * 2 + 8]);
-        af[mi][3] = ld32(&As[r + 8][kk + tig * 2 + 8]);
-      }
-      const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {  // two n8 tiles per ldmatrix
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, &Bs[krow][wn * 64 + (nj * 2 + (lane >> 4)) * 8]);
-        mma_bf16(acc[0][2 * nj], af[0], bf[0], bf[1]);
-        mma_bf16(acc[1][2 * nj], af[1], bf[0], bf[1]);
-        mma_bf16(acc[0][2 * nj + 1], af[0], bf[2], bf[3]);
-        mma_bf16(acc[1][2 * nj + 1], af[1], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  finish_row_stats(st1, st2, tid, a_row, a_r, M, T, encs, kQuant ? scale : nullptr, s1_out,
-                   s2_out, d_total, eps, row_mu, row_inv, row_scale);
-  __syncthreads();
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lr = wm * 32 + mi * 16 + gid + half * 8;
-      const int r = row0 + lr;
-      if (r >= M) continue;
-      const int tok = r % T;
-      const float mu = row_mu[lr], inv = row_inv[lr], sc = row_scale[lr];
-      const __nv_bfloat16* ep = encp + (size_t)tok * F;
-      __nv_bfloat16* out = kv + (size_t)r * F;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int n = col0 + wn * 64 + ni * 8 + tig * 2 + j;
-          if (n >= F) continue;
-          float a = round_bf16(acc[mi][ni][half * 2 + j]);
-          if (kQuant) a = round_bf16(a * sc);
-          const float low = round_bf16(a + __bfloat162float(ep[n]));
-          out[n] = __float2bfloat16(inv * (low - mu * aux[n]) + aux[F + n]);
-        }
-      }
+// Bytes [lo, hi) of the context into `dst` (lo 16-byte aligned, hi <= lo
+// + kGroup * 2 + 32) by the warp's lanes, 16 bytes a load; where a 16-byte
+// word runs past the context's end, its bytes up to the end one by one.
+__device__ __forceinline__ void stage_hull(unsigned char* dst, const unsigned char* lo,
+                                           const unsigned char* hi, const unsigned char* end,
+                                           int lane) {
+  const int words = static_cast<int>((hi - lo + 15) >> 4);
+  for (int k = lane; k < words; k += 32) {
+    const unsigned char* src = lo + 16 * k;
+    if (src + 16 <= end) {
+      *reinterpret_cast<uint4*>(dst + 16 * k) = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+      for (int b = 0; b < 16; ++b) dst[16 * k + b] = src + b < end ? src[b] : 0;
     }
   }
 }
 
 template <typename TIn>
-void launch_bf16(const void* dat, const void* w, const void* encp, const float* encs,
-                 const float* aux, const float* scale, void* kv, float* s1, float* s2, int M,
-                 int C, int F, int T, float d_total, float eps, int vec_a, cudaStream_t s) {
-  const dim3 grid((M + kRows - 1) / kRows, (F + kBN - 1) / kBN);
-  project_generic_bf16<kRows, TIn><<<grid, kRows * 4, 0, s>>>(
-      static_cast<const TIn*>(dat), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(encp), encs, aux, scale,
-      static_cast<__nv_bfloat16*>(kv), s1, s2, M, C, F, T, d_total, eps, vec_a);
+__global__ void __launch_bounds__(kThreads) project_split(const SplitParams p) {
+  using In = Input<TIn>;
+  using Sum = typename In::Sum;
+  __shared__ Smem sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = blockIdx.y * kCols, row0 = blockIdx.z * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = tid / kParts, part = tid % kParts;  // this thread's column and channel part
+  const int ks0 = rank * p.slices, ks1 = min(p.nk, ks0 + p.slices);
+  const int my_row = row0 + warp;  // the row this warp stages
+  const bool row_ok = my_row < p.M;
+  const size_t pitch = static_cast<size_t>(p.C) * In::kSize;
+
+  float acc[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) acc[m] = 0.f;
+  Sum st1 = 0, st2 = 0;
+
+  for (int g0 = ks0; g0 < ks1; g0 += kGroupSlices) {
+    const int c_begin = g0 * kSlice;
+    const int c_len = min(ks1 - g0, kGroupSlices) * kSlice;  // channels of the group
+    const int c_valid = max(0, min(p.C - c_begin, c_len));   // of them before C
+    // this thread's weights of the group, in flight while the context comes
+    uint4 wv[kChunksPerThread];
+#pragma unroll
+    for (int i = 0; i < kChunksPerThread; ++i) {
+      const int q = part + kParts * i;  // 8-channel chunk of the group
+      wv[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (8 * q < c_len && n0 + n < p.F)
+        wv[i] = __ldg(reinterpret_cast<const uint4*>(
+            p.w + ((static_cast<size_t>(g0 + q / 8) * p.F + n0 + n) * kSlice + (q % 8) * 8)));
+    }
+    // the warp's row: its hull, then its values widened, zero past C
+    int off = 0;
+    if (row_ok && c_valid > 0) {
+      const unsigned char* first = p.dat + my_row * pitch + static_cast<size_t>(c_begin) * In::kSize;
+      const unsigned char* lo = reinterpret_cast<const unsigned char*>(
+          reinterpret_cast<uintptr_t>(first) & ~uintptr_t(15));
+      off = static_cast<int>(first - lo);
+      stage_hull(sm.hull[warp], lo, first + c_valid * In::kSize, p.end, lane);
+    }
+    __syncwarp();
+    for (int c = lane; c < c_len; c += 32) {
+      float v = 0.f;
+      if (row_ok && c < c_valid) {
+        v = In::value(&sm.hull[warp][off + c * In::kSize]);
+        In::add(v, st1, st2);
+      }
+      sm.xs[warp][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kChunksPerThread; ++i) {
+      const int q = part + kParts * i;
+      if (8 * q >= c_len) continue;
+      const uint32_t w[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
+      float wf[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wf[2 * j] = __uint_as_float(w[j] << 16);
+        wf[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+      }
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        const float4 x0 = *reinterpret_cast<const float4*>(&sm.xs[m][8 * q]);
+        const float4 x1 = *reinterpret_cast<const float4*>(&sm.xs[m][8 * q + 4]);
+        float a = acc[m];
+        a = fmaf(x0.x, wf[0], a);
+        a = fmaf(x0.y, wf[1], a);
+        a = fmaf(x0.z, wf[2], a);
+        a = fmaf(x0.w, wf[3], a);
+        a = fmaf(x1.x, wf[4], a);
+        a = fmaf(x1.y, wf[5], a);
+        a = fmaf(x1.z, wf[6], a);
+        a = fmaf(x1.w, wf[7], a);
+        acc[m] = a;
+      }
+    }
+    __syncthreads();  // the group's hulls and rows are spent
+  }
+
+  // the block's partial products (its parts added in order) and row sums
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) sm.red[m][n][part] = acc[m];
+  st1 = warp_sum(st1);
+  st2 = warp_sum(st2);
+  if (lane == 0) {
+    sm.stats[warp][0] = In::pack(st1);
+    sm.stats[warp][1] = In::pack(st2);
+  }
+  __syncthreads();
+  for (int i = tid; i < kRows * kCols; i += kThreads) {
+    const int m = i / kCols, c = i % kCols;
+    const float4 r = *reinterpret_cast<const float4*>(sm.red[m][c]);
+    sm.part[m][c] = ((r.x + r.y) + r.z) + r.w;
+  }
+  cluster.sync();  // every block's partials are out
+
+  if (rank == 0) {  // the cluster's sums, in rank order, and the epilogue
+    const int blocks = static_cast<int>(cluster.num_blocks());
+    for (int i = tid; i < kRows * kCols; i += kThreads) {
+      const int m = i / kCols, c = i % kCols;
+      const int row = row0 + m, col = n0 + c;
+      if (row >= p.M || col >= p.F) continue;
+      float a = 0.f;
+      Sum t1 = 0, t2 = 0;
+      for (int r = 0; r < blocks; ++r) {
+        const float* peer_stats = cluster.map_shared_rank(&sm.stats[m][0], r);
+        a += *cluster.map_shared_rank(&sm.part[m][c], r);
+        t1 += In::unpack(peer_stats[0]);
+        t2 += In::unpack(peer_stats[1]);
+      }
+      const int tok = row % p.T;
+      const float sc = p.scale != nullptr ? p.scale[row] : 1.f;
+      const float v1 = sc * static_cast<float>(t1) + p.encs[tok];
+      const float v2 = sc * sc * static_cast<float>(t2) + p.encs[p.T + tok];
+      if (blockIdx.y == 0 && c == 0) {
+        p.s1[row] = v1;
+        p.s2[row] = v2;
+      }
+      const float mu = v1 / p.d_total;
+      const float inv = rsqrtf(v2 / p.d_total - mu * mu + p.eps);
+      float lowp = round_bf16(a);
+      if (p.scale != nullptr) lowp = round_bf16(lowp * sc);
+      const float low = round_bf16(lowp + __bfloat162float(p.encp[static_cast<size_t>(tok) * p.F + col]));
+      p.kv[static_cast<size_t>(row) * p.F + col] =
+          __float2bfloat16(inv * (low - mu * p.aux[col]) + p.aux[p.F + col]);
+    }
+  }
+  cluster.sync();  // block 0 is done with the others' shared memory
+}
+
+template <typename TIn>
+cudaError_t launch(const SplitParams& p, int cluster, cudaStream_t s) {
+  auto kern = project_split<TIn>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (p.F + kCols - 1) / kCols, (p.M + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 compute and output; is_int8: the context is int8 with a per-row
-// scale, else bf16.
-extern "C" int healnet_fused_project_generic(const void* dat, const void* w, const void* encp,
-                                             const float* encs, const float* aux,
-                                             const float* scale, void* kv, float* s1, float* s2,
-                                             int M, int C, int F, int T, float d_total, float eps,
-                                             int is_int8, int vec_a, void* stream) {
-  if (M <= 0 || F <= 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_int8) {
-    launch_bf16<int8_t>(dat, w, encp, encs, aux, scale, kv, s1, s2, M, C, F, T, d_total, eps,
-                        vec_a, s);
-  } else {
-    launch_bf16<__nv_bfloat16>(dat, w, encp, encs, aux, nullptr, kv, s1, s2, M, C, F, T,
-                               d_total, eps, vec_a, s);
+// Bytes of static shared memory a block of the split kernel takes, as the
+// compiler laid it out (the host checks project_split_smem against it);
+// -1 where the query fails.
+extern "C" long long healnet_fused_project_split_smem(int is_int8) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = is_int8 ? cudaFuncGetAttributes(&attr, project_split<int8_t>)
+                                : cudaFuncGetAttributes(&attr, project_split<__nv_bfloat16>);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<long long>(attr.sharedSizeBytes);
+}
+
+// One launch over (M, C) context rows at any byte offset: dat bf16 or int8
+// (is_int8, with `scale`), contiguous; w_t (nk, F, 64) bf16 k-slices (zero past C); output (M, F) bf16 and s1,
+// s2 (M) f32. Clusters of `cluster` blocks over the channels, `slices`
+// k-slices a block (ops/fused_project.py::project_generic_plan).
+extern "C" int healnet_fused_project_split(const void* dat, const void* w_t,
+                                           const void* encp, const float* encs, const float* aux,
+                                           const float* scale, void* kv, float* s1, float* s2,
+                                           int M, int C, int F, int T, float d_total, float eps,
+                                           int is_int8, int cluster, int slices, void* stream) {
+  if (M <= 0 || F <= 0) return 0;
+  const int nk = (C + kSlice - 1) / kSlice;
+  if (cluster < 1 || cluster > kMaxCluster || slices < 1 || (cluster - 1) * slices >= nk ||
+      cluster * slices < nk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SplitParams p;
+  p.dat = static_cast<const unsigned char*>(dat);
+  p.end = p.dat + static_cast<size_t>(M) * C * (is_int8 ? 1 : 2);
+  p.w = static_cast<const __nv_bfloat16*>(w_t);
+  p.encp = static_cast<const __nv_bfloat16*>(encp);
+  p.encs = encs;
+  p.aux = aux;
+  p.scale = is_int8 ? scale : nullptr;
+  p.kv = static_cast<__nv_bfloat16*>(kv);
+  p.s1 = s1;
+  p.s2 = s2;
+  p.M = M;
+  p.C = C;
+  p.F = F;
+  p.T = T;
+  p.nk = nk;
+  p.slices = slices;
+  p.d_total = d_total;
+  p.eps = eps;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_int8 ? launch<int8_t>(p, cluster, s)
+                                  : launch<__nv_bfloat16>(p, cluster, s));
 }
 
 extern "C" const char* healnet_cuda_error_string(int code) {

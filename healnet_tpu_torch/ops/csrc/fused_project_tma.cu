@@ -3,11 +3,14 @@
 // pass over the context, on TMA and wgmma.
 //
 // Replaces: healnet_tpu/ops/fused_project.py::_kernel (the Pallas kernel
-// launched by _pallas_call) for bf16 compute, bf16 and int8 contexts, where
-// TMA can describe the context rows (a 16-byte aligned base and row pitch:
-// C = 2000, 2048 and 1024 in either type). Everything else, f32 compute and
-// rows such as C = 203, takes the generic kernels of fused_project.cu; the
-// wrapper routes a call by ops/fused_project.py::project_route.
+// launched by _pallas_call) for bf16 compute, bf16 and int8 contexts: rows
+// TMA can describe (a 16-byte aligned base and row pitch: C = 2000, 2048 and
+// 1024 in either type) as they are, and rows at any byte offset (C = 4095,
+// 2001, 203, 3, a misaligned view: the generic route) as 16-byte hulls that
+// the consumers realign (below). f32 compute takes fused_project_f32.cu, and
+// generic calls of few rows the split kernel of fused_project.cu; the
+// wrapper routes a call by ops/fused_project.py::project_route and
+// project_generic_plan.
 //
 // What it computes (per row r, token tok = r % T), with the rounding
 // contract of fused_project.cu and the JAX kernel:
@@ -23,7 +26,8 @@
 // three quarters of their peak for the bytes to stay the limit. int8 halves
 // the context (67 MB, 20 us): its tensor-core time binds.
 //
-// Design (each point answers a cause of the generic kernel's time):
+// Design (each point answers a cause of the time of a plain mma.sync kernel
+// that streams 128 rows a block through registers):
 // - Persistent, warp-specialised blocks of 288 threads, one per SM: one
 //   producer warp issues TMA copies into a ring of 2-4 stages (as many as
 //   shared memory holds), each a 128-row x 64-channel context tile and the
@@ -50,6 +54,25 @@
 //   it over clusters of 2 or 4 blocks cut that traffic 2x or 4x and bought
 //   nothing on an H100 SXM (clusters of 4 were 40% slower: each block waits
 //   on its peers' releases), so the kernel takes no clusters.
+// - Rows at any byte offset (the hull kinds): rows r and r + P lie at the
+//   same offset mod 16 bytes, where P = 16 / gcd(row pitch, 16) (8 for a
+//   bf16 row of odd C), so the rows of each of the P classes are one
+//   2-D TMA tensor whose row stride (P pitches) is a multiple of 16 and
+//   whose base is the class's first row rounded down to 16 bytes. A k-step
+//   copies, per class, the 16-byte hull of each of its rows of the tile
+//   (72 bf16 / 80 int8 elements from channel k0 - shift: 144 or 80 bytes,
+//   unswizzled, so 8 consecutive rows of a class fall on 8 distinct bank
+//   groups). TMA zero-fills past the class's extent (its shift plus C
+//   elements), so the channels at or past C read as zeros, not as the next
+//   row's values, and no copy reads past the context. The consumers shift
+//   each staged row by its class's offset (funnel shifts of 16-byte words)
+//   into the swizzled bf16 tile wgmma reads, the double buffer the int8
+//   kind converts into, taking the row sums on the way (int8: converted in
+//   the same pass, the sums exact by dp4a). A thread realigns one half of
+//   one row, its output chunks in an order rotated per lane so that both
+//   the reads and the swizzled writes of a quarter warp fall on 8 distinct
+//   bank groups at P = 8; the row sums reach the epilogue's threads through
+//   shared memory.
 // - Epilogue over 8 rows of a warp at a time, staged in shared memory (in a
 //   region of their own, or where that would cost a ring stage, as at kirp,
 //   in the tile's second-to-last ring stage, held back from the producer
@@ -88,6 +111,10 @@ constexpr int kWRowBytes = kBK * 2;  // one weight row (or bf16 context row) of 
 constexpr int kConvBytes = kWgRows * kWRowBytes;  // a warpgroup's converted int8 tile
 constexpr int kStageRows = 8;       // rows a warp stages at once in the epilogue
 constexpr size_t kMaxSmem = 232448;
+constexpr int kMaxClasses = 16;     // row classes of one offset mod 16 bytes (int8, odd C)
+
+// bytes of a row's staged 16-byte hull per k-step: 64 channels and 16 bytes
+__host__ __device__ constexpr uint32_t hull_bytes(int itemsize) { return kBK * itemsize + 16; }
 
 struct Params {
   CUtensorMap ctx_map;  // context (M, C): bf16 128-byte swizzle, int8 64-byte swizzle
@@ -102,24 +129,34 @@ struct Params {
   int M, F, T, nk, row_tiles, total, stages, box_rows, nbox, pitch, held_staging;
   uint32_t ctx_bytes, stage_bytes, tx_bytes, conv_off, epi_off, aux_off, bar_off;
   float d_total, eps;
+  // the hull kinds (appended, so the other kinds see the fields above where
+  // they always lay): log2 of the row classes, a class's rows in a tile,
+  // bytes of a staged hull row, the first row's offset mod 16 and the
+  // pitch's, the row sums' offset, and one unswizzled map per row class
+  // in place of ctx_map
+  int class_bits, class_rows, hull_bytes, shift0, shift_step;
+  uint32_t sums_off;
+  CUtensorMap class_maps[kMaxClasses];
 };
 
 // Byte offsets into the block's shared memory, from a 1024-byte aligned
 // base (the 1024 bytes of slack that alignment may take are in `total`):
-// the ring of stages (context tile, then the weight rows); for
-// an int8 context each consumer warpgroup's two converted bf16 tiles; the
-// warps' 8 staged output rows each, unless the epilogue stages them in one
-// of the tile's spent ring stages (held); [colsum; bias] of the block's
-// columns; then the full and empty barriers. ops/fused_project.py
-// (project_smem) mirrors it.
+// the ring of stages (context tile, 128 hull rows for the hull kinds, then
+// the weight rows); for an int8 context and the hull kinds each consumer
+// warpgroup's two converted bf16 tiles; for the hull kinds the row sums of
+// two tiles; the warps' 8 staged output rows each, unless the epilogue
+// stages them in one of the tile's spent ring stages (held); [colsum;
+// bias] of the block's columns; then the full and empty barriers.
+// ops/fused_project.py (project_smem) mirrors it.
 struct Layout {
-  uint32_t ctx_bytes, stage_bytes, conv_off, epi_off, aux_off, bar_off;
+  uint32_t ctx_bytes, stage_bytes, conv_off, sums_off, epi_off, aux_off, bar_off;
   size_t total;
-  Layout(int nb, int itemsize, int stages, int pitch, int held) {
-    ctx_bytes = kRows * kBK * itemsize;
+  Layout(int nb, int itemsize, int stages, int pitch, int held, int hull) {
+    ctx_bytes = kRows * (hull ? hull_bytes(itemsize) : kBK * itemsize);
     stage_bytes = ctx_bytes + nb * kWRowBytes;
     conv_off = stages * stage_bytes;
-    epi_off = conv_off + (itemsize == 1 ? 2 * 2 * kConvBytes : 0);
+    sums_off = conv_off + (itemsize == 1 || hull ? 2 * 2 * kConvBytes : 0);
+    epi_off = sums_off + (hull ? 2 * kRows * 2 * 4 : 0);
     aux_off = epi_off + (held ? 0 : (kConsumerWarps * kStageRows * pitch * 2 + 15) & ~15u);
     bar_off = aux_off + 2 * nb * sizeof(float);
     total = bar_off + 2 * stages * sizeof(uint64_t) + 1024;
@@ -194,6 +231,99 @@ __device__ __forceinline__ void convert_int8(const unsigned char* tile, unsigned
                                    s8x2_to_bf16x2(b, 0), s8x2_to_bf16x2(b, 1));
       *reinterpret_cast<uint4*>(conv + r * 128 + (((2 * t + half) ^ (r & 7)) << 4)) = out;
     }
+  }
+}
+
+// ------------------------------------------------- rows at any byte offset
+
+// Where this consumer thread realigns (the hull kinds): one half (32
+// channels) of row `row` of its warpgroup's 64. A quarter warp holds 4
+// consecutive rows x 2 halves; in step k a thread writes output chunk
+// 4 half + (k ^ rot) of its row (rot a permutation of the row's place in the
+// quarter with rot ^ place a permutation too), so at P = 8, where the
+// quarter's 4 rows share a slot of their class boxes and their row % 8
+// bits above 2, its 8 hull reads and 8 swizzled writes each fall on 8
+// distinct bank groups.
+struct Hull {
+  uint32_t off;  // the row's staged hull within a stage's context region
+  int row, half, rot, shift;
+};
+
+__device__ __forceinline__ Hull hull_slot(const Params& p, int wg, int warp, int lane) {
+  const int e = lane & 7;
+  Hull h;
+  h.row = 4 * ((warp & 3) * 4 + (lane >> 3)) + (e & 3);
+  h.half = e >> 2;
+  h.rot = (0x2130 >> (4 * (e & 3))) & 3;
+  const int r = wg * kWgRows + h.row;  // the tile's row: its class, its slot in the class box
+  const int cls = r & ((1 << p.class_bits) - 1), slot = r >> p.class_bits;
+  h.off = static_cast<uint32_t>((cls * p.class_rows + slot) * p.hull_bytes);
+  h.shift = (p.shift0 + cls * p.shift_step) & 15;
+  return h;
+}
+
+// bytes s .. s + 15 of the 32 bytes a:b (s < 16)
+__device__ __forceinline__ uint4 shift16(const uint4& a, const uint4& b, int s) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const uint32_t bits = (s & 3) * 8;
+  uint32_t u[6], v[5];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) u[i] = (s & 8) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) v[i] = (s & 4) ? u[i + 1] : u[i];
+  return make_uint4(__funnelshift_r(v[0], v[1], bits), __funnelshift_r(v[1], v[2], bits),
+                    __funnelshift_r(v[2], v[3], bits), __funnelshift_r(v[3], v[4], bits));
+}
+
+// bytes s .. s + 7 of the 16 bytes a:b (s < 8)
+__device__ __forceinline__ uint2 shift8(const uint2& a, const uint2& b, int s) {
+  const uint32_t w[4] = {a.x, a.y, b.x, b.y};
+  const uint32_t bits = (s & 3) * 8;
+  uint32_t v[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = (s & 4) ? w[i + 1] : w[i];
+  return make_uint2(__funnelshift_r(v[0], v[1], bits), __funnelshift_r(v[1], v[2], bits));
+}
+
+// One k-step of the thread's half row: its hull `row` (16-byte aligned,
+// channel c of the k-step at byte shift + c * itemsize) shifted into the
+// bf16 tile `conv` (128-byte swizzle, as TMA lays a bf16 tile), an int8
+// row converted on the way (exact for |q| <= 127); the row sums of the
+// values as written, f32 for bf16, exact int32 by dp4a for int8.
+__device__ __forceinline__ void realign(const unsigned char* row, unsigned char* conv,
+                                        const Hull& h, float& s1, float& s2) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = 4 * h.half + (k ^ h.rot);
+    const uint4 v = shift16(*reinterpret_cast<const uint4*>(row + 16 * q),
+                            *reinterpret_cast<const uint4*>(row + 16 * q + 16), h.shift);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xFFFF0000u);
+      s1 += lo + hi;
+      s2 = fmaf(lo, lo, fmaf(hi, hi, s2));
+    }
+    *reinterpret_cast<uint4*>(conv + h.row * 128 + ((q ^ (h.row & 7)) << 4)) = v;
+  }
+}
+
+__device__ __forceinline__ void realign(const unsigned char* row, unsigned char* conv,
+                                        const Hull& h, int& s1, int& s2) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = 4 * h.half + (k ^ h.rot);
+    const int o = 8 * q + h.shift;  // the chunk's 8 channels, 8 bytes from here
+    const unsigned char* src = row + (o & ~7);
+    const uint2 x = shift8(*reinterpret_cast<const uint2*>(src),
+                           *reinterpret_cast<const uint2*>(src + 8), o & 7);
+    s1 = __dp4a(static_cast<int>(x.x), 0x01010101, s1);
+    s1 = __dp4a(static_cast<int>(x.y), 0x01010101, s1);
+    s2 = __dp4a(static_cast<int>(x.x), static_cast<int>(x.x), s2);
+    s2 = __dp4a(static_cast<int>(x.y), static_cast<int>(x.y), s2);
+    *reinterpret_cast<uint4*>(conv + h.row * 128 + ((q ^ (h.row & 7)) << 4)) =
+        make_uint4(s8x2_to_bf16x2(x.x, 0), s8x2_to_bf16x2(x.x, 1), s8x2_to_bf16x2(x.y, 0),
+                   s8x2_to_bf16x2(x.y, 1));
   }
 }
 
@@ -308,9 +438,10 @@ __device__ __forceinline__ void finish_products(const float (&acc)[N / 2], int n
 }
 
 // The producer: one thread walks the same tiles as the consumers and keeps
-// the ring full. A stage holds the block's context tile and the pass's NB
+// the ring full. A stage holds the block's context tile (for the hull
+// kinds one box of hull rows per row class, class-major) and the pass's NB
 // weight rows, in one TMA box or two (272 = 136 + 136).
-template <int NB>
+template <int NB, bool HULL>
 __device__ __forceinline__ void produce(const Params& p, unsigned char* smem, uint64_t* full,
                                         uint64_t* empty) {
   RingPos pos;
@@ -320,7 +451,13 @@ __device__ __forceinline__ void produce(const Params& p, unsigned char* smem, ui
       hw::mbar_wait(&empty[pos.stage], pos.phase ^ 1);
       unsigned char* st = smem + pos.stage * p.stage_bytes;
       hw::mbar_expect_tx(&full[pos.stage], p.tx_bytes);
-      hw::tma_load(st, &p.ctx_map, &full[pos.stage], ks * kBK, row_tile * kRows);
+      if constexpr (HULL) {
+        for (int j = 0; j < (1 << p.class_bits); ++j)
+          hw::tma_load(st + j * p.class_rows * p.hull_bytes, &p.class_maps[j], &full[pos.stage],
+                       ks * kBK, row_tile * p.class_rows);
+      } else {
+        hw::tma_load(st, &p.ctx_map, &full[pos.stage], ks * kBK, row_tile * kRows);
+      }
       for (int b = 0; b < p.nbox; ++b) {
         const int r = b * p.box_rows;
         hw::tma_load(st + p.ctx_bytes + r * kWRowBytes, &p.w_map, &full[pos.stage], 0, col0 + r,
@@ -333,8 +470,10 @@ __device__ __forceinline__ void produce(const Params& p, unsigned char* smem, ui
 
 // The consumers: warpgroup wg takes tile rows 64 wg .. 64 wg + 63, warp w
 // of it rows 16 w .. 16 w + 15 of those (thread (g, t) rows g and g + 8,
-// which is also how the accumulators of wgmma lie).
-template <int NB, bool Q>
+// which is also how the accumulators of wgmma lie). The hull kinds realign
+// by another split of the warpgroup's rows (hull_slot) and hand the row
+// sums over in shared memory.
+template <int NB, bool Q, bool HULL>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, uint64_t* full,
                                         uint64_t* empty, int warp, int lane) {
   using Sum = typename std::conditional<Q, int, float>::type;
@@ -344,10 +483,16 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   unsigned char* conv_area = smem + p.conv_off + wg * 2 * kConvBytes;
   float* aux_s = reinterpret_cast<float*>(smem + p.aux_off);
   const uint32_t a_off = wg * kWgRows * (Q ? kBK : kWRowBytes);  // the warpgroup's rows in a tile
-  int aux_col = -1;
+  const Hull hull = HULL ? hull_slot(p, wg, warp, lane) : Hull{};
+  // the hull kinds' row sums [tile parity][row of the tile][s1, s2]: a
+  // tile's are written at its last k-step, read after it; the next tile
+  // writes the other half, and the one after only once every thread of the
+  // warpgroup has passed the next tile's first barrier
+  Sum* sums = reinterpret_cast<Sum*>(smem + p.sums_off);
+  int aux_col = -1, parity = 0;
   RingPos pos;
 
-  for (int ct = blockIdx.x; ct < p.total; ct += gridDim.x) {
+  for (int ct = blockIdx.x; ct < p.total; ct += gridDim.x, parity ^= 1) {
     const int col0 = (ct / p.row_tiles) * NB;
     const int row0 = (ct % p.row_tiles) * kRows + wg * kWgRows;
     const int ncols = min(NB, p.F - col0);
@@ -369,7 +514,23 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
     for (int ks = 0; ks < p.nk; ++ks) {
       hw::mbar_wait(&full[pos.stage], pos.phase);
       const unsigned char* st = smem + pos.stage * p.stage_bytes;
-      if constexpr (Q) {
+      if constexpr (HULL) {
+        // the conversion buffers alternate as for int8 (below)
+        unsigned char* conv = conv_area + (ks & 1) * kConvBytes;
+        realign(st + hull.off, conv, hull, s1[0], s2[0]);
+        if (ks == p.nk - 1) {  // the row's two halves, for the epilogue
+          const Sum a = s1[0] + __shfl_xor_sync(0xFFFFFFFFu, s1[0], 4);
+          const Sum b = s2[0] + __shfl_xor_sync(0xFFFFFFFFu, s2[0], 4);
+          if (hull.half == 0) {
+            Sum* dst = sums + 2 * (parity * kRows + wg * kWgRows + hull.row);
+            dst[0] = a;
+            dst[1] = b;
+          }
+        }
+        hw::fence_proxy_async();
+        hw::named_sync(2 + wg, 128);  // the warpgroup's tile is realigned (and its sums out)
+        mma_step<NB>(acc, conv, st + p.ctx_bytes, ks > 0);
+      } else if constexpr (Q) {
         // the two buffers alternate: this one's last reader, the products
         // of k-step ks - 2, finished at the wait of k-step ks - 1
         unsigned char* conv = conv_area + (ks & 1) * kConvBytes;
@@ -425,6 +586,14 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
     fence_acc(acc);
     if (!p.held_staging) release(&empty[prev], lane);
 
+    if constexpr (HULL) {  // each row's sums, from the threads that realigned it
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Sum* src = sums + 2 * (parity * kRows + wg * kWgRows + wrow + g + 8 * h);
+        s1[h] = t == 0 ? src[0] : Sum(0);
+        s2[h] = t == 0 ? src[1] : Sum(0);
+      }
+    }
     // the row statistics: the quad's partial sums, rescaled, with the encoding's
     float mu[2], inv[2];
 #pragma unroll
@@ -479,7 +648,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   }
 }
 
-template <int NB, bool Q>
+template <int NB, bool Q, bool HULL>
 __global__ void __launch_bounds__(kThreads, 1) project_tma(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hw::smem_u32(smem_raw) & 1023)) & 1023);
@@ -495,10 +664,10 @@ __global__ void __launch_bounds__(kThreads, 1) project_tma(const __grid_constant
   }
   __syncthreads();  // the barriers are set before any arrival or copy
   if (warp == kConsumerWarps) {
-    if (lane == 0) produce<NB>(p, smem, full, empty);
+    if (lane == 0) produce<NB, HULL>(p, smem, full, empty);
     __syncwarp();
   } else {
-    consume<NB, Q>(p, smem, full, empty, warp, lane);
+    consume<NB, Q, HULL>(p, smem, full, empty, warp, lane);
   }
 }
 
@@ -565,28 +734,76 @@ cudaError_t configure(Kernel kern) {
 
 // Calls fn(kernel) for a column-pass width the kernel is built for (the
 // wrapper's PROJECT_WIDTHS); a null kernel for any other.
-template <bool Q, typename Fn>
+template <bool Q, bool HULL, typename Fn>
 auto with_width(int nb, Fn&& fn) {
   switch (nb) {
-    case 64: return fn(project_tma<64, Q>);
-    case 128: return fn(project_tma<128, Q>);
-    case 256: return fn(project_tma<256, Q>);
-    case 272: return fn(project_tma<272, Q>);
+    case 64: return fn(project_tma<64, Q, HULL>);
+    case 128: return fn(project_tma<128, Q, HULL>);
+    case 256: return fn(project_tma<256, Q, HULL>);
+    case 272: return fn(project_tma<272, Q, HULL>);
     default: return fn(static_cast<void (*)(Params)>(nullptr));
   }
 }
 
 template <typename Fn>
-auto with_kernel(int nb, int is_int8, Fn&& fn) {
-  return is_int8 ? with_width<true>(nb, fn) : with_width<false>(nb, fn);
+auto with_kernel(int nb, int is_int8, int hull, Fn&& fn) {
+  if (hull) return is_int8 ? with_width<true, true>(nb, fn) : with_width<false, true>(nb, fn);
+  return is_int8 ? with_width<true, false>(nb, fn) : with_width<false, false>(nb, fn);
+}
+
+int gcd16(long long x) {
+  int g = 16;
+  while (x % g != 0) g /= 2;
+  return g;
+}
+
+// The context's maps. Rows TMA can describe: one map of (M, C), boxes of
+// 128 rows x 64 channels, swizzled. Rows at any byte offset (hull): the P
+// classes of rows at one offset mod 16 bytes, P = 16 / gcd(pitch, 16), row
+// r in class r % P at its row r / P; class j's map starts at its first
+// row rounded down to 16 bytes, `shift` elements before channel 0, spans
+// shift + C elements (zeros past them) and P pitches a row; boxes of
+// 128 / P rows x (64 + 16 / itemsize) elements, unswizzled.
+bool encode_context(Params& p, const void* dat, int M, int C, int itemsize, int hull) {
+  const CUtensorMapDataType type =
+      itemsize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long pitch = static_cast<long long>(C) * itemsize;
+  p.class_bits = p.class_rows = p.hull_bytes = p.shift0 = p.shift_step = 0;
+  if (!hull) {
+    const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+    const cuuint32_t box[2] = {kBK, kRows};
+    return encode(&p.ctx_map, type, dat, 2, dims, strides, box,
+                  itemsize == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  const int classes = 16 / gcd16(pitch);
+  if (M < classes) return false;  // every class has a row
+  while ((1 << p.class_bits) < classes) ++p.class_bits;
+  p.class_rows = kRows / classes;
+  p.hull_bytes = static_cast<int>(hull_bytes(itemsize));
+  const uintptr_t base = reinterpret_cast<uintptr_t>(dat);
+  p.shift0 = static_cast<int>(base & 15);
+  p.shift_step = static_cast<int>(pitch & 15);
+  for (int j = 0; j < classes; ++j) {
+    const uintptr_t first = base + static_cast<uintptr_t>(j * pitch);
+    const int shift = static_cast<int>(first & 15) / itemsize;
+    const cuuint64_t dims[2] = {(cuuint64_t)(shift + C), (cuuint64_t)((M - j + classes - 1) / classes)};
+    const cuuint64_t strides[1] = {(cuuint64_t)(classes * pitch)};
+    const cuuint32_t box[2] = {(cuuint32_t)(p.hull_bytes / itemsize), (cuuint32_t)p.class_rows};
+    if (!encode(&p.class_maps[j], type, reinterpret_cast<const void*>(first & ~uintptr_t(15)), 2,
+                dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return false;
+  }
+  return true;
 }
 
 }  // namespace
 
 // Blocks (with `smem` bytes each) of the kernel for column width nb that the
 // current device holds at once; -1 where the query fails.
-extern "C" int healnet_fused_project_tma_max_blocks(int nb, int is_int8, long long smem) {
-  return with_kernel(nb, is_int8, [&](auto kern) -> int {
+extern "C" int healnet_fused_project_tma_max_blocks(int nb, int is_int8, int hull,
+                                                     long long smem) {
+  return with_kernel(nb, is_int8, hull, [&](auto kern) -> int {
     int per_sm = 0, dev = 0, sms = 0;
     if (kern == nullptr || configure(kern) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, (size_t)smem) !=
@@ -600,20 +817,27 @@ extern "C" int healnet_fused_project_tma_max_blocks(int nb, int is_int8, long lo
   });
 }
 
+// Bytes of dynamic shared memory a block takes under a plan (Layout), for
+// the host's check of ops/fused_project.py::project_smem.
+extern "C" long long healnet_fused_project_tma_smem(int nb, int itemsize, int stages, int pitch,
+                                                     int held_staging, int hull) {
+  return static_cast<long long>(Layout(nb, itemsize, stages, pitch, held_staging, hull).total);
+}
+
 // One launch over (M, C) context rows: dat bf16 or int8 (is_int8, with
-// `scale`), w_t (nk, F, 64) bf16: the weights' k-slices of 64 channels
-// (zero past C), each K-major, so that a slice is one contiguous block;
-// output (M, F) bf16 and s1, s2 (M) f32; n_blocks persistent blocks. The
-// plan (nb, n_col, stages, pitch, held_staging) is
-// ops/fused_project.py::project_plan's.
+// `scale`), rows TMA can describe or (hull) at any byte offset, w_t
+// (nk, F, 64) bf16: the weights' k-slices of 64 channels (zero past C),
+// each K-major, so that a slice is one contiguous block; output (M, F)
+// bf16 and s1, s2 (M) f32; n_blocks persistent blocks. The plan (nb,
+// n_col, stages, pitch, held_staging) is ops/fused_project.py::project_plan's.
 extern "C" int healnet_fused_project_tma(
     const void* dat, const void* w_t, const void* encp, const float* encs, const float* aux,
     const float* scale, void* kv, float* s1, float* s2, int M, int C, int F, int T,
     float d_total, float eps, int is_int8, int nb, int n_col, int n_blocks, int stages,
-    int pitch, int held_staging, void* stream) {
+    int pitch, int held_staging, int hull, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   const int itemsize = is_int8 ? 1 : 2;
-  const Layout L(nb, itemsize, stages, pitch, held_staging);
+  const Layout L(nb, itemsize, stages, pitch, held_staging, hull);
   // a TMA box takes at most 256 rows: 272 columns load as two of 136
   const int box_rows = nb > 256 ? nb / 2 : nb;
   if (stages < 2 || pitch % 2 != 0 || pitch < (n_col == 1 ? F : nb) ||
@@ -621,18 +845,11 @@ extern "C" int healnet_fused_project_tma(
       n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  const CUtensorMapDataType ctx_type =
-      is_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle ctx_swizzle =
-      is_int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   const int nk = (C + kBK - 1) / kBK;
-  const cuuint64_t ctx_dims[2] = {(cuuint64_t)C, (cuuint64_t)M};
-  const cuuint64_t ctx_strides[1] = {(cuuint64_t)C * itemsize};
-  const cuuint32_t ctx_box[2] = {kBK, kRows};
   const cuuint64_t w_dims[3] = {kBK, (cuuint64_t)F, (cuuint64_t)nk};
   const cuuint64_t w_strides[2] = {kWRowBytes, (cuuint64_t)F * kWRowBytes};
   const cuuint32_t w_box[3] = {kBK, (cuuint32_t)box_rows, 1};
-  if (!encode(&p.ctx_map, ctx_type, dat, 2, ctx_dims, ctx_strides, ctx_box, ctx_swizzle) ||
+  if (!encode_context(p, dat, M, C, itemsize, hull) ||
       !encode(&p.w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w_t, 3, w_dims, w_strides, w_box,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -654,17 +871,18 @@ extern "C" int healnet_fused_project_tma(
   p.nbox = nb / box_rows;
   p.pitch = pitch;
   p.held_staging = held_staging != 0;
-  p.epi_off = L.epi_off;
   p.ctx_bytes = L.ctx_bytes;
   p.stage_bytes = L.stage_bytes;
   p.tx_bytes = L.stage_bytes;
   p.conv_off = L.conv_off;
+  p.sums_off = L.sums_off;
+  p.epi_off = L.epi_off;
   p.aux_off = L.aux_off;
   p.bar_off = L.bar_off;
   p.d_total = d_total;
   p.eps = eps;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_kernel(nb, is_int8, [&](auto kern) -> cudaError_t {
+  return static_cast<int>(with_kernel(nb, is_int8, hull, [&](auto kern) -> cudaError_t {
     if (kern == nullptr) return cudaErrorInvalidValue;
     cudaError_t e = configure(kern);
     if (e != cudaSuccess) return e;

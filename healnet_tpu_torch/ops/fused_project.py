@@ -12,10 +12,12 @@ math of the JAX package's ``_xla_project``); :func:`fused_project_kernel`
 launches a CUDA kernel that reads the context once for the statistics, the
 product and the normalization: the Hopper kernel (``csrc/fused_project_tma.cu``:
 TMA ring, wgmma, persistent warp-specialised blocks) for every bf16-compute
-call whose context rows TMA can describe, the f32 kernel
-(``csrc/fused_project_f32.cu``: f32 FMA from a cp.async ring) for every
-f32-compute call, and the generic kernel (``csrc/fused_project.cu``) for
-bf16 rows TMA cannot describe, by :func:`project_route`.
+call, its rows as they are where TMA can describe them, else (the generic
+route) as 16-byte hulls it realigns, or, for a generic call of few rows,
+the split kernel (``csrc/fused_project.cu``: the channels over a cluster),
+and the f32 kernel (``csrc/fused_project_f32.cu``: f32 FMA from a cp.async
+ring) for every f32-compute call, by :func:`project_route` and
+:func:`project_generic_plan`.
 :class:`FusedProjectFunction` gives it a backward whose cotangent pass is a
 second kernel (``csrc/fused_project_bwd.cu``, plain version
 :func:`project_bwd_plain`).
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -57,6 +60,23 @@ PROJECT_WIDTHS = (64, 128, 256, 272)
 _TILE_ROWS = 128
 _TILE_K = 64
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on Hopper
+# the generic route's rows at any byte offset: bytes of a row's staged
+# 16-byte hull per 64-channel k-step (bf16, int8)
+HULL_BYTES = {2: _TILE_K * 2 + 16, 1: _TILE_K + 16}
+
+# the split kernel (csrc/fused_project.cu): generic calls of at most this
+# many rows take it, more take the Hopper kernel's hull kinds (the omic
+# vector of a batch of 8 has 8; the crossover measured on the card, PERF.md
+# section 6); rows and columns a block, blocks of a cluster at most, and its
+# static shared memory (``Smem``): 8 rows' hulls of 4 bf16 k-slices and 32
+# bytes, those rows widened to f32, the 4 parts' and the block's sums of its
+# 8 x 64 outputs, and the rows' sums
+SPLIT_MAX_ROWS = 128
+_SPLIT_ROWS = 8
+_SPLIT_COLS = 64
+_SPLIT_CLUSTER = 16
+SPLIT_SMEM = (_SPLIT_ROWS * (4 * _TILE_K * 2 + 32) + _SPLIT_ROWS * 4 * _TILE_K * 4
+              + 5 * _SPLIT_ROWS * _SPLIT_COLS * 4 + _SPLIT_ROWS * 2 * 4)
 
 
 # the f32 kernel (csrc/fused_project_f32.cu): output columns per pass it is
@@ -74,8 +94,9 @@ def project_route(dtype: torch.dtype, cdt: torch.dtype, c: int, data_ptr: int) -
     Hopper kernel) for a bf16 or int8 context computed in bf16 whose rows TMA
     can describe (a 16-byte aligned base and a row pitch ``c * itemsize``
     that is a multiple of 16 bytes: C = 2000, 2048, 1024 in either type);
-    else ``"generic"`` (bf16 compute over rows such as C = 203 or a
-    misaligned view)."""
+    else ``"generic"`` (bf16 compute over rows at any byte offset, such as
+    C = 4095, 2001, 203, 3 or a misaligned view: the Hopper kernel's hull
+    kinds or the split kernel, by :func:`project_generic_plan`)."""
     if cdt == torch.float32:
         return "f32"
     itemsize = {torch.bfloat16: 2, torch.int8: 1}.get(dtype)
@@ -97,24 +118,28 @@ class ProjectPlan(NamedTuple):
 
 
 def project_smem(nb: int, itemsize: int, stages: int, pitch: int,
-                 held_staging: bool = False) -> int:
+                 held_staging: bool = False, hull: bool = False) -> int:
     """Bytes of shared memory a block takes (``Layout`` in
     ``csrc/fused_project_tma.cu``): the ring (context tile of 128 x 64
-    channels, ``nb`` weight rows of 64 bf16 each); for an int8
-    context two 8 KB bf16 tiles per consumer warpgroup, which it converts
-    into; 8 staged output rows a warp at ``pitch`` (none with
-    ``held_staging``: a tile's epilogue then stages them in one of its spent
-    ring stages); [colsum; bias]; the barriers; and 1024 bytes of alignment
-    slack."""
-    stage = _TILE_ROWS * _TILE_K * itemsize + nb * _TILE_K * 2
-    conv = 2 * 2 * 64 * _TILE_K * 2 if itemsize == 1 else 0
+    channels, or with ``hull`` 128 staged hull rows of :data:`HULL_BYTES`;
+    ``nb`` weight rows of 64 bf16 each); for an int8 context and the hull
+    kinds two 8 KB bf16 tiles per consumer warpgroup, which they convert or
+    realign into; for the hull kinds two tiles' row sums; 8 staged output
+    rows a warp at ``pitch`` (none with ``held_staging``: a tile's epilogue
+    then stages them in one of its spent ring stages); [colsum; bias]; the
+    barriers; and 1024 bytes of alignment slack."""
+    ctx = _TILE_ROWS * (HULL_BYTES[itemsize] if hull else _TILE_K * itemsize)
+    stage = ctx + nb * _TILE_K * 2
+    conv = 2 * 2 * 64 * _TILE_K * 2 if itemsize == 1 or hull else 0
+    sums = 2 * _TILE_ROWS * 2 * 4 if hull else 0
     staged = 0 if held_staging else -(-(8 * 8 * pitch * 2) // 16) * 16
-    return stages * stage + conv + staged + 8 * nb + 16 * stages + 1024
+    return stages * stage + conv + sums + staged + 8 * nb + 16 * stages + 1024
 
 
-def project_plan(m: int, f: int, itemsize: int) -> ProjectPlan:
+def project_plan(m: int, f: int, itemsize: int, hull: bool = False) -> ProjectPlan:
     """The Hopper kernel's plan for ``m`` context rows of ``itemsize`` bytes
-    per channel and ``f`` output columns.
+    per channel and ``f`` output columns, the rows as they are or (``hull``)
+    staged as 16-byte hulls.
 
     Columns: as few passes as keep a pass within 272 columns (the most the
     consumers' registers hold), each ``nb`` wide, the narrowest width the
@@ -129,10 +154,60 @@ def project_plan(m: int, f: int, itemsize: int) -> ProjectPlan:
     pitch = f + f % 2 if n_col == 1 else nb  # even: the epilogue works on pairs
     for stages in (4, 3, 2):
         for held in (False, True):
-            smem = project_smem(nb, itemsize, stages, pitch, held)
+            smem = project_smem(nb, itemsize, stages, pitch, held, hull)
             if smem <= _MAX_SMEM:
                 return ProjectPlan(nb, n_col, -(-m // _TILE_ROWS), pitch, stages, held, smem)
     raise ValueError(f"no ring fits shared memory at nb={nb}")
+
+
+def row_classes(c: int, itemsize: int) -> int:
+    """Classes of rows at one offset mod 16 bytes: rows r and r + P of a
+    pitch of ``c * itemsize`` bytes, P = 16 / gcd(pitch, 16) (8 for a bf16
+    row of odd C, 1 for a 16-byte pitch)."""
+    return 16 // math.gcd(c * itemsize, 16)
+
+
+class GenericPlan(NamedTuple):
+    """A launch of the generic route (see :func:`project_generic_plan`)."""
+
+    path: str        # "rows": the Hopper kernel's hull kinds; "split": the split kernel
+    classes: int     # rows: row classes of one offset (one TMA map each)
+    rows: Optional[ProjectPlan]  # rows: the Hopper kernel's plan with hull rows
+    cluster: int     # split: blocks over the channels (one cluster)
+    slices: int      # split: 64-channel k-slices a block takes
+    col_groups: int  # split: blocks of 64 columns
+    row_groups: int  # split: blocks of 8 rows
+    smem: int        # shared memory per block, bytes
+
+    @property
+    def counter(self) -> str:
+        """The launch counter of the kernel this plan runs."""
+        return "launches_generic" if self.path == "rows" else "launches_generic_split"
+
+
+def project_generic_plan(m: int, c: int, f: int, itemsize: int) -> GenericPlan:
+    """The generic route's plan for ``m`` rows of ``c`` channels of
+    ``itemsize`` bytes (2: bf16, 1: int8) at any byte offset and ``f``
+    output columns.
+
+    More than :data:`SPLIT_MAX_ROWS` rows take the Hopper kernel's pipe with
+    hull rows (:func:`project_plan` with ``hull``; one TMA map per row class,
+    :func:`row_classes`). Fewer take the split kernel: the ``ceil(c / 64)``
+    k-slices over a cluster of at most 16 blocks (``slices`` a block, as few
+    as keep the cluster within 16, then as few blocks as that needs), F over
+    blocks of 64 columns and the rows over blocks of 8 (the omic vector
+    (8, 1, 2001) -> 252: clusters of 16 blocks of 2 slices, 4 column blocks).
+    """
+    if itemsize not in HULL_BYTES:
+        raise ValueError(f"the generic route takes bf16 or int8 rows, got itemsize {itemsize}")
+    classes = row_classes(c, itemsize)
+    if m > SPLIT_MAX_ROWS:
+        rows = project_plan(m, f, itemsize, hull=True)
+        return GenericPlan("rows", classes, rows, 0, 0, 0, 0, rows.smem)
+    nk = -(-c // _TILE_K)
+    slices = -(-nk // _SPLIT_CLUSTER)
+    return GenericPlan("split", classes, None, -(-nk // slices), slices,
+                       -(-f // _SPLIT_COLS), -(-m // _SPLIT_ROWS), SPLIT_SMEM)
 
 
 class F32Plan(NamedTuple):
@@ -310,13 +385,15 @@ def project_bwd_plain(
     return d_raw, dsum2, torch.sum(plain.float(), dim=0)
 
 
-def _lib() -> ctypes.CDLL:
+def _split_lib() -> ctypes.CDLL:
     lib = cuda_build.load("fused_project")
-    fn = lib.healnet_fused_project_generic
+    fn = lib.healnet_fused_project_split
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 2 + [p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 3 + [p]
         fn.restype = ctypes.c_int
+        lib.healnet_fused_project_split_smem.argtypes = [i]
+        lib.healnet_fused_project_split_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -337,19 +414,21 @@ def _tma_lib() -> ctypes.CDLL:
     fn = lib.healnet_fused_project_tma
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 7 + [p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [f, f] + [i] * 8 + [p]
         fn.restype = ctypes.c_int
-        lib.healnet_fused_project_tma_max_blocks.argtypes = [i, i, ctypes.c_longlong]
+        lib.healnet_fused_project_tma_max_blocks.argtypes = [i, i, i, ctypes.c_longlong]
         lib.healnet_fused_project_tma_max_blocks.restype = i
+        lib.healnet_fused_project_tma_smem.argtypes = [i] * 6
+        lib.healnet_fused_project_tma_smem.restype = ctypes.c_longlong
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device: int, nb: int, quantized: bool, smem: int) -> int:
+def _resident_blocks(device: int, nb: int, quantized: bool, hull: bool, smem: int) -> int:
     """Blocks of the Hopper kernel the card holds at once (one per SM),
     cached per device and shape class; raises if the query fails."""
     with torch.cuda.device(device):
-        n = _tma_lib().healnet_fused_project_tma_max_blocks(nb, int(quantized), smem)
+        n = _tma_lib().healnet_fused_project_tma_max_blocks(nb, int(quantized), int(hull), smem)
     if n < 1:
         raise RuntimeError(f"the occupancy query failed for nb={nb}, {smem} B")
     return n
@@ -380,9 +459,9 @@ def fused_project_kernel(
     dat: (b, t, C) bf16 or f32, or int8 with ``scale`` (b, t) f32; w_c: the
     weights in the compute dtype (dat's, or bf16/f32 for an int8 context),
     laid out for the call's :func:`project_route` as :func:`_prep` lays them
-    out: (ceil(C / 64), F, 64) k-slices on the ``"tma"`` route, (n_col,
-    ceil(C / 32) * 32, nb) column passes (:func:`project_f32_plan`) on the
-    ``"f32"`` one, (C, F) on the ``"generic"`` one; enc_proj: (t, F) in
+    out: (ceil(C / 64), F, 64) k-slices on the ``"tma"`` and ``"generic"``
+    routes, (n_col, ceil(C / 32) * 32, nb) column passes
+    (:func:`project_f32_plan`) on the ``"f32"`` one; enc_proj: (t, F) in
     the compute dtype; enc_stats: (2, t) f32 [row sums; row sums of squares]
     of the encoding; aux: (2, F) f32 [colsum(W); folded bias]. All
     contiguous and on one CUDA device. kv: (b, t, F) in the compute dtype;
@@ -391,17 +470,19 @@ def fused_project_kernel(
     Launches are counted per variant: ``launches`` (the Hopper kernel, bf16
     contexts), ``launches_int8`` (the Hopper kernel, int8 contexts),
     ``launches_f32`` (the f32 kernel, f32 contexts), ``launches_f32_int8``
-    (the f32 kernel, int8 contexts) and ``launches_generic`` (the generic
-    kernel, bf16 rows TMA cannot describe).
+    (the f32 kernel, int8 contexts); a generic call (bf16 or int8 rows at
+    any byte offset, bf16 compute) is one launch of ``launches_generic``
+    (the Hopper kernel's hull kinds) or ``launches_generic_split`` (the
+    split kernel), as :func:`project_generic_plan` picks.
     """
     return _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale)
 
 
 def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, route=None):
     """:func:`fused_project_kernel` on ``route``: :func:`project_route`'s by
-    default, or ``"generic"`` for any bf16-compute call (with (C, F)
-    weights), so that ``chip_smoke.py`` can time both bf16 kernels on the
-    same inputs."""
+    default, or ``"generic"`` for any bf16-compute call (its weights are laid
+    out as the ``"tma"`` route's), so that ``chip_smoke.py`` can time the
+    generic route on the Hopper kernel's inputs."""
     if not dat.is_cuda:
         raise ValueError("fused_project_kernel takes CUDA tensors")
     if dat.ndim != 3:
@@ -427,13 +508,11 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
         route = project_route(dat.dtype, cdt, c, dat.data_ptr())
     elif route != "generic" or cdt != torch.bfloat16:
         raise ValueError(f"a forced route is 'generic', for bf16 compute, got {route!r}")
-    if route == "tma":
-        w_shape = (-(-c // _TILE_K), f, _TILE_K)
-    elif route == "f32":
+    if route == "f32":
         plan32 = project_f32_plan(b * t, c, f, dat.element_size(), _sm_count(dat.device.index))
         w_shape = (plan32.n_col, plan32.nk * _F32_K, plan32.nb)
     else:
-        w_shape = (c, f)
+        w_shape = (-(-c // _TILE_K), f, _TILE_K)
     expect = {
         "w_c": (w_c, w_shape, cdt),
         "enc_proj": (enc_proj, (t, f), cdt),
@@ -445,6 +524,9 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
     _check_operands(dat.device, expect)
     if not dat.is_contiguous():
         raise ValueError("dat must be contiguous")
+    if route == "generic" and dat.untyped_storage().data_ptr() % 16 != 0:
+        # a hull starts up to 15 bytes before its row, never before the storage
+        raise ValueError("the generic route takes a context whose storage starts on 16 bytes")
     kv = torch.empty((b, t, f), dtype=cdt, device=dat.device)
     s1 = torch.empty((b, t), dtype=torch.float32, device=dat.device)
     s2 = torch.empty((b, t), dtype=torch.float32, device=dat.device)
@@ -453,18 +535,21 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
     scale_ptr = scale.data_ptr() if quantized else None
     with torch.cuda.device(dat.device):
         stream = torch.cuda.current_stream(dat.device).cuda_stream
-        if route == "tma":
-            plan = project_plan(b * t, f, dat.element_size())
-            resident = _resident_blocks(dat.device.index, plan.nb, quantized, plan.smem)
+        gplan = project_generic_plan(b * t, c, f, dat.element_size()) \
+            if route == "generic" else None
+        if route == "tma" or (gplan is not None and gplan.path == "rows"):
+            hull = gplan is not None
+            plan = gplan.rows if hull else project_plan(b * t, f, dat.element_size())
+            resident = _resident_blocks(dat.device.index, plan.nb, quantized, hull, plan.smem)
             lib = _tma_lib()
             code = lib.healnet_fused_project_tma(
                 dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(), enc_stats.data_ptr(),
                 aux.data_ptr(), scale_ptr, kv.data_ptr(), s1.data_ptr(), s2.data_ptr(),
                 b * t, c, f, t, float(d_total), float(eps), int(quantized), plan.nb,
                 plan.n_col, min(resident, plan.row_tiles * plan.n_col), plan.stages,
-                plan.pitch, int(plan.held_staging), stream,
+                plan.pitch, int(plan.held_staging), int(hull), stream,
             )
-            counter = "launches_int8" if quantized else "launches"
+            counter = gplan.counter if hull else "launches_int8" if quantized else "launches"
         elif route == "f32":
             # 16-byte cp.async staging needs 16-byte rows and base (f32: C %
             # 4, int8: C % 16); other rows are staged element by element
@@ -478,18 +563,14 @@ def _project_launch(dat, w_c, enc_proj, enc_stats, aux, d_total, eps, scale, rou
             )
             counter = "launches_f32_int8" if quantized else "launches_f32"
         else:
-            # the generic kernels load 8 channels of a row at once (16 bytes
-            # of bf16, 8 of int8, two 16-byte words of f32): 8-channel rows
-            # and an aligned base
-            vec = int(c % 8 == 0 and dat.data_ptr() % (8 if quantized else 16) == 0)
-            lib = _lib()
-            code = lib.healnet_fused_project_generic(
-                dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(),
-                enc_stats.data_ptr(), aux.data_ptr(), scale_ptr, kv.data_ptr(),
-                s1.data_ptr(), s2.data_ptr(), b * t, c, f, t,
-                float(d_total), float(eps), int(quantized), vec, stream,
+            lib = _split_lib()
+            code = lib.healnet_fused_project_split(
+                dat.data_ptr(), w_c.data_ptr(), enc_proj.data_ptr(), enc_stats.data_ptr(),
+                aux.data_ptr(), scale_ptr, kv.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                b * t, c, f, t, float(d_total), float(eps), int(quantized), gplan.cluster,
+                gplan.slices, stream,
             )
-            counter = "launches_generic"
+            counter = gplan.counter
     setattr(fused_project_kernel, counter, getattr(fused_project_kernel, counter) + 1)
     cuda_build.check(lib, code, "fused_project_kernel")
     return kv, s1, s2
@@ -500,20 +581,21 @@ fused_project_kernel.launches_int8 = 0
 fused_project_kernel.launches_f32 = 0
 fused_project_kernel.launches_f32_int8 = 0
 fused_project_kernel.launches_generic = 0
+fused_project_kernel.launches_generic_split = 0
 
 
 def _prep(dat, enc, w_all, b_all, cdt):
     """The kernel's small operands: weights in the compute dtype, laid out
-    for the call's :func:`project_route` (for the Hopper kernel (nk, F, 64):
-    k-slices of 64 channels, zero past C, each K-major and contiguous; for
-    the f32 kernel (n_col, nk * 32, nb): each column pass's weights, zero
-    past C and F; (C, F) for the generic kernel), the encoding projection
-    and statistics, and [colsum; bias]."""
+    for the call's :func:`project_route` (for the Hopper kernel and the
+    generic route (nk, F, 64): k-slices of 64 channels, zero past C, each
+    K-major and contiguous; for the f32 kernel (n_col, nk * 32, nb): each
+    column pass's weights, zero past C and F), the encoding projection and
+    statistics, and [colsum; bias]."""
     b, t, c = dat.shape
     f = w_all.shape[1]
     w_c = w_all[:c].to(cdt)
     route = project_route(dat.dtype, cdt, c, dat.data_ptr()) if dat.is_cuda else None
-    if route == "tma":
+    if route in ("tma", "generic"):
         nk = -(-c // _TILE_K)
         w_c = torch.nn.functional.pad(w_c, (0, 0, 0, nk * _TILE_K - c))
         w_c = w_c.reshape(nk, _TILE_K, f).transpose(1, 2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds a projection kernel: its time with a part taken out.
 
-    python3 scripts/probe_project_variants.py [--kernel tma|f32|bwd]
+    python3 scripts/probe_project_variants.py [--kernel tma|generic|f32|bwd]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds copies of one kernel's source into ``build/project-variants/<kernel>/``
@@ -18,7 +18,21 @@ and int8 and the omic vector (``chip_smoke.PROJECT_SHAPES``):
 - ``no epilogue``: nothing after the row statistics (no encoding values,
   normalisation or stores);
 - ``no context``: the context tiles are not loaded (the weights are; the
-  products run on whatever the ring holds).
+  products run on whatever the ring holds);
+- ``no encoding``: the epilogue does not copy the encoding projection's
+  values into its staged rows (it finishes the products over whatever
+  they hold).
+
+``generic`` (the hull kinds of ``fused_project_tma.cu``: rows at any byte
+offset), at the parity layout's slide (8, 2048, 4095), the image
+modality (8, 50176, 3) and brca's and kirp's bag forced onto the route:
+
+- ``no realign``: the consumers neither shift nor convert the staged hull
+  rows (the products run on whatever the conversion tiles hold; no row
+  sums);
+- ``no products``: no wgmma (the realignment and epilogue remain);
+- ``no context``: the hull rows are not copied (the weights are);
+- ``no epilogue``, ``no encoding``: as for ``tma``.
 
 ``f32`` (``fused_project_f32.cu``), at brca and kirp in f32 and brca int8
 with f32 compute, beside ``torch.matmul`` f32; then the SM clock and power
@@ -62,30 +76,50 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    BATCH, PATCH, PROJECT_SHAPES, TOKENS, projection_timing, time_ms)
+    BATCH, GENERIC_SHAPES, PATCH, PROJECT_SHAPES, TOKENS, projection_timing, time_ms)
 from healnet_tpu_torch.ops import cuda_build  # noqa: E402
 from healnet_tpu_torch.ops import fused_project as fp  # noqa: E402
 
 CSRC = ROOT / "healnet_tpu_torch/ops/csrc"
 OUT = ROOT / "build/project-variants"
-SOURCES = {"tma": "fused_project_tma", "f32": "fused_project_f32", "bwd": "fused_project_bwd"}
+SOURCES = {"tma": "fused_project_tma", "generic": "fused_project_tma",
+           "f32": "fused_project_f32", "bwd": "fused_project_bwd"}
+CONVERTED = "        hw::named_sync(2 + wg, 128);  // the warpgroup's tile is converted\n"
+REALIGNED = ("        hw::named_sync(2 + wg, 128);  // the warpgroup's tile is realigned "
+             "(and its sums out)\n")
+PRODUCTS = "        mma_step<NB>(acc, conv, st + p.ctx_bytes, ks > 0);\n"
+NO_EPILOGUE = [("    for (int h = 0; h < 2; ++h) {\n      const int rbase = r0",
+                "    for (int h = 0; h < 2 * (p.M < 0); ++h) {\n      const int rbase = r0")]
+NO_ENCODING = [("  for (int r = 0; r < nr; ++r) {\n    const __nv_bfloat16* src = p.encp",
+                "  for (int r = 0; r < nr * (p.M < 0); ++r) {\n    const __nv_bfloat16* src = p.encp")]
 VARIANTS = {
     "tma": {
         "as is": [],
         "no products": [
-            ("        mma_step<NB>(acc, conv, st + p.ctx_bytes, ks > 0);\n", ""),
+            (CONVERTED + PRODUCTS, CONVERTED),
             ("        mma_step<NB>(acc, st + a_off, st + p.ctx_bytes, ks > 0);\n", ""),
         ],
-        "no epilogue": [
-            ("    for (int h = 0; h < 2; ++h) {\n      const int rbase = r0",
-             "    for (int h = 0; h < 2 * (p.M < 0); ++h) {\n      const int rbase = r0"),
-        ],
+        "no epilogue": NO_EPILOGUE,
+        "no encoding": NO_ENCODING,
         "no context": [
             ("      hw::mbar_expect_tx(&full[pos.stage], p.tx_bytes);",
              "      hw::mbar_expect_tx(&full[pos.stage], p.tx_bytes - p.ctx_bytes);"),
-            ("      hw::tma_load(st, &p.ctx_map, &full[pos.stage], ks * kBK, row_tile * kRows);\n",
+            ("        hw::tma_load(st, &p.ctx_map, &full[pos.stage], ks * kBK, row_tile * kRows);\n",
              ""),
         ],
+    },
+    "generic": {
+        "as is": [],
+        "no realign": [("        realign(st + hull.off, conv, hull, s1[0], s2[0]);\n", "")],
+        "no products": [(REALIGNED + PRODUCTS, REALIGNED)],
+        "no context": [
+            ("      hw::mbar_expect_tx(&full[pos.stage], p.tx_bytes);",
+             "      hw::mbar_expect_tx(&full[pos.stage], p.tx_bytes - p.ctx_bytes);"),
+            ("        for (int j = 0; j < (1 << p.class_bits); ++j)\n",
+             "        for (int j = 0; j < (1 << p.class_bits) * (p.M < 0); ++j)\n"),
+        ],
+        "no epilogue": NO_EPILOGUE,
+        "no encoding": NO_ENCODING,
     },
     "f32": {
         "as is": [],
@@ -193,6 +227,9 @@ def clocks_while(run, seconds: float = 2.0) -> str:
 
 def runs_for(kernel: str, gen) -> dict:
     """label -> a call of the kernel at the probed shapes."""
+    if kernel == "generic":
+        return {label: projection_timing(gen, *GENERIC_SHAPES[label][:5], route="generic")[1]
+                for label in ("parity wsi", "image", "brca forced", "kirp forced")}
     if kernel == "tma":
         return {label: projection_timing(gen, *PROJECT_SHAPES[label])[1]
                 for label in ("brca", "brca int8", "kirp", "kirp int8", "omic")}
@@ -237,7 +274,7 @@ def main() -> int:
     names = list(VARIANTS[kernel])
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(lambda n: build(kernel, n), names)))
-    cuda_build.build(("fused_project",))
+    cuda_build.build(("fused_project", "fused_project_tma"))
     use(kernel, libs["as is"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     runs = runs_for(kernel, gen)

@@ -40,14 +40,20 @@ from healnet_tpu_torch.ops.fused_chain import (
 )
 from healnet_tpu_torch.ops.fused_project import (
     _prep,
+    _project_launch,
     _project_plain,
     fused_kv_project,
     fused_project_bwd_kernel,
     fused_project_kernel,
     project_bwd_plain,
+    project_generic_plan,
     project_plain,
     project_route,
 )
+
+# every launch counter of the projection forward's kernels
+PROJECT_COUNTERS = ("launches", "launches_int8", "launches_generic", "launches_generic_split",
+                    "launches_f32", "launches_f32_int8")
 
 
 @pytest.fixture
@@ -101,9 +107,10 @@ def test_projection_kernel_int8_matches_plain(gen, cdt, b, t, c, f):
     w_all = torch.randn((c + 5, f), generator=gen, device="cuda") * 0.05
     b_all = torch.randn((f,), generator=gen, device="cuda") * 0.1
     # the Hopper kernel's int8 variant, the f32 kernel's (f32 compute), or
-    # the generic kernel (int8 rows off 16 bytes)
+    # the generic route's kernel (int8 rows off 16 bytes)
     route = project_route(qc.data.dtype, cdt, c, qc.data.data_ptr())
-    counter = {"tma": "launches_int8", "f32": "launches_f32_int8"}.get(route, "launches_generic")
+    counter = {"tma": "launches_int8", "f32": "launches_f32_int8"}.get(
+        route, project_generic_plan(b * t, c, f, 1).counter)
     setattr(fused_project_kernel, counter, 0)
     kv, s1, s2 = fused_project_kernel(qc.data, *_prep(qc.data, enc, w_all, b_all, cdt), c + 5,
                                       1e-5, scale=qc.scale)
@@ -617,8 +624,9 @@ def test_projection_tma_calls_are_bit_identical(gen, kind):
 
 @pytest.mark.parametrize("case", ["misaligned_view", "c_203"])
 def test_projection_generic_route(gen, case):
-    """bf16 rows TMA cannot describe take the generic kernel, counted in
-    ``launches_generic``: a contiguous view 2 bytes off 16, and C = 203."""
+    """bf16 rows TMA cannot describe take the generic route, at 600 rows
+    its Hopper kernel's hull kinds (``launches_generic``): a contiguous view
+    2 bytes off 16, and C = 203."""
     c = 2048 if case == "misaligned_view" else 203
     b, t = 2, 300
     if case == "misaligned_view":
@@ -630,12 +638,89 @@ def test_projection_generic_route(gen, case):
     enc = torch.randn((t, 5), generator=gen, device="cuda").to(torch.bfloat16)
     w_all = torch.randn((c + 5, 252), generator=gen, device="cuda") * 0.02
     b_all = torch.randn((252,), generator=gen, device="cuda") * 0.1
-    for name in ("launches", "launches_int8", "launches_generic"):
+    for name in PROJECT_COUNTERS:
         setattr(fused_project_kernel, name, 0)
     got = fused_project_kernel(dat, *_prep(dat, enc, w_all, b_all, torch.bfloat16), c + 5, 1e-5)
+    assert project_generic_plan(b * t, c, 252, 2).counter == "launches_generic"
     assert fused_project_kernel.launches_generic == 1
-    assert fused_project_kernel.launches == fused_project_kernel.launches_int8 == 0
+    assert sum(getattr(fused_project_kernel, name) for name in PROJECT_COUNTERS) == 1
     _check_projection(got, _project_plain(dat, enc, w_all, b_all, 1e-5), "bf16")
+
+
+def _generic_case(gen, b, t, c, f, kind, offset=None):
+    """:func:`_tma_case`'s call, with ``offset`` the context placed that
+    many bytes past a 16-byte aligned base in a storage that ends where the
+    context ends (the operands do not depend on where it lies)."""
+    dat, scale, ops, ref = _tma_case(gen, b, t, c, f, kind)
+    if offset is not None:
+        lead = offset // dat.element_size()
+        store = torch.empty((lead + dat.numel(),), dtype=dat.dtype, device="cuda")
+        store[lead:] = dat.reshape(-1)
+        dat = store[lead:].view(b, t, c)
+        assert dat.data_ptr() % 16 == offset % 16
+        assert dat.data_ptr() + dat.numel() * dat.element_size() == \
+            store.data_ptr() + store.untyped_storage().nbytes()
+    return dat, scale, ops, ref
+
+
+def _run_generic(dat, scale, ops, forced=False):
+    """One generic call, which must be one launch on the counter of the
+    kernel its plan picks; a second call must give the same bits."""
+    for name in PROJECT_COUNTERS:
+        setattr(fused_project_kernel, name, 0)
+    c = dat.shape[-1]
+    args = (dat, *ops, c + 5, 1e-5, scale, "generic" if forced else None)
+    got = _project_launch(*args)
+    counter = project_generic_plan(dat.shape[0] * dat.shape[1], c, ops[-1].shape[1],
+                                   dat.element_size()).counter
+    assert getattr(fused_project_kernel, counter) == 1
+    assert sum(getattr(fused_project_kernel, name) for name in PROJECT_COUNTERS) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, _project_launch(*args)))
+    return got
+
+
+# the generic route's shapes at small T: (b, t, C, F, kind, forced onto the
+# route): the parity layout's slide and omic vector, the image modality,
+# int8 rows of 2040 channels, brca's and kirp's widths and the aligned omic
+# vector forced onto the route; two column passes and an odd F on both
+# kernels
+GENERIC_CASES = {"parity_wsi": (2, 200, 4095, 252, "bf16", False),
+                 "two_column_passes": (3, 129, 203, 300, "bf16", False),
+                 "int8_odd_f": (2, 300, 2047, 71, "int8", False),
+                 "few_rows_two_column_passes": (8, 1, 203, 300, "bf16", False),
+                 "int8_few_rows_odd_f": (8, 1, 2047, 71, "int8", False),
+                 "parity_omic": (8, 1, 2001, 252, "bf16", False),
+                 "image": (2, 3000, 3, 252, "bf16", False),
+                 "int8_2040": (2, 300, 2040, 252, "int8", False),
+                 "int8_omic_2040": (8, 1, 2040, 252, "int8", False),
+                 "brca_forced": (2, 300, 2048, 252, "bf16", True),
+                 "kirp_forced": (2, 300, 2048, 270, "bf16", True),
+                 "omic_forced": (8, 1, 2000, 252, "bf16", True)}
+
+
+@pytest.mark.parametrize("case", list(GENERIC_CASES))
+def test_projection_generic_kernel_matches_plain(gen, case):
+    """The generic route's kernels at the shapes of the timing table (small
+    T): kv within 4 bf16 ulps, s1 and s2 as the route's contract, one
+    launch a call, two calls bit-identical."""
+    b, t, c, f, kind, forced = GENERIC_CASES[case]
+    dat, scale, ops, ref = _generic_case(gen, b, t, c, f, kind)
+    if not forced:
+        assert project_route(dat.dtype, torch.bfloat16, c, dat.data_ptr()) == "generic"
+    _check_projection(_run_generic(dat, scale, ops, forced), ref, kind)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("offset", [2, 6, 14])
+@pytest.mark.parametrize("c", [2048, 2049, 2047], ids=["k_tail_0", "k_tail_1", "k_tail_63"])
+@pytest.mark.parametrize("b,t", [(2, 300), (8, 1)], ids=["many_rows", "few_rows"])
+def test_projection_generic_offsets_and_tails(gen, b, t, c, offset, kind):
+    """Bases 2, 6 and 14 bytes off 16, C % 64 of 0, 1 and 63 (the k-step
+    whose hull carries the next row's values), contexts that end where
+    their storage ends; many rows (the hull kinds) and few (the split
+    kernel)."""
+    dat, scale, ops, ref = _generic_case(gen, b, t, c, 252, kind, offset)
+    _check_projection(_run_generic(dat, scale, ops), ref, kind)
 
 
 # ------------------------------------------------ the f32 projection kernel

@@ -5,6 +5,7 @@ port. Unless a test says otherwise, float32 results agree to 1e-5 relative /
 1e-6 absolute; hash keep masks must be bit-equal.
 """
 
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ from healnet_tpu.ops.flash_attention import _fwd_call as jflash_fwd_call
 from healnet_tpu.ops.flash_attention import flash_cross_attention as jflash
 from healnet_tpu.ops.fused_project import _pallas_bwd_call as jproject_bwd_call
 from healnet_tpu.ops.fused_project import fused_kv_project as jproject
+from healnet_tpu.ops.quantize import QuantizedContext as JaxQC
 from healnet_tpu.ops.hash_dropout import seed_from_rng
 from healnet_tpu_torch import device as tdevice
 from healnet_tpu_torch.ops import activations as tact
@@ -49,6 +51,8 @@ from healnet_tpu_torch.ops.flash_attention import (
 )
 from healnet_tpu_torch.ops.fused_project import (
     PROJECT_WIDTHS,
+    SPLIT_MAX_ROWS,
+    SPLIT_SMEM,
     FusedProjectFunction,
     fused_kv_project as tproject,
     fused_project_bwd_kernel,
@@ -56,11 +60,13 @@ from healnet_tpu_torch.ops.fused_project import (
     project_bwd_plain,
     project_bwd_plan,
     project_f32_plan,
+    project_generic_plan,
     project_plan,
     project_route,
     project_smem,
     split_columns,
 )
+from healnet_tpu_torch.ops.quantize import QuantizedContext
 
 RTOL, ATOL = 1e-5, 1e-6
 SEEDS = [0, 1, 12345, 2**31 - 1, 2**31, 2**31 + 7, 0xDEADBEEF, 2**32 - 1]
@@ -196,6 +202,55 @@ def test_fused_kv_project_bf16(rng):
         # up to 1.6e-2; the two frameworks round the product at the same
         # places, so they agree to within two bf16 ulps
         _close(got, ref, rtol=2e-2, atol=2e-2)
+
+
+# the generic route's shapes: rows at any byte offset (odd C, an omic vector
+# of 2001 columns, C = 3: the README's image modality, C = 1: the
+# omic_attention: false layout) and few rows (batch 8, one token)
+GENERIC_SHAPES = {"c203": (2, 200, 203), "c2001": (2, 16, 2001), "omic_2001": (8, 1, 2001),
+                  "omic_203": (8, 1, 203), "c3": (2, 200, 3), "c1": (2, 200, 1),
+                  "omic_c1": (8, 1, 1)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(GENERIC_SHAPES))
+def test_fused_kv_project_generic_shapes(rng, dtype, shape):
+    """The plain version against JAX's XLA path and its Pallas kernel
+    (interpret mode) at the generic route's shapes. f32: sums of up to 2001
+    products in another order, 1e-5 relative and 1e-5 of the largest
+    output absolute (as the long-latent flash case); bf16 as the bf16 case
+    above."""
+    b, t, c = GENERIC_SHAPES[shape]
+    got, refs = _both_projections(*_proj_inputs(rng, b=b, t=t, c=c), dtype)
+    top = max(1.0, float(got.float().abs().max()))
+    tol = dict(rtol=1e-5, atol=1e-5 * top) if dtype == "f32" else dict(rtol=2e-2, atol=2e-2)
+    for name, ref in refs.items():
+        assert tuple(got.shape) == ref.shape, name
+        _close(got, ref, **tol)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("b,t,c", [(2, 200, 203), (8, 1, 2040), (2, 16, 2001)],
+                         ids=["c203", "omic_2040", "c2001"])
+def test_quantized_projection_generic_shapes(rng, out, b, t, c):
+    """int8 rows whose pitch is not a multiple of 16 bytes, the plain
+    version against JAX's XLA path and Pallas kernel (interpret mode): f32
+    to 1e-5, bf16 to two bf16 ulps of outputs of magnitude ~1-4 (2e-2)."""
+    q = rng.integers(-127, 128, size=(b, t, c)).astype(np.int8)
+    sc = rng.uniform(0.005, 0.05, size=(b, t)).astype(np.float32)
+    _, enc, w, bias = _proj_inputs(rng, b=b, t=t, c=c)
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[out]
+    jargs = (JaxQC(jnp.asarray(q), jnp.asarray(sc)), jnp.asarray(enc), jnp.asarray(w),
+             jnp.asarray(bias))
+    refs = {"xla": jproject(*jargs, impl="xla", out_dtype=jd),
+            "pallas": jproject(*jargs, impl="pallas", interpret=True, tile=128, out_dtype=jd)}
+    got = tproject(QuantizedContext(torch.from_numpy(q), torch.from_numpy(sc)),
+                   torch.from_numpy(enc), torch.from_numpy(w), torch.from_numpy(bias),
+                   out_dtype=td)
+    tol = 1e-5 if out == "f32" else 2e-2
+    for name, ref in refs.items():
+        assert tuple(got.shape) == ref.shape, name
+        _close(got, ref, rtol=tol, atol=tol)
 
 
 def test_split_columns():
@@ -565,6 +620,9 @@ def test_flash_backward_plain_in_f64(rng, lkv):
     (torch.bfloat16, torch.bfloat16, 2048, 2, "generic"),
     (torch.int8, torch.bfloat16, 200, 0, "generic"),
     (torch.int8, torch.bfloat16, 2048, 8, "generic"),
+    (torch.bfloat16, torch.bfloat16, 3, 0, "generic"),
+    (torch.bfloat16, torch.bfloat16, 2001, 0, "generic"),
+    (torch.bfloat16, torch.bfloat16, 4095, 0, "generic"),
     (torch.int8, torch.float32, 2048, 0, "f32"),
     (torch.float32, torch.float32, 2048, 0, "f32"),
 ])
@@ -603,6 +661,51 @@ def test_project_plan(m, f, itemsize):
         assert plan.n_col == 1 and plan.nb == (256 if f == 252 else 272)
     if (m, f) == (32768, 270):  # kirp: the held stage buys its fourth stage
         assert plan.stages == 4 and plan.held_staging
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+@pytest.mark.parametrize("m", [8, SPLIT_MAX_ROWS, SPLIT_MAX_ROWS + 1, 32768])
+def test_project_generic_plan(m, itemsize):
+    """The generic route's plan at every C from 1 to 70: few rows on the
+    split kernel (every k-slice in one block of a cluster of at most 16, no
+    block without one, every column and row in a block), more on the Hopper
+    kernel's hull kinds (one row class per offset mod 16 bytes, each with a
+    row of every tile), within a block's shared memory; each path names its
+    kernel's launch counter."""
+    for c in range(1, 71):
+        plan = project_generic_plan(m, c, 252, itemsize)
+        nk = -(-c // 64)
+        assert plan.classes == 16 // math.gcd(c * itemsize, 16)
+        assert plan.smem <= 232448
+        if m <= SPLIT_MAX_ROWS:
+            assert plan.path == "split" and plan.rows is None
+            assert plan.counter == "launches_generic_split"
+            assert 1 <= plan.cluster <= 16
+            assert plan.cluster * plan.slices >= nk > (plan.cluster - 1) * plan.slices
+            assert plan.col_groups * 64 >= 252 > (plan.col_groups - 1) * 64
+            assert plan.row_groups * 8 >= m > (plan.row_groups - 1) * 8
+            assert plan.smem == SPLIT_SMEM
+        else:
+            assert plan.path == "rows" and plan.counter == "launches_generic"
+            assert plan.rows == project_plan(m, 252, itemsize, hull=True)
+            assert plan.smem == plan.rows.smem == project_smem(
+                plan.rows.nb, itemsize, plan.rows.stages, plan.rows.pitch,
+                plan.rows.held_staging, hull=True)
+            assert m >= plan.classes and 128 % plan.classes == 0
+
+
+def test_project_generic_plan_at_the_parity_layout():
+    """The parity layout's omic vector (8, 1, 2001) takes clusters of 16
+    blocks of two k-slices over 4 column blocks; its slide (8, 2048, 4095)
+    the hull kinds: 8 row classes, one column pass of 256, 3 stages."""
+    omic = project_generic_plan(8, 2001, 252, 2)
+    assert (omic.path, omic.cluster, omic.slices, omic.col_groups, omic.row_groups) == (
+        "split", 16, 2, 4, 1)
+    wsi = project_generic_plan(8 * 2048, 4095, 252, 2)
+    assert (wsi.path, wsi.classes, wsi.rows.nb, wsi.rows.n_col, wsi.rows.stages) == (
+        "rows", 8, 256, 1, 3)
+    with pytest.raises(ValueError):
+        project_generic_plan(8, 2001, 252, 4)
 
 
 # (m, c, f, itemsize) -> the f32 kernel's plan (nb, n_col, row_tiles, nk,
