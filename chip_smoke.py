@@ -32,14 +32,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    tensor cores take bf16 up to 128), two calls bit-identical; heads wider
    than 256 (``wide_cases``: d 257, 320 and 512 at lq 17 and 40 and d 320
    with K and V rows at odd offsets, the one-pass wide kernels; d 576, past
-   them, the FMA kernels' column-chunked form; and the one-token omic
-   context at d 320, 512 and 576; f32 and bf16, masked, dropout 0.083), one
-   launch a call counted by the kernel's own counter, two calls
-   bit-identical; then at brca and kirp in bf16 (the tensor-core
-   variant) and f32 (the FMA variant), at d 320 and 512 in f32 and bf16
-   (the wide kernels) and at d 576 in f32 (the chunked route), unmasked:
-   each call must be one kernel launch on the profiler, and the times of
-   kernel, plain version, SDPA and the bound;
+   them, the panel kernels (two panels of 288 over a cluster); and the
+   one-token omic context at d 320, 512 and 576; f32 and bf16, masked,
+   dropout 0.083), one launch a call counted by the kernel's own counter,
+   two calls bit-identical, the wide and panel kernels' shared memory
+   against the wrapper's reckoning (``wide_smem``); then at brca and kirp
+   in bf16 (the tensor-core variant) and f32 (the FMA variant), at d 320
+   and 512 in f32 and bf16 (the wide kernels) and at d 576 and 1024 in f32
+   and bf16 (the panel kernels), unmasked: each call must be one kernel
+   launch on the profiler, and the times of kernel, plain version, SDPA
+   and the bound;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -75,8 +77,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the flash kernels' share of the step's device time, and one step with
    plain attention for comparison; then one step of the brca model with a
    320-wide cross head in f32 and in bf16 (the runs of the one-pass wide
-   kernels, FMA and tensor-core) and one f32 step with a 576-wide head (the
-   run of the chunked route), kernel path against a reference step, with
+   kernels, FMA and tensor-core) and one step with a 576-wide head in f32
+   and in bf16 (the runs of the panel kernels; only the head width is
+   synthetic), kernel path against a reference step, with
    each flash call of the step (WSI and omic contexts, forward and
    backward) held against the plain version on its inputs; then the
    reference-parity layout (``patch_attention: false``): the brca model
@@ -173,7 +176,10 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_attention_kernel,
     flash_backward_plain,
     flash_lse_plain,
+    flash_panels,
     launch_counter,
+    wide_smem,
+    _wide_lib,
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import (
@@ -219,9 +225,10 @@ KERNELS = {"fused_project": (fused_project_kernel, "launches"),
            "flash_attention_bwd_wide_fma": (flash_attention_bwd_kernel, "launches_wide_fma"),
            "flash_attention_wide_tc": (flash_attention_kernel, "launches_wide_tc"),
            "flash_attention_bwd_wide_tc": (flash_attention_bwd_kernel, "launches_wide_tc"),
-           "flash_attention_fma_chunked": (flash_attention_kernel, "launches_fma_chunked"),
-           "flash_attention_bwd_fma_chunked": (flash_attention_bwd_kernel,
-                                               "launches_fma_chunked"),
+           "flash_attention_panel_fma": (flash_attention_kernel, "launches_panel_fma"),
+           "flash_attention_bwd_panel_fma": (flash_attention_bwd_kernel, "launches_panel_fma"),
+           "flash_attention_panel_tc": (flash_attention_kernel, "launches_panel_tc"),
+           "flash_attention_bwd_panel_tc": (flash_attention_bwd_kernel, "launches_panel_tc"),
            "fused_project_int8": (fused_project_kernel, "launches_int8"),
            "fused_project_bwd_int8": (fused_project_bwd_kernel, "launches_int8"),
            "fused_chain": (fused_chain_kernel, "launches")}
@@ -313,10 +320,12 @@ def device_profile(fn, reps: int = 3):
     ``Optimizer.step``) span kernels already counted and are left out. A
     window in which the profiler saw no device kernel is logged with what
     the host saw (its events, its kernel launch calls) and the memory the
-    caching allocator holds, which it then releases before profiling again;
-    why such windows happen is not known, so each is counted (the kernels
-    line gives the count) and a call whose six windows all saw no device
-    kernel fails."""
+    caching allocator holds, which it then releases before profiling again,
+    after a pause one second longer each time (six windows in a row in
+    phase 8, right after phase 7's step profiles, came back empty within a
+    second of each other); why such windows happen is not known, so each
+    is counted (the kernels line gives the count) and a call whose six
+    windows all saw no device kernel fails."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -337,8 +346,9 @@ def device_profile(fn, reps: int = 3):
         log(f"  profiler window {attempt + 1} saw no device kernel ({len(prof.events())} host "
             f"events, {launches} kernel launch calls, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); profiled again after "
-            "releasing the allocator's cache")
+            f"releasing the allocator's cache and {attempt + 1} s")
         torch.cuda.empty_cache()
+        time.sleep(attempt + 1)
     if not rows:
         raise AssertionError("six profiler windows in a row saw no device kernel")
     busy = sum(device_us(e) for e in rows) / 1e3 / reps
@@ -607,12 +617,12 @@ def phase_projection(gen):
             *_, ops, run, plain = projection_case(gen, 2, 300, c, f, torch.float32)
             err = (run()[0] - plain()).abs().max().item()
             check(f"f32 ragged (2, 300, {c}) F={f}", err, 1e-4)
-    # the merged KV of phase 7's step with a CHUNKED_D-wide head (F 4 d over
+    # the merged KV of phase 7's step with a PANEL_D-wide head (F 4 d over
     # its two layers), both contexts at full size, as that step runs them
     for b, t, c in ((BATCH, TOKENS, PATCH), (BATCH, 1, OMIC)):
-        *_, ops, run, plain = projection_case(gen, b, t, c, 4 * CHUNKED_D, torch.float32)
+        *_, ops, run, plain = projection_case(gen, b, t, c, 4 * PANEL_D, torch.float32)
         err = (run()[0] - plain()).abs().max().item()
-        check(f"f32 {(b, t, c)} F={4 * CHUNKED_D} (a {CHUNKED_D}-wide head)", err, 1e-4)
+        check(f"f32 {(b, t, c)} F={4 * PANEL_D} (a {PANEL_D}-wide head)", err, 1e-4)
         del ops, run, plain
 
     # each kernel's shared memory as its plan reckons it
@@ -762,7 +772,8 @@ def fma_cases(mask) -> dict:
 
 WIDE_D = 320  # the timed wide head (and the wide steps' cross head)
 WIDE_MAX_D = 512  # the widest head of the one-pass wide kernels, also timed
-CHUNKED_D = 576  # a head past them: the FMA kernels' column-chunked route
+PANEL_D = 576  # a head past them: two panels of 288 (and the panel steps' cross head)
+PANEL_FULL_D = 1024  # two full panels of 512, also timed
 
 
 def wide_cases() -> dict:
@@ -781,18 +792,39 @@ def wide_cases() -> dict:
                 cases[f"{name} (8, {lq}, 4096, {d})"] = (d, dt, lq, 4 * d, TOKENS, True)
         cases[f"{name} (8, 17, 4096, {WIDE_D}) KV pitch 1283"] = (
             WIDE_D, dt, 17, 1283, TOKENS, True)
-        cases[f"{name} (8, 17, 4096, {CHUNKED_D}) chunked"] = (
-            CHUNKED_D, dt, 17, 4 * CHUNKED_D, TOKENS, True)
-        for d in (WIDE_D, WIDE_MAX_D, CHUNKED_D):
+        cases[f"{name} (8, 17, 4096, {PANEL_D}) panels"] = (
+            PANEL_D, dt, 17, 4 * PANEL_D, TOKENS, True)
+        for d in (WIDE_D, WIDE_MAX_D, PANEL_D):
             cases[f"{name} (8, 17, 1, {d})"] = (d, dt, 17, 4 * d, 1, True)
         cases[f"{name} (8, 17, 1, {WIDE_D}) unmasked"] = (WIDE_D, dt, 17, 4 * WIDE_D, 1, False)
     return cases
 
 
 # the wide heads' timed shapes: (label, head dim, dtype) at (8, 17, 4096, d)
-WIDE_TIMED = [(f"wide {str(dt)[6:]} d {d}", d, dt) for d in (WIDE_D, WIDE_MAX_D)
+WIDE_TIMED = [(f"{'wide' if d <= WIDE_MAX_D else 'panels'} {str(dt)[6:]} d {d}", d, dt)
+              for d in (WIDE_D, WIDE_MAX_D, PANEL_D, PANEL_FULL_D)
               for dt in (torch.float32, torch.bfloat16)]
-WIDE_TIMED.append((f"chunked float32 d {CHUNKED_D}", CHUNKED_D, torch.float32))
+
+
+def check_wide_smem(dtype, d) -> None:
+    """The wide (or panel) kernels' shared memory at head dim d, forward and
+    backward (at the library's largest query chunk), against the wrapper's
+    reckoning of their layouts (``wide_smem``); both within the card's."""
+    bf, lib = int(dtype == torch.bfloat16), _wide_lib()
+    align = 16 if bf else 32
+    got, want, line = [], [], []
+    for bwd in (0, 1):
+        pan = flash_panels(dtype, d, backward=bool(bwd))
+        dp = -(-max(w for _, w in pan.columns) // align) * align
+        panels = pan.count if pan.count * pan.passes > 1 else 1
+        rows = lib.healnet_flash_wide_bwd_max_queries(d, bf, pan.count, pan.passes) if bwd else 0
+        got.append(lib.healnet_flash_wide_smem(d, bf, pan.count, pan.passes, bwd, rows))
+        want.append(wide_smem(dtype, dp, panels, rows if bwd else None)[2])
+        line.append(f"{'backward' if bwd else 'forward'} {pan.count} panel(s) x {pan.passes} "
+                    f"pass(es) {got[-1]} B" + (f" ({rows} queries a chunk)" if bwd else ""))
+    log(f"  {str(dtype)[6:]} d {d}: shared memory {', '.join(line)}; reckoned {want}")
+    if got != want or not 0 < max(got) <= 232448:
+        raise AssertionError(f"d {d}: the kernels' shared memory {got} is not the plan's {want}")
 
 
 def phase_flash(gen):
@@ -881,6 +913,8 @@ def phase_flash(gen):
         err_wide[key] = max(err_wide.get(key, 0.0), err)
         del q, k, v, out, out2, ref
 
+    for _, d, dtype in WIDE_TIMED:
+        check_wide_smem(dtype, d)
     timings = {}
     for label, (d, width, dtype) in FLASH_SHAPES.items():
         q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
@@ -917,10 +951,12 @@ def phase_flash(gen):
             flash_entry("flash_attention_wide_tc", wide, "healnet_tpu/ops/flash_attention.py:98",
                         err_wide[("launches_wide_tc", bf16)],
                         timings[f"wide bfloat16 d {WIDE_D}"]),
-            flash_entry("flash_attention_fma_chunked", source,
-                        "healnet_tpu/ops/flash_attention.py:98",
-                        err_wide[("launches_fma_chunked", f32)],
-                        timings[f"chunked float32 d {CHUNKED_D}"]))
+            flash_entry("flash_attention_panel_fma", wide, "healnet_tpu/ops/flash_attention.py:98",
+                        err_wide[("launches_panel_fma", f32)],
+                        timings[f"panels float32 d {PANEL_D}"]),
+            flash_entry("flash_attention_panel_tc", wide, "healnet_tpu/ops/flash_attention.py:98",
+                        err_wide[("launches_panel_tc", bf16)],
+                        timings[f"panels bfloat16 d {PANEL_D}"]))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1205,10 +1241,14 @@ def phase_flash_bwd(gen):
                         "healnet_tpu/ops/flash_attention.py:201",
                         err_wide[("launches_wide_tc", bf16)],
                         timings[f"wide bfloat16 d {WIDE_D}"]),
-            flash_entry("flash_attention_bwd_fma_chunked", source,
+            flash_entry("flash_attention_bwd_panel_fma", wide,
                         "healnet_tpu/ops/flash_attention.py:201",
-                        err_wide[("launches_fma_chunked", f32)],
-                        timings[f"chunked float32 d {CHUNKED_D}"]))
+                        err_wide[("launches_panel_fma", f32)],
+                        timings[f"panels float32 d {PANEL_D}"]),
+            flash_entry("flash_attention_bwd_panel_tc", wide,
+                        "healnet_tpu/ops/flash_attention.py:201",
+                        err_wide[("launches_panel_tc", bf16)],
+                        timings[f"panels bfloat16 d {PANEL_D}"]))
 
 
 def phase_flash_latents(gen) -> None:
@@ -1604,16 +1644,19 @@ def held_flash_calls(label: str):
 def phase_wide_step(host_rng) -> dict:
     """The wide heads' paths: one training step of the brca model with a
     320-wide cross head in f32 and in bf16 (the one-pass wide kernels, FMA
-    and tensor-core) and one f32 step with a 576-wide head (the chunked
-    route). Each step holds every flash call it makes (the WSI context and
+    and tensor-core) and one with a 576-wide head in f32 and in bf16 (the
+    panel kernels, two panels of 288; the model is not cut, only its cross
+    head's width is synthetic). Each step holds every flash call it makes
+    (the WSI context and
     the one-token omic one, forward and backward) against the plain version
     on that call's inputs (:func:`held_flash_calls`), must launch its
-    route's forward and backward kernel (each launch held), and its
+    route's forward and backward kernel (each launch held) and no other
+    flash kernel, and its
     gradients are held against a reference step from the same weights and
     dropout draws with phase 7's tolerances for its dtype.
 
     Reference steps: the 320-wide f32 step, the plain path in f64; the bf16
-    step, the plain path in bf16 (as phase 7). The 576-wide step, the same
+    steps, the plain path in bf16 (as phase 7). The 576-wide f32 step, the same
     step with plain attention and the projection kernel, which phase 2
     holds on its own at this head's width (F 2304): in that step one SELU
     gate of the second layer's WSI feed-forward lies 2.9e-7 from the kink,
@@ -1628,8 +1671,10 @@ def phase_wide_step(host_rng) -> dict:
              (1e-5, 1e-4), "plain path in f64"),
             (WIDE_D, bf16, ("flash_attention_wide_tc", "flash_attention_bwd_wide_tc"),
              (2e-2, 0.1), "plain path"),
-            (CHUNKED_D, f32, ("flash_attention_fma_chunked", "flash_attention_bwd_fma_chunked"),
-             (1e-5, 1e-4), "plain attention, projection kernel")):
+            (PANEL_D, f32, ("flash_attention_panel_fma", "flash_attention_bwd_panel_fma"),
+             (1e-5, 1e-4), "plain attention, projection kernel"),
+            (PANEL_D, bf16, ("flash_attention_panel_tc", "flash_attention_bwd_panel_tc"),
+             (2e-2, 0.1), "plain path")):
         name = str(dtype)[6:]
         log(f"phase 7 (continued): one {name} training step with a {head}-wide cross head")
         batch = train_batch(host_rng, dtype)
@@ -1656,6 +1701,10 @@ def phase_wide_step(host_rng) -> dict:
         counts = read_launches(run, names)
         if (held["forward"], held["backward"]) != tuple(counts[n] for n in names):
             raise AssertionError(f"{run}: {held} calls held, {counts} launched")
+        others = {n: getattr(*KERNELS[n]) for n in KERNELS
+                  if n.startswith("flash_attention") and n not in names}
+        if any(others.values()):
+            raise AssertionError(f"{run}: other flash kernels launched: {others}")
         launches.update(counts)
         del batch, kernel, plain
     return launches

@@ -64,15 +64,8 @@
 // of each value row as one vector load. At the end the blocks' (m, l, acc) merge
 // across the cluster in rank order through distributed shared memory, as
 // in flash_fwd_tc: no partial buffer, no second kernel, the same bits on
-// every call. Any lq: the block walks the queries in groups of 32.
-//
-// flash_fwd_fma_chunked (heads wider than 512, f32 or bf16; the chunked
-// route): flash_fwd_fma's grid, plan and merge over 256-column chunks of the
-// head (see its section below), the scores summed over the chunks and taken
-// again for every output chunk. One launch a call. Heads of 257-512 take
-// the one-pass kernels of flash_wide.cu instead, which read K once, stage q
-// once per group and take each tile's scores once (bytes bound at
-// (8, 17, 4096, 320): 0.0251 ms f32, 0.0126 ms bf16).
+// every call. Any lq: the block walks the queries in groups of 32. Heads
+// wider than 256 take the kernels of flash_wide.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -314,202 +307,6 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_
     }
     // before the next group pushes, every block is done reading this one's
     if (g0 + QG < p.lq) cluster.sync();
-  }
-}
-
-// ------------------------------ FMA variant, heads wider than fmav::kMaxD
-//
-// The route of heads wider than flash_wide.cu takes (512); 257-512 go there.
-// A head of d > 256 channels is taken in column chunks of kWide. For each
-// output chunk the block streams its keys once more: a tile's scores are
-// summed over the d chunks (the group's q and the tile's K loaded chunk by
-// chunk into shared memory by the threads), and acc += p V runs over the
-// output chunk's channels. The softmax state is recomputed for every output
-// chunk by the same arithmetic in the same order, so (m, l) and the dropout
-// coordinates are the same for each. One launch, with flash_fwd_fma's plan,
-// warp-owned query rows, hash coordinates and cluster merge.
-
-constexpr int kWide = fv::kMaxD;
-
-// Byte offsets: the group's q chunk at 0, a tile's K chunk, its V chunk and
-// mask, the warps' p rows and the cluster's pushed states.
-struct FmaWideFwdLayout {
-  size_t ks, vs, ps, rm, rl, racc, total;
-  __host__ __device__ FmaWideFwdLayout() {
-    constexpr size_t P = kWide + 4;
-    ks = sizeof(float) * fv::kGroup * P;
-    vs = ks + sizeof(float) * fv::kKeys * P;
-    ps = vs + sizeof(float) * (fv::kKeys * P + fv::kKeys);
-    rm = ps + sizeof(float) * fv::kGroup * fv::kKeys;
-    rl = rm + sizeof(float) * tc::kMaxCluster * fv::kGroup;
-    racc = rl + sizeof(float) * tc::kMaxCluster * fv::kGroup;
-    total = racc + sizeof(float) * (fv::kGroup * kWide + tc::kMaxCluster);
-  }
-};
-
-// The key loop of one query group and output chunk [c0, c0 + kWide) for a
-// warp that owns NS of its rows, then the push of its state to the cluster
-// (as fwd_group).
-template <typename T, int NS>
-__device__ __forceinline__ void fwd_wide_chunk(const FmaParams& p, float* qs, float* ks, float* vs,
-                                               float* ps, float* rm, float* rl, float* racc,
-                                               const T* q, const T* k, const T* v,
-                                               const float* mask, int row, int g0, int nq,
-                                               int c0, int kv_begin, int kv_end, int ntiles,
-                                               int rank, int csize) {
-  constexpr int KT = fv::kKeys, P = kWide + 4, CPL = kWide / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dc = min(kWide, p.d - c0);
-  float* pw = ps + warp * fv::kSlots * KT;
-  float m[NS > 0 ? NS : 1], l[NS > 0 ? NS : 1], a[NS > 0 ? NS : 1][CPL];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    m[s] = tc::kNegBig, l[s] = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) a[s][i] = 0.f;
-  }
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = kv_begin + it * KT;
-    float sc[NS > 0 ? NS : 1];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) sc[s] = 0.f;
-    for (int s0 = 0; s0 < p.d; s0 += kWide) {
-      const int w = min(kWide, p.d - s0);
-      // every warp is done with the q and K chunks (and with the last
-      // tile's V chunk)
-      __syncthreads();
-      fv::load_rows_f32<kWide, T>(qs, q + s0, p.q_st, g0, fv::kGroup, p.lq, w, tid);
-      fv::load_rows_f32<kWide, T>(ks, k + s0, p.k_st, k0, KT, kv_end, w, tid);
-      if (s0 == 0) {
-        fv::load_rows_f32<kWide, T>(vs, v + c0, p.v_st, k0, KT, kv_end, dc, tid);
-        if (tid < KT) {
-          const int kt = k0 + tid;
-          vs[KT * P + tid] = kt >= kv_end ? 0.f : mask != nullptr ? mask[kt] : 1.f;
-        }
-      }
-      __syncthreads();
-      if constexpr (NS > 0) {
-        float part[1][NS];
-        fv::tile_dots<kWide, NS, 1>(part, qs, nullptr, ks, nullptr, warp, lane);
-#pragma unroll
-        for (int s = 0; s < NS; ++s) sc[s] += part[0][s];
-      }
-    }
-    if constexpr (NS > 0) {
-      const float mkv = vs[KT * P + lane];
-      float x[NS], mx[NS];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) mx[s] = x[s] = sc[s] * p.scale + (mkv - 1.f) * 1e30f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int s = 0; s < NS; ++s) mx[s] = fmaxf(mx[s], __shfl_xor_sync(0xffffffffu, mx[s], off));
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const float m_new = fmaxf(m[s], mx[s]), corr = __expf(m[s] - m_new);
-        m[s] = m_new;
-        x[s] = __expf(x[s] - m_new) * mkv;
-        l[s] = l[s] * corr + x[s];
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) a[s][i] *= corr;
-      }
-      if (p.dropout) {
-#pragma unroll
-        for (int s = 0; s < NS; ++s)
-          x[s] *= healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(g0 + warp + tc::kWarps * s),
-                                     (uint32_t)(k0 + lane), p.threshold)
-                      ? p.keep_scale
-                      : 0.f;
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) pw[s * KT + lane] = fv::round_to<T>(x[s]);
-      __syncwarp();
-      fv::tile_axpy<kWide, NS>(a, pw, KT, vs, lane);
-    }
-  }
-  const int share = (nq * dc + csize - 1) / csize;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const int r = warp + tc::kWarps * s;
-    float ls = l[s];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane * CPL + i;
-      if (c < dc) {
-        const int e = r * dc + c, owner = e / share;
-        tc::st_cluster(racc + rank * share + e - owner * share, owner, a[s][i]);
-      }
-    }
-    if (lane < csize) {
-      tc::st_cluster(rm + rank * fv::kGroup + r, lane, m[s]);
-      tc::st_cluster(rl + rank * fv::kGroup + r, lane, ls);
-    }
-  }
-}
-
-// flash_fwd_fma for d > kWide: the same grid and cluster plan; each group
-// of up to 32 queries is merged and written one output chunk at a time.
-template <typename T>
-__global__ void __launch_bounds__(tc::kThreads, 1) flash_fwd_fma_chunked(FmaParams p) {
-  constexpr int QG = fv::kGroup, KT = fv::kKeys;
-  extern __shared__ __align__(16) unsigned char fma_smem[];
-  const FmaWideFwdLayout L;
-  float* qs = reinterpret_cast<float*>(fma_smem);
-  float* ks = reinterpret_cast<float*>(fma_smem + L.ks);
-  float* vs = reinterpret_cast<float*>(fma_smem + L.vs);
-  float* ps = reinterpret_cast<float*>(fma_smem + L.ps);
-  float* rm = reinterpret_cast<float*>(fma_smem + L.rm);
-  float* rl = reinterpret_cast<float*>(fma_smem + L.rl);
-  float* racc = reinterpret_cast<float*>(fma_smem + L.racc);
-
-  tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
-  const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
-  T* out = static_cast<T*>(p.out);
-  const int kv_begin = rank * p.keys_per_cta;
-  const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
-  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
-
-  for (int g0 = 0; g0 < p.lq; g0 += QG) {
-    const int nq = min(QG, p.lq - g0), ns = fv::slots_of(warp, nq);
-    for (int c0 = 0; c0 < p.d; c0 += kWide) {
-#define FWD_WIDE(NS)                                                                      \
-  fwd_wide_chunk<T, NS>(p, qs, ks, vs, ps, rm, rl, racc, q, k, v, mask, row, g0, nq, c0, \
-                        kv_begin, kv_end, ntiles, rank, csize)
-      switch (ns) {
-        case 0: FWD_WIDE(0); break;
-        case 1: FWD_WIDE(1); break;
-        case 2: FWD_WIDE(2); break;
-        case 3: FWD_WIDE(3); break;
-        default: FWD_WIDE(4); break;
-      }
-#undef FWD_WIDE
-      const int dc = min(kWide, p.d - c0), ne = nq * dc, share = (ne + csize - 1) / csize;
-      cluster.sync();
-      for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
-        const int r = e / dc, c = e - r * dc;
-        float mx = tc::kNegBig;
-        for (int j = 0; j < csize; ++j) mx = fmaxf(mx, rm[j * QG + r]);
-        float a = 0.f, ls = 0.f;
-        for (int j = 0; j < csize; ++j) {
-          const float f = expf(rm[j * QG + r] - mx);
-          a += racc[j * share + e - rank * share] * f;
-          ls += rl[j * QG + r] * f;
-        }
-        const float lc = fmaxf(ls, 1e-30f);
-        out[((size_t)(b * p.lq + g0 + r) * p.H + h) * p.d + c0 + c] = fv::from_float<T>(a / lc);
-        if (c0 == 0 && c == 0) p.lse[(size_t)row * p.lq + g0 + r] = mx + logf(lc);
-      }
-      // before the next chunk pushes, every block is done reading this one's
-      if (c0 + kWide < p.d || g0 + QG < p.lq) cluster.sync();
-    }
   }
 }
 
@@ -776,23 +573,12 @@ cudaError_t launch_fma_fwd(FmaParams p, int cluster, int rows, cudaStream_t s) {
                               FmaFwdLayout<T, DP>(p.stages).total, s);
 }
 
-template <typename T>
-cudaError_t launch_fma_fwd_wide(FmaParams p, int cluster, int rows, cudaStream_t s) {
-  p.stages = 0;
-  return tc::launch_clustered(flash_fwd_fma_chunked<T>, p, cluster, rows, FmaWideFwdLayout().total,
-                              s);
-}
-
 }  // namespace
 
 // Clusters of `cluster` blocks of the FMA forward the card holds at once
 // (-1 where the query fails, or for bf16 heads the tensor cores take).
 extern "C" int healnet_flash_fma_max_clusters(int d, int is_bf16, int cluster) {
-  if (d > fv::kMaxD)
-    return is_bf16 ? tc::max_active_clusters(flash_fwd_fma_chunked<__nv_bfloat16>, cluster,
-                                             FmaWideFwdLayout().total)
-                   : tc::max_active_clusters(flash_fwd_fma_chunked<float>, cluster,
-                                             FmaWideFwdLayout().total);
+  if (d > fv::kMaxD) return -1;
   return fv::with_dp32(d, [&](auto dp) -> int {
     constexpr int DP = decltype(dp)::value;
     using B = __nv_bfloat16;
@@ -813,7 +599,7 @@ extern "C" int healnet_flash_forward(
     long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
     unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  if (d < 1 || (is_bf16 && d <= 128)) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128)) return (int)cudaErrorInvalidValue;
   FmaParams p;
   p.q = q;
   p.k = k;
@@ -842,9 +628,6 @@ extern "C" int healnet_flash_forward(
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (d > fv::kMaxD)
-    return static_cast<int>(is_bf16 ? launch_fma_fwd_wide<__nv_bfloat16>(p, cluster, B * H, s)
-                                    : launch_fma_fwd_wide<float>(p, cluster, B * H, s));
   return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;
     if (!is_bf16) return launch_fma_fwd<float, DP>(p, cluster, B * H, s);

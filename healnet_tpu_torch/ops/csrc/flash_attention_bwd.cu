@@ -56,14 +56,8 @@
 // tile suffices), and writes them, a warp's stores covering 32 consecutive
 // channels of a row: each block finishes the dk and dv of its own keys. dq
 // is summed across the cluster in rank order through distributed shared
-// memory: no partial buffer, no second kernel, no float atomics.
-// flash_bwd_fma_chunked takes heads wider than 512 on the same plan, over
-// 256-column chunks of the head (see its section below), recomputing p and
-// ds for every output chunk and reloading q, dO and K for it (the chunked
-// route). Heads of 257-512 take the one-pass flash_bwd_wide_* kernels of
-// flash_wide.cu instead (q and dO staged once, s and dp once per tile, dk
-// and dv finished in one visit; bytes bound at (8, 17, 4096, 320): 0.0502 ms
-// f32, 0.0251 ms bf16).
+// memory: no partial buffer, no second kernel, no float atomics. Heads
+// wider than 256 take the kernels of flash_wide.cu.
 //
 // Any latent count: both variants walk the queries in chunks that fit
 // shared memory (query_chunks in ops/flash_attention.py sizes them from
@@ -401,209 +395,6 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
     }
     // before the next chunk pushes, every block is done reading this one's
     if (!last) cluster.sync();
-  }
-}
-
-// ------------------------------ FMA variant, heads wider than fmav::kMaxD
-//
-// The route of heads wider than flash_wide.cu takes (512); 257-512 go there.
-// A head of d > 256 channels is taken in column chunks of kWide. For each
-// query chunk and each output chunk [c0, c0 + kWide) the block streams its
-// keys once more: a tile's s = q K^T and dp = dO V^T are summed over the d
-// chunks (q, dO, K and V loaded chunk by chunk into shared memory by the
-// threads), round(p e) and round(ds) go to shared memory, and then, with
-// the output chunk's columns of q, dO and K loaded, dq += round(ds) K over
-// the chunk's channels and the tile's dk and dv of those channels are
-// finished (dkdv_tile, carried over query chunks as in flash_bwd_fma). p and
-// ds are recomputed for every output chunk by the same arithmetic, so the
-// chunks see the same values. dq is summed across the cluster one output
-// chunk at a time. One launch, with flash_bwd_fma's plan, warp-owned query
-// rows and hash coordinates.
-
-constexpr int kWide = fv::kMaxD;
-
-// Byte offsets (rows: fma_rows(q_chunk)): q and dO column chunks, a tile's
-// K chunk, its V chunk and mask, lse, delta, p and ds, the pushed dq.
-struct FmaWideBwdLayout {
-  size_t dos, ks, vs, lse, del, pd, rdq, total;
-  __host__ __device__ explicit FmaWideBwdLayout(int rows) {
-    constexpr size_t P = kWide + 4;
-    dos = sizeof(float) * (size_t)rows * P;
-    ks = dos + sizeof(float) * (size_t)rows * P;
-    vs = ks + sizeof(float) * fv::kKeys * P;
-    lse = vs + sizeof(float) * (fv::kKeys * P + fv::kKeys);
-    del = lse + sizeof(float) * rows;
-    pd = del + sizeof(float) * rows;  // [pd, ds][row][key]
-    rdq = pd + sizeof(float) * 2 * (size_t)rows * fv::kKeys;
-    total = rdq + sizeof(float) * ((size_t)rows * kWide + tc::kMaxCluster);
-  }
-};
-
-int fma_bwd_wide_max_queries() {
-  for (int rows = fv::kGroup; rows > 0; rows -= tc::kWarps)
-    if (FmaWideBwdLayout(rows).total <= tc::kMaxSmem) return rows;
-  return 0;
-}
-
-// The key loop of one query chunk and output chunk [c0, c0 + kWide) for a
-// warp that owns NS of its rows, then the push of its partial dq.
-template <typename T, int NS>
-__device__ __forceinline__ void bwd_wide_chunk(const FmaParams& p, float* qs, float* dos,
-                                               float* ks, float* vs, const float* lse_s,
-                                               const float* del_s, float* pd, float* rdq,
-                                               const T* q, const T* dout, const T* k, const T* v,
-                                               const float* mask, T* dk, T* dv, float* dk_acc,
-                                               float* dv_acc, int row, int q0c, int nq, int rows,
-                                               int c0, int kv_begin, int kv_end, int ntiles,
-                                               int rank, int csize, bool first, bool last) {
-  constexpr int KT = fv::kKeys, P = kWide + 4, CPL = kWide / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dc = min(kWide, p.d - c0), s_last = (p.d - 1) / kWide * kWide;
-  float* ds = pd + rows * KT;
-  float dqa[NS > 0 ? NS : 1][CPL];
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) dqa[s][i] = 0.f;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = kv_begin + it * KT;
-    float sd[2][NS > 0 ? NS : 1];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) sd[0][s] = sd[1][s] = 0.f;
-    for (int s0 = 0; s0 < p.d; s0 += kWide) {
-      const int w = min(kWide, p.d - s0);
-      // every warp is done with the chunks (and with the last tile's pd, ds)
-      __syncthreads();
-      fv::load_rows_f32<kWide, T>(qs, q + s0, p.q_st, q0c, rows, q0c + nq, w, tid);
-      fv::load_rows_f32<kWide, T>(dos, dout + s0, p.o_st, q0c, rows, q0c + nq, w, tid);
-      fv::load_rows_f32<kWide, T>(ks, k + s0, p.k_st, k0, KT, kv_end, w, tid);
-      fv::load_rows_f32<kWide, T>(vs, v + s0, p.v_st, k0, KT, kv_end, w, tid);
-      if (s0 == 0 && tid < KT) {
-        const int kt = k0 + tid;
-        vs[KT * P + tid] = kt >= kv_end ? 0.f : mask != nullptr ? mask[kt] : 1.f;
-      }
-      __syncthreads();
-      if constexpr (NS > 0) {
-        float part[2][NS];
-        fv::tile_dots<kWide, NS, 2>(part, qs, dos, ks, vs, warp, lane);
-#pragma unroll
-        for (int s = 0; s < NS; ++s) sd[0][s] += part[0][s], sd[1][s] += part[1][s];
-      }
-    }
-    if constexpr (NS > 0) {
-      const float mkv = vs[KT * P + lane];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int r = warp + tc::kWarps * s;
-        const float x = sd[0][s] * p.scale + (mkv - 1.f) * 1e30f;
-        const float pr = __expf(x - lse_s[r]) * mkv;
-        float e = 1.f;
-        if (p.dropout)
-          e = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
-                                 p.threshold)
-                  ? p.keep_scale
-                  : 0.f;
-        pd[r * KT + lane] = fv::round_to<T>(pr * e);
-        ds[r * KT + lane] = fv::round_to<T>(pr * (sd[1][s] * e - del_s[r]));
-      }
-    }
-    __syncthreads();  // pd and ds of every row; every warp is done with the chunks
-    if (s_last != c0) {  // the output chunk's columns of q, dO and K
-      fv::load_rows_f32<kWide, T>(qs, q + c0, p.q_st, q0c, rows, q0c + nq, dc, tid);
-      fv::load_rows_f32<kWide, T>(dos, dout + c0, p.o_st, q0c, rows, q0c + nq, dc, tid);
-      fv::load_rows_f32<kWide, T>(ks, k + c0, p.k_st, k0, KT, kv_end, dc, tid);
-      __syncthreads();
-    }
-    if constexpr (NS > 0) fv::tile_axpy<kWide, NS>(dqa, ds + warp * KT, tc::kWarps * KT, ks, lane);
-    dkdv_tile<T, kWide>(p, pd, ds, qs, dos, nq, k0, kv_end, dk, dv, dk_acc, dv_acc, first, last,
-                        c0, dc);
-  }
-  const int share = (nq * dc + csize - 1) / csize;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const int r = warp + tc::kWarps * s;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane * CPL + i;
-      if (c < dc) {
-        const int e = r * dc + c, owner = e / share;
-        tc::st_cluster(rdq + rank * share + e - owner * share, owner, dqa[s][i]);
-      }
-    }
-  }
-}
-
-// flash_bwd_fma for d > kWide: the same grid, plan and query chunks; each
-// chunk's dq is merged and written one output chunk at a time.
-template <typename T>
-__global__ void __launch_bounds__(tc::kThreads, 1) flash_bwd_fma_chunked(FmaParams p) {
-  constexpr int KT = fv::kKeys;
-  extern __shared__ __align__(16) unsigned char fma_smem[];
-  const int rows = fma_rows(p.q_chunk);
-  const FmaWideBwdLayout L(rows);
-  float* qs = reinterpret_cast<float*>(fma_smem);
-  float* dos = reinterpret_cast<float*>(fma_smem + L.dos);
-  float* ks = reinterpret_cast<float*>(fma_smem + L.ks);
-  float* vs = reinterpret_cast<float*>(fma_smem + L.vs);
-  float* lse_s = reinterpret_cast<float*>(fma_smem + L.lse);
-  float* del_s = reinterpret_cast<float*>(fma_smem + L.del);
-  float* pd = reinterpret_cast<float*>(fma_smem + L.pd);
-  float* rdq = reinterpret_cast<float*>(fma_smem + L.rdq);
-
-  tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
-  const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const float* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
-  T* dk = static_cast<T*>(p.dk) + (size_t)row * p.lkv * p.d;
-  T* dv = static_cast<T*>(p.dv) + (size_t)row * p.lkv * p.d;
-  const int kv_begin = rank * p.keys_per_cta;
-  const int kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
-  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
-  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)row * p.lkv * p.d : nullptr;
-  float* dv_acc = p.dkv_acc ? dk_acc + (size_t)gridDim.y * p.lkv * p.d : nullptr;
-
-  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
-    const int q0c = chunk * p.q_chunk, nq = min(p.q_chunk, p.lq - q0c);
-    const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
-    // lse and delta once per chunk (seen after the first barrier of the
-    // key loop; the last barrier of the chunk before protects them)
-    for (int i = tid; i < rows; i += tc::kThreads) {
-      lse_s[i] = i < nq ? p.lse[(size_t)row * p.lq + q0c + i] : 0.f;
-      del_s[i] = i < nq ? p.delta[(size_t)row * p.lq + q0c + i] : 0.f;
-    }
-    const int ns = fv::slots_of(warp, nq);
-    for (int c0 = 0; c0 < p.d; c0 += kWide) {
-#define BWD_WIDE(NS)                                                                          \
-  bwd_wide_chunk<T, NS>(p, qs, dos, ks, vs, lse_s, del_s, pd, rdq, q, dout, k, v, mask, dk, dv, \
-                        dk_acc, dv_acc, row, q0c, nq, rows, c0, kv_begin, kv_end, ntiles, rank,  \
-                        csize, first, last)
-      switch (ns) {
-        case 0: BWD_WIDE(0); break;
-        case 1: BWD_WIDE(1); break;
-        case 2: BWD_WIDE(2); break;
-        case 3: BWD_WIDE(3); break;
-        default: BWD_WIDE(4); break;
-      }
-#undef BWD_WIDE
-      cluster.sync();
-      // the chunk's dq columns [c0, c0 + dc): the parts added in rank order
-      const int dc = min(kWide, p.d - c0), ne = nq * dc, share = (ne + csize - 1) / csize;
-      T* dq = static_cast<T*>(p.dq) + ((size_t)row * p.lq + q0c) * p.d + c0;
-      for (int e = rank * share + tid; e < min(ne, (rank + 1) * share); e += tc::kThreads) {
-        float a = 0.f;
-        for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
-        const int r = e / dc, c = e - r * dc;
-        dq[(size_t)r * p.d + c] = fv::from_float<T>(a * p.scale);
-      }
-      // before the next chunk pushes (or overwrites lse and delta), every
-      // block is done reading this one's
-      if (c0 + kWide < p.d || !last) cluster.sync();
-    }
   }
 }
 
@@ -976,8 +767,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
 // The most queries a chunk of the FMA backward holds at head dim d (0 for
 // d < 1).
 extern "C" int healnet_flash_bwd_max_queries(int d) {
-  if (d < 1) return 0;
-  if (d > fv::kMaxD) return fma_bwd_wide_max_queries();
+  if (d < 1 || d > fv::kMaxD) return 0;
   return fv::with_dp32(d, [](auto dp) -> int {
     return fma_bwd_max_queries<float, decltype(dp)::value>();
   });
@@ -992,24 +782,13 @@ cudaError_t launch_fma_bwd(FmaParams p, int cluster, int rows, cudaStream_t s) {
                               FmaBwdLayout<T, DP>(p.stages, fma_rows(p.q_chunk)).total, s);
 }
 
-template <typename T>
-cudaError_t launch_fma_bwd_wide(FmaParams p, int cluster, int rows, cudaStream_t s) {
-  p.stages = 0;
-  return tc::launch_clustered(flash_bwd_fma_chunked<T>, p, cluster, rows,
-                              FmaWideBwdLayout(fma_rows(p.q_chunk)).total, s);
-}
-
 }  // namespace
 
 // Clusters of `cluster` blocks of the FMA backward (query chunk lq) the
 // card holds at once (-1 where the query fails, or for bf16 heads the
 // tensor cores take).
 extern "C" int healnet_flash_bwd_fma_max_clusters(int lq, int d, int is_bf16, int cluster) {
-  if (d > fv::kMaxD)
-    return is_bf16 ? tc::max_active_clusters(flash_bwd_fma_chunked<__nv_bfloat16>, cluster,
-                                             FmaWideBwdLayout(fma_rows(lq)).total)
-                   : tc::max_active_clusters(flash_bwd_fma_chunked<float>, cluster,
-                                             FmaWideBwdLayout(fma_rows(lq)).total);
+  if (d > fv::kMaxD) return -1;
   return fv::with_dp32(d, [&](auto dp) -> int {
     constexpr int DP = decltype(dp)::value;
     using B = __nv_bfloat16;
@@ -1034,7 +813,8 @@ extern "C" int healnet_flash_backward(
     long long o_sh, long long o_st, long long mask_sb, float scale, int dropout,
     unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  if (d < 1 || (is_bf16 && d <= 128) || q_chunk < 1 || q_chunk > fv::kGroup)
+  if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128) || q_chunk < 1 ||
+      q_chunk > fv::kGroup)
     return (int)cudaErrorInvalidValue;
   FmaParams p;
   p.q = q;
@@ -1074,9 +854,6 @@ extern "C" int healnet_flash_backward(
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (d > fv::kMaxD)
-    return static_cast<int>(is_bf16 ? launch_fma_bwd_wide<__nv_bfloat16>(p, cluster, B * H, s)
-                                    : launch_fma_bwd_wide<float>(p, cluster, B * H, s));
   return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;
     if (!is_bf16) return launch_fma_bwd<float, DP>(p, cluster, B * H, s);

@@ -1,12 +1,14 @@
-// Flash cross-attention, forward and backward, for heads of 257-512
+// Flash cross-attention, forward and backward, for heads wider than 256
 // channels: one pass over a block's keys per query group, each tile's
-// scores taken once over the whole head, bf16 on tensor cores.
+// scores taken once, bf16 on tensor cores. Heads of 257-512 sit in one block
+// (the "wide" kernels); wider heads are split by columns into panels over
+// the blocks of a thread-block cluster (the "panel" kernels: the same
+// kernels compiled with the exchange of partial scores between panels).
 //
 // Replaces: healnet_tpu/ops/flash_attention.py::_fwd_kernel (:98) and
 // ::_bwd_kernel (:201) for heads wider than the one-pass kernels of
 // flash_attention.cu / flash_attention_bwd.cu take (256). The Pallas kernels
-// take any head dim; heads wider than kMaxD here keep the column-chunked
-// flash_fwd_fma_chunked / flash_bwd_fma_chunked of those files. The wrapper
+// take any head dim, and so do these. The wrapper
 // (ops/flash_attention.py::flash_variant) picks the route from the dtype and
 // d before the launch.
 //
@@ -30,15 +32,11 @@
 // f32, 21 MB in bf16) and q, writes out and the log-sum-exp: 0.0251 ms (f32)
 // / 0.0126 ms (bf16) at 3.35 TB/s, against 0.18 GFLOP (2.7 us of f32 FMA,
 // 0.2 us of bf16 tensor-core time). The backward also reads dO and writes
-// dk and dv: 0.0502 / 0.0251 ms. Bytes bound both.
+// dk and dv: 0.0502 / 0.0251 ms. At d 576 the bytes scale with d: 0.0453 /
+// 0.0226 ms forward, 0.0904 / 0.0452 backward. Bytes bound all of them.
 //
-// What the chunked kernels did, and what this design does about it. They
-// loop over 256-column output chunks and, inside each, walk every tile
-// again, summing the scores over every column chunk (two passes over K and
-// two sets of score FMAs at d 320), reload the group's q from device memory
-// for every tile, load K and V with synchronous thread loads (no ring, one
-// block an SM, nothing hides the latency), widen bf16 to f32 on the CUDA
-// cores, and merge the cluster once per output chunk. Here:
+// One block (heads of 257-512). A block owns a range of keys and the whole
+// head:
 //   - the group's q rows (and in the backward dO, lse, delta) are staged in
 //     shared memory once per group, over the whole head;
 //   - K and V stream once through a cp.async ring of 16-byte hull copies
@@ -65,12 +63,45 @@
 //   - the cluster merges once per query group, as flash_fwd_fma does; where
 //     the ring and the pushed states do not both fit, the pushed states alias
 //     the ring behind one more cluster barrier.
+//
+// Panels (heads past 512). A block holds q, K, V, dO and the accumulators
+// of kMaxD columns at most, so a wider head is split into N panels of
+// balanced width (whole kAlign units, the last clipped to d; at d 576, two
+// of 288). A cluster is P panels x S key ranges (rank = range * P + panel,
+// P * S <= 16): block (panel i, range j) does the one-block kernel's work on
+// panel i's columns of range j's keys, K and V read once. A tile's scores
+// need the whole head, so each block writes its partial q_i K_i^T (in the
+// backward also dO_i V_i^T) into the same slot of every panel peer's shared
+// memory with st.async, which completes on the peer's mbarrier (one a tile
+// parity: the slots are double-buffered, and a peer can only write a tile's
+// slot after this block has read the slot two tiles back, since it first
+// waits for this block's partial of the tile between); each block then sums
+// the P partials in panel order 0..P-1, so every panel holds the same bits
+// of the scores, and with them the same softmax state, p, dropout keep and
+// log-sum-exp (written by panel 0 alone). The rest is per panel: the output
+// (and dq) merged over the panel's key ranges in range order, dk and dv of
+// the panel's columns finished per tile by the block. No whole-cluster
+// barrier per tile. In bf16 the ring's K and V rows come as one bulk copy a
+// row on an mbarrier a stage (stage_kv), in f32 as the threads' copies.
+//
+// Past kMaxPanels panels (d > 3072; 2880 in the bf16 backward, whose panels
+// stop at 480 columns: ops/flash_attention.py::flash_panels) the exchange
+// slots no longer fit beside a 512-wide panel, and the head takes T passes
+// of P <= kMaxPanels panels: first T score passes, each tile's partials
+// summed over the pass's panels as above and added, in pass order, to a
+// scores scratch in device memory (the wrapper's; (B*H, lq, lkv) f32, twice
+// in the backward: s and dp) by panel 0's block, then T output passes that
+// take the tile's scores from the scratch (every pass stages its panel's K
+// and V, so they are read twice: a rare shape, held on the card at small
+// sizes). Any d.
+//
 // Tiles: 32 keys for bf16 (one a lane in the softmax), 16 for f32 (a lane
 // takes one key over half the head, the halves added by a shuffle). Stages
 // and the backward's query chunk are sized from shared memory. One block an
 // SM (the head's accumulators take up to 64 registers a thread; 8 warps, 16
-// in the f32 backward), so the plan's clusters take any size up to 16: 9 at
-// 8 rows, where clusters of 10-16 are resident only 7 at a time.
+// in the f32 backward), so the plan's clusters take any size up to 16 (a
+// multiple of P): 9 at 8 rows for one panel, where clusters of 10-16 are
+// resident only 7 at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +109,7 @@
 
 #include "flash_tc.cuh"
 #include "hash_dropout.cuh"
+#include "hopper.cuh"
 
 #ifndef WIDE_PHASE  // clock64 phase markers of scripts/profile_flash_phases.py
 #define WIDE_PHASE(k)
@@ -89,12 +121,19 @@ namespace {
 
 namespace tc = healnet::tc;
 namespace fv = healnet::tc::fmav;
+namespace hp = healnet::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxD = 512;   // the widest head these kernels take
-constexpr int kGroup = 32;   // queries a block holds at once: two m16 tiles
+constexpr int kMaxD = 512;      // the widest head (or panel) a block takes
+constexpr int kMaxPanels = 6;   // panels of one pass: their slots fit at 512
+constexpr int kGroup = 32;      // queries a block holds at once: two m16 tiles
 constexpr int kMaxCpl = kMaxD / 32;  // columns lane + 32 i a lane owns (f32)
 constexpr float kNegBig = tc::kNegBig;
+
+// What a pass over the keys does: everything (one pass), or, where the head
+// takes several passes, sum its panels' partial scores into the scratch, or
+// take the scores from it
+enum Mode { kFused, kScore, kOutput };
 
 // Warps a block: 8, and 16 for the f32 backward, whose dk and dv products
 // split over more warps (two query rows a warp, at most 128 registers a
@@ -107,16 +146,17 @@ constexpr int kMaxNt = kMaxD / 8 / kWarps;  // n8 column tiles a warp owns (bf16
 // Per dtype: keys a tile, the multiple the head pads to, the row pitch's
 // padding (a row of DP + kPad elements is a whole number of 16-byte chunks,
 // odd in 16-byte units, and one more chunk than the padded head: a row's
-// 16-byte hull fits its slot).
+// 16-byte hull fits its slot), and the pitch of a query row of a tile's
+// scores in an exchange slot.
 template <typename T>
 struct Wide;
 template <>
 struct Wide<bf16> {
-  static constexpr int kKeys = 32, kAlign = 16, kPad = 8;
+  static constexpr int kKeys = 32, kAlign = 16, kPad = 8, kXPitch = kKeys + 4;
 };
 template <>
 struct Wide<float> {
-  static constexpr int kKeys = 16, kAlign = 32, kPad = 4;
+  static constexpr int kKeys = 16, kAlign = 32, kPad = 4, kXPitch = kKeys;
 };
 
 __host__ __device__ inline int pad_dim(int d, int align) {
@@ -136,13 +176,32 @@ __host__ __device__ inline size_t stage_bytes(int dp) {
 
 __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
+// Floats of an exchange slot: a panel's partial scores of a tile for `rows`
+// queries (the backward's s, then its dp).
+template <typename T>
+__host__ __device__ inline int slot_floats(int rows, bool bwd) {
+  return (bwd ? 2 : 1) * rows * Wide<T>::kXPitch;
+}
+
+// Bytes of the panel kernels' exchange (16-aligned): six mbarriers (two for
+// the exchange, one a tile parity; four for the ring's stages), then a slot
+// for each tile parity and panel; none for the one-panel kernels.
+constexpr int kXchgHead = 48;
+template <typename T>
+__host__ __device__ inline size_t xchg_bytes(int rows, bool bwd, int panels) {
+  return panels > 1 ? kXchgHead + sizeof(float) * 2 * panels * (size_t)slot_floats<T>(rows, bwd)
+                    : 0;
+}
+
 // Byte offsets of the forward's shared memory: the ring at 0, the cluster's
 // pushed acc (racc; at 0 where it aliases the ring), the group's q rows, the
-// scores (bf16 only), p, the rows' softmax corrections and the pushed (m, l).
+// scores (bf16 with one panel: panels sum them in the exchange's slots), p,
+// the rows' softmax corrections, the pushed (m, l), and the panels'
+// exchange.
 template <typename T>
 struct FwdLayout {
-  size_t racc, qs, sc, ps, corr, rm, rl, total;
-  __host__ __device__ FwdLayout(int dp, int stages, bool alias) {
+  size_t racc, qs, sc, ps, corr, rm, rl, xb, total;
+  __host__ __device__ FwdLayout(int dp, int stages, bool alias, int panels) {
     constexpr int KT = Wide<T>::kKeys;
     constexpr bool kTc = sizeof(T) == 2;
     const size_t ring = stages * stage_bytes<T>(dp);
@@ -150,22 +209,24 @@ struct FwdLayout {
     racc = alias ? 0 : ring;
     qs = alias ? max_sz(ring, acc) : ring + acc;
     sc = qs + kGroup * row_bytes<T>(dp);
-    ps = sc + (kTc ? sizeof(float) * kGroup * (KT + 4) : 0);
+    ps = sc + (kTc && panels == 1 ? sizeof(float) * kGroup * (KT + 4) : 0);
     corr = ps + (kTc ? sizeof(bf16) * kGroup * (KT + 8) : sizeof(float) * kGroup * KT);
     rm = corr + sizeof(float) * kGroup;
     rl = rm + sizeof(float) * tc::kMaxCluster * kGroup;
-    total = rl + sizeof(float) * tc::kMaxCluster * kGroup;
+    const size_t end = rl + sizeof(float) * tc::kMaxCluster * kGroup;
+    xb = panels > 1 ? tc::align16(end) : end;
+    total = xb + xchg_bytes<T>(kGroup, false, panels);
   }
 };
 
 // Byte offsets of the backward's shared memory (rows: chunk_rows of the
 // query chunk): the ring at 0, the cluster's pushed dq (rdq; at 0 where it
-// aliases the ring), q, dO, lse, delta, and round(p e) and round(ds)
-// ([key][query] bf16 for the mma operands, [query][key] f32).
+// aliases the ring), q, dO, lse, delta, round(p e) and round(ds) ([key][query]
+// bf16 for the mma operands, [query][key] f32), and the panels' exchange.
 template <typename T>
 struct BwdLayout {
-  size_t rdq, qs, dos, lse, del, pd, total;
-  __host__ __device__ BwdLayout(int dp, int rows, int stages, bool alias) {
+  size_t rdq, qs, dos, lse, del, pd, xb, total;
+  __host__ __device__ BwdLayout(int dp, int rows, int stages, bool alias, int panels) {
     constexpr int KT = Wide<T>::kKeys;
     constexpr bool kTc = sizeof(T) == 2;
     const size_t ring = stages * stage_bytes<T>(dp);
@@ -176,9 +237,34 @@ struct BwdLayout {
     lse = dos + rows * row_bytes<T>(dp);
     del = lse + sizeof(float) * rows;
     pd = tc::align16(del + sizeof(float) * rows);
-    total = pd + (kTc ? 2 * sizeof(bf16) * KT * (rows + 8) : 2 * sizeof(float) * rows * KT);
+    const size_t end =
+        pd + (kTc ? 2 * sizeof(bf16) * KT * (rows + 8) : 2 * sizeof(float) * rows * KT);
+    xb = panels > 1 ? tc::align16(end) : end;
+    total = xb + xchg_bytes<T>(rows, true, panels);
   }
 };
+
+// A layout's byte offsets as the kernels take them: reckoned on the host and
+// passed in the params (reckoned in the kernel, they were rematerialized at
+// every use, 8 instructions each, at the cost of the one-block kernels' time).
+struct FwdOffsets {
+  uint32_t racc, qs, sc, ps, corr, rm, rl, xb;
+};
+struct BwdOffsets {
+  uint32_t rdq, qs, dos, lse, del, pd, xb;
+};
+
+template <typename T>
+FwdOffsets offsets(const FwdLayout<T>& l) {
+  return {(uint32_t)l.racc, (uint32_t)l.qs, (uint32_t)l.sc, (uint32_t)l.ps,
+          (uint32_t)l.corr, (uint32_t)l.rm, (uint32_t)l.rl, (uint32_t)l.xb};
+}
+
+template <typename T>
+BwdOffsets offsets(const BwdLayout<T>& l) {
+  return {(uint32_t)l.rdq, (uint32_t)l.qs, (uint32_t)l.dos, (uint32_t)l.lse,
+          (uint32_t)l.del, (uint32_t)l.pd, (uint32_t)l.xb};
+}
 
 // A kernel's ring depth and aliasing for its layout: the most stages (4 to
 // 2) beside separate pushed states, else the most behind which they alias
@@ -199,15 +285,26 @@ Plan pick_plan(Layout layout) {
 }
 
 template <typename T>
-Plan fwd_plan(int d) {
-  const int dp = pad_dim(d, Wide<T>::kAlign);
-  return pick_plan([dp](int s, bool a) { return FwdLayout<T>(dp, s, a); });
+Plan fwd_plan(int dp, int panels) {
+  return pick_plan([=](int s, bool a) { return FwdLayout<T>(dp, s, a, panels); });
 }
 
 template <typename T>
-Plan bwd_plan(int d, int rows) {
-  const int dp = pad_dim(d, Wide<T>::kAlign);
-  return pick_plan([dp, rows](int s, bool a) { return BwdLayout<T>(dp, rows, s, a); });
+Plan bwd_plan(int dp, int rows, int panels) {
+  return pick_plan([=](int s, bool a) { return BwdLayout<T>(dp, rows, s, a, panels); });
+}
+
+// kAlign units of a head of d columns, and the padded width of its widest
+// panel when split into panels * passes
+template <typename T>
+int head_units(int d) {
+  return (d + Wide<T>::kAlign - 1) / Wide<T>::kAlign;
+}
+
+template <typename T>
+int panel_dp(int d, int panels, int passes) {
+  const int n = panels * passes;
+  return (head_units<T>(d) + n - 1) / n * Wide<T>::kAlign;
 }
 
 // the backward's rows for a query chunk: bf16 pads to m16 tiles; f32 takes
@@ -226,19 +323,77 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
                : "memory");
 }
 
+// `p`'s place (in this block's shared memory) in block `rank`'s
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(tc::smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// A store into another block's shared memory that completes its bytes on
+// that block's mbarrier `bar` (both cluster addresses).
+__device__ __forceinline__ void st_async(uint32_t addr, float x, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "f"(x), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float x, float y, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(x), "f"(y), "r"(bar)
+      : "memory");
+}
+
+// One bulk asynchronous copy of `bytes` (a multiple of 16) from device
+// memory into this block's shared memory, both 16-byte aligned, completing
+// its bytes on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(tc::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
+      : "memory");
+}
+
 // Issue the copies of keys [k0, min(k0 + KT, kv_end)) of K and V and of
 // their mask values into ring stage `st`: stage row r is K (r < KT) or V of
 // key k0 + r % KT, copied as the 16-byte chunks that hold part of it (its
 // 16-byte-aligned hull; a chunk holding one byte of the row lies in the
 // row's page, so the hull never faults), at pitch row_bytes<T>(dp). A warp
-// takes a row, its lanes consecutive chunks.
-template <typename T, int NW>
-__device__ __forceinline__ void stage_kv(char* st, const T* k, long long k_st, const T* v,
-                                         long long v_st, const float* mask, int k0, int kv_end,
-                                         int d, int dp, int tid) {
+// takes a row, its lanes consecutive chunks; in the bf16 panel kernels
+// (kBulk) thread r < 2 KT takes row r as one bulk copy on the stage's
+// mbarrier `bar` (its arrival expecting the row's bytes), so that K and V
+// land without the threads' 16-byte copies, whose issue took 30% of the
+// bf16 forward's time (-11% at d 576; the f32 panels, whose issue took
+// 13%, lost 2-7% to the ring's barriers and spills, and keep the copies).
+template <typename T, int NW, bool kBulk>
+__device__ __forceinline__ void stage_kv(char* st, uint64_t* bar, const T* k, long long k_st,
+                                         const T* v, long long v_st, const float* mask, int k0,
+                                         int kv_end, int d, int dp, int tid) {
   constexpr int KT = Wide<T>::kKeys;
   const int rb = (int)row_bytes<T>(dp), lane = tid & 31;
-  for (int r = tid >> 5; r < 2 * KT; r += NW) {
+  if constexpr (kBulk) {
+    if (tid < 2 * KT) {
+      const int key = k0 + (tid & (KT - 1));
+      uint32_t bytes = 0;
+      uintptr_t row = 0;
+      if (key < kv_end) {
+        row = reinterpret_cast<uintptr_t>(tid < KT ? k + key * k_st : v + key * v_st);
+        bytes = (uint32_t)(((row & 15) + sizeof(T) * (uintptr_t)d + 15) & ~uintptr_t(15));
+      }
+      hp::mbar_expect_tx(bar, bytes);
+      if (bytes > 0)
+        bulk_load(st + (size_t)tid * rb, reinterpret_cast<const void*>(row & ~uintptr_t(15)),
+                  bytes, bar);
+    }
+  }
+  for (int r = tid >> 5; !kBulk && r < 2 * KT; r += NW) {
     const int key = k0 + (r & (KT - 1));
     if (key >= kv_end) continue;
     const uintptr_t row = reinterpret_cast<uintptr_t>(r < KT ? k + key * k_st : v + key * v_st);
@@ -354,6 +509,18 @@ __device__ __forceinline__ float keep(uint32_t seed, int row, int q, int kv, uin
                                                                                          : 0.f;
 }
 
+// The passes over the keys a query group (or chunk) takes, and what pass
+// `pass` does: one fused pass, or T score passes then T output passes.
+template <typename Params>
+__device__ __forceinline__ int passes_of(const Params& p) {
+  return p.passes > 1 ? 2 * p.passes : 1;
+}
+
+template <typename Params>
+__device__ __forceinline__ int mode_of(const Params& p, int pass) {
+  return p.passes == 1 ? kFused : pass < p.passes ? kScore : kOutput;
+}
+
 // ------------------------------------------------------------------ forward
 
 struct FwdParams {
@@ -363,7 +530,9 @@ struct FwdParams {
   const float* mask;  // (B, lkv) or null
   void* out;          // (B, lq, H, d)
   float* lse;         // (B*H, lq)
-  int H, lq, lkv, d, keys_per_cta, stages, alias;
+  float* scores;      // (B*H, lq, lkv) f32 where passes > 1, else null
+  FwdOffsets off;     // the shared-memory layout
+  int H, lq, lkv, d, dp, panels, passes, units, keys_per_cta, stages, alias;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
@@ -371,76 +540,179 @@ struct FwdParams {
   float keep_scale;
 };
 
-// Push a row's (m, l) to every block of the cluster (lanes < csize of the
-// row's warp).
-__device__ __forceinline__ void push_ml(float* rm, float* rl, int rank, int csize, int r, float m,
-                                        float l, int lane) {
-  if (lane < csize) {
-    tc::st_cluster(rm + rank * kGroup + r, lane, m);
-    tc::st_cluster(rl + rank * kGroup + r, lane, l);
-  }
-}
-
-// Push acc of output element e = r d + c to the block that owns e (rank
-// e / share).
-__device__ __forceinline__ void push_elem(float* buf, int rank, int share, int e, float x) {
-  const int owner = e / share;
-  tc::st_cluster(buf + rank * share + e - owner * share, owner, x);
-}
-
-// This block's share of the group's output, after the cluster barrier: the
-// blocks' (m, l, acc) merged in rank order from its own shared memory, and
-// the log-sum-exp.
-template <typename T, int NW>
-__device__ __forceinline__ void merge_out(const FwdParams& p, const float* rm, const float* rl,
-                                          const float* racc, int rank, int csize, int row, int b,
-                                          int h, int g0, int nq) {
-  const int ne = nq * p.d, share = (ne + csize - 1) / csize;
-  T* out = static_cast<T*>(p.out);
-  for (int e = rank * share + threadIdx.x; e < min(ne, (rank + 1) * share);
-       e += 32 * NW) {
-    const int r = e / p.d, c = e - r * p.d;
-    float mx = kNegBig;
-    for (int j = 0; j < csize; ++j) mx = fmaxf(mx, rm[j * kGroup + r]);
-    float a = 0.f, ls = 0.f;
-    for (int j = 0; j < csize; ++j) {
-      const float f = expf(rm[j * kGroup + r] - mx);
-      a += racc[j * share + e - rank * share] * f;
-      ls += rl[j * kGroup + r] * f;
-    }
-    const float lc = fmaxf(ls, 1e-30f);
-    out[((size_t)(b * p.lq + g0 + r) * p.H + h) * p.d + c] = fv::from_float<T>(a / lc);
-    if (c == 0) p.lse[(size_t)row * p.lq + g0 + r] = mx + logf(lc);
-  }
-}
-
 // What every kernel of this file knows of its block: its cluster rank, its
-// batch*head row, its keys and tiles.
-template <typename T>
+// panel and key range, its batch*head row, its keys and tiles, and the
+// columns of the panel it is on. Without panels (kP false) the panel is the
+// head: pan 0, the range the rank, columns [0, d), all known to the compiler.
+template <typename T, bool kP>
 struct Block {
-  int rank, csize, row, b, h, kv_begin, kv_end, ntiles;
-  // K and V rows start on 16 bytes and fill their padded width: a landed
-  // whole tile is already aligned, zero-padded tiles
+  int rank, pan, kr, nkr, row, b, h, kv_begin, kv_end, ntiles;
+  int c0, wd;  // the panel's columns [c0, c0 + wd) of the head
+  // the panel's K and V rows start on 16 bytes and fill their padded width:
+  // a landed whole tile is already aligned, zero-padded tiles
   bool aligned;
-  const T *q, *k, *v;
+  const T *q, *k, *v;  // the panel's first column
   const float* mask;
+  uint64_t* rbar;  // bf16 panels: the ring stages' mbarriers (K and V rows by bulk copies)
+  uint32_t rphase;  // bf16 panels: each stage's phase parity, a bit a stage
   template <typename Params>
   __device__ Block(const Params& p, const tc::cg::cluster_group& cluster) {
-    rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+    rbar = nullptr, rphase = 0u;
+    rank = (int)cluster.block_rank();
+    if constexpr (kP) {
+      pan = rank % p.panels, kr = rank / p.panels, nkr = (int)cluster.num_blocks() / p.panels;
+    } else {
+      pan = 0, kr = rank, nkr = (int)cluster.num_blocks();
+    }
     row = blockIdx.y, b = row / p.H, h = row - b * p.H;
-    q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-    v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
     mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
-    kv_begin = rank * p.keys_per_cta;
+    kv_begin = kr * p.keys_per_cta;
     kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
     constexpr int KT = Wide<T>::kKeys;
     ntiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
+    panel(p, 0);
+  }
+  // Onto panel t * panels + pan of the head's panels * passes: its kAlign
+  // units [n u / N, (n + 1) u / N), the last clipped to d.
+  template <typename Params>
+  __device__ void panel(const Params& p, int t) {
+    constexpr int A = Wide<T>::kAlign;
+    if constexpr (kP) {
+      const int n = p.panels * p.passes, idx = t * p.panels + pan;
+      c0 = idx * p.units / n * A;
+      wd = min(p.d, (idx + 1) * p.units / n * A) - c0;
+    } else {
+      c0 = 0, wd = p.d;
+    }
+    q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + c0;
+    k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + c0;
+    v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + c0;
     aligned = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
               ((p.k_st * sizeof(T)) & 15) == 0 && ((p.v_st * sizeof(T)) & 15) == 0 &&
-              p.d % Wide<T>::kAlign == 0;
+              (kP ? wd == p.dp : wd % A == 0);
+  }
+  // the block of key range j on this block's panel
+  __device__ int peer(int j, int panels) const { return j * panels + pan; }
+};
+
+// The exchange of partial scores between a key range's panel blocks: two
+// mbarriers (one a tile parity), the slots [parity][panel][floats], and the
+// tiles exchanged so far (every thread counts them).
+struct Xchg {
+  uint64_t* bar;
+  float* xs;
+  int slot;
+  uint32_t tick;
+  __device__ float* at(int parity, int panel, int panels) const {
+    return xs + (parity * panels + panel) * slot;
   }
 };
+
+// The exchange at `base`, its barriers initialised before any peer can
+// write to it (one cluster barrier), and the block's ring barriers (each
+// stage's, arrived at by the 2 KT threads that copy its rows; used by the
+// bf16 kernels). Nothing where there is one panel.
+template <bool kPanels, typename T, bool kP>
+__device__ __forceinline__ Xchg make_xchg(unsigned char* base, int slot, Block<T, kP>& blk,
+                                          tc::cg::cluster_group& cluster) {
+  Xchg x{reinterpret_cast<uint64_t*>(base), reinterpret_cast<float*>(base + kXchgHead), slot, 0u};
+  if constexpr (kPanels) {
+    blk.rbar = x.bar + 2;
+    if (threadIdx.x == 0) {
+      hp::mbar_init(&x.bar[0], 1);
+      hp::mbar_init(&x.bar[1], 1);
+      for (int s = 0; s < 4; ++s) hp::mbar_init(&blk.rbar[s], 2 * Wide<T>::kKeys);
+      hp::mbar_init_fence();
+    }
+    cluster.sync();
+  }
+  return x;
+}
+
+// x (and y) at `loc`, an address in this block's slot of the tile, here and
+// at the same place in every panel peer of its key range, completing there
+// on the tile's barrier `bar`.
+template <typename T, bool kP>
+__device__ __forceinline__ void share(const Block<T, kP>& blk, int panels, float* loc,
+                                      const uint64_t* bar, float x) {
+  *loc = x;
+  for (int i = 0; i < panels; ++i)
+    if (i != blk.pan) {
+      const int r = blk.kr * panels + i;
+      st_async(cluster_addr(loc, r), x, cluster_addr(bar, r));
+    }
+}
+
+template <typename T, bool kP>
+__device__ __forceinline__ void share(const Block<T, kP>& blk, int panels, float* loc,
+                                      const uint64_t* bar, float x, float y) {
+  *reinterpret_cast<float2*>(loc) = make_float2(x, y);
+  for (int i = 0; i < panels; ++i)
+    if (i != blk.pan) {
+      const int r = blk.kr * panels + i;
+      st_async(cluster_addr(loc, r), x, y, cluster_addr(bar, r));
+    }
+}
+
+// The tile's exchange has landed: wait for the phase of its parity.
+__device__ __forceinline__ void xchg_wait(Xchg& x) {
+  hp::mbar_wait(&x.bar[x.tick & 1], (x.tick >> 1) & 1);
+}
+
+// The sum of the panels' partials at float `off` of the tile's slots, in
+// panel order.
+__device__ __forceinline__ float panel_sum(const Xchg& x, int panels, int off) {
+  const int par = x.tick & 1;
+  float s = 0.f;
+  for (int i = 0; i < panels; ++i) s += x.at(par, i, panels)[off];
+  return s;
+}
+
+// Push a row's (m, l) to every block of this block's panel (lanes < nkr of
+// the row's warp), at this block's key range.
+template <typename T, bool kP>
+__device__ __forceinline__ void push_ml(float* rm, float* rl, const Block<T, kP>& blk, int panels,
+                                        int r, float m, float l, int lane) {
+  if (lane < blk.nkr) {
+    tc::st_cluster(rm + blk.kr * kGroup + r, blk.peer(lane, panels), m);
+    tc::st_cluster(rl + blk.kr * kGroup + r, blk.peer(lane, panels), l);
+  }
+}
+
+// Push the panel's acc (or dq) element e = r wd + c to its panel's block
+// that owns e (key range e / share).
+template <typename T, bool kP>
+__device__ __forceinline__ void push_elem(float* buf, const Block<T, kP>& blk, int panels,
+                                          int share, int e, float x) {
+  const int owner = e / share;
+  tc::st_cluster(buf + blk.kr * share + e - owner * share, blk.peer(owner, panels), x);
+}
+
+// This block's share of the group's output on its panel, after the cluster
+// barrier: the key ranges' (m, l, acc) merged in range order from its own
+// shared memory, and the log-sum-exp (by the head's first column alone).
+template <typename T, int NW, bool kP>
+__device__ __forceinline__ void merge_out(const FwdParams& p, const float* rm, const float* rl,
+                                          const float* racc, const Block<T, kP>& blk, int g0,
+                                          int nq) {
+  const int wd = blk.wd, ne = nq * wd, share = (ne + blk.nkr - 1) / blk.nkr;
+  T* out = static_cast<T*>(p.out);
+  for (int e = blk.kr * share + threadIdx.x; e < min(ne, (blk.kr + 1) * share); e += 32 * NW) {
+    const int r = e / wd, c = e - r * wd;
+    float mx = kNegBig;
+    for (int j = 0; j < blk.nkr; ++j) mx = fmaxf(mx, rm[j * kGroup + r]);
+    float a = 0.f, ls = 0.f;
+    for (int j = 0; j < blk.nkr; ++j) {
+      const float f = expf(rm[j * kGroup + r] - mx);
+      a += racc[j * share + e - blk.kr * share] * f;
+      ls += rl[j * kGroup + r] * f;
+    }
+    const float lc = fmaxf(ls, 1e-30f);
+    out[((size_t)(blk.b * p.lq + g0 + r) * p.H + blk.h) * p.d + blk.c0 + c] =
+        fv::from_float<T>(a / lc);
+    if (blk.c0 + c == 0) p.lse[(size_t)blk.row * p.lq + g0 + r] = mx + logf(lc);
+  }
+}
 
 // A landed ring stage, ready for the products: its K rows at 0, V rows
 // after them, its mask slot after those; `slot`: whether the slot holds the
@@ -458,20 +730,29 @@ struct Tile {
 // stores of a spent stage have read it), issues tile it + stages - 1 into
 // that stage, and unless the tile is whole and aligned (Block::aligned)
 // shifts it into aligned tiles and ends with a block barrier.
-template <typename T, int NW, typename Params>
-__device__ __forceinline__ Tile next_tile(const Params& p, const Block<T>& blk, char* ring,
-                                          int dp, int it) {
+template <typename T, int NW, typename Params, bool kP>
+__device__ __forceinline__ Tile next_tile(const Params& p, Block<T, kP>& blk, char* ring, int dp,
+                                          int it) {
   constexpr int KT = Wide<T>::kKeys;
   const int St = p.stages, tid = threadIdx.x, k0 = blk.kv_begin + it * KT;
   const size_t sb = stage_bytes<T>(dp);
+  constexpr bool kBulk = kP && sizeof(T) == 2;
+  // bulk copies: this thread's generic writes to a stage (its shift, staged
+  // dk and dv) ordered before the bulk copies that refill it
+  if constexpr (kBulk) tc::fence_proxy_async();
   tc::cp_async_wait(St - 2);
+  if constexpr (kBulk) {
+    hp::mbar_wait(&blk.rbar[it % St], (blk.rphase >> (it % St)) & 1u);
+    blk.rphase ^= 1u << (it % St);
+  }
   if (tid < KT) tc::bulk_wait_read();
   __syncthreads();
   WIDE_PHASE(2);
   const int nxt = it + St - 1;
   if (nxt < blk.ntiles)
-    stage_kv<T, NW>(ring + (nxt % St) * sb, blk.k, p.k_st, blk.v, p.v_st, blk.mask,
-                    blk.kv_begin + nxt * KT, blk.kv_end, p.d, dp, tid);
+    stage_kv<T, NW, kBulk>(ring + (nxt % St) * sb, kBulk ? blk.rbar + nxt % St : nullptr, blk.k,
+                           p.k_st, blk.v, p.v_st, blk.mask, blk.kv_begin + nxt * KT, blk.kv_end,
+                           blk.wd, dp, tid);
   tc::cp_async_commit();
   WIDE_PHASE(3);
   char* st = ring + (it % St) * sb;
@@ -479,40 +760,53 @@ __device__ __forceinline__ Tile next_tile(const Params& p, const Block<T>& blk, 
     WIDE_PHASE(4);
     return {st, blk.mask != nullptr};
   }
-  shift_stage<T, NW>(st, blk.k, p.k_st, blk.v, p.v_st, blk.mask != nullptr, k0, blk.kv_end, p.d,
-                     dp, tid);
+  shift_stage<T, NW>(st, blk.k, p.k_st, blk.v, p.v_st, blk.mask != nullptr, k0, blk.kv_end,
+                     blk.wd, dp, tid);
   __syncthreads();
   WIDE_PHASE(4);
   return {st, true};
 }
 
 // The first stages - 1 tiles of a pass over the block's keys, issued.
-template <typename T, int NW, typename Params>
-__device__ __forceinline__ void prime_ring(const Params& p, const Block<T>& blk, char* ring,
+// (Bulk copies: after every thread's generic writes to the ring, fenced,
+// are done: the copies write it through the async proxy.)
+template <typename T, int NW, typename Params, bool kP>
+__device__ __forceinline__ void prime_ring(const Params& p, const Block<T, kP>& blk, char* ring,
                                            int dp) {
   constexpr int KT = Wide<T>::kKeys;
+  constexpr bool kBulk = kP && sizeof(T) == 2;
   const size_t sb = stage_bytes<T>(dp);
+  if constexpr (kBulk) {
+    tc::fence_proxy_async();
+    __syncthreads();
+  }
   for (int s = 0; s < p.stages - 1; ++s) {
     if (s < blk.ntiles)
-      stage_kv<T, NW>(ring + s * sb, blk.k, p.k_st, blk.v, p.v_st, blk.mask,
-                      blk.kv_begin + s * KT, blk.kv_end, p.d, dp, threadIdx.x);
+      stage_kv<T, NW, kBulk>(ring + s * sb, kBulk ? blk.rbar + s : nullptr, blk.k, p.k_st, blk.v,
+                             p.v_st, blk.mask, blk.kv_begin + s * KT, blk.kv_end, blk.wd, dp,
+                             threadIdx.x);
     tc::cp_async_commit();
   }
 }
 
 // bf16 on tensor cores. Per 32-key tile: S = Q K^T with warp w on query
-// tile w / 4 and keys 8 (w % 4) .. + 7 (f32 scores into shared memory); the
-// online softmax of row r by warp r % 8, a key a lane (m and l in
-// registers; round(p e) into shared memory, the row's correction beside
-// it); then acc = acc * corr + P V on the warp's n8 column tiles
-// [w * ntw, (w + 1) * ntw) of every query tile, in registers across the
-// key loop.
+// tile w / 4 and keys 8 (w % 4) .. + 7 (f32 scores into shared memory: with
+// panels, into this block's exchange slot and its peers', then summed in
+// panel order); the online softmax of row r by warp r % 8, a key a lane (m
+// and l in registers; round(p e) into shared memory, the row's correction
+// beside it); then acc = acc * corr + P V on the warp's n8 column tiles
+// [w * ntw, (w + 1) * ntw) of every query tile, in registers across the key
+// loop.
+template <bool kPanels>
 __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p) {
   constexpr int KT = Wide<bf16>::kKeys, SP = KT + 4, PP = KT + 8, kThreads = 32 * kWarps;
   extern __shared__ __align__(16) unsigned char wide_smem[];
   WIDE_PHASE_INIT();
-  const int dp = pad_dim(p.d, 16), P = dp + 8, nt8 = dp / 8, ntw = (nt8 + kWarps - 1) / kWarps;
-  const FwdLayout<bf16> L(dp, p.stages, p.alias != 0);
+  // one panel: the head padded, as the host reckons p.dp, in a form the
+  // compiler knows to be a multiple of 16
+  const int dp = kPanels ? p.dp : pad_dim(p.d, 16), P = dp + 8, nt8 = dp / 8;
+  const int ntw = (nt8 + kWarps - 1) / kWarps, panels = kPanels ? p.panels : 1;
+  const FwdOffsets L = p.off;
   char* ring = reinterpret_cast<char*>(wide_smem);
   bf16* qs = reinterpret_cast<bf16*>(wide_smem + L.qs);
   float* sc = reinterpret_cast<float*>(wide_smem + L.sc);
@@ -523,133 +817,181 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p)
   float* racc = reinterpret_cast<float*>(wide_smem + L.racc);
 
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const Block<bf16> blk(p, cluster);
+  Block<bf16, kPanels> blk(p, cluster);
+  Xchg xg = make_xchg<kPanels>(wide_smem + L.xb, slot_floats<bf16>(kGroup, false), blk, cluster);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int n0 = warp * ntw;
+  const int n0 = warp * ntw, npass = kPanels ? passes_of(p) : 1;
 
   for (int g0 = 0; g0 < p.lq; g0 += kGroup) {
     const int nq = min(kGroup, p.lq - g0), nmt = (nq + 15) >> 4;
-    prime_ring<bf16, kWarps>(p, blk, ring, dp);
-    load_rows<bf16, kWarps>(qs, blk.q, p.q_st, g0, kGroup, p.lq, p.d, dp, tid);
-    for (int i = tid; i < kGroup * PP; i += kThreads) ps[i] = __float2bfloat16(0.f);
-    if (tid < kGroup) corr_s[tid] = 1.f;
-    float m[4], l[4], acc[2][kMaxNt][4];
+    for (int pass = 0; pass < npass; ++pass) {
+      const int mode = kPanels ? mode_of(p, pass) : kFused;
+      if constexpr (kPanels) blk.panel(p, pass % p.passes);
+      prime_ring<bf16, kWarps>(p, blk, ring, dp);
+      if (mode != kOutput)
+        load_rows<bf16, kWarps>(qs, blk.q, p.q_st, g0, kGroup, p.lq, blk.wd, dp, tid);
+      for (int i = tid; i < kGroup * PP; i += kThreads) ps[i] = __float2bfloat16(0.f);
+      if (tid < kGroup) corr_s[tid] = 1.f;
+      float m[4], l[4], acc[2][kMaxNt][4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) m[s] = kNegBig, l[s] = 0.f;
+      for (int s = 0; s < 4; ++s) m[s] = kNegBig, l[s] = 0.f;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < kMaxNt; ++i)
+        for (int i = 0; i < kMaxNt; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
-    WIDE_PHASE(1);
+          for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
+      WIDE_PHASE(1);
 
-    for (int it = 0; it < blk.ntiles; ++it) {
-      const Tile tile = next_tile<bf16, kWarps>(p, blk, ring, dp, it);
-      const bf16* ks = reinterpret_cast<const bf16*>(tile.st);
-      const bf16* vs = ks + KT * P;
-      const float* mk = reinterpret_cast<const float*>(tile.st + 2 * KT * sizeof(bf16) * P);
-      const int k0 = blk.kv_begin + it * KT;
-      {  // scores of the warp's 16 queries and 8 keys over the whole head
-        const int mt = warp >> 2, nk = (warp & 3) * 8;
-        if (mt < nmt) {
-          float s4[4] = {0.f, 0.f, 0.f, 0.f};
-          const bf16* qa_row = qs + (mt * 16 + (lane & 15)) * P + (lane >> 4) * 8;
-          const bf16* kb_row = ks + (nk + (lane & 7)) * P + ((lane >> 3) & 1) * 8;
+      for (int it = 0; it < blk.ntiles; ++it) {
+        const Tile tile = next_tile<bf16, kWarps>(p, blk, ring, dp, it);
+        const bf16* ks = reinterpret_cast<const bf16*>(tile.st);
+        const bf16* vs = ks + KT * P;
+        const float* mk = reinterpret_cast<const float*>(tile.st + 2 * KT * sizeof(bf16) * P);
+        const int k0 = blk.kv_begin + it * KT;
+        const bool exchange = kPanels && mode != kOutput;
+        if (mode != kOutput) {  // scores of the warp's 16 queries and 8 keys over the panel
+          if (exchange && tid == 0)
+            hp::mbar_expect_tx(&xg.bar[xg.tick & 1],
+                               (panels - 1) * nmt * 16 * KT * (int)sizeof(float));
+          const int mt = warp >> 2, nk = (warp & 3) * 8;
+          if (mt < nmt) {
+            float s4[4] = {0.f, 0.f, 0.f, 0.f};
+            const bf16* qa_row = qs + (mt * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+            const bf16* kb_row = ks + (nk + (lane & 7)) * P + ((lane >> 3) & 1) * 8;
 #pragma unroll 4
-          for (int kk = 0; kk < dp / 16; ++kk) {
-            uint32_t qa[4], kb[2];
-            tc::ldsm_x4(qa, qa_row + kk * 16);
-            ldsm_x2(kb, kb_row + kk * 16);
-            tc::mma_bf16(s4, qa, kb[0], kb[1]);
-          }
-          *reinterpret_cast<float2*>(sc + (mt * 16 + g) * SP + nk + 2 * t) =
-              make_float2(s4[0], s4[1]);
-          *reinterpret_cast<float2*>(sc + (mt * 16 + g + 8) * SP + nk + 2 * t) =
-              make_float2(s4[2], s4[3]);
-        }
-      }
-      __syncthreads();
-      WIDE_PHASE(5);
-      {  // online softmax of the warp's rows, one key a lane
-        const float mkv = tile.mask(mk, lane);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int r = warp + kWarps * s;
-          if (r < nq) {
-            const float x = sc[r * SP + lane] * p.scale + (mkv - 1.f) * 1e30f;
-            const float m_new = fmaxf(m[s], warp_max(x, 32)), corr = __expf(m[s] - m_new);
-            m[s] = m_new;
-            float pr = __expf(x - m_new) * mkv;
-            l[s] = l[s] * corr + pr;  // the lane's key; the warp sums at the end
-            if (p.dropout)
-              pr *= keep(p.seed, blk.row, g0 + r, k0 + lane, p.threshold, p.keep_scale);
-            ps[r * PP + lane] = __float2bfloat16(pr);
-            if (lane == 0) corr_s[r] = corr;
+            for (int kk = 0; kk < dp / 16; ++kk) {
+              uint32_t qa[4], kb[2];
+              tc::ldsm_x4(qa, qa_row + kk * 16);
+              ldsm_x2(kb, kb_row + kk * 16);
+              tc::mma_bf16(s4, qa, kb[0], kb[1]);
+            }
+            const int off = (mt * 16 + g) * SP + nk + 2 * t;
+            if constexpr (kPanels) {
+              float* own = xg.at(xg.tick & 1, blk.pan, panels);
+              share(blk, panels, own + off, &xg.bar[xg.tick & 1], s4[0], s4[1]);
+              share(blk, panels, own + off + 8 * SP, &xg.bar[xg.tick & 1], s4[2], s4[3]);
+            } else {
+              *reinterpret_cast<float2*>(sc + off) = make_float2(s4[0], s4[1]);
+              *reinterpret_cast<float2*>(sc + off + 8 * SP) = make_float2(s4[2], s4[3]);
+            }
           }
         }
-      }
-      __syncthreads();
-      WIDE_PHASE(6);
-      // acc = acc * corr + P V on the warp's column tiles
+        __syncthreads();
+        if (exchange) {
+          WIDE_PHASE(12);
+          xchg_wait(xg);
+        }
+        WIDE_PHASE(5);
+        {  // online softmax of the warp's rows, one key a lane
+          const float mkv = tile.mask(mk, lane);
+          const bool live = k0 + lane < blk.kv_end;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt < nmt) {
-          const float c0 = corr_s[mt * 16 + g], c1 = corr_s[mt * 16 + g + 8];
-#pragma unroll
-          for (int i = 0; i < kMaxNt; ++i) {
-            acc[mt][i][0] *= c0, acc[mt][i][1] *= c0;
-            acc[mt][i][2] *= c1, acc[mt][i][3] *= c1;
+          for (int s = 0; s < 4; ++s) {
+            const int r = warp + kWarps * s;
+            if (r < nq) {
+              float sv;
+              if constexpr (kPanels) {
+                float* held =
+                    mode == kFused
+                        ? nullptr
+                        : p.scores + ((size_t)blk.row * p.lq + g0 + r) * p.lkv + k0 + lane;
+                if (mode == kOutput) {
+                  sv = live ? *held : 0.f;
+                } else {
+                  sv = panel_sum(xg, panels, r * SP + lane);
+                  if (mode == kScore) {  // panel 0 adds the pass's sum to the scratch
+                    if (blk.pan == 0 && live) *held = (pass > 0 ? *held : 0.f) + sv;
+                    continue;
+                  }
+                }
+              } else {
+                sv = sc[r * SP + lane];
+              }
+              const float x = sv * p.scale + (mkv - 1.f) * 1e30f;
+              const float m_new = fmaxf(m[s], warp_max(x, 32)), corr = __expf(m[s] - m_new);
+              m[s] = m_new;
+              float pr = __expf(x - m_new) * mkv;
+              l[s] = l[s] * corr + pr;  // the lane's key; the warp sums at the end
+              if (p.dropout)
+                pr *= keep(p.seed, blk.row, g0 + r, k0 + lane, p.threshold, p.keep_scale);
+              ps[r * PP + lane] = __float2bfloat16(pr);
+              if (lane == 0) corr_s[r] = corr;
+            }
           }
+        }
+        if (exchange) ++xg.tick;
+        if (mode == kScore) continue;
+        __syncthreads();
+        WIDE_PHASE(6);
+        // acc = acc * corr + P V on the warp's column tiles
 #pragma unroll
-          for (int k16 = 0; k16 < KT / 16; ++k16) {
-            uint32_t pa[4];
-            tc::ldsm_x4(pa, ps + (mt * 16 + (lane & 15)) * PP + k16 * 16 + (lane >> 4) * 8);
-            const bf16* vrow = vs + (k16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P;
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < nmt) {
+            const float c0 = corr_s[mt * 16 + g], c1 = corr_s[mt * 16 + g + 8];
 #pragma unroll
             for (int i = 0; i < kMaxNt; ++i) {
-              const int n = n0 + i;
-              if (i < ntw && n < nt8) {
-                uint32_t vb[2];
-                tc::ldsm_x2_t(vb, vrow + n * 8);
-                tc::mma_bf16(acc[mt][i], pa, vb[0], vb[1]);
+              acc[mt][i][0] *= c0, acc[mt][i][1] *= c0;
+              acc[mt][i][2] *= c1, acc[mt][i][3] *= c1;
+            }
+#pragma unroll
+            for (int k16 = 0; k16 < KT / 16; ++k16) {
+              uint32_t pa[4];
+              tc::ldsm_x4(pa, ps + (mt * 16 + (lane & 15)) * PP + k16 * 16 + (lane >> 4) * 8);
+              const bf16* vrow = vs + (k16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P;
+#pragma unroll
+              for (int i = 0; i < kMaxNt; ++i) {
+                const int n = n0 + i;
+                if (i < ntw && n < nt8) {
+                  uint32_t vb[2];
+                  tc::ldsm_x2_t(vb, vrow + n * 8);
+                  tc::mma_bf16(acc[mt][i], pa, vb[0], vb[1]);
+                }
               }
             }
           }
         }
+        WIDE_PHASE(7);
       }
-      WIDE_PHASE(7);
-    }
-    tc::cp_async_wait(0);  // only empty groups are left
-    // where the pushed acc aliases the ring, every block of the cluster is
-    // done with its ring before any block pushes into it
-    if (p.alias) cluster.sync();
-    const int share = (nq * p.d + blk.csize - 1) / blk.csize;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int r = warp + kWarps * s;
-      if (r < nq) push_ml(rm, rl, blk.rank, blk.csize, r, m[s], warp_sum(l[s], 32), lane);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int i = 0; i < kMaxNt; ++i) {
-        const int n = n0 + i;
-        if (mt < nmt && i < ntw && n < nt8)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = mt * 16 + g + 8 * (e >> 1), c = n * 8 + 2 * t + (e & 1);
-            if (r < nq && c < p.d) push_elem(racc, blk.rank, share, r * p.d + c, acc[mt][i][e]);
-          }
+      tc::cp_async_wait(0);  // only empty groups are left
+      if (mode == kScore) {  // the scratch is whole once every panel 0 is done
+        if (pass == p.passes - 1)
+          cluster.sync();
+        else
+          __syncthreads();  // every warp is done with the ring and q before the next pass
+        continue;
       }
-    WIDE_PHASE(8);
-    cluster.sync();
-    WIDE_PHASE(9);
-    merge_out<bf16, kWarps>(p, rm, rl, racc, blk.rank, blk.csize, blk.row, blk.b, blk.h, g0, nq);
-    WIDE_PHASE(10);
-    // before the next group pushes, every block is done reading this one's
-    if (g0 + kGroup < p.lq) cluster.sync();
-    WIDE_PHASE(11);
+      // where the pushed acc aliases the ring, every block of the cluster is
+      // done with its ring before any block pushes into it
+      if (p.alias) cluster.sync();
+      const int share = (nq * blk.wd + blk.nkr - 1) / blk.nkr;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int r = warp + kWarps * s;
+        if (r < nq) push_ml(rm, rl, blk, panels, r, m[s], warp_sum(l[s], 32), lane);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < kMaxNt; ++i) {
+          const int n = n0 + i;
+          if (mt < nmt && i < ntw && n < nt8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = mt * 16 + g + 8 * (e >> 1), c = n * 8 + 2 * t + (e & 1);
+              if (r < nq && c < blk.wd)
+                push_elem(racc, blk, panels, share, r * blk.wd + c, acc[mt][i][e]);
+            }
+        }
+      WIDE_PHASE(8);
+      cluster.sync();
+      WIDE_PHASE(9);
+      merge_out<bf16, kWarps>(p, rm, rl, racc, blk, g0, nq);
+      WIDE_PHASE(10);
+      // before the next pushes, every block is done reading these
+      if (g0 + kGroup < p.lq || pass + 1 < npass) cluster.sync();
+      WIDE_PHASE(11);
+    }
   }
   WIDE_PHASE_FLUSH();
 }
@@ -657,17 +999,19 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p)
 // f32 on the CUDA cores, the key loop and push of one query group for a
 // warp that owns NS of its rows (row r by warp r % 8, slot r / 8). Per
 // 16-key tile: lane l takes key l % 16 over the float4 chunks of half l / 16
-// of the head (the halves added by a shuffle), the online softmax runs in
+// of the panel (the halves added by a shuffle; with panels, the panels'
+// partials added through the exchange), the online softmax runs in
 // registers and shuffles, p goes to the warp's rows in shared memory, and
 // acc += p V over columns lane + 32 i, all in registers across the loop.
-template <int NS>
-__device__ __forceinline__ void fwd_f32_group(const FwdParams& p, const Block<float>& blk,
-                                              tc::cg::cluster_group& cluster, char* ring,
-                                              const float* qs, float* ps, float* rm, float* rl,
-                                              float* racc, int dp, int g0, int nq) {
+template <int NS, bool kPanels>
+__device__ __forceinline__ void fwd_f32_group(const FwdParams& p, Block<float, kPanels>& blk,
+                                              tc::cg::cluster_group& cluster, Xchg& xg,
+                                              char* ring, const float* qs, float* ps, float* rm,
+                                              float* rl, float* racc, int dp, int g0, int nq,
+                                              int mode, int pass) {
   constexpr int KT = Wide<float>::kKeys, NSA = NS > 0 ? NS : 1;
   const int P = dp + 4, cpl = dp / 32, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int key = lane & 15, half = lane >> 4;
+  const int key = lane & 15, half = lane >> 4, panels = kPanels ? p.panels : 1;
   float* pw = ps + warp * (kGroup / kWarps) * KT;  // the warp's p rows [slot][key]
   float m[NSA], l[NSA], a[NSA][kMaxCpl];
 #pragma unroll
@@ -679,96 +1023,134 @@ __device__ __forceinline__ void fwd_f32_group(const FwdParams& p, const Block<fl
   WIDE_PHASE(1);
   for (int it = 0; it < blk.ntiles; ++it) {
     const Tile tile = next_tile<float, kWarps>(p, blk, ring, dp, it);
+    const bool exchange = kPanels && mode != kOutput;
+    if (exchange && tid == 0)
+      hp::mbar_expect_tx(&xg.bar[xg.tick & 1], (panels - 1) * nq * KT * (int)sizeof(float));
     if constexpr (NS > 0) {
       const float* ks = reinterpret_cast<const float*>(tile.st);
       const float* vs = ks + KT * P;
       const float mkv = tile.mask(vs + KT * P, key);
       const int k0 = blk.kv_begin + it * KT;
+      const bool live = k0 + key < blk.kv_end;
       float sc[NS];
 #pragma unroll
       for (int s = 0; s < NS; ++s) sc[s] = 0.f;
-      const float* kr = ks + key * P;
-#pragma unroll 4
-      for (int c = 4 * half; c < dp; c += 8) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+      if (mode == kOutput) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + kWarps * s) * P + c);
-          float x = sc[s];
-          x = fmaf(qv.x, kv.x, x);
-          x = fmaf(qv.y, kv.y, x);
-          x = fmaf(qv.z, kv.z, x);
-          x = fmaf(qv.w, kv.w, x);
-          sc[s] = x;
+        for (int s = 0; s < NS; ++s)
+          sc[s] = live ? p.scores[((size_t)blk.row * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 +
+                                  key]
+                       : 0.f;
+      } else {
+        const float* kr = ks + key * P;
+#pragma unroll 4
+        for (int c = 4 * half; c < dp; c += 8) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + kWarps * s) * P + c);
+            float x = sc[s];
+            x = fmaf(qv.x, kv.x, x);
+            x = fmaf(qv.y, kv.y, x);
+            x = fmaf(qv.z, kv.z, x);
+            x = fmaf(qv.w, kv.w, x);
+            sc[s] = x;
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s) sc[s] += __shfl_xor_sync(0xffffffffu, sc[s], 16);
+        if constexpr (kPanels) {
+          float* own = xg.at(xg.tick & 1, blk.pan, panels);
+          if (half == 0)
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              share(blk, panels, own + (warp + kWarps * s) * KT + key, &xg.bar[xg.tick & 1],
+                    sc[s]);
+          __syncwarp();
+          WIDE_PHASE(12);
+          xchg_wait(xg);
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            sc[s] = panel_sum(xg, panels, (warp + kWarps * s) * KT + key);
+          if (mode == kScore && blk.pan == 0 && half == 0 && live)
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              float* held =
+                  p.scores + ((size_t)blk.row * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 + key;
+              *held = (pass > 0 ? *held : 0.f) + sc[s];
+            }
         }
       }
       WIDE_PHASE(5);
-      float x[NS], mx[NS];
+      if (mode != kScore) {
+        float x[NS], mx[NS];
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        sc[s] += __shfl_xor_sync(0xffffffffu, sc[s], 16);
-        mx[s] = x[s] = sc[s] * p.scale + (mkv - 1.f) * 1e30f;
-      }
+        for (int s = 0; s < NS; ++s) mx[s] = x[s] = sc[s] * p.scale + (mkv - 1.f) * 1e30f;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+        for (int off = 8; off > 0; off >>= 1)
 #pragma unroll
-        for (int s = 0; s < NS; ++s) mx[s] = fmaxf(mx[s], __shfl_xor_sync(0xffffffffu, mx[s], off));
+          for (int s = 0; s < NS; ++s)
+            mx[s] = fmaxf(mx[s], __shfl_xor_sync(0xffffffffu, mx[s], off));
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const float m_new = fmaxf(m[s], mx[s]), corr = __expf(m[s] - m_new);
-        m[s] = m_new;
-        x[s] = __expf(x[s] - m_new) * mkv;
-        l[s] = l[s] * corr + x[s];  // the lane's key (twice in the warp); summed at the end
+        for (int s = 0; s < NS; ++s) {
+          const float m_new = fmaxf(m[s], mx[s]), corr = __expf(m[s] - m_new);
+          m[s] = m_new;
+          x[s] = __expf(x[s] - m_new) * mkv;
+          l[s] = l[s] * corr + x[s];  // the lane's key (twice in the warp); summed at the end
 #pragma unroll
-        for (int i = 0; i < kMaxCpl; ++i) a[s][i] *= corr;
-        if (p.dropout)
-          x[s] *= keep(p.seed, blk.row, g0 + warp + kWarps * s, k0 + key, p.threshold,
-                       p.keep_scale);
-        if (half == 0) pw[s * KT + key] = x[s];
-      }
-      __syncwarp();
-      WIDE_PHASE(6);
+          for (int i = 0; i < kMaxCpl; ++i) a[s][i] *= corr;
+          if (p.dropout)
+            x[s] *= keep(p.seed, blk.row, g0 + warp + kWarps * s, k0 + key, p.threshold,
+                         p.keep_scale);
+          if (half == 0) pw[s * KT + key] = x[s];
+        }
+        __syncwarp();
+        WIDE_PHASE(6);
 #pragma unroll
-      for (int j = 0; j < KT; j += 4) {
-        float4 pv[NS];
+        for (int j = 0; j < KT; j += 4) {
+          float4 pv[NS];
 #pragma unroll
-        for (int s = 0; s < NS; ++s) pv[s] = *reinterpret_cast<const float4*>(pw + s * KT + j);
+          for (int s = 0; s < NS; ++s) pv[s] = *reinterpret_cast<const float4*>(pw + s * KT + j);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float* vr = vs + (j + jj) * P + lane;
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* vr = vs + (j + jj) * P + lane;
 #pragma unroll
-          for (int i = 0; i < kMaxCpl; ++i) {
-            if (i < cpl) {
-              const float vv = vr[32 * i];
+            for (int i = 0; i < kMaxCpl; ++i) {
+              if (i < cpl) {
+                const float vv = vr[32 * i];
 #pragma unroll
-              for (int s = 0; s < NS; ++s) a[s][i] = fmaf(fv::at(pv[s], jj), vv, a[s][i]);
+                for (int s = 0; s < NS; ++s) a[s][i] = fmaf(fv::at(pv[s], jj), vv, a[s][i]);
+              }
             }
           }
         }
+        WIDE_PHASE(7);
       }
-      WIDE_PHASE(7);
     }
+    if (exchange) ++xg.tick;
   }
   tc::cp_async_wait(0);  // only empty groups are left
+  if (mode == kScore) return;
   if (p.alias) cluster.sync();
-  const int share = (nq * p.d + blk.csize - 1) / blk.csize;
+  const int share = (nq * blk.wd + blk.nkr - 1) / blk.nkr;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     const int r = warp + kWarps * s;
-    push_ml(rm, rl, blk.rank, blk.csize, r, m[s], warp_sum(l[s], 16), lane);
+    push_ml(rm, rl, blk, panels, r, m[s], warp_sum(l[s], 16), lane);
 #pragma unroll
     for (int i = 0; i < kMaxCpl; ++i) {
       const int c = lane + 32 * i;
-      if (i < cpl && c < p.d) push_elem(racc, blk.rank, share, r * p.d + c, a[s][i]);
+      if (i < cpl && c < blk.wd) push_elem(racc, blk, panels, share, r * blk.wd + c, a[s][i]);
     }
   }
 }
 
+template <bool kPanels>
 __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_fma(FwdParams p) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   WIDE_PHASE_INIT();
-  const int dp = pad_dim(p.d, 32);
-  const FwdLayout<float> L(dp, p.stages, p.alias != 0);
+  const int dp = kPanels ? p.dp : pad_dim(p.d, 32);
+  const FwdOffsets L = p.off;
   char* ring = reinterpret_cast<char*>(wide_smem);
   float* qs = reinterpret_cast<float*>(wide_smem + L.qs);
   float* ps = reinterpret_cast<float*>(wide_smem + L.ps);
@@ -776,28 +1158,43 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_fma(FwdParams p
   float* rl = reinterpret_cast<float*>(wide_smem + L.rl);
   float* racc = reinterpret_cast<float*>(wide_smem + L.racc);
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const Block<float> blk(p, cluster);
-  const int warp = threadIdx.x >> 5;
+  Block<float, kPanels> blk(p, cluster);
+  Xchg xg = make_xchg<kPanels>(wide_smem + L.xb, slot_floats<float>(kGroup, false), blk, cluster);
+  const int warp = threadIdx.x >> 5, npass = kPanels ? passes_of(p) : 1;
   for (int g0 = 0; g0 < p.lq; g0 += kGroup) {
     const int nq = min(kGroup, p.lq - g0);
-    prime_ring<float, kWarps>(p, blk, ring, dp);
-    load_rows<float, kWarps>(qs, blk.q, p.q_st, g0, kGroup, p.lq, p.d, dp, threadIdx.x);
-#define FWD_GROUP(NS) fwd_f32_group<NS>(p, blk, cluster, ring, qs, ps, rm, rl, racc, dp, g0, nq)
-    switch (slots_of<kWarps>(warp, nq)) {
-      case 0: FWD_GROUP(0); break;
-      case 1: FWD_GROUP(1); break;
-      case 2: FWD_GROUP(2); break;
-      case 3: FWD_GROUP(3); break;
-      default: FWD_GROUP(4); break;
-    }
+    for (int pass = 0; pass < npass; ++pass) {
+      const int mode = kPanels ? mode_of(p, pass) : kFused;
+      if constexpr (kPanels) blk.panel(p, pass % p.passes);
+      prime_ring<float, kWarps>(p, blk, ring, dp);
+      if (mode != kOutput)
+        load_rows<float, kWarps>(qs, blk.q, p.q_st, g0, kGroup, p.lq, blk.wd, dp, threadIdx.x);
+#define FWD_GROUP(NS)                                                                         \
+  fwd_f32_group<NS, kPanels>(p, blk, cluster, xg, ring, qs, ps, rm, rl, racc, dp, g0, nq, mode, \
+                             pass)
+      switch (slots_of<kWarps>(warp, nq)) {
+        case 0: FWD_GROUP(0); break;
+        case 1: FWD_GROUP(1); break;
+        case 2: FWD_GROUP(2); break;
+        case 3: FWD_GROUP(3); break;
+        default: FWD_GROUP(4); break;
+      }
 #undef FWD_GROUP
-    WIDE_PHASE(8);
-    cluster.sync();
-    WIDE_PHASE(9);
-    merge_out<float, kWarps>(p, rm, rl, racc, blk.rank, blk.csize, blk.row, blk.b, blk.h, g0, nq);
-    WIDE_PHASE(10);
-    if (g0 + kGroup < p.lq) cluster.sync();
-    WIDE_PHASE(11);
+      if (mode == kScore) {  // the scratch is whole once every panel 0 is done
+        if (pass == p.passes - 1)
+          cluster.sync();
+        else
+          __syncthreads();  // every warp is done with the ring and q before the next pass
+        continue;
+      }
+      WIDE_PHASE(8);
+      cluster.sync();
+      WIDE_PHASE(9);
+      merge_out<float, kWarps>(p, rm, rl, racc, blk, g0, nq);
+      WIDE_PHASE(10);
+      if (g0 + kGroup < p.lq || pass + 1 < npass) cluster.sync();
+      WIDE_PHASE(11);
+    }
   }
   WIDE_PHASE_FLUSH();
 }
@@ -816,7 +1213,9 @@ struct BwdParams {
   void* dk;            // (B, H, lkv, d) contiguous
   void* dv;            // (B, H, lkv, d) contiguous
   float* dkv_acc;      // (2, B*H, lkv, d) f32 when n_chunks > 1, else null
-  int H, lq, lkv, d, keys_per_cta, stages, alias, q_chunk, n_chunks;
+  float* scores;       // (2, B*H, lq, lkv) f32 (s, dp) where passes > 1, else null
+  BwdOffsets off;      // the shared-memory layout
+  int H, lq, lkv, d, dp, panels, passes, units, keys_per_cta, stages, alias, q_chunk, n_chunks;
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
@@ -824,20 +1223,26 @@ struct BwdParams {
   float keep_scale;
 };
 
+// The backward's scratch of s (which 0) or dp (1) at (query q, key kv).
+__device__ __forceinline__ float* held_at(const BwdParams& p, int which, int row, int q, int kv) {
+  return p.scores + (((size_t)which * gridDim.y + row) * p.lq + q) * p.lkv + kv;
+}
+
 // dk or dv elements (x0, and x1 where `pair`) of tile key j (key k0 + j;
-// at or past kv_end: nothing), columns c and c + 1, summed over this query
-// chunk: carried over the chunks in f32 by this thread alone, in chunk
-// order, and on the last chunk staged (times `scale`) at stage[j P + c]
-// for the tile's store (a stage row's pitch P is odd in 16-byte units, so
-// the rows of one store fall on distinct banks).
+// at or past kv_end: nothing), columns c and c + 1 of the panel (of wd;
+// column c0 + c of the head's ld), summed over this query chunk: carried
+// over the chunks in f32 by this thread alone, in chunk order, and on the
+// last chunk staged (times `scale`) at stage[j P + c] for the tile's store
+// (a stage row's pitch P is odd in 16-byte units, so the rows of one store
+// fall on distinct banks).
 template <typename T>
 __device__ __forceinline__ void put_dkv(T* stage, int P, float* acc, int k0, int j, int kv_end,
-                                        int c, int d, float x0, float x1, bool pair, float scale,
-                                        bool first, bool last) {
-  if (k0 + j >= kv_end || c >= d) return;
-  pair = pair && c + 1 < d;
+                                        int c, int wd, int ld, int c0, float x0, float x1,
+                                        bool pair, float scale, bool first, bool last) {
+  if (k0 + j >= kv_end || c >= wd) return;
+  pair = pair && c + 1 < wd;
   if (acc != nullptr) {
-    const size_t off = (size_t)(k0 + j) * d + c;
+    const size_t off = (size_t)(k0 + j) * ld + c0 + c;
     if (!first) {
       x0 += acc[off];
       if (pair) x1 += acc[off + 1];
@@ -861,25 +1266,25 @@ __device__ __forceinline__ void put_dkv(T* stage, int P, float* acc, int k0, int
 
 // The tile's staged dv and dk (rows j of the stage's V and K slots, pitch
 // P; keys [k0, min(k0 + KT, kv_end))) written out after a block barrier,
-// only on the last query chunk: a bulk asynchronous copy a row, thread j
-// (< KT) issuing row j of both, where the rows start and end on 16 bytes
-// (next_tile waits for them to read the stage before it is refilled), else
-// a warp a row.
+// only on the last query chunk, into columns [c0, c0 + wd) of rows of ld: a
+// bulk asynchronous copy a row, thread j (< KT) issuing row j of both,
+// where the rows start and end on 16 bytes (next_tile waits for them to
+// read the stage before it is refilled), else a warp a row.
 template <typename T, int NW>
 __device__ __forceinline__ void store_dkv(const T* stage, int P, T* dk, T* dv, int k0,
-                                          int kv_end, int d, bool last) {
+                                          int kv_end, int wd, int ld, int c0, bool last) {
   constexpr int KT = Wide<T>::kKeys;
   if (!last) return;
-  const int nk = min(KT, kv_end - k0), bytes = d * (int)sizeof(T), tid = threadIdx.x;
-  T *dv_out = dv + (size_t)k0 * d, *dk_out = dk + (size_t)k0 * d;
+  const int nk = min(KT, kv_end - k0), bytes = wd * (int)sizeof(T), tid = threadIdx.x;
+  T *dv_out = dv + (size_t)k0 * ld + c0, *dk_out = dk + (size_t)k0 * ld + c0;
   const bool bulk = ((reinterpret_cast<uintptr_t>(dv_out) | reinterpret_cast<uintptr_t>(dk_out) |
-                      bytes) & 15) == 0;
+                      bytes | (ld * (int)sizeof(T))) & 15) == 0;
   if (bulk) tc::fence_proxy_async();
   __syncthreads();
   if (bulk) {
     if (tid < nk) {
-      tc::bulk_store(dv_out + tid * d, stage + tid * P, bytes);
-      tc::bulk_store(dk_out + tid * d, stage + (KT + tid) * P, bytes);
+      tc::bulk_store(dv_out + (size_t)tid * ld, stage + tid * P, bytes);
+      tc::bulk_store(dk_out + (size_t)tid * ld, stage + (KT + tid) * P, bytes);
       tc::bulk_commit();
     }
     return;
@@ -887,36 +1292,36 @@ __device__ __forceinline__ void store_dkv(const T* stage, int P, T* dk, T* dv, i
   for (int r = tid >> 5; r < 2 * nk; r += NW) {
     const int j = r < nk ? r : r - nk;
     const T* src = stage + (r < nk ? j : KT + j) * P;
-    T* dst = (r < nk ? dv_out : dk_out) + (size_t)j * d;
-    for (int c = tid & 31; c < d; c += 32) dst[c] = src[c];
+    T* dst = (r < nk ? dv_out : dk_out) + (size_t)j * ld;
+    for (int c = tid & 31; c < wd; c += 32) dst[c] = src[c];
   }
 }
 
-// The chunk's dq after the cluster barrier: the blocks' parts added in rank
-// order, scaled once.
-template <typename T, int NW>
-__device__ __forceinline__ void merge_dq(const BwdParams& p, const float* rdq, int rank,
-                                         int csize, int row, int q0c, int nq) {
-  const int ne = nq * p.d, share = (ne + csize - 1) / csize;
-  T* dq = static_cast<T*>(p.dq) + ((size_t)row * p.lq + q0c) * p.d;
-  for (int e = rank * share + threadIdx.x; e < min(ne, (rank + 1) * share);
-       e += 32 * NW) {
+// The chunk's dq on this block's panel after the cluster barrier: the key
+// ranges' parts added in range order, scaled once.
+template <typename T, int NW, bool kP>
+__device__ __forceinline__ void merge_dq(const BwdParams& p, const float* rdq,
+                                         const Block<T, kP>& blk, int q0c, int nq) {
+  const int wd = blk.wd, ne = nq * wd, share = (ne + blk.nkr - 1) / blk.nkr;
+  T* dq = static_cast<T*>(p.dq) + ((size_t)blk.row * p.lq + q0c) * p.d + blk.c0;
+  for (int e = blk.kr * share + threadIdx.x; e < min(ne, (blk.kr + 1) * share); e += 32 * NW) {
     float a = 0.f;
-    for (int j = 0; j < csize; ++j) a += rdq[j * share + e - rank * share];
-    dq[e] = fv::from_float<T>(a * p.scale);
+    for (int j = 0; j < blk.nkr; ++j) a += rdq[j * share + e - blk.kr * share];
+    const int r = e / wd;
+    dq[(size_t)r * p.d + e - r * wd] = fv::from_float<T>(a * p.scale);
   }
 }
 
 // The per-chunk prologue both backward kernels share: q, dO, lse and delta
-// of the chunk's rows (padded queries: q = dO = 0, lse = 1e30 so that their
-// probabilities are 0, delta = 0).
-template <typename T, int NW>
-__device__ __forceinline__ void load_chunk(const BwdParams& p, const Block<T>& blk, const T* dout,
-                                           T* qs, T* dos, float* lse_s, float* del_s, int rows,
-                                           int q0c, int nq, int dp) {
+// of the chunk's rows on the block's panel (padded queries: q = dO = 0,
+// lse = 1e30 so that their probabilities are 0, delta = 0).
+template <typename T, int NW, bool kP>
+__device__ __forceinline__ void load_chunk(const BwdParams& p, const Block<T, kP>& blk,
+                                           const T* dout, T* qs, T* dos, float* lse_s,
+                                           float* del_s, int rows, int q0c, int nq, int dp) {
   const int tid = threadIdx.x;
-  load_rows<T, NW>(qs, blk.q, p.q_st, q0c, rows, q0c + nq, p.d, dp, tid);
-  load_rows<T, NW>(dos, dout, p.o_st, q0c, rows, q0c + nq, p.d, dp, tid);
+  load_rows<T, NW>(qs, blk.q, p.q_st, q0c, rows, q0c + nq, blk.wd, dp, tid);
+  load_rows<T, NW>(dos, dout + blk.c0, p.o_st, q0c, rows, q0c + nq, blk.wd, dp, tid);
   for (int i = tid; i < rows; i += 32 * NW) {
     lse_s[i] = i < nq ? p.lse[(size_t)blk.row * p.lq + q0c + i] : 1e30f;
     del_s[i] = i < nq ? p.delta[(size_t)blk.row * p.lq + q0c + i] : 0.f;
@@ -929,8 +1334,8 @@ __device__ __forceinline__ void load_chunk(const BwdParams& p, const Block<T>& b
 // query rows `rows_s`); then carried or staged (times `scale`, put_dkv).
 __device__ __forceinline__ void tile_dkdv_tc(const bf16* src, const bf16* rows_s, bf16* stage,
                                              float* acc, int QP, int P, int nmt, int n0, int ntw,
-                                             int nt8, int k0, int kv_end, int d, float scale,
-                                             bool first, bool last) {
+                                             int nt8, int k0, int kv_end, int wd, int ld, int c0,
+                                             float scale, bool first, bool last) {
   // stage: the dv or dk slot of the spent stage, rows at pitch P
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float o[2][kMaxNt][4];
@@ -963,24 +1368,28 @@ __device__ __forceinline__ void tile_dkdv_tc(const bf16* src, const bf16* rows_s
       if (i < ntw && n0 + i < nt8)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr)
-          put_dkv<bf16>(stage, P, acc, k0, km * 16 + g + 8 * hr, kv_end, (n0 + i) * 8 + 2 * t, d,
-                        o[km][i][2 * hr], o[km][i][2 * hr + 1], true, scale, first, last);
+          put_dkv<bf16>(stage, P, acc, k0, km * 16 + g + 8 * hr, kv_end, (n0 + i) * 8 + 2 * t, wd,
+                        ld, c0, o[km][i][2 * hr], o[km][i][2 * hr + 1], true, scale, first, last);
 }
 
 // bf16 on tensor cores. Per 32-key tile and query chunk: s = q K^T and
-// dp = dO V^T with warp w on query tile w / 4 and keys 8 (w % 4) .. + 7; p,
-// round(p e) and round(ds) from the fragments into [key][query] tiles; then
+// dp = dO V^T with warp w on query tile w / 4 and keys 8 (w % 4) .. + 7
+// (with panels, summed over the panels through the exchange); p, round(p e)
+// and round(ds) from the fragments into [key][query] tiles; then
 // dq += round(ds) K, dv and dk of the tile's keys, each on the warp's n8
 // column tiles (dq in registers across the key loop, dv and dk finished in
 // the tile's visit, staged in the tile's spent ring stage and stored with
 // coalesced 16-byte stores).
+template <bool kPanels>
 __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p) {
-  constexpr int KT = Wide<bf16>::kKeys;
+  constexpr int KT = Wide<bf16>::kKeys, SP = Wide<bf16>::kXPitch;
   extern __shared__ __align__(16) unsigned char wide_smem[];
   WIDE_PHASE_INIT();
-  const int dp = pad_dim(p.d, 16), P = dp + 8, nt8 = dp / 8, ntw = (nt8 + kWarps - 1) / kWarps;
+  const int dp = kPanels ? p.dp : pad_dim(p.d, 16), P = dp + 8, nt8 = dp / 8;
+  const int ntw = (nt8 + kWarps - 1) / kWarps;
   const int rows = chunk_rows<bf16>(p.q_chunk), QP = rows + 8;
-  const BwdLayout<bf16> L(dp, rows, p.stages, p.alias != 0);
+  const int panels = kPanels ? p.panels : 1;
+  const BwdOffsets L = p.off;
   char* ring = reinterpret_cast<char*>(wide_smem);
   bf16* qs = reinterpret_cast<bf16*>(wide_smem + L.qs);
   bf16* dos = reinterpret_cast<bf16*>(wide_smem + L.dos);
@@ -991,9 +1400,10 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
   float* rdq = reinterpret_cast<float*>(wide_smem + L.rdq);
 
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const Block<bf16> blk(p, cluster);
+  Block<bf16, kPanels> blk(p, cluster);
+  Xchg xg = make_xchg<kPanels>(wide_smem + L.xb, slot_floats<bf16>(rows, true), blk, cluster);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int n0 = warp * ntw;
+  const int n0 = warp * ntw, npass = kPanels ? passes_of(p) : 1;
   const bf16* dout = static_cast<const bf16*>(p.dout) + blk.b * p.o_sb + blk.h * p.o_sh;
   bf16* dk = static_cast<bf16*>(p.dk) + (size_t)blk.row * p.lkv * p.d;
   bf16* dv = static_cast<bf16*>(p.dv) + (size_t)blk.row * p.lkv * p.d;
@@ -1003,143 +1413,202 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
     const int q0c = chunk * p.q_chunk, nq = min(p.q_chunk, p.lq - q0c), nmt = (nq + 15) >> 4;
     const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
-    prime_ring<bf16, kWarps>(p, blk, ring, dp);
-    load_chunk<bf16, kWarps>(p, blk, dout, qs, dos, lse_s, del_s, rows, q0c, nq, dp);
-    float dqa[2][kMaxNt][4];
+    for (int pass = 0; pass < npass; ++pass) {
+      const int mode = kPanels ? mode_of(p, pass) : kFused;
+      if constexpr (kPanels) blk.panel(p, pass % p.passes);
+      prime_ring<bf16, kWarps>(p, blk, ring, dp);
+      load_chunk<bf16, kWarps>(p, blk, dout, qs, dos, lse_s, del_s, rows, q0c, nq, dp);
+      float dqa[2][kMaxNt][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < kMaxNt; ++i)
+        for (int i = 0; i < kMaxNt; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[mt][i][e] = 0.f;
-    WIDE_PHASE(1);
+          for (int e = 0; e < 4; ++e) dqa[mt][i][e] = 0.f;
+      WIDE_PHASE(1);
 
-    for (int it = 0; it < blk.ntiles; ++it) {
-      const Tile tile = next_tile<bf16, kWarps>(p, blk, ring, dp, it);
-      char* st = tile.st;
-      const bf16* ks = reinterpret_cast<const bf16*>(st);
-      const bf16* vs = ks + KT * P;
-      const float* mk = reinterpret_cast<const float*>(st + 2 * KT * sizeof(bf16) * P);
-      const int k0 = blk.kv_begin + it * KT;
-      {  // s and dp of the warp's 16 queries and 8 keys; p, round(p e), round(ds)
-        const int mt = warp >> 2, nk = (warp & 3) * 8;
-        if (mt < nmt) {
-          float s4[4] = {0.f, 0.f, 0.f, 0.f}, d4[4] = {0.f, 0.f, 0.f, 0.f};
-          const int qoff = (mt * 16 + (lane & 15)) * P + (lane >> 4) * 8;
-          const int koff = (nk + (lane & 7)) * P + ((lane >> 3) & 1) * 8;
-#pragma unroll 2
-          for (int kk = 0; kk < dp / 16; ++kk) {
-            uint32_t qa[4], oa[4], kb[2], vb[2];
-            tc::ldsm_x4(qa, qs + qoff + kk * 16);
-            tc::ldsm_x4(oa, dos + qoff + kk * 16);
-            ldsm_x2(kb, ks + koff + kk * 16);
-            ldsm_x2(vb, vs + koff + kk * 16);
-            tc::mma_bf16(s4, qa, kb[0], kb[1]);
-            tc::mma_bf16(d4, oa, vb[0], vb[1]);
-          }
+      for (int it = 0; it < blk.ntiles; ++it) {
+        const Tile tile = next_tile<bf16, kWarps>(p, blk, ring, dp, it);
+        char* st = tile.st;
+        const bf16* ks = reinterpret_cast<const bf16*>(st);
+        const bf16* vs = ks + KT * P;
+        const float* mk = reinterpret_cast<const float*>(st + 2 * KT * sizeof(bf16) * P);
+        const int k0 = blk.kv_begin + it * KT;
+        const bool exchange = kPanels && mode != kOutput;
+        if (exchange && tid == 0)
+          hp::mbar_expect_tx(&xg.bar[xg.tick & 1],
+                             (panels - 1) * nmt * 16 * KT * 2 * (int)sizeof(float));
+        {  // s and dp of the warp's 16 queries and 8 keys; p, round(p e), round(ds)
+          const int mt = warp >> 2, nk = (warp & 3) * 8;
+          if (mt < nmt) {
+            float s4[4] = {0.f, 0.f, 0.f, 0.f}, d4[4] = {0.f, 0.f, 0.f, 0.f};
+            if (mode == kOutput) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
-            const float mkv = tile.mask(mk, kc);
-            const float x = s4[e] * p.scale + (mkv - 1.f) * 1e30f;
-            const float pr = __expf(x - lse_s[qi]) * mkv;
-            const float ev =
-                p.dropout ? keep(p.seed, blk.row, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
-                          : 1.f;
-            pt[kc * QP + qi] = __float2bfloat16(pr * ev);
-            dst[kc * QP + qi] = __float2bfloat16(pr * (d4[e] * ev - del_s[qi]));
+              for (int e = 0; e < 4; ++e) {
+                const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
+                if (qi < nq && k0 + kc < blk.kv_end) {
+                  s4[e] = *held_at(p, 0, blk.row, q0c + qi, k0 + kc);
+                  d4[e] = *held_at(p, 1, blk.row, q0c + qi, k0 + kc);
+                }
+              }
+            } else {
+              const int qoff = (mt * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+              const int koff = (nk + (lane & 7)) * P + ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+              for (int kk = 0; kk < dp / 16; ++kk) {
+                uint32_t qa[4], oa[4], kb[2], vb[2];
+                tc::ldsm_x4(qa, qs + qoff + kk * 16);
+                tc::ldsm_x4(oa, dos + qoff + kk * 16);
+                ldsm_x2(kb, ks + koff + kk * 16);
+                ldsm_x2(vb, vs + koff + kk * 16);
+                tc::mma_bf16(s4, qa, kb[0], kb[1]);
+                tc::mma_bf16(d4, oa, vb[0], vb[1]);
+              }
+              if constexpr (kPanels) {
+                const int off = (mt * 16 + g) * SP + nk + 2 * t, dpo = rows * SP;
+                float* own = xg.at(xg.tick & 1, blk.pan, panels);
+                const uint64_t* bar = &xg.bar[xg.tick & 1];
+                share(blk, panels, own + off, bar, s4[0], s4[1]);
+                share(blk, panels, own + off + 8 * SP, bar, s4[2], s4[3]);
+                share(blk, panels, own + dpo + off, bar, d4[0], d4[1]);
+                share(blk, panels, own + dpo + off + 8 * SP, bar, d4[2], d4[3]);
+                WIDE_PHASE(12);
+                xchg_wait(xg);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int at = off + (e >> 1) * 8 * SP + (e & 1);
+                  s4[e] = panel_sum(xg, panels, at);
+                  d4[e] = panel_sum(xg, panels, dpo + at);
+                }
+                if (mode == kScore && blk.pan == 0)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
+                    if (qi < nq && k0 + kc < blk.kv_end) {
+                      float* hs = held_at(p, 0, blk.row, q0c + qi, k0 + kc);
+                      float* hd = held_at(p, 1, blk.row, q0c + qi, k0 + kc);
+                      *hs = (pass > 0 ? *hs : 0.f) + s4[e];
+                      *hd = (pass > 0 ? *hd : 0.f) + d4[e];
+                    }
+                  }
+              }
+            }
+            if (mode != kScore)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
+                const float mkv = tile.mask(mk, kc);
+                const float sx = s4[e] * p.scale + (mkv - 1.f) * 1e30f;
+                const float pr = __expf(sx - lse_s[qi]) * mkv;
+                const float ev =
+                    p.dropout ? keep(p.seed, blk.row, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
+                              : 1.f;
+                pt[kc * QP + qi] = __float2bfloat16(pr * ev);
+                dst[kc * QP + qi] = __float2bfloat16(pr * (d4[e] * ev - del_s[qi]));
+              }
           }
         }
-      }
-      __syncthreads();  // the tile's p^T and ds^T are complete
-      WIDE_PHASE(5);
-      // dq += round(ds) K over the tile's keys: queries on M, columns on N
+        if (exchange) ++xg.tick;
+        if (mode == kScore) continue;
+        __syncthreads();  // the tile's p^T and ds^T are complete
+        WIDE_PHASE(5);
+        // dq += round(ds) K over the tile's keys: queries on M, columns on N
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt < nmt) {
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < nmt) {
 #pragma unroll
-          for (int k16 = 0; k16 < KT / 16; ++k16) {
-            uint32_t a[4];
-            tc::ldsm_x4_t(a, dst + (k16 * 16 + ((lane >> 4) << 3) + (lane & 7)) * QP + mt * 16 +
-                                 ((lane >> 3) & 1) * 8);
-            const bf16* krow = ks + (k16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P;
+            for (int k16 = 0; k16 < KT / 16; ++k16) {
+              uint32_t a[4];
+              tc::ldsm_x4_t(a, dst + (k16 * 16 + ((lane >> 4) << 3) + (lane & 7)) * QP + mt * 16 +
+                                   ((lane >> 3) & 1) * 8);
+              const bf16* krow = ks + (k16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P;
 #pragma unroll
-            for (int i = 0; i < kMaxNt; ++i) {
-              const int n = n0 + i;
-              if (i < ntw && n < nt8) {
-                uint32_t kb[2];
-                tc::ldsm_x2_t(kb, krow + n * 8);
-                tc::mma_bf16(dqa[mt][i], a, kb[0], kb[1]);
+              for (int i = 0; i < kMaxNt; ++i) {
+                const int n = n0 + i;
+                if (i < ntw && n < nt8) {
+                  uint32_t kb[2];
+                  tc::ldsm_x2_t(kb, krow + n * 8);
+                  tc::mma_bf16(dqa[mt][i], a, kb[0], kb[1]);
+                }
               }
             }
           }
         }
+        WIDE_PHASE(6);
+        // the stage's K and V are spent once every warp is done with dq: its
+        // K and V slots stage dv and dk for the store
+        bf16* sdv = reinterpret_cast<bf16*>(st);
+        if (last) __syncthreads();
+        tile_dkdv_tc(pt, dos, sdv, dv_acc, QP, P, nmt, n0, ntw, nt8, k0, blk.kv_end, blk.wd, p.d,
+                     blk.c0, 1.f, first, last);
+        tile_dkdv_tc(dst, qs, sdv + KT * P, dk_acc, QP, P, nmt, n0, ntw, nt8, k0, blk.kv_end,
+                     blk.wd, p.d, blk.c0, p.scale, first, last);
+        store_dkv<bf16, kWarps>(sdv, P, dk, dv, k0, blk.kv_end, blk.wd, p.d, blk.c0, last);
+        WIDE_PHASE(7);
       }
-      WIDE_PHASE(6);
-      // the stage's K and V are spent once every warp is done with dq: its
-      // K and V slots stage dv and dk for the store
-      bf16* sdv = reinterpret_cast<bf16*>(st);
-      if (last) __syncthreads();
-      tile_dkdv_tc(pt, dos, sdv, dv_acc, QP, P, nmt, n0, ntw, nt8, k0, blk.kv_end, p.d, 1.f,
-                   first, last);
-      tile_dkdv_tc(dst, qs, sdv + KT * P, dk_acc, QP, P, nmt, n0, ntw, nt8, k0, blk.kv_end, p.d,
-                   p.scale, first, last);
-      store_dkv<bf16, kWarps>(sdv, P, dk, dv, k0, blk.kv_end, p.d, last);
-      WIDE_PHASE(7);
+      tc::cp_async_wait(0);  // only empty groups are left
+      if (tid < KT) tc::bulk_wait();  // the tiles' dk and dv are stored
+      if (mode == kScore) {  // the scratch is whole once every panel 0 is done
+        if (pass == p.passes - 1)
+          cluster.sync();
+        else
+          __syncthreads();  // every warp is done with the ring and q before the next pass
+        continue;
+      }
+      if (p.alias) cluster.sync();  // every ring is idle before the pushes land in it
+      const int share = (nq * blk.wd + blk.nkr - 1) / blk.nkr;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < kMaxNt; ++i) {
+          const int n = n0 + i;
+          if (mt < nmt && i < ntw && n < nt8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = mt * 16 + g + 8 * (e >> 1), c = n * 8 + 2 * t + (e & 1);
+              if (r < nq && c < blk.wd)
+                push_elem(rdq, blk, panels, share, r * blk.wd + c, dqa[mt][i][e]);
+            }
+        }
+      WIDE_PHASE(8);
+      cluster.sync();
+      WIDE_PHASE(9);
+      merge_dq<bf16, kWarps>(p, rdq, blk, q0c, nq);
+      WIDE_PHASE(10);
+      // before the next pushes, every block is done reading these
+      if (!last || pass + 1 < npass) cluster.sync();
     }
-    tc::cp_async_wait(0);  // only empty groups are left
-    if (tid < KT) tc::bulk_wait();  // the tiles' dk and dv are stored
-    if (p.alias) cluster.sync();  // every ring is idle before the pushes land in it
-    const int share = (nq * p.d + blk.csize - 1) / blk.csize;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int i = 0; i < kMaxNt; ++i) {
-        const int n = n0 + i;
-        if (mt < nmt && i < ntw && n < nt8)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = mt * 16 + g + 8 * (e >> 1), c = n * 8 + 2 * t + (e & 1);
-            if (r < nq && c < p.d) push_elem(rdq, blk.rank, share, r * p.d + c, dqa[mt][i][e]);
-          }
-      }
-    WIDE_PHASE(8);
-    cluster.sync();
-    WIDE_PHASE(9);
-    merge_dq<bf16, kWarps>(p, rdq, blk.rank, blk.csize, blk.row, q0c, nq);
-    WIDE_PHASE(10);
-    // before the next chunk pushes, every block is done reading this one's
-    if (!last) cluster.sync();
   }
   WIDE_PHASE_FLUSH();
 }
 
 // f32 on the CUDA cores, the key loop and push of one query chunk for a
 // warp that owns NS of its rows. Per 16-key tile: s and dp of the warp's
-// rows as in the forward (a key a lane over half the head), p, round(p e)
-// and round(ds) into [query][key] rows, dq += ds K over columns lane + 32 i
-// in registers; after a block barrier, thread (warp w, lane l) finishes dv
-// and dk of keys 4 (l / 8) .. + 3 on columns 8 w + l % 8 + 128 c over the
-// chunk's queries, staged in the tile's spent ring stage for a coalesced
-// store.
-template <int NS>
-__device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, const Block<float>& blk,
-                                              tc::cg::cluster_group& cluster, char* ring,
-                                              const float* qs, const float* dos,
+// rows as in the forward (a key a lane over half the panel; with panels,
+// summed over them through the exchange), p, round(p e) and round(ds) into
+// [query][key] rows, dq += ds K over columns lane + 32 i in registers; after
+// a block barrier, thread (warp w, lane l) finishes dv and dk of keys
+// 4 (l / 8) .. + 3 on columns 8 w + l % 8 + 128 c over the chunk's queries,
+// staged in the tile's spent ring stage for a coalesced store. kCpl: the
+// most columns lane + 32 i a lane's dq holds (the panel's dp / 32).
+template <int NS, bool kPanels, int kCpl>
+__device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, Block<float, kPanels>& blk,
+                                              tc::cg::cluster_group& cluster, Xchg& xg,
+                                              char* ring, const float* qs, const float* dos,
                                               const float* lse_s, const float* del_s, float* pd,
                                               float* rdq, float* dk, float* dv, float* dk_acc,
                                               float* dv_acc, int dp, int rows, int q0c, int nq,
-                                              bool first, bool last) {
+                                              bool first, bool last, int mode, int pass) {
   constexpr int KT = Wide<float>::kKeys, NSA = NS > 0 ? NS : 1, NW = kBwdF32Warps;
-  constexpr int CS = 8 * NW, CQ = kMaxD / CS;  // a thread's columns: cb + CS c
+  constexpr int CS = 8 * NW, CQ = (32 * kCpl + CS - 1) / CS;  // a thread's columns: cb + CS c
   const int P = dp + 4, cpl = dp / 32, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int key = lane & 15, half = lane >> 4;
+  const int key = lane & 15, half = lane >> 4, panels = kPanels ? p.panels : 1;
   float* ds = pd + rows * KT;
-  float dqa[NSA][kMaxCpl];
+  float dqa[NSA][kCpl];
 #pragma unroll
   for (int s = 0; s < NSA; ++s)
 #pragma unroll
-    for (int i = 0; i < kMaxCpl; ++i) dqa[s][i] = 0.f;
+    for (int i = 0; i < kCpl; ++i) dqa[s][i] = 0.f;
   WIDE_PHASE(1);
   for (int it = 0; it < blk.ntiles; ++it) {
     const Tile tile = next_tile<float, NW>(p, blk, ring, dp, it);
@@ -1147,67 +1616,114 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, const Block<fl
     const float* ks = reinterpret_cast<const float*>(st);
     const float* vs = ks + KT * P;
     const int k0 = blk.kv_begin + it * KT;
+    const bool exchange = kPanels && mode != kOutput;
+    if (exchange && tid == 0)
+      hp::mbar_expect_tx(&xg.bar[xg.tick & 1], (panels - 1) * nq * KT * 2 * (int)sizeof(float));
     if constexpr (NS > 0) {
       const float mkv = tile.mask(vs + KT * P, key);
-      float sd[2][NS];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) sd[0][s] = sd[1][s] = 0.f;
-      const float* kr = ks + key * P;
-      const float* vr = vs + key * P;
-#pragma unroll 2
-      for (int c = 4 * half; c < dp; c += 8) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
-        const float4 vv = *reinterpret_cast<const float4*>(vr + c);
+      const bool live = k0 + key < blk.kv_end;
+      float sv[NS], dpv[NS];
+      if (mode == kOutput) {
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           const int r = warp + NW * s;
-          const float4 qv = *reinterpret_cast<const float4*>(qs + r * P + c);
-          const float4 ov = *reinterpret_cast<const float4*>(dos + r * P + c);
-          float x = sd[0][s], y = sd[1][s];
-          x = fmaf(qv.x, kv.x, x), y = fmaf(ov.x, vv.x, y);
-          x = fmaf(qv.y, kv.y, x), y = fmaf(ov.y, vv.y, y);
-          x = fmaf(qv.z, kv.z, x), y = fmaf(ov.z, vv.z, y);
-          x = fmaf(qv.w, kv.w, x), y = fmaf(ov.w, vv.w, y);
-          sd[0][s] = x, sd[1][s] = y;
+          sv[s] = live ? *held_at(p, 0, blk.row, q0c + r, k0 + key) : 0.f;
+          dpv[s] = live ? *held_at(p, 1, blk.row, q0c + r, k0 + key) : 0.f;
+        }
+      } else {
+        float sd[2][NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) sd[0][s] = sd[1][s] = 0.f;
+        const float* kr = ks + key * P;
+        const float* vr = vs + key * P;
+#pragma unroll 2
+        for (int c = 4 * half; c < dp; c += 8) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int r = warp + NW * s;
+            const float4 qv = *reinterpret_cast<const float4*>(qs + r * P + c);
+            const float4 ov = *reinterpret_cast<const float4*>(dos + r * P + c);
+            float x = sd[0][s], y = sd[1][s];
+            x = fmaf(qv.x, kv.x, x), y = fmaf(ov.x, vv.x, y);
+            x = fmaf(qv.y, kv.y, x), y = fmaf(ov.y, vv.y, y);
+            x = fmaf(qv.z, kv.z, x), y = fmaf(ov.z, vv.z, y);
+            x = fmaf(qv.w, kv.w, x), y = fmaf(ov.w, vv.w, y);
+            sd[0][s] = x, sd[1][s] = y;
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          sv[s] = sd[0][s] + __shfl_xor_sync(0xffffffffu, sd[0][s], 16);
+          dpv[s] = sd[1][s] + __shfl_xor_sync(0xffffffffu, sd[1][s], 16);
+        }
+        if constexpr (kPanels) {
+          float* own = xg.at(xg.tick & 1, blk.pan, panels);
+          if (half == 0)
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              share(blk, panels, own + ((warp + NW * s) * KT + key) * 2, &xg.bar[xg.tick & 1],
+                    sv[s], dpv[s]);
+          __syncwarp();
+          WIDE_PHASE(12);
+          xchg_wait(xg);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int at = ((warp + NW * s) * KT + key) * 2;
+            sv[s] = panel_sum(xg, panels, at);
+            dpv[s] = panel_sum(xg, panels, at + 1);
+          }
+          if (mode == kScore && blk.pan == 0 && half == 0 && live)
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              float* hs = held_at(p, 0, blk.row, q0c + warp + NW * s, k0 + key);
+              float* hd = held_at(p, 1, blk.row, q0c + warp + NW * s, k0 + key);
+              *hs = (pass > 0 ? *hs : 0.f) + sv[s];
+              *hd = (pass > 0 ? *hd : 0.f) + dpv[s];
+            }
         }
       }
+      if (mode != kScore) {
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int r = warp + NW * s;
-        const float sv = sd[0][s] + __shfl_xor_sync(0xffffffffu, sd[0][s], 16);
-        const float dpv = sd[1][s] + __shfl_xor_sync(0xffffffffu, sd[1][s], 16);
-        const float x = sv * p.scale + (mkv - 1.f) * 1e30f;
-        const float pr = __expf(x - lse_s[r]) * mkv;
-        const float e =
-            p.dropout ? keep(p.seed, blk.row, q0c + r, k0 + key, p.threshold, p.keep_scale) : 1.f;
-        if (half == 0) {
-          pd[r * KT + key] = pr * e;
-          ds[r * KT + key] = pr * (dpv * e - del_s[r]);
+        for (int s = 0; s < NS; ++s) {
+          const int r = warp + NW * s;
+          const float x = sv[s] * p.scale + (mkv - 1.f) * 1e30f;
+          const float pr = __expf(x - lse_s[r]) * mkv;
+          const float e =
+              p.dropout ? keep(p.seed, blk.row, q0c + r, k0 + key, p.threshold, p.keep_scale)
+                        : 1.f;
+          if (half == 0) {
+            pd[r * KT + key] = pr * e;
+            ds[r * KT + key] = pr * (dpv[s] * e - del_s[r]);
+          }
         }
-      }
-      __syncwarp();
-      WIDE_PHASE(5);
+        __syncwarp();
+        WIDE_PHASE(5);
 #pragma unroll
-      for (int j = 0; j < KT; j += 4) {
-        float4 dv4[NS];
+        for (int j = 0; j < KT; j += 4) {
+          float4 dv4[NS];
 #pragma unroll
-        for (int s = 0; s < NS; ++s)
-          dv4[s] = *reinterpret_cast<const float4*>(ds + (warp + NW * s) * KT + j);
+          for (int s = 0; s < NS; ++s)
+            dv4[s] = *reinterpret_cast<const float4*>(ds + (warp + NW * s) * KT + j);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float* kr2 = ks + (j + jj) * P + lane;
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* kr2 = ks + (j + jj) * P + lane;
 #pragma unroll
-          for (int i = 0; i < kMaxCpl; ++i) {
-            if (i < cpl) {
-              const float kk = kr2[32 * i];
+            for (int i = 0; i < kCpl; ++i) {
+              if (i < cpl) {
+                const float kk = kr2[32 * i];
 #pragma unroll
-              for (int s = 0; s < NS; ++s) dqa[s][i] = fmaf(fv::at(dv4[s], jj), kk, dqa[s][i]);
+                for (int s = 0; s < NS; ++s) dqa[s][i] = fmaf(fv::at(dv4[s], jj), kk, dqa[s][i]);
+              }
             }
           }
         }
+        WIDE_PHASE(6);
       }
-      WIDE_PHASE(6);
     }
+    if (exchange) ++xg.tick;
+    if (mode == kScore) continue;
     // round(p e) and round(ds) of every row; the stage's K and V are spent
     __syncthreads();
     {  // dv and dk of the tile's keys 4 (lane / 8) .. + 3, columns cb + CS c
@@ -1220,7 +1736,7 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, const Block<fl
 #pragma unroll 2
       for (int i = 0; i < nq; ++i) {
         const float4 pv = *reinterpret_cast<const float4*>(pd + i * KT + j0);
-        const float4 sv = *reinterpret_cast<const float4*>(ds + i * KT + j0);
+        const float4 sv4 = *reinterpret_cast<const float4*>(ds + i * KT + j0);
 #pragma unroll
         for (int c = 0; c < CQ; ++c) {
           if (cb + CS * c < dp) {
@@ -1228,7 +1744,7 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, const Block<fl
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
               av[jj][c] = fmaf(fv::at(pv, jj), o, av[jj][c]);
-              ak[jj][c] = fmaf(fv::at(sv, jj), x, ak[jj][c]);
+              ak[jj][c] = fmaf(fv::at(sv4, jj), x, ak[jj][c]);
             }
           }
         }
@@ -1239,35 +1755,39 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, const Block<fl
 #pragma unroll
         for (int c = 0; c < CQ; ++c) {
           const int ch = cb + CS * c;
-          put_dkv<float>(sdv, P, dv_acc, k0, j0 + jj, blk.kv_end, ch, p.d, av[jj][c], 0.f, false,
-                         1.f, first, last);
-          put_dkv<float>(sdv + KT * P, P, dk_acc, k0, j0 + jj, blk.kv_end, ch, p.d, ak[jj][c],
-                         0.f, false, p.scale, first, last);
+          put_dkv<float>(sdv, P, dv_acc, k0, j0 + jj, blk.kv_end, ch, blk.wd, p.d, blk.c0,
+                         av[jj][c], 0.f, false, 1.f, first, last);
+          put_dkv<float>(sdv + KT * P, P, dk_acc, k0, j0 + jj, blk.kv_end, ch, blk.wd, p.d,
+                         blk.c0, ak[jj][c], 0.f, false, p.scale, first, last);
         }
-      store_dkv<float, NW>(sdv, P, dk, dv, k0, blk.kv_end, p.d, last);
+      store_dkv<float, NW>(sdv, P, dk, dv, k0, blk.kv_end, blk.wd, p.d, blk.c0, last);
     }
     WIDE_PHASE(7);
   }
   tc::cp_async_wait(0);  // only empty groups are left
   if (tid < KT) tc::bulk_wait();  // the tiles' dk and dv are stored
+  if (mode == kScore) return;
   if (p.alias) cluster.sync();
-  const int share = (nq * p.d + blk.csize - 1) / blk.csize;
+  const int share = (nq * blk.wd + blk.nkr - 1) / blk.nkr;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     const int r = warp + NW * s;
 #pragma unroll
-    for (int i = 0; i < kMaxCpl; ++i) {
+    for (int i = 0; i < kCpl; ++i) {
       const int c = lane + 32 * i;
-      if (i < cpl && c < p.d) push_elem(rdq, blk.rank, share, r * p.d + c, dqa[s][i]);
+      if (i < cpl && c < blk.wd) push_elem(rdq, blk, panels, share, r * blk.wd + c, dqa[s][i]);
     }
   }
 }
 
+// (kCpl 12: panels of at most 384 columns, whose dq and dv/dk accumulators
+// then fit the 128 registers of 512 threads with fewer spills.)
+template <bool kPanels, int kCpl = kMaxCpl>
 __global__ void __launch_bounds__(32 * kBwdF32Warps, 1) flash_bwd_wide_fma(BwdParams p) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   WIDE_PHASE_INIT();
-  const int dp = pad_dim(p.d, 32), rows = chunk_rows<float>(p.q_chunk);
-  const BwdLayout<float> L(dp, rows, p.stages, p.alias != 0);
+  const int dp = kPanels ? p.dp : pad_dim(p.d, 32), rows = chunk_rows<float>(p.q_chunk);
+  const BwdOffsets L = p.off;
   char* ring = reinterpret_cast<char*>(wide_smem);
   float* qs = reinterpret_cast<float*>(wide_smem + L.qs);
   float* dos = reinterpret_cast<float*>(wide_smem + L.dos);
@@ -1276,8 +1796,9 @@ __global__ void __launch_bounds__(32 * kBwdF32Warps, 1) flash_bwd_wide_fma(BwdPa
   float* pd = reinterpret_cast<float*>(wide_smem + L.pd);
   float* rdq = reinterpret_cast<float*>(wide_smem + L.rdq);
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
-  const Block<float> blk(p, cluster);
-  const int warp = threadIdx.x >> 5;
+  Block<float, kPanels> blk(p, cluster);
+  Xchg xg = make_xchg<kPanels>(wide_smem + L.xb, slot_floats<float>(rows, true), blk, cluster);
+  const int warp = threadIdx.x >> 5, npass = kPanels ? passes_of(p) : 1;
   const float* dout = static_cast<const float*>(p.dout) + blk.b * p.o_sb + blk.h * p.o_sh;
   float* dk = static_cast<float*>(p.dk) + (size_t)blk.row * p.lkv * p.d;
   float* dv = static_cast<float*>(p.dv) + (size_t)blk.row * p.lkv * p.d;
@@ -1287,23 +1808,34 @@ __global__ void __launch_bounds__(32 * kBwdF32Warps, 1) flash_bwd_wide_fma(BwdPa
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
     const int q0c = chunk * p.q_chunk, nq = min(p.q_chunk, p.lq - q0c);
     const bool first = chunk == 0, last = chunk == p.n_chunks - 1;
-    prime_ring<float, kBwdF32Warps>(p, blk, ring, dp);
-    load_chunk<float, kBwdF32Warps>(p, blk, dout, qs, dos, lse_s, del_s, rows, q0c, nq, dp);
-#define BWD_CHUNK(NS)                                                                           \
-  bwd_f32_chunk<NS>(p, blk, cluster, ring, qs, dos, lse_s, del_s, pd, rdq, dk, dv, dk_acc, dv_acc, \
-                    dp, rows, q0c, nq, first, last)
-    switch (slots_of<kBwdF32Warps>(warp, nq)) {
-      case 0: BWD_CHUNK(0); break;
-      case 1: BWD_CHUNK(1); break;
-      default: BWD_CHUNK(2); break;
-    }
+    for (int pass = 0; pass < npass; ++pass) {
+      const int mode = kPanels ? mode_of(p, pass) : kFused;
+      if constexpr (kPanels) blk.panel(p, pass % p.passes);
+      prime_ring<float, kBwdF32Warps>(p, blk, ring, dp);
+      load_chunk<float, kBwdF32Warps>(p, blk, dout, qs, dos, lse_s, del_s, rows, q0c, nq, dp);
+#define BWD_CHUNK(NS)                                                                        \
+  bwd_f32_chunk<NS, kPanels, kCpl>(p, blk, cluster, xg, ring, qs, dos, lse_s, del_s, pd, rdq, dk, \
+                                   dv, dk_acc, dv_acc, dp, rows, q0c, nq, first, last, mode, pass)
+      switch (slots_of<kBwdF32Warps>(warp, nq)) {
+        case 0: BWD_CHUNK(0); break;
+        case 1: BWD_CHUNK(1); break;
+        default: BWD_CHUNK(2); break;
+      }
 #undef BWD_CHUNK
-    WIDE_PHASE(8);
-    cluster.sync();
-    WIDE_PHASE(9);
-    merge_dq<float, kBwdF32Warps>(p, rdq, blk.rank, blk.csize, blk.row, q0c, nq);
-    WIDE_PHASE(10);
-    if (!last) cluster.sync();
+      if (mode == kScore) {  // the scratch is whole once every panel 0 is done
+        if (pass == p.passes - 1)
+          cluster.sync();
+        else
+          __syncthreads();  // every warp is done with the ring and q before the next pass
+        continue;
+      }
+      WIDE_PHASE(8);
+      cluster.sync();
+      WIDE_PHASE(9);
+      merge_dq<float, kBwdF32Warps>(p, rdq, blk, q0c, nq);
+      WIDE_PHASE(10);
+      if (!last || pass + 1 < npass) cluster.sync();
+    }
   }
   WIDE_PHASE_FLUSH();
 }
@@ -1349,58 +1881,143 @@ cudaError_t wide_launch(Kernel kern, const Params& p, int cluster, int rows, siz
   return cudaGetLastError();
 }
 
-// The backward's largest query chunk at head dim d: 32 rows, else the most
-// (16 for bf16; for f32 any count, 23 at d 512) whose layout fits at two
-// stages.
+// A call's head geometry: panels a pass and passes (1, 1: the wide kernels),
+// the padded width of its widest panel; false where the kernels take no
+// such split.
+struct Geometry {
+  int panels, passes, units, dp;
+  bool panel_kernels() const { return panels > 1 || passes > 1; }
+};
+
 template <typename T>
-int bwd_max_queries(int d) {
+bool geometry(int d, int panels, int passes, Geometry* g) {
+  if (d < 1 || panels < 1 || panels > kMaxPanels || passes < 1 ||
+      panels * passes > head_units<T>(d))
+    return false;
+  *g = {panels, passes, head_units<T>(d), panel_dp<T>(d, panels, passes)};
+  return g->dp <= kMaxD;
+}
+
+// The f32 backward's kernel for a geometry: the wide kernel, or the panel
+// kernel with the fewest accumulator columns its panels need (at d 576: 12
+// of 16, which cut its spills from 214 to 134 bytes and its time by 19%;
+// the forward, which does not spill, gained 1% and keeps one).
+using BwdKernel = void (*)(BwdParams);
+BwdKernel bwd_fma_kernel(const Geometry& g) {
+  if (!g.panel_kernels()) return flash_bwd_wide_fma<false>;
+  return g.dp <= 384 ? flash_bwd_wide_fma<true, 12> : flash_bwd_wide_fma<true>;
+}
+
+template <typename T>
+Plan fwd_plan_of(const Geometry& g) {
+  return fwd_plan<T>(g.dp, g.panel_kernels() ? g.panels : 1);
+}
+
+template <typename T>
+Plan bwd_plan_of(const Geometry& g, int q_chunk) {
+  return bwd_plan<T>(g.dp, chunk_rows<T>(q_chunk), g.panel_kernels() ? g.panels : 1);
+}
+
+// The backward's largest query chunk: 32 rows, else the most (16 for bf16;
+// for f32 any count, 23 at d 512) whose layout fits at two stages.
+template <typename T>
+int bwd_max_queries(const Geometry& g) {
   for (int rows = kGroup; rows > 0; rows -= sizeof(T) == 2 ? 16 : 1)
-    if (bwd_plan<T>(d, rows).stages > 0) return rows;
+    if (bwd_plan_of<T>(g, rows).stages > 0) return rows;
   return 0;
+}
+
+template <typename T>
+int fwd_max_clusters(const Geometry& g, int cluster) {
+  const Plan pl = fwd_plan_of<T>(g);
+  if (pl.stages == 0) return -1;
+  if constexpr (sizeof(T) == 2)
+    return g.panel_kernels()
+               ? wide_max_clusters<kWarps>(flash_fwd_wide_tc<true>, cluster, pl.smem)
+               : wide_max_clusters<kWarps>(flash_fwd_wide_tc<false>, cluster, pl.smem);
+  else
+    return g.panel_kernels()
+               ? wide_max_clusters<kWarps>(flash_fwd_wide_fma<true>, cluster, pl.smem)
+               : wide_max_clusters<kWarps>(flash_fwd_wide_fma<false>, cluster, pl.smem);
+}
+
+template <typename T>
+int bwd_max_clusters(const Geometry& g, int q_chunk, int cluster) {
+  const Plan pl = bwd_plan_of<T>(g, q_chunk);
+  if (pl.stages == 0) return -1;
+  if constexpr (sizeof(T) == 2)
+    return g.panel_kernels()
+               ? wide_max_clusters<kWarps>(flash_bwd_wide_tc<true>, cluster, pl.smem)
+               : wide_max_clusters<kWarps>(flash_bwd_wide_tc<false>, cluster, pl.smem);
+  else
+    return wide_max_clusters<kBwdF32Warps>(bwd_fma_kernel(g), cluster, pl.smem);
+}
+
+bool get_geometry(int d, int is_bf16, int panels, int passes, Geometry* g) {
+  return is_bf16 ? geometry<bf16>(d, panels, passes, g) : geometry<float>(d, panels, passes, g);
 }
 
 }  // namespace
 
-// The widest head the kernels of this file take.
+// The widest head (or panel) a block of these kernels takes, and the most
+// panels of one pass.
 extern "C" int healnet_flash_wide_max_d() { return kMaxD; }
+extern "C" int healnet_flash_wide_max_panels() { return kMaxPanels; }
 
-// Clusters of `cluster` blocks of the wide forward the card holds at once
-// at head dim d (-1 where the query fails or d is out of range).
-extern "C" int healnet_flash_wide_fwd_max_clusters(int d, int is_bf16, int cluster) {
-  if (d < 1 || d > kMaxD) return -1;
-  const Plan pl = is_bf16 ? fwd_plan<bf16>(d) : fwd_plan<float>(d);
-  if (pl.stages == 0) return -1;
-  return is_bf16 ? wide_max_clusters<kWarps>(flash_fwd_wide_tc, cluster, pl.smem)
-                 : wide_max_clusters<kWarps>(flash_fwd_wide_fma, cluster, pl.smem);
+// Shared memory of the forward (bwd 0) or backward (bwd 1, query chunk
+// q_chunk) launch at head dim d in panels x passes; 0 where it does not fit.
+extern "C" long long healnet_flash_wide_smem(int d, int is_bf16, int panels, int passes, int bwd,
+                                             int q_chunk) {
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g) || (bwd && (q_chunk < 1 || q_chunk > kGroup)))
+    return 0;
+  const Plan pl = bwd ? (is_bf16 ? bwd_plan_of<bf16>(g, q_chunk) : bwd_plan_of<float>(g, q_chunk))
+                      : (is_bf16 ? fwd_plan_of<bf16>(g) : fwd_plan_of<float>(g));
+  return pl.stages > 0 ? (long long)pl.smem : 0;
 }
 
-// The most queries a chunk of the wide backward holds at head dim d (0
-// where d is out of range).
-extern "C" int healnet_flash_wide_bwd_max_queries(int d, int is_bf16) {
-  if (d < 1 || d > kMaxD) return 0;
-  return is_bf16 ? bwd_max_queries<bf16>(d) : bwd_max_queries<float>(d);
+// Clusters of `cluster` blocks of the forward the card holds at once at head
+// dim d in panels x passes (-1 where the query fails or d is out of range).
+extern "C" int healnet_flash_wide_fwd_max_clusters(int d, int is_bf16, int cluster, int panels,
+                                                   int passes) {
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0) return -1;
+  return is_bf16 ? fwd_max_clusters<bf16>(g, cluster) : fwd_max_clusters<float>(g, cluster);
 }
 
-// Clusters of `cluster` blocks of the wide backward (query chunk q_chunk)
-// the card holds at once.
-extern "C" int healnet_flash_wide_bwd_max_clusters(int q_chunk, int d, int is_bf16, int cluster) {
-  if (d < 1 || d > kMaxD || q_chunk < 1 || q_chunk > kGroup) return -1;
-  const Plan pl = is_bf16 ? bwd_plan<bf16>(d, chunk_rows<bf16>(q_chunk))
-                          : bwd_plan<float>(d, chunk_rows<float>(q_chunk));
-  if (pl.stages == 0) return -1;
-  return is_bf16 ? wide_max_clusters<kWarps>(flash_bwd_wide_tc, cluster, pl.smem)
-                 : wide_max_clusters<kBwdF32Warps>(flash_bwd_wide_fma, cluster, pl.smem);
+// The most queries a chunk of the backward holds at head dim d in panels x
+// passes (0 where d is out of range).
+extern "C" int healnet_flash_wide_bwd_max_queries(int d, int is_bf16, int panels, int passes) {
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g)) return 0;
+  return is_bf16 ? bwd_max_queries<bf16>(g) : bwd_max_queries<float>(g);
+}
+
+// Clusters of `cluster` blocks of the backward (query chunk q_chunk) the
+// card holds at once.
+extern "C" int healnet_flash_wide_bwd_max_clusters(int q_chunk, int d, int is_bf16, int cluster,
+                                                   int panels, int passes) {
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0 || q_chunk < 1 ||
+      q_chunk > kGroup)
+    return -1;
+  return is_bf16 ? bwd_max_clusters<bf16>(g, q_chunk, cluster)
+                 : bwd_max_clusters<float>(g, q_chunk, cluster);
 }
 
 extern "C" int healnet_flash_wide_forward(
     const void* q, const void* k, const void* v, const float* mask, void* out, float* lse,
-    int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
-    long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
-    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    float* scores, int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta,
+    int panels, int passes, long long q_sb, long long q_sh, long long q_st, long long k_sb,
+    long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
+    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  if (d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  const Plan pl = is_bf16 ? fwd_plan<bf16>(d) : fwd_plan<float>(d);
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0 ||
+      (passes > 1 && scores == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = is_bf16 ? fwd_plan_of<bf16>(g) : fwd_plan_of<float>(g);
   if (pl.stages == 0) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q;
@@ -1409,10 +2026,15 @@ extern "C" int healnet_flash_wide_forward(
   p.mask = mask;
   p.out = out;
   p.lse = lse;
+  p.scores = scores;
   p.H = H;
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
+  p.dp = g.dp;
+  p.panels = panels;
+  p.passes = passes;
+  p.units = g.units;
   p.keys_per_cta = keys_per_cta;
   p.stages = pl.stages;
   p.alias = pl.alias;
@@ -1431,26 +2053,37 @@ extern "C" int healnet_flash_wide_forward(
   p.seed = seed;
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  const int xp = g.panel_kernels() ? panels : 1;
+  p.off = is_bf16 ? offsets(FwdLayout<bf16>(g.dp, pl.stages, pl.alias != 0, xp))
+                  : offsets(FwdLayout<float>(g.dp, pl.stages, pl.alias != 0, xp));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? wide_launch<kWarps>(flash_fwd_wide_tc, p, cluster, B * H, pl.smem, s)
-              : wide_launch<kWarps>(flash_fwd_wide_fma, p, cluster, B * H, pl.smem, s));
+  const bool pk = g.panel_kernels();
+  cudaError_t e;
+  if (is_bf16)
+    e = pk ? wide_launch<kWarps>(flash_fwd_wide_tc<true>, p, cluster, B * H, pl.smem, s)
+           : wide_launch<kWarps>(flash_fwd_wide_tc<false>, p, cluster, B * H, pl.smem, s);
+  else
+    e = pk ? wide_launch<kWarps>(flash_fwd_wide_fma<true>, p, cluster, B * H, pl.smem, s)
+           : wide_launch<kWarps>(flash_fwd_wide_fma<false>, p, cluster, B * H, pl.smem, s);
+  return static_cast<int>(e);
 }
 
 extern "C" int healnet_flash_wide_backward(
     const void* q, const void* k, const void* v, const float* mask, const void* dout,
-    const float* lse, const float* delta, void* dq, void* dk, void* dv, float* dkv_acc, int B,
-    int H, int lq, int lkv, int d, int cluster, int keys_per_cta, int q_chunk, int n_chunks,
-    long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
-    long long k_st, long long v_sb, long long v_sh, long long v_st, long long o_sb,
-    long long o_sh, long long o_st, long long mask_sb, float scale, int dropout,
-    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    const float* lse, const float* delta, void* dq, void* dk, void* dv, float* dkv_acc,
+    float* scores, int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta,
+    int q_chunk, int n_chunks, int panels, int passes, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
+    long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
+    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
-  if (d < 1 || d > kMaxD || q_chunk < 1 || q_chunk > kGroup || n_chunks < 1 ||
-      (is_bf16 && q_chunk % 16 != 0) || (n_chunks > 1 && dkv_acc == nullptr))
+  Geometry g;
+  if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0 || q_chunk < 1 ||
+      q_chunk > kGroup || n_chunks < 1 || (is_bf16 && q_chunk % 16 != 0) ||
+      (n_chunks > 1 && dkv_acc == nullptr) || (passes > 1 && scores == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Plan pl = is_bf16 ? bwd_plan<bf16>(d, chunk_rows<bf16>(q_chunk))
-                          : bwd_plan<float>(d, chunk_rows<float>(q_chunk));
+  const Plan pl = is_bf16 ? bwd_plan_of<bf16>(g, q_chunk) : bwd_plan_of<float>(g, q_chunk);
   if (pl.stages == 0) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q;
@@ -1464,10 +2097,15 @@ extern "C" int healnet_flash_wide_backward(
   p.dk = dk;
   p.dv = dv;
   p.dkv_acc = dkv_acc;
+  p.scores = scores;
   p.H = H;
   p.lq = lq;
   p.lkv = lkv;
   p.d = d;
+  p.dp = g.dp;
+  p.panels = panels;
+  p.passes = passes;
+  p.units = g.units;
   p.keys_per_cta = keys_per_cta;
   p.stages = pl.stages;
   p.alias = pl.alias;
@@ -1491,10 +2129,19 @@ extern "C" int healnet_flash_wide_backward(
   p.seed = seed;
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  const int xp = g.panel_kernels() ? panels : 1, rows = is_bf16 ? chunk_rows<bf16>(q_chunk)
+                                                              : chunk_rows<float>(q_chunk);
+  p.off = is_bf16 ? offsets(BwdLayout<bf16>(g.dp, rows, pl.stages, pl.alias != 0, xp))
+                  : offsets(BwdLayout<float>(g.dp, rows, pl.stages, pl.alias != 0, xp));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? wide_launch<kWarps>(flash_bwd_wide_tc, p, cluster, B * H, pl.smem, s)
-              : wide_launch<kBwdF32Warps>(flash_bwd_wide_fma, p, cluster, B * H, pl.smem, s));
+  const bool pk = g.panel_kernels();
+  cudaError_t e;
+  if (is_bf16)
+    e = pk ? wide_launch<kWarps>(flash_bwd_wide_tc<true>, p, cluster, B * H, pl.smem, s)
+           : wide_launch<kWarps>(flash_bwd_wide_tc<false>, p, cluster, B * H, pl.smem, s);
+  else
+    e = wide_launch<kBwdF32Warps>(bwd_fma_kernel(g), p, cluster, B * H, pl.smem, s);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* healnet_cuda_error_string(int code) {

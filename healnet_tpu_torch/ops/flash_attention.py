@@ -14,8 +14,9 @@ path) takes the tensor-core kernel (``"tc"``); f32 up to 256, and bf16 of
 129-256, the f32 FMA kernel (``"fma"``); heads of 257-512 the one-pass wide
 kernels of ``csrc/flash_wide.cu`` (``"wide"``: bf16 on tensor cores, f32 on
 FMAs, each tile's scores taken once over the whole head); wider heads the
-FMA kernel's column-chunked form (``"chunked"``: the scores summed over
-256-column chunks and recomputed for each output chunk). All are one
+same kernels with the head's columns split into panels over a cluster's
+blocks (``"panels"``, :func:`flash_panels`: each tile's partial scores
+summed across the panels through distributed shared memory). All are one
 clustered launch per call sized by :func:`flash_plan` (in key tiles of
 :func:`key_tile`) from the kernel's own cluster occupancy. Each wrapper
 counts the launches of each kernel in its own counter
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,9 +53,20 @@ _TC_TILE = 64  # keys per tile of the tensor-core kernels (tc::kKeyTile)
 _TC_MAX_D = 128  # widest head the tensor-core kernels take
 _FMA_CHUNK = 256  # widest head of the one-pass FMA kernels (fmav::kMaxD)
 _FMA_TILE = 32  # keys per tile of the FMA kernels (fmav::kKeys)
-_WIDE_MAX_D = 512  # widest head of the one-pass wide kernels (flash_wide.cu kMaxD)
-# keys per tile of the wide kernels (flash_wide.cu Wide<T>::kKeys)
+_WIDE_MAX_D = 512  # widest head (or panel) a wide block takes (flash_wide.cu kMaxD)
+_PANEL_MAX = 6  # panels of one pass (flash_wide.cu kMaxPanels)
+# the widest panel of the bf16 backward: it then still holds a chunk of 32
+# queries beside the exchange (its chunks are whole m16 tiles, and at 512 it
+# holds 16, which splits lq 17 and took 2.6x the time at d 1024); every
+# other panel is up to 512 wide
+_BF16_BWD_PANEL_WIDTH = 480
+# per dtype, flash_wide.cu's Wide<T>: keys per tile, the multiple a head (or
+# panel) pads to, a staged row's padding, an exchange slot's row pitch
 _WIDE_TILE = {torch.bfloat16: 32, torch.float32: 16}
+_WIDE_ALIGN = {torch.bfloat16: 16, torch.float32: 32}
+_WIDE_PAD = {torch.bfloat16: 8, torch.float32: 4}
+_WIDE_XPITCH = {torch.bfloat16: 36, torch.float32: 16}
+_MAX_SMEM = 232448  # dynamic shared memory a block may use (tc::kMaxSmem)
 _TC_QGROUP = 32  # queries per group of the tensor-core kernels (tc::kQGroup)
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)
 # the wide kernels run one block an SM, where 16-block clusters of brca's 8
@@ -107,39 +119,112 @@ def flash_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernel pair a call takes, from its dtype and head dim alone:
     ``"tc"`` (tensor cores) for bf16 with d <= 128; ``"fma"`` (f32 FMA;
     tensor cores would mean TF32 for f32) for other heads up to 256;
-    ``"wide"`` (one pass, bf16 on tensor cores) for 257-512; ``"chunked"``
-    (the FMA kernels' 256-column chunks) above."""
+    ``"wide"`` (one pass, bf16 on tensor cores) for 257-512; ``"panels"``
+    (the wide kernels over :func:`flash_panels`) above."""
     if dtype == torch.bfloat16 and d <= _TC_MAX_D:
         return "tc"
     if d <= _FMA_CHUNK:
         return "fma"
-    return "wide" if d <= _WIDE_MAX_D else "chunked"
+    return "wide" if d <= _WIDE_MAX_D else "panels"
 
 
 def key_tile(dtype: torch.dtype, d: int) -> int:
     """Keys per tile of the kernel a call takes: 64 for the tensor-core
-    kernels, 32 (bf16) or 16 (f32) for the wide ones, 32 for the FMA ones."""
+    kernels, 32 (bf16) or 16 (f32) for the wide and panel ones, 32 for the
+    FMA ones."""
     variant = flash_variant(dtype, d)
     if variant == "tc":
         return _TC_TILE
-    return _WIDE_TILE[dtype] if variant == "wide" else _FMA_TILE
+    return _FMA_TILE if variant == "fma" else _WIDE_TILE[dtype]
+
+
+class Panels(NamedTuple):
+    """How the wide kernels split a head: ``count`` panels over a cluster's
+    blocks in each of ``passes`` passes, and the columns ``(start, width)``
+    of panel ``t * count + i`` (pass t, cluster panel i)."""
+
+    count: int
+    passes: int
+    columns: Tuple[Tuple[int, int], ...]
+
+
+def flash_panels(dtype: torch.dtype, d: int, backward: bool = False) -> Panels:
+    """The panels of a head of ``d`` columns on the wide kernels, forward
+    or backward: one for d <= 512, else ``ceil(d / 512)`` (two of 288 at
+    d 576; ``ceil(d / 480)`` for the bf16 backward), in one pass while that
+    is at most ``_PANEL_MAX`` (their exchange slots fit beside a 512-wide
+    panel only so far: :func:`wide_smem`), else in the fewest passes of at
+    most ``_PANEL_MAX``. Widths are balanced in whole ``kAlign`` units (16
+    columns for bf16, 32 for f32), the last panel clipped to d, so no panel
+    is wider than 512. Fewer, wider panels are faster: every panel count
+    runs a tile in about the same time, and more panels leave fewer key
+    ranges to a cluster."""
+    width = _BF16_BWD_PANEL_WIDTH if backward and dtype == torch.bfloat16 else _WIDE_MAX_D
+    n = 1 if d <= _WIDE_MAX_D else -(-d // width)
+    passes = -(-n // _PANEL_MAX)
+    count = -(-n // passes)
+    total, align = count * passes, _WIDE_ALIGN[dtype]
+    units = -(-d // align)
+    cuts = [min(d, i * units // total * align) for i in range(total + 1)]
+    return Panels(count, passes, tuple((a, b - a) for a, b in zip(cuts, cuts[1:])))
+
+
+def wide_smem(dtype: torch.dtype, dp: int, panels: int = 1, rows: Optional[int] = None
+              ) -> Tuple[int, int, int]:
+    """``(stages, alias, bytes)`` of a wide or panel kernel's shared memory
+    at padded panel width ``dp``, mirroring ``flash_wide.cu``'s FwdLayout
+    (``rows`` None) or BwdLayout (a query chunk of ``rows``, bf16's padded
+    to 16) and its pick_plan: the most ring stages (4 to 2) beside the
+    pushed states, else aliased with them; (0, 0, 0) where none fits.
+    ``panels`` > 1 adds the exchange: six mbarriers (the exchange's two and
+    the ring's four) and a slot of partial scores for each tile parity and
+    panel."""
+    kt, tc = _WIDE_TILE[dtype], dtype == torch.bfloat16
+    row = (2 if tc else 4) * (dp + _WIDE_PAD[dtype])
+    stage = 2 * kt * row + 4 * kt
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+
+    def total(stages: int, alias: bool) -> int:
+        ring = stages * stage
+        if rows is None:
+            pushed = a16(4 * (_TC_QGROUP * dp + 16))
+            at = (max(ring, pushed) if alias else ring + pushed) + _TC_QGROUP * row
+            at += ((4 * _TC_QGROUP * (kt + 4) if panels == 1 else 0) + 2 * _TC_QGROUP * (kt + 8)
+                   if tc else 4 * _TC_QGROUP * kt)
+            end = at + 4 * _TC_QGROUP + 2 * 4 * 16 * _TC_QGROUP
+            slot = _TC_QGROUP * _WIDE_XPITCH[dtype]
+        else:
+            pushed = a16(4 * (rows * dp + 16))
+            at = a16((max(ring, pushed) if alias else ring + pushed) + 2 * rows * row + 8 * rows)
+            end = at + (4 * kt * (rows + 8) if tc else 8 * rows * kt)
+            slot = 2 * rows * _WIDE_XPITCH[dtype]
+        return end if panels == 1 else a16(end) + 48 + 4 * 2 * panels * slot
+
+    for alias in (False, True):
+        for stages in (4, 3, 2):
+            if total(stages, alias) <= _MAX_SMEM:
+                return stages, int(alias), total(stages, alias)
+    return 0, 0, 0
 
 
 def flash_plan(rows: int, lkv: int, sms: int, max_cluster: int,
-               tile: int = _TC_TILE) -> Tuple[int, int]:
-    """Launch plan of both kernel variants: ``(cluster, keys_per_block)``.
+               tile: int = _TC_TILE, panels: int = 1) -> Tuple[int, int]:
+    """Launch plan of every kernel variant: ``(cluster, keys_per_block)``.
 
-    One cluster of ``cluster`` blocks per (batch*head) row, block ``r``
-    owning keys ``[r * keys_per_block, (r + 1) * keys_per_block)``: enough
-    blocks for one on every SM, each a whole number of ``tile``-key tiles,
-    at most ``max_cluster`` (the largest cluster of which ``rows`` fit on
-    the card at once), and no block without keys (so ``lkv <= tile`` gives
-    1).
+    One cluster of ``cluster`` blocks per (batch*head) row: ``panels``
+    blocks (the head's panels, :func:`flash_panels`) for each of the row's
+    key ranges, block ``r`` owning panel ``r % panels`` of keys
+    ``[(r // panels) * keys_per_block, (r // panels + 1) * keys_per_block)``:
+    enough blocks for one on every SM, each range a whole number of
+    ``tile``-key tiles, the cluster at most ``max_cluster`` (the largest
+    cluster of which ``rows`` fit on the card at once, a multiple of
+    ``panels``), and no range without keys (so ``lkv <= tile`` gives one).
     """
     tiles = max(1, -(-lkv // tile))
     want = max(1, -(-sms // max(rows, 1)))
-    per = -(-tiles // max(1, min(want, tiles, max_cluster))) * tile
-    return max(1, -(-lkv // per)), per
+    ranges = max(1, min(-(-want // panels), tiles, max_cluster // panels))
+    per = -(-tiles // ranges) * tile
+    return max(1, -(-lkv // per)) * panels, per
 
 
 def query_chunks(lq: int, max_rows: int, align: int = 1) -> Tuple[int, int]:
@@ -162,20 +247,25 @@ def _wide_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, i, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [f, i, u, u, f, i, p]
         fn.restype = i
         lib.healnet_flash_wide_backward.argtypes = (
-            [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p])
+            [p] * 12 + [i] * 11 + [ll] * 13 + [f, i, u, u, f, i, p])
         lib.healnet_flash_wide_backward.restype = i
         lib.healnet_flash_wide_max_d.restype = i
-        lib.healnet_flash_wide_fwd_max_clusters.argtypes = [i, i, i]
+        lib.healnet_flash_wide_max_panels.restype = i
+        lib.healnet_flash_wide_smem.argtypes = [i] * 6
+        lib.healnet_flash_wide_smem.restype = ll
+        lib.healnet_flash_wide_fwd_max_clusters.argtypes = [i] * 5
         lib.healnet_flash_wide_fwd_max_clusters.restype = i
-        lib.healnet_flash_wide_bwd_max_queries.argtypes = [i, i]
+        lib.healnet_flash_wide_bwd_max_queries.argtypes = [i] * 4
         lib.healnet_flash_wide_bwd_max_queries.restype = i
-        lib.healnet_flash_wide_bwd_max_clusters.argtypes = [i, i, i, i]
+        lib.healnet_flash_wide_bwd_max_clusters.argtypes = [i] * 6
         lib.healnet_flash_wide_bwd_max_clusters.restype = i
-        if lib.healnet_flash_wide_max_d() != _WIDE_MAX_D:
-            raise RuntimeError("flash_wide.cu's kMaxD and _WIDE_MAX_D disagree")
+        if (lib.healnet_flash_wide_max_d(), lib.healnet_flash_wide_max_panels()) != (
+                _WIDE_MAX_D, _PANEL_MAX):
+            raise RuntimeError("flash_wide.cu's kMaxD / kMaxPanels and _WIDE_MAX_D / "
+                               "_PANEL_MAX disagree")
     return lib
 
 
@@ -208,20 +298,25 @@ def _max_cluster(query, key: tuple, rows: int, sizes: Tuple[int, ...] = _CLUSTER
         if min(counts.values()) < 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {key}")
         _RESIDENT[key] = counts
-    return next((c for c in sizes if counts[c] >= rows), 1)
+    return next((c for c in sizes if counts[c] >= rows), sizes[-1])
 
 
 def _plan(query, key: tuple, rows: int, lkv: int, device: torch.device,
-          tile: int = _TC_TILE, sizes: Tuple[int, ...] = _CLUSTER_SIZES) -> Tuple[int, int]:
+          tile: int = _TC_TILE, sizes: Tuple[int, ...] = _CLUSTER_SIZES,
+          panels: int = 1) -> Tuple[int, int]:
     """:func:`flash_plan` on ``device``, with its SM count and
-    :func:`_max_cluster` over ``sizes``."""
+    :func:`_max_cluster` over ``sizes`` (the smallest where none is
+    resident ``rows`` times)."""
     return flash_plan(rows, lkv, _sm_count(device.index),
-                      _max_cluster(query, key, rows, sizes), tile)
+                      _max_cluster(query, key, rows, sizes), tile, panels)
 
 
-def _sizes(variant: str) -> Tuple[int, ...]:
-    """The cluster sizes a route's plan may take."""
-    return _WIDE_CLUSTER_SIZES if variant == "wide" else _CLUSTER_SIZES
+def _sizes(variant: str, panels: int = 1) -> Tuple[int, ...]:
+    """The cluster sizes a route's plan may take: for the wide kernels any
+    multiple of its panels up to 16."""
+    if variant in ("wide", "panels"):
+        return tuple(c for c in _WIDE_CLUSTER_SIZES if c % panels == 0)
+    return _CLUSTER_SIZES
 
 
 def _check_qkv(q, k, v, extra=()) -> None:
@@ -268,14 +363,16 @@ def flash_attention_kernel(
     tensor-core kernel (counted in ``launches``), other heads up to 256 the
     FMA kernel (``launches_fma``), heads of 257-512 the one-pass wide kernel
     (``launches_wide_fma`` in f32, ``launches_wide_tc`` in bf16), wider ones
-    the FMA kernel's chunked form (``launches_fma_chunked``). Each is one
-    launch.
+    the panel kernels (``launches_panel_fma`` / ``launches_panel_tc``; past
+    one pass of panels with a (b*h, lq, lkv) f32 scratch of the scores).
+    Each is one launch.
     """
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     lkv = k.shape[2]
     variant = flash_variant(q.dtype, d)
-    lib = _wide_lib() if variant == "wide" else _lib()
+    wide = variant in ("wide", "panels")
+    lib = _wide_lib() if wide else _lib()
     bf = int(q.dtype == torch.bfloat16)
     mask = _float_mask(kv_mask, b, lkv, q.device)
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -294,19 +391,28 @@ def flash_attention_kernel(
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
                 *drop, stream,
             )
-        else:
-            if variant == "wide":
-                query, launch = (lib.healnet_flash_wide_fwd_max_clusters,
-                                 lib.healnet_flash_wide_forward)
-            else:
-                query, launch = lib.healnet_flash_fma_max_clusters, lib.healnet_flash_forward
-            cluster, per = _plan(lambda c: query(d, bf, c),
-                                 (f"fwd_{variant}", q.device.index, d, bf), b * h, lkv,
-                                 q.device, key_tile(q.dtype, d), _sizes(variant))
-            code = launch(
+        elif variant == "fma":
+            cluster, per = _plan(lambda c: lib.healnet_flash_fma_max_clusters(d, bf, c),
+                                 ("fwd_fma", q.device.index, d, bf), b * h, lkv, q.device,
+                                 _FMA_TILE)
+            code = lib.healnet_flash_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
                 lse.data_ptr(), b, h, lq, lkv, d, cluster, per, *strides, float(eff_scale),
                 *drop, bf, stream,
+            )
+        else:
+            pan = flash_panels(q.dtype, d)
+            scores = (torch.empty((b * h, lq, lkv), dtype=torch.float32, device=q.device)
+                      if pan.passes > 1 else None)
+            cluster, per = _plan(
+                lambda c: lib.healnet_flash_wide_fwd_max_clusters(d, bf, c, pan.count, pan.passes),
+                (f"fwd_{variant}", q.device.index, d, bf), b * h, lkv, q.device,
+                key_tile(q.dtype, d), _sizes(variant, pan.count), pan.count)
+            code = lib.healnet_flash_wide_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                lse.data_ptr(), None if scores is None else scores.data_ptr(), b, h, lq, lkv, d,
+                cluster, per, pan.count, pan.passes, *strides, float(eff_scale), *drop, bf,
+                stream,
             )
         _count(flash_attention_kernel, q.dtype, d)
     cuda_build.check(lib, code, "flash_attention_kernel")
@@ -315,18 +421,19 @@ def flash_attention_kernel(
 
 # the wrappers' launch counters, one a kernel
 LAUNCH_COUNTERS = ("launches", "launches_fma", "launches_wide_fma", "launches_wide_tc",
-                   "launches_fma_chunked")
+                   "launches_panel_fma", "launches_panel_tc")
 
 
 def launch_counter(dtype: torch.dtype, d: int) -> str:
     """The wrappers' counter of the kernel a call takes: ``launches`` (the
     tensor-core kernel), ``launches_fma``, ``launches_wide_fma`` (the wide
-    route in f32), ``launches_wide_tc`` (in bf16) or
-    ``launches_fma_chunked``."""
+    route in f32), ``launches_wide_tc`` (in bf16), ``launches_panel_fma``
+    or ``launches_panel_tc`` (the panel route)."""
     variant = flash_variant(dtype, d)
-    if variant == "wide":
-        return "launches_wide_tc" if dtype == torch.bfloat16 else "launches_wide_fma"
-    return {"tc": "launches", "fma": "launches_fma", "chunked": "launches_fma_chunked"}[variant]
+    if variant in ("wide", "panels"):
+        kind = "tc" if dtype == torch.bfloat16 else "fma"
+        return f"launches_{'wide' if variant == 'wide' else 'panel'}_{kind}"
+    return {"tc": "launches", "fma": "launches_fma"}[variant]
 
 
 def _count(wrapper, dtype: torch.dtype, d: int) -> None:
@@ -356,7 +463,8 @@ def flash_attention_bwd_kernel(
     q, k, v, kv_mask, eff_scale and the dropout arguments as for the
     forward; do: (b, h, lq, d) in q's dtype, any strides with a unit stride
     on d; lse, delta: (b, h, lq) f32 (the forward's log-sum-exp and
-    rowsum(dO * O)). The route and its counter as for the forward. Every
+    rowsum(dO * O)). The route and its counter as for the forward (past one
+    pass of panels with a (2, b*h, lq, lkv) f32 scratch of s and dp). Every
     route walks the queries in :func:`query_chunks` of what a block holds;
     with more than one chunk, dk and dv are carried over the chunks in an
     f32 scratch buffer (each element by one thread, in chunk order).
@@ -371,11 +479,13 @@ def flash_attention_bwd_kernel(
             raise ValueError(f"{name} must be {(b, h, lq)} f32 on {q.device}")
     lse, delta = lse.contiguous(), delta.contiguous()
     variant = flash_variant(q.dtype, d)
-    tc = variant == "tc"
+    tc, wide = variant == "tc", variant in ("wide", "panels")
     bf = int(q.dtype == torch.bfloat16)
-    lib = _wide_lib() if variant == "wide" else _bwd_lib()
-    if variant == "wide":  # bf16 pads a chunk to m16 query tiles
-        max_rows = _max_queries(lib, "healnet_flash_wide_bwd_max_queries", d, bf)
+    lib = _wide_lib() if wide else _bwd_lib()
+    if wide:  # bf16 pads a chunk to m16 query tiles
+        pan = flash_panels(q.dtype, d, backward=True)
+        max_rows = _max_queries(lib, "healnet_flash_wide_bwd_max_queries", d, bf, pan.count,
+                                pan.passes)
         align = 16 if bf else 1
     else:
         max_rows = _max_queries(
@@ -396,6 +506,8 @@ def flash_attention_bwd_kernel(
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
                0 if mask is None else mask.stride(0))
     drop = _dropout_args(float(dropout_rate), dropout_seed)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), carry_ptr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tc:
@@ -403,26 +515,29 @@ def flash_attention_bwd_kernel(
                 lambda c: lib.healnet_flash_bwd_tc_max_clusters(chunk, d, c),
                 ("bwd", q.device.index, -(-d // 16), chunk // _TC_QGROUP), b * h, lkv, q.device)
             code = lib.healnet_flash_backward_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
+                *ptrs, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
                 float(eff_scale), *drop, stream,
             )
-        else:
-            if variant == "wide":
-                query, launch = (lib.healnet_flash_wide_bwd_max_clusters,
-                                 lib.healnet_flash_wide_backward)
-            else:
-                query, launch = lib.healnet_flash_bwd_fma_max_clusters, lib.healnet_flash_backward
+        elif not wide:
             cluster, per = _plan(
-                lambda c: query(chunk, d, bf, c),
-                (f"bwd_{variant}", q.device.index, d, bf, chunk), b * h, lkv,
-                q.device, key_tile(q.dtype, d), _sizes(variant))
-            code = launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                carry_ptr, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
+                lambda c: lib.healnet_flash_bwd_fma_max_clusters(chunk, d, bf, c),
+                ("bwd_fma", q.device.index, d, bf, chunk), b * h, lkv, q.device, _FMA_TILE)
+            code = lib.healnet_flash_backward(
+                *ptrs, b, h, lq, lkv, d, cluster, per, chunk, n_chunks, *strides,
                 float(eff_scale), *drop, bf, stream,
+            )
+        else:  # past one pass of panels: a (2, b*h, lq, lkv) f32 scratch of s and dp
+            scores = (torch.empty((2, b * h, lq, lkv), dtype=torch.float32, device=q.device)
+                      if pan.passes > 1 else None)
+            cluster, per = _plan(
+                lambda c: lib.healnet_flash_wide_bwd_max_clusters(chunk, d, bf, c, pan.count,
+                                                                  pan.passes),
+                (f"bwd_{variant}", q.device.index, d, bf, chunk), b * h, lkv, q.device,
+                key_tile(q.dtype, d), _sizes(variant, pan.count), pan.count)
+            code = lib.healnet_flash_wide_backward(
+                *ptrs, None if scores is None else scores.data_ptr(), b, h, lq, lkv, d, cluster,
+                per, chunk, n_chunks, pan.count, pan.passes, *strides, float(eff_scale), *drop,
+                bf, stream,
             )
         _count(flash_attention_bwd_kernel, q.dtype, d)
     cuda_build.check(lib, code, "flash_attention_bwd_kernel")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the flash kernels' FMA variants: their time with a part taken out.
 
-    python3 scripts/probe_flash_variants.py [--kernel fwd|bwd|wide]
+    python3 scripts/probe_flash_variants.py [--kernel fwd|bwd|wide] [--d 320]
 
 Needs one CUDA GPU and nvcc. ``ncu`` is not available everywhere, so this
 builds copies of ``flash_attention.cu`` (``fwd``) or
@@ -21,10 +21,12 @@ tiles), ``no scores`` (one shared load in place of a row's dot products),
 products or stores), ``no s dp`` (one shared load in place of the two dot
 products of a row), ``no dq`` (one add in place of dq += dS K).
 
-``wide``: the one-pass wide kernels of ``flash_wide.cu``, forward and
-backward at (8, 17, 4096, 320) in f32 and bf16: ``no staging`` (no K/V
-copies after the first tiles, all four kernels), and per kernel the
-products or stores named (``tc``: the bf16 kernels, ``fma``: the f32 ones).
+``wide``: the kernels of ``flash_wide.cu``, forward and backward at
+(8, 17, 4096, d) in f32 and bf16 (``--d``: 320 by default; past 512 the
+panel kernels): ``no staging`` (no K/V row copies, all four kernels; the
+bf16 panels' bulk-copy barriers still arrive, expecting no bytes), and per
+kernel the products or stores named (``tc``: the bf16 kernels, ``fma``:
+the f32 ones).
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ OUT = ROOT / "build/flash-variants"
 SOURCES = {"fwd": "flash_attention", "bwd": "flash_attention_bwd", "wide": "flash_wide"}
 # the f32 wide kernels' dot-product loop over a lane's half of the head, and
 # the same loop run for no channel
-FMA_DOTS = ("      for (int c = 4 * half; c < dp; c += 8) {\n"
-            "        const float4 kv = *reinterpret_cast<const float4*>(kr + c);")
+FMA_DOTS = ("        for (int c = 4 * half; c < dp; c += 8) {\n"
+            "          const float4 kv = *reinterpret_cast<const float4*>(kr + c);")
 FMA_NO_DOTS = FMA_DOTS.replace("c < dp", "c < 0")
 # variant -> [(anchor, replacement)]
 VARIANTS = {
@@ -82,10 +84,12 @@ VARIANTS = {
     },
     "wide": {
         "as is": [],
-        "no staging": [("  if (nxt < blk.ntiles)\n    stage_kv<T, NW>(",
-                        "  if (false)\n    stage_kv<T, NW>(")],
-        "no tc scores": [("kb_row + kk * 16);\n            tc::mma_bf16(s4,",
-                          "kb_row + kk * 16);\n            if (false) tc::mma_bf16(s4,")],
+        "no staging": [("    for (int c = lane; c < n; c += 32) tc::cp_async16(",
+                        "    for (int c = lane; c < 0; c += 32) tc::cp_async16("),
+                       ("      hp::mbar_expect_tx(bar, bytes);\n      if (bytes > 0)",
+                        "      hp::mbar_expect_tx(bar, 0u);\n      if (false)")],
+        "no tc scores": [("kb_row + kk * 16);\n              tc::mma_bf16(s4,",
+                          "kb_row + kk * 16);\n              if (false) tc::mma_bf16(s4,")],
         "no tc p V": [("tc::mma_bf16(acc[mt][i], pa,", "if (false) tc::mma_bf16(acc[mt][i], pa,")],
         "no tc dq": [("tc::mma_bf16(dqa[mt][i], a,", "if (false) tc::mma_bf16(dqa[mt][i], a,")],
         "no tc dk dv": [("tile_dkdv_tc(pt, dos, sdv,", "if (false) tile_dkdv_tc(pt, dos, sdv,"),
@@ -94,12 +98,12 @@ VARIANTS = {
                                "if (last) __syncthreads(); if (false) store_dkv<bf16, kWarps>("
                                "sdv, P, dk, dv, k0, blk.kv_end,")],
         "no fma scores": [(FMA_DOTS + "\n#pragma", FMA_NO_DOTS + "\n#pragma")],
-        "no fma p V": [("j < KT; j += 4) {\n        float4 pv[NS];",
-                        "j < 0; j += 4) {\n        float4 pv[NS];")],
-        "no fma s dp": [(FMA_DOTS + "\n        const float4 vv",
-                         FMA_NO_DOTS + "\n        const float4 vv")],
-        "no fma dq": [("j < KT; j += 4) {\n        float4 dv4[NS];",
-                       "j < 0; j += 4) {\n        float4 dv4[NS];")],
+        "no fma p V": [("j < KT; j += 4) {\n          float4 pv[NS];",
+                        "j < 0; j += 4) {\n          float4 pv[NS];")],
+        "no fma s dp": [(FMA_DOTS + "\n          const float4 vv",
+                         FMA_NO_DOTS + "\n          const float4 vv")],
+        "no fma dq": [("j < KT; j += 4) {\n          float4 dv4[NS];",
+                       "j < 0; j += 4) {\n          float4 dv4[NS];")],
         "no fma dk dv": [("#pragma unroll 2\n      for (int i = 0; i < nq; ++i) {",
                           "#pragma unroll 2\n      for (int i = 0; i < 0; ++i) {")],
         "no fma dk dv store": [("store_dkv<float, NW>(sdv, P, dk, dv, k0, blk.kv_end,",
@@ -139,10 +143,10 @@ def use(kernel: str, path: Path) -> None:
     fa._max_queries.cache_clear()
 
 
-def wide_runs(gen) -> dict:
-    """Forward and backward of the wide kernels at (8, 17, 4096, 320), f32
-    and bf16, unmasked."""
-    runs, d = {}, 320
+def wide_runs(gen, d: int) -> dict:
+    """Forward and backward of the wide (or panel) kernels at (8, 17, 4096,
+    d), f32 and bf16, unmasked."""
+    runs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name, eff = str(dtype)[6:], d**-0.5 / 0.5
         q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype)
@@ -160,7 +164,9 @@ def wide_runs(gen) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("--kernel", choices=sorted(SOURCES), default="fwd")
-    kernel = parser.parse_args().kernel
+    parser.add_argument("--d", type=int, default=320, help="head dim of --kernel wide")
+    args = parser.parse_args()
+    kernel = args.kernel
     if not torch.cuda.is_available():
         print("probe_flash_variants: no CUDA device is available", file=sys.stderr)
         return 1
@@ -172,7 +178,7 @@ def main() -> int:
         libs = dict(zip(names, pool.map(lambda n: build(kernel, n), names)))
     cuda_build.build(tuple(SOURCES.values()))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = wide_runs(gen) if kernel == "wide" else {}
+    runs = wide_runs(gen, args.d) if kernel == "wide" else {}
     for label in (() if kernel == "wide" else ("brca f32", "kirp f32")):
         d, width, dtype = FLASH_SHAPES[label]
         eff = d**-0.5 / 0.5

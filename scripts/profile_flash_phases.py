@@ -17,11 +17,11 @@ cycles per block and call (averaged over the blocks) and its share. Thread
 0 is in warp 0 (which owns three of 17 query rows in the FMA kernels), so
 a phase that ends at a barrier includes the wait for the slowest warp.
 
-``--variant wide`` profiles the one-pass wide kernels of
-``flash_wide.cu`` (heads of 257-512; ``--d`` defaults to 320 there), f32
-and bf16, forward and backward: that source carries its own markers
-(``WIDE_PHASE``, empty unless this script defines them), so no anchor moves
-with it.
+``--variant wide`` profiles the kernels of ``flash_wide.cu``: the one-pass
+wide kernels (heads of 257-512; ``--d`` defaults to 320 there) or, with
+``--d`` past 512, the panel kernels, f32 and bf16, forward and backward:
+that source carries its own markers (``WIDE_PHASE``, empty unless this
+script defines them), so no anchor moves with it.
 """
 
 from __future__ import annotations
@@ -183,15 +183,19 @@ FMA_BWD = {
 WIDE_HEADER = ("#define WIDE_PHASE(k) PROF(k)\n"
                "#define WIDE_PHASE_INIT() do {" + INIT.strip() + "} while (0)\n"
                "#define WIDE_PHASE_FLUSH() PROF_FLUSH()\n")
+# (with panels, phase 12 is the tile's partial scores and their stores into
+# the peers, and phase 5 starts with the wait for the peers' partials)
 WIDE_FWD = {"phases": {1: "prologue: ring primed, q loaded", 2: "wait for the tile",
-                       3: "issue the next tile", 4: "shift the tile in place", 5: "scores",
+                       3: "issue the next tile", 4: "shift the tile in place",
+                       12: "panels: partial scores shared", 5: "scores (panels: exchange wait)",
                        6: "softmax, p stored", 7: "acc += p V", 8: "state pushed",
                        9: "cluster barrier", 10: "merge and store", 11: "next-group barrier"}}
 WIDE_BWD = {"phases": {1: "prologue: ring primed, q/dO loaded", 2: "wait for the tile",
                        3: "issue the next tile", 4: "shift the tile in place",
-                       5: "s, dp, p, round(p e), round(ds)", 6: "dq += ds K",
-                       7: "dv, dk products and stores", 8: "dq pushed", 9: "cluster barrier",
-                       10: "dq merge and store"}}
+                       12: "panels: partial s, dp shared",
+                       5: "s, dp (panels: exchange wait), p, round(p e), round(ds)",
+                       6: "dq += ds K", 7: "dv, dk products and stores", 8: "dq pushed",
+                       9: "cluster barrier", 10: "dq merge and store"}}
 
 
 def build_instrumented(name: str, spec: dict, tag: str) -> ctypes.CDLL:
@@ -261,13 +265,14 @@ def main() -> int:
         cuda_build._LIBS["flash_wide"] = lib
         d = args.d or 320
         for dtype in (torch.float32, torch.bfloat16):
-            bf = int(dtype == torch.bfloat16)
-            resident = {c: lib.healnet_flash_wide_fwd_max_clusters(d, bf, c)
-                        for c in fa._WIDE_CLUSTER_SIZES}
-            cluster = fa._max_cluster(lambda c: resident[c], ("profile", d, bf), 8,
-                                      fa._WIDE_CLUSTER_SIZES)
-            print(f"{str(dtype)[6:]} d {d}: forward clusters resident at once by size {resident}; "
-                  f"8 rows take clusters of {cluster}")
+            bf, pan = int(dtype == torch.bfloat16), fa.flash_panels(dtype, d)
+            sizes = fa._sizes(fa.flash_variant(dtype, d), pan.count)
+            resident = {c: lib.healnet_flash_wide_fwd_max_clusters(d, bf, c, pan.count, pan.passes)
+                        for c in sizes}
+            cluster = fa._max_cluster(lambda c: resident[c], ("profile", d, bf), 8, sizes)
+            print(f"{str(dtype)[6:]} d {d}: {pan.count} panel(s) x {pan.passes} pass(es); forward "
+                  f"clusters resident at once by size {resident}; 8 rows take clusters of "
+                  f"{cluster}")
             profile_pair(lib, lib, WIDE_FWD, WIDE_BWD, dtype, d)
         return 0
     fwd_spec, bwd_spec = (FWD, BWD) if args.variant == "tc" else (FMA_FWD, FMA_BWD)

@@ -23,11 +23,15 @@ from healnet_tpu_torch.ops import QuantizedContext, quantize_context
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.flash_attention import (
     LAUNCH_COUNTERS,
+    _wide_lib,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_backward_plain,
     flash_cross_attention,
+    flash_lse_plain,
+    flash_panels,
     launch_counter,
+    wide_smem,
 )
 from healnet_tpu_torch.ops.fused_chain import (
     WEIGHT_FIELDS,
@@ -346,28 +350,36 @@ def test_flash_fma_kernels_full_size(gen, d, width, rate):
 
 
 # (head dim, KV buffer width or None for 4 d): the one-pass wide kernels
-# at 257-512, the chunked route past them, and rows at odd 2-byte (bf16) or
-# 4-byte (f32) offsets, whose 16-byte hulls the ring shifts into place
-WIDE_HEADS = [(257, None), (320, None), (512, None), (513, None), (320, 1283)]
+# at 257-512, the panel kernels past them (513, 576 and 1000 in two panels,
+# three for 1000 in the bf16 backward; 3100 past one pass: four panels in
+# each of two passes), and rows at odd 2-byte (bf16) or 4-byte (f32)
+# offsets, whose 16-byte hulls the ring shifts into place
+WIDE_HEADS = [(257, None), (320, None), (512, None), (513, None), (320, 1283), (576, None),
+              (1000, None), (576, 2307), (3100, None)]
 
 
 @pytest.mark.parametrize("lkv", [1000, 1])
 @pytest.mark.parametrize("lq", [17, 40])
-@pytest.mark.parametrize("d,width", WIDE_HEADS, ids=["257", "320", "512", "513", "320-pitch1283"])
+@pytest.mark.parametrize("d,width", WIDE_HEADS, ids=["257", "320", "512", "513", "320-pitch1283",
+                                                     "576", "1000", "576-pitch2307", "3100"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fma_kernels_wide_heads(gen, dtype, d, width, lq, lkv):
     """Heads wider than 256: K and V as column slices of a merged KV buffer
     (width 4 d unless given), masked with a fully masked sample, dropout
     0.083; one launch a call each, counted by the kernel's own counter
     (``launches_wide_fma`` / ``launches_wide_tc`` for the one-pass kernels
-    up to 512, ``launches_fma_chunked`` past them), the forward to 2e-5
+    up to 512, ``launches_panel_fma`` / ``launches_panel_tc`` past them), the
+    forward to 2e-5
     (f32) or 4 bf16 ulps of the plain version, the backward to 1e-5 of the
     largest gradient or 4 ulps, two calls bit-identical; lq 40 takes two
     query groups (and two chunks where the backward holds 32 queries or
-    fewer). lkv 1 (the omic context) is one partial key tile on a cluster
-    of 1; there p = 1, so dq and dk are the f32 rounding residue of
-    dp * e - delta, terms of dv's size, and f32 holds them to 1e-5 of the
-    call's largest gradient (dv's)."""
+    fewer). The f32 backward is held against the plain version in f64 (with
+    its log-sum-exp and delta in f64), as ``chip_smoke.py`` holds every
+    flash call of its steps: at d 3100 the plain version's own f32 sums lie
+    farther from f64 than the kernel's. lkv 1 (the omic context) is
+    one partial key tile on a cluster of 1; there p = 1, so dq and dk are
+    the f32 rounding residue of dp * e - delta, terms of dv's size, and f32
+    holds them to 1e-5 of the call's largest gradient (dv's)."""
     b, rate, seed = 3, 0.083, 77
     q = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
     kv = torch.randn((b, lkv, width or 4 * d), generator=gen, device="cuda").to(dtype)
@@ -389,18 +401,47 @@ def test_flash_fma_kernels_wide_heads(gen, dtype, d, width, lq, lkv):
     do = torch.randn((b, lq, d), generator=gen, device="cuda").to(dtype)[:, None]
     delta = (do.float() * out.float().reshape(b, 1, lq, d)).sum(-1)
     got = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
-    want = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, rate, seed)
+    if dtype == torch.float32:
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        want = flash_backward_plain(
+            q64, k64, v64, mask, do64, flash_lse_plain(q64, k64, mask, eff),
+            (do64 * out.double().reshape(b, 1, lq, d)).sum(-1), eff, rate, seed)
+    else:
+        want = flash_backward_plain(q, k, v, mask, do, lse, delta, eff, rate, seed)
     again = flash_attention_bwd_kernel(q, k, v, mask, do, lse, delta, eff, rate, seed)
-    largest = max(r.float().abs().max().item() for r in want)
+    largest = max(r.double().abs().max().item() for r in want)
     for name, a, r, a2 in zip(("dq", "dk", "dv"), got, want, again):
-        top = largest if lkv == 1 else r.float().abs().max().item()
+        top = largest if lkv == 1 else r.double().abs().max().item()
         tol = 1e-5 * max(1.0, top) if dtype == torch.float32 else _bf16_tol(r)
-        assert (a.float() - r.float()).abs().max().item() <= tol, name
+        assert (a.double() - r.double()).abs().max().item() <= tol, name
         assert a[0].abs().max().item() == 0.0 and torch.equal(a, a2), name
     moved = launch_counter(dtype, d)
     for fn in (flash_attention_kernel, flash_attention_bwd_kernel):
         assert {name: getattr(fn, name) for name in counters} == {
             name: 2 if name == moved else 0 for name in counters}, fn.__name__
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512, 513, 576, 1000, 3072, 3100, 8200])
+def test_flash_wide_smem_matches_plan(gen, dtype, d):
+    """The wide and panel kernels' shared memory at (panels, passes) of
+    ``flash_panels``, forward and backward (at the library's largest query
+    chunk and at 1 and 16 rows), is what ``wide_smem`` reckons from the
+    layouts, and fits the card."""
+    bf, lib = int(dtype == torch.bfloat16), _wide_lib()
+    align = 16 if bf else 32
+    for bwd in (False, True):
+        pan = flash_panels(dtype, d, backward=bwd)
+        dp = -(-max(w for _, w in pan.columns) // align) * align
+        panels = pan.count if pan.count * pan.passes > 1 else 1
+        if not bwd:
+            assert lib.healnet_flash_wide_smem(d, bf, pan.count, pan.passes, 0, 0) == wide_smem(
+                dtype, dp, panels)[2] > 0
+            continue
+        top = lib.healnet_flash_wide_bwd_max_queries(d, bf, pan.count, pan.passes)
+        for rows in {top, 16} if bf else {top, 16, 1}:
+            assert lib.healnet_flash_wide_smem(d, bf, pan.count, pan.passes, 1, rows) == wide_smem(
+                dtype, dp, panels, rows)[2] > 0, rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

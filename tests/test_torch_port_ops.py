@@ -34,6 +34,8 @@ from healnet_tpu_torch.ops import fourier as tfour
 from healnet_tpu_torch.ops import hash_dropout as thash
 from healnet_tpu_torch.ops.flash_attention import (
     LAUNCH_COUNTERS,
+    _BF16_BWD_PANEL_WIDTH,
+    _PANEL_MAX,
     _RESIDENT,
     _WIDE_CLUSTER_SIZES,
     FlashAttentionFunction,
@@ -43,11 +45,13 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_backward_plain,
     flash_cross_attention as tflash,
     flash_lse_plain,
+    flash_panels,
     flash_plan,
     flash_variant,
     key_tile,
     launch_counter,
     query_chunks,
+    wide_smem,
 )
 from healnet_tpu_torch.ops.fused_project import (
     PROJECT_WIDTHS,
@@ -500,22 +504,105 @@ def test_flash_backward_plain_vs_jax_at_long_latents(rng, lq):
     (torch.bfloat16, 320, "wide", 32, "launches_wide_tc"),
     (torch.float32, 512, "wide", 16, "launches_wide_fma"),
     (torch.bfloat16, 512, "wide", 32, "launches_wide_tc"),
-    (torch.float32, 513, "chunked", 32, "launches_fma_chunked"),
-    (torch.bfloat16, 513, "chunked", 32, "launches_fma_chunked"),
-    (torch.float32, 1024, "chunked", 32, "launches_fma_chunked")])
+    (torch.float32, 513, "panels", 16, "launches_panel_fma"),
+    (torch.bfloat16, 513, "panels", 32, "launches_panel_tc"),
+    (torch.float32, 1024, "panels", 16, "launches_panel_fma"),
+    (torch.float32, 576, "panels", 16, "launches_panel_fma"),
+    (torch.bfloat16, 576, "panels", 32, "launches_panel_tc"),
+    (torch.float32, 3100, "panels", 16, "launches_panel_fma"),
+    (torch.bfloat16, 8200, "panels", 32, "launches_panel_tc")])
 def test_flash_wide_route_rule(dtype, d, variant, tile, counter):
     """Heads of 257-512 take the one-pass wide kernels (32-key tiles in
-    bf16, 16 in f32), wider heads the FMA kernels' column-chunked form (in
-    the FMA kernels' 32-key tiles), by dtype and d alone; 256 stays on the
-    FMA kernels. Each kernel has its own launch counter on both wrappers.
-    The launch plan covers every key once in the route's tiles."""
+    bf16, 16 in f32), wider heads the same kernels over panels (in the same
+    tiles; past one pass of panels too), by dtype and d alone; 256 stays on
+    the FMA kernels. Each kernel has its own launch counter on both
+    wrappers. The launch plan covers every key once in the route's tiles,
+    its cluster a multiple of the head's panels."""
     assert flash_variant(dtype, d) == variant and key_tile(dtype, d) == tile
     assert launch_counter(dtype, d) == counter and counter in LAUNCH_COUNTERS
     assert all(getattr(fn, name) >= 0 for fn in (flash_attention_kernel,
                                                  flash_attention_bwd_kernel)
                for name in LAUNCH_COUNTERS)
-    cluster, per = flash_plan(8, 4096, 132, 8, key_tile(dtype, d))
-    assert per % tile == 0 and (cluster - 1) * per < 4096 <= cluster * per
+    panels = flash_panels(dtype, d).count
+    for backward in (False, True):
+        pan = flash_panels(dtype, d, backward)
+        assert (pan.count > 1 or pan.passes > 1) == (variant == "panels")
+    cluster, per = flash_plan(8, 4096, 132, 8, key_tile(dtype, d), panels)
+    ranges = cluster // panels
+    assert cluster % panels == 0 and per % tile == 0
+    assert (ranges - 1) * per < 4096 <= ranges * per
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("d", [1, 63, 257, 512, 513, 576, 600, 1000, 1024, 1025, 2000, 3072,
+                               3073, 3100, 5000, 8192, 8200, 20000])
+def test_flash_panels_cover_every_column_once(dtype, d, backward):
+    """The wide kernels' panels: one for d <= 512; ceil(d / 512) past it
+    (ceil(d / 480) for the bf16 backward) in one pass up to ``_PANEL_MAX``,
+    then the fewest passes of at most that many; every column in exactly
+    one panel, in order, each panel at most 512 wide and a whole number of
+    ``kAlign`` units (16 bf16, 32 f32) except the last."""
+    pan = flash_panels(dtype, d, backward)
+    align = 16 if dtype == torch.bfloat16 else 32
+    width = _BF16_BWD_PANEL_WIDTH if backward and dtype == torch.bfloat16 else 512
+    n = 1 if d <= 512 else -(-d // width)
+    assert pan.count * pan.passes == len(pan.columns) >= n
+    assert 1 <= pan.count <= _PANEL_MAX and pan.count * pan.passes - n < pan.passes
+    assert pan.passes == (1 if n <= _PANEL_MAX else -(-n // _PANEL_MAX))
+    if d <= 512:
+        assert pan == (1, 1, ((0, d),))
+    np.testing.assert_array_equal(
+        np.concatenate([np.arange(c, c + w) for c, w in pan.columns]), np.arange(d))
+    assert all(0 < w <= 512 for _, w in pan.columns)
+    assert all(w % align == 0 for _, w in pan.columns[:-1])
+    widths = [-(-w // align) for _, w in pan.columns]
+    assert max(widths) - min(widths) <= 1  # balanced in units
+    if d == 576:
+        assert pan.columns == ((0, 288), (288, 288))
+
+
+@pytest.mark.parametrize("panels", [1, 2, 3, 6])
+@pytest.mark.parametrize("max_cluster", [6, 8, 12, 16])
+@pytest.mark.parametrize("rows,lkv", [(8, 4096), (8, 1), (8, 17), (64, 4096), (2, 1000),
+                                      (8, 100)])
+def test_flash_plan_with_panels_covers_every_key_once(rows, lkv, max_cluster, panels):
+    """The panel kernels' plan: a cluster of ``panels`` blocks for each of
+    its key ranges, at most 16 and at most the largest resident multiple
+    of ``panels``; block r on panel r % panels of range r // panels; the
+    ranges cover every key once in whole 16-key tiles, none empty; one
+    range at the omic vector's single key."""
+    max_cluster = max_cluster // panels * panels
+    cluster, per = flash_plan(rows, lkv, 132, max_cluster, 16, panels)
+    assert cluster % panels == 0 and panels <= cluster <= max(max_cluster, panels) <= 16
+    ranges = cluster // panels
+    assert per % 16 == 0 and all(j * per < lkv for j in range(ranges))
+    owned = np.concatenate([np.arange(j * per, min(lkv, (j + 1) * per)) for j in range(ranges)])
+    np.testing.assert_array_equal(owned, np.arange(lkv))
+    if lkv <= 16:
+        assert ranges == 1
+    if panels == 1:  # the wide kernels' plan as it was
+        assert (cluster, per) == flash_plan(rows, lkv, 132, max_cluster, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_panel_exchange_fits_at_most_panels(dtype):
+    """``_PANEL_MAX`` is the most panels whose exchange slots fit a block
+    beside a 512-wide panel (forward, and the backward at a chunk of 16
+    queries); one more does not fit the forward. Two backward panels of the
+    widest width hold brca's 17 queries in one chunk (bf16: 32 rows, which
+    512 would not). The wide route's layouts (one panel) are the kernels'
+    of before."""
+    bf = dtype == torch.bfloat16
+    assert wide_smem(dtype, _BF16_BWD_PANEL_WIDTH if bf else 512, 2, 32 if bf else 17)[0] >= 2
+    if dtype == torch.bfloat16:
+        assert wide_smem(dtype, 512, 2, 32)[0] == 0
+    assert wide_smem(dtype, 512, _PANEL_MAX)[0] >= 2
+    assert wide_smem(dtype, 512, _PANEL_MAX, 16)[0] >= 2
+    assert wide_smem(dtype, 512, _PANEL_MAX + 1)[0] == 0
+    assert wide_smem(dtype, 288, 2)[0] >= 2 and wide_smem(dtype, 288, 2, 16)[0] >= 2
+    # one panel at d 320 and 512: three stages, and two aliased, as before
+    assert wide_smem(dtype, 320)[:2] == (3, 0) and wide_smem(dtype, 512)[:2] == (2, 1)
 
 
 @pytest.mark.parametrize("rows,want", [(8, 9), (7, 16), (9, 9), (10, 8), (16, 6), (133, 1)])
@@ -534,9 +621,10 @@ def test_wide_cluster_is_the_largest_resident(rows, want):
         _RESIDENT.pop(key, None)
 
 
-@pytest.mark.parametrize("d", [257, 320, 512])
+@pytest.mark.parametrize("d", [257, 320, 512, 576, 600])
 def test_flash_plain_vs_jax_at_wide_heads(rng, d):
-    """Heads wider than 256 (the card's one-pass wide kernels up to 512):
+    """Heads wider than 256 (the card's one-pass wide kernels up to 512,
+    panel kernels past it; 600 splits into panels of 288 and 312 in f32):
     the port's plain forward, log-sum-exp and backward against the JAX
     kernels ``_fwd_call`` / ``_bwd_call`` in interpret mode, as the JAX
     wrapper calls them (queries padded to 16). f32, lq 17, a fully masked
