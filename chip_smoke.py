@@ -41,7 +41,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and 512 in f32 and bf16 (the wide kernels) and at d 576 and 1024 in f32
    and bf16 (the panel kernels), unmasked: each call must be one kernel
    launch on the profiler, and the times of kernel, plain version, SDPA
-   and the bound;
+   and the bound; the brca rows (tensor-core and FMA variant) timed again
+   with dropout 0.083, every block reading the seed from a device word;
+   and, at those rows, a forward and backward captured in a CUDA graph and
+   replayed with two seeds in its seed word: each replay equal to the
+   eager call with its seed, the two dropping different entries;
 4. serve the full-width BRCA-tuned HealNet (bf16, batch 8, flash attention,
    random weights from a seeded generator) through ``Predictor``: a dense
    4096-token request of 20 samples, a request without the omic modality,
@@ -58,6 +62,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    SDPA's backward as the library call; then forward and backward at latent
    counts past a block's query chunk (lq 33, 64, 128, 130, 256 at d 27, 63,
    96, 113, 128, bf16 and f32, masked with a fully masked row, dropout);
+   the brca rows' backward timed with dropout as phase 3 times the forward;
 6. the same for the projection backward (cotangent pass) kernel at
    (8, 4096, 252) bf16 and f32, kirp's F 270, a small f32 shape, the
    one-token omic context and batch 5000 of one token: one launch a call,
@@ -107,7 +112,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    uploaded once; step-1 gradients of the kernel path against the plain
    projection (same flash attention) in f32 (the run of the f32 kernel's
    int8 variant), and both paths' bf16 gradients
-   against those f32 ones; then 5 bf16 training steps from the arena, which
+   against those f32 ones; then 5 arena steps in f32 and in bf16 on two
+   trainers from the same weights, batches and seeds: stepwise
+   (``train_step``) and fused (the bucket uploaded once with its seed
+   table, the step captured as a CUDA graph and replayed): losses and
+   weights after the 5 steps held to 1e-5 relative in f32 and to 2e-2 in
+   bf16 (and whether they are bit-identical), with both ways' wall per
+   step, device busy, idle share, host launch calls and peak memory; then
+   5 bf16 training steps from the arena, which
    must launch both int8 kernel variants and give finite losses, with wall,
    device busy, idle share and the largest device items per step; then
    ``Predictor.predict_from_arena`` over the 48 bags (buckets 1024/2048/
@@ -134,10 +146,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    epochs with prefetch and checkpoints (epoch and step wall, val and test
    c-index, the kernels it launched); a resumed trainer on the finished
    fold (the same val loss and c-index); ``Predictor`` from the checkpoint
-   directory against the trained module; the idle share of one step; which
+   directory against the trained module; the idle share of one step;
+   then a fused fold: the train and val patients' bags cut to 1024-4096
+   patches in a host arena, batches in two bucket widths (2048, 4096),
+   ``fit`` with ``fused_epochs=True`` for 2 epochs (each bucket's train and
+   eval step captured once, a checkpoint an epoch), a fold stopped in epoch
+   2 and resumed from epoch 1's checkpoint held against the uninterrupted
+   one (1e-5 relative), and the captured and stepwise step's wall, busy,
+   idle share and launches on one bucket's batches; which
    c-index implementation ran;
-13. print how many profiler windows saw no device kernel (each is logged
-   and profiled again; a call whose six windows all saw none fails), the
+13. print how many profiler windows saw no device kernel (each window
+   stays open 50 ms before its first call and after its closing
+   synchronise; one that still saw none is logged and taken again with
+   three times the margin; a call whose six windows all saw none fails)
+   and the windows' gaps from first launch to first kernel, the
    kernels line (every kernel variant, with its launches in the run of its
    path, and that count), then the device line.
 
@@ -178,6 +200,7 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_lse_plain,
     flash_panels,
     launch_counter,
+    seed_word,
     wide_smem,
     _wide_lib,
 )
@@ -310,47 +333,71 @@ def device_us(evt) -> float:
 # profiler windows that saw no device kernel: (the host's events, its kernel
 # launch calls), each logged where it happens and counted at the end
 EMPTY_WINDOWS = []
+# the host's launch calls per call (kernel launches, graph launches) in the
+# last window of device_profile
+HOST_LAUNCHES = [0.0]
+# each window's first device event start minus its first launch call start,
+# on the profiler's clock, in us (a kernel cannot start before its launch:
+# a negative or growing value is an offset between the device's and the
+# host's clocks, which moves a short window's kernels out of its range)
+WINDOW_GAPS = []
+# how long a window stays open before its first call and after its closing
+# synchronise; a window that saw no device kernel is taken again with three
+# times the margin
+SETTLE_S = 0.05
 
 
 def device_profile(fn, reps: int = 3):
     """``torch.profiler`` over ``reps`` calls after three warm-up calls:
     (wall ms per call with the profiler on, device busy ms per call,
-    kernels and copies per call, their averaged events). Busy time sums the
-    kernels' and copies' own device times; annotation ranges (such as
-    ``Optimizer.step``) span kernels already counted and are left out. A
-    window in which the profiler saw no device kernel is logged with what
-    the host saw (its events, its kernel launch calls) and the memory the
-    caching allocator holds, which it then releases before profiling again,
-    after a pause one second longer each time (six windows in a row in
-    phase 8, right after phase 7's step profiles, came back empty within a
-    second of each other); why such windows happen is not known, so each
-    is counted (the kernels line gives the count) and a call whose six
-    windows all saw no device kernel fails."""
+    kernels and copies per call, their averaged events); the host's launch
+    calls per call (``cudaLaunchKernel`` and its kin, ``cudaGraphLaunch``)
+    go to ``HOST_LAUNCHES[0]``. Busy time sums the kernels' and copies' own
+    device times; annotation ranges (such as ``Optimizer.step``) span
+    kernels already counted and are left out.
+
+    The profiler keeps only device events that fall inside its window on
+    the host's clock. Each window therefore stays open ``SETTLE_S`` before
+    the first call and after the closing synchronise, and each records the
+    gap between its first device event and its first launch call
+    (``WINDOW_GAPS``). A window that saw no device kernel is logged with
+    what the host saw (its events, its kernel launch calls) and the gaps of
+    the windows before it, counted (the kernels line gives the count), and
+    taken again with three times the margin; a call whose six windows all
+    saw no device kernel fails."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for attempt in range(6):
+        margin = SETTLE_S * 3**attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
+            time.sleep(margin)
+        events = prof.events()
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
                 and not getattr(e, "is_user_annotation", False)]
+        calls = [e for e in events if e.name.startswith(("cudaLaunch", "cuLaunch",
+                                                          "cudaGraphLaunch"))]
         if rows:
+            kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels and calls:
+                WINDOW_GAPS.append(min(e.time_range.start for e in kernels)
+                                   - min(e.time_range.start for e in calls))
             break
-        launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch"))
-        EMPTY_WINDOWS.append((len(prof.events()), launches))
-        log(f"  profiler window {attempt + 1} saw no device kernel ({len(prof.events())} host "
-            f"events, {launches} kernel launch calls, "
-            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); profiled again after "
-            f"releasing the allocator's cache and {attempt + 1} s")
-        torch.cuda.empty_cache()
-        time.sleep(attempt + 1)
+        EMPTY_WINDOWS.append((len(events), len(calls)))
+        log(f"  profiler window {attempt + 1} ({margin:.2f} s margins) saw no device kernel "
+            f"({len(events)} host events, {len(calls)} launch calls; the last windows' first "
+            f"kernel - first launch: {[round(g, 1) for g in WINDOW_GAPS[-5:]]} us); profiled "
+            "again")
     if not rows:
         raise AssertionError("six profiler windows in a row saw no device kernel")
+    HOST_LAUNCHES[0] = len(calls) / reps
     busy = sum(device_us(e) for e in rows) / 1e3 / reps
     return wall, busy, sum(e.count for e in rows) / reps, rows
 
@@ -827,6 +874,71 @@ def check_wide_smem(dtype, d) -> None:
         raise AssertionError(f"d {d}: the kernels' shared memory {got} is not the plan's {want}")
 
 
+def time_dropout(gen, direction: str, timings: dict) -> None:
+    """The brca rows (tensor-core and FMA variant) timed with dropout 0.083,
+    the seed read by every block from a device word, beside the unmasked
+    rows without dropout timed just before."""
+    b, lq, lkv = BATCH, 17, TOKENS
+    for label in ("brca", "brca f32"):
+        d, width, dtype = FLASH_SHAPES[label]
+        eff = d**-0.5 / 0.5
+        word = seed_word(1234, torch.device("cuda"))
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
+        if direction == "forward":
+            run = lambda: flash_attention_kernel(q, k, v, None, eff, 0.083, word)
+        else:
+            q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.083, 1234, d,
+                                                       width)
+            run = lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff, 0.083,
+                                                     word)
+        t_drop, _ = time_ms(run)
+        log(f"  {label} {direction} with dropout 0.083, the seed read from device memory: "
+            f"{t_drop:.4f} ms (without dropout {timings[label][0]:.4f} ms)")
+
+
+def check_seed_replays(gen) -> None:
+    """The frozen-seed trap: a flash forward and backward captured in a CUDA
+    graph at the brca shape (tensor-core and FMA variant, dropout 0.083)
+    and replayed with two seeds in its seed word must drop different
+    entries, each replay equal to the eager call with that seed."""
+    b, lq, lkv = BATCH, 17, TOKENS
+    for label in ("brca", "brca f32"):
+        d, width, dtype = FLASH_SHAPES[label]
+        eff = d**-0.5 / 0.5
+        q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype, width=width)
+        do = torch.randn((b, 1, lq, d), generator=gen, device="cuda").to(dtype)
+        word = torch.zeros((1,), dtype=torch.int64, device="cuda")
+
+        def call(seed):
+            out, lse = flash_attention_kernel(q, k, v, None, eff, 0.083, seed)
+            delta = (do.float() * out.float().reshape(b, 1, lq, d)).sum(-1)
+            return (out, *flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff, 0.083,
+                                                     seed))
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call(word)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            static = call(word)
+        replays = []
+        for seed in (11, 12):
+            word.fill_(seed)
+            graph.replay()
+            replays.append([x.clone() for x in static])
+            if not all(torch.equal(a, e) for a, e in zip(replays[-1], call(seed))):
+                raise AssertionError(f"{label}: a replay with seed {seed} differs from the eager "
+                                     "call")
+        moved = (replays[0][0] != replays[1][0]).float().mean().item()
+        log(f"  {label}: two replays of one captured forward and backward with seeds 11 and 12: "
+            f"each equal to its eager call; {moved:.4f} of the outputs differ between them")
+        if moved == 0.0:
+            raise AssertionError(f"{label}: two replays with two seeds dropped the same entries")
+        del graph, static, replays
+
+
 def phase_flash(gen):
     """Returns the kernels-line entries of the tensor-core (bf16), FMA (f32)
     and wide-head FMA (f32, d 320) variants."""
@@ -928,6 +1040,8 @@ def phase_flash(gen):
             nbytes(q, k, v, out, lse), 4.0 * b * lq * lkv * d, dtype, "SDPA")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA {timings['kirp f32'][2]:.4f}"
         f" ms, bound {timings['kirp f32'][3]:.5f} ms")
+    time_dropout(gen, "forward", timings)
+    check_seed_replays(gen)
     for label, d, dtype in WIDE_TIMED:
         q, k, v = attention_inputs(gen, b, lq, lkv, d, dtype)
         run = lambda: flash_attention_kernel(q, k, v, None, d**-0.5 / 0.5)
@@ -1212,6 +1326,7 @@ def phase_flash_bwd(gen):
             "SDPA backward")
     log(f"  kirp f32: kernel {timings['kirp f32'][0]:.4f} ms, SDPA backward "
         f"{timings['kirp f32'][2]:.4f} ms, bound {timings['kirp f32'][3]:.5f} ms")
+    time_dropout(gen, "backward", timings)
     for label, d, dtype in WIDE_TIMED:
         q, k, v, do, lse, delta = flash_bwd_inputs(gen, b, lkv, dtype, None, 0.0, seed, d)
         eff = d**-0.5 / 0.5
@@ -1852,6 +1967,157 @@ def fit_trainer(module, **kw):
                            device="cuda", **kw)
 
 
+# the fused fold's bucket boundaries: bags of 1024-4096 patches in two widths
+FIT_BUCKETS = (2048, TOKENS)
+
+
+class ArenaSplit:
+    """A split's patients as an arena-indexed streaming source, as a
+    dataset with bucket boundaries hands them to the trainer: each bag's
+    first ``length`` patches (1024-4096) in a host arena shared by the
+    splits, batches of one bucket width each (padded by repeating the last
+    patient, masked), in a shuffled order."""
+
+    def __init__(self, split: dict, offsets, lengths):
+        self.split, self.offsets, self.lengths = split, offsets, lengths
+
+    def __len__(self) -> int:
+        return len(self.lengths)
+
+    def _batches(self, idx, batch_size, boundaries):
+        out = []
+        for lo, hi in zip((0,) + tuple(boundaries[:-1]), boundaries):
+            sel = [int(i) for i in idx if lo < self.lengths[i] <= hi]
+            out += [(hi, sel[j:j + batch_size]) for j in range(0, len(sel), batch_size)]
+        return out
+
+    def count_batches(self, indices, batch_size, boundaries) -> int:
+        return len(self._batches(range(len(self)), batch_size, boundaries))
+
+    def iter_batches(self, batch_size, shuffle=False, rng=None, bucket_boundaries=FIT_BUCKETS):
+        idx = np.arange(len(self))
+        if shuffle:
+            rng.shuffle(idx)
+        groups = self._batches(idx, batch_size, bucket_boundaries)
+        for g in (rng.permutation(len(groups)) if shuffle else range(len(groups))):
+            width, sel = groups[g]
+            mask = np.ones(batch_size, np.float32)
+            mask[len(sel):] = 0.0
+            sel = np.asarray(sel + [sel[-1]] * (batch_size - len(sel)))
+            s = self.split
+            yield {"tensors": (s["tensors"][0][sel],),
+                   "kv_masks": (None, np.arange(width)[None, :] < self.lengths[sel][:, None]),
+                   "patch_offsets": self.offsets[sel], "patch_lengths": self.lengths[sel],
+                   "y_disc": s["y_disc"][sel].astype(np.int32),
+                   "censorship": s["censorship"][sel], "event_time": s["event_time"][sel],
+                   "sample_mask": mask}
+
+
+def arena_splits(host_rng, splits):
+    """The splits' WSI bags cut to random lengths of 1024-4096 patches and
+    packed back to back into one host arena (then TOKENS zero rows); one
+    :class:`ArenaSplit` a split."""
+    lengths = [host_rng.integers(TOKENS // 4, TOKENS + 1, size=len(s["y_disc"])).astype(np.int32)
+               for s in splits]
+    total = int(sum(ln.sum() for ln in lengths))
+    arena = np.zeros((total + TOKENS, PATCH), np.float32)
+    sources, at = [], 0
+    for split, ln in zip(splits, lengths):
+        offsets = (at + np.concatenate([[0], np.cumsum(ln)[:-1]])).astype(np.int32)
+        for bag, o, n in zip(split["tensors"][1], offsets, ln):
+            arena[o:o + n] = bag[:n]
+        at += int(ln.sum())
+        sources.append(ArenaSplit(split, offsets, ln))
+    return arena, sources
+
+
+def phase_fused_fold(host_rng, train, val) -> None:
+    """Phase 12's fused fold: the train and val patients from a host arena
+    in two bucket widths, 2 epochs with ``fused_epochs=True`` (the
+    captured steps, fused evaluation, a checkpoint each epoch), then a fold
+    that stops in epoch 2 and resumes from epoch 1's checkpoint, held
+    against the uninterrupted one; the captured step's wall, device busy,
+    idle share, launches and peak memory from one bucket."""
+    arena, (src_train, src_val) = arena_splits(host_rng, (train, val))
+    log(f"  fused fold: arena {arena.shape} f32 from {len(src_train)} + {len(src_val)} "
+        f"patients, bucket boundaries {FIT_BUCKETS}, "
+        f"{src_train.count_batches(None, BATCH, FIT_BUCKETS)} train steps an epoch")
+
+    class StopAt2:
+        def log(self, metrics, step=None):
+            if step == 2:
+                raise InterruptedError
+
+        def watch(self, **kw):
+            pass
+
+    def trainer(ckpt_dir, **kw):
+        module = HealNetModule(**BRCA, attention_impl="flash", device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        return fit_trainer(module, epochs=2, checkpoint_dir=ckpt_dir, feature_arena=arena,
+                           fused_epochs=True, bucket_boundaries=FIT_BUCKETS, prefetch=0,
+                           early_stopping=False, **kw)
+
+    with tempfile.TemporaryDirectory() as whole_dir, tempfile.TemporaryDirectory() as cut_dir:
+        whole = trainer(whole_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = whole.fit(src_train, src_val, verbose=False)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        hist = result["history"]
+        tables = sorted((key[0], key[1], key[2], t.graph is not None)
+                        for key, t in whole._tables.items())
+        log(f"  fused fit: epoch walls {[round(h['seconds'], 4) for h in hist]} s; train loss "
+            f"{[round(h['train_loss'], 6) for h in hist]}, val loss "
+            f"{[round(h['val_loss'], 6) for h in hist]}, val c-index {result['val_c_index']:.6f}; "
+            f"step tables (kind, width, slots, captured) {tables}; peak memory {peak:.1f} MiB; "
+            f"host launch counts (warm-up and capture only; replays are not counted) "
+            f"{ {n: getattr(*KERNELS[n]) for n in ('fused_project_f32', 'flash_attention_fma')} }")
+        if len({key[1] for key in whole._tables}) < 2 or not all(t[3] for t in tables):
+            raise AssertionError(f"the fused fold did not capture two bucket widths: {tables}")
+        if not all(np.isfinite([h["train_loss"] for h in hist] + [result["val_loss"]])):
+            raise AssertionError("the fused fit gave a non-finite loss")
+        if Checkpointer(whole_dir).latest_step() != 2:
+            raise AssertionError("the fused fit saved no checkpoint of epoch 2")
+        cut = trainer(cut_dir, tracker=StopAt2())
+        try:
+            cut.fit(src_train, src_val, verbose=False)
+            raise AssertionError("the stopping tracker did not stop the fold")
+        except InterruptedError:
+            pass
+        resumed = trainer(cut_dir, resume=True)
+        again = resumed.fit(src_train, src_val, verbose=False)
+        got, want = again["history"][0], hist[1]
+        log(f"  resumed from epoch 1's checkpoint: epoch {got['epoch']} train loss "
+            f"{got['train_loss']:.6f}, val loss {got['val_loss']:.6f}, val c-index "
+            f"{got['val_c_index']:.6f} (uninterrupted: {want['train_loss']:.6f}, "
+            f"{want['val_loss']:.6f}, {want['val_c_index']:.6f})")
+        err = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("train_loss", "val_loss"))
+        w_err, where, same = weight_error(resumed.module, whole.module)
+        log(f"  resumed fold against the uninterrupted one: bit-identical weights {same}")
+        check("resumed fused fold's epoch-2 losses against the uninterrupted fold (relative)",
+              err, 1e-5)
+        check(f"resumed fused fold's weights against the uninterrupted fold ({where})", w_err,
+              1e-5)
+        if got["epoch"] != 2 or got["val_c_index"] != want["val_c_index"]:
+            raise AssertionError("the resumed fold's epoch 2 differs from the uninterrupted one")
+
+        # the captured step, from one bucket's host batches, and the
+        # stepwise step on the same batches
+        blist = [b for b in src_train.iter_batches(BATCH, True, np.random.default_rng(0))
+                 if b["kv_masks"][-1].shape[1] == TOKENS]
+        n = len(blist)
+        for name, run in (("captured", lambda: whole._fused_train_bucket(blist)),
+                          ("stepwise", lambda: [whole.train_step(b, HORIZON) for b in blist])):
+            wall = wall_ms(run, reps=3) / n
+            _, busy, count, _ = device_profile(run)
+            log(f"  fused fold's {name} step at width {TOKENS} ({n} steps a call, from host "
+                f"batches): wall {wall:.4f} ms per step, device busy {busy / n:.4f} ms per step "
+                f"(profiler), idle share {1.0 - busy / n / wall:.4f}, {count / n:.1f} device "
+                f"kernels and copies and {HOST_LAUNCHES[0] / n:.2f} host launch calls per step")
+
+
 def phase_fit(host_rng) -> None:
     """The wrapper, remat, fit, resume and serving from a checkpoint, at the
     brca row in f32 (the JAX default precision) at full width, flash
@@ -1976,6 +2242,10 @@ def phase_fit(host_rng) -> None:
         wall, busy, idle, _ = step_times(trainer, batch)
         log(f"  one fit step, inputs on the card: wall {wall:.4f} ms, device busy {busy:.4f} ms, "
             f"idle share {idle:.4f}")
+        del trainer, resumed, pred, module
+
+    # (e) the fused fold from an arena of the same patients
+    phase_fused_fold(host_rng, train, val)
     log(f"  c-index implementation: {cindex_implementation()}")
     log(f"  phase 12 wall: {time.perf_counter() - t_phase:.2f} s")
 
@@ -2133,6 +2403,72 @@ def arena_trainer(dtype, projection_impl, state, **arena):
                            arena_quant=True, **arena)
 
 
+def weight_error(a, b) -> tuple:
+    """(largest |a - b| over a parameter relative to its largest |b|, over
+    the parameters; the parameter; whether every parameter is bit-equal)."""
+    worst, where, same = 0.0, "", True
+    for (name, x), y in zip(a.named_parameters(), b.parameters()):
+        same = same and torch.equal(x, y)
+        err = ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+        if not err < worst:
+            worst, where = err, name
+    return worst, where, same
+
+
+def fused_vs_stepwise(label, dtype, state, arena, dev, batches, tol) -> dict:
+    """The arena steps of ``batches`` on two trainers from the same weights
+    and seeds: stepwise (``train_step``, one host batch a step) and fused
+    (the bucket in one upload, its seed table drawn in stepwise order, the
+    step captured once and replayed, one read-back). Holds the losses and
+    the weights after the steps to ``tol`` relative, says whether they are
+    bit-identical, and times both ways over the same steps: wall per step,
+    device busy, idle share, host launch calls and peak memory."""
+    stepwise = arena_trainer(dtype, "auto", state, arena_device=dev)
+    fused = arena_trainer(dtype, "auto", state, arena_device=dev, feature_arena=arena,
+                          fused_epochs=True)
+    assert fused.fused_epochs
+    n = len(batches)
+    stats = {}
+    for name, trainer in (("stepwise", stepwise), ("captured", fused)):
+        if name == "stepwise":
+            run = lambda: torch.stack([stepwise.train_step(b, HORIZON)[0] for b in batches])
+        else:
+            fused._horizon.fill_(HORIZON)
+            run = lambda: fused._fused_train_bucket(batches)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = run().float().cpu()
+        torch.cuda.synchronize()
+        stats[name] = dict(losses=losses, peak=torch.cuda.max_memory_allocated() / 2**20)
+    loss_err = ((stats["captured"]["losses"] - stats["stepwise"]["losses"]).abs()
+                / stats["stepwise"]["losses"].abs()).max().item()
+    w_err, where, same_w = weight_error(fused.module, stepwise.module)
+    same_l = torch.equal(stats["captured"]["losses"], stats["stepwise"]["losses"])
+    log(f"  {label} arena steps, stepwise losses {stats['stepwise']['losses'].tolist()}, "
+        f"captured {stats['captured']['losses'].tolist()}; bit-identical: losses {same_l}, "
+        f"weights {same_w}")
+    check(f"{label} captured against stepwise, {n} steps: losses (relative)", loss_err, tol)
+    check(f"{label} captured against stepwise, weights after {n} steps (largest relative, "
+          f"{where})", w_err, tol)
+    tables = [t for key, t in fused._tables.items() if key[0] == "train"]
+    if len(tables) != 1 or tables[0].graph is None:
+        raise AssertionError(f"{label}: the fused steps left no captured graph")
+    for name, trainer in (("stepwise", stepwise), ("captured", fused)):
+        if name == "stepwise":
+            run = lambda: [stepwise.train_step(b, HORIZON) for b in batches]
+        else:
+            run = lambda: fused._fused_train_bucket(batches)
+        wall = wall_ms(run, reps=3) / n
+        _, busy, count, _ = device_profile(run)
+        log(f"  {label} {name} step, from host batches ({n} steps a call): wall {wall:.4f} ms per "
+            f"step, device busy {busy / n:.4f} ms per step (profiler), idle share "
+            f"{1.0 - busy / n / wall:.4f}, {count / n:.1f} device kernels and copies and "
+            f"{HOST_LAUNCHES[0] / n:.2f} host launch calls per step; peak memory "
+            f"{stats[name]['peak']:.1f} MiB")
+        stats[name].update(wall=wall, busy=busy / n)
+    return stats
+
+
 def arena_predictor(attention_impl, projection_impl, state, arena):
     module = HealNetModule(**BRCA, dtype=torch.bfloat16, attention_impl=attention_impl,
                            projection_impl=projection_impl, device="cuda")
@@ -2168,7 +2504,6 @@ def phase_arena(host_rng) -> dict:
     log(f"  quantized on the host and uploaded once in {time.perf_counter() - t0:.2f} s: "
         f"int8 {tuple(dev.data.shape)} ({nbytes(dev.data) / 1e6:.1f} MB) + scales "
         f"({nbytes(dev.scale) / 1e6:.1f} MB) on the card")
-    del arena
     batches = list(iterate_batches(data, BATCH))
 
     # only the projection differs between the two paths (flash attention on
@@ -2197,6 +2532,13 @@ def phase_arena(host_rng) -> dict:
     check("arena bf16 kernel path's gradient error against f32 (tolerance: 1.5x the plain "
           "path's)", err_k, 1.5 * err_p)
     del plain16, truth
+
+    # captured against stepwise, in f32 and in bf16: the same 5 batches in
+    # the same order, the same seed tables
+    host_arena = (arena, data["patch_offsets"], data["patch_lengths"])
+    fused_vs_stepwise("f32", None, state, host_arena, dev, batches[1:6], 1e-5)
+    fused_vs_stepwise("bf16", torch.bfloat16, state, host_arena, dev, batches[1:6], 2e-2)
+    del arena, host_arena
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2515,7 +2857,10 @@ def main() -> int:
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}
                for k in kernels]
     log(f"profiler windows that saw no device kernel (each profiled again): "
-        f"{len(EMPTY_WINDOWS)}")
+        f"{len(EMPTY_WINDOWS)}; first kernel - first launch over {len(WINDOW_GAPS)} windows "
+        f"(us): min {min(WINDOW_GAPS):.1f}, median {statistics.median(WINDOW_GAPS):.1f}, max "
+        f"{max(WINDOW_GAPS):.1f}; the first ten {[round(g, 1) for g in WINDOW_GAPS[:10]]}, the "
+        f"last ten {[round(g, 1) for g in WINDOW_GAPS[-10:]]}")
     log(json.dumps({"kernels": kernels, "empty_profiler_windows": len(EMPTY_WINDOWS)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -241,14 +241,19 @@ class HealNetModule(nn.Module):
         generator: Optional[torch.Generator] = None,
         seed_generator: Optional[torch.Generator] = None,
         store_attention: bool = False,
+        seeds: Optional[torch.Tensor] = None,
     ):
         """Logits ``(b, out_dims)``, or the latents with ``return_embeddings``.
 
         In training (``.train()``) with a dropout rate above 0, ``generator``
         (on the inputs' device) draws the feed-forward keep masks, and
-        ``seed_generator`` (default: ``generator``) one 32-bit hash seed for
-        every attention call, all drawn at once. A CPU ``seed_generator``
-        keeps that draw off the device; one on the card costs a host read.
+        every attention call takes one 32-bit hash seed, in call order, from
+        ``seeds``: a ``(attention_calls(),)`` integer tensor on the inputs'
+        device (a step's row of a seed table), which the kernels read
+        there. Without it the seeds are drawn at once from
+        ``seed_generator`` (default: ``generator``); from a CPU generator
+        they reach the card in one copy from pinned memory, with no wait
+        on the host and no host read.
 
         ``store_attention`` returns ``(out, weights)`` instead: every
         attention call's post-softmax, pre-dropout weights ``(b, h, lq,
@@ -260,13 +265,9 @@ class HealNetModule(nn.Module):
         dropout_on = self.training and (self.attn_dropout > 0 or self.ff_dropout > 0)
         if dropout_on and generator is None:
             raise ValueError("training with dropout needs a generator")
-        seeds = iter(())
-        if self.training and self.attn_dropout > 0:
-            src = seed_generator if seed_generator is not None else generator
-            calls = self.depth * self.n_modalities * (1 + self.self_per_cross_attn)
-            seeds = iter(torch.randint(0, 2**32, (calls,), generator=src, device=src.device,
-                                       dtype=torch.int64).tolist())
         b = tensors[0].shape[0]
+        seeds = self._call_seeds(seeds, seed_generator if seed_generator is not None
+                                 else generator, tensors[0].device)
         parts, compute_dt, cdt = self._context_parts(tensors)
         if presence is None:
             presence = torch.ones((b, self.n_modalities), dtype=cdt, device=tensors[0].device)
@@ -318,6 +319,31 @@ class HealNetModule(nn.Module):
         else:
             out = self.final_head(self.final_norm(torch.mean(x, dim=1)))
         return (out, captured) if store_attention else out
+
+    def attention_calls(self) -> int:
+        """Attention calls a forward makes: one hash seed each."""
+        return self.depth * self.n_modalities * (1 + self.self_per_cross_attn)
+
+    def _call_seeds(self, seeds: Optional[torch.Tensor], src: Optional[torch.Generator],
+                    device: torch.device):
+        """An iterator over the attention calls' seeds (0-d views on
+        ``device``), or over nothing without attention dropout."""
+        if not (self.training and self.attn_dropout > 0):
+            return iter(())
+        calls = self.attention_calls()
+        if seeds is None:
+            if src is None:
+                raise ValueError("attention dropout needs seeds or a seed generator")
+            seeds = torch.randint(0, 2**32, (calls,), generator=src, device=src.device,
+                                  dtype=torch.int64)
+            if seeds.device != device:
+                if device.type == "cuda":
+                    seeds = seeds.pin_memory()
+                seeds = seeds.to(device, non_blocking=True)
+        elif tuple(seeds.shape) != (calls,) or seeds.device != device:
+            raise ValueError(f"seeds must be ({calls},) on {device}, got "
+                             f"{tuple(seeds.shape)} on {seeds.device}")
+        return iter(seeds.unbind(0))
 
     def _rematerialise(self) -> bool:
         return self.remat and torch.is_grad_enabled()

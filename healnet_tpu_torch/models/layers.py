@@ -12,7 +12,7 @@ call and stay float32 in the state dict.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -202,11 +202,13 @@ class Attention(nn.Module):
         return self.to_kv.fold(scale, bias)
 
     def forward(self, x, context=None, kv_mask=None, kv=None,
-                dropout_seed: Optional[int] = None, return_weights: bool = False,
+                dropout_seed: Optional[Union[int, torch.Tensor]] = None,
+                return_weights: bool = False,
                 ctx_scale=None, ctx_bias=None):
         """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice;
-        ``dropout_seed``: the raw 32-bit hash seed of this call, required
-        in training when ``dropout > 0``; ``ctx_scale`` / ``ctx_bias``: a
+        ``dropout_seed``: the raw 32-bit hash seed of this call (an int, or
+        a one-element tensor on the inputs' device), required in training
+        when ``dropout > 0``; ``ctx_scale`` / ``ctx_bias``: a
         LayerNorm affine folded into ``to_kv`` over an already normalised
         ``context``. Returns ``(out, weights)``: the post-softmax,
         pre-dropout weights ``(b, h, lq, lkv)`` with ``return_weights``

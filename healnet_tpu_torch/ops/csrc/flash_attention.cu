@@ -92,7 +92,8 @@ struct FmaParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -127,7 +128,8 @@ int fma_fwd_stages() {
 // acc += p V over the lane's channels. (m, the lane's part of l, acc) stay
 // in registers; at the end they are pushed to the cluster.
 template <typename T, int DP, int NS>
-__device__ __forceinline__ void fwd_group(const FmaParams& p, const fv::RingCopies<T, DP>& rc,
+__device__ __forceinline__ void fwd_group(const FmaParams& p, uint32_t seed,
+                                          const fv::RingCopies<T, DP>& rc,
                                           float* raw, float* tiles,
                                           const float* qs, float* ps, float* rm, float* rl,
                                           float* racc, const T* k, const T* v, const float* mask,
@@ -187,7 +189,7 @@ __device__ __forceinline__ void fwd_group(const FmaParams& p, const fv::RingCopi
       if (p.dropout) {
 #pragma unroll
         for (int s = 0; s < NS; ++s)
-          x[s] *= healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(g0 + warp + tc::kWarps * s),
+          x[s] *= healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(g0 + warp + tc::kWarps * s),
                                      (uint32_t)(k0 + lane), p.threshold)
                       ? p.keep_scale
                       : 0.f;
@@ -236,6 +238,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_
   constexpr int KT = fv::kKeys, QG = fv::kGroup, TF = S::kTileFloats;
   extern __shared__ __align__(16) unsigned char fma_smem[];
   const FmaFwdLayout<T, DP> L(p.stages);
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;  // one uniform load a block
   float* raw = reinterpret_cast<float*>(fma_smem);
   float* tiles = reinterpret_cast<float*>(fma_smem + L.tiles);
   float* qs = reinterpret_cast<float*>(fma_smem + L.qs);
@@ -277,7 +280,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_
     }
     const int ns = fv::slots_of(warp, nq);
 #define FWD_GROUP(NS)                                                                         \
-  fwd_group<T, DP, NS>(p, rc, raw, tiles, qs, ps, rm, rl, racc, k, v, mask, row, g0, nq, kv_begin, \
+  fwd_group<T, DP, NS>(p, seed, rc, raw, tiles, qs, ps, rm, rl, racc, k, v, mask, row, g0, nq, kv_begin, \
                        kv_end, ntiles, rank, csize)
     switch (ns) {
       case 0: FWD_GROUP(0); break;
@@ -323,7 +326,8 @@ struct TcParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -361,6 +365,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
   constexpr int P = D::kPitch, AP = D::kAccPitch, NT = DP / 8, KS = DP / 16, QG = tc::kQGroup;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const FwdLayout<DP> L(p.stages);
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;  // one uniform load a block
   uint32_t* ring = reinterpret_cast<uint32_t*>(tc_smem);
   float* wacc = reinterpret_cast<float*>(tc_smem);  // [warp][16][AP], after the key loop
   float* wm = wacc + tc::kWarps * 16 * AP;          // [warp][16]
@@ -463,7 +468,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
           float pr = __expf(x[j] - m_new) * mk[col];
           sum += pr;
           if (p.dropout)
-            pr *= healnet::hash_keep(p.seed, (uint32_t)row, qi, (uint32_t)(k0 + col),
+            pr *= healnet::hash_keep(seed, (uint32_t)row, qi, (uint32_t)(k0 + col),
                                      p.threshold)
                       ? p.keep_scale
                       : 0.f;
@@ -597,7 +602,7 @@ extern "C" int healnet_flash_forward(
     int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
-    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128)) return (int)cudaErrorInvalidValue;
   FmaParams p;
@@ -624,7 +629,7 @@ extern "C" int healnet_flash_forward(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -649,7 +654,7 @@ extern "C" int healnet_flash_forward_tc(
     int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
-    unsigned int seed, unsigned int threshold, float keep_scale, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   TcParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -675,7 +680,7 @@ extern "C" int healnet_flash_forward_tc(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

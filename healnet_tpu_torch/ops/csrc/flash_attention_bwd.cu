@@ -99,7 +99,8 @@ struct FmaParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -214,7 +215,8 @@ __device__ __forceinline__ void dkdv_tile(const FmaParams& p, const float* pd, c
 // buffer, and dq += round(ds) K over the lane's channels (its own rows
 // only: __syncwarp). dq stays in registers and is pushed at the end.
 template <typename T, int DP, int NS>
-__device__ __forceinline__ void bwd_chunk(const FmaParams& p, const fv::RingCopies<T, DP>& rc,
+__device__ __forceinline__ void bwd_chunk(const FmaParams& p, uint32_t seed,
+                                          const fv::RingCopies<T, DP>& rc,
                                           float* raw, float* tiles,
                                           const float* qs, const float* dos, const float* lse_s,
                                           const float* del_s, float* pdbuf, float* rdq,
@@ -275,7 +277,7 @@ __device__ __forceinline__ void bwd_chunk(const FmaParams& p, const fv::RingCopi
           const float pr = __expf(x - lse_s[r]) * mkv;
           float e = 1.f;
           if (p.dropout)
-            e = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
+            e = healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
                                    p.threshold)
                     ? p.keep_scale
                     : 0.f;
@@ -318,6 +320,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
   extern __shared__ __align__(16) unsigned char fma_smem[];
   const int rows = fma_rows(p.q_chunk);
   const FmaBwdLayout<T, DP> L(p.stages, rows);
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;  // one uniform load a block
   float* raw = reinterpret_cast<float*>(fma_smem);
   float* tiles = reinterpret_cast<float*>(fma_smem + L.tiles);
   float* qs = reinterpret_cast<float*>(fma_smem + L.qs);
@@ -372,7 +375,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
     }
     const int ns = fv::slots_of(warp, nq);
 #define BWD_CHUNK(NS)                                                                       \
-  bwd_chunk<T, DP, NS>(p, rc, raw, tiles, qs, dos, lse_s, del_s, pdbuf, rdq, k, v, mask, dk, dv,     \
+  bwd_chunk<T, DP, NS>(p, seed, rc, raw, tiles, qs, dos, lse_s, del_s, pdbuf, rdq, k, v, mask, dk, dv,     \
                        dk_acc, dv_acc, row, q0c, nq, rows, kv_begin, kv_end, ntiles, rank, \
                        csize, first, last)
     switch (ns) {
@@ -418,7 +421,8 @@ struct TcParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -477,6 +481,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int lqp = pad_queries(p.q_chunk);
   const BwdLayout<DP> L(p.stages, lqp);
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;  // one uniform load a block
   uint32_t* ring = reinterpret_cast<uint32_t*>(tc_smem);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.ks);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.vs);
@@ -590,7 +595,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
                 const float pr = __expf(x - lse_s[qi]) * mkv;
                 float ev = 1.f;
                 if (p.dropout)
-                  ev = healnet::hash_keep(p.seed, (uint32_t)row, (uint32_t)(q0c + qi),
+                  ev = healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(q0c + qi),
                                           (uint32_t)(k0 + kc), p.threshold)
                            ? p.keep_scale
                            : 0.f;
@@ -811,7 +816,7 @@ extern "C" int healnet_flash_backward(
     long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, long long o_st, long long mask_sb, float scale, int dropout,
-    unsigned int seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128) || q_chunk < 1 ||
       q_chunk > fv::kGroup)
@@ -850,7 +855,7 @@ extern "C" int healnet_flash_backward(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -881,7 +886,7 @@ extern "C" int healnet_flash_backward_tc(
     long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
-    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
     float keep_scale, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   TcParams p;
@@ -918,7 +923,7 @@ extern "C" int healnet_flash_backward_tc(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -536,7 +536,8 @@ struct FwdParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -555,9 +556,11 @@ struct Block {
   const float* mask;
   uint64_t* rbar;  // bf16 panels: the ring stages' mbarriers (K and V rows by bulk copies)
   uint32_t rphase;  // bf16 panels: each stage's phase parity, a bit a stage
+  uint32_t seed;    // the dropout hash seed, read from device memory once a block
   template <typename Params>
   __device__ Block(const Params& p, const tc::cg::cluster_group& cluster) {
     rbar = nullptr, rphase = 0u;
+    seed = p.dropout ? __ldg(p.seed) : 0u;
     rank = (int)cluster.block_rank();
     if constexpr (kP) {
       pan = rank % p.panels, kr = rank / p.panels, nkr = (int)cluster.num_blocks() / p.panels;
@@ -914,7 +917,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p)
               float pr = __expf(x - m_new) * mkv;
               l[s] = l[s] * corr + pr;  // the lane's key; the warp sums at the end
               if (p.dropout)
-                pr *= keep(p.seed, blk.row, g0 + r, k0 + lane, p.threshold, p.keep_scale);
+                pr *= keep(blk.seed, blk.row, g0 + r, k0 + lane, p.threshold, p.keep_scale);
               ps[r * PP + lane] = __float2bfloat16(pr);
               if (lane == 0) corr_s[r] = corr;
             }
@@ -1100,7 +1103,7 @@ __device__ __forceinline__ void fwd_f32_group(const FwdParams& p, Block<float, k
 #pragma unroll
           for (int i = 0; i < kMaxCpl; ++i) a[s][i] *= corr;
           if (p.dropout)
-            x[s] *= keep(p.seed, blk.row, g0 + warp + kWarps * s, k0 + key, p.threshold,
+            x[s] *= keep(blk.seed, blk.row, g0 + warp + kWarps * s, k0 + key, p.threshold,
                          p.keep_scale);
           if (half == 0) pw[s * KT + key] = x[s];
         }
@@ -1219,7 +1222,8 @@ struct BwdParams {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st, mask_sb;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -1501,7 +1505,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
                 const float sx = s4[e] * p.scale + (mkv - 1.f) * 1e30f;
                 const float pr = __expf(sx - lse_s[qi]) * mkv;
                 const float ev =
-                    p.dropout ? keep(p.seed, blk.row, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
+                    p.dropout ? keep(blk.seed, blk.row, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
                               : 1.f;
                 pt[kc * QP + qi] = __float2bfloat16(pr * ev);
                 dst[kc * QP + qi] = __float2bfloat16(pr * (d4[e] * ev - del_s[qi]));
@@ -1691,7 +1695,7 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, Block<float, k
           const float x = sv[s] * p.scale + (mkv - 1.f) * 1e30f;
           const float pr = __expf(x - lse_s[r]) * mkv;
           const float e =
-              p.dropout ? keep(p.seed, blk.row, q0c + r, k0 + key, p.threshold, p.keep_scale)
+              p.dropout ? keep(blk.seed, blk.row, q0c + r, k0 + key, p.threshold, p.keep_scale)
                         : 1.f;
           if (half == 0) {
             pd[r * KT + key] = pr * e;
@@ -2010,7 +2014,7 @@ extern "C" int healnet_flash_wide_forward(
     float* scores, int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta,
     int panels, int passes, long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
-    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
     float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   Geometry g;
@@ -2050,7 +2054,7 @@ extern "C" int healnet_flash_wide_forward(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   const int xp = g.panel_kernels() ? panels : 1;
@@ -2075,7 +2079,7 @@ extern "C" int healnet_flash_wide_backward(
     int q_chunk, int n_chunks, int panels, int passes, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
-    long long mask_sb, float scale, int dropout, unsigned int seed, unsigned int threshold,
+    long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
     float keep_scale, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   Geometry g;
@@ -2126,7 +2130,7 @@ extern "C" int healnet_flash_wide_backward(
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   const int xp = g.panel_kernels() ? panels : 1, rows = is_bf16 ? chunk_rows<bf16>(q_chunk)

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -81,13 +81,13 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, i, p]
+        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_max_queries.argtypes = [i]
         lib.healnet_flash_max_queries.restype = i
         lib.healnet_flash_fma_max_clusters.argtypes = [i, i, i]
         lib.healnet_flash_fma_max_clusters.restype = i
-        lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, u, u, f, p]
+        lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, p]
         lib.healnet_flash_forward_tc.restype = ctypes.c_int
         lib.healnet_flash_tc_max_clusters.argtypes = [i, i]
         lib.healnet_flash_tc_max_clusters.restype = ctypes.c_int
@@ -100,13 +100,13 @@ def _bwd_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, i, p]
+        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_bwd_max_queries.argtypes = [i]
         lib.healnet_flash_bwd_max_queries.restype = i
         lib.healnet_flash_bwd_fma_max_clusters.argtypes = [i, i, i, i]
         lib.healnet_flash_bwd_fma_max_clusters.restype = i
-        lib.healnet_flash_backward_tc.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, u, u, f, p]
+        lib.healnet_flash_backward_tc.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, p]
         lib.healnet_flash_backward_tc.restype = ctypes.c_int
         lib.healnet_flash_bwd_tc_max_queries.argtypes = [i]
         lib.healnet_flash_bwd_tc_max_queries.restype = i
@@ -247,10 +247,10 @@ def _wide_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [f, i, u, u, f, i, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [f, i, p, u, f, i, p]
         fn.restype = i
         lib.healnet_flash_wide_backward.argtypes = (
-            [p] * 12 + [i] * 11 + [ll] * 13 + [f, i, u, u, f, i, p])
+            [p] * 12 + [i] * 11 + [ll] * 13 + [f, i, p, u, f, i, p])
         lib.healnet_flash_wide_backward.restype = i
         lib.healnet_flash_wide_max_d.restype = i
         lib.healnet_flash_wide_max_panels.restype = i
@@ -341,8 +341,33 @@ def _float_mask(kv_mask, b, lkv, device):
     return kv_mask.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _dropout_args(rate: float, seed: int):
-    return int(rate > 0), int(seed) & 0xFFFFFFFF, keep_threshold(rate), keep_scale(rate)
+SeedLike = Union[int, torch.Tensor]
+# the dtypes of a seed word: the low 32 bits of its element are the seed
+_SEED_DTYPES = tuple(getattr(torch, n) for n in ("int64", "int32", "uint32") if hasattr(torch, n))
+
+
+def seed_word(seed: Optional[SeedLike], device: torch.device) -> torch.Tensor:
+    """The dropout seed as the device word the kernels read (the TPU
+    kernels' ``(1, 1)`` uint32 operand): a one-element int64, int32 or
+    uint32 tensor on ``device`` (a view into a step's seed table) is used
+    as it is, its low 32 bits being the seed; an int is copied to the
+    device, one copy a call (for tests and single calls, not for a step)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.device != device or seed.dtype not in _SEED_DTYPES:
+            raise ValueError(f"a dropout seed tensor must be one int64/int32/uint32 element on "
+                             f"{device}, got {seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed
+    return torch.tensor([0 if seed is None else int(seed) & 0xFFFFFFFF], dtype=torch.int64,
+                        device=device)
+
+
+def _dropout_args(rate: float, seed: Optional[SeedLike], device: torch.device):
+    """(the kernels' dropout arguments, the seed word they point at, to be
+    kept alive over the launch)."""
+    if rate <= 0:
+        return (0, None, keep_threshold(rate), keep_scale(rate)), None
+    word = seed_word(seed, device)
+    return (1, word.data_ptr(), keep_threshold(rate), keep_scale(rate)), word
 
 
 def flash_attention_kernel(
@@ -352,13 +377,15 @@ def flash_attention_kernel(
     kv_mask: Optional[torch.Tensor],
     eff_scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: Optional[SeedLike] = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: returns ``(out (b, lq, h*d), lse (b, h, lq))``.
 
     q: (b, h, lq, d); k, v: (b, h, lkv, d), any strides with a unit stride
     on d (the column slices of the merged KV buffer are taken as they are);
-    kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T.
+    kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T;
+    dropout_seed: the hash seed, which every kernel reads from device
+    memory once a block (:func:`seed_word`).
     The route is :func:`flash_variant`'s: bf16 with d <= 128 launches the
     tensor-core kernel (counted in ``launches``), other heads up to 256 the
     FMA kernel (``launches_fma``), heads of 257-512 the one-pass wide kernel
@@ -380,7 +407,7 @@ def flash_attention_kernel(
     mask_ptr = None if mask is None else mask.data_ptr()
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                0 if mask is None else mask.stride(0))
-    drop = _dropout_args(float(dropout_rate), dropout_seed)
+    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if variant == "tc":
@@ -455,7 +482,7 @@ def flash_attention_bwd_kernel(
     delta: torch.Tensor,
     eff_scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: Optional[SeedLike] = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: returns ``(dq, dk, dv)``, contiguous
     ``(b, h, lq, d)`` / ``(b, h, lkv, d)`` in q's dtype.
@@ -505,7 +532,7 @@ def flash_attention_bwd_kernel(
     mask_ptr = None if mask is None else mask.data_ptr()
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
                0 if mask is None else mask.stride(0))
-    drop = _dropout_args(float(dropout_rate), dropout_seed)
+    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), carry_ptr)
     with torch.cuda.device(q.device):
@@ -586,7 +613,7 @@ def flash_backward_plain(
     delta: torch.Tensor,
     eff_scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: SeedLike = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel, with materialised
     probabilities (the formulas of the JAX package's ``_bwd_kernel``):
@@ -598,7 +625,8 @@ def flash_backward_plain(
 
     Shapes as :func:`flash_attention_bwd_kernel`; returns dq, dk, dv in q's
     dtype. Sums run in f32, or in f64 for f64 inputs (a reference for the
-    f32 kernels).
+    f32 kernels). ``dropout_seed`` may be an int or a one-element tensor on
+    q's device: the same mask either way.
     """
     b, h, lq, _ = q.shape
     lkv = k.shape[2]
@@ -623,7 +651,10 @@ def flash_backward_plain(
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash cross-attention with its backward, for autograd.
 
-    ``apply(q, k, v, kv_mask, eff_scale, rate, seed)`` -> (b, lq, h * d).
+    ``apply(q, k, v, kv_mask, eff_scale, rate, seed)`` -> (b, lq, h * d);
+    ``seed`` an int or a one-element tensor on q's device (the kernels
+    read it there, so a captured step replays with the seed its table
+    holds at the time).
     CUDA tensors launch the forward and backward kernels; CPU tensors take
     the plain versions (:func:`multihead_attention` with
     :func:`flash_lse_plain`, and :func:`flash_backward_plain`), which the
@@ -672,13 +703,15 @@ def flash_cross_attention(
     temperature: float = 0.5,
     kv_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[SeedLike] = None,
 ) -> torch.Tensor:
     """Fused cross-attention: q (b, h, lq, d), k/v (b, h, lkv, d) ->
     (b, lq, h * d). CUDA tensors go through :class:`FlashAttentionFunction`
     (the kernels, forward and backward); CPU tensors take the plain version,
     whose autograd gradient is the same function. ``dropout_seed`` is the
-    raw 32-bit hash seed, required when ``dropout_rate > 0``."""
+    raw 32-bit hash seed, required when ``dropout_rate > 0``: an int, or a
+    one-element tensor on q's device (a training step's seeds, never read
+    on the host); an int is copied to the card once for both kernels."""
     dropout_rate = float(dropout_rate)
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
@@ -688,7 +721,6 @@ def flash_cross_attention(
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         )
         return out
+    seed = seed_word(dropout_seed, q.device) if dropout_rate > 0.0 else None
     return FlashAttentionFunction.apply(
-        q, k, v, kv_mask, float(scale) / float(temperature), dropout_rate,
-        0 if dropout_seed is None else int(dropout_seed),
-    )
+        q, k, v, kv_mask, float(scale) / float(temperature), dropout_rate, seed)

@@ -16,13 +16,18 @@ from healnet_tpu_torch.train.metrics import (
     concordance_index_native,
 )
 from healnet_tpu_torch.train.schedule import (
+    Adam,
     make_optimizer,
+    onecycle_beta1,
     onecycle_beta1_at,
+    onecycle_lr,
     onecycle_lr_at,
     progress_hyperparams,
+    progress_schedule,
 )
 
 __all__ = [
+    "Adam",
     "Checkpointer",
     "CoxPHSurvLoss",
     "CrossEntropySurvLoss",
@@ -37,8 +42,11 @@ __all__ = [
     "make_optimizer",
     "nll_loss",
     "nll_loss_from_logits",
+    "onecycle_beta1",
     "onecycle_beta1_at",
+    "onecycle_lr",
     "onecycle_lr_at",
     "progress_hyperparams",
+    "progress_schedule",
     "survival_loss",
 ]

@@ -33,24 +33,42 @@ with the missing-modality ablations. Each epoch reseeds the dropout
 generators from ``(seed + 1000 * fold, epoch)``, so a resumed run draws
 what an uninterrupted one would have.
 
-Not ported yet: fused epochs (a captured step), meshes and row-sharded
-arenas, and modules with their own auxiliary loss; each raises, naming the
-``ROADMAP.md`` item that ports it.
+Fused epochs (``fused_epochs=True``, with a feature arena only, as in JAX):
+an epoch's batches are grouped by bucket width (the order becomes
+contiguous within each bucket, still shuffled within it), each bucket's
+batches and its attention seeds (drawn from the seed generator in the
+order the stepwise path draws them) go to the device in one copy
+(:class:`healnet_tpu_torch.train.fused.StepTable`), and the step runs from
+there: captured as one CUDA graph per bucket shape on the card and
+replayed once a step, eagerly on the CPU. Validation runs the same way.
+Losses, risks and gradient norms come back once a bucket.
+
+Not ported yet: meshes and row-sharded arenas, and modules with their own
+auxiliary loss; each raises, naming the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from healnet_tpu_torch.device import DeviceLike, resolve_device
 from healnet_tpu_torch.etl.prefetch import DevicePrefetcher
 from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_context_host
 from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
 from healnet_tpu_torch.train.checkpoint import Checkpointer
+from healnet_tpu_torch.train.fused import (
+    StepTable,
+    bucket_groups,
+    padded_steps,
+    run_steps,
+    table_signature,
+)
 from healnet_tpu_torch.train.losses import (
     CoxPHSurvLoss,
     ce_loss,
@@ -161,6 +179,10 @@ class SurvivalTrainer:
         prefetch: host batches produced ahead on a background thread (0:
             none), copied to the device one batch ahead.
         bucket_boundaries: length buckets of a streaming ragged-bag source.
+        fused_epochs: with ``feature_arena`` (ignored without one, as in
+            JAX), each epoch's steps and each evaluation's run bucket by
+            bucket from static device buffers, captured as CUDA graphs on
+            the card (see the module's docstring).
         n_bins, tensor_parallel, arena_halo: kept from the JAX trainer's
             signature; they act only with ``aux_loss``, ``mesh`` or
             ``arena_sharded``, which are not ported and raise.
@@ -208,10 +230,6 @@ class SurvivalTrainer:
             raise ValueError(f"unknown loss_type {loss_type}")
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError("batch_size must be divisible by accum_steps")
-        if fused_epochs:
-            raise NotImplementedError(
-                "fused epochs (the step captured as one CUDA graph) are not ported yet "
-                "(ROADMAP.md, Queue 1: the captured step)")
         if aux_loss:
             raise NotImplementedError(
                 "modules with their own auxiliary loss come with the baselines "
@@ -252,6 +270,12 @@ class SurvivalTrainer:
         self._arena_host = None if feature_arena is None else feature_arena[0]
         self._arena = arena_device  # placed on first use when None
         self.arena_quant = bool(arena_quant) or isinstance(self._arena_host, QuantizedContext)
+        # fused epochs: the schedule's horizon on the device (the captured
+        # step reads it), and the step tables by (kind, width, steps, layout)
+        self.fused_epochs = bool(fused_epochs) and self._arena_host is not None
+        self._horizon = torch.ones((), dtype=torch.float32, device=self.device)
+        self._tables: Dict[tuple, StepTable] = {}
+        self._capture_stream = None
 
     def set_fold(self, *, seed: int, class_weights=None, checkpoint_dir=None):
         """Point the trainer at a new fold: the seed, class weights and
@@ -264,11 +288,21 @@ class SurvivalTrainer:
                                  device=self.device)
         )
         self.checkpoint_dir = checkpoint_dir
+        # drawn on the host, as a new module's weights are
+        self.module.to("cpu")
         self.module.reset_parameters(torch.Generator().manual_seed(seed))
-        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+        self.module.to(self.device)
+        self._new_optimizer()
         self.generator.manual_seed(seed)
         self.seed_generator.manual_seed(seed + 1)
         return self
+
+    def _new_optimizer(self) -> None:
+        """A fresh optimizer; the captured steps, which point at the old
+        one's state, are dropped (the next fused epoch captures anew)."""
+        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+        for table in self._tables.values():
+            table.graph = None
 
     def _seed_epoch(self, fold: int, epoch: int) -> None:
         """Reseed the dropout generators from ``(seed + 1000 * fold,
@@ -320,7 +354,7 @@ class SurvivalTrainer:
                                    event_time=batch["event_time"], sample_weights=sw)
         return loss, risk
 
-    def _forward(self, batch, train: bool) -> torch.Tensor:
+    def _forward(self, batch, train: bool, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         if batch.get("patch_offsets") is not None and self._device_arena() is not None:
             # the slide modality comes from the arena: (b, width, dim) bags,
             # width fixed by the last KV mask
@@ -331,11 +365,13 @@ class SurvivalTrainer:
             kwargs["kv_masks"] = batch["kv_masks"]
         if train:
             kwargs.update(generator=self.generator, seed_generator=self.seed_generator)
+            if seeds is not None:
+                kwargs["seeds"] = seeds
         return self.module(batch["tensors"], presence=batch.get("presence"), **kwargs)
 
-    def _loss(self, batch):
+    def _loss(self, batch, seeds: Optional[torch.Tensor] = None):
         """(total loss to differentiate, survival loss, risk)."""
-        logits = self._forward(batch, train=True)
+        logits = self._forward(batch, train=True, seeds=seeds)
         surv_loss, risk = self._surv_loss(logits, batch)
         total = surv_loss / float(self.gc_compat)
         if self.l1 > 0:
@@ -370,23 +406,31 @@ class SurvivalTrainer:
         tensors (nothing is read back to the host). ``horizon`` is the
         schedule's length in steps (default 1: the schedule's end)."""
         batch = self._place(batch)
+        self._horizon.fill_(1.0 if horizon is None else float(horizon))
+        return self._update(batch)
+
+    def _update(self, batch: Mapping[str, Any], seeds: Optional[torch.Tensor] = None):
+        """One update from a placed batch, the schedule at ``self._horizon``;
+        ``seeds``: the step's attention seeds, one row of ``attention_calls``
+        seeds a micro-batch (drawn from the seed generator when None)."""
         self.module.train()
         self.optimizer.zero_grad(set_to_none=True)
         a = self.accum_steps
+        rows = [None] * a if seeds is None else seeds.view(a, -1).unbind(0)
         if a == 1:
-            total, surv_loss, risk = self._loss(batch)
+            total, surv_loss, risk = self._loss(batch, rows[0])
             total.backward()
         else:
             losses, risks = [], []
-            for mb in _micro_batches(batch, a):
-                total, loss, r = self._loss(mb)
+            for mb, row in zip(_micro_batches(batch, a), rows):
+                total, loss, r = self._loss(mb, row)
                 (total / a).backward()
                 losses.append(loss.detach())
                 risks.append(r.detach())
             surv_loss, risk = sum(losses) / a, torch.cat(risks)
         gstats = self.grad_stats()
-        progress_hyperparams(self.optimizer, 1.0 if horizon is None else horizon,
-                             self.max_lr, cycle_momentum=self.cycle_momentum)
+        progress_hyperparams(self.optimizer, self._horizon, self.max_lr,
+                             cycle_momentum=self.cycle_momentum)
         self.optimizer.step()
         return surv_loss.detach(), risk.detach(), gstats
 
@@ -399,15 +443,113 @@ class SurvivalTrainer:
             surv_loss, risk = self._surv_loss(logits, batch)
         return surv_loss, risk, logits
 
+    # ------------------------------------------------------------- fused epochs
+    def _step_table(self, kind: str, blist, out_width: int) -> StepTable:
+        """The static buffers of a bucket's batches (made on first use and
+        kept: a table's captured step replays in every later epoch)."""
+        width = int(blist[0]["kv_masks"][-1].shape[1])
+        key = (kind, width, padded_steps(len(blist)), table_signature(blist[0]))
+        table = self._tables.get(key)
+        if table is None:
+            table = StepTable(blist[0], key[2], out_width, self.device)
+            self._tables[key] = table
+        return table
+
+    def _run_table(self, table: StepTable, body, n_real: int, generator=None) -> None:
+        if self.device.type == "cuda" and self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        run_steps(table, body, n_real, generator, self._capture_stream)
+
+    def _attention_seeds(self) -> int:
+        """Hash seeds a fused train step takes: the module's attention calls
+        for each micro-batch, or 0 without attention dropout."""
+        module = self.module
+        if getattr(module, "attn_dropout", 0.0) > 0 and hasattr(module, "attention_calls"):
+            return self.accum_steps * module.attention_calls()
+        return 0
+
+    def _fused_train_body(self, table: StepTable) -> None:
+        """One step from slot ``counter``: the update, then its loss, risks
+        and gradient norms (in ``grad_stats`` order) into the output slot."""
+        table.select()
+        batch = dict(table.batch)
+        seeds = batch.pop("seeds", None)
+        loss, risk, gstats = self._update(batch, seeds)
+        row = torch.cat([loss.float().reshape(1), risk.float().reshape(-1),
+                         torch.stack(list(gstats.values())).float()])
+        table.emit(F.pad(row, (0, table.out.shape[1] - row.numel())))
+
+    def _fused_eval_body(self, table: StepTable) -> None:
+        table.select()
+        self.module.eval()
+        with torch.no_grad():
+            logits = self._forward(table.batch, train=False)
+            loss, risk = self._surv_loss(logits, table.batch)
+        table.emit(torch.cat([loss.float().reshape(1), risk.float().reshape(-1)]))
+
+    @staticmethod
+    def _collect(blist, cens, times, masks) -> None:
+        for hb in blist:
+            cens.append(np.asarray(hb["censorship"]))
+            times.append(np.asarray(hb["event_time"]))
+            masks.append(np.asarray(hb["sample_mask"]))
+
+    def _fused_train_bucket(self, blist):
+        """One bucket's steps (JAX's ``scan_train``): its batches and its
+        seed table (drawn in the order the stepwise path draws them) in one
+        upload, one replay a step, one read-back. Returns ``(losses (n,),
+        risks (n, b), the last step's gradient norms by name)`` on the host."""
+        self._device_arena()
+        n_real, b = len(blist), int(np.asarray(blist[0]["sample_mask"]).shape[0])
+        calls = self._attention_seeds()
+        if calls:
+            seeds = torch.randint(0, 2**32, (n_real, calls), generator=self.seed_generator,
+                                  device=self.seed_generator.device, dtype=torch.int64)
+            blist = [dict(hb, seeds=row) for hb, row in zip(blist, seeds.cpu().numpy())]
+        n_top = len({name.split(".")[0] for name, _ in self.module.named_parameters()})
+        table = self._step_table("train", blist, 2 + b + n_top)
+        table.upload(blist)
+        self._run_table(table, lambda: self._fused_train_body(table), n_real, self.generator)
+        out = table.out[:n_real].cpu()
+        keys = list(self._norm_groups[1]) + ["global"]
+        norms = out[-1, 1 + b:1 + b + len(keys)]
+        return out[:, 0], out[:, 1:1 + b], {k: float(v) for k, v in zip(keys, norms)}
+
+    def _fused_train_epoch(self, batches, losses, risks, cens, times, masks):
+        """An epoch's steps bucket by bucket; returns the last step's
+        gradient norms."""
+        gstats = None
+        for blist in bucket_groups(batches).values():
+            loss, risk, gstats = self._fused_train_bucket(blist)
+            losses.append(loss)
+            risks.append(risk.reshape(-1))
+            self._collect(blist, cens, times, masks)
+        return gstats
+
+    def _fused_evaluate(self, batches, losses, risks, cens, times, masks) -> None:
+        """Evaluation bucket by bucket (JAX's ``scan_eval``)."""
+        self._device_arena()
+        for blist in bucket_groups(batches).values():
+            n_real, b = len(blist), int(np.asarray(blist[0]["sample_mask"]).shape[0])
+            table = self._step_table("eval", blist, 1 + b)
+            table.upload(blist)
+            self._run_table(table, lambda: self._fused_eval_body(table), n_real)
+            out = table.out[:n_real].cpu()
+            losses.append(out[:, 0])
+            risks.append(out[:, 1:].reshape(-1))
+            self._collect(blist, cens, times, masks)
+
     # ------------------------------------------------------------- fold loop
     def _put(self, host_batch, non_blocking: bool = False):
         """(the batch on the device, its survival metadata on the host)."""
         meta = {k: np.asarray(host_batch[k]) for k in _META}
         return self._place(host_batch, non_blocking=non_blocking), meta
 
-    def _weighted_loss(self, losses, cens, masks) -> float:
-        """Batch losses weighted by the count each one's normaliser used:
-        events for cox, valid rows otherwise."""
+    def _weighted_loss(self, losses: List[torch.Tensor], cens, masks) -> float:
+        """Batch losses (device scalars, or a fused bucket's host vector)
+        weighted by the count each one's normaliser used: events for cox,
+        valid rows otherwise."""
+        losses = torch.cat([x.reshape(-1) for x in losses]).float().cpu().numpy()
         if self.loss_type == "cox":
             valid = np.asarray([((1.0 - c) * m).sum() for c, m in zip(cens, masks)])
         else:
@@ -457,7 +599,8 @@ class SurvivalTrainer:
         c-index (and ``missing_performance``: the test c-index with modality
         "50" / "omic" / "wsi" missing, with ``missing_ablation``)."""
         horizon = float(self._steps_per_epoch(train_data) * self.epochs)
-        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+        self._new_optimizer()
+        self._horizon.fill_(horizon)
         stopper = EarlyStopping(patience=self.patience, mode="min", verbose=verbose)
 
         ckpt, start_epoch = None, 1
@@ -493,28 +636,13 @@ class SurvivalTrainer:
                 train_data, self.batch_size, shuffle=True,
                 rng=np.random.default_rng(self.seed + fold + 977 * epoch),
                 bucket_boundaries=self.bucket_boundaries)
-            if self.prefetch > 0:
-                placed = DevicePrefetcher(
-                    batches, depth=2, buffer_size=self.prefetch, device=self.device,
-                    put_fn=lambda hb: self._put(hb, non_blocking=True))
-            else:
-                placed = (self._put(hb) for hb in batches)
             losses, risks, cens, times, masks = [], [], [], [], []
-            gstats = None  # the epoch's last gradient norms, for the tracker
-            try:
-                for device_batch, meta in placed:
-                    loss, risk, gstats = self.train_step(device_batch, horizon=horizon)
-                    losses.append(loss)
-                    risks.append(risk)
-                    cens.append(meta["censorship"])
-                    times.append(meta["event_time"])
-                    masks.append(meta["sample_mask"])
-            finally:
-                # a failed step must not leave the producer thread holding batches
-                if hasattr(placed, "close"):
-                    placed.close()
-            train_loss = self._weighted_loss(torch.stack(losses).float().cpu().numpy(), cens,
-                                             masks)
+            if self.fused_epochs:
+                gstats = self._fused_train_epoch(batches, losses, risks, cens, times, masks)
+            else:
+                gstats = self._stepwise_epoch(batches, horizon, losses, risks, cens, times,
+                                              masks)
+            train_loss = self._weighted_loss(losses, cens, masks)
             train_c = self._c_index(cens, times, risks, masks, "train")
 
             do_eval = epoch % self.eval_interval == 0 or epoch == self.epochs
@@ -574,6 +702,30 @@ class SurvivalTrainer:
                     for m in ("50", "omic", "wsi"))
         return results
 
+    def _stepwise_epoch(self, batches, horizon, losses, risks, cens, times, masks):
+        """An epoch one step a batch, through the prefetcher; returns the
+        last step's gradient norms (device scalars)."""
+        if self.prefetch > 0:
+            placed = DevicePrefetcher(
+                batches, depth=2, buffer_size=self.prefetch, device=self.device,
+                put_fn=lambda hb: self._put(hb, non_blocking=True))
+        else:
+            placed = (self._put(hb) for hb in batches)
+        gstats = None
+        try:
+            for device_batch, meta in placed:
+                loss, risk, gstats = self.train_step(device_batch, horizon=horizon)
+                losses.append(loss)
+                risks.append(risk)
+                cens.append(meta["censorship"])
+                times.append(meta["event_time"])
+                masks.append(meta["sample_mask"])
+        finally:
+            # a failed step must not leave the producer thread holding batches
+            if hasattr(placed, "close"):
+                placed.close()
+        return gstats
+
     def _ablate(self, batch: Dict[str, Any], drop: int, n_mod: int,
                 missing_semantics: str) -> Dict[str, Any]:
         """The batch with modality ``drop`` missing.
@@ -617,8 +769,18 @@ class SurvivalTrainer:
             raise ValueError(f"unknown missing_semantics {missing_semantics!r}")
         losses, risks, cens, times, masks = [], [], [], [], []
         use_omic = True
-        for batch in iterate_batches(data, self.batch_size,
-                                     bucket_boundaries=self.bucket_boundaries):
+        batches = iterate_batches(data, self.batch_size, bucket_boundaries=self.bucket_boundaries)
+        if self.fused_epochs and missing_mode is None:
+            # fused evaluation needs the split's (index-only) arena batches on
+            # the host; peek at one so that a stream of feature tensors stays
+            # a stream, as in JAX
+            first = next(batches, None)
+            if first is not None and first.get("patch_offsets") is not None:
+                self._fused_evaluate([first, *batches], losses, risks, cens, times, masks)
+                batches = iter(())
+            else:
+                batches = itertools.chain([] if first is None else [first], batches)
+        for batch in batches:
             n_mod = len(batch["tensors"]) + (1 if batch.get("patch_offsets") is not None else 0)
             if missing_mode is not None and n_mod >= 2:
                 if missing_mode == "50":
@@ -633,5 +795,4 @@ class SurvivalTrainer:
             times.append(np.asarray(batch["event_time"]))
             masks.append(np.asarray(batch["sample_mask"]))
         c_index = self._c_index(cens, times, risks, masks, "split")
-        return self._weighted_loss(torch.stack(losses).float().cpu().numpy(), cens,
-                                   masks), c_index
+        return self._weighted_loss(losses, cens, masks), c_index

@@ -11,10 +11,21 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 
+def survival_product(one_minus_hazards: torch.Tensor) -> torch.Tensor:
+    """``cumprod`` over the bins (dim 1), as a chain of products in bin
+    order: the same values, and a gradient that reads nothing on the host
+    (``torch.cumprod``'s backward reads whether its input holds a zero,
+    which a captured step cannot do)."""
+    cols = [one_minus_hazards[:, 0]]
+    for j in range(1, one_minus_hazards.shape[1]):
+        cols.append(cols[-1] * one_minus_hazards[:, j])
+    return torch.stack(cols, dim=1)
+
+
 def hazards_survival_risk(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """hazards = sigmoid(logits); survival = cumprod(1 - h); risk = -sum(S)."""
     hazards = torch.sigmoid(logits)
-    survival = torch.cumprod(1.0 - hazards, dim=1)
+    survival = survival_product(1.0 - hazards)
     risk = -torch.sum(survival, dim=1)
     return hazards, survival, risk
 
@@ -59,7 +70,7 @@ def nll_loss(
     (normalised here) and the alpha blend with the uncensored term."""
     y, c = _labels(hazards, y_disc, censorship)
     if survival is None:
-        survival = torch.cumprod(1.0 - hazards, dim=1)
+        survival = survival_product(1.0 - hazards)
     s_padded = _padded_survival(survival, c)
 
     uncensored = -(1.0 - c) * (
@@ -87,7 +98,7 @@ def nll_loss_from_logits(
     """Zadeh & Schmid (2020) discrete NLL from raw logits."""
     y, c = _labels(logits, y_disc, censorship)
     hazards = torch.sigmoid(logits)
-    survival = torch.cumprod(1.0 - hazards, dim=1)
+    survival = survival_product(1.0 - hazards)
     s_padded = _padded_survival(survival, c)
 
     s_prev = torch.clamp(_gather(s_padded, y), min=eps)
@@ -116,7 +127,7 @@ def ce_loss(
     """Cross-entropy survival loss."""
     y, c = _labels(hazards, y_disc, censorship)
     if survival is None:
-        survival = torch.cumprod(1.0 - hazards, dim=1)
+        survival = survival_product(1.0 - hazards)
     s_padded = _padded_survival(survival, c)
 
     # the first log adds eps (no clamp), as the reference does

@@ -2,6 +2,7 @@
 """Per-launch device profile of the flash cross-attention kernels.
 
     python3 scripts/profile_flash.py [--clusters 16,8,4]
+    python3 scripts/profile_flash.py --parent DIR
     python3 scripts/profile_flash.py --wide [--parent DIR]
 
 Needs one CUDA GPU and nvcc. At the brca shape (8, 17, 4096, 63) and the
@@ -16,6 +17,14 @@ resident at once per cluster size (``cudaOccupancyMaxActiveClusters``, the
 table ``flash_plan`` picks from). With ``--clusters``, every call is timed
 again with the cluster forced to each size (keys split evenly in whole
 tiles) in place of ``flash_plan``'s choice.
+
+``--parent DIR`` alone (the root of an unpacked ``git archive`` of another
+commit, at least its ``healnet_tpu_torch/`` and ``chip_smoke.py``) times
+the forward and backward at those four shapes without dropout and with
+dropout 0.083 in that commit's kernels and this tree's, each in a process
+of its own (parent, this tree, this tree, parent), on inputs from the same
+seed: this tree's kernels read the seed from a device word, passed as a
+tensor, where the other commit's may take it by value.
 
 ``--wide`` times the wide and panel kernels instead, at (8, 17, 4096, d)
 for d 320 and 512 (one panel) and 576 and 1024 (two or three panels), f32
@@ -85,9 +94,37 @@ print(json.dumps(times))
 """
 
 
-def timing_run(root: Path, shapes) -> dict:
-    """The --wide timings of the commit at ``root`` in a process of its own."""
-    code = f"SHAPES = {shapes!r}\n" + TIMING
+# the timing run of --parent alone: {"label rate": [forward ms, backward ms]}
+# at FLASH_SHAPES without dropout and with dropout 0.083, the seed a device
+# word for this tree (TENSOR_SEED) and an int for another commit
+DROPOUT_TIMING = """
+import json, sys, torch
+from chip_smoke import FLASH_SHAPES, attention_inputs, time_ms
+from healnet_tpu_torch.ops import cuda_build
+from healnet_tpu_torch.ops.flash_attention import flash_attention_bwd_kernel, flash_attention_kernel
+cuda_build.build(("flash_attention", "flash_attention_bwd"))
+gen = torch.Generator(device="cuda").manual_seed(0)
+seed = torch.tensor([1234], dtype=torch.int64, device="cuda") if TENSOR_SEED else 1234
+times = {}
+for label, (d, width, dtype) in FLASH_SHAPES.items():
+    eff = d**-0.5 / 0.5
+    q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype, width=width)
+    do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(dtype)
+    for rate in (0.0, 0.083):
+        out, lse = flash_attention_kernel(q, k, v, None, eff, rate, seed)
+        delta = (do.float() * out.float().reshape(8, 1, 17, d)).sum(-1)
+        times[f"{label} {rate}"] = (
+            time_ms(lambda: flash_attention_kernel(q, k, v, None, eff, rate, seed))[0],
+            time_ms(lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff, rate,
+                                                       seed))[0])
+print(json.dumps(times))
+"""
+
+
+def timing_run(root: Path, shapes, code: str = TIMING) -> dict:
+    """The --wide timings (or ``code``'s) of the commit at ``root`` in a
+    process of its own."""
+    code = f"SHAPES = {shapes!r}\nTENSOR_SEED = {root == ROOT}\n" + code
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           env={**os.environ, "PYTHONPATH": str(root)}, check=False)
     if proc.returncode != 0:
@@ -145,6 +182,20 @@ def profile_wide(parent: str) -> None:
         del q, k, v, out, lse, do, delta, dq, dk, dv, ql, kl, vl, o
 
 
+def profile_parent(parent: str) -> None:
+    """The tensor-core and FMA rows with and without dropout beside
+    ``parent``'s kernels: parent, this tree, this tree, parent."""
+    other = Path(parent).resolve()
+    runs = [("parent", timing_run(other, None, DROPOUT_TIMING)),
+            ("this tree", timing_run(ROOT, None, DROPOUT_TIMING)),
+            ("this tree", timing_run(ROOT, None, DROPOUT_TIMING)),
+            ("parent", timing_run(other, None, DROPOUT_TIMING))]
+    for key in runs[0][1]:
+        for i, direction in enumerate(("forward", "backward")):
+            print(f"(8, 17, 4096) {key:<14} {direction:<8}: "
+                  + ", ".join(f"{who} {t[key][i]:.4f}" for who, t in runs) + " ms", flush=True)
+
+
 def forced_plan(cluster: int):
     """A stand-in for ``flash_plan`` that always takes ``cluster`` blocks."""
     def plan(rows, lkv, sms, max_cluster, tile=64, panels=1):
@@ -159,7 +210,8 @@ def main() -> int:
     parser.add_argument("--clusters", default="", help="cluster sizes to force, e.g. 16,8,4")
     parser.add_argument("--wide", action="store_true",
                         help="time the wide and panel kernels (d 320-1024)")
-    parser.add_argument("--parent", default="", help="with --wide: another commit's root")
+    parser.add_argument("--parent", default="",
+                        help="another commit's root, to time its kernels beside this tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_flash: no CUDA device is available", file=sys.stderr)
@@ -169,6 +221,9 @@ def main() -> int:
                          check=True).stdout.strip())
     if args.wide:
         profile_wide(args.parent)
+        return 0
+    if args.parent:
+        profile_parent(args.parent)
         return 0
     cuda_build.build(("flash_attention", "flash_attention_bwd"))
     gen = torch.Generator(device="cuda").manual_seed(0)

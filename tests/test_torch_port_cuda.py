@@ -42,6 +42,7 @@ from healnet_tpu_torch.ops.fused_chain import (
     fused_latent_chain,
     weight_shapes,
 )
+from healnet_tpu_torch.train.loop import SurvivalTrainer
 from healnet_tpu_torch.ops.fused_project import (
     _prep,
     _project_launch,
@@ -1046,3 +1047,108 @@ def test_chain_kernel_takes_long_ranges_in_chunks(gen):
         got = fused_latent_chain(*ops, spec)
     ref = chain_reference(*ops, spec)
     assert (got - ref).abs().max().item() <= 2e-5 * max(1.0, ref.abs().max().item())
+
+
+# --------------------------------------------------------- captured steps
+
+# a small arena model: one omic token and bags of up to 24 patches of 64
+# channels, flash attention forced, attention and FF dropout on
+CAPTURE_CFG = dict(n_modalities=2, channel_dims=(40, 64), num_spatial_axes=(1, 1), out_dims=4,
+                   depth=2, l_c=17, l_d=32, x_heads=1, cross_dim_head=16, self_per_cross_attn=0,
+                   num_freq_bands=2, max_freq=2.0, attn_dropout=0.2, ff_dropout=0.3)
+
+
+def _capture_data(n=12, width=24):
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(5, width + 1, size=n).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int32)
+    arena = np.concatenate([rng.normal(size=(int(lengths.sum()), 64)),
+                            np.zeros((width, 64))]).astype(np.float32)
+    data = {"tensors": (rng.normal(size=(n, 1, 40)).astype(np.float32),),
+            "kv_masks": (None, np.arange(width)[None, :] < lengths[:, None]),
+            "patch_offsets": offsets, "patch_lengths": lengths,
+            "y_disc": rng.integers(0, 4, size=n),
+            "censorship": (rng.uniform(size=n) < 0.4).astype(np.float32),
+            "event_time": rng.uniform(1, 100, size=n).astype(np.float32)}
+    return data, arena
+
+
+def _capture_trainer(arena, fused, dtype, seed=0, init=0):
+    module = HealNetModule(**CAPTURE_CFG, attention_impl="flash", dtype=dtype, device="cuda",
+                           generator=torch.Generator().manual_seed(init))
+    return SurvivalTrainer(module, batch_size=4, epochs=2, l1=1e-4, max_lr=1e-3, seed=seed,
+                           device="cuda", feature_arena=arena, fused_epochs=fused,
+                           early_stopping=False, prefetch=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_step_equals_eager_step(gen, dtype):
+    """A fused fold (each bucket's step captured once and replayed) against
+    the stepwise fold on the same weights, batches and seeds: the same
+    kernels on the same inputs, so the losses, c-indices and weights agree
+    (1e-5 relative in f32; in bf16 within 2e-2 relative, phase 10's step
+    tolerance in ``chip_smoke.py``)."""
+    data, arena = _capture_data()
+    fused, step = _capture_trainer(arena, True, dtype), _capture_trainer(arena, False, dtype)
+    got, ref = fused.fit(data, data, verbose=False), step.fit(data, data, verbose=False)
+    assert all(t.graph is not None for t in fused._tables.values())
+    rtol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, r in zip(got["history"], ref["history"]):
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose(g[key], r[key], rtol=rtol, err_msg=key)
+    for (name, a), b in zip(fused.module.named_parameters(), step.module.parameters()):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("d,dtype", [(63, torch.bfloat16), (63, torch.float32),
+                                     (320, torch.bfloat16), (576, torch.float32)],
+                         ids=["tc", "fma", "wide", "panels"])
+def test_two_replays_drop_different_entries(gen, d, dtype):
+    """The flash kernels read their seed from device memory: one captured
+    forward and backward replayed with two seeds in its seed word drops
+    different entries, and each replay equals the eager call with that
+    seed (bit for bit); a replay with the first seed again repeats it."""
+    q, k, v = (torch.randn((2, 1, n, d), generator=gen, device="cuda").to(dtype)
+               for n in (17, 300, 300))
+    do = torch.randn((2, 1, 17, d), generator=gen, device="cuda").to(dtype)
+    eff, rate = d**-0.5 / 0.5, 0.3
+    word = torch.zeros((1,), dtype=torch.int64, device="cuda")
+
+    def call(seed):
+        out, lse = flash_attention_kernel(q, k, v, None, eff, rate, seed)
+        delta = (do.float() * out.float().reshape(2, 17, 1, d).transpose(1, 2)).sum(-1)
+        return (out, *flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff, rate, seed))
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call(word)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static = call(word)
+    replays = []
+    for seed in (11, 12, 11):
+        word.fill_(seed)
+        graph.replay()
+        replays.append([x.clone() for x in static])
+    for got, seed in zip(replays, (11, 12)):
+        assert all(torch.equal(a, b) for a, b in zip(got, call(seed)))
+    assert not torch.equal(replays[0][0], replays[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(replays[0], replays[2]))
+
+
+def test_graph_replays_after_set_fold(gen):
+    """``set_fold`` gives the trainer a new optimizer: its captured steps
+    are dropped and captured again, and the new fold trains as a fresh
+    fused trainer with that seed does (bit for bit)."""
+    data, arena = _capture_data()
+    trainer = _capture_trainer(arena, True, torch.float32)
+    trainer.fit(data, data, verbose=False)
+    trainer.set_fold(seed=7)
+    assert all(t.graph is None for t in trainer._tables.values())
+    got = trainer.fit(data, data, verbose=False)
+    fresh = _capture_trainer(arena, True, torch.float32, seed=7, init=7)
+    want = fresh.fit(data, data, verbose=False)
+    assert [h["train_loss"] for h in got["history"]] == [h["train_loss"] for h in want["history"]]
+    assert got["val_c_index"] == want["val_c_index"]

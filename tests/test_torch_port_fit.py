@@ -398,8 +398,7 @@ def test_entry_points_need_a_gpu_or_cpu_request(tmp_path):
         Predictor(module, params=tmp_path)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(fused_epochs=True), "captured step"),
-                                     (dict(aux_loss=True), "baselines"),
+@pytest.mark.parametrize("kw,item", [(dict(aux_loss=True), "baselines"),
                                      (dict(mesh=object()), "multi-device"),
                                      (dict(arena_sharded=True), "multi-device")])
 def test_unported_options_raise(kw, item):
