@@ -155,7 +155,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    one (1e-5 relative), and the captured and stepwise step's wall, busy,
    idle share and launches on one bucket's batches; which
    c-index implementation ran;
-13. print how many profiler windows saw no device kernel (each window
+13. the pipeline and CLI at full width: a synthetic TCGA tree written to a
+   temporary directory with numpy, ``zipfile`` and ``csv`` only (48 cases,
+   2,000 genes, ragged float16 bags of 1,024-4,096 patches 2,048 wide, ~30%
+   censored, the survival signal in both modalities, empty ``.h5`` files
+   under ``patches/``); ``config/dress_rehearsal.yml`` pointed at it and cut
+   to 2 folds of 2 epochs, buckets (2048, 4096) and bags of at most 4,096
+   (bf16, the int8 arena on the card, fused epochs, checkpoints and resume
+   kept; the ``brca`` row of ``config/best_hyperparams.yml`` at full width
+   and depth); ``healnet_tpu_torch.cli.main.main`` in this process (the
+   int8 and bf16 projection forward and backward counters above 0, every
+   fold's summary metrics finite), with the dataset build and arena upload
+   times, each fold's epoch walls, peak memory, and a captured step of the
+   last fold replayed under the profiler (wall, busy, idle share); then
+   ``python3 -m healnet_tpu_torch.cli.main`` again with the same run name in
+   a second process, which finds both folds complete and evaluates their
+   checkpoints: its test c-indices equal the first run's bit for bit;
+14. print how many profiler windows saw no device kernel (each window
    stays open 50 ms before its first call and after its closing
    synchronise; one that still saw none is logged and taken again with
    three times the margin; a call whose six windows all saw none fails)
@@ -169,12 +185,17 @@ Needs one CUDA GPU, nvcc, and the repository around this file.
 from __future__ import annotations
 
 import contextlib
+import csv
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -227,11 +248,17 @@ from healnet_tpu_torch.ops.fused_project import (
     project_plain,
     project_smem,
 )
-from healnet_tpu_torch.ops.quantize import quantize_context
+from healnet_tpu_torch.ops.quantize import quantize_context, quantize_context_host
 from healnet_tpu_torch.serving import Predictor
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
+from healnet_tpu_torch.cli.main import main as cli_main
+from healnet_tpu_torch.etl import train_val_test_split
 from healnet_tpu_torch.train.metrics import cindex_implementation
+from healnet_tpu_torch.train.pipeline import _DATASET_CACHE, Pipeline
+from healnet_tpu_torch.utils import Config
+
+REPO = Path(__file__).resolve().parent
 
 # kernel variant -> (its wrapper, the wrapper's launch counter for it)
 KERNELS = {"fused_project": (fused_project_kernel, "launches"),
@@ -2250,6 +2277,224 @@ def phase_fit(host_rng) -> None:
     log(f"  phase 12 wall: {time.perf_counter() - t_phase:.2f} s")
 
 
+# --------------------------------------------------------------- phase 13
+
+# the synthetic TCGA tree of the CLI phase: the shapes of
+# scripts/gen_dress_data.py (2,000 genes, ragged float16 bags of ResNet-50
+# features 2,048 wide, ~30% censored, a survival signal planted in both
+# modalities), cut to 48 cases and bags of 1,024-4,096 patches
+CLI_CASES, CLI_GENES = 48, 2000
+CLI_BAGS = (1024, TOKENS)
+CLI_RUN = "chip_smoke_cli"
+
+
+def write_tcga_tree(root: Path, host_rng) -> dict:
+    """A TCGA-layout tree under ``root`` written with numpy, ``zipfile`` and
+    ``csv`` only: ``omic/tcga_brca_all_clean.csv.zip``, an empty ``.h5``
+    a slide under ``patches/`` and its float16 ``.npy`` bag under
+    ``patch_features/``. Returns the bag sizes and bytes written."""
+    prep = root / "wsi" / "brca_preprocessed_level2"
+    for sub in (root / "omic", prep / "patches", prep / "patch_features"):
+        sub.mkdir(parents=True)
+    n = CLI_CASES
+    sids = [f"TCGA-SM-{i:04d}-01Z-00-DX1" for i in range(n)]
+    risk = host_rng.standard_normal(n).astype(np.float32)
+    omic = host_rng.standard_normal((n, CLI_GENES), dtype=np.float32)
+    omic[:, :25] += 0.8 * risk[:, None]  # 25 signal genes
+    bags = np.clip(host_rng.lognormal(np.log(2560), 0.45, size=n), *CLI_BAGS).astype(int)
+    written = 0
+    for sid, bag, r in zip(sids, bags, risk):
+        (prep / "patches" / f"{sid}.h5").touch()
+        feats = host_rng.standard_normal((int(bag), PATCH), dtype=np.float32)
+        feats[:max(1, int(bag) // 20), :16] += 0.5 * r  # a few "tumour" patches
+        feats = feats.astype(np.float16)
+        np.save(prep / "patch_features" / f"{sid}.npy", feats)
+        written += feats.nbytes
+    months = np.exp(3.2 - 0.7 * risk + 0.35 * host_rng.standard_normal(n)).astype(np.float32)
+    censorship = (host_rng.uniform(size=n) < 0.3).astype(np.int64)
+    buf = io.StringIO()
+    out = csv.writer(buf, lineterminator="\n")
+    out.writerow(["", *(f"gene_{i}" for i in range(CLI_GENES)), "site", "oncotree_code",
+                  "case_id", "slide_id", "train", "censorship", "survival_months"])
+    for i, sid in enumerate(sids):
+        out.writerow([i, *(repr(float(v)) for v in omic[i]), "breast", "IDC", sid[:12],
+                      f"{sid}.svs", 1, int(censorship[i]), repr(float(months[i]))])
+    with zipfile.ZipFile(root / "omic" / "tcga_brca_all_clean.csv.zip", "w",
+                         compression=zipfile.ZIP_DEFLATED) as archive:
+        archive.writestr("tcga_brca_all_clean.csv", buf.getvalue())
+    return {"bags": bags, "bytes": written, "censored": float(censorship.mean())}
+
+
+def yaml_scalar(value) -> str:
+    """A config value as YAML that the port's reader (and PyYAML) reads back
+    as the same value: floats always with a dot, strings quoted."""
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if value is None:
+        return "null"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):  # "1e-05" reads back as a string: "1.0e-05"
+        mantissa, e, exponent = repr(value).partition("e")
+        return (mantissa if "." in mantissa else mantissa + ".0") + e + exponent
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(yaml_scalar(v) for v in value) + "]"
+    return json.dumps(str(value))
+
+
+def yaml_dump(config, indent: int = 0) -> str:
+    lines = []
+    for key, value in config.items():
+        if isinstance(value, dict):
+            lines.append(" " * indent + f"{key}:")
+            lines.append(yaml_dump(value, indent + 2))
+        else:
+            lines.append(" " * indent + f"{key}: {yaml_scalar(value)}")
+    return "\n".join(lines)
+
+
+def cli_config(root: Path) -> Path:
+    """``config/dress_rehearsal.yml`` pointed at the tree, cut to 2 folds of
+    2 epochs, buckets (2048, 4096) and bags of at most 4,096 patches; bf16,
+    the int8 arena on the device, fused epochs, checkpoints and resume kept;
+    the model the ``brca`` row of ``config/best_hyperparams.yml``."""
+    config = Config(str(REPO / "config" / "dress_rehearsal.yml")).read().to_dict()
+    config.update(tcga_path=str(root / "tcga"), log_path=str(root / "logs"), run_name=CLI_RUN,
+                  hyperparams=str(REPO / "config" / "best_hyperparams.yml"), n_folds=2)
+    config["data"]["max_patches"] = TOKENS
+    config["train_loop"].update(epochs=2, bucket_boundaries=[TOKENS // 2, TOKENS])
+    path = root / "dress_cut.yml"
+    path.write_text(yaml_dump(config) + "\n")
+    back = Config(str(path)).read()
+    if back.to_dict() != config:
+        raise AssertionError("the cut config does not read back as written")
+    return path
+
+
+def phase_cli(host_rng) -> None:
+    """Phase 13: the pipeline and CLI at full width (see the module
+    docstring)."""
+    log("phase 13: python -m healnet_tpu_torch.cli.main on a synthetic TCGA tree "
+        "(full-width brca, bf16, int8 arena, fused epochs, 2 folds x 2 epochs)")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        tree = write_tcga_tree(root / "tcga", host_rng)
+        bags = tree["bags"]
+        log(f"  tree: {CLI_CASES} cases x {CLI_GENES} genes, bags of {bags.min()}-{bags.max()} "
+            f"patches (mean {bags.mean():.0f}, {int(bags.sum())} rows) x {PATCH} float16, "
+            f"{tree['bytes'] / 1e9:.3f} GB, censored {tree['censored']:.3f}; written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv = ["--config_path", str(cli_config(root)), "--mode", "single_run",
+                "--dataset", "brca"]
+        summary_path = root / "logs" / CLI_RUN / "summary.json"
+
+        # (a) in-process, through the function python -m runs
+        seen = {}
+        make_trainer = Pipeline.make_trainer
+
+        def keep(pipeline, *a, **kw):
+            seen["pipeline"] = pipeline
+            seen["trainer"] = make_trainer(pipeline, *a, **kw)
+            return seen["trainer"]
+
+        Pipeline.make_trainer = keep
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                summary = cli_main(argv)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            read_launches("the CLI run (warm-up and capture only; replays are not counted)",
+                          ("fused_project", "fused_project_int8", "fused_project_bwd",
+                           "fused_project_bwd_int8"))
+        finally:
+            Pipeline.make_trainer = make_trainer
+        pipe, trainer = seen["pipeline"], seen["trainer"]
+        first = json.loads(summary_path.read_text())
+        log(f"  in-process run: {wall:.2f} s; dataset built in {pipe.timings['dataset_s']:.2f} s, "
+            f"arena packed on the host in {pipe.timings['arena_pack_s']:.2f} s, uploaded and "
+            f"quantized in {pipe.timings['arena_upload_s']:.4f} s "
+            f"({type(trainer._arena).__name__}, {trainer._arena.shape[0]} rows); peak memory "
+            f"{peak:.1f} MiB; folds' stdout: "
+            f"{[ln for ln in said.getvalue().splitlines() if ln.startswith(('Train', 'Epoch'))]}")
+        for fold, res in enumerate(pipe.fold_results, 1):
+            walls = [round(h["seconds"], 4) for h in res["history"]]
+            log(f"  fold {fold}: epoch 1 (warm-up and capture of each bucket's train and eval "
+                f"step) {walls[0]} s, epoch 2 {walls[1:]} s; train loss "
+                f"{[round(h['train_loss'], 6) for h in res['history']]}, val c-index "
+                f"{res['val_c_index']:.6f}, test c-index {res['test_c_index']:.6f}")
+        bad = {k: v for k, v in first.items()
+               if k.startswith(("fold_", "mean_", "std_")) and "norm" not in k
+               and not np.isfinite(v)}
+        if bad or len(pipe.fold_results) != 2:
+            raise AssertionError(f"the CLI run gave non-finite summary metrics {bad} or "
+                                 f"{len(pipe.fold_results)} folds")
+        log(f"  summary: mean test c-index {summary['mean_test_c_index']:.6f} "
+            f"(std {summary['std_test_c_index']:.6f}), best fold {summary['best_fold'] + 1}")
+
+        # the arena quantized on the card against the host's quantization of
+        # the same bags (the JAX package's way), three slides
+        data = pipe._dataset
+        offsets, lengths = data._arena_index()
+        for i in range(3):
+            rows = slice(int(offsets[i]), int(offsets[i] + lengths[i]))
+            q, scale = quantize_context_host(data.load_patch_features(data._row_sids[i])
+                                             [:lengths[i]])
+            if not (np.array_equal(trainer._arena.data[rows].cpu().numpy(), q) and
+                    np.array_equal(trainer._arena.scale[rows].cpu().numpy(), scale)):
+                raise AssertionError(f"slide {i}'s arena rows differ from host quantization")
+        log("  the arena's int8 rows and scales of three slides equal the host's quantization "
+            "of their bags, bit for bit")
+
+        # a captured step of the last fold's trainer, replayed on its train
+        # split's width-4096 batches (its weights are in the checkpoints)
+        train_idx = train_val_test_split(len(data), seed=2)[0]
+        blist = [b for b in data.take(train_idx).iter_batches(
+                     BATCH, shuffle=True, rng=np.random.default_rng(0),
+                     bucket_boundaries=trainer.bucket_boundaries)
+                 if b["kv_masks"][-1].shape[1] == TOKENS]
+        n = len(blist)
+
+        def run():
+            trainer._fused_train_bucket(blist)
+
+        step_wall = wall_ms(run, reps=3) / n
+        _, busy, count, _ = device_profile(run)
+        log(f"  captured step at width {TOKENS} (bf16, int8 arena; {n} steps a call): wall "
+            f"{step_wall:.4f} ms per step, device busy {busy / n:.4f} ms per step (profiler), "
+            f"idle share {1.0 - busy / n / step_wall:.4f}, {count / n:.1f} device kernels and "
+            f"copies and {HOST_LAUNCHES[0] / n:.2f} host launch calls per step")
+        del trainer, pipe, seen, data, blist, q, scale
+        _DATASET_CACHE.update(key=None, dataset=None, arena_device=None)
+
+        # (b) a second process with the same run_name: both folds complete,
+        # their checkpoints evaluated again
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "healnet_tpu_torch.cli.main", *argv],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        relaunch = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the relaunch exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        again = json.loads(summary_path.read_text())
+        restored = proc.stdout.count("Fold already complete")
+        tests = [(first[f"fold_{k}_test_c_index"], again[f"fold_{k}_test_c_index"])
+                 for k in (1, 2)]
+        log(f"  relaunch (python -m, same run_name): {relaunch:.2f} s wall, {restored} folds "
+            f"restored complete; test c-index first / relaunch {tests}")
+        if restored != 2 or any(a != b for a, b in tests):
+            raise AssertionError("the relaunch did not restore both folds with the first run's "
+                                 "test c-indices")
+    log(f"  c-index implementation: {cindex_implementation()}")
+    log(f"  phase 13 wall: {time.perf_counter() - t_phase:.2f} s")
+
+
 # ---------------------------------------------------------------- phase 8
 
 
@@ -2852,6 +3097,7 @@ def main() -> int:
     kernels.append(chain)
     launches.update(chain_launches)
     phase_fit(np.random.default_rng(5))
+    phase_cli(np.random.default_rng(6))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

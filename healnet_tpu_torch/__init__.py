@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of healnet_tpu for NVIDIA Hopper GPUs.
 
 Mirrors the JAX package's layout (``ops/``, ``models/``, ``train/``,
-``utils/``, ``serving.py``). Entry points run on the GPU unless the caller
-passes ``device="cpu"``; the hand-written CUDA kernels under ``ops/csrc/``
-are built with nvcc on first use.
+``etl/``, ``utils/``, ``runtime/``, ``cli/``, ``serving.py``). Entry points
+run on the GPU unless the caller passes ``device="cpu"`` (the CLI:
+``--device cpu``); the hand-written CUDA kernels under ``ops/csrc/`` are
+built with nvcc on first use.
 """
 
 from healnet_tpu_torch.device import resolve_device, round_up

@@ -77,12 +77,22 @@ def quantize_context(x: torch.Tensor) -> QuantizedContext:
     return QuantizedContext(q, scale)
 
 
-def quantize_context_host(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """numpy twin of :func:`quantize_context` for host-side arena packing:
-    ``(values int8, scales f32)``, bit-equal to the tensor version."""
-    xf = np.asarray(x, np.float32)
-    scale = (np.max(np.abs(xf), axis=-1) / 127.0).astype(np.float32)
+def quantize_scales(amax: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(scale, 1 / scale or 0)`` in float32 from each row's absolute
+    maximum, in numpy. The device path takes its scales from here too
+    (:func:`healnet_tpu_torch.parallel.arena.place_quantized`): a CUDA tensor
+    divided by a Python scalar is multiplied by the scalar's reciprocal,
+    which can differ from the division in the last bit."""
+    scale = (np.asarray(amax, np.float32) / 127.0).astype(np.float32)
     with np.errstate(divide="ignore", invalid="ignore"):
         inv = np.where(scale > 0, 1.0 / np.where(scale > 0, scale, 1.0), 0.0)
+    return scale, inv
+
+
+def quantize_context_host(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """numpy twin of :func:`quantize_context` for host-side arena packing:
+    ``(values int8, scales f32)``, bit-equal to the tensor version on the CPU."""
+    xf = np.asarray(x, np.float32)
+    scale, inv = quantize_scales(np.max(np.abs(xf), axis=-1))
     q = np.clip(np.round(xf * inv[..., None]), -127, 127).astype(np.int8)
     return q, scale

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from healnet_tpu_torch.ops.quantize import QuantizedContext
+from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_scales
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -30,6 +30,25 @@ def place_arena(arena, device):
     if isinstance(arena, QuantizedContext):
         return QuantizedContext(_to_device(arena.data, device), _to_device(arena.scale, device))
     return _to_device(arena, device)
+
+
+def place_quantized(arena, device, chunk_rows: int = 16384) -> QuantizedContext:
+    """A host float arena as a ``QuantizedContext`` on ``device``, quantized
+    there a chunk of rows at a time (per-row int8 values and f32 scales,
+    bit-equal to ``quantize_context_host``): the host sends the float rows
+    once and computes only each row's scale from its maximum
+    (:func:`~healnet_tpu_torch.ops.quantize.quantize_scales`); the device
+    holds one chunk in f32 at a time."""
+    rows, dim = arena.shape
+    data = torch.empty((rows, dim), dtype=torch.int8, device=device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=device)
+    for lo in range(0, rows, chunk_rows):
+        x = _to_device(arena[lo:lo + chunk_rows], device).float()
+        s, inv = quantize_scales(torch.amax(torch.abs(x), dim=-1).cpu().numpy())
+        inv = torch.from_numpy(inv).to(device)
+        data[lo:lo + chunk_rows] = torch.clamp(torch.round(x * inv[:, None]), -127, 127)
+        scale[lo:lo + chunk_rows] = torch.from_numpy(s)
+    return QuantizedContext(data, scale)
 
 
 def gather_bag(arena, offsets: torch.Tensor, mask: torch.Tensor):
