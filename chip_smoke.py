@@ -96,7 +96,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    its bf16 step), and one served batch through ``Predictor`` against the
    plain path: the main path's run of the generic route (both kernels),
    with its launches per step, wall, device busy and idle share;
-8. hold the int8 branch of the projection kernels against its plain version
+8. hold ``quantize_context`` on the card bit-equal to the host's
+   ``quantize_context_host`` at (40000, 2048) float16 and (8, 4096, 2048)
+   bf16; the int8 branch of the projection kernels against its plain version
    at (8, 4096, 2048) int8 with per-token scales and the encoding, in bf16
    (the Hopper kernel) and f32 compute (the f32 kernel), kv, s1, s2, and at
    kirp's F 270 in bf16; time kernel, plain version, the library GEMM on the
@@ -171,7 +173,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``python3 -m healnet_tpu_torch.cli.main`` again with the same run name in
    a second process, which finds both folds complete and evaluates their
    checkpoints: its test c-indices equal the first run's bit for bit;
-14. print how many profiler windows saw no device kernel (each window
+14. the serving artifact at brca's full width and depth, in bf16 and f32,
+   each under ``attention_impl="auto"`` (plain attention) and ``"flash"``:
+   ``Predictor.export`` with ``example_shapes`` (1, 2000) and (4096, 2048)
+   and widths 1024, 2048 and 4096 (each program's export seconds, the
+   artifact's bytes), ``ExportedPredictor`` loaded and warmed in this
+   process; every program's graph calls the registered projection op once
+   a modality (and the flash forward op depth x modalities times under
+   "flash"); 20 dense samples (as they are, without the omic modality,
+   with a KV mask on the slide) and 24 ragged bags of 500-4096 patches
+   served live and from the artifact: equal bit for bit (else the first
+   ATen op where the graph leaves the live ops, and the logits within 2
+   bf16 ulps / 1e-5 relative), the projection counters up by one a
+   modality a program call and the flash ones by depth x modalities under
+   "flash", no backward kernel; wall per micro-batch live and exported, and
+   one micro-batch's wall, device busy and idle share on each; then a fresh
+   ``python3 -c`` process that imports only
+   ``healnet_tpu_torch.serving_export`` serves the ragged bags from all
+   four artifacts (equal bit for bit, its counters above 0, no JAX
+   imported); and the host time the registered ops add a call;
+15. print how many profiler windows saw no device kernel (each window
    stays open 50 ms before its first call and after its closing
    synchronise; one that still saw none is logged and taken again with
    three times the margin; a call whose six windows all saw none fails)
@@ -189,6 +210,7 @@ import csv
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -218,6 +240,7 @@ from healnet_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_backward_plain,
+    flash_fwd_op,
     flash_lse_plain,
     flash_panels,
     launch_counter,
@@ -238,6 +261,7 @@ from healnet_tpu_torch.ops.fused_project import (
     _project_plain,
     _split_lib,
     _tma_lib,
+    _project_op_cuda,
     fused_kv_project,
     fused_project_bwd_kernel,
     fused_project_kernel,
@@ -245,11 +269,13 @@ from healnet_tpu_torch.ops.fused_project import (
     project_bwd_plan,
     project_f32_smem,
     project_generic_plan,
+    project_op,
     project_plain,
     project_smem,
 )
 from healnet_tpu_torch.ops.quantize import quantize_context, quantize_context_host
 from healnet_tpu_torch.serving import Predictor
+from healnet_tpu_torch.serving_export import ExportedPredictor
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 from healnet_tpu_torch.cli.main import main as cli_main
@@ -2518,6 +2544,28 @@ def int8_projection_case(gen, b, t, c, f, cdt):
     return qc, ops, run, plain
 
 
+def check_quantize_on_card(gen) -> None:
+    """``quantize_context`` on the card bit-equal to ``quantize_context_host``
+    (the JAX package's host arithmetic): float16 rows of 2,048 channels at
+    per-row scales spread 0.1-9 (``scripts/check_quantize_device.py``'s
+    case) and a bf16 WSI context of brca's shape."""
+    rng = np.random.default_rng(8)
+    rows = (rng.standard_normal((40000, PATCH), dtype=np.float32)
+            * rng.uniform(0.1, 9, (40000, 1))).astype(np.float16)
+    bag = (torch.randn((BATCH, TOKENS, PATCH), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    for label, x, host in (("(40000, 2048) float16", torch.as_tensor(rows, device="cuda"), rows),
+                           ("(8, 4096, 2048) bfloat16", bag, bag.float().cpu().numpy())):
+        got = quantize_context(x)
+        q, scale = quantize_context_host(host)
+        scales = int((got.scale.cpu().numpy() != scale).sum())
+        values = int((got.data.cpu().numpy() != q).sum())
+        log(f"  quantize_context on the card, {label}: {scales} of {scale.size} row scales and "
+            f"{values} values differ from quantize_context_host")
+        if scales or values:
+            raise AssertionError(f"quantize_context on the card differs from the host at {label}")
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
@@ -2528,6 +2576,7 @@ def phase_projection_int8(gen, bf16_ms: float, f32_ms: float):
     f32 brca call, beside which the int8 call in f32 compute is timed.
     Returns the kernels-line entries of both int8 variants."""
     log("phase 8: int8 projection forward kernels vs plain version")
+    check_quantize_on_card(gen)
     worst = 0.0
     for cdt, f in ((torch.bfloat16, 252), (torch.bfloat16, 270), (torch.float32, 252)):
         reset_launches()
@@ -3059,6 +3108,266 @@ def phase_chain(gen):
     return entry, launches
 
 
+# --------------------------------------------------------------- phase 14
+
+# the bucket widths of the exported ragged programs
+EXPORT_WIDTHS = (1024, 2048, 4096)
+# the fresh serving process of phase 14: it imports nothing but the
+# artifact's loader, serves the ragged request from each artifact named on
+# its command line and prints each one's launch counters
+FRESH_SERVER = """
+import json, sys
+import numpy as np
+import healnet_tpu_torch.serving_export as se
+with np.load(sys.argv[1]) as z:
+    omic = z["omic"]
+    bags = [z[f"bag{i}"] for i in range(len(z.files) - 1)]
+project, flash = se.fused_project.fused_project_kernel, se.flash_attention.flash_attention_kernel
+for art in sys.argv[2:]:
+    for fn in (project, flash):
+        for name in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(fn, name, 0)
+    np.savez(art + "/fresh.npz", **se.ExportedPredictor(art).predict_ragged([omic, bags]))
+    print(json.dumps({"artifact": art, "project": {k: v for k, v in vars(project).items()
+                                                    if k.startswith("launches")},
+                      "flash": {k: v for k, v in vars(flash).items()
+                                if k.startswith("launches")}}))
+print(json.dumps({"imported": sorted(m for m in sys.modules
+                                     if m.split(".")[0] in ("jax", "flax", "healnet_tpu"))}))
+"""
+
+
+def port_ops(program) -> dict:
+    """The registered ops a loaded program's graph calls, with counts."""
+    ops = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and "healnet_port" in str(node.target):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    return ops
+
+
+def counter_sum(fn) -> int:
+    return sum(v for k, v in vars(fn).items() if k.startswith("launches"))
+
+
+def export_requests(host_rng):
+    """Phase 14's requests: 20 dense samples (as they are, without the omic
+    modality, and with a KV mask on the slide) and 24 ragged bags of
+    500-4096 patches; and the micro-batches each takes."""
+    n = 20
+    omic = host_rng.standard_normal((n, 1, OMIC), dtype=np.float32)
+    wsi = host_rng.standard_normal((n, TOKENS, PATCH), dtype=np.float32)
+    mask = np.arange(TOKENS)[None, :] < host_rng.integers(1, TOKENS + 1, n)[:, None]
+    lengths = host_rng.integers(500, TOKENS + 1, 24)
+    bags = [host_rng.standard_normal((int(ln), PATCH), dtype=np.float32) for ln in lengths]
+    omic24 = host_rng.standard_normal((len(bags), 1, OMIC), dtype=np.float32)
+    requests = {
+        "dense 20": lambda p: p([omic, wsi]),
+        "omic missing": lambda p: p([None, wsi]),
+        "slide masked": lambda p: p([omic, wsi], kv_masks=[None, mask]),
+        "ragged 24": lambda p: p.predict_ragged([omic24, bags]),
+    }
+    per_width = [sum(int(w == min(x for x in EXPORT_WIDTHS if x >= ln)) for ln in lengths)
+                 for w in EXPORT_WIDTHS]
+    calls = {name: -(-n // BATCH) for name in requests}
+    calls["ragged 24"] = sum(-(-c // BATCH) for c in per_width)
+    return requests, calls, (omic, wsi), (omic24, bags)
+
+
+def dispatch_trace(fn) -> list:
+    """Every ATen op ``fn`` runs, in order, with clones of its tensor
+    outputs: (name, outputs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            flat = out if isinstance(out, (tuple, list)) else (out,)
+            ops.append((str(func), [t.clone() for t in flat if isinstance(t, torch.Tensor)]))
+            return out
+
+    with Record():
+        fn()
+    return ops
+
+
+def first_divergence(live, served, omic, wsi) -> str:
+    """Where the exported dense program's ATen ops leave the live module's
+    on one micro-batch (all-True KV masks on both sides, as the program
+    takes them): the first op whose name or outputs differ."""
+    x = tuple(torch.as_tensor(a, device="cuda") for a in (omic, wsi))
+    pres = torch.ones((x[0].shape[0], 2), device="cuda")
+    masks = tuple(torch.ones(t.shape[:2], dtype=torch.bool, device="cuda") for t in x)
+    a = dispatch_trace(lambda: live._predict(x, pres, masks))
+    b = dispatch_trace(lambda: served._fn("predict")(x, pres, masks))
+    for i, ((name_a, out_a), (name_b, out_b)) in enumerate(zip(a, b)):
+        if name_a != name_b:
+            return f"op {i}: live {name_a}, exported {name_b}"
+        for ta, tb in zip(out_a, out_b):
+            if ta.shape == tb.shape and ta.dtype == tb.dtype and not torch.equal(ta, tb):
+                err = (ta.double() - tb.double()).abs().max().item()
+                return f"op {i} {name_a}: max|d| {err:.6g}"
+    return f"none in {min(len(a), len(b))} ops (live {len(a)}, exported {len(b)})"
+
+
+def host_us_per_call(fn, calls: int = 40) -> float:
+    """Host microseconds to enqueue one call, the device kept busy behind a
+    sleep kernel so no launch waits."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * 0.05))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def op_dispatch_cost(gen) -> None:
+    """What the registered ops add on the host: a call through the op
+    against the same call of its CUDA implementation, at brca's bag
+    (projection, bf16) and cross-attention (flash, bf16), alternated."""
+    x = torch.randn((BATCH, TOKENS, PATCH), generator=gen, device="cuda").to(torch.bfloat16)
+    enc = positional_encoding((TOKENS,), 2.0, 2, dtype=torch.bfloat16, device="cuda")
+    w_all = torch.randn((PATCH + 5, 252), generator=gen, device="cuda") * 0.02
+    b_all = torch.zeros((252,), device="cuda")
+    proj = (x, enc, w_all, b_all, 1e-5, None, torch.bfloat16)
+    q, k, v = attention_inputs(gen, BATCH, 17, TOKENS, 63, torch.bfloat16, width=252)
+    flash = (q, k, v, None, 63**-0.5 / 0.5, 0.0, None)
+    pairs = {"projection": (lambda: project_op(*proj), lambda: _project_op_cuda(*proj)),
+             "flash forward": (lambda: flash_fwd_op(*flash),
+                               lambda: flash_attention_kernel(*flash[:6]))}
+    for name, (op, bare) in pairs.items():
+        times = {"op": [], "bare": []}
+        for _ in range(3):
+            times["op"].append(host_us_per_call(op))
+            times["bare"].append(host_us_per_call(bare))
+        op_us, bare_us = statistics.median(times["op"]), statistics.median(times["bare"])
+        log(f"  {name}: host {op_us:.1f} us a call through the registered op, {bare_us:.1f} us "
+            f"through its CUDA implementation alone: the op adds {op_us - bare_us:.1f} us")
+
+
+def phase_export(host_rng) -> None:
+    """The deployment artifact at brca's full width and depth: export from
+    a live Predictor in bf16 and f32 under attention_impl "auto" (plain
+    attention) and "flash", load, serve, and hold against the live path."""
+    log("phase 14: the serving artifact (Predictor.export, ExportedPredictor) at full width")
+    t_phase = time.perf_counter()
+    requests, calls, (omic, wsi), (omic24, bags) = export_requests(host_rng)
+    tmp = Path(tempfile.mkdtemp(prefix="healnet_export_"))
+    np.savez(tmp / "ragged.npz", omic=omic24, **{f"bag{i}": b for i, b in enumerate(bags)})
+    ragged_outs = {}
+    try:
+        for dtype in (torch.bfloat16, None):
+            state = None
+            for attention in ("auto", "flash"):
+                label = f"{'bf16' if dtype else 'f32'} {attention}"
+                live = predictor(dtype, attention, "auto", state)
+                state = live.module.state_dict()
+                live.warmup([(1, OMIC), (TOKENS, PATCH)], widths=EXPORT_WIDTHS)
+                art = tmp / label.replace(" ", "_")
+                live.export(art, example_shapes=[(1, OMIC), (TOKENS, PATCH)],
+                            widths=EXPORT_WIDTHS)
+                manifest = json.loads((art / "manifest.json").read_text())
+                size = sum(f.stat().st_size for f in art.rglob("*") if f.is_file())
+                log(f"  {label}: exported {len(manifest['export_seconds'])} programs in "
+                    + ", ".join(f"{k.split('/')[-1]} {v:.2f} s"
+                                for k, v in manifest["export_seconds"].items())
+                    + f"; the artifact {size} bytes ("
+                    + ", ".join(f"{f.name} {f.stat().st_size}" for f in sorted(art.iterdir()))
+                    + ")")
+                served = ExportedPredictor(art)
+                warm = served.warmup()
+                log(f"  {label}: loaded and warmed {warm['programs']} programs in "
+                    f"{warm['seconds']:.2f} s")
+                depth_mods = BRCA["depth"] * BRCA["n_modalities"]
+                want_ops = {"healnet_port.fused_kv_project.default": BRCA["n_modalities"]}
+                if attention == "flash":
+                    want_ops["healnet_port.flash_attention_fwd.default"] = depth_mods
+                for name in ["predict"] + [f"predict_w{w}" for w in EXPORT_WIDTHS]:
+                    got_ops = port_ops(torch.export.load(art / f"{name}.pt2"))
+                    if got_ops != want_ops:
+                        raise AssertionError(f"{label} {name}: the graph calls {got_ops}, "
+                                             f"expected {want_ops}")
+                log(f"  {label}: every program's graph calls {want_ops}")
+
+                walls = {"live": {}, "exported": {}}
+                for name, call in requests.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want = call(live)
+                    walls["live"][name] = time.perf_counter() - t0
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    got = call(served)
+                    walls["exported"][name] = time.perf_counter() - t0
+                    project, flash = (counter_sum(fused_project_kernel),
+                                      counter_sum(flash_attention_kernel))
+                    n_flash = depth_mods * calls[name] if attention == "flash" else 0
+                    if project != BRCA["n_modalities"] * calls[name] or flash != n_flash:
+                        raise AssertionError(
+                            f"{label} {name}: {project} projection and {flash} flash launches "
+                            f"over {calls[name]} program calls, expected "
+                            f"{BRCA['n_modalities'] * calls[name]} and {n_flash}")
+                    if (counter_sum(fused_project_bwd_kernel)
+                            or counter_sum(flash_attention_bwd_kernel)):
+                        raise AssertionError(f"{label} {name}: a backward kernel ran")
+                    for key in ("logits", "hazards", "survival", "risk"):
+                        if not np.isfinite(got[key]).all():
+                            raise AssertionError(f"{label} {name}: non-finite {key}")
+                    same = all(np.array_equal(got[k], want[k]) for k in got)
+                    log(f"  {label} {name}: {calls[name]} program calls, {project} projection "
+                        f"and {flash} flash launches; exported equal to live bit for bit: "
+                        f"{same}")
+                    if not same:
+                        err = float(np.abs(got["logits"] - want["logits"]).max())
+                        top = float(np.abs(want["logits"]).max())
+                        log(f"  {label} {name}: the graph leaves the live ops at "
+                            + first_divergence(live, served, omic[:BATCH], wsi[:BATCH]))
+                        check(f"{label} {name} logits exported vs live", err,
+                              2 * bf16_ulp(top) if dtype else 1e-5 * top)
+                    if name == "ragged 24":
+                        ragged_outs[str(art)] = got
+                log(f"  {label}: wall per micro-batch, live / exported: " + "; ".join(
+                    f"{name} {walls['live'][name] * 1e3 / calls[name]:.2f} / "
+                    f"{walls['exported'][name] * 1e3 / calls[name]:.2f} ms"
+                    for name in requests))
+                for side, p in (("live", live), ("exported", served)):
+                    wall, busy, count, _ = device_profile(lambda: p([omic[:BATCH], wsi[:BATCH]]))
+                    log(f"  {label} {side}: one micro-batch of 8 from host arrays, wall "
+                        f"{wall:.4f} ms, device busy {busy:.4f} ms (profiler), idle share "
+                        f"{1.0 - busy / wall:.4f}, {count:.1f} device kernels and copies")
+                del live, served
+                torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FRESH_SERVER, str(tmp / "ragged.npz"),
+                               *ragged_outs], capture_output=True, text=True, cwd=REPO,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the fresh serving process failed:\n{proc.stderr[-4000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        for line in lines[:-1]:
+            art = line["artifact"]
+            with np.load(Path(art) / "fresh.npz") as z:
+                same = all(np.array_equal(z[k], ragged_outs[art][k]) for k in z.files)
+            project, flash = sum(line["project"].values()), sum(line["flash"].values())
+            log(f"  fresh process, {Path(art).name}: outputs equal to this process's bit for "
+                f"bit: {same}; projection launches {project}, flash {flash}")
+            if not same or project <= 0 or (art.endswith("flash") and flash <= 0):
+                raise AssertionError(f"the fresh process served {art} differently")
+        if lines[-1]["imported"]:
+            raise AssertionError(f"the fresh process imported {lines[-1]['imported']}")
+        log(f"  fresh process: {len(lines) - 1} artifacts in {time.perf_counter() - t0:.2f} s, "
+            "importing only healnet_tpu_torch.serving_export (no JAX)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    op_dispatch_cost(torch.Generator(device="cuda").manual_seed(14))
+    log(f"  phase 14 wall: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3098,6 +3407,7 @@ def main() -> int:
     launches.update(chain_launches)
     phase_fit(np.random.default_rng(5))
     phase_cli(np.random.default_rng(6))
+    phase_export(np.random.default_rng(7))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

@@ -6,7 +6,9 @@ array attends to a long per-modality context; the forward CUDA kernel
 (lq x lkv) weights never reach device memory, and writes the per-row
 log-sum-exp; the backward kernel (``csrc/flash_attention_bwd.cu``) rebuilds
 the probabilities from that log-sum-exp and ``delta = rowsum(dO * O)``.
-:class:`FlashAttentionFunction` ties the two together for autograd.
+:class:`FlashAttentionFunction` ties the two together for autograd; its
+forward is the registered op ``healnet_port::flash_attention_fwd``
+(:func:`flash_fwd_op`), which ``torch.export`` keeps in a traced program.
 
 Each kernel has four routes, chosen by :func:`flash_variant` from the
 dtype and head dim before the launch: bf16 with d <= 128 (the model's
@@ -648,15 +650,51 @@ def flash_backward_plain(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+@torch.library.custom_op("healnet_port::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    eff_scale: float,
+    rate: float,
+    seed: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as a registered op: ``(out (b, lq, h*d), lse (b,
+    h, lq))`` as :func:`flash_attention_kernel` returns them, ``seed`` the
+    one-element seed word (:func:`seed_word`; None for seed 0). On CUDA
+    tensors it launches the kernel; on CPU tensors it is the plain version
+    (:func:`multihead_attention` with :func:`flash_lse_plain`). Its fake
+    implementation gives the outputs' shapes to ``torch.export``."""
+    seed = seed_word(seed, q.device) if rate > 0 else None
+    # multihead_attention's scale / temperature is eff_scale
+    out, _ = multihead_attention(q, k, v, scale=eff_scale, temperature=1.0, kv_mask=kv_mask,
+                                 dropout_rate=rate, dropout_seed=seed)
+    return out.contiguous(), flash_lse_plain(q, k, kv_mask, eff_scale).contiguous()
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v, kv_mask, eff_scale, rate, seed):
+    return flash_attention_kernel(q, k, v, kv_mask, eff_scale, rate, seed)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, kv_mask, eff_scale, rate, seed):
+    b, h, lq, d = q.shape
+    lse = q.new_empty((b, h, lq), dtype=torch.promote_types(q.dtype, torch.float32))
+    return q.new_empty((b, lq, h * d)), lse
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash cross-attention with its backward, for autograd.
 
     ``apply(q, k, v, kv_mask, eff_scale, rate, seed)`` -> (b, lq, h * d);
     ``seed`` an int or a one-element tensor on q's device (the kernels
     read it there, so a captured step replays with the seed its table
-    holds at the time).
-    CUDA tensors launch the forward and backward kernels; CPU tensors take
-    the plain versions (:func:`multihead_attention` with
+    holds at the time). The forward is :func:`flash_fwd_op`: CUDA tensors
+    launch the forward and backward kernels; CPU tensors take the plain
+    versions (:func:`multihead_attention` with
     :func:`flash_lse_plain`, and :func:`flash_backward_plain`), which the
     tests use to check the backward's formulas. The residuals are q, k, v,
     the mask, the output and the log-sum-exp; the backward computes
@@ -666,15 +704,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed):
-        if q.is_cuda:
-            out, lse = flash_attention_kernel(q, k, v, kv_mask, eff_scale, rate, seed)
-        else:
-            # multihead_attention's scale / temperature is eff_scale
-            out, _ = multihead_attention(
-                q, k, v, scale=eff_scale, temperature=1.0, kv_mask=kv_mask,
-                dropout_rate=rate, dropout_seed=seed if rate > 0 else None,
-            )
-            lse = flash_lse_plain(q, k, kv_mask, eff_scale)
+        word = seed_word(seed, q.device) if rate > 0 else None
+        out, lse = flash_fwd_op(q, k, v, kv_mask, float(eff_scale), float(rate), word)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.eff_scale, ctx.rate, ctx.seed = eff_scale, rate, seed
         return out

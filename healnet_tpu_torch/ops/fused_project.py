@@ -20,7 +20,9 @@ ring) for every f32-compute call, by :func:`project_route` and
 :func:`project_generic_plan`.
 :class:`FusedProjectFunction` gives it a backward whose cotangent pass is a
 second kernel (``csrc/fused_project_bwd.cu``, plain version
-:func:`project_bwd_plain`).
+:func:`project_bwd_plain`). Its forward is the registered op
+``healnet_port::fused_kv_project`` (:func:`project_op`), which
+``torch.export`` keeps in a traced program.
 
 Quantized contexts (:class:`healnet_tpu_torch.ops.quantize.QuantizedContext`):
 int8 values with one f32 scale per token. The statistics and the product
@@ -616,6 +618,42 @@ def _prep(dat, enc, w_all, b_all, cdt):
     return w_c, enc_proj, enc_stats.contiguous(), aux
 
 
+@torch.library.custom_op("healnet_port::fused_kv_project", mutates_args=(), device_types="cpu")
+def project_op(
+    dat: torch.Tensor,
+    enc: Optional[torch.Tensor],
+    w_all: torch.Tensor,
+    b_all: torch.Tensor,
+    eps: float,
+    scale: Optional[torch.Tensor],
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projection forward as a registered op, ``(kv, s1, s2)`` as
+    :func:`fused_project_kernel` returns them: ``out_dtype`` is the compute
+    dtype. On CUDA tensors it launches the kernel, its route and weight
+    layout chosen from the context's address at the call (so a traced
+    program decides them at run time, as an eager call does); on CPU
+    tensors it is the plain version. Its fake implementation gives the
+    outputs' shapes to ``torch.export``."""
+    return _project_plain(dat.contiguous(), enc, w_all, b_all, eps,
+                          None if scale is None else scale.contiguous(), out_dtype)
+
+
+@project_op.register_kernel("cuda")
+def _project_op_cuda(dat, enc, w_all, b_all, eps, scale, out_dtype):
+    dat = dat.contiguous()
+    return fused_project_kernel(
+        dat, *_prep(dat, enc, w_all, b_all, out_dtype), w_all.shape[0], eps,
+        scale=None if scale is None else scale.contiguous())
+
+
+@project_op.register_fake
+def _project_op_fake(dat, enc, w_all, b_all, eps, scale, out_dtype):
+    b, t = dat.shape[0], dat.shape[1]
+    s1 = dat.new_empty((b, t), dtype=torch.float32)
+    return dat.new_empty((b, t, w_all.shape[1]), dtype=out_dtype), s1, torch.empty_like(s1)
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("fused_project_bwd")
     fn = lib.healnet_fused_project_bwd
@@ -724,11 +762,11 @@ class FusedProjectFunction(torch.autograd.Function):
 
     ``apply(dat, enc, w_all, b_all, eps, scale=None, out_dtype=None)`` ->
     (b, t, F) in the compute dtype: dat's, or ``out_dtype`` (default f32)
-    for an int8 ``dat`` with its (b, t) ``scale``. CUDA tensors launch the
-    forward kernel and, in the backward, the cotangent-pass kernel; CPU
-    tensors take the plain versions, which the tests use to check the
-    formulas. The residuals are the inputs and the two (b, t) row
-    statistics, never a (b, t, F) tensor.
+    for an int8 ``dat`` with its (b, t) ``scale``. The forward is
+    :func:`project_op`: CUDA tensors launch the forward kernel and, in the
+    backward, the cotangent-pass kernel; CPU tensors take the plain
+    versions, which the tests use to check the formulas. The residuals are
+    the inputs and the two (b, t) row statistics, never a (b, t, F) tensor.
 
     Backward (the JAX package's ``_pallas_bwd``): with ``d_raw = (scale *)
     inv * g`` and ``dsum2 = [sum g; sum inv * mu * g]`` from the cotangent
@@ -744,16 +782,9 @@ class FusedProjectFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dat, enc, w_all, b_all, eps, scale=None, out_dtype=None):
         cdt = out_dtype or (torch.float32 if scale is not None else dat.dtype)
-        if dat.is_cuda:
-            if scale is None and cdt != dat.dtype:
-                raise ValueError("a bf16/f32 context computes in its own dtype")
-            dat = dat.contiguous()
-            ops = _prep(dat, enc, w_all, b_all, cdt)
-            kv, s1, s2 = fused_project_kernel(
-                dat, *ops, w_all.shape[0], eps,
-                scale=None if scale is None else scale.contiguous())
-        else:
-            kv, s1, s2 = _project_plain(dat, enc, w_all, b_all, eps, scale, cdt)
+        if dat.is_cuda and scale is None and cdt != dat.dtype:
+            raise ValueError("a bf16/f32 context computes in its own dtype")
+        kv, s1, s2 = project_op(dat, enc, w_all, b_all, float(eps), scale, cdt)
         ctx.save_for_backward(dat, enc, w_all, s1, s2, scale)
         ctx.eps, ctx.b_dtype = eps, b_all.dtype
         return kv

@@ -70,7 +70,9 @@ class QuantizedContext:
 def quantize_context(x: torch.Tensor) -> QuantizedContext:
     """Symmetric per-token (last-axis) absmax int8 quantization."""
     xf = x.float()
-    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    # over a device scalar: CUDA divides by a CPU scalar as a multiply by its
+    # reciprocal, which can differ from the division in the last bit
+    scale = torch.amax(torch.abs(xf), dim=-1) / xf.new_full((), 127.0)
     positive = scale > 0
     inv = torch.where(positive, 1.0 / torch.where(positive, scale, 1.0), 0.0)
     q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127).to(torch.int8)
@@ -79,10 +81,10 @@ def quantize_context(x: torch.Tensor) -> QuantizedContext:
 
 def quantize_scales(amax: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """``(scale, 1 / scale or 0)`` in float32 from each row's absolute
-    maximum, in numpy. The device path takes its scales from here too
-    (:func:`healnet_tpu_torch.parallel.arena.place_quantized`): a CUDA tensor
-    divided by a Python scalar is multiplied by the scalar's reciprocal,
-    which can differ from the division in the last bit."""
+    maximum, in numpy: the arithmetic of :func:`quantize_context`, which
+    divides by a device scalar, and of
+    :func:`healnet_tpu_torch.parallel.arena.place_quantized`, which takes
+    its scales from here."""
     scale = (np.asarray(amax, np.float32) / 127.0).astype(np.float32)
     with np.errstate(divide="ignore", invalid="ignore"):
         inv = np.where(scale > 0, 1.0 / np.where(scale > 0, scale, 1.0), 0.0)

@@ -11,8 +11,10 @@ training-time feature arena, plain or int8, uploaded to the device once: a
 request carries bag offsets and lengths, and no patch features.
 
 Parameters may come from a checkpoint directory: its ``best`` entry
-(:class:`healnet_tpu_torch.train.checkpoint.Checkpointer`). Not ported
-yet: artifact export.
+(:class:`healnet_tpu_torch.train.checkpoint.Checkpointer`).
+:meth:`Predictor.export` writes a deployment artifact that
+:class:`healnet_tpu_torch.serving_export.ExportedPredictor` serves without
+the model class.
 """
 
 from __future__ import annotations
@@ -107,31 +109,9 @@ class Predictor:
         padded contexts (True = attend). Returns (n, ...) arrays for
         logits/hazards/survival and (n,) for risk.
         """
-        n_mod = len(tensors)
-        n = next(
-            (np.asarray(t).shape[0] for t in tensors if t is not None),
-            None if presence is None else np.asarray(presence).shape[0],
-        )
-        if n is None:
-            raise ValueError("at least one modality tensor (or a presence matrix) is required")
+        n, full, pres, masks = dense_request(tensors, presence, kv_masks, self._materialize)
         if n == 0:  # empty request: empty, well-shaped outputs
-            zero = lambda *tail: np.zeros((0, *tail), np.float32)
-            nb = int(self.module.out_dims)
-            return {
-                "logits": zero(nb), "hazards": zero(nb),
-                "survival": zero(nb), "risk": zero(),
-            }
-        pres = (
-            np.ones((n, n_mod), np.float32)
-            if presence is None
-            else np.asarray(presence, np.float32).copy()
-        )
-        full = self._materialize(tensors, n, pres)
-        masks = (
-            [None] * n_mod
-            if kv_masks is None
-            else [None if m is None else np.asarray(m, bool) for m in kv_masks]
-        )
+            return zero_outputs(0, int(self.module.out_dims))
         return self._microbatched(n, full, pres, masks, kv_masks is None)
 
     def _materialize(self, tensors, n: int, pres: np.ndarray) -> List[np.ndarray]:
@@ -180,34 +160,8 @@ class Predictor:
         dim = next((np.asarray(b).shape[-1] for b in bags if b is not None), None)
         if dim is None:
             raise ValueError("at least one sample must carry a patch bag")
-
-        groups: Dict[int, List[int]] = {}
-        for i, b in enumerate(bags):
-            groups.setdefault(self._bucket_width(0 if b is None else len(b)), []).append(i)
-
-        slot_outs: Dict[int, Dict[str, np.ndarray]] = {}
-        for width, idxs in groups.items():
-            m = len(idxs)
-            padded = np.zeros((m, width, dim), np.float32)
-            mask = np.zeros((m, width), bool)
-            grp_pres = pres[idxs].copy()
-            for j, i in enumerate(idxs):
-                if bags[i] is None:
-                    grp_pres[j, -1] = 0.0
-                    continue
-                bag = np.asarray(bags[i], np.float32)
-                ln = min(len(bag), width)
-                padded[j, :ln] = bag[:ln]
-                mask[j, :ln] = True
-            grp_tensors = [t[idxs] for t in lead] + [padded]
-            kv = [None] * len(lead) + [mask]
-            res = self._microbatched(m, grp_tensors, grp_pres, kv, False)
-            for j, i in enumerate(idxs):
-                slot_outs[i] = {k: v[j] for k, v in res.items()}
-        return {
-            k: np.stack([slot_outs[i][k] for i in range(n)])
-            for k in next(iter(slot_outs.values()))
-        }
+        return serve_ragged(bags, lead, pres, dim, self._bucket_width,
+                            lambda width, m, *group: self._microbatched(m, *group, False))
 
     def predict_from_arena(
         self,
@@ -306,11 +260,96 @@ class Predictor:
             torch.cuda.synchronize(self.device)
         return {"programs": len(self._signatures), "seconds": time.perf_counter() - t0}
 
+    def export(
+        self,
+        path,
+        example_shapes: Sequence[Sequence[int]],
+        widths: Optional[Sequence[int]] = None,
+        platforms: Optional[Sequence[str]] = None,
+    ) -> Path:
+        """Write a self-contained deployment artifact (``torch.export``
+        programs + params); see
+        :func:`healnet_tpu_torch.serving_export.export_predictor`.
+        ``example_shapes`` are per-sample trailing shapes, one per modality,
+        e.g. ``[(1, 2000), (4096, 2048)]``.
+        """
+        from healnet_tpu_torch.serving_export import export_predictor
+
+        return export_predictor(self, path, example_shapes, widths=widths, platforms=platforms)
+
     def _microbatched(self, n, full, pres, masks, masks_absent):
         return serve_microbatched(
             self._predict, n, full, pres, masks, masks_absent,
             self.batch_size, self.compute_dtype, self.device,
         )
+
+
+def zero_outputs(n: int, out_dims: int) -> Dict[str, np.ndarray]:
+    """Zero outputs of ``n`` rows (an empty request's, well-shaped)."""
+    return {
+        "logits": np.zeros((n, out_dims), np.float32),
+        "hazards": np.zeros((n, out_dims), np.float32),
+        "survival": np.zeros((n, out_dims), np.float32),
+        "risk": np.zeros((n,), np.float32),
+    }
+
+
+def dense_request(tensors, presence, kv_masks, materialize):
+    """A dense request as numpy: ``(n, full, pres, masks)``: the rows,
+    each modality's array (``materialize(tensors, n, pres)`` zero-fills the
+    missing ones and zeroes their presence column), the presence matrix
+    and one bool mask or None a modality."""
+    n = next(
+        (np.asarray(t).shape[0] for t in tensors if t is not None),
+        None if presence is None else np.asarray(presence).shape[0],
+    )
+    if n is None:
+        raise ValueError("at least one modality tensor (or a presence matrix) is required")
+    pres = (
+        np.ones((n, len(tensors)), np.float32)
+        if presence is None
+        else np.asarray(presence, np.float32).copy()
+    )
+    full = materialize(tensors, n, pres)
+    masks = (
+        [None] * len(tensors)
+        if kv_masks is None
+        else [None if m is None else np.asarray(m, bool) for m in kv_masks]
+    )
+    return n, full, pres, masks
+
+
+def serve_ragged(bags, lead, pres, dim, bucket_width, serve) -> Dict[str, np.ndarray]:
+    """Ragged patch bags (the last modality; None for a missing one) grouped
+    by ``bucket_width(length)``, each group padded to its width with a KV
+    mask and served by ``serve(width, m, tensors, presence, masks)``; the
+    outputs in request order. ``lead``: the other modalities' arrays."""
+    groups: Dict[int, List[int]] = {}
+    for i, b in enumerate(bags):
+        groups.setdefault(bucket_width(0 if b is None else len(b)), []).append(i)
+
+    slot_outs: Dict[int, Dict[str, np.ndarray]] = {}
+    for width, idxs in groups.items():
+        m = len(idxs)
+        padded = np.zeros((m, width, dim), np.float32)
+        mask = np.zeros((m, width), bool)
+        grp_pres = pres[idxs].copy()
+        for j, i in enumerate(idxs):
+            if bags[i] is None:
+                grp_pres[j, -1] = 0.0
+                continue
+            bag = np.asarray(bags[i], np.float32)
+            ln = min(len(bag), width)
+            padded[j, :ln] = bag[:ln]
+            mask[j, :ln] = True
+        res = serve(width, m, [t[idxs] for t in lead] + [padded], grp_pres,
+                    [None] * len(lead) + [mask])
+        for j, i in enumerate(idxs):
+            slot_outs[i] = {k: v[j] for k, v in res.items()}
+    return {
+        k: np.stack([slot_outs[i][k] for i in range(len(bags))])
+        for k in next(iter(slot_outs.values()))
+    }
 
 
 def serve_microbatched(

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from healnet_tpu_torch.models.healnet import HealNetModule
-from healnet_tpu_torch.ops import QuantizedContext, quantize_context
+from healnet_tpu_torch.ops import QuantizedContext, quantize_context, quantize_context_host
 from healnet_tpu_torch.ops.attention import multihead_attention
 from healnet_tpu_torch.ops.flash_attention import (
     LAUNCH_COUNTERS,
@@ -1152,3 +1152,53 @@ def test_graph_replays_after_set_fold(gen):
     want = fresh.fit(data, data, verbose=False)
     assert [h["train_loss"] for h in got["history"]] == [h["train_loss"] for h in want["history"]]
     assert got["val_c_index"] == want["val_c_index"]
+
+
+def test_quantize_context_on_card_equals_host(gen):
+    """``quantize_context`` on a CUDA tensor divides by a device scalar:
+    its scales and values equal the host's (the JAX package's arithmetic)
+    bit for bit, at float16 rows of 2,048 channels with per-row scales
+    spread 0.1-9."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((40000, 2048), dtype=np.float32)
+         * rng.uniform(0.1, 9, (40000, 1))).astype(np.float16)
+    got = quantize_context(torch.as_tensor(x, device="cuda"))
+    q, scale = quantize_context_host(x)
+    np.testing.assert_array_equal(got.scale.cpu().numpy(), scale)
+    np.testing.assert_array_equal(got.data.cpu().numpy(), q)
+
+
+@pytest.mark.parametrize("attention_impl", ["auto", "flash"])
+def test_exported_predictor_launches_the_kernels(gen, tmp_path, attention_impl):
+    """An artifact exported on the card holds the registered ops (the
+    flash forward under "flash"), launches the kernels when served, and
+    serves what the live Predictor serves, bit for bit."""
+    from healnet_tpu_torch.serving import Predictor
+    from healnet_tpu_torch.serving_export import ExportedPredictor
+
+    module = HealNetModule(n_modalities=2, channel_dims=(64, 128), num_spatial_axes=(1, 1),
+                           out_dims=4, depth=2, l_c=17, l_d=32, cross_dim_head=27,
+                           self_per_cross_attn=0, attention_impl=attention_impl,
+                           dtype=torch.bfloat16, device="cuda")
+    live = Predictor(module, batch_size=4, bucket_boundaries=[64, 128], device="cuda")
+    live.export(tmp_path, example_shapes=[(1, 64), (128, 128)], widths=[64, 128])
+    ops = [str(n.target) for n in torch.export.load(tmp_path / "predict.pt2").graph.nodes
+           if "healnet_port" in str(n.target)]
+    flash_ops = 4 if attention_impl == "flash" else 0
+    assert ops.count("healnet_port.fused_kv_project.default") == 2
+    assert ops.count("healnet_port.flash_attention_fwd.default") == flash_ops
+    served = ExportedPredictor(tmp_path)
+    rng = np.random.default_rng(0)
+    omic = rng.normal(size=(6, 1, 64)).astype(np.float32)
+    bags = [rng.normal(size=(n, 128)).astype(np.float32) for n in (30, 64, 100, 128, 5, 77)]
+    for counter in PROJECT_COUNTERS:
+        setattr(fused_project_kernel, counter, 0)
+    for counter in LAUNCH_COUNTERS:
+        setattr(flash_attention_kernel, counter, 0)
+    got = served.predict_ragged([omic, bags])
+    calls = 2  # a micro-batch of 4 a width: 3 bags of at most 64, 3 above
+    assert sum(getattr(fused_project_kernel, c) for c in PROJECT_COUNTERS) == 2 * calls
+    assert sum(getattr(flash_attention_kernel, c) for c in LAUNCH_COUNTERS) == flash_ops * calls
+    want = live.predict_ragged([omic, bags])
+    for key in ("logits", "hazards", "survival", "risk"):
+        np.testing.assert_array_equal(got[key], want[key])
