@@ -192,7 +192,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``healnet_tpu_torch.serving_export`` serves the ragged bags from all
    four artifacts (equal bit for bit, its counters above 0, no JAX
    imported); and the host time the registered ops add a call;
-15. print how many profiler windows saw no device kernel (each window
+15. the explainer at full width: a TCGA tree (phase 13's, with CLAM coords
+   files written by ``etl/h5.py::write_coords`` as a patch grid) of 24
+   cases with bags of 1,024-4,096 patches and 2 of 50,176 (the README image
+   modality's token count, 411 MB of float16 features); ``Pipeline`` with
+   ``explainer: true`` and ``omic_attention: false`` (each of the 2,000
+   genes a context token) trains one fold for one epoch (bf16, the int8
+   arena, fused epochs, buckets 2048 / 4096 / 50176; the projection
+   forward and backward counters above 0); ``Explainer(log_dir).run(n_high=2,
+   n_low=1)`` on the card; then one 50,176-patch case explained twice,
+   streamed (the default past 4,096 tokens: no dense capture called) and
+   dense: omic and slide scores, heatmap and mask within the CPU tests'
+   tolerances, every ``.npy`` of the JAX package's shapes, the projection
+   counter above 0, and each explanation's wall time and peak memory;
+16. print how many profiler windows saw no device kernel (each window
    stays open 50 ms before its first call and after its closing
    synchronise; one that still saw none is logged and taken again with
    three times the margin; a call whose six windows all saw none fails)
@@ -223,6 +236,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from healnet_tpu_torch.etl.h5 import write_coords
+from healnet_tpu_torch.models import explainer as explainer_module
+from healnet_tpu_torch.models.explainer import Explainer
 from healnet_tpu_torch.models.healnet import HealNet, HealNetModule
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
@@ -2312,25 +2328,38 @@ def phase_fit(host_rng) -> None:
 CLI_CASES, CLI_GENES = 48, 2000
 CLI_BAGS = (1024, TOKENS)
 CLI_RUN = "chip_smoke_cli"
+# phase 15's long bags: the README image modality's 224 x 224 tokens
+LONG_BAG = 224 * 224
 
 
-def write_tcga_tree(root: Path, host_rng) -> dict:
+def write_tcga_tree(root: Path, host_rng, cases: int = CLI_CASES, long_bags: int = 0,
+                    coords: bool = False) -> dict:
     """A TCGA-layout tree under ``root`` written with numpy, ``zipfile`` and
-    ``csv`` only: ``omic/tcga_brca_all_clean.csv.zip``, an empty ``.h5``
-    a slide under ``patches/`` and its float16 ``.npy`` bag under
-    ``patch_features/``. Returns the bag sizes and bytes written."""
+    ``csv`` only: ``omic/tcga_brca_all_clean.csv.zip``, a ``.h5`` a slide
+    under ``patches/`` (empty, or with ``coords`` the slide's patch grid,
+    256 pixels apart, through ``etl/h5.py::write_coords``) and its float16
+    ``.npy`` bag under ``patch_features/``: ``cases`` bags of 1,024-4,096
+    patches, the last ``long_bags`` of them ``LONG_BAG``. Returns the slide
+    ids, bag sizes and bytes written."""
     prep = root / "wsi" / "brca_preprocessed_level2"
     for sub in (root / "omic", prep / "patches", prep / "patch_features"):
         sub.mkdir(parents=True)
-    n = CLI_CASES
+    n = cases + long_bags
     sids = [f"TCGA-SM-{i:04d}-01Z-00-DX1" for i in range(n)]
     risk = host_rng.standard_normal(n).astype(np.float32)
     omic = host_rng.standard_normal((n, CLI_GENES), dtype=np.float32)
     omic[:, :25] += 0.8 * risk[:, None]  # 25 signal genes
     bags = np.clip(host_rng.lognormal(np.log(2560), 0.45, size=n), *CLI_BAGS).astype(int)
+    bags[cases:] = LONG_BAG
     written = 0
     for sid, bag, r in zip(sids, bags, risk):
-        (prep / "patches" / f"{sid}.h5").touch()
+        if coords:
+            side = int(np.ceil(np.sqrt(bag)))
+            grid = np.arange(bag)
+            write_coords(prep / "patches" / f"{sid}.h5",
+                         np.stack([grid % side, grid // side], axis=1) * 256, 256, 2)
+        else:
+            (prep / "patches" / f"{sid}.h5").touch()
         feats = host_rng.standard_normal((int(bag), PATCH), dtype=np.float32)
         feats[:max(1, int(bag) // 20), :16] += 0.5 * r  # a few "tumour" patches
         feats = feats.astype(np.float16)
@@ -2348,7 +2377,8 @@ def write_tcga_tree(root: Path, host_rng) -> dict:
     with zipfile.ZipFile(root / "omic" / "tcga_brca_all_clean.csv.zip", "w",
                          compression=zipfile.ZIP_DEFLATED) as archive:
         archive.writestr("tcga_brca_all_clean.csv", buf.getvalue())
-    return {"bags": bags, "bytes": written, "censored": float(censorship.mean())}
+    return {"sids": sids, "bags": bags, "bytes": written,
+            "censored": float(censorship.mean())}
 
 
 def yaml_scalar(value) -> str:
@@ -3368,6 +3398,212 @@ def phase_export(host_rng) -> None:
     log(f"  phase 14 wall: {time.perf_counter() - t_phase:.2f} s")
 
 
+# --------------------------------------------------------------- phase 15
+
+EXPL_CASES, EXPL_LONG = 24, 2
+EXPL_RUN = "chip_smoke_explainer"
+# the explainer's tolerances, as tests/test_torch_port_explainer.py holds
+# the port against JAX on the CPU: arrays within 1e-5, ranking order where
+# neighbouring scores differ by more than 1e-6
+EXPL_ATOL, EXPL_GAP = 1e-5, 1e-6
+EXPL_NPY = ("omic_attention", "attention", "heatmap", "mask")
+PROJECTION_FWD = ("fused_project", "fused_project_int8", "fused_project_generic",
+                  "fused_project_generic_split", "fused_project_f32", "fused_project_f32_int8")
+PROJECTION_BWD = ("fused_project_bwd", "fused_project_bwd_int8")
+
+
+def explainer_config(root: Path) -> dict:
+    """``config/dress_rehearsal.yml`` with the ``brca`` row of
+    ``config/best_hyperparams.yml``, pointed at the tree: one fold of one
+    epoch, ``explainer: true``, ``omic_attention: false``, bags as scanned
+    (up to ``LONG_BAG``) in buckets 2048 / 4096 / ``LONG_BAG``."""
+    config = Config(str(REPO / "config" / "dress_rehearsal.yml")).read().to_dict()
+    config["model_params"] = Config(
+        str(REPO / "config" / "best_hyperparams.yml")).read().to_dict()["brca"]
+    config.update(tcga_path=str(root / "tcga"), log_path=str(root / "logs"),
+                  run_name=EXPL_RUN, n_folds=1, explainer=True, omic_attention=False)
+    config["data"]["max_patches"] = None
+    config["train_loop"].update(epochs=1, bucket_boundaries=[TOKENS // 2, TOKENS, LONG_BAG],
+                                checkpoint=False, resume=False)
+    return config
+
+
+def read_launch_groups(run: str, groups) -> None:
+    """Each group of kernel variants' launches since :func:`reset_launches`;
+    fails if a group's total is 0."""
+    for label, names in groups:
+        counts = {name: getattr(*KERNELS[name]) for name in names}
+        log(f"  {label} launches in {run}: {counts}")
+        if sum(counts.values()) <= 0:
+            raise AssertionError(f"{run} launched no {label} kernel")
+
+
+def rankings_agree(label: str, a, b) -> None:
+    """Two omic rankings: the same length, attention within ``EXPL_ATOL``,
+    the same features in every run of scores within ``EXPL_GAP``."""
+    fa, fb = list(a["feature"]), list(b["feature"])
+    sa = np.asarray(a["attention"], np.float64)
+    err = float(np.abs(sa - np.asarray(b["attention"], np.float64)).max())
+    check(f"{label}: omic ranking attention", err, EXPL_ATOL)
+    start = 0
+    for i in range(1, len(sa) + 1):
+        if i == len(sa) or sa[i - 1] - sa[i] > EXPL_GAP:
+            if len(fa) != len(fb) or set(fa[start:i]) != set(fb[start:i]):
+                raise AssertionError(f"{label}: ranking order differs at {start}-{i}: "
+                                     f"{fa[start:i]} against {fb[start:i]}")
+            start = i
+
+
+def timed_explanation(ex, idx, sid, name, streaming):
+    """One ``run_sample_explanation``: (result, wall s, peak MiB, the
+    captures it called)."""
+    calls = {"dense": 0, "streaming": 0}
+    dense, stats = ex.model.get_attention_weights, ex.model.get_attention_stats
+
+    def counted(kind, fn):
+        def call():
+            calls[kind] += 1
+            return fn()
+        return call
+
+    ex.model.get_attention_weights = counted("dense", dense)
+    ex.model.get_attention_stats = counted("streaming", stats)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            result = ex.run_sample_explanation(idx, sid, save_name=name, streaming=streaming)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ex.model.get_attention_weights, ex.model.get_attention_stats = dense, stats
+    return result, wall, torch.cuda.max_memory_allocated() / 2**20, calls, said.getvalue()
+
+
+def phase_explainer(host_rng) -> None:
+    """Phase 15: the explainer at full width (see the module docstring)."""
+    log("phase 15: Pipeline(explainer: true) and Explainer on the card (full-width brca, "
+        f"omic_attention false, {EXPL_CASES} bags of 1,024-4,096 patches and {EXPL_LONG} of "
+        f"{LONG_BAG})")
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        tree = write_tcga_tree(root / "tcga", host_rng, cases=EXPL_CASES, long_bags=EXPL_LONG,
+                               coords=True)
+        log(f"  tree: {EXPL_CASES + EXPL_LONG} cases x {CLI_GENES} genes, bags "
+            f"{sorted(int(b) for b in tree['bags'])} x {PATCH} float16, "
+            f"{tree['bytes'] / 1e9:.3f} GB, coords through etl/h5.py; written in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # (a) train and write the run's artifacts
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = Pipeline(explainer_config(root))
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = pipe.main()
+        torch.cuda.synchronize()
+        log(f"  Pipeline: one fold of one epoch in {time.perf_counter() - t0:.2f} s (dataset "
+            f"{pipe.timings['dataset_s']:.2f} s, arena upload "
+            f"{pipe.timings['arena_upload_s']:.4f} s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, test c-index "
+            f"{summary['mean_test_c_index']:.6f}")
+        read_launch_groups("the explainer run's training (warm-up and capture only)",
+                           (("#1 projection forward", PROJECTION_FWD),
+                            ("#2 projection backward", PROJECTION_BWD)))
+        log_dir = Path(pipe.log_dir)
+        for name in ("config.pkl", "test_data_indices.pkl", "checkpoints/best.pt"):
+            if not (log_dir / name).exists():
+                raise AssertionError(f"the run wrote no {name}")
+        del pipe
+        _DATASET_CACHE.update(key=None, dataset=None, arena_device=None)
+
+        os.chdir(root)  # explanations/<run> lands in the temporary directory
+        try:
+            # (b) the explainer's entry point on the test patients
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                ex = Explainer(log_dir)
+                results = ex.run(n_high=2, n_low=1)
+            torch.cuda.synchronize()
+            skipped = said.getvalue().count("skipped")
+            log(f"  Explainer(log_dir).run(n_high=2, n_low=1): {time.perf_counter() - t0:.2f} s, "
+                f"patients {[(r['slide_id'], int(tree['bags'][tree['sids'].index(r['slide_id'])])) for r in results]}, "
+                f"figures skipped without matplotlib: {skipped}")
+            read_launch_groups("Explainer.run", (("#1 projection forward", PROJECTION_FWD),))
+            names = ["high_risk_0", "high_risk_1", "low_risk_0"]
+            if len(results) != 3:
+                raise AssertionError(f"run gave {len(results)} results")
+            for name, r in zip(names, results):
+                check_explanation(ex, name, r, int(tree["bags"][tree["sids"].index(r["slide_id"])]))
+
+            # (c) one long case streamed, then dense
+            sid = tree["sids"][EXPL_CASES]
+            idx = str(ex.omic_df.index[list(ex.omic_df["slide_id"]).index(sid + ".svs")])
+            if LONG_BAG <= explainer_module.STREAMING_TOKENS:
+                raise AssertionError("the long bag does not pass the streaming threshold")
+            reset_launches()
+            stream = timed_explanation(ex, idx, sid, "long_streaming", None)
+            read_launch_groups("the streamed explanation", (("#1 projection forward",
+                                                             PROJECTION_FWD),))
+            # in turns (streamed, dense, dense, streamed): the later two of
+            # each write the same files again
+            dense = timed_explanation(ex, idx, sid, "long_dense", False)
+            walls = {"streamed": [stream[1]], "dense": [dense[1]]}
+            walls["dense"].append(timed_explanation(ex, idx, sid, "long_dense", False)[1])
+            walls["streamed"].append(timed_explanation(ex, idx, sid, "long_streaming", None)[1])
+            for label, (res, wall, peak, calls, _) in (("streamed", stream), ("dense", dense)):
+                log(f"  {LONG_BAG}-patch case {sid}, {label}: "
+                    f"{', '.join(f'{w:.3f}' for w in walls[label])} s wall (in turns: streamed, "
+                    f"dense, dense, streamed), peak memory {peak:.1f} MiB, captures called "
+                    f"{calls}")
+            if stream[3] != {"dense": 0, "streaming": 1} or \
+                    dense[3] != {"dense": 1, "streaming": 0}:
+                raise AssertionError(f"captures: streamed {stream[3]}, dense {dense[3]}")
+            check_explanation(ex, "long_streaming", stream[0], LONG_BAG)
+            check_explanation(ex, "long_dense", dense[0], LONG_BAG)
+            rankings_agree("streamed vs dense", stream[0]["omic_ranking"],
+                           dense[0]["omic_ranking"])
+            for suffix in EXPL_NPY:
+                a = np.load(ex.expl_dir / f"long_streaming_{suffix}.npy")
+                b = np.load(ex.expl_dir / f"long_dense_{suffix}.npy")
+                if suffix == "mask":
+                    if not np.array_equal(a, b):
+                        raise AssertionError("the streamed and dense masks differ")
+                    log(f"  {suffix}.npy {a.shape}: equal")
+                else:
+                    check(f"streamed vs dense {suffix}.npy {a.shape}",
+                          float(np.abs(a.astype(np.float64) - b).max()), EXPL_ATOL)
+        finally:
+            os.chdir(cwd)
+    log(f"  phase 15 wall: {time.perf_counter() - t_phase:.2f} s")
+
+
+def check_explanation(ex, name: str, result, bag: int) -> None:
+    """One explanation's return values and ``.npy`` files: finite, of the
+    shapes the JAX package's code gives (the omic vector a gene, the slide
+    vector a token of the run's bag width, the heatmap and mask over the
+    coords grid's 16-pixel cells)."""
+    side = int(np.ceil(np.sqrt(bag)))
+    rows = int(np.ceil(bag / side))
+    want = {"omic_attention": (CLI_GENES,), "attention": (ex.data.max_patches,),
+            "heatmap": (rows * 16, side * 16), "mask": (rows * 16, side * 16)}
+    logits = np.asarray(result["logits"])
+    if logits.shape != (1, 4) or not np.isfinite(logits).all():
+        raise AssertionError(f"{name}: logits {logits}")
+    if len(result["omic_ranking"]["feature"]) != 20 or result.get("heatmap") is None:
+        raise AssertionError(f"{name}: no omic ranking of 20 or no heatmap")
+    for suffix, shape in want.items():
+        arr = np.load(ex.expl_dir / f"{name}_{suffix}.npy")
+        if arr.shape != shape or (arr.dtype != bool and not np.isfinite(arr).all()):
+            raise AssertionError(f"{name}_{suffix}.npy: {arr.shape} {arr.dtype}, want {shape}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3408,6 +3644,7 @@ def main() -> int:
     phase_fit(np.random.default_rng(5))
     phase_cli(np.random.default_rng(6))
     phase_export(np.random.default_rng(7))
+    phase_explainer(np.random.default_rng(8))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

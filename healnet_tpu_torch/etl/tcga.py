@@ -24,9 +24,10 @@ batches and arena, and no pandas or h5py:
   from :func:`healnet_tpu_torch.parallel.arena.place_arena`), ``take`` and
   ``materialize``.
 
-Raw slides (``load_wsi``, ``get_resize_dims``) need the OpenSlide binding,
-which comes with ``etl/slides.py`` (``ROADMAP.md``, Queue 1 item 9); they
-raise until then.
+Raw slides (``load_wsi``, ``get_resize_dims``) go through the port's
+OpenSlide binding (:mod:`healnet_tpu_torch.etl.slides`), which needs
+libopenslide, and a numpy bilinear resize in place of cv2's; host code, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -48,8 +49,6 @@ _NON_FEATURE_COLS = [
     "site", "oncotree_code", "case_id", "slide_id", "train",
     "censorship", "survival_months", "y_disc",
 ]
-_SLIDES_ITEM = ("raw whole-slide images need the OpenSlide binding, which comes with "
-                "etl/slides.py (ROADMAP.md, Queue 1 item 9)")
 
 
 class LRUCache:
@@ -633,12 +632,37 @@ class TCGADataset(Dataset):
 
     def get_resize_dims(self, level: int, patch_height: int = 128, patch_width: int = 128,
                         override: bool = False, slide=None):
-        """Level dims rounded to patch multiples; not ported yet."""
-        raise NotImplementedError(_SLIDES_ITEM)
+        """Level dims rounded to patch multiples; with ``override`` the
+        config's ``data.resize_width`` / ``data.resize_height``. Without a
+        ``slide`` the first raw slide of the tree is opened."""
+        if override:
+            cfg = flatten_config(self.config)
+            return int(cfg["data.resize_width"]), int(cfg["data.resize_height"])
+        if slide is None:
+            from healnet_tpu_torch.etl.slides import OpenSlide
+
+            slide = OpenSlide(next(iter(self.get_slide_paths().values())))
+        w, h = slide.level_dimensions[min(level, slide.level_count - 1)]
+        return (round(w / patch_width) * patch_width, round(h / patch_height) * patch_height)
 
     def load_wsi(self, slide_id: str, level: Optional[int] = None):
-        """A whole slide at a pyramid level; not ported yet."""
-        raise NotImplementedError(_SLIDES_ITEM)
+        """A whole slide at a pyramid level (the deepest where ``level`` is
+        None or past it), resized to patch multiples: ``(slide handle,
+        (h, w, 3) float32 in [0, 1])``. Needs libopenslide; host code, the
+        resize :func:`~healnet_tpu_torch.etl.transforms.resize_linear_uint8`."""
+        from healnet_tpu_torch.etl.slides import OpenSlide
+        from healnet_tpu_torch.etl.transforms import resize_linear_uint8
+
+        slide = OpenSlide(self.raw_path / f"{slide_id}.svs")
+        if level is None or level > slide.level_count - 1:
+            level = slide.level_count - 1
+        size = slide.level_dimensions[level]
+        region = slide.read_region((0, 0), level, size)[:, :, :3]
+        cfg = flatten_config(self.config)
+        width, height = self.get_resize_dims(
+            level, override=bool(cfg.get("data.resize", False)), slide=slide)
+        resized = resize_linear_uint8(np.ascontiguousarray(region), width, height)
+        return slide, resized.astype(np.float32) / 255.0
 
     # ---------------------------------------------------------------- info
     def get_info(self, full_detail: bool = False) -> Dict[str, Any]:

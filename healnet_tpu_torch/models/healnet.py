@@ -37,7 +37,11 @@ Submodules are named after the Flax scopes (``layer{key}_cross_attn_m{m}``,
 - Attention capture (``store_attention=True``): the forward also returns
   each attention call's post-softmax, pre-dropout weights, by tag, in call
   order (JAX's sown ``intermediates``); :class:`HealNet` reads them in the
-  reference module order (:func:`attention_module_order`).
+  reference module order (:func:`attention_module_order`). With
+  ``store_attention="stats"`` each call returns the chunked reductions of
+  its map instead (``ops/attention.py::streaming_attention_stats``, KV
+  chunks of ``stats_chunk``), which :meth:`HealNet.get_attention_stats`
+  reads.
 
 :class:`HealNet` is the reference-compatible wrapper: the reference
 constructor and call signature, ``None`` for a missing modality, lazy or
@@ -46,7 +50,7 @@ eager attention capture, and persistence. Meshes are not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,6 +66,7 @@ from healnet_tpu_torch.models.layers import (
 )
 from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import fused_kv_project, split_columns
+from healnet_tpu_torch.ops.hash_dropout import mask_family
 from healnet_tpu_torch.ops.quantize import QuantizedContext
 
 
@@ -143,6 +148,7 @@ class HealNetModule(nn.Module):
         projection_impl: str = "auto",
         dtype: Optional[torch.dtype] = None,
         remat: bool = False,
+        stats_chunk: int = 2048,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -168,6 +174,7 @@ class HealNetModule(nn.Module):
         self.attention_impl, self.projection_impl = attention_impl, projection_impl
         self.dtype = dtype
         self.remat = remat
+        self.stats_chunk = stats_chunk
 
         input_dims = self.input_dims()
         # group key -> submodule names per role (modules registered by name)
@@ -182,6 +189,7 @@ class HealNetModule(nn.Module):
                 self.add_module(name, PreNormAttention(
                     l_d, input_dims[m], heads=x_heads, dim_head=cross_dim_head,
                     dropout=attn_dropout, attention_impl=attention_impl, dtype=dtype,
+                    stats_chunk=stats_chunk,
                 ))
                 group["cross_attns"].append(name)
             if key >= 1 and weight_tie_layers:
@@ -200,6 +208,7 @@ class HealNetModule(nn.Module):
                 self.add_module(name, PreNormAttention(
                     l_d, heads=l_heads, dim_head=latent_dim_head,
                     dropout=attn_dropout, attention_impl=attention_impl, dtype=dtype,
+                    stats_chunk=stats_chunk,
                 ))
                 group["self_attns"].append(name)
                 name = f"layer{key}_self_ff_b{blk}"
@@ -240,7 +249,7 @@ class HealNetModule(nn.Module):
         return_embeddings: bool = False,
         generator: Optional[torch.Generator] = None,
         seed_generator: Optional[torch.Generator] = None,
-        store_attention: bool = False,
+        store_attention: Union[bool, str] = False,
         seeds: Optional[torch.Tensor] = None,
     ):
         """Logits ``(b, out_dims)``, or the latents with ``return_embeddings``.
@@ -258,7 +267,12 @@ class HealNetModule(nn.Module):
         ``store_attention`` returns ``(out, weights)`` instead: every
         attention call's post-softmax, pre-dropout weights ``(b, h, lq,
         lkv)``, a list in call order under the call's
-        :func:`attention_tag` (attention then takes the plain path).
+        :func:`attention_tag` (attention then takes the plain path); with
+        ``store_attention="stats"`` each entry is the call's statistics
+        dict of :func:`~healnet_tpu_torch.ops.attention.streaming_attention_stats`.
+
+        Under ``ops.hash_dropout.mask_family("threefry")`` the plain
+        path's attention keep masks are drawn from ``generator`` too.
         """
         if len(tensors) != self.n_modalities:
             raise ValueError(f"expected {self.n_modalities} modalities, got {len(tensors)}")
@@ -291,7 +305,8 @@ class HealNetModule(nn.Module):
 
         def attend(name, x, tag, **kw):
             update, weights = self._attend(self._mod(name), x, return_weights=store_attention,
-                                           dropout_seed=next(seeds, None), **kw)
+                                           dropout_seed=next(seeds, None), generator=generator,
+                                           **kw)
             if store_attention:
                 captured.setdefault(tag, []).append(weights)
             return update
@@ -351,6 +366,9 @@ class HealNetModule(nn.Module):
     def _attend(self, module: nn.Module, x: torch.Tensor, **kw):
         """One attention block, under ``checkpoint`` on the remat path."""
         if self._rematerialise():
+            if mask_family() == "threefry" and module.fn.training and module.fn.dropout > 0:
+                # the recomputation would draw another mask from the generator
+                raise ValueError("remat needs the hash attention mask family")
             context = kw.pop("context", None)
             return checkpoint(lambda x_, c_: module(x_, context=c_, **kw), x, context,
                               use_reentrant=False)
@@ -460,8 +478,10 @@ class HealNet:
     Keeps the reference constructor and call signature: ``model(tensors)``
     takes a list of per-modality arrays (an entry may be None for a missing
     modality) and returns logits; :meth:`get_attention_weights` gives the
-    attention maps of the last pass in the reference's module order.
-    Weights are drawn from ``seed`` when the wrapper is built.
+    attention maps of the last pass in the reference's module order, and
+    :meth:`get_attention_stats` their chunked reductions (KV chunks of
+    ``stats_chunk``). Weights are drawn from ``seed`` when the wrapper is
+    built.
 
     ``store_attention``: ``"lazy"`` (default) captures nothing on the pass
     and replays the last pass with capture when the weights are asked for;
@@ -522,7 +542,8 @@ class HealNet:
             self_per_cross_attn=self_per_cross_attn,
             final_classifier_head=final_classifier_head, snn=snn,
             attention_impl=attention_impl, projection_impl=projection_impl, dtype=dtype,
-            device=self.device, generator=torch.Generator().manual_seed(seed),
+            stats_chunk=stats_chunk, device=self.device,
+            generator=torch.Generator().manual_seed(seed),
         )
         self.store_attention = store_attention
         self.stats_chunk = stats_chunk
@@ -576,7 +597,7 @@ class HealNet:
         return tuple(prepared), presence.to(self.device), tuple(kv_masks)
 
     def _apply(self, prepared, presence, kv_masks, train: bool, return_embeddings: bool,
-               store_attention: bool):
+               store_attention: Union[bool, str]):
         module = self.module.train(train)
         with torch.no_grad():
             return module(prepared, presence=presence, kv_masks=kv_masks,
@@ -618,6 +639,22 @@ class HealNet:
                 weights.append(w[-1].float().reshape(b * h, lq, lkv).cpu().numpy())
         return weights
 
+    def _replay(self, store_attention: Union[bool, str]) -> Dict[str, List[Any]]:
+        """The last pass again with capture: its inputs, and the generators
+        put back where they stood before it, so its dropout draws replay;
+        the generators are left as they were."""
+        prepared, presence, kv_masks, train, (gen_state, seed_state) = self._last_pass
+        current = (self._generator.get_state(), self._seed_generator.get_state())
+        self._generator.set_state(gen_state)
+        self._seed_generator.set_state(seed_state)
+        try:
+            _, captured = self._apply(prepared, presence, kv_masks, train, False,
+                                      store_attention)
+        finally:
+            self._generator.set_state(current[0])
+            self._seed_generator.set_state(current[1])
+        return captured
+
     def get_attention_weights(self) -> List[np.ndarray]:
         """The attention maps of the last pass, in the reference module
         order. Under ``"lazy"`` this replays that pass with capture (same
@@ -626,22 +663,43 @@ class HealNet:
             return self._attn_weights
         if self.store_attention == "off" or self._last_pass is None:
             return []
-        prepared, presence, kv_masks, train, (gen_state, seed_state) = self._last_pass
-        current = (self._generator.get_state(), self._seed_generator.get_state())
-        self._generator.set_state(gen_state)
-        self._seed_generator.set_state(seed_state)
-        try:
-            _, captured = self._apply(prepared, presence, kv_masks, train, False, True)
-        finally:
-            self._generator.set_state(current[0])
-            self._seed_generator.set_state(current[1])
-        self._attn_weights = self._collect_attention(captured)
+        self._attn_weights = self._collect_attention(self._replay(True))
         return self._attn_weights
 
-    def get_attention_stats(self):
-        raise NotImplementedError(
-            "streaming attention statistics come with the explainer slice "
-            "(ROADMAP.md, Queue 1 item 5)")
+    def get_attention_stats(self) -> List[Dict[str, Any]]:
+        """Streaming attention statistics of the last pass.
+
+        Replays the pass (same inputs and dropout draws) with every
+        attention call reduced in KV chunks of ``stats_chunk``
+        (``ops/attention.py::streaming_attention_stats``): the largest
+        capture tensor is ``(b, h, l_c, stats_chunk)``, never the whole
+        map. One dict per module in the reference module order: ``kind``,
+        ``index``, ``tokens``; ``col_mean`` (b, tokens) float64, each key's
+        mean over heads and latents (``x_heads`` for cross modules,
+        ``l_heads`` for self ones); ``mean`` and ``std`` over the dense
+        map's elements, std = sqrt(max(E[p^2] - E[p]^2, 0)). ``[]`` under
+        ``"off"`` or before any pass.
+        """
+        if self.store_attention == "off" or self._last_pass is None:
+            return []
+        captured = self._replay("stats")
+        m = self.module
+        out: List[Dict[str, Any]] = []
+        for kind, idx, _first, last in attention_module_order(
+                m.depth, m.n_modalities, m.self_per_cross_attn, m.weight_tie_layers):
+            entries = captured.get(attention_tag(kind, idx, last))
+            if not entries:
+                continue
+            stats = entries[-1]  # the module's last call, as the weights
+            heads = m.x_heads if kind == "cross" else m.l_heads
+            colsum = stats["colsum"].cpu().numpy().astype(np.float64)
+            count = float(stats["count"])
+            mean = float(stats["psum"]) / count
+            var = max(float(stats["psumsq"]) / count - mean * mean, 0.0)
+            out.append({"kind": kind, "index": idx, "tokens": colsum.shape[-1],
+                        "col_mean": colsum / (heads * m.l_c), "mean": mean,
+                        "std": float(np.sqrt(var))})
+        return out
 
     def count_parameters(self) -> int:
         return sum(int(p.numel()) for p in self.module.parameters())

@@ -19,7 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from healnet_tpu_torch.ops.activations import gated_gelu, gated_selu
-from healnet_tpu_torch.ops.attention import multihead_attention, split_heads
+from healnet_tpu_torch.ops.attention import (
+    multihead_attention,
+    split_heads,
+    streaming_attention_stats,
+)
 from healnet_tpu_torch.ops.flash_attention import flash_cross_attention
 from healnet_tpu_torch.ops.fused_project import split_columns
 
@@ -181,12 +185,14 @@ class Attention(nn.Module):
     kernels (plain version on the CPU), ``"auto"`` flash on the card where
     the JAX package's rule picks it. ``dropout`` applies in training to the
     normalised probabilities, with the coordinate-hash keep mask of the
-    per-call ``dropout_seed``, on both paths.
+    per-call ``dropout_seed``, on both paths. ``stats_chunk``: the KV chunk
+    of ``return_weights="stats"`` (:func:`streaming_attention_stats`).
     """
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64, dropout: float = 0.0, temperature: float = 0.5,
-                 attention_impl: str = "xla", dtype: Optional[torch.dtype] = None):
+                 attention_impl: str = "xla", dtype: Optional[torch.dtype] = None,
+                 stats_chunk: int = 2048):
         super().__init__()
         if attention_impl not in ("xla", "flash", "auto"):
             raise ValueError(f"unknown attention impl: {attention_impl!r}")
@@ -194,6 +200,7 @@ class Attention(nn.Module):
         ctx_dim = context_dim if context_dim is not None else query_dim
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.temperature, self.attention_impl = temperature, attention_impl
+        self.stats_chunk = stats_chunk
         self.to_q = torch_dense(inner, query_dim, use_bias=False, dtype=dtype)
         self.to_kv = FoldedKV(inner * 2, in_features=ctx_dim, dtype=dtype)
         self.to_out = torch_dense(query_dim, inner, dtype=dtype)
@@ -203,16 +210,20 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None, kv_mask=None, kv=None,
                 dropout_seed: Optional[Union[int, torch.Tensor]] = None,
-                return_weights: bool = False,
-                ctx_scale=None, ctx_bias=None):
+                return_weights: Union[bool, str] = False,
+                ctx_scale=None, ctx_bias=None,
+                generator: Optional[torch.Generator] = None):
         """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice;
         ``dropout_seed``: the raw 32-bit hash seed of this call (an int, or
         a one-element tensor on the inputs' device), required in training
         when ``dropout > 0``; ``ctx_scale`` / ``ctx_bias``: a
         LayerNorm affine folded into ``to_kv`` over an already normalised
-        ``context``. Returns ``(out, weights)``: the post-softmax,
-        pre-dropout weights ``(b, h, lq, lkv)`` with ``return_weights``
-        (always on the plain path), else None."""
+        ``context``; ``generator``: draws the keep mask under
+        ``mask_family("threefry")``. Returns ``(out, weights)``: the
+        post-softmax, pre-dropout weights ``(b, h, lq, lkv)`` with
+        ``return_weights`` (always on the plain path), the statistics of
+        :func:`streaming_attention_stats` with ``return_weights="stats"``,
+        else None."""
         inner = self.dim_head * self.heads
         scale = self.dim_head**-0.5
         rate = self.dropout if self.training else 0.0
@@ -226,12 +237,17 @@ class Attention(nn.Module):
         kw = dict(scale=scale, temperature=self.temperature, kv_mask=kv_mask,
                   dropout_rate=rate, dropout_seed=dropout_seed)
         weights = None
+        if return_weights == "stats":
+            # chunked inspection: the map's reductions, never the whole map
+            out, stats = streaming_attention_stats(qh, kh, vh, chunk=self.stats_chunk, **kw)
+            return F.leaky_relu(self.to_out(out), negative_slope=1e-2), stats
         # capture needs the materialised weights: the plain path, as in JAX
         if not return_weights and self._should_use_flash(rate, qh.shape[0], qh.shape[2],
                                                          kh.shape[2], qh.is_cuda):
             out = flash_cross_attention(qh, kh, vh, **kw)
         else:
-            out, weights = multihead_attention(qh, kh, vh, return_weights=return_weights, **kw)
+            out, weights = multihead_attention(qh, kh, vh, return_weights=return_weights,
+                                               generator=generator, **kw)
         return F.leaky_relu(self.to_out(out), negative_slope=1e-2), weights
 
     def _should_use_flash(self, dropout_rate: float, b: int, lq: int, lkv: int,
@@ -260,14 +276,16 @@ class PreNormAttention(nn.Module):
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64, dropout: float = 0.0, temperature: float = 0.5,
-                 attention_impl: str = "xla", dtype: Optional[torch.dtype] = None):
+                 attention_impl: str = "xla", dtype: Optional[torch.dtype] = None,
+                 stats_chunk: int = 2048):
         super().__init__()
         self.dtype = dtype
         self.norm = LayerNorm(query_dim, dtype=dtype)
         self.norm_context = LayerNormAffine(context_dim) if context_dim is not None else None
         self.fn = Attention(query_dim, context_dim, heads=heads, dim_head=dim_head,
                             dropout=dropout, temperature=temperature,
-                            attention_impl=attention_impl, dtype=dtype)
+                            attention_impl=attention_impl, dtype=dtype,
+                            stats_chunk=stats_chunk)
 
     def kv_fold(self):
         """This layer's context-KV weights with its LayerNorm affine folded."""
@@ -275,7 +293,8 @@ class PreNormAttention(nn.Module):
         return self.fn.kv_fold(scale, bias)
 
     def forward(self, x, context=None, kv_mask=None, kv=None, dropout_seed=None,
-                return_weights: bool = False, context_normalized: bool = False):
+                return_weights: Union[bool, str] = False, context_normalized: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``context_normalized``: ``context`` is the shared normalised
         context (the remat path); this layer's ``norm_context`` affine is
         then folded into ``to_kv`` instead of applied over the context."""
@@ -294,7 +313,7 @@ class PreNormAttention(nn.Module):
                 normed_ctx = (xhat * scale_p + bias_p).to(self.dtype or context.dtype)
         return self.fn(normed, context=normed_ctx, kv_mask=kv_mask, kv=kv,
                        dropout_seed=dropout_seed, return_weights=return_weights,
-                       ctx_scale=ctx_scale, ctx_bias=ctx_bias)
+                       ctx_scale=ctx_scale, ctx_bias=ctx_bias, generator=generator)
 
 
 class PreNormFeedForward(nn.Module):

@@ -4,11 +4,13 @@ from healnet_tpu_torch.ops.activations import (
     gated_relu,
     gated_selu,
     mask_value,
+    temperature_softmax,
 )
 from healnet_tpu_torch.ops.attention import (
     attention_scores,
     multihead_attention,
     split_heads,
+    streaming_attention_stats,
 )
 from healnet_tpu_torch.ops.flash_attention import flash_cross_attention
 from healnet_tpu_torch.ops.fused_chain import (
@@ -56,4 +58,6 @@ __all__ = [
     "quantize_context_host",
     "split_heads",
     "stack_chain_weights",
+    "streaming_attention_stats",
+    "temperature_softmax",
 ]

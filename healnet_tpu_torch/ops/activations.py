@@ -1,8 +1,10 @@
-"""Gated activations and the attention mask fill value.
+"""Gated activations, temperature softmax and the attention mask fill value.
 
 Counterpart of ``healnet_tpu/ops/activations.py``: the input splits in half
 along the channel axis, ``x, gates = split(...)``, and the output is
-``x * act(gates)``. GELU is the exact erf form.
+``x * act(gates)``. GELU is the exact erf form. ``temperature_softmax`` is
+``softmax(logits / temperature)``, the reference's T=0.5 attention softmax
+as a standalone function.
 """
 
 from __future__ import annotations
@@ -37,3 +39,9 @@ GATED_ACTIVATIONS = {
     "selu": gated_selu,
     "relu": gated_relu,
 }
+
+
+def temperature_softmax(logits: torch.Tensor, temperature: float = 1.0,
+                        axis: int = -1) -> torch.Tensor:
+    """Temperature-scaled softmax along ``axis``."""
+    return torch.softmax(logits / temperature, dim=axis)

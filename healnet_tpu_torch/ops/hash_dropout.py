@@ -95,3 +95,24 @@ def dense_keep_mask(
         ids(lkv)[None, None, :],
         dropout_rate,
     )
+
+
+# The attention dropout mask family of the plain path:
+#   "hash"     - the coordinate-hash mask above (the default, and the only
+#                family the flash kernels and the streaming statistics can
+#                realise);
+#   "threefry" - an independent Bernoulli mask drawn from the call's explicit
+#                torch.Generator, as the reference's F.dropout draws one.
+# A switch for isolating the effect of the mask family on a training run, not
+# a serving setting: the flash kernels always hash.
+_MASK_FAMILY = "hash"
+
+
+def mask_family(value: Optional[str] = None) -> str:
+    """Get or set the attention dropout mask family ("hash" / "threefry")."""
+    global _MASK_FAMILY
+    if value is not None:
+        if value not in ("hash", "threefry"):
+            raise ValueError(f"unknown mask family {value!r}")
+        _MASK_FAMILY = value
+    return _MASK_FAMILY

@@ -419,10 +419,19 @@ def test_iter_batches_same_batches_same_order(tree, layout, bounds, shuffle):
     _batches_equal([m_got], [m_want])
 
 
-def test_raw_slides_not_ported_yet(tree):
+def test_raw_slides_not_ported_yet(tree, monkeypatch):
+    """Raw slides go through the OpenSlide binding: without libopenslide
+    both calls raise its error (tests/test_torch_port_explainer.py drives
+    them through a fake library)."""
+    from healnet_tpu_torch.etl import slides
+
+    monkeypatch.setattr(slides, "_LIB", None)
+    monkeypatch.setattr(slides, "_LIB_ERROR", "libopenslide not found")
+    (tree / "wsi" / "brca" / "x").mkdir(parents=True)
+    (tree / "wsi" / "brca" / "x" / "TCGA-R000.svs").touch()
     got, _ = _pair(tree)
     for call in (lambda: got.load_wsi("TCGA-R000"), lambda: got.get_resize_dims(2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(RuntimeError, match="libopenslide"):
             call()
     assert got.get_info()["molecular_shape"] == tuple(got.omic_df.shape)
 
