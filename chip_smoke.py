@@ -205,7 +205,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    dense: omic and slide scores, heatmap and mask within the CPU tests'
    tolerances, every ``.npy`` of the JAX package's shapes, the projection
    counter above 0, and each explanation's wall time and peak memory;
-16. print how many profiler windows saw no device kernel (each window
+16. the baselines at full width on phase 13's tree (48 cases, bags of
+   1,024-4,096 x 2,048 float16): ``Pipeline`` trains one fold of two
+   epochs of each model the JAX pipeline builds (fcnn, MCAT, SNN,
+   MILAttentionNet, MMPrognosis, MOTCAT, MultiModN with ``aux_loss``) from
+   ``config/dress_rehearsal.yml`` (fused epochs from the arena where the
+   model takes one, ``quantize_arena`` ignored as in JAX; fcnn and SNN
+   stream stepwise): finite metrics, epoch walls, peak memory, parameter
+   counts, one width-4096 step under the profiler (the captured one where
+   there is one: it must exist), an eval batch of 8 through the trained
+   module on the card and on a CPU copy in f32 (``BASE_TOL``), and no
+   projection, flash or chain counter moving; then
+   ``MultiModNTrainer.fit`` for 2 epochs on 32 samples at the pipeline's
+   widths, its history CSV and one prediction a sample;
+17. print how many profiler windows saw no device kernel (each window
    stays open 50 ms before its first call and after its closing
    synchronise; one that still saw none is logged and taken again with
    three times the margin; a call whose six windows all saw none fails)
@@ -219,6 +232,7 @@ Needs one CUDA GPU, nvcc, and the repository around this file.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import io
 import json
@@ -239,6 +253,13 @@ from torch.profiler import ProfilerActivity, profile
 from healnet_tpu_torch.etl.h5 import write_coords
 from healnet_tpu_torch.models import explainer as explainer_module
 from healnet_tpu_torch.models.explainer import Explainer
+from healnet_tpu_torch.models.baselines import (
+    ClassDecoder,
+    MLPEncoder,
+    MultiModNHistory,
+    MultiModNModule,
+    PatchEncoder,
+)
 from healnet_tpu_torch.models.healnet import HealNet, HealNetModule
 from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.attention import multihead_attention
@@ -290,15 +311,17 @@ from healnet_tpu_torch.ops.fused_project import (
     project_smem,
 )
 from healnet_tpu_torch.ops.quantize import quantize_context, quantize_context_host
+from healnet_tpu_torch.parallel.arena import gather_bag
 from healnet_tpu_torch.serving import Predictor
 from healnet_tpu_torch.serving_export import ExportedPredictor
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
+from healnet_tpu_torch.train.multimodn_trainer import MultiModNTrainer
 from healnet_tpu_torch.cli.main import main as cli_main
 from healnet_tpu_torch.etl import train_val_test_split
 from healnet_tpu_torch.train.metrics import cindex_implementation
 from healnet_tpu_torch.train.pipeline import _DATASET_CACHE, Pipeline
-from healnet_tpu_torch.utils import Config
+from healnet_tpu_torch.utils import Config, count_parameters
 
 REPO = Path(__file__).resolve().parent
 
@@ -3604,6 +3627,210 @@ def check_explanation(ex, name: str, result, bag: int) -> None:
             raise AssertionError(f"{name}_{suffix}.npy: {arr.shape} {arr.dtype}, want {shape}")
 
 
+
+# --------------------------------------------------------------- phase 16
+
+BASE_RUN = "chip_smoke_baselines"
+# every baseline the pipeline builds: (model, sources)
+BASELINES = [("fcnn", ("omic", "slides")), ("mcat", ("omic", "slides")), ("mcat", ("omic",)),
+             ("mcat", ("slides",)), ("mm_prognosis", ("omic", "slides")),
+             ("motcat", ("omic", "slides")), ("multimodn", ("omic", "slides"))]
+# an eval batch on the card against the same weights on the CPU, both f32
+# (TF32 off): the logits within BASE_TOL of their largest magnitude.
+# MMPrognosis centres its highway's output by the batch's statistics, whose
+# spread is a small part of its size: there each f32 path lies ~1e-4 from
+# float64 (tests/test_torch_port_baselines.py), so 1e-3
+BASE_TOL, BASE_TOL_BATCH_NORM = 1e-4, 1e-3
+MMN_SAMPLES, MMN_STATE = 32, 2000
+
+
+def baseline_config(root: Path, model: str, sources) -> dict:
+    """``config/dress_rehearsal.yml`` with the ``brca`` row of
+    ``config/best_hyperparams.yml`` pointed at the tree: one fold of two
+    epochs, buckets 2048 / 4096, the int8 arena asked for (which the
+    baselines ignore, as in JAX), fused epochs, no checkpoints. ``fcnn``'s
+    early-fusion vector (omic and the bag flattened) takes one width, so
+    its batches are padded to 4,096 patches, unbucketed."""
+    config = Config(str(REPO / "config" / "dress_rehearsal.yml")).read().to_dict()
+    config["model_params"] = Config(
+        str(REPO / "config" / "best_hyperparams.yml")).read().to_dict()["brca"]
+    config.update(tcga_path=str(root / "tcga"), log_path=str(root / "logs"),
+                  run_name=f"{BASE_RUN}_{model}_{'_'.join(sources)}", n_folds=1, model=model,
+                  sources=list(sources))
+    config["data"]["max_patches"] = TOKENS
+    config["train_loop"].update(epochs=2, bucket_boundaries=[TOKENS // 2, TOKENS],
+                                checkpoint=False, resume=False)
+    if model == "fcnn":
+        config["train_loop"]["bucket_boundaries"] = None
+    return config
+
+
+def logits_on_cpu(label: str, trainer, batch, tol: float) -> None:
+    """One eval batch through the trained module on the card and through a
+    CPU copy of it, f32: the logits within ``tol`` of their largest."""
+    module = trainer.module.eval()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    placed = trainer._place(batch)
+    tensors = tuple(placed["tensors"])
+    if placed.get("patch_offsets") is not None:
+        tensors += (gather_bag(trainer._arena, placed["patch_offsets"], placed["kv_masks"][-1]),)
+    with torch.no_grad():
+        card = module(tensors).float().cpu()
+        cpu = copy.deepcopy(module).cpu()(tuple(t.cpu() for t in tensors)).float()
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    check(f"{label}: card vs CPU logits {tuple(card.shape)} (relative to the largest)", err, tol)
+
+
+def run_baseline(root: Path, model: str, sources) -> dict:
+    """One ``Pipeline`` fold of a baseline at full width (see
+    :func:`phase_baselines`); returns its summary numbers."""
+    label = model if model != "mcat" else {
+        ("omic", "slides"): "mcat (MCAT)", ("omic",): "mcat (SNN)",
+        ("slides",): "mcat (MILAttentionNet)"}[tuple(sources)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = Pipeline(baseline_config(root, model, sources))
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        summary = pipe.main()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    trainer, data = pipe._trainer, pipe._dataset
+    res = pipe.fold_results[0]
+    walls = [round(h["seconds"], 4) for h in res["history"]]
+    bad = {k: v for k, v in summary.items() if k.startswith(("mean_", "std_")) and
+           not np.isfinite(v)}
+    bad.update({k: res[k] for k in ("train_loss", "val_loss", "test_loss") if
+                not np.isfinite(res[k])})
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+    if data.device_cache and "data.quantize_arena ignored" not in said.getvalue():
+        raise AssertionError(f"{label}: quantize_arena was not ignored")
+    n_params = count_parameters(trainer.module)
+    log(f"  {label} ({type(trainer.module).__name__}, {n_params} parameters): {wall:.2f} s "
+        f"(dataset {pipe.timings['dataset_s']:.2f} s, arena upload "
+        f"{pipe.timings.get('arena_upload_s', float('nan')):.4f} s), epochs {walls} s, peak "
+        f"memory {peak:.1f} MiB; train loss {[round(h['train_loss'], 6) for h in res['history']]}"
+        f", val c-index {res['val_c_index']:.6f}, test c-index {res['test_c_index']:.6f}; "
+        f"{'fused epochs from the arena' if trainer.fused_epochs else 'stepwise, streamed'}")
+
+    # one step of its train path under the profiler: the captured step where
+    # the model takes the arena, the stepwise one where it cannot (an
+    # early-fusion vector or omic alone, as in JAX)
+    whole = data.take(np.arange(len(data)))
+    train_idx = train_val_test_split(len(data), seed=1)[0]
+    if trainer.fused_epochs:
+        # the train split's width-4096 batches as one bucket, one replay a
+        # step, as phase 13 times its captured step
+        blist = [b for b in data.take(train_idx).iter_batches(
+                     BATCH, shuffle=True, rng=np.random.default_rng(0),
+                     bucket_boundaries=trainer.bucket_boundaries)
+                 if b["kv_masks"][-1].shape[1] == TOKENS]
+        if trainer.device.type == "cuda" and not any(
+                key[:2] == ("train", TOKENS) and table.graph is not None
+                for key, table in trainer._tables.items()):
+            raise AssertionError(f"{label}: no captured step at width {TOKENS}")
+
+        def run():
+            trainer._fused_train_bucket(blist)
+        kind = f"captured step ({len(blist)} graph replays a call)"
+    else:
+        blist = [next(data.take(train_idx).iter_batches(BATCH))]
+
+        def run():
+            trainer.train_step(blist[0])
+        kind = "stepwise step"
+    n = len(blist)
+    step_wall = wall_ms(run, reps=3) / n
+    # one profiled call: MultiModN's steps run ~37,600 kernels each, and the
+    # profiler's cost grows with the events it keeps
+    _, busy, count, _ = device_profile(run, reps=1)
+    log(f"    {kind} at width {TOKENS}: wall {step_wall:.4f} ms per step, device busy "
+        f"{busy / n:.4f} ms (profiler), idle share {1.0 - busy / n / step_wall:.4f}, "
+        f"{count / n:.1f} device kernels and copies, {HOST_LAUNCHES[0] / n:.2f} host launch "
+        "calls per step")
+
+    def full_width(b):
+        masks = b.get("kv_masks")
+        return not masks or masks[-1] is None or masks[-1].shape[1] == TOKENS
+
+    eval_batch = next(filter(full_width, whole.iter_batches(
+        BATCH, bucket_boundaries=trainer.bucket_boundaries)))
+    logits_on_cpu(f"    {label}", trainer, eval_batch,
+                  BASE_TOL_BATCH_NORM if model == "mm_prognosis" else BASE_TOL)
+    del pipe, trainer, data, whole
+    _DATASET_CACHE.update(key=None, dataset=None, arena_device=None)
+    torch.cuda.empty_cache()
+    return {"model": label, "wall_s": wall, "epochs_s": walls, "peak_mib": peak,
+            "params": n_params, "step_ms": step_wall, "busy_ms": busy / n}
+
+
+def multimodn_trainer_fit(root: Path, host_rng) -> None:
+    """``MultiModNTrainer.fit`` for 2 epochs on 32 synthetic samples at the
+    pipeline's widths (omic 2,000, bags of 4,096 x 2,048 float16, state
+    2,000), 2 classes: the confusion counts cover every row, the history's
+    CSV has a row per epoch, stage and split, ``predict`` one label a
+    sample."""
+    n = MMN_SAMPLES
+    omic = host_rng.standard_normal((n, 1, CLI_GENES), dtype=np.float32)
+    bags = host_rng.standard_normal((n, TOKENS, PATCH), dtype=np.float32).astype(np.float16)
+    y = (omic[:, 0, 0] + 0.5 * bags[:, 0, 0].astype(np.float32) > 0).astype(np.int64)
+    data = {"tensors": (omic, bags), "y_disc": y, "censorship": np.zeros(n, np.float32),
+            "event_time": np.ones(n, np.float32)}
+    gen = torch.Generator().manual_seed(20)
+    module = MultiModNModule(
+        MMN_STATE,
+        [MLPEncoder(MMN_STATE, (1024, 256, 128, 64), input_shape=(1, CLI_GENES)),
+         PatchEncoder(MMN_STATE, (512, 256, 128, 64), input_shape=(TOKENS, PATCH))],
+        [ClassDecoder(2, state_size=MMN_STATE)], generator=gen)
+    trainer = MultiModNTrainer(module, n_classes=2, lr=1e-3, batch_size=BATCH)
+    history = MultiModNHistory()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_m, val_m = trainer.fit(data, data, epochs=2, history=history)
+    wall = time.perf_counter() - t0
+    preds = trainer.predict(data)
+    history.save_csv(root / "multimodn_history.csv")
+    rows = (root / "multimodn_history.csv").read_text().splitlines()
+    counts = sum(val_m[k] for k in ("tp", "tn", "fp", "fn"))
+    log(f"  MultiModNTrainer.fit (2 epochs, {n} samples, {count_parameters(module)} "
+        f"parameters): {wall:.2f} s; val loss by stage {val_m['loss'][:, 0].round(6).tolist()}, "
+        f"accuracy {val_m['accuracy'][:, 0].round(4).tolist()}, balanced accuracy "
+        f"{val_m['balanced_accuracy'][:, 0].round(4).tolist()}; history {len(rows) - 1} rows; "
+        f"predictions {np.bincount(preds, minlength=2).tolist()}")
+    if not (np.isfinite(train_m["loss"]).all() and np.isfinite(val_m["loss"]).all()):
+        raise AssertionError("MultiModNTrainer gave non-finite losses")
+    if val_m["loss"].shape != (3, 1) or not np.allclose(counts, BATCH):
+        raise AssertionError(f"confusion counts {counts} do not cover the batches' rows")
+    if len(rows) != 1 + 2 * 3 * 2 or preds.shape != (n,) or not set(preds) <= {0, 1}:
+        raise AssertionError(f"history rows {len(rows)} or predictions {preds.shape}")
+
+
+def phase_baselines(host_rng) -> None:
+    """Phase 16: every baseline through ``Pipeline`` at full width, and
+    MultiModN's own trainer (see the module docstring)."""
+    log("phase 16: the baselines through Pipeline at full width (fcnn, MCAT, SNN, "
+        "MILAttentionNet, MMPrognosis, MOTCAT, MultiModN; 1 fold x 2 epochs)")
+    t_phase = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        tree = write_tcga_tree(root / "tcga", host_rng)
+        log(f"  tree: {CLI_CASES} cases x {CLI_GENES} genes, bags of {tree['bags'].min()}-"
+            f"{tree['bags'].max()} patches x {PATCH} float16, {tree['bytes'] / 1e9:.3f} GB; "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        for model, sources in BASELINES:
+            run_baseline(root, model, sources)
+        multimodn_trainer_fit(root, host_rng)
+    moved = {name: getattr(*KERNELS[name]) for name in KERNELS if getattr(*KERNELS[name])}
+    if moved:
+        raise AssertionError(f"the baselines launched the port's kernels: {moved}")
+    log(f"  no projection, flash or chain counter moved; phase 16 wall: "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3645,6 +3872,7 @@ def main() -> int:
     phase_cli(np.random.default_rng(6))
     phase_export(np.random.default_rng(7))
     phase_explainer(np.random.default_rng(8))
+    phase_baselines(np.random.default_rng(9))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

@@ -1,21 +1,33 @@
-"""Convert between the Flax ``params`` tree of ``HealNetModule`` and the
-port's ``state_dict``.
+"""Convert between a Flax ``params`` tree and the port's ``state_dict``.
 
-The port's submodules carry the Flax scope names, so a Flax path maps to a
-state-dict key one to one: ``a/b/kernel`` (Dense, (in, out)) becomes
-``a.b.weight`` transposed to (out, in); ``a/b/scale`` (LayerNorm) becomes
-``a.b.weight``; ``bias`` and ``latents`` keep their names and values. The
-tree is nested mappings of numpy arrays (or anything ``np.asarray``
-accepts). The inverse maps a 2-D ``weight`` back to ``kernel`` and a 1-D
-``weight`` back to ``scale``, so the round trip is exact.
+The port's modules carry the Flax scope names, so a Flax path maps to a
+state-dict key one to one. A ``kernel`` becomes ``weight`` in torch's
+layout, by its rank and scope:
+
+- Dense ``(in, out)``: transposed to ``(out, in)``;
+- ``nn.Conv`` ``(k, in, out)`` and ``(kh, kw, in, out)``: ``(out, in, k)``
+  and ``(out, in, kh, kw)``;
+- ``MultiHeadDotProductAttention``'s ``query`` / ``key`` / ``value``
+  ``(in, heads, head_dim)``: ``(heads, head_dim, in)``; its ``out``
+  ``(heads, head_dim, out)``: ``(out, heads, head_dim)``.
+
+``scale`` (LayerNorm, BatchStatNorm) becomes ``weight``; every other leaf
+(``bias``, including the attention's ``(heads, head_dim)`` biases,
+``latents``, MultiModN's ``state``) keeps its name and value. The GRU
+cells' ``ir`` / ``iz`` / ``in`` / ``hr`` / ``hz`` / ``hn`` are Dense scopes
+of their own. The inverse reads the same rules backwards (a 1-D
+``weight`` is a ``scale``), so the round trip is exact. The tree is nested
+mappings of numpy arrays (or anything ``np.asarray`` accepts).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+_HEAD_PROJECTIONS = ("query", "key", "value")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -26,6 +38,22 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (str(name),), value
 
 
+def _kernel_axes(ndim: int, scope: str) -> Tuple[int, ...]:
+    """The permutation taking a Flax kernel of ``ndim`` axes under
+    ``scope`` to the port's weight."""
+    if ndim == 2:
+        return (1, 0)
+    if ndim == 3 and scope in _HEAD_PROJECTIONS:
+        return (1, 2, 0)
+    if ndim == 3 and scope == "out":
+        return (2, 0, 1)
+    if ndim == 3:
+        return (2, 1, 0)
+    if ndim == 4:
+        return (3, 2, 0, 1)
+    raise ValueError(f"no port layout for a {ndim}-D kernel under {scope!r}")
+
+
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params tree -> port state_dict (float32 CPU tensors)."""
     out: Dict[str, torch.Tensor] = {}
@@ -33,7 +61,8 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.array(value, dtype=np.float32)
         leaf = path[-1]
         if leaf == "kernel":
-            arr, leaf = np.ascontiguousarray(arr.T), "weight"
+            scope = path[-2] if len(path) > 1 else ""
+            arr, leaf = np.ascontiguousarray(arr.transpose(_kernel_axes(arr.ndim, scope))), "weight"
         elif leaf == "scale":
             leaf = "weight"
         out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(arr)
@@ -47,10 +76,11 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, An
         *scopes, leaf = key.split(".")
         arr = value.detach().cpu().numpy()
         if leaf == "weight":
-            if arr.ndim == 2:
-                arr, leaf = np.ascontiguousarray(arr.T), "kernel"
-            else:
+            if arr.ndim == 1:
                 leaf = "scale"
+            else:
+                axes = _kernel_axes(arr.ndim, scopes[-1] if scopes else "")
+                arr, leaf = np.ascontiguousarray(arr.transpose(np.argsort(axes))), "kernel"
         node = tree
         for scope in scopes:
             node = node.setdefault(scope, {})

@@ -10,6 +10,7 @@ from healnet_tpu_torch.train.losses import (
     nll_loss_from_logits,
     survival_loss,
 )
+from healnet_tpu_torch.train.multimodn_trainer import MultiModNTrainer
 from healnet_tpu_torch.train.metrics import (
     cindex_implementation,
     concordance_index_censored,
@@ -31,6 +32,7 @@ __all__ = [
     "Checkpointer",
     "CoxPHSurvLoss",
     "CrossEntropySurvLoss",
+    "MultiModNTrainer",
     "SurvivalTrainer",
     "ce_loss",
     "cindex_implementation",

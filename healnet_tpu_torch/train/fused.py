@@ -87,6 +87,9 @@ class StepTable:
     def __init__(self, example: Dict[str, Any], steps: int, out_width: int,
                  device: torch.device):
         self.steps, self.device = steps, device
+        # empty tuples (a slides-only arena batch's ``tensors``) take no
+        # bytes but stay in the batch a step sees
+        self.empty = [k for k, v in example.items() if isinstance(v, (tuple, list)) and not v]
         self.layout, offset = [], 0
         for path, arr in _fields(example):
             if arr is None:
@@ -104,7 +107,7 @@ class StepTable:
 
     def _views(self) -> Dict[str, Any]:
         """The batch a step sees: views of the slot buffer."""
-        flat, batch = self.slot[0], {}
+        flat, batch = self.slot[0], {k: [] for k in self.empty}
         for path, dtype, shape, offset in self.layout:
             view = None
             if dtype is not None:

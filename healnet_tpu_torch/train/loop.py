@@ -43,8 +43,18 @@ there: captured as one CUDA graph per bucket shape on the card and
 replayed once a step, eagerly on the CPU. Validation runs the same way.
 Losses, risks and gradient norms come back once a bucket.
 
-Not ported yet: meshes and row-sharded arenas, and modules with their own
-auxiliary loss; each raises, naming the ``ROADMAP.md`` item that ports it.
+Any module of the port trains here: HealNet and the baselines
+(:mod:`healnet_tpu_torch.models.baselines`). A module is called with the
+keywords its ``forward`` takes: ``kv_masks``, and in training the
+trainer's ``generator`` (on the device: every dropout mask, feed-forward
+and baseline alike), ``seed_generator`` and ``seeds`` (HealNet's attention
+hash seeds). With ``aux_loss`` (MultiModN) the module also takes the
+one-hot targets, ``presence`` and ``sample_weights`` and returns
+``(model_loss, logits)``; the model loss joins the total (and, in
+evaluation, the loss), as in JAX.
+
+Not ported yet: meshes and row-sharded arenas; they raise, naming the
+``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ from healnet_tpu_torch.train.losses import (
 )
 from healnet_tpu_torch.train.metrics import concordance_index_native
 from healnet_tpu_torch.train.schedule import make_optimizer, progress_hyperparams
-from healnet_tpu_torch.utils.train_utils import EarlyStopping, accepts_kv_masks, calc_reg_loss
+from healnet_tpu_torch.utils.train_utils import EarlyStopping, calc_reg_loss, forward_keywords
 
 _META = ("censorship", "event_time", "sample_mask")
 
@@ -132,6 +142,25 @@ def iterate_batches(
         yield batch
 
 
+def place_batch(batch: Mapping[str, Any], device: torch.device,
+                non_blocking: bool = False) -> Dict[str, Any]:
+    """Host batch (numpy or tensors) -> tensors on ``device``; float64
+    arrives as float32, as in JAX, and integers (labels, arena offsets)
+    keep their type. ``non_blocking`` copies pinned arrays asynchronously
+    (the prefetcher's side stream)."""
+    def put(x):
+        if x is None:
+            return None
+        x = torch.as_tensor(x).to(device, non_blocking=non_blocking)
+        return x.float() if x.dtype == torch.float64 else x
+
+    out = {k: put(v) for k, v in batch.items() if k not in ("tensors", "kv_masks")}
+    out["tensors"] = tuple(put(t) for t in batch["tensors"])
+    if batch.get("kv_masks") is not None:
+        out["kv_masks"] = tuple(put(m) for m in batch["kv_masks"])
+    return out
+
+
 def _micro_batches(batch: Mapping[str, Any], a: int) -> List[Dict[str, Any]]:
     """Split every per-sample entry of a placed batch into ``a`` equal parts."""
     def split(x):
@@ -149,17 +178,20 @@ class SurvivalTrainer:
     """Trains a HealNet-style module for discrete-time survival, one device.
 
     Args:
-        module: an ``nn.Module`` whose ``forward(tensors, presence=...,
-            generator=..., seed_generator=...)`` returns (b, n_bins) logits
-            (:class:`healnet_tpu_torch.models.healnet.HealNetModule`).
+        module: an ``nn.Module`` whose ``forward(tensors, presence=...)``
+            returns (b, n_bins) logits, taking ``kv_masks``, ``generator``,
+            ``seed_generator`` and ``seeds`` where its signature has them
+            (:class:`~healnet_tpu_torch.models.healnet.HealNetModule`, the
+            baselines).
         loss_type: "nll" | "ce_survival" | "cox".
         l1: L1 regularisation weight.
         gc_compat: divisor of the survival loss before the backward (the
             reference's gradient-accumulation quirk).
         accum_steps: micro-batches per batch; gradients are averaged.
         seed: seeds the trainer's generators: one on the device for the
-            feed-forward dropout masks, one on the host for the attention
-            hash seeds (so drawing them needs no device read).
+            dropout masks (HealNet's feed-forward, every baseline's), one on
+            the host for the attention hash seeds (so drawing them needs no
+            device read).
         device: the GPU unless ``"cpu"`` is asked for.
         feature_arena: the packed feature arena, as ``(arena, offsets,
             lengths)`` or the bare arena (numpy, tensor, or a
@@ -183,9 +215,14 @@ class SurvivalTrainer:
             JAX), each epoch's steps and each evaluation's run bucket by
             bucket from static device buffers, captured as CUDA graphs on
             the card (see the module's docstring).
-        n_bins, tensor_parallel, arena_halo: kept from the JAX trainer's
-            signature; they act only with ``aux_loss``, ``mesh`` or
-            ``arena_sharded``, which are not ported and raise.
+        aux_loss: the module's ``forward(tensors, targets=, presence=,
+            sample_weights=)`` returns ``(model_loss, logits)``
+            (:class:`~healnet_tpu_torch.models.baselines.MultiModNModule`);
+            the targets are one-hot over ``n_bins`` and the padded rows'
+            ``sample_mask`` is 0.
+        tensor_parallel, arena_halo: kept from the JAX trainer's signature;
+            they act only with ``mesh`` or ``arena_sharded``, which are not
+            ported and raise.
     """
 
     def __init__(
@@ -230,10 +267,8 @@ class SurvivalTrainer:
             raise ValueError(f"unknown loss_type {loss_type}")
         if accum_steps < 1 or batch_size % accum_steps != 0:
             raise ValueError("batch_size must be divisible by accum_steps")
-        if aux_loss:
-            raise NotImplementedError(
-                "modules with their own auxiliary loss come with the baselines "
-                "(ROADMAP.md, Queue 1: baselines)")
+        if aux_loss and n_bins is None:
+            raise ValueError("aux_loss models need n_bins")
         if mesh is not None or arena_sharded:
             raise NotImplementedError(
                 "meshes and row-sharded arenas come with the multi-device slice "
@@ -260,7 +295,8 @@ class SurvivalTrainer:
         self.prefetch = prefetch
         self.bucket_boundaries = (
             tuple(int(b) for b in bucket_boundaries) if bucket_boundaries else None)
-        self._accepts_kv_masks = accepts_kv_masks(module)
+        self.aux_loss, self.n_bins = bool(aux_loss), n_bins
+        self._forward_keys = forward_keywords(module)
         self.optimizer = make_optimizer(self.module.parameters(), cycle_momentum)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed + 1)
@@ -324,21 +360,7 @@ class SurvivalTrainer:
 
     # ------------------------------------------------------------ pieces
     def _place(self, batch: Mapping[str, Any], non_blocking: bool = False) -> Dict[str, Any]:
-        """Host batch (numpy or tensors) -> tensors on the trainer's device;
-        float64 arrives as float32, as in JAX, and integers (labels, arena
-        offsets) keep their type. ``non_blocking`` copies pinned arrays
-        asynchronously (the prefetcher's side stream)."""
-        def put(x):
-            if x is None:
-                return None
-            x = torch.as_tensor(x).to(self.device, non_blocking=non_blocking)
-            return x.float() if x.dtype == torch.float64 else x
-
-        out = {k: put(v) for k, v in batch.items() if k not in ("tensors", "kv_masks")}
-        out["tensors"] = tuple(put(t) for t in batch["tensors"])
-        if batch.get("kv_masks") is not None:
-            out["kv_masks"] = tuple(put(m) for m in batch["kv_masks"])
-        return out
+        return place_batch(batch, self.device, non_blocking)
 
     def _surv_loss(self, logits, batch):
         hazards, survival, risk = hazards_survival_risk(logits)
@@ -354,29 +376,56 @@ class SurvivalTrainer:
                                    event_time=batch["event_time"], sample_weights=sw)
         return loss, risk
 
-    def _forward(self, batch, train: bool, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _forward(self, batch, train: bool, seeds: Optional[torch.Tensor] = None):
+        """``(logits, the module's own loss)``; the loss is None without
+        ``aux_loss``."""
         if batch.get("patch_offsets") is not None and self._device_arena() is not None:
             # the slide modality comes from the arena: (b, width, dim) bags,
-            # width fixed by the last KV mask
+            # width fixed by the last KV mask (rows outside a bag zero, as
+            # the bag baselines pool every token)
             slide = gather_bag(self._arena, batch["patch_offsets"], batch["kv_masks"][-1])
             batch = dict(batch, tensors=tuple(batch["tensors"]) + (slide,))
+        keys = self._forward_keys
         kwargs = {}
-        if batch.get("kv_masks") is not None and self._accepts_kv_masks:
+        if batch.get("kv_masks") is not None and "kv_masks" in keys:
             kwargs["kv_masks"] = batch["kv_masks"]
         if train:
-            kwargs.update(generator=self.generator, seed_generator=self.seed_generator)
+            for name, gen in (("generator", self.generator),
+                              ("seed_generator", self.seed_generator)):
+                if name in keys:
+                    kwargs[name] = gen
             if seeds is not None:
                 kwargs["seeds"] = seeds
-        return self.module(batch["tensors"], presence=batch.get("presence"), **kwargs)
+        if self.aux_loss:
+            # one-hot by comparison: out-of-range labels give zero rows, as
+            # jax.nn.one_hot, and nothing is read back from the device
+            y = batch["y_disc"].long()
+            targets = (y[:, None] == torch.arange(self.n_bins, device=y.device)).float()
+            model_loss, logits = self.module(
+                batch["tensors"], targets=targets, presence=batch.get("presence"),
+                sample_weights=batch.get("sample_mask"), **kwargs)
+            return logits, model_loss
+        return self.module(batch["tensors"], presence=batch.get("presence"), **kwargs), None
 
     def _loss(self, batch, seeds: Optional[torch.Tensor] = None):
         """(total loss to differentiate, survival loss, risk)."""
-        logits = self._forward(batch, train=True, seeds=seeds)
+        logits, model_loss = self._forward(batch, train=True, seeds=seeds)
         surv_loss, risk = self._surv_loss(logits, batch)
         total = surv_loss / float(self.gc_compat)
         if self.l1 > 0:
             total = total + calc_reg_loss(self.module, self.l1, self.reg_topo, self.sources)
+        if model_loss is not None:
+            total = total + model_loss
         return total, surv_loss, risk
+
+    def _eval_loss(self, batch):
+        """(survival loss plus the module's own, risk, logits) without
+        dropout or gradients."""
+        self.module.eval()
+        with torch.no_grad():
+            logits, model_loss = self._forward(batch, train=False)
+            loss, risk = self._surv_loss(logits, batch)
+        return (loss if model_loss is None else loss + model_loss), risk, logits
 
     def grad_stats(self) -> Dict[str, torch.Tensor]:
         """Gradient L2 norms per top-level submodule (or parameter) and in
@@ -436,12 +485,7 @@ class SurvivalTrainer:
 
     def eval_step(self, batch: Mapping[str, Any]):
         """``(loss, risk, logits)`` without dropout or gradients."""
-        batch = self._place(batch)
-        self.module.eval()
-        with torch.no_grad():
-            logits = self._forward(batch, train=False)
-            surv_loss, risk = self._surv_loss(logits, batch)
-        return surv_loss, risk, logits
+        return self._eval_loss(self._place(batch))
 
     # ------------------------------------------------------------- fused epochs
     def _step_table(self, kind: str, blist, out_width: int) -> StepTable:
@@ -481,10 +525,7 @@ class SurvivalTrainer:
 
     def _fused_eval_body(self, table: StepTable) -> None:
         table.select()
-        self.module.eval()
-        with torch.no_grad():
-            logits = self._forward(table.batch, train=False)
-            loss, risk = self._surv_loss(logits, table.batch)
+        loss, risk, _ = self._eval_loss(table.batch)
         table.emit(torch.cat([loss.float().reshape(1), risk.float().reshape(-1)]))
 
     @staticmethod

@@ -8,7 +8,11 @@ Counterpart of ``healnet_tpu/train/pipeline.py``:
   std of the c-indices, the best fold and the missing-modality means;
 - the model factory, shaped from the first batch: ``healnet`` and
   ``healnet_early`` (:class:`healnet_tpu_torch.models.healnet.HealNetModule`,
-  ``precision: bf16`` computing in ``torch.bfloat16``);
+  ``precision: bf16`` computing in ``torch.bfloat16``) and the baselines
+  (:mod:`healnet_tpu_torch.models.baselines`: ``fcnn``, ``mcat`` as MCAT,
+  SNN or MILAttentionNet by the sources, ``mm_prognosis``, ``motcat``,
+  ``multimodn``, trained with the trainer's ``aux_loss``), the bag
+  baselines told the slide layout by ``patch_attention``;
 - explainer artifacts: the best fold's weights
   (:class:`~healnet_tpu_torch.train.checkpoint.Checkpointer`),
   ``config.pkl`` and ``test_data_indices.pkl``;
@@ -16,15 +20,15 @@ Counterpart of ``healnet_tpu/train/pipeline.py``:
   folds (``set_fold``), with ``data.device_cache`` (the feature arena
   uploaded to the device once a run), ``data.quantize_arena`` (int8 rows and
   f32 scales, quantized on the device as the rows arrive, bit-equal to the
-  JAX package's host quantization) and ``train_loop.fused_epochs``;
+  JAX package's host quantization; the HealNet pair only, ignored with
+  JAX's message for the baselines) and ``train_loop.fused_epochs``;
 - per-fold checkpoint directories under the run's log directory, so a
   relaunch with the same ``run_name`` resumes (``train_loop.resume``);
 - logging through :class:`healnet_tpu_torch.utils.Tracker`.
 
 The pipeline runs on the GPU unless ``device="cpu"`` is asked for. Not
-ported yet, and refused with ``NotImplementedError``: the baselines
-(``ROADMAP.md``, Queue 1 item 7) and ``spmd`` / ``data.shard_arena``
-(item 8).
+ported yet, and refused with ``NotImplementedError``: ``spmd`` /
+``data.shard_arena`` (``ROADMAP.md``, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -40,6 +44,18 @@ import torch
 from healnet_tpu_torch.constants import VALID_DATASETS
 from healnet_tpu_torch.device import DeviceLike, resolve_device
 from healnet_tpu_torch.etl import TCGADataset, class_weights, train_val_test_split
+from healnet_tpu_torch.models.baselines import (
+    MCAT,
+    MOTCAT,
+    SNN,
+    ClassDecoder,
+    MILAttentionNet,
+    MLPEncoder,
+    MMPrognosis,
+    MultiModNModule,
+    PatchEncoder,
+    RegularizedFCNN,
+)
 from healnet_tpu_torch.models.healnet import HealNetModule
 from healnet_tpu_torch.ops.quantize import QuantizedContext
 from healnet_tpu_torch.parallel.arena import place_arena, place_quantized
@@ -60,7 +76,6 @@ VALID_MODELS = [
     "healnet", "fcnn", "healnet_early", "mcat", "mm_prognosis", "multimodn", "motcat",
 ]
 VALID_CLASS_WEIGHTS = ["inverse", "inverse_root", "None"]
-PORTED_MODELS = ("healnet", "healnet_early")
 
 
 class Pipeline:
@@ -120,10 +135,6 @@ class Pipeline:
 
     def _refuse_unported(self) -> None:
         """Raise for what the port does not have yet, before any data is read."""
-        if self.config["model"] not in PORTED_MODELS:
-            raise NotImplementedError(
-                f"model {self.config['model']!r}: the baselines come with ROADMAP.md, "
-                "Queue 1 item 7")
         if self.config.get("spmd", False) or self.config.get("data.shard_arena", False):
             raise NotImplementedError(
                 "spmd and data.shard_arena come with the multi-device slice "
@@ -265,12 +276,13 @@ class Pipeline:
         return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(precision)
 
     # ---------------------------------------------------------------- model
-    def make_model(self, example_batch: Dict[str, Any], seed: int = 0) -> HealNetModule:
-        """The configured model (``healnet`` or ``healnet_early``; the
-        constructor refused the rest), shaped from a batch; its weights drawn
-        from a generator seeded with ``seed`` (the fold, as ``set_fold`` draws)."""
+    def make_model(self, example_batch: Dict[str, Any], seed: int = 0) -> torch.nn.Module:
+        """The configured model, shaped from a batch; its weights drawn from
+        a generator seeded with ``seed`` (the fold, as ``set_fold`` draws)."""
         feat = example_batch["tensors"]
         model_name = self.config["model"]
+        if model_name not in ("healnet", "healnet_early"):
+            return self._make_baseline(example_batch, torch.Generator().manual_seed(seed))
 
         def mp(key):
             return self.config[f"model_params.{key}"]
@@ -315,6 +327,52 @@ class Pipeline:
             generator=torch.Generator().manual_seed(seed),
         )
 
+    def _make_baseline(self, example_batch: Dict[str, Any], generator: torch.Generator):
+        """A baseline (``healnet_tpu/train/pipeline.py``'s factory), shaped
+        by the per-sample shapes of the batch's tensors; in arena mode the
+        slide, gathered on the device, is the last tensor, (bag width,
+        arena width)."""
+        model_name, out = self.config["model"], self.output_dims
+        shapes = [tuple(np.shape(t)[1:]) for t in example_batch["tensors"]]
+        if example_batch.get("arena_dim") is not None:
+            shapes.append((int(np.shape(example_batch["kv_masks"][-1])[1]),
+                           int(example_batch["arena_dim"])))
+        kw = dict(input_shapes=shapes, device=self.device, generator=generator)
+        if model_name == "fcnn":
+            return RegularizedFCNN(output_dim=out, **kw)
+        if model_name == "multimodn":
+            if len(shapes) != 2:
+                raise ValueError("multimodn takes two modalities (omic and slides), got "
+                                 f"{len(shapes)}")
+            state_size = 2000
+            return MultiModNModule(
+                state_size=state_size,
+                encoders=[
+                    MLPEncoder(state_size=state_size, hidden_layers=(1024, 256, 128, 64),
+                               input_shape=shapes[0]),
+                    PatchEncoder(state_size=state_size, hidden_layers=(512, 256, 128, 64),
+                                 input_shape=shapes[1]),
+                ],
+                decoders=[ClassDecoder(n_classes=out, activation=torch.sigmoid,
+                                       state_size=state_size)],
+                device=self.device, generator=generator,
+            )
+        # patch_attention feeds bags as (b, patches, dim) tokens, the
+        # reference layout is (b, dim, patches): the bag baselines are told
+        # which they get, or their FC stacks run over the wrong axis
+        tokens = bool(self.config.get("patch_attention", False))
+        if model_name == "mm_prognosis":
+            return MMPrognosis(output_dims=out, tokens_layout=tokens, **kw)
+        if model_name == "motcat":
+            return MOTCAT(n_classes=out, tokens_layout=tokens, **kw)
+        if model_name == "mcat":
+            if len(self.sources) == 2:
+                return MCAT(n_classes=out, tokens_layout=tokens, **kw)
+            if self.sources[0] == "omic":
+                return SNN(n_classes=out, **kw)
+            return MILAttentionNet(n_classes=out, tokens_layout=tokens, **kw)
+        raise ValueError(f"unknown model {model_name}")
+
     def _device_arena(self, parent):
         """(the arena on the device, offsets, lengths): the parent's packed
         arena (int8 values and f32 scales with ``data.quantize_arena``)
@@ -328,6 +386,10 @@ class Pipeline:
             # quantized on the device as the rows arrive (bit-equal to the
             # JAX package's host quantization)
             quantize = bool(self.config.get("data.quantize_arena", False))
+            if quantize and self.config["model"] not in ("healnet", "healnet_early"):
+                print("data.quantize_arena ignored: model "
+                      f"{self.config['model']!r} does not route QuantizedContext")
+                quantize = False
             t0 = time.perf_counter()
             if quantize and not isinstance(arena, QuantizedContext):
                 self._arena_device = place_quantized(arena, self.device)
@@ -381,6 +443,7 @@ class Pipeline:
             tracker=self.tracker,
             reg_topo=model_name,
             sources=self.sources,
+            aux_loss=model_name == "multimodn",
             n_bins=self.output_dims,
             bucket_boundaries=self._resolve_buckets(parent),
             checkpoint_dir=self._fold_checkpoint_dir(fold),

@@ -1,5 +1,5 @@
 """Training utilities: L1 regularisation, early stopping, parameter
-counting, and the ``kv_masks`` signature probe.
+counting, and the probes of a module's ``forward`` signature.
 
 Counterpart of ``healnet_tpu/utils/train_utils.py``. Parameters are given
 as a module, a mapping of name -> tensor, or an iterable of tensors.
@@ -15,6 +15,14 @@ from typing import Any, Dict, List, Optional
 import torch
 
 
+def forward_keywords(module) -> frozenset:
+    """The parameter names of the module's ``forward``: the trainer passes
+    ``kv_masks``, ``generator``, ``seed_generator`` and ``seeds`` only to a
+    module that takes them."""
+    fn = getattr(type(module), "forward", None) or type(module).__call__
+    return frozenset(inspect.signature(fn).parameters)
+
+
 def accepts_kv_masks(module) -> bool:
     """True when the module's forward takes a ``kv_masks`` keyword.
 
@@ -22,9 +30,8 @@ def accepts_kv_masks(module) -> bool:
     zero-padded tokens without masks do not take one. Shared by the trainer
     and the serving Predictor so both gate the same way.
     """
-    fn = getattr(type(module), "forward", None) or type(module).__call__
     try:
-        return "kv_masks" in inspect.signature(fn).parameters
+        return "kv_masks" in forward_keywords(module)
     except (TypeError, ValueError):
         return True
 

@@ -303,15 +303,6 @@ def test_dataset_cache_carries_across_sweep_trials(cohort, monkeypatch, tmp_path
     assert (cohort / "logs" / "sweep" / "run_trial2" / "summary.json").exists()
 
 
-@pytest.mark.parametrize("model", ["fcnn", "mcat", "mm_prognosis", "multimodn", "motcat"])
-def test_baselines_not_ported_yet(cohort, model):
-    config = Config(str(write_config(cohort, "base"))).read()
-    config["model"] = model
-    config["model_params"] = Config(str(cohort / "base_hp.yml")).read()["brca"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Pipeline(config, device="cpu")
-
-
 @pytest.mark.parametrize("key", ["spmd", "data.shard_arena"])
 def test_multi_device_not_ported_yet(cohort, key):
     config = Config(str(write_config(cohort, "multi"))).read()
