@@ -43,9 +43,20 @@ Submodules are named after the Flax scopes (``layer{key}_cross_attn_m{m}``,
   chunks of ``stats_chunk``), which :meth:`HealNet.get_attention_stats`
   reads.
 
+- Meshes (``mesh``, :meth:`HealNetModule.set_mesh`): each rank runs its
+  shard of the batch (its ``data`` rows), of a context whose tokens are
+  split over ``seq`` (``forward(..., seq_sharded=)``: that modality's
+  tensor holds this rank's tokens, its KV mask all of them; its Fourier
+  encoding is taken at the tokens' global positions, its projection runs
+  on the local tokens, and its cross-attentions take the
+  sequence-parallel route), and of the heads and hidden units split over
+  ``model`` (the merged projection then computes only this rank's K and V
+  columns: its heads in every layer group). The projection and flash
+  kernels run on each rank's shard.
+
 :class:`HealNet` is the reference-compatible wrapper: the reference
 constructor and call signature, ``None`` for a missing modality, lazy or
-eager attention capture, and persistence. Meshes are not ported yet.
+eager attention capture, and persistence.
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from healnet_tpu_torch.ops.fourier import positional_encoding
 from healnet_tpu_torch.ops.fused_project import fused_kv_project, split_columns
 from healnet_tpu_torch.ops.hash_dropout import mask_family
 from healnet_tpu_torch.ops.quantize import QuantizedContext
+from healnet_tpu_torch.parallel.mesh import AXIS_SEQ
 
 
 def _tie_key(layer: int, weight_tie_layers: bool) -> int:
@@ -119,7 +131,8 @@ class HealNetModule(nn.Module):
     ``device``: where the parameters live, the GPU unless ``"cpu"`` is
     asked for. ``generator``: the seeded ``torch.Generator`` (CPU) that
     draws the initial weights; the same seed gives the same weights on
-    every device.
+    every device. ``mesh``: a :class:`~healnet_tpu_torch.parallel.mesh.Mesh`
+    (see the module docstring), or None for one device.
     """
 
     def __init__(
@@ -151,6 +164,7 @@ class HealNetModule(nn.Module):
         stats_chunk: int = 2048,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
+        mesh=None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -223,6 +237,17 @@ class HealNetModule(nn.Module):
             self.final_head = torch_dense(out_dims, l_d, dtype=dtype)
         self.reset_parameters(generator)
         self.to(device)
+        self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> "HealNetModule":
+        """Run on ``mesh`` (None: one device): every attention and
+        feed-forward module takes it. The weights stay as they are; shard
+        them with :func:`healnet_tpu_torch.parallel.train.shard_module`."""
+        self.mesh = mesh
+        for sub in self.modules():
+            if sub is not self and hasattr(sub, "mesh"):
+                sub.mesh = mesh
+        return self
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Initial weights: torch ``nn.Linear`` defaults, unit LayerNorms,
@@ -251,6 +276,7 @@ class HealNetModule(nn.Module):
         seed_generator: Optional[torch.Generator] = None,
         store_attention: Union[bool, str] = False,
         seeds: Optional[torch.Tensor] = None,
+        seq_sharded: Optional[Sequence[bool]] = None,
     ):
         """Logits ``(b, out_dims)``, or the latents with ``return_embeddings``.
 
@@ -273,6 +299,10 @@ class HealNetModule(nn.Module):
 
         Under ``ops.hash_dropout.mask_family("threefry")`` the plain
         path's attention keep masks are drawn from ``generator`` too.
+
+        ``seq_sharded``: under a mesh, one flag a modality, True where its
+        tensor holds this rank's block of its tokens (split over ``seq``
+        along the first spatial axis) and its ``kv_masks`` entry all of them.
         """
         if len(tensors) != self.n_modalities:
             raise ValueError(f"expected {self.n_modalities} modalities, got {len(tensors)}")
@@ -282,21 +312,26 @@ class HealNetModule(nn.Module):
         b = tensors[0].shape[0]
         seeds = self._call_seeds(seeds, seed_generator if seed_generator is not None
                                  else generator, tensors[0].device)
-        parts, compute_dt, cdt = self._context_parts(tensors)
+        sharded = self._seq_sharded(seq_sharded)
+        parts, compute_dt, cdt = self._context_parts(tensors, sharded)
         if presence is None:
             presence = torch.ones((b, self.n_modalities), dtype=cdt, device=tensors[0].device)
         presence = presence.to(cdt)
-        if kv_masks is None:
-            kv_masks = [None] * self.n_modalities
+        kv_masks = [None] * self.n_modalities if kv_masks is None else list(kv_masks)
+        for i, flag in enumerate(sharded):
+            if flag and kv_masks[i] is not None:
+                kv_masks[i] = self._local_tokens(kv_masks[i], parts[i][0].shape[1])
 
         contexts, kv_cache = [], {}
         if self.remat:
             contexts = self._normalized_contexts(parts, compute_dt)
         else:
-            # each group's K|V columns of the merged buffers
+            # each group's K|V columns of the merged buffers (this rank's
+            # heads where they are split over ``model``)
             group_keys = list(self.groups)
-            width = 2 * self.cross_dim_head * self.x_heads
-            for i, kv_all in enumerate(self._project(parts, compute_dt)):
+            heads = self._mod(self.groups[0]["cross_attns"][0]).fn.local_heads()
+            width = 2 * self.cross_dim_head * heads
+            for i, kv_all in enumerate(self._project(parts, compute_dt, sharded)):
                 for key, sl in zip(group_keys, split_columns(kv_all, [width] * len(group_keys))):
                     kv_cache[(key, i)] = sl
 
@@ -320,6 +355,8 @@ class HealNetModule(nn.Module):
                     ctx = dict(context=contexts[i], context_normalized=True)
                 else:
                     ctx = dict(kv=kv_cache[(key, i)])
+                if sharded[i]:
+                    ctx["seq_sharded"] = True
                 update = attend(group["cross_attns"][i], x, attention_tag("cross", i, layer),
                                 kv_mask=kv_masks[i], **ctx)
                 x = pres * update + x
@@ -386,12 +423,34 @@ class HealNetModule(nn.Module):
             return checkpoint(module, x, None, keep, use_reentrant=False)
         return module(x, generator)
 
-    def _context_parts(self, tensors: Sequence[torch.Tensor]):
+    def _seq_sharded(self, seq_sharded: Optional[Sequence[bool]]) -> List[bool]:
+        flags = [False] * self.n_modalities if seq_sharded is None else \
+            [bool(f) for f in seq_sharded]
+        if len(flags) != self.n_modalities:
+            raise ValueError(f"seq_sharded needs {self.n_modalities} flags, got {len(flags)}")
+        if any(flags) and (self.mesh is None or self.mesh.shape[AXIS_SEQ] == 1):
+            raise ValueError("seq_sharded contexts need a mesh with a seq axis above 1")
+        return flags
+
+    def _local_tokens(self, x: torch.Tensor, n_local: int) -> torch.Tensor:
+        """This rank's block of ``n_local`` tokens of a (b, tokens, ...)
+        tensor whose tokens are split over ``seq``."""
+        s = self.mesh.shape[AXIS_SEQ]
+        if x.shape[1] != n_local * s:
+            raise ValueError(f"a KV mask of a context split over seq holds all {n_local * s} "
+                             f"tokens, got {x.shape[1]}")
+        start = self.mesh.coord(AXIS_SEQ) * n_local
+        return x[:, start:start + n_local]
+
+    def _context_parts(self, tensors: Sequence[torch.Tensor],
+                       seq_sharded: Optional[Sequence[bool]] = None):
         """Each modality's flattened data (a :class:`QuantizedContext`
         stays one) and its batch-shared positional encoding ``(tokens, E)``
         or None, kept apart; the compute dtype (the module's ``dtype``,
         else float32) and the latents' dtype (the compute dtype for a
-        quantized first input, else that input's dtype)."""
+        quantized first input, else that input's dtype). A modality split
+        over ``seq`` (``seq_sharded``) takes the encoding of its tokens'
+        global positions."""
         b = tensors[0].shape[0]
         compute_dt = self.dtype if self.dtype is not None else torch.float32
         parts = []
@@ -407,11 +466,16 @@ class HealNetModule(nn.Module):
                 data = data.to(self.dtype)
             enc_flat = None
             if self.fourier_encode_data:
+                split = bool(seq_sharded and seq_sharded[i])
+                full = (spatial[0] * self.mesh.shape[AXIS_SEQ],) + spatial[1:] if split \
+                    else spatial
                 enc = positional_encoding(
-                    spatial, self.max_freq, self.num_freq_bands,
+                    full, self.max_freq, self.num_freq_bands,
                     dtype=compute_dt if quantized else data.dtype, device=data.device,
                 )
                 enc_flat = enc.reshape(-1, enc.shape[-1])
+                if split:
+                    enc_flat = self._local_tokens(enc_flat[None], int(np.prod(spatial)))[0]
             if quantized:
                 flat = QuantizedContext(data.data.reshape(b, -1, data.shape[-1]),
                                         data.scale.reshape(b, -1))
@@ -422,11 +486,15 @@ class HealNetModule(nn.Module):
         cdt = compute_dt if isinstance(first, QuantizedContext) else first.dtype
         return parts, compute_dt, cdt
 
-    def _project(self, parts, compute_dt: torch.dtype) -> List[torch.Tensor]:
-        """One merged folded-KV projection per modality over its raw data."""
+    def _project(self, parts, compute_dt: torch.dtype,
+                 seq_sharded: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
+        """One merged folded-KV projection per modality over its raw data
+        (this rank's tokens and K / V columns under a mesh)."""
         kvs = []
         for i, (dat, enc_flat) in enumerate(parts):
-            folds = [self._mod(group["cross_attns"][i]).kv_fold() for group in self.groups.values()]
+            split = bool(seq_sharded and seq_sharded[i])
+            folds = [self._mod(group["cross_attns"][i]).kv_fold(split)
+                     for group in self.groups.values()]
             w_all = torch.cat([w for w, _ in folds], dim=1)  # (D, F) f32
             b_all = torch.cat([fb for _, fb in folds])       # (F,)
             kvs.append(fused_kv_project(

@@ -7,6 +7,18 @@ named after the Flax scopes (``to_q``, ``to_kv``, ``to_out``, ``net_0``,
 one to one (:mod:`healnet_tpu_torch.compat.flax_params`). A module's
 ``dtype`` is its compute dtype, as in Flax: weights are cast to it at each
 call and stay float32 in the state dict.
+
+Under a mesh (``mesh``, set by :meth:`HealNetModule.set_mesh`) the
+attention and feed-forward modules run their tensor-parallel split where
+their weights hold it (the shapes tell: :func:`healnet_tpu_torch.parallel.
+mesh.shard_params` cuts whole heads and whole gated units over ``model``):
+the replicated input enters through ``sum_grad`` over ``model``, the
+row-parallel ``to_out`` / ``net_2`` sum their partial products over
+``model`` in f32 and add their bias once. A cross-attention whose context
+tokens are split over ``seq`` takes
+:func:`~healnet_tpu_torch.parallel.seq_attention.sequence_parallel_attention`,
+and the leaves its keys and values come from (``to_kv``, the context
+LayerNorm's affine) sum their gradients over ``seq``.
 """
 
 from __future__ import annotations
@@ -26,6 +38,10 @@ from healnet_tpu_torch.ops.attention import (
 )
 from healnet_tpu_torch.ops.flash_attention import flash_cross_attention
 from healnet_tpu_torch.ops.fused_project import split_columns
+from healnet_tpu_torch.ops.hash_dropout import mask_family
+from healnet_tpu_torch.parallel.comm import all_sum, sum_grad
+from healnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_SEQ
+from healnet_tpu_torch.parallel.seq_attention import sequence_parallel_attention
 
 
 def _compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -57,6 +73,20 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel ``dense``: this rank's input columns' partial product
+    (bf16 products are exact in f32), summed over ``group`` in f32 and
+    rounded once, then the bias, as the whole product would be."""
+    dt = _compute_dtype(x, dense.dtype)
+    y = x.to(dt).float() @ dense.weight.to(dt).float().t()
+    y = all_sum(y, group).to(dt)
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
+def _model_group(mesh, split: bool):
+    return mesh.group(AXIS_MODEL) if mesh is not None and split else None
 
 
 def torch_dense(features: int, fan_in: int, use_bias: bool = True,
@@ -112,13 +142,17 @@ class FeedForward(nn.Module):
     probability ``1 - rate``, kept values divided by ``1 - rate``. The keep
     mask is drawn from the ``generator`` passed to :meth:`forward` (on the
     input's device), never from the global RNG; Flax's threefry masks are
-    not reproduced.
+    not reproduced. Under a mesh whose ``data`` axis splits the batch,
+    every rank draws the whole batch's mask from the same generator state
+    and keeps its rows.
     """
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, snn: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.snn, self.dropout = snn, dropout
+        self.hidden = dim * mult
+        self.mesh = None
         self.net_0 = torch_dense(dim * mult * 2, dim, dtype=dtype)
         self.net_2 = torch_dense(dim, dim * mult, dtype=dtype)
 
@@ -130,15 +164,20 @@ class FeedForward(nn.Module):
         """The dropout keep mask of an output of ``shape``, from ``generator``."""
         if generator is None:
             raise ValueError("FeedForward dropout needs a generator")
-        return torch.rand(shape, generator=generator, device=device) < 1.0 - self.dropout
+        rows, parts, index = shape[0], 1, 0
+        if self.mesh is not None:
+            parts, index = self.mesh.shape[AXIS_DATA], self.mesh.coord(AXIS_DATA)
+        keep = torch.rand((rows * parts, *shape[1:]), generator=generator, device=device)
+        return keep[index * rows:(index + 1) * rows] < 1.0 - self.dropout
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: a keep mask drawn beforehand (:meth:`keep_mask`), else
         one is drawn here from ``generator``."""
-        h = self.net_0(x)
+        model = _model_group(self.mesh, self.net_2.weight.shape[1] < self.hidden)
+        h = self.net_0(sum_grad(x, model))
         h = gated_selu(h) if self.snn else gated_gelu(h)
-        h = self.net_2(h)
+        h = self.net_2(h) if model is None else row_parallel(self.net_2, h, model)
         if self.draws_dropout():
             if keep is None:
                 keep = self.keep_mask(h.shape, generator, h.device)
@@ -160,16 +199,18 @@ class FoldedKV(nn.Module):
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
 
-    def fold(self, scale: torch.Tensor, bias: torch.Tensor):
-        """``(scale . W, bias @ W)`` in the (in, out) layout, float32."""
-        kernel = self.weight.t()
+    def fold(self, scale: torch.Tensor, bias: torch.Tensor, weight=None):
+        """``(scale . W, bias @ W)`` in the (in, out) layout, float32
+        (``weight``: the weight as this call sees it, default its own)."""
+        kernel = (self.weight if weight is None else weight).t()
         return kernel * scale[:, None], bias @ kernel
 
-    def forward(self, x, scale=None, bias=None):
+    def forward(self, x, scale=None, bias=None, weight=None):
         """``x @ W``, or with a LayerNorm affine ``(scale, bias)`` folded in."""
-        kernel, folded_bias = self.weight.t(), None
+        weight = self.weight if weight is None else weight
+        kernel, folded_bias = weight.t(), None
         if scale is not None:
-            kernel, folded_bias = self.fold(scale, bias)
+            kernel, folded_bias = self.fold(scale, bias, weight)
         if self.dtype is not None:
             x, kernel = x.to(self.dtype), kernel.to(self.dtype)
         y = x @ kernel
@@ -187,6 +228,8 @@ class Attention(nn.Module):
     normalised probabilities, with the coordinate-hash keep mask of the
     per-call ``dropout_seed``, on both paths. ``stats_chunk``: the KV chunk
     of ``return_weights="stats"`` (:func:`streaming_attention_stats`).
+    ``mesh``: see the module docstring; the hash rows of a shard are its
+    global (batch*head) rows, so every layout drops what one device does.
     """
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
@@ -201,54 +244,122 @@ class Attention(nn.Module):
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.temperature, self.attention_impl = temperature, attention_impl
         self.stats_chunk = stats_chunk
+        self.is_cross = context_dim is not None
+        self.mesh = None
         self.to_q = torch_dense(inner, query_dim, use_bias=False, dtype=dtype)
         self.to_kv = FoldedKV(inner * 2, in_features=ctx_dim, dtype=dtype)
         self.to_out = torch_dense(query_dim, inner, dtype=dtype)
 
-    def kv_fold(self, scale, bias):
-        return self.to_kv.fold(scale, bias)
+    def kv_fold(self, scale, bias, seq_sharded: bool = False):
+        return self.to_kv.fold(scale, bias, self.kv_weight(seq_sharded))
+
+    def local_heads(self) -> int:
+        """The heads this rank holds (all of them unless split over ``model``)."""
+        return self.to_q.weight.shape[0] // self.dim_head
+
+    def model_group(self):
+        """The ``model`` group where this module's heads are split, else None."""
+        return _model_group(self.mesh, self.local_heads() < self.heads)
+
+    def kv_weight(self, seq_sharded: bool) -> torch.Tensor:
+        """``to_kv``'s weight; over a context split along ``seq`` each rank
+        sees its own tokens, so its gradient is summed over ``seq``."""
+        seq = self.mesh.group(AXIS_SEQ) if seq_sharded and self.mesh is not None else None
+        return sum_grad(self.to_kv.weight, seq)
+
+    def kv_affine(self, scale, bias, seq_sharded: bool):
+        """A context LayerNorm's affine as the KV path sees it: its gradient
+        summed over ``seq`` (a context split along it) and over ``model``
+        (heads split over it), where each rank holds a part."""
+        groups = [self.model_group()]
+        if seq_sharded and self.mesh is not None:
+            groups.append(self.mesh.group(AXIS_SEQ))
+        for group in groups:
+            scale, bias = sum_grad(scale, group), sum_grad(bias, group)
+        return scale, bias
+
+    def _should_use_seq_parallel(self, is_cross: bool, return_weights) -> bool:
+        """JAX's dispatch, for a context whose tokens the batch placement
+        split over ``seq`` (which tokens split is its rule,
+        :func:`healnet_tpu_torch.parallel.train.splits_tokens`): a mesh with
+        ``seq`` > 1, cross-attention and no weight capture."""
+        seq = 1 if self.mesh is None else self.mesh.shape[AXIS_SEQ]
+        return seq > 1 and is_cross and not return_weights
+
+    def hash_rows(self, b: int, heads: int) -> dict:
+        """``row_offset`` / ``head_stride`` of this rank's (b, heads) rows:
+        its first batch row ``data coordinate * b`` and first head, over
+        the model's ``self.heads``."""
+        if self.mesh is None:
+            return dict(row_offset=0, head_stride=self.heads)
+        h0 = self.mesh.coord(AXIS_MODEL) * heads if heads < self.heads else 0
+        return dict(row_offset=self.mesh.coord(AXIS_DATA) * b * self.heads + h0,
+                    head_stride=self.heads)
+
+    def _out(self, out: torch.Tensor, model) -> torch.Tensor:
+        y = self.to_out(out) if model is None else row_parallel(self.to_out, out, model)
+        return F.leaky_relu(y, negative_slope=1e-2)
 
     def forward(self, x, context=None, kv_mask=None, kv=None,
                 dropout_seed: Optional[Union[int, torch.Tensor]] = None,
                 return_weights: Union[bool, str] = False,
                 ctx_scale=None, ctx_bias=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                seq_sharded: bool = False):
         """``kv``: precomputed (b, tokens, 2 * inner) merged-KV slice;
         ``dropout_seed``: the raw 32-bit hash seed of this call (an int, or
         a one-element tensor on the inputs' device), required in training
         when ``dropout > 0``; ``ctx_scale`` / ``ctx_bias``: a
         LayerNorm affine folded into ``to_kv`` over an already normalised
         ``context``; ``generator``: draws the keep mask under
-        ``mask_family("threefry")``. Returns ``(out, weights)``: the
+        ``mask_family("threefry")``; ``seq_sharded``: ``context`` / ``kv``
+        and ``kv_mask`` hold this rank's tokens of a context split over
+        ``seq`` (the sequence-parallel route). Returns ``(out, weights)``: the
         post-softmax, pre-dropout weights ``(b, h, lq, lkv)`` with
         ``return_weights`` (always on the plain path), the statistics of
         :func:`streaming_attention_stats` with ``return_weights="stats"``,
         else None."""
-        inner = self.dim_head * self.heads
+        heads = self.local_heads()
+        inner = self.dim_head * heads
         scale = self.dim_head**-0.5
         rate = self.dropout if self.training else 0.0
         if rate > 0.0 and dropout_seed is None:
             raise ValueError("attention dropout needs a dropout_seed")
+        model = self.model_group()
+        x = sum_grad(x, model)
         q = self.to_q(x)
         if kv is None:
-            kv = self.to_kv(x if context is None else context, scale=ctx_scale, bias=ctx_bias)
+            kv = self.to_kv(x if context is None else context, scale=ctx_scale, bias=ctx_bias,
+                            weight=self.kv_weight(seq_sharded))
         k, v = split_columns(kv, (inner, inner))
-        qh, kh, vh = (split_heads(t, self.heads) for t in (q, k, v))
+        qh, kh, vh = (split_heads(t, heads) for t in (q, k, v))
         kw = dict(scale=scale, temperature=self.temperature, kv_mask=kv_mask,
                   dropout_rate=rate, dropout_seed=dropout_seed)
         weights = None
+        if seq_sharded:
+            if not self._should_use_seq_parallel(self.is_cross, return_weights):
+                raise ValueError("a context split over seq takes the sequence-parallel route: "
+                                 "cross-attention without weight capture")
+            out = sequence_parallel_attention(qh, kh, vh, self.mesh, heads=self.heads, **kw)
+            return self._out(out, model), None
+        sharded = self.mesh is not None and self.mesh.size > 1
         if return_weights == "stats":
+            if sharded:
+                raise ValueError("attention statistics are taken on one device")
             # chunked inspection: the map's reductions, never the whole map
             out, stats = streaming_attention_stats(qh, kh, vh, chunk=self.stats_chunk, **kw)
-            return F.leaky_relu(self.to_out(out), negative_slope=1e-2), stats
+            return self._out(out, model), stats
+        kw.update(self.hash_rows(qh.shape[0], heads))
         # capture needs the materialised weights: the plain path, as in JAX
         if not return_weights and self._should_use_flash(rate, qh.shape[0], qh.shape[2],
                                                          kh.shape[2], qh.is_cuda):
             out = flash_cross_attention(qh, kh, vh, **kw)
         else:
+            if sharded and rate > 0 and mask_family() == "threefry":
+                raise ValueError("a sharded run drops attention with the hash mask family")
             out, weights = multihead_attention(qh, kh, vh, return_weights=return_weights,
                                                generator=generator, **kw)
-        return F.leaky_relu(self.to_out(out), negative_slope=1e-2), weights
+        return self._out(out, model), weights
 
     def _should_use_flash(self, dropout_rate: float, b: int, lq: int, lkv: int,
                           on_card: bool) -> bool:
@@ -287,25 +398,28 @@ class PreNormAttention(nn.Module):
                             attention_impl=attention_impl, dtype=dtype,
                             stats_chunk=stats_chunk)
 
-    def kv_fold(self):
-        """This layer's context-KV weights with its LayerNorm affine folded."""
-        scale, bias = self.norm_context()
-        return self.fn.kv_fold(scale, bias)
+    def kv_fold(self, seq_sharded: bool = False):
+        """This layer's context-KV weights with its LayerNorm affine folded
+        (``seq_sharded``: over this rank's tokens of a context split along
+        ``seq``)."""
+        scale, bias = self.fn.kv_affine(*self.norm_context(), seq_sharded)
+        return self.fn.kv_fold(scale, bias, seq_sharded)
 
     def forward(self, x, context=None, kv_mask=None, kv=None, dropout_seed=None,
                 return_weights: Union[bool, str] = False, context_normalized: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, seq_sharded: bool = False):
         """``context_normalized``: ``context`` is the shared normalised
         context (the remat path); this layer's ``norm_context`` affine is
-        then folded into ``to_kv`` instead of applied over the context."""
+        then folded into ``to_kv`` instead of applied over the context.
+        ``seq_sharded``: see :meth:`Attention.forward`."""
         normed = self.norm(x)
         normed_ctx = ctx_scale = ctx_bias = None
         if kv is None and context is not None:
             if context_normalized:
-                ctx_scale, ctx_bias = self.norm_context()
+                ctx_scale, ctx_bias = self.fn.kv_affine(*self.norm_context(), seq_sharded)
                 normed_ctx = context
             else:
-                scale_p, bias_p = self.norm_context()
+                scale_p, bias_p = self.fn.kv_affine(*self.norm_context(), seq_sharded)
                 xf = context.float()
                 mu = xf.mean(dim=-1, keepdim=True)
                 var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
@@ -313,7 +427,8 @@ class PreNormAttention(nn.Module):
                 normed_ctx = (xhat * scale_p + bias_p).to(self.dtype or context.dtype)
         return self.fn(normed, context=normed_ctx, kv_mask=kv_mask, kv=kv,
                        dropout_seed=dropout_seed, return_weights=return_weights,
-                       ctx_scale=ctx_scale, ctx_bias=ctx_bias, generator=generator)
+                       ctx_scale=ctx_scale, ctx_bias=ctx_bias, generator=generator,
+                       seq_sharded=seq_sharded)
 
 
 class PreNormFeedForward(nn.Module):

@@ -55,13 +55,19 @@ def multihead_attention(
     dropout_seed: Optional[Union[int, torch.Tensor]] = None,
     return_weights: bool = False,
     generator: Optional[torch.Generator] = None,
+    row_offset: int = 0,
+    kv_offset: int = 0,
+    head_stride: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention over projected q/k/v; returns ``((b, lq, h * d), weights)``.
 
     ``dropout_seed`` is the raw 32-bit coordinate-hash seed; dropout applies
     only when it is given and ``dropout_rate > 0``. Under
     ``mask_family("threefry")`` the keep mask is drawn from ``generator`` (on
-    the inputs' device) instead of the hash.
+    the inputs' device) instead of the hash. ``row_offset``, ``kv_offset``
+    and ``head_stride`` (0: ``h``) place a shard's rows and keys at their
+    global hash coordinates (:func:`~healnet_tpu_torch.ops.hash_dropout.
+    hash_rows`).
     """
     attn = attention_scores(q, k, scale, temperature=temperature, kv_mask=kv_mask)
     if kv_mask is not None:
@@ -77,7 +83,8 @@ def multihead_attention(
                 < 1.0 - dropout_rate
         else:
             keep = dense_keep_mask(
-                dropout_seed, b * h, lq, lkv, dropout_rate, device=attn.device
+                dropout_seed, b * h, lq, lkv, dropout_rate, device=attn.device,
+                row_offset=row_offset, kv_offset=kv_offset, heads=h, head_stride=head_stride,
             ).reshape(b, h, lq, lkv)
         attn = torch.where(keep, attn / (1.0 - dropout_rate), torch.zeros_like(attn))
     out = torch.einsum("bhij,bhjd->bhid", attn, v)

@@ -95,6 +95,10 @@ struct FmaParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  // the hash row of row (b, h): row_offset + b * head_stride + h (a shard's
+  // rows at their coordinates in the whole batch)
+  uint32_t row_offset;
+  int head_stride;
 };
 
 // Byte offsets into the block's shared memory: the ring's stages (none
@@ -133,7 +137,7 @@ __device__ __forceinline__ void fwd_group(const FmaParams& p, uint32_t seed,
                                           float* raw, float* tiles,
                                           const float* qs, float* ps, float* rm, float* rl,
                                           float* racc, const T* k, const T* v, const float* mask,
-                                          int row, int g0, int nq, int kv_begin, int kv_end,
+                                          uint32_t hrow, int g0, int nq, int kv_begin, int kv_end,
                                           int ntiles, int rank, int csize) {
   using S = fv::Shape<T, DP>;
   constexpr int KT = fv::kKeys, P = S::kPitch, TF = S::kTileFloats, CPL = S::kChPerLane;
@@ -189,7 +193,7 @@ __device__ __forceinline__ void fwd_group(const FmaParams& p, uint32_t seed,
       if (p.dropout) {
 #pragma unroll
         for (int s = 0; s < NS; ++s)
-          x[s] *= healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(g0 + warp + tc::kWarps * s),
+          x[s] *= healnet::hash_keep(seed, hrow, (uint32_t)(g0 + warp + tc::kWarps * s),
                                      (uint32_t)(k0 + lane), p.threshold)
                       ? p.keep_scale
                       : 0.f;
@@ -251,6 +255,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const uint32_t hrow = p.row_offset + (uint32_t)(b * p.head_stride + h);
   const int tid = threadIdx.x, warp = tid >> 5, St = p.stages;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -280,7 +285,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_fwd_
     }
     const int ns = fv::slots_of(warp, nq);
 #define FWD_GROUP(NS)                                                                         \
-  fwd_group<T, DP, NS>(p, seed, rc, raw, tiles, qs, ps, rm, rl, racc, k, v, mask, row, g0, nq, kv_begin, \
+  fwd_group<T, DP, NS>(p, seed, rc, raw, tiles, qs, ps, rm, rl, racc, k, v, mask, hrow, g0, nq, kv_begin, \
                        kv_end, ntiles, rank, csize)
     switch (ns) {
       case 0: FWD_GROUP(0); break;
@@ -329,6 +334,10 @@ struct TcParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  // the hash row of row (b, h): row_offset + b * head_stride + h (a shard's
+  // rows at their coordinates in the whole batch)
+  uint32_t row_offset;
+  int head_stride;
 };
 
 // Byte offsets into the block's shared memory. The warps' states (m, l,
@@ -382,6 +391,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const uint32_t hrow = p.row_offset + (uint32_t)(b * p.head_stride + h);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int mt = warp >> 2, wk = (warp & 3) * 16;
   const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
@@ -468,7 +478,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_fwd_tc(T
           float pr = __expf(x[j] - m_new) * mk[col];
           sum += pr;
           if (p.dropout)
-            pr *= healnet::hash_keep(seed, (uint32_t)row, qi, (uint32_t)(k0 + col),
+            pr *= healnet::hash_keep(seed, hrow, qi, (uint32_t)(k0 + col),
                                      p.threshold)
                       ? p.keep_scale
                       : 0.f;
@@ -602,7 +612,8 @@ extern "C" int healnet_flash_forward(
     int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
-    const void* seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, unsigned int row_offset,
+    int head_stride, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128)) return (int)cudaErrorInvalidValue;
   FmaParams p;
@@ -632,6 +643,8 @@ extern "C" int healnet_flash_forward(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;
@@ -654,7 +667,8 @@ extern "C" int healnet_flash_forward_tc(
     int B, int H, int lq, int lkv, int d, int cluster, int keys_per_cta, long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long mask_sb, float scale, int dropout,
-    const void* seed, unsigned int threshold, float keep_scale, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, unsigned int row_offset,
+    int head_stride, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   TcParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -683,6 +697,8 @@ extern "C" int healnet_flash_forward_tc(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return static_cast<int>(tc::with_dp(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;

@@ -102,6 +102,10 @@ struct FmaParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  // the hash row of row (b, h): row_offset + b * head_stride + h (a shard's
+  // rows at their coordinates in the whole batch)
+  uint32_t row_offset;
+  int head_stride;
 };
 
 // queries of a chunk rounded up to whole slot rows (8 warps)
@@ -221,7 +225,7 @@ __device__ __forceinline__ void bwd_chunk(const FmaParams& p, uint32_t seed,
                                           const float* qs, const float* dos, const float* lse_s,
                                           const float* del_s, float* pdbuf, float* rdq,
                                           const T* k, const T* v, const float* mask, T* dk,
-                                          T* dv, float* dk_acc, float* dv_acc, int row, int q0c,
+                                          T* dv, float* dk_acc, float* dv_acc, uint32_t hrow, int q0c,
                                           int nq, int rows, int kv_begin, int kv_end,
                                           int ntiles, int rank, int csize, bool first,
                                           bool last) {
@@ -277,7 +281,7 @@ __device__ __forceinline__ void bwd_chunk(const FmaParams& p, uint32_t seed,
           const float pr = __expf(x - lse_s[r]) * mkv;
           float e = 1.f;
           if (p.dropout)
-            e = healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
+            e = healnet::hash_keep(seed, hrow, (uint32_t)(q0c + r), (uint32_t)(k0 + lane),
                                    p.threshold)
                     ? p.keep_scale
                     : 0.f;
@@ -333,6 +337,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const uint32_t hrow = p.row_offset + (uint32_t)(b * p.head_stride + h);
   const int tid = threadIdx.x, warp = tid >> 5, St = p.stages;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -376,7 +381,7 @@ __global__ void __launch_bounds__(tc::kThreads, fv::min_blocks<DP>()) flash_bwd_
     const int ns = fv::slots_of(warp, nq);
 #define BWD_CHUNK(NS)                                                                       \
   bwd_chunk<T, DP, NS>(p, seed, rc, raw, tiles, qs, dos, lse_s, del_s, pdbuf, rdq, k, v, mask, dk, dv,     \
-                       dk_acc, dv_acc, row, q0c, nq, rows, kv_begin, kv_end, ntiles, rank, \
+                       dk_acc, dv_acc, hrow, q0c, nq, rows, kv_begin, kv_end, ntiles, rank, \
                        csize, first, last)
     switch (ns) {
       case 0: BWD_CHUNK(0); break;
@@ -424,6 +429,10 @@ struct TcParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  // the hash row of row (b, h): row_offset + b * head_stride + h (a shard's
+  // rows at their coordinates in the whole batch)
+  uint32_t row_offset;
+  int head_stride;
 };
 
 __host__ __device__ inline int pad_queries(int lq) {
@@ -498,6 +507,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
   tc::cg::cluster_group cluster = tc::cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+  const uint32_t hrow = p.row_offset + (uint32_t)(b * p.head_stride + h);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int wk = (warp & 3) * 16, qh = warp >> 2;
   const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
@@ -595,7 +605,7 @@ __global__ void __launch_bounds__(tc::kThreads, DP <= 64 ? 2 : 1) flash_bwd_tc(T
                 const float pr = __expf(x - lse_s[qi]) * mkv;
                 float ev = 1.f;
                 if (p.dropout)
-                  ev = healnet::hash_keep(seed, (uint32_t)row, (uint32_t)(q0c + qi),
+                  ev = healnet::hash_keep(seed, hrow, (uint32_t)(q0c + qi),
                                           (uint32_t)(k0 + kc), p.threshold)
                            ? p.keep_scale
                            : 0.f;
@@ -816,7 +826,8 @@ extern "C" int healnet_flash_backward(
     long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, long long o_st, long long mask_sb, float scale, int dropout,
-    const void* seed, unsigned int threshold, float keep_scale, int is_bf16, void* stream) {
+    const void* seed, unsigned int threshold, float keep_scale, unsigned int row_offset,
+    int head_stride, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   if (d < 1 || d > fv::kMaxD || (is_bf16 && d <= 128) || q_chunk < 1 ||
       q_chunk > fv::kGroup)
@@ -858,6 +869,8 @@ extern "C" int healnet_flash_backward(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return static_cast<int>(fv::with_dp32(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;
@@ -887,7 +900,7 @@ extern "C" int healnet_flash_backward_tc(
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
     long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
-    float keep_scale, void* stream) {
+    float keep_scale, unsigned int row_offset, int head_stride, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   TcParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -926,6 +939,8 @@ extern "C" int healnet_flash_backward_tc(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return static_cast<int>(tc::with_dp(d, [&](auto dp) -> cudaError_t {
     constexpr int DP = decltype(dp)::value;

@@ -503,11 +503,14 @@ __device__ __forceinline__ int slots_of(int warp, int n) {
   return warp < n ? (n - 1 - warp) / NW + 1 : 0;
 }
 
-__device__ __forceinline__ float keep(uint32_t seed, int row, int q, int kv, uint32_t threshold,
-                                      float scale) {
-  return healnet::hash_keep(seed, (uint32_t)row, (uint32_t)q, (uint32_t)kv, threshold) ? scale
-                                                                                         : 0.f;
+__device__ __forceinline__ float keep(uint32_t seed, uint32_t row, int q, int kv,
+                                      uint32_t threshold, float scale) {
+  return healnet::hash_keep(seed, row, (uint32_t)q, (uint32_t)kv, threshold) ? scale : 0.f;
 }
+
+// A block's batch*head row, read from blockIdx where an index needs it (a
+// register holds the row's hash row instead: Block::hrow).
+__device__ __forceinline__ int block_row() { return (int)blockIdx.y; }
 
 // The passes over the keys a query group (or chunk) takes, and what pass
 // `pass` does: one fused pass, or T score passes then T output passes.
@@ -539,15 +542,21 @@ struct FwdParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  uint32_t row_offset;  // the hash rows: row_offset + b * head_stride + h
+  int head_stride;
 };
 
 // What every kernel of this file knows of its block: its cluster rank, its
-// panel and key range, its batch*head row, its keys and tiles, and the
-// columns of the panel it is on. Without panels (kP false) the panel is the
-// head: pan 0, the range the rank, columns [0, d), all known to the compiler.
+// panel and key range, its batch and head and their hash row, its keys and
+// tiles, and the columns of the panel it is on. Without panels (kP false)
+// the panel is the head: pan 0, the range the rank, columns [0, d), all
+// known to the compiler.
 template <typename T, bool kP>
 struct Block {
-  int rank, pan, kr, nkr, row, b, h, kv_begin, kv_end, ntiles;
+  int rank, pan, kr, nkr, b, h, kv_begin, kv_end, ntiles;
+  // the dropout hash's row of (b, h): row_offset + b * head_stride + h, a
+  // shard's rows at their coordinates in the whole batch
+  uint32_t hrow;
   int c0, wd;  // the panel's columns [c0, c0 + wd) of the head
   // the panel's K and V rows start on 16 bytes and fill their padded width:
   // a landed whole tile is already aligned, zero-padded tiles
@@ -567,7 +576,8 @@ struct Block {
     } else {
       pan = 0, kr = rank, nkr = (int)cluster.num_blocks();
     }
-    row = blockIdx.y, b = row / p.H, h = row - b * p.H;
+    b = block_row() / p.H, h = block_row() - b * p.H;
+    hrow = p.row_offset + (uint32_t)(b * p.head_stride + h);
     mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
     kv_begin = kr * p.keys_per_cta;
     kv_end = min(p.lkv, kv_begin + p.keys_per_cta);
@@ -713,7 +723,7 @@ __device__ __forceinline__ void merge_out(const FwdParams& p, const float* rm, c
     const float lc = fmaxf(ls, 1e-30f);
     out[((size_t)(blk.b * p.lq + g0 + r) * p.H + blk.h) * p.d + blk.c0 + c] =
         fv::from_float<T>(a / lc);
-    if (blk.c0 + c == 0) p.lse[(size_t)blk.row * p.lq + g0 + r] = mx + logf(lc);
+    if (blk.c0 + c == 0) p.lse[(size_t)block_row() * p.lq + g0 + r] = mx + logf(lc);
   }
 }
 
@@ -898,7 +908,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p)
                 float* held =
                     mode == kFused
                         ? nullptr
-                        : p.scores + ((size_t)blk.row * p.lq + g0 + r) * p.lkv + k0 + lane;
+                        : p.scores + ((size_t)block_row() * p.lq + g0 + r) * p.lkv + k0 + lane;
                 if (mode == kOutput) {
                   sv = live ? *held : 0.f;
                 } else {
@@ -917,7 +927,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_fwd_wide_tc(FwdParams p)
               float pr = __expf(x - m_new) * mkv;
               l[s] = l[s] * corr + pr;  // the lane's key; the warp sums at the end
               if (p.dropout)
-                pr *= keep(blk.seed, blk.row, g0 + r, k0 + lane, p.threshold, p.keep_scale);
+                pr *= keep(blk.seed, blk.hrow, g0 + r, k0 + lane, p.threshold, p.keep_scale);
               ps[r * PP + lane] = __float2bfloat16(pr);
               if (lane == 0) corr_s[r] = corr;
             }
@@ -1041,7 +1051,7 @@ __device__ __forceinline__ void fwd_f32_group(const FwdParams& p, Block<float, k
       if (mode == kOutput) {
 #pragma unroll
         for (int s = 0; s < NS; ++s)
-          sc[s] = live ? p.scores[((size_t)blk.row * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 +
+          sc[s] = live ? p.scores[((size_t)block_row() * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 +
                                   key]
                        : 0.f;
       } else {
@@ -1079,7 +1089,7 @@ __device__ __forceinline__ void fwd_f32_group(const FwdParams& p, Block<float, k
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
               float* held =
-                  p.scores + ((size_t)blk.row * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 + key;
+                  p.scores + ((size_t)block_row() * p.lq + g0 + warp + kWarps * s) * p.lkv + k0 + key;
               *held = (pass > 0 ? *held : 0.f) + sc[s];
             }
         }
@@ -1103,7 +1113,7 @@ __device__ __forceinline__ void fwd_f32_group(const FwdParams& p, Block<float, k
 #pragma unroll
           for (int i = 0; i < kMaxCpl; ++i) a[s][i] *= corr;
           if (p.dropout)
-            x[s] *= keep(blk.seed, blk.row, g0 + warp + kWarps * s, k0 + key, p.threshold,
+            x[s] *= keep(blk.seed, blk.hrow, g0 + warp + kWarps * s, k0 + key, p.threshold,
                          p.keep_scale);
           if (half == 0) pw[s * KT + key] = x[s];
         }
@@ -1225,6 +1235,8 @@ struct BwdParams {
   const uint32_t* seed;  // the 32-bit hash seed, in device memory (read once a block)
   uint32_t threshold;
   float keep_scale;
+  uint32_t row_offset;  // the hash rows: row_offset + b * head_stride + h
+  int head_stride;
 };
 
 // The backward's scratch of s (which 0) or dp (1) at (query q, key kv).
@@ -1307,7 +1319,7 @@ template <typename T, int NW, bool kP>
 __device__ __forceinline__ void merge_dq(const BwdParams& p, const float* rdq,
                                          const Block<T, kP>& blk, int q0c, int nq) {
   const int wd = blk.wd, ne = nq * wd, share = (ne + blk.nkr - 1) / blk.nkr;
-  T* dq = static_cast<T*>(p.dq) + ((size_t)blk.row * p.lq + q0c) * p.d + blk.c0;
+  T* dq = static_cast<T*>(p.dq) + ((size_t)block_row() * p.lq + q0c) * p.d + blk.c0;
   for (int e = blk.kr * share + threadIdx.x; e < min(ne, (blk.kr + 1) * share); e += 32 * NW) {
     float a = 0.f;
     for (int j = 0; j < blk.nkr; ++j) a += rdq[j * share + e - blk.kr * share];
@@ -1327,8 +1339,8 @@ __device__ __forceinline__ void load_chunk(const BwdParams& p, const Block<T, kP
   load_rows<T, NW>(qs, blk.q, p.q_st, q0c, rows, q0c + nq, blk.wd, dp, tid);
   load_rows<T, NW>(dos, dout + blk.c0, p.o_st, q0c, rows, q0c + nq, blk.wd, dp, tid);
   for (int i = tid; i < rows; i += 32 * NW) {
-    lse_s[i] = i < nq ? p.lse[(size_t)blk.row * p.lq + q0c + i] : 1e30f;
-    del_s[i] = i < nq ? p.delta[(size_t)blk.row * p.lq + q0c + i] : 0.f;
+    lse_s[i] = i < nq ? p.lse[(size_t)block_row() * p.lq + q0c + i] : 1e30f;
+    del_s[i] = i < nq ? p.delta[(size_t)block_row() * p.lq + q0c + i] : 0.f;
   }
 }
 
@@ -1409,9 +1421,9 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int n0 = warp * ntw, npass = kPanels ? passes_of(p) : 1;
   const bf16* dout = static_cast<const bf16*>(p.dout) + blk.b * p.o_sb + blk.h * p.o_sh;
-  bf16* dk = static_cast<bf16*>(p.dk) + (size_t)blk.row * p.lkv * p.d;
-  bf16* dv = static_cast<bf16*>(p.dv) + (size_t)blk.row * p.lkv * p.d;
-  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)blk.row * p.lkv * p.d : nullptr;
+  bf16* dk = static_cast<bf16*>(p.dk) + (size_t)block_row() * p.lkv * p.d;
+  bf16* dv = static_cast<bf16*>(p.dv) + (size_t)block_row() * p.lkv * p.d;
+  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)block_row() * p.lkv * p.d : nullptr;
   float* dv_acc = p.dkv_acc ? dk_acc + (size_t)gridDim.y * p.lkv * p.d : nullptr;
 
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
@@ -1451,8 +1463,8 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
               for (int e = 0; e < 4; ++e) {
                 const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
                 if (qi < nq && k0 + kc < blk.kv_end) {
-                  s4[e] = *held_at(p, 0, blk.row, q0c + qi, k0 + kc);
-                  d4[e] = *held_at(p, 1, blk.row, q0c + qi, k0 + kc);
+                  s4[e] = *held_at(p, 0, block_row(), q0c + qi, k0 + kc);
+                  d4[e] = *held_at(p, 1, block_row(), q0c + qi, k0 + kc);
                 }
               }
             } else {
@@ -1489,8 +1501,8 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
                   for (int e = 0; e < 4; ++e) {
                     const int qi = mt * 16 + g + 8 * (e >> 1), kc = nk + 2 * t + (e & 1);
                     if (qi < nq && k0 + kc < blk.kv_end) {
-                      float* hs = held_at(p, 0, blk.row, q0c + qi, k0 + kc);
-                      float* hd = held_at(p, 1, blk.row, q0c + qi, k0 + kc);
+                      float* hs = held_at(p, 0, block_row(), q0c + qi, k0 + kc);
+                      float* hd = held_at(p, 1, block_row(), q0c + qi, k0 + kc);
                       *hs = (pass > 0 ? *hs : 0.f) + s4[e];
                       *hd = (pass > 0 ? *hd : 0.f) + d4[e];
                     }
@@ -1505,7 +1517,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1) flash_bwd_wide_tc(BwdParams p)
                 const float sx = s4[e] * p.scale + (mkv - 1.f) * 1e30f;
                 const float pr = __expf(sx - lse_s[qi]) * mkv;
                 const float ev =
-                    p.dropout ? keep(blk.seed, blk.row, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
+                    p.dropout ? keep(blk.seed, blk.hrow, q0c + qi, k0 + kc, p.threshold, p.keep_scale)
                               : 1.f;
                 pt[kc * QP + qi] = __float2bfloat16(pr * ev);
                 dst[kc * QP + qi] = __float2bfloat16(pr * (d4[e] * ev - del_s[qi]));
@@ -1631,8 +1643,8 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, Block<float, k
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           const int r = warp + NW * s;
-          sv[s] = live ? *held_at(p, 0, blk.row, q0c + r, k0 + key) : 0.f;
-          dpv[s] = live ? *held_at(p, 1, blk.row, q0c + r, k0 + key) : 0.f;
+          sv[s] = live ? *held_at(p, 0, block_row(), q0c + r, k0 + key) : 0.f;
+          dpv[s] = live ? *held_at(p, 1, block_row(), q0c + r, k0 + key) : 0.f;
         }
       } else {
         float sd[2][NS];
@@ -1681,8 +1693,8 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, Block<float, k
           if (mode == kScore && blk.pan == 0 && half == 0 && live)
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
-              float* hs = held_at(p, 0, blk.row, q0c + warp + NW * s, k0 + key);
-              float* hd = held_at(p, 1, blk.row, q0c + warp + NW * s, k0 + key);
+              float* hs = held_at(p, 0, block_row(), q0c + warp + NW * s, k0 + key);
+              float* hd = held_at(p, 1, block_row(), q0c + warp + NW * s, k0 + key);
               *hs = (pass > 0 ? *hs : 0.f) + sv[s];
               *hd = (pass > 0 ? *hd : 0.f) + dpv[s];
             }
@@ -1695,7 +1707,7 @@ __device__ __forceinline__ void bwd_f32_chunk(const BwdParams& p, Block<float, k
           const float x = sv[s] * p.scale + (mkv - 1.f) * 1e30f;
           const float pr = __expf(x - lse_s[r]) * mkv;
           const float e =
-              p.dropout ? keep(blk.seed, blk.row, q0c + r, k0 + key, p.threshold, p.keep_scale)
+              p.dropout ? keep(blk.seed, blk.hrow, q0c + r, k0 + key, p.threshold, p.keep_scale)
                         : 1.f;
           if (half == 0) {
             pd[r * KT + key] = pr * e;
@@ -1804,9 +1816,9 @@ __global__ void __launch_bounds__(32 * kBwdF32Warps, 1) flash_bwd_wide_fma(BwdPa
   Xchg xg = make_xchg<kPanels>(wide_smem + L.xb, slot_floats<float>(rows, true), blk, cluster);
   const int warp = threadIdx.x >> 5, npass = kPanels ? passes_of(p) : 1;
   const float* dout = static_cast<const float*>(p.dout) + blk.b * p.o_sb + blk.h * p.o_sh;
-  float* dk = static_cast<float*>(p.dk) + (size_t)blk.row * p.lkv * p.d;
-  float* dv = static_cast<float*>(p.dv) + (size_t)blk.row * p.lkv * p.d;
-  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)blk.row * p.lkv * p.d : nullptr;
+  float* dk = static_cast<float*>(p.dk) + (size_t)block_row() * p.lkv * p.d;
+  float* dv = static_cast<float*>(p.dv) + (size_t)block_row() * p.lkv * p.d;
+  float* dk_acc = p.dkv_acc ? p.dkv_acc + (size_t)block_row() * p.lkv * p.d : nullptr;
   float* dv_acc = p.dkv_acc ? dk_acc + (size_t)gridDim.y * p.lkv * p.d : nullptr;
 
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
@@ -2015,7 +2027,7 @@ extern "C" int healnet_flash_wide_forward(
     int panels, int passes, long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
     long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
-    float keep_scale, int is_bf16, void* stream) {
+    float keep_scale, unsigned int row_offset, int head_stride, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   Geometry g;
   if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0 ||
@@ -2057,6 +2069,8 @@ extern "C" int healnet_flash_wide_forward(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   const int xp = g.panel_kernels() ? panels : 1;
   p.off = is_bf16 ? offsets(FwdLayout<bf16>(g.dp, pl.stages, pl.alias != 0, xp))
                   : offsets(FwdLayout<float>(g.dp, pl.stages, pl.alias != 0, xp));
@@ -2080,7 +2094,7 @@ extern "C" int healnet_flash_wide_backward(
     long long q_st, long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh, long long o_st,
     long long mask_sb, float scale, int dropout, const void* seed, unsigned int threshold,
-    float keep_scale, int is_bf16, void* stream) {
+    float keep_scale, unsigned int row_offset, int head_stride, int is_bf16, void* stream) {
   if (B * H <= 0 || lq <= 0) return 0;
   Geometry g;
   if (!get_geometry(d, is_bf16, panels, passes, &g) || cluster % panels != 0 || q_chunk < 1 ||
@@ -2133,6 +2147,8 @@ extern "C" int healnet_flash_wide_backward(
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_scale = keep_scale;
+  p.row_offset = row_offset;
+  p.head_stride = head_stride;
   const int xp = g.panel_kernels() ? panels : 1, rows = is_bf16 ? chunk_rows<bf16>(q_chunk)
                                                               : chunk_rows<float>(q_chunk);
   p.off = is_bf16 ? offsets(BwdLayout<bf16>(g.dp, rows, pl.stages, pl.alias != 0, xp))

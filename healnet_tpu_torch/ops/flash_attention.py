@@ -83,13 +83,14 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, i, p]
+        fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, u, i, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_max_queries.argtypes = [i]
         lib.healnet_flash_max_queries.restype = i
         lib.healnet_flash_fma_max_clusters.argtypes = [i, i, i]
         lib.healnet_flash_fma_max_clusters.restype = i
-        lib.healnet_flash_forward_tc.argtypes = [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, p]
+        lib.healnet_flash_forward_tc.argtypes = (
+            [p] * 6 + [i] * 7 + [ll] * 10 + [f, i, p, u, f, u, i, p])
         lib.healnet_flash_forward_tc.restype = ctypes.c_int
         lib.healnet_flash_tc_max_clusters.argtypes = [i, i]
         lib.healnet_flash_tc_max_clusters.restype = ctypes.c_int
@@ -102,13 +103,14 @@ def _bwd_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, i, p]
+        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, u, i, i, p]
         fn.restype = ctypes.c_int
         lib.healnet_flash_bwd_max_queries.argtypes = [i]
         lib.healnet_flash_bwd_max_queries.restype = i
         lib.healnet_flash_bwd_fma_max_clusters.argtypes = [i, i, i, i]
         lib.healnet_flash_bwd_fma_max_clusters.restype = i
-        lib.healnet_flash_backward_tc.argtypes = [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, p]
+        lib.healnet_flash_backward_tc.argtypes = (
+            [p] * 11 + [i] * 9 + [ll] * 13 + [f, i, p, u, f, u, i, p])
         lib.healnet_flash_backward_tc.restype = ctypes.c_int
         lib.healnet_flash_bwd_tc_max_queries.argtypes = [i]
         lib.healnet_flash_bwd_tc_max_queries.restype = i
@@ -249,10 +251,10 @@ def _wide_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint32)
-        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [f, i, p, u, f, i, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [f, i, p, u, f, u, i, i, p]
         fn.restype = i
         lib.healnet_flash_wide_backward.argtypes = (
-            [p] * 12 + [i] * 11 + [ll] * 13 + [f, i, p, u, f, i, p])
+            [p] * 12 + [i] * 11 + [ll] * 13 + [f, i, p, u, f, u, i, i, p])
         lib.healnet_flash_wide_backward.restype = i
         lib.healnet_flash_wide_max_d.restype = i
         lib.healnet_flash_wide_max_panels.restype = i
@@ -363,13 +365,17 @@ def seed_word(seed: Optional[SeedLike], device: torch.device) -> torch.Tensor:
                         device=device)
 
 
-def _dropout_args(rate: float, seed: Optional[SeedLike], device: torch.device):
+def _dropout_args(rate: float, seed: Optional[SeedLike], device: torch.device,
+                  row_offset: int, head_stride: int):
     """(the kernels' dropout arguments, the seed word they point at, to be
-    kept alive over the launch)."""
+    kept alive over the launch). The hash row of row (b, h) is
+    ``row_offset + b * head_stride + h`` (launch arguments: a captured graph
+    keeps them, as a shard's offsets stay the same from step to step)."""
+    rows = (int(row_offset) & 0xFFFFFFFF, int(head_stride))
     if rate <= 0:
-        return (0, None, keep_threshold(rate), keep_scale(rate)), None
+        return (0, None, keep_threshold(rate), keep_scale(rate), *rows), None
     word = seed_word(seed, device)
-    return (1, word.data_ptr(), keep_threshold(rate), keep_scale(rate)), word
+    return (1, word.data_ptr(), keep_threshold(rate), keep_scale(rate), *rows), word
 
 
 def flash_attention_kernel(
@@ -380,6 +386,8 @@ def flash_attention_kernel(
     eff_scale: float,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[SeedLike] = 0,
+    row_offset: int = 0,
+    head_stride: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: returns ``(out (b, lq, h*d), lse (b, h, lq))``.
 
@@ -387,7 +395,10 @@ def flash_attention_kernel(
     on d (the column slices of the merged KV buffer are taken as they are);
     kv_mask: optional (b, lkv), True/1 = attend; eff_scale = scale / T;
     dropout_seed: the hash seed, which every kernel reads from device
-    memory once a block (:func:`seed_word`).
+    memory once a block (:func:`seed_word`); ``row_offset`` and
+    ``head_stride`` (0: ``h``) place a shard's rows at their hash rows
+    ``row_offset + b * head_stride + h`` (:func:`~healnet_tpu_torch.ops.
+    hash_dropout.hash_rows`).
     The route is :func:`flash_variant`'s: bf16 with d <= 128 launches the
     tensor-core kernel (counted in ``launches``), other heads up to 256 the
     FMA kernel (``launches_fma``), heads of 257-512 the one-pass wide kernel
@@ -409,7 +420,8 @@ def flash_attention_kernel(
     mask_ptr = None if mask is None else mask.data_ptr()
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                0 if mask is None else mask.stride(0))
-    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device)
+    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device, row_offset,
+                                head_stride or h)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if variant == "tc":
@@ -485,6 +497,8 @@ def flash_attention_bwd_kernel(
     eff_scale: float,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[SeedLike] = 0,
+    row_offset: int = 0,
+    head_stride: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: returns ``(dq, dk, dv)``, contiguous
     ``(b, h, lq, d)`` / ``(b, h, lkv, d)`` in q's dtype.
@@ -534,7 +548,8 @@ def flash_attention_bwd_kernel(
     mask_ptr = None if mask is None else mask.data_ptr()
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
                0 if mask is None else mask.stride(0))
-    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device)
+    drop, _word = _dropout_args(float(dropout_rate), dropout_seed, q.device, row_offset,
+                                head_stride or h)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), carry_ptr)
     with torch.cuda.device(q.device):
@@ -616,6 +631,8 @@ def flash_backward_plain(
     eff_scale: float,
     dropout_rate: float = 0.0,
     dropout_seed: SeedLike = 0,
+    row_offset: int = 0,
+    head_stride: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel, with materialised
     probabilities (the formulas of the JAX package's ``_bwd_kernel``):
@@ -636,7 +653,8 @@ def flash_backward_plain(
     p = torch.exp(s - lse[..., None]) * mask
     rate = float(dropout_rate)
     if rate > 0:
-        keep = dense_keep_mask(dropout_seed, b * h, lq, lkv, rate, device=q.device)
+        keep = dense_keep_mask(dropout_seed, b * h, lq, lkv, rate, device=q.device,
+                               row_offset=row_offset, heads=h, head_stride=head_stride)
         e = keep.reshape(b, h, lq, lkv).to(p.dtype) * keep_scale(rate)
     else:
         e = torch.ones((), dtype=p.dtype, device=q.device)
@@ -660,27 +678,34 @@ def flash_fwd_op(
     eff_scale: float,
     rate: float,
     seed: Optional[torch.Tensor],
+    row_offset: int = 0,
+    head_stride: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flash forward as a registered op: ``(out (b, lq, h*d), lse (b,
     h, lq))`` as :func:`flash_attention_kernel` returns them, ``seed`` the
-    one-element seed word (:func:`seed_word`; None for seed 0). On CUDA
+    one-element seed word (:func:`seed_word`; None for seed 0),
+    ``row_offset`` / ``head_stride`` the hash rows of a shard (0 and 0 for
+    a whole batch: the schema's defaults, which programs exported without
+    them take). On CUDA
     tensors it launches the kernel; on CPU tensors it is the plain version
     (:func:`multihead_attention` with :func:`flash_lse_plain`). Its fake
     implementation gives the outputs' shapes to ``torch.export``."""
     seed = seed_word(seed, q.device) if rate > 0 else None
     # multihead_attention's scale / temperature is eff_scale
     out, _ = multihead_attention(q, k, v, scale=eff_scale, temperature=1.0, kv_mask=kv_mask,
-                                 dropout_rate=rate, dropout_seed=seed)
+                                 dropout_rate=rate, dropout_seed=seed, row_offset=row_offset,
+                                 head_stride=head_stride)
     return out.contiguous(), flash_lse_plain(q, k, kv_mask, eff_scale).contiguous()
 
 
 @flash_fwd_op.register_kernel("cuda")
-def _flash_fwd_op_cuda(q, k, v, kv_mask, eff_scale, rate, seed):
-    return flash_attention_kernel(q, k, v, kv_mask, eff_scale, rate, seed)
+def _flash_fwd_op_cuda(q, k, v, kv_mask, eff_scale, rate, seed, row_offset=0, head_stride=0):
+    return flash_attention_kernel(q, k, v, kv_mask, eff_scale, rate, seed, row_offset,
+                                  head_stride)
 
 
 @flash_fwd_op.register_fake
-def _flash_fwd_op_fake(q, k, v, kv_mask, eff_scale, rate, seed):
+def _flash_fwd_op_fake(q, k, v, kv_mask, eff_scale, rate, seed, row_offset=0, head_stride=0):
     b, h, lq, d = q.shape
     lse = q.new_empty((b, h, lq), dtype=torch.promote_types(q.dtype, torch.float32))
     return q.new_empty((b, lq, h * d)), lse
@@ -689,11 +714,13 @@ def _flash_fwd_op_fake(q, k, v, kv_mask, eff_scale, rate, seed):
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash cross-attention with its backward, for autograd.
 
-    ``apply(q, k, v, kv_mask, eff_scale, rate, seed)`` -> (b, lq, h * d);
-    ``seed`` an int or a one-element tensor on q's device (the kernels
-    read it there, so a captured step replays with the seed its table
-    holds at the time). The forward is :func:`flash_fwd_op`: CUDA tensors
-    launch the forward and backward kernels; CPU tensors take the plain
+    ``apply(q, k, v, kv_mask, eff_scale, rate, seed[, row_offset,
+    head_stride])`` -> (b, lq, h * d); ``seed`` an int or a one-element
+    tensor on q's device (the kernels read it there, so a captured step
+    replays with the seed its table holds at the time); ``row_offset`` and
+    ``head_stride`` the hash rows of a shard (:func:`flash_attention_kernel`).
+    The forward is :func:`flash_fwd_op`: CUDA tensors launch the forward
+    and backward kernels; CPU tensors take the plain
     versions (:func:`multihead_attention` with
     :func:`flash_lse_plain`, and :func:`flash_backward_plain`), which the
     tests use to check the backward's formulas. The residuals are q, k, v,
@@ -703,11 +730,13 @@ class FlashAttentionFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed):
+    def forward(ctx, q, k, v, kv_mask, eff_scale, rate, seed, row_offset=0, head_stride=0):
         word = seed_word(seed, q.device) if rate > 0 else None
-        out, lse = flash_fwd_op(q, k, v, kv_mask, float(eff_scale), float(rate), word)
+        out, lse = flash_fwd_op(q, k, v, kv_mask, float(eff_scale), float(rate), word,
+                                int(row_offset), int(head_stride))
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.eff_scale, ctx.rate, ctx.seed = eff_scale, rate, seed
+        ctx.rows = (int(row_offset), int(head_stride))
         return out
 
     @staticmethod
@@ -721,8 +750,9 @@ class FlashAttentionFunction(torch.autograd.Function):
             g.float().reshape(b, lq, h, d) * out.float().reshape(b, lq, h, d), dim=-1
         ).transpose(1, 2)
         bwd = flash_attention_bwd_kernel if q.is_cuda else flash_backward_plain
-        dq, dk, dv = bwd(q, k, v, kv_mask, do, lse, delta, ctx.eff_scale, ctx.rate, ctx.seed)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, kv_mask, do, lse, delta, ctx.eff_scale, ctx.rate, ctx.seed,
+                         *ctx.rows)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_cross_attention(
@@ -735,6 +765,8 @@ def flash_cross_attention(
     kv_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[SeedLike] = None,
+    row_offset: int = 0,
+    head_stride: int = 0,
 ) -> torch.Tensor:
     """Fused cross-attention: q (b, h, lq, d), k/v (b, h, lkv, d) ->
     (b, lq, h * d). CUDA tensors go through :class:`FlashAttentionFunction`
@@ -742,16 +774,20 @@ def flash_cross_attention(
     whose autograd gradient is the same function. ``dropout_seed`` is the
     raw 32-bit hash seed, required when ``dropout_rate > 0``: an int, or a
     one-element tensor on q's device (a training step's seeds, never read
-    on the host); an int is copied to the card once for both kernels."""
+    on the host); an int is copied to the card once for both kernels.
+    ``row_offset`` / ``head_stride`` (0: ``h``) give a shard's rows their
+    global hash rows, so a sharded batch drops what the whole one does."""
     dropout_rate = float(dropout_rate)
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if not q.is_cuda:
         out, _ = multihead_attention(
             q, k, v, scale=scale, temperature=temperature, kv_mask=kv_mask,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, row_offset=row_offset,
+            head_stride=head_stride,
         )
         return out
     seed = seed_word(dropout_seed, q.device) if dropout_rate > 0.0 else None
     return FlashAttentionFunction.apply(
-        q, k, v, kv_mask, float(scale) / float(temperature), dropout_rate, seed)
+        q, k, v, kv_mask, float(scale) / float(temperature), dropout_rate, seed, row_offset,
+        head_stride)

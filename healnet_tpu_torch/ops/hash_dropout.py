@@ -78,6 +78,29 @@ def hash_keep(
     return _mix32(h) < keep_threshold(dropout_rate)
 
 
+def hash_rows(
+    bh: int,
+    row_offset: int = 0,
+    heads: Optional[int] = None,
+    head_stride: int = 0,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """The hash's row coordinate of each of ``bh`` local (batch*head) rows.
+
+    Local row ``r`` is batch ``r // heads``, head ``r % heads``; its hash row
+    is ``row_offset + (r // heads) * head_stride + r % heads``. A shard of a
+    sharded batch passes ``row_offset = b0 * H + h0`` and ``head_stride = H``
+    (its first batch row ``b0``, its first head ``h0``, the global head count
+    ``H``), and so draws the rows of the single-device mask. Without
+    ``heads``, or with ``head_stride`` 0 (the local ``heads``), the rows are
+    ``row_offset + r``.
+    """
+    r = torch.arange(bh, dtype=torch.int64, device=device)
+    if heads is None or head_stride in (0, heads):
+        return r + int(row_offset)
+    return int(row_offset) + (r // heads) * int(head_stride) + r % heads
+
+
 def dense_keep_mask(
     seed: Union[int, torch.Tensor],
     bh: int,
@@ -85,14 +108,24 @@ def dense_keep_mask(
     lkv: int,
     dropout_rate: float,
     device: Optional[torch.device] = None,
+    *,
+    row_offset: int = 0,
+    kv_offset: int = 0,
+    heads: Optional[int] = None,
+    head_stride: int = 0,
 ) -> torch.Tensor:
-    """Materialised (bh, lq, lkv) keep mask."""
+    """Materialised (bh, lq, lkv) keep mask.
+
+    ``row_offset`` / ``heads`` / ``head_stride`` map the local rows onto the
+    hash's row coordinates (:func:`hash_rows`), and ``kv_offset`` is the
+    first key's coordinate: a shard of a sharded run gets the single-device
+    mask's block at its global coordinates."""
     ids = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     return hash_keep(
         seed,
-        ids(bh)[:, None, None],
+        hash_rows(bh, row_offset, heads, head_stride, device)[:, None, None],
         ids(lq)[None, :, None],
-        ids(lkv)[None, None, :],
+        (int(kv_offset) + ids(lkv))[None, None, :],
         dropout_rate,
     )
 

@@ -1,6 +1,7 @@
-"""The device-resident feature arena and its bag gather, on one device.
+"""The device-resident feature arena and its bag gather, replicated or
+row-sharded over a mesh's ``seq`` axis.
 
-Counterpart of the single-device part of ``healnet_tpu/parallel/arena.py``.
+Counterpart of ``healnet_tpu/parallel/arena.py``.
 A feature arena packs every slide's patch features back to back into one
 ``(rows, dim)`` array followed by ``max_patches`` zero rows (the layout of
 ``healnet_tpu/etl/tcga.py::feature_arena``), uploaded to the device once;
@@ -9,14 +10,27 @@ tensors and each bag is gathered on the device. The arena may be a plain
 array or a :class:`healnet_tpu_torch.ops.quantize.QuantizedContext` of int8
 rows and one f32 scale per row, half the bytes.
 
-Row-sharded arenas over several devices wait for the multi-device port.
+Row-sharded (:class:`ShardedArena`): a cohort beyond one card's memory. The
+rows pad to ``S * shard_rows`` and each of the ``S`` ranks of ``seq`` holds
+its rows and a ``halo`` copy of the next shard's first ``halo`` rows, so a
+gather window no wider than the halo lies inside one rank's block. The
+owner slices the window, the other ranks contribute zeros, and a sum over
+``seq`` (of the gathered windows, never of arena rows) assembles it: bit
+for bit the replicated gather (one rank contributes, adding zeros is
+exact; an int8 arena sums in int32, as narrow-integer collectives differ
+by backend).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_scales
+from healnet_tpu_torch.parallel.comm import all_reduce_
+from healnet_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -51,7 +65,87 @@ def place_quantized(arena, device, chunk_rows: int = 16384) -> QuantizedContext:
     return QuantizedContext(data, scale)
 
 
-def gather_bag(arena, offsets: torch.Tensor, mask: torch.Tensor):
+class ShardedArena:
+    """This rank's block of a row-sharded arena: ``ext`` ``(shard_rows +
+    halo, dim)``, shard ``coord`` of ``n_shards`` along the mesh's ``axis``."""
+
+    def __init__(self, ext: torch.Tensor, shard_rows: int, halo: int, n_shards: int,
+                 axis: str = AXIS_SEQ):
+        self.ext = ext
+        self.shard_rows, self.halo = int(shard_rows), int(halo)
+        self.n_shards, self.axis = int(n_shards), axis
+
+    @property
+    def shape(self):  # (logical rows, dim), as the replicated arena's
+        return (self.n_shards * self.shard_rows, self.ext.shape[1])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ext.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.ext.device
+
+
+def build_sharded_arena(arena_host, mesh: Mesh, halo: int, axis: str = AXIS_SEQ
+                        ) -> ShardedArena:
+    """This rank's halo'd block of a host arena's rows split over
+    ``mesh[axis]``, on the mesh's device. ``halo`` must be at least the
+    widest gather window (the batches' KV-mask width); each rank uploads
+    ``shard_rows + halo`` rows."""
+    n_shards = mesh.shape[axis]
+    rows, dim = arena_host.shape
+    halo = int(halo)
+    shard_rows = -(-rows // n_shards)
+    lo = mesh.coord(axis) * shard_rows
+    hi = min(lo + shard_rows + halo, rows)
+    block = arena_host[lo:max(lo, hi)]
+    if not isinstance(block, torch.Tensor):
+        block = torch.as_tensor(np.asarray(block))
+    if block.dtype == torch.float64:
+        block = block.float()
+    ext = torch.zeros((shard_rows + halo, dim), dtype=block.dtype, device=mesh.device)
+    ext[:block.shape[0]] = block.to(mesh.device)
+    return ShardedArena(ext, shard_rows, halo, n_shards, axis)
+
+
+def build_device_arena(host, mesh: Mesh, halo: int, axis: str = AXIS_SEQ):
+    """Halo'd row shards of a plain or int8 host arena: the one function
+    that both the pipeline's build-once path and the trainer's lazy one
+    call. A
+    ``QuantizedContext`` shards values and scales alike, the scales as a
+    dim-1 column, so the same halo'd gather serves both."""
+    if isinstance(host, QuantizedContext):
+        scale = host.scale[:, None] if isinstance(host.scale, torch.Tensor) else \
+            np.asarray(host.scale)[:, None]
+        return QuantizedContext(build_sharded_arena(host.data, mesh, halo, axis),
+                                build_sharded_arena(scale, mesh, halo, axis))
+    return build_sharded_arena(host, mesh, halo, axis)
+
+
+def gather_sharded(arena: ShardedArena, offsets: torch.Tensor, width: int, mesh: Mesh
+                   ) -> torch.Tensor:
+    """(b,) row offsets (this rank's batch rows) -> (b, width, dim) windows
+    of the sharded arena, the same on every rank of its axis."""
+    if width > arena.halo:
+        raise ValueError(f"gather width {width} exceeds the arena halo {arena.halo}; build the "
+                         "sharded arena with halo >= the widest bucket")
+    s, rows = mesh.coord(arena.axis), arena.shard_rows
+    off = offsets.to(device=arena.ext.device, dtype=torch.int64)
+    owner = torch.clamp(off // rows, max=arena.n_shards - 1)
+    # the local start means something on the owner only (there it lies in
+    # [0, shard_rows)); the clamp keeps the others' slices in the block
+    lo = torch.clamp(off - s * rows, 0, rows - 1)
+    win = arena.ext[lo[:, None] + torch.arange(width, device=off.device)]
+    win = win * (owner == s)[:, None, None].to(win.dtype)
+    group = mesh.group(arena.axis)
+    if win.dtype.is_floating_point:
+        return all_reduce_(win, group)
+    return all_reduce_(win.to(torch.int32), group).to(win.dtype)
+
+
+def gather_bag(arena, offsets: torch.Tensor, mask: torch.Tensor, mesh: Optional[Mesh] = None):
     """(b,) row offsets -> (b, width, dim) zero-masked bag windows.
 
     ``mask`` is the (b, width) KV mask; its width is the gather width. Each
@@ -59,11 +153,22 @@ def gather_bag(arena, offsets: torch.Tensor, mask: torch.Tensor):
     ``jax.lax.dynamic_slice`` clamps. Rows outside a bag are zeroed: a float
     window is multiplied by the mask, and a quantized window's scales are
     (a zero-scale row dequantizes to exactly zero), so a model that pools
-    tokens unmasked sees the host path's zero padding.
+    tokens unmasked sees the host path's zero padding. A
+    :class:`ShardedArena` (or a ``QuantizedContext`` of two) is gathered
+    over ``mesh`` (:func:`gather_sharded`).
     """
     quantized = isinstance(arena, QuantizedContext)
-    rows = (arena.data if quantized else arena).shape[0]
     width = mask.shape[1]
+    if isinstance(arena.data if quantized else arena, ShardedArena):
+        if mesh is None:
+            raise ValueError("a sharded arena is gathered over its mesh")
+        if quantized:
+            scale = gather_sharded(arena.scale, offsets, width, mesh)[..., 0]
+            return QuantizedContext(gather_sharded(arena.data, offsets, width, mesh),
+                                    scale * mask.to(scale.dtype))
+        slide = gather_sharded(arena, offsets, width, mesh)
+        return slide * mask[..., None].to(slide.dtype)
+    rows = (arena.data if quantized else arena).shape[0]
     starts = torch.clamp(offsets.to(torch.int64), 0, rows - width)
     index = starts[:, None] + torch.arange(width, device=starts.device)  # (b, width)
     if quantized:

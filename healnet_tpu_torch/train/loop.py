@@ -1,4 +1,4 @@
-"""Survival training on one device: the step and the fold loop.
+"""Survival training on one device or a mesh: the step and the fold loop.
 
 Counterpart of ``healnet_tpu/train/loop.py``. The step
 (``SurvivalTrainer._surv_loss``, ``_forward`` and the ``train_step`` /
@@ -53,8 +53,23 @@ one-hot targets, ``presence`` and ``sample_weights`` and returns
 ``(model_loss, logits)``; the model loss joins the total (and, in
 evaluation, the loss), as in JAX.
 
-Not ported yet: meshes and row-sharded arenas; they raise, naming the
-``ROADMAP.md`` item that ports them.
+Meshes (``mesh=``, a :class:`healnet_tpu_torch.parallel.mesh.Mesh`; one
+process a device): every rank iterates the same host batches (the same
+seeds) and places its block (:func:`healnet_tpu_torch.parallel.train.
+put_batch`: its ``data`` rows, and a context's tokens split over ``seq``,
+a gathered arena bag's too); the module's weights are sharded at
+construction by the tensor-parallel rules (``tensor_parallel``; the
+baselines stay replicated and split the batch only); the step's loss is
+the global batch's, as the sharded step's
+(:func:`healnet_tpu_torch.parallel.train.sharded_loss`), its gradients are
+summed over ``data``, and every rank takes the same update of its shards. ``arena_sharded`` splits the feature arena's rows
+over ``seq`` with a halo of ``arena_halo`` rows
+(:class:`healnet_tpu_torch.parallel.arena.ShardedArena`), widened to the
+first batch's gather width where that is wider. Fused epochs need a mesh
+of one device. Only the ranks with ``data`` and ``seq`` coordinates 0
+write checkpoints (under a ``model`` split each of them its own shards, in
+``model_<m>/`` of the checkpoint directory), and only rank 0 calls the
+tracker: no two ranks write one file.
 """
 
 from __future__ import annotations
@@ -70,7 +85,20 @@ import torch.nn.functional as F
 from healnet_tpu_torch.device import DeviceLike, resolve_device
 from healnet_tpu_torch.etl.prefetch import DevicePrefetcher
 from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_context_host
-from healnet_tpu_torch.parallel.arena import gather_bag, place_arena
+from healnet_tpu_torch.parallel.arena import build_device_arena, gather_bag, place_arena
+from healnet_tpu_torch.parallel.data import local_batch_rows
+from healnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_SEQ, Mesh
+from healnet_tpu_torch.parallel.train import (
+    full_shapes,
+    global_batch,
+    put_batch,
+    sharded_loss,
+    shard_module,
+    split_sq_norms,
+    splits_tokens,
+    sync_grads,
+    unshard_shapes_,
+)
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.fused import (
     StepTable,
@@ -220,9 +248,13 @@ class SurvivalTrainer:
             (:class:`~healnet_tpu_torch.models.baselines.MultiModNModule`);
             the targets are one-hot over ``n_bins`` and the padded rows'
             ``sample_mask`` is 0.
-        tensor_parallel, arena_halo: kept from the JAX trainer's signature;
-            they act only with ``mesh`` or ``arena_sharded``, which are not
-            ported and raise.
+        mesh: a :class:`~healnet_tpu_torch.parallel.mesh.Mesh`; the steps
+            run sharded over it (see the module's docstring), on its device.
+        tensor_parallel: split the weights over the mesh's ``model`` axis
+            (else replicated).
+        arena_sharded, arena_halo: with ``mesh``, the feature arena's rows
+            split over ``seq``, each shard with ``arena_halo`` rows of the
+            next (default: the widest bucket or bag).
     """
 
     def __init__(
@@ -269,12 +301,29 @@ class SurvivalTrainer:
             raise ValueError("batch_size must be divisible by accum_steps")
         if aux_loss and n_bins is None:
             raise ValueError("aux_loss models need n_bins")
-        if mesh is not None or arena_sharded:
-            raise NotImplementedError(
-                "meshes and row-sharded arenas come with the multi-device slice "
-                "(ROADMAP.md, Queue 1: multi-device)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a healnet_tpu_torch.parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        sharded = mesh is not None and mesh.size > 1
+        if mesh is not None and batch_size % mesh.shape[AXIS_DATA]:
+            raise ValueError(f"batch_size {batch_size} does not divide over the mesh's data "
+                             f"axis of {mesh.shape[AXIS_DATA]}")
+        if sharded and (aux_loss or accum_steps > 1):
+            raise ValueError("aux_loss and accum_steps > 1 train on a mesh of one device")
+        if mesh is not None:
+            dev = None if device is None else resolve_device(device)
+            if dev is not None and (dev.type != mesh.device.type or dev.index not in (
+                    None, mesh.device.index)):
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh, self.tensor_parallel = mesh, bool(tensor_parallel)
         self.module = module.to(self.device)
+        # the mesh's layout of the weights (HealNet's; the baselines take
+        # the batch split only, their weights replicated)
+        self._mesh_module = mesh is not None and hasattr(module, "set_mesh")
+        if self._mesh_module:
+            shard_module(self.module, mesh, self.tensor_parallel)
         self.loss_type, self.alpha = loss_type, alpha
         self.l1 = float(l1)
         self.class_weights = (
@@ -309,6 +358,16 @@ class SurvivalTrainer:
         # fused epochs: the schedule's horizon on the device (the captured
         # step reads it), and the step tables by (kind, width, steps, layout)
         self.fused_epochs = bool(fused_epochs) and self._arena_host is not None
+        if self.fused_epochs and sharded:
+            raise ValueError("fused_epochs with a mesh of more than one process is not "
+                             "supported (the step tables are one device's); use stepwise steps")
+        self.arena_sharded = bool(arena_sharded) and mesh is not None
+        if arena_halo is None:
+            candidates = list(self.bucket_boundaries or [])
+            if feature_arena is not None and feature_arena[2] is not None:
+                candidates.append(int(np.max(feature_arena[2])))
+            arena_halo = max(candidates) if candidates else None
+        self.arena_halo = arena_halo
         self._horizon = torch.ones((), dtype=torch.float32, device=self.device)
         self._tables: Dict[tuple, StepTable] = {}
         self._capture_stream = None
@@ -324,10 +383,13 @@ class SurvivalTrainer:
                                  device=self.device)
         )
         self.checkpoint_dir = checkpoint_dir
-        # drawn on the host, as a new module's weights are
+        # drawn on the host at full size, as a new module's weights are
+        unshard_shapes_(self.module)
         self.module.to("cpu")
         self.module.reset_parameters(torch.Generator().manual_seed(seed))
         self.module.to(self.device)
+        if self._mesh_module:
+            shard_module(self.module, self.mesh, self.tensor_parallel)
         self._new_optimizer()
         self.generator.manual_seed(seed)
         self.seed_generator.manual_seed(seed + 1)
@@ -350,17 +412,43 @@ class SurvivalTrainer:
 
     def _device_arena(self):
         """The feature arena on the device, uploaded on the first call (int8
-        values and scales when ``arena_quant``), or None without one."""
+        values and scales when ``arena_quant``; this rank's halo'd rows when
+        ``arena_sharded``), or None without one."""
         if self._arena is None and self._arena_host is not None:
             host = self._arena_host
             if self.arena_quant and not isinstance(host, QuantizedContext):
                 host = QuantizedContext(*quantize_context_host(np.asarray(host)))
-            self._arena = place_arena(host, self.device)
+            if self.arena_sharded:
+                if self.arena_halo is None:
+                    raise ValueError("arena_sharded needs arena_halo (the widest gather "
+                                     "window): pass bucket_boundaries or the bag lengths")
+                self._arena = build_device_arena(host, self.mesh, halo=self.arena_halo)
+            else:
+                self._arena = place_arena(host, self.device)
         return self._arena
+
+    def _widen_halo(self, batch: Mapping[str, Any]) -> None:
+        """Before the halo'd shards are built: a batch source that pads every
+        gather to ``max_patches`` may pass the halo's candidates (buckets and
+        bag lengths); the halo takes the batch's gather width then."""
+        if (self.arena_sharded and self._arena is None and batch.get("kv_masks") is not None
+                and batch.get("patch_offsets") is not None):
+            width = int(np.shape(batch["kv_masks"][-1])[1])
+            if self.arena_halo is None or width > self.arena_halo:
+                self.arena_halo = width
 
     # ------------------------------------------------------------ pieces
     def _place(self, batch: Mapping[str, Any], non_blocking: bool = False) -> Dict[str, Any]:
-        return place_batch(batch, self.device, non_blocking)
+        """The batch on the device; on a mesh this rank's block of it."""
+        if self.mesh is None:
+            return place_batch(batch, self.device, non_blocking)
+        if "seq_sharded" in batch:  # this rank's block already
+            return batch
+        self._widen_halo(batch)
+        return put_batch(batch, self.mesh, split_tokens=self._mesh_module)
+
+    def _mesh_split(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
 
     def _surv_loss(self, logits, batch):
         hazards, survival, risk = hazards_survival_risk(logits)
@@ -383,10 +471,17 @@ class SurvivalTrainer:
             # the slide modality comes from the arena: (b, width, dim) bags,
             # width fixed by the last KV mask (rows outside a bag zero, as
             # the bag baselines pool every token)
-            slide = gather_bag(self._arena, batch["patch_offsets"], batch["kv_masks"][-1])
+            slide = gather_bag(self._arena, batch["patch_offsets"], batch["kv_masks"][-1],
+                               mesh=self.mesh)
             batch = dict(batch, tensors=tuple(batch["tensors"]) + (slide,))
+            if "seq_sharded" in batch:
+                batch["seq_sharded"] = tuple(batch["seq_sharded"]) + (self._split_bag(batch),)
+                if batch["seq_sharded"][-1]:
+                    batch["tensors"] = batch["tensors"][:-1] + (self._local_tokens(slide),)
         keys = self._forward_keys
         kwargs = {}
+        if batch.get("seq_sharded") and any(batch["seq_sharded"]):
+            kwargs["seq_sharded"] = batch["seq_sharded"]
         if batch.get("kv_masks") is not None and "kv_masks" in keys:
             kwargs["kv_masks"] = batch["kv_masks"]
         if train:
@@ -407,13 +502,30 @@ class SurvivalTrainer:
             return logits, model_loss
         return self.module(batch["tensors"], presence=batch.get("presence"), **kwargs), None
 
+    def _split_bag(self, batch) -> bool:
+        """Whether a gathered bag's tokens split over ``seq``: the batch
+        placement's rule, for a HealNet module."""
+        return self._mesh_module and splits_tokens(batch["kv_masks"][-1].shape[1], self.mesh)
+
+    def _local_tokens(self, slide):
+        """This rank's block of a gathered bag's tokens."""
+        n = slide.shape[1] // self.mesh.shape[AXIS_SEQ]
+        sl = slice(self.mesh.coord(AXIS_SEQ) * n, (self.mesh.coord(AXIS_SEQ) + 1) * n)
+        if isinstance(slide, QuantizedContext):
+            return QuantizedContext(slide.data[:, sl], slide.scale[:, sl])
+        return slide[:, sl]
+
+    def _reg(self, module) -> torch.Tensor:
+        return calc_reg_loss(module, self.l1, self.reg_topo, self.sources)
+
     def _loss(self, batch, seeds: Optional[torch.Tensor] = None):
-        """(total loss to differentiate, survival loss, risk)."""
+        """(total loss to differentiate, survival loss, risk): the global
+        batch's on a mesh (:func:`~healnet_tpu_torch.parallel.train.
+        sharded_loss`)."""
         logits, model_loss = self._forward(batch, train=True, seeds=seeds)
-        surv_loss, risk = self._surv_loss(logits, batch)
-        total = surv_loss / float(self.gc_compat)
-        if self.l1 > 0:
-            total = total + calc_reg_loss(self.module, self.l1, self.reg_topo, self.sources)
+        total, surv_loss, risk = sharded_loss(self.module, logits, batch, self.mesh,
+                                              self._surv_loss, l1=self.l1,
+                                              gc_compat=self.gc_compat, reg=self._reg)
         if model_loss is not None:
             total = total + model_loss
         return total, surv_loss, risk
@@ -424,6 +536,7 @@ class SurvivalTrainer:
         self.module.eval()
         with torch.no_grad():
             logits, model_loss = self._forward(batch, train=False)
+            logits, batch = global_batch(logits, batch, self.mesh)
             loss, risk = self._surv_loss(logits, batch)
         return (loss if model_loss is None else loss + model_loss), risk, logits
 
@@ -439,6 +552,8 @@ class SurvivalTrainer:
         # the scatter index is built once (a host-to-device copy waits for
         # the device)
         sq = torch.stack(torch._foreach_norm(grads)).float() ** 2
+        if self._mesh_module:
+            sq = split_sq_norms(self.module, self.mesh, sq)
         if self._norm_groups is None or self._norm_groups[0] != tops:
             keys = list(dict.fromkeys(tops))
             index = torch.tensor([keys.index(t) for t in tops], device=sq.device)
@@ -477,6 +592,8 @@ class SurvivalTrainer:
                 losses.append(loss.detach())
                 risks.append(r.detach())
             surv_loss, risk = sum(losses) / a, torch.cat(risks)
+        if self._mesh_split():
+            sync_grads(self.module, self.mesh)
         gstats = self.grad_stats()
         progress_hyperparams(self.optimizer, self._horizon, self.max_lr,
                              cycle_momentum=self.cycle_momentum)
@@ -540,6 +657,7 @@ class SurvivalTrainer:
         seed table (drawn in the order the stepwise path draws them) in one
         upload, one replay a step, one read-back. Returns ``(losses (n,),
         risks (n, b), the last step's gradient norms by name)`` on the host."""
+        self._widen_halo(blist[0])
         self._device_arena()
         n_real, b = len(blist), int(np.asarray(blist[0]["sample_mask"]).shape[0])
         calls = self._attention_seeds()
@@ -569,6 +687,7 @@ class SurvivalTrainer:
 
     def _fused_evaluate(self, batches, losses, risks, cens, times, masks) -> None:
         """Evaluation bucket by bucket (JAX's ``scan_eval``)."""
+        self._widen_halo(batches[0])
         self._device_arena()
         for blist in bucket_groups(batches).values():
             n_real, b = len(blist), int(np.asarray(blist[0]["sample_mask"]).shape[0])
@@ -602,7 +721,7 @@ class SurvivalTrainer:
         """The censored c-index over a split's valid rows (one host read of
         the risks)."""
         mask = np.concatenate(masks) > 0
-        risk = torch.cat(risks).float().cpu().numpy()
+        risk = local_batch_rows(torch.cat(risks))
         try:
             return concordance_index_native(
                 (1 - np.concatenate(cens)[mask]).astype(bool), np.concatenate(times)[mask],
@@ -646,7 +765,7 @@ class SurvivalTrainer:
 
         ckpt, start_epoch = None, 1
         if self.checkpoint_dir is not None:
-            ckpt = Checkpointer(self.checkpoint_dir)
+            ckpt = Checkpointer(self._checkpoint_dir())
             latest = ckpt.latest_step() if self.resume else None
             if latest is not None:
                 restored = ckpt.restore(step=latest, map_location=self.device)
@@ -694,7 +813,7 @@ class SurvivalTrainer:
                 val_str = f"val_loss {val_loss:.4f} c {val_c:.4f}" if do_eval else "val skipped"
                 print(f"Epoch {epoch}: train_loss {train_loss:.4f} c {train_c:.4f} | "
                       f"{val_str} | {history[-1]['seconds']:.1f}s")
-            if self.tracker is not None:
+            if self.tracker is not None and self._rank() == 0:
                 step = epoch if fold == 1 else None
                 metrics_log = {f"fold_{fold}_train_loss": train_loss,
                                f"fold_{fold}_train_c_index": train_c}
@@ -708,7 +827,7 @@ class SurvivalTrainer:
                     grad_stats=None if gstats is None else {k: float(v)
                                                             for k, v in gstats.items()},
                     step=step, prefix=f"fold_{fold}_")
-            if ckpt is not None:
+            if ckpt is not None and self._writes_checkpoints():
                 ckpt.save(step=epoch, params=self.module.state_dict(),
                           opt_state=self.optimizer.state_dict(),
                           metrics={"val_loss": val_loss, "val_c_index": val_c} if do_eval
@@ -733,7 +852,7 @@ class SurvivalTrainer:
         if test_data is not None:
             test_loss, test_c = self.evaluate(test_data)
             results.update(test_loss=test_loss, test_c_index=test_c)
-            if self.tracker is not None:
+            if self.tracker is not None and self._rank() == 0:
                 self.tracker.log({f"fold_{fold}_test_loss": test_loss,
                                   f"fold_{fold}_test_c_index": test_c})
             if missing_ablation:
@@ -742,6 +861,25 @@ class SurvivalTrainer:
                                   missing_semantics=missing_semantics)[1]
                     for m in ("50", "omic", "wsi"))
         return results
+
+    def _rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _writes_checkpoints(self) -> bool:
+        """The ranks with ``data`` and ``seq`` coordinates 0 (one a ``model``
+        shard)."""
+        return self.mesh is None or (self.mesh.coord(AXIS_DATA) == 0
+                                     and self.mesh.coord(AXIS_SEQ) == 0)
+
+    def _checkpoint_dir(self):
+        """The checkpoint directory, and under a ``model`` split of the
+        weights its ``model_<m>`` directory for this rank's shards."""
+        if self._mesh_module and full_shapes(self.module) is not None \
+                and self.mesh.shape[AXIS_MODEL] > 1:
+            from pathlib import Path
+
+            return str(Path(self.checkpoint_dir) / f"model_{self.mesh.coord(AXIS_MODEL)}")
+        return self.checkpoint_dir
 
     def _stepwise_epoch(self, batches, horizon, losses, risks, cens, times, masks):
         """An epoch one step a batch, through the prefetcher; returns the

@@ -26,9 +26,18 @@ Counterpart of ``healnet_tpu/train/pipeline.py``:
   relaunch with the same ``run_name`` resumes (``train_loop.resume``);
 - logging through :class:`healnet_tpu_torch.utils.Tracker`.
 
-The pipeline runs on the GPU unless ``device="cpu"`` is asked for. Not
-ported yet, and refused with ``NotImplementedError``: ``spmd`` /
-``data.shard_arena`` (``ROADMAP.md``, Queue 1 item 8).
+The pipeline runs on the GPU unless ``device="cpu"`` is asked for.
+
+``spmd: true``: the trainer runs on :func:`healnet_tpu_torch.parallel.mesh.
+make_mesh` over the world's processes, one a device (launch with
+``torchrun --nproc_per_node=N -m healnet_tpu_torch.cli.main ...``; NCCL on
+the cards, gloo with ``--device cpu``); ``data.shard_arena: true`` with it
+splits the feature arena's rows over the mesh's ``seq`` axis, built once a
+run (and kept in ``_DATASET_CACHE``) under the mesh's shape and the halo
+(the widest bucket, ``data.max_patches`` or bag). Rank 0 writes the logs,
+the tracker's files and the explainer's artifacts; every rank agrees on the
+run's name. ``explainer: true`` is refused on a mesh with a ``model`` axis
+above 1: its weights are split there, and the explainer reloads whole ones.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from healnet_tpu_torch.constants import VALID_DATASETS
 from healnet_tpu_torch.device import DeviceLike, resolve_device
@@ -57,8 +67,9 @@ from healnet_tpu_torch.models.baselines import (
     RegularizedFCNN,
 )
 from healnet_tpu_torch.models.healnet import HealNetModule
-from healnet_tpu_torch.ops.quantize import QuantizedContext
-from healnet_tpu_torch.parallel.arena import place_arena, place_quantized
+from healnet_tpu_torch.ops.quantize import QuantizedContext, quantize_context_host
+from healnet_tpu_torch.parallel.arena import build_device_arena, place_arena, place_quantized
+from healnet_tpu_torch.parallel.mesh import AXIS_MODEL, make_mesh
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer, iterate_batches
 from healnet_tpu_torch.utils import Box, Tracker, flatten_config, pickle_obj
@@ -87,8 +98,16 @@ class Pipeline:
         self.dataset = self.config["dataset"]
         self.args = args
         self._check_config()
-        self._refuse_unported()
         self.device = resolve_device(device)
+        # spmd: the mesh over the world's processes, before the tracker, so
+        # that every rank takes rank 0's run name
+        self.mesh = make_mesh(device=self.device) if self.config.get("spmd", False) else None
+        if self.config.get("explainer") and self.mesh is not None \
+                and self.mesh.shape[AXIS_MODEL] > 1:
+            raise ValueError(
+                f"explainer: true on a mesh {self.mesh.shape} that splits the weights over "
+                "model: the explainer reloads whole weights; run it without spmd, or in a "
+                "world whose mesh has no model axis")
         self.output_dims = int(self.config["model_params.output_dims"])
         self.sources = list(self.config["sources"])
         self.local_run_id = datetime.now().strftime("%d-%m-%Y_%H-%M-%S")
@@ -102,7 +121,7 @@ class Pipeline:
             project="healnet_tpu",
             # run_name pins the log and checkpoint directory, so a relaunched
             # process finds the per-fold checkpoints (train_loop.resume)
-            name=wandb_name or self.config.get("run_name"),
+            name=self._shared(wandb_name or self.config.get("run_name")),
             config=dict(self.config),
             log_dir=self.config.get("log_path", "logs"),
             use_wandb=bool(self.config.get("wandb", False)),
@@ -112,6 +131,7 @@ class Pipeline:
         # built once a run, its arena uploaded once, shared by every fold
         self._dataset = None
         self._arena_device = None
+        self._sharded = None  # (key, this rank's block of the sharded arena)
         self._trainer = None
         # seconds spent building the dataset, packing its arena on the host
         # and uploading (and quantizing) it (0.0 when a cached one was
@@ -133,12 +153,17 @@ class Pipeline:
             raise ValueError(
                 f"Invalid class weight specified. Valid weights are {VALID_CLASS_WEIGHTS}")
 
-    def _refuse_unported(self) -> None:
-        """Raise for what the port does not have yet, before any data is read."""
-        if self.config.get("spmd", False) or self.config.get("data.shard_arena", False):
-            raise NotImplementedError(
-                "spmd and data.shard_arena come with the multi-device slice "
-                "(ROADMAP.md, Queue 1 item 8)")
+    def _shared(self, name: Optional[str]) -> Optional[str]:
+        """The run's name: on a mesh of several processes, rank 0's (it
+        names the log and checkpoint directories)."""
+        if self.mesh is None or self.mesh.size == 1 or name is not None:
+            return name
+        name = [f"run-{datetime.now().strftime('%Y%m%d-%H%M%S')}-{np.random.randint(1 << 24):06x}"]
+        dist.broadcast_object_list(name, src=int(self.mesh.devices.flat[0]))
+        return name[0]
+
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == int(self.mesh.devices.flat[0])
 
     # -------------------------------------------------------------- running
     def main(self, sweep_overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -149,7 +174,6 @@ class Pipeline:
                 if key not in self.config:
                     print(f"sweep override creates new config key: {key!r}")
                 self.config[key] = value
-            self._refuse_unported()
             self.tracker.config.update(sweep_overrides)
             # the trainer was built from the previous hyperparameters, and
             # overrides of the data config invalidate the dataset and arena
@@ -162,6 +186,7 @@ class Pipeline:
             ):
                 self._dataset = None
                 self._arena_device = None
+                self._sharded = None
 
         fold_metrics: Dict[str, List[float]] = {
             "train_c_index": [], "val_c_index": [], "test_c_index": [],
@@ -196,11 +221,12 @@ class Pipeline:
             finite = [v for v in values if np.isfinite(v)]
             summary[f"mean_{key}"] = float(np.mean(finite)) if finite else float("nan")
             summary[f"std_{key}"] = float(np.std(finite)) if finite else float("nan")
-        self.tracker.log(summary)
+        if self._rank0():
+            self.tracker.log(summary)
 
         test_c = np.asarray(fold_metrics["test_c_index"], dtype=float)
         best_fold = int(np.nanargmax(test_c)) if np.isfinite(test_c).any() else 0
-        if missing_perfs:
+        if missing_perfs and self._rank0():
             m50, momic, mwsi = np.mean(missing_perfs, axis=0)
             self.tracker.log({
                 "missing_50_c_index": float(m50),
@@ -208,13 +234,14 @@ class Pipeline:
                 "missing_wsi_c_index": float(mwsi),
             })
 
-        if self.config.get("explainer"):
+        if self.config.get("explainer") and self._rank0():
             ckpt = Checkpointer(Path(self.log_dir) / "checkpoints")
             ckpt.save_best(fold_params[best_fold], metrics=summary)
             pickle_obj(dict(self.config), Path(self.log_dir) / "config.pkl")
             pickle_obj(test_indices[best_fold], Path(self.log_dir) / "test_data_indices.pkl")
 
-        self.tracker.finish()
+        if self._rank0():
+            self.tracker.finish()
         summary["best_fold"] = best_fold
         return summary
 
@@ -406,6 +433,40 @@ class Pipeline:
             self.timings.setdefault("arena_upload_s", 0.0)
         return self._arena_device, offsets, lengths
 
+    def _sharded_arena(self, parent):
+        """(this rank's halo'd block of the arena, offsets, lengths) for
+        ``data.shard_arena``: the rows split over the mesh's ``seq`` axis,
+        int8 quantized on the host first with ``data.quantize_arena``, built
+        once a run and kept across pipelines (sweeps) under the mesh's shape
+        and the halo: the widest gather the batches can ask for (bucket
+        boundaries, ``data.max_patches``, the longest bag)."""
+        arena, offsets, lengths = parent.feature_arena()
+        quantize = bool(self.config.get("data.quantize_arena", False)) and \
+            self.config["model"] in ("healnet", "healnet_early")
+        halo = [int(b) for b in (self._resolve_buckets(parent) or [])]
+        if getattr(parent, "max_patches", None):
+            halo.append(int(parent.max_patches))
+        halo = max(halo + [int(np.max(lengths))])
+        key = (self._dataset_cache_key(), tuple(sorted(self.mesh.shape.items())), halo, quantize)
+        if self._sharded is not None and self._sharded[0] == key:
+            device_arena = self._sharded[1]
+        elif _DATASET_CACHE.get("arena_sharded_key") == key:
+            device_arena = _DATASET_CACHE["arena_sharded"]
+        else:
+            t0 = time.perf_counter()
+            if quantize and not isinstance(arena, QuantizedContext):
+                host = arena.cpu().numpy() if isinstance(arena, torch.Tensor) else arena
+                arena = QuantizedContext(*quantize_context_host(np.asarray(host)))
+            device_arena = build_device_arena(arena, self.mesh, halo=halo)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.timings["arena_upload_s"] = time.perf_counter() - t0
+        self.timings.setdefault("arena_upload_s", 0.0)
+        self._sharded = (key, device_arena)
+        if _DATASET_CACHE["dataset"] is parent:
+            _DATASET_CACHE.update(arena_sharded_key=key, arena_sharded=device_arena)
+        return device_arena, offsets, lengths
+
     def make_trainer(self, train_view, fold: int, cw) -> SurvivalTrainer:
         # one trainer across folds: the module and loss are fold-independent,
         # so fold 2 on only redraws the weights (seeded by the fold) and
@@ -421,8 +482,10 @@ class Pipeline:
         # device; epochs stream only indices (the folds share the arena)
         feature_arena = None
         parent = getattr(train_view, "parent", train_view)
+        shard_arena = self.mesh is not None and bool(self.config.get("data.shard_arena", False))
         if getattr(parent, "device_cache", False):
-            feature_arena = self._device_arena(parent)
+            feature_arena = (self._sharded_arena(parent) if shard_arena
+                             else self._device_arena(parent))
             example_batch = dict(example_batch, arena_dim=int(feature_arena[0].shape[1]))
 
         model = self.make_model(example_batch, seed=fold)
@@ -453,6 +516,8 @@ class Pipeline:
             arena_device=None if feature_arena is None else feature_arena[0],
             fused_epochs=bool(self.config.get("train_loop.fused_epochs", False)),
             device=self.device,
+            mesh=self.mesh,
+            arena_sharded=shard_arena and feature_arena is not None,
         )
         return self._trainer
 

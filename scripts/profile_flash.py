@@ -23,8 +23,10 @@ commit, at least its ``healnet_tpu_torch/`` and ``chip_smoke.py``) times
 the forward and backward at those four shapes without dropout and with
 dropout 0.083 in that commit's kernels and this tree's, each in a process
 of its own (parent, this tree, this tree, parent), on inputs from the same
-seed: this tree's kernels read the seed from a device word, passed as a
-tensor, where the other commit's may take it by value.
+seed, a device word passed as a tensor to both (a commit before the
+kernels read their seed from device memory takes it by value); this
+tree's kernels also take a shard's hash row offset (64, as a data shard
+of a sharded batch passes it).
 
 ``--wide`` times the wide and panel kernels instead, at (8, 17, 4096, d)
 for d 320 and 512 (one panel) and 576 and 1024 (two or three panels), f32
@@ -96,7 +98,7 @@ print(json.dumps(times))
 
 # the timing run of --parent alone: {"label rate": [forward ms, backward ms]}
 # at FLASH_SHAPES without dropout and with dropout 0.083, the seed a device
-# word for this tree (TENSOR_SEED) and an int for another commit
+# word, and for this tree (THIS_TREE) a shard's hash row offset
 DROPOUT_TIMING = """
 import json, sys, torch
 from chip_smoke import FLASH_SHAPES, attention_inputs, time_ms
@@ -104,19 +106,20 @@ from healnet_tpu_torch.ops import cuda_build
 from healnet_tpu_torch.ops.flash_attention import flash_attention_bwd_kernel, flash_attention_kernel
 cuda_build.build(("flash_attention", "flash_attention_bwd"))
 gen = torch.Generator(device="cuda").manual_seed(0)
-seed = torch.tensor([1234], dtype=torch.int64, device="cuda") if TENSOR_SEED else 1234
+seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
+rows = (64, 1) if THIS_TREE else ()  # a shard's hash row offset
 times = {}
 for label, (d, width, dtype) in FLASH_SHAPES.items():
     eff = d**-0.5 / 0.5
     q, k, v = attention_inputs(gen, 8, 17, 4096, d, dtype, width=width)
     do = torch.randn((8, 1, 17, d), generator=gen, device="cuda").to(dtype)
     for rate in (0.0, 0.083):
-        out, lse = flash_attention_kernel(q, k, v, None, eff, rate, seed)
+        out, lse = flash_attention_kernel(q, k, v, None, eff, rate, seed, *rows)
         delta = (do.float() * out.float().reshape(8, 1, 17, d)).sum(-1)
         times[f"{label} {rate}"] = (
-            time_ms(lambda: flash_attention_kernel(q, k, v, None, eff, rate, seed))[0],
+            time_ms(lambda: flash_attention_kernel(q, k, v, None, eff, rate, seed, *rows))[0],
             time_ms(lambda: flash_attention_bwd_kernel(q, k, v, None, do, lse, delta, eff, rate,
-                                                       seed))[0])
+                                                       seed, *rows))[0])
 print(json.dumps(times))
 """
 
@@ -124,7 +127,7 @@ print(json.dumps(times))
 def timing_run(root: Path, shapes, code: str = TIMING) -> dict:
     """The --wide timings (or ``code``'s) of the commit at ``root`` in a
     process of its own."""
-    code = f"SHAPES = {shapes!r}\nTENSOR_SEED = {root == ROOT}\n" + code
+    code = f"SHAPES = {shapes!r}\nTHIS_TREE = {root == ROOT}\n" + code
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           env={**os.environ, "PYTHONPATH": str(root)}, check=False)
     if proc.returncode != 0:

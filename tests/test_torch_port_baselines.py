@@ -788,6 +788,29 @@ def test_pipeline_fold_trains_each_baseline(cohort, capsys, model, sources, devi
     assert set(summary) >= {"mean_test_c_index", "best_fold"}
 
 
+@pytest.mark.parametrize("device_cache", ["true", "false"])
+def test_multimodn_spmd_fold_matches_mesh_free(cohort, device_cache):
+    """A MultiModN fold with ``spmd: true`` in one process (a mesh of one
+    device) keeps the model's own loss: the same losses and c-indices, bit
+    for bit, as the fold without a mesh."""
+    def run(spmd):
+        name = f"mmn_spmd_{spmd}_{device_cache}"
+        config = Config(str(write_config(cohort, name, epochs=1,
+                                         device_cache=device_cache))).read()
+        config["model"], config["spmd"] = "multimodn", spmd
+        config["model_params"] = Config(str(cohort / f"{name}_hp.yml")).read()["brca"]
+        pipe = Pipeline(config, device="cpu")
+        return pipe, pipe.main()
+
+    plain_pipe, plain = run(False)
+    pipe, summary = run(True)
+    assert pipe._trainer.mesh is not None and pipe._trainer.aux_loss
+    for k in ("train_loss", "val_loss", "test_loss"):
+        assert pipe.fold_results[0][k] == plain_pipe.fold_results[0][k], k
+    for metric in ("mean_train_c_index", "mean_val_c_index", "mean_test_c_index"):
+        assert summary[metric] == plain[metric], metric
+
+
 @pytest.mark.parametrize("cls", ["FCNN", "RegularizedFCNN", "MCAT", "MILAttentionNet", "SNN",
                                  "MMPrognosis", "MOTCAT", "MultiModNModule", "MultiModNTrainer"])
 def test_entry_points_need_a_gpu_or_cpu_request(cls):

@@ -33,6 +33,7 @@ from healnet_tpu_torch.ops.flash_attention import (
     launch_counter,
     wide_smem,
 )
+from healnet_tpu_torch.ops.hash_dropout import dense_keep_mask
 from healnet_tpu_torch.ops.fused_chain import (
     WEIGHT_FIELDS,
     ChainSpec,
@@ -1202,3 +1203,25 @@ def test_exported_predictor_launches_the_kernels(gen, tmp_path, attention_impl):
     want = live.predict_ragged([omic, bags])
     for key in ("logits", "hazards", "survival", "risk"):
         np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("d,dtype", [(63, torch.bfloat16), (63, torch.float32),
+                                     (320, torch.bfloat16), (576, torch.float32)],
+                         ids=["tc", "fma", "wide", "panels"])
+def test_flash_row_offset_keeps_the_whole_calls_rows(gen, d, dtype):
+    """A shard (batch rows 2-3, head 1 of 2) launched with its hash row
+    offset and head stride keeps the whole call's entries of those rows:
+    with one-hot values the output is the dropped map, zero where dropped."""
+    b, h, lq, lkv, rate, seed = 4, 2, 17, 32, 0.3, 99
+    eff = d**-0.5 / 0.5
+    q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h, lkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.zeros((b, h, lkv, d), device="cuda", dtype=dtype)
+    v[:, :, torch.arange(lkv), torch.arange(lkv)] = 1
+    whole, _ = flash_attention_kernel(q, k, v, None, eff, rate, seed)
+    part = [x[2:4, 1:2].contiguous() for x in (q, k, v)]
+    got, _ = flash_attention_kernel(*part, None, eff, rate, seed, 2 * h + 1, h)
+    keep = dense_keep_mask(seed, b * h, lq, lkv, rate, device="cuda").reshape(b, h, lq, lkv)
+    assert torch.equal(got.reshape(2, lq, 1, d)[..., :lkv] != 0,
+                       whole.reshape(b, lq, h, d)[2:4, :, 1:2, :lkv] != 0)
+    assert torch.equal(got.reshape(2, lq, d)[..., :lkv] != 0, keep[2:4, 1])

@@ -26,6 +26,7 @@ from healnet_tpu.train.loop import iterate_batches as jax_iterate_batches
 from healnet_tpu_torch.compat.flax_params import state_dict_from_flax
 from healnet_tpu_torch.etl.prefetch import BackgroundIterator, DevicePrefetcher
 from healnet_tpu_torch.models.healnet import HealNetModule
+from healnet_tpu_torch.parallel.mesh import make_mesh
 from healnet_tpu_torch.serving import Predictor
 from healnet_tpu_torch.train import loop as tloop
 from healnet_tpu_torch.train import metrics as tmetrics
@@ -398,8 +399,12 @@ def test_entry_points_need_a_gpu_or_cpu_request(tmp_path):
         Predictor(module, params=tmp_path)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "multi-device"),
-                                     (dict(arena_sharded=True), "multi-device")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "Mesh"),
+                                     (dict(mesh="one device", device="meta"), "not the mesh")])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SurvivalTrainer(_port_module(), device="cpu", **kw)
+    """Meshes are ported; what the trainer still refuses on one process is a
+    mesh that is not a ``Mesh`` and a device other than the mesh's."""
+    if kw["mesh"] == "one device":
+        kw = dict(kw, mesh=make_mesh(1, device="cpu"))
+    with pytest.raises((TypeError, ValueError), match=item):
+        SurvivalTrainer(_port_module(), **{"device": "cpu", **kw})

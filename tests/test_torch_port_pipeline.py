@@ -305,12 +305,30 @@ def test_dataset_cache_carries_across_sweep_trials(cohort, monkeypatch, tmp_path
 
 @pytest.mark.parametrize("key", ["spmd", "data.shard_arena"])
 def test_multi_device_not_ported_yet(cohort, key):
-    config = Config(str(write_config(cohort, "multi"))).read()
-    config["model_params"] = Config(str(cohort / "multi_hp.yml")).read()["brca"]
-    section, _, leaf = key.rpartition(".")
-    (config[section] if section else config)[leaf] = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Pipeline(config, device="cpu")
+    """``spmd`` and ``data.shard_arena`` are ported. In one process ``spmd``
+    trains on a mesh of one device (with ``data.shard_arena`` on an arena of
+    one shard): the same fold, bit for bit, as without them.
+    ``data.shard_arena`` alone takes no mesh and shards nothing, as in JAX.
+    Worlds of several processes: ``tests/test_torch_port_parallel.py``."""
+    def run(*keys):
+        name = "_".join([key.replace(".", "_"), *[k.replace(".", "_") for k in keys]])
+        config = Config(str(write_config(cohort, "multi", epochs=1, run_name=name))).read()
+        config["model_params"] = Config(str(cohort / "multi_hp.yml")).read()["brca"]
+        for k in keys:
+            section, _, leaf = k.rpartition(".")
+            (config[section] if section else config)[leaf] = True
+        pipe = Pipeline(config, device="cpu")
+        return pipe, pipe.main()
+
+    _, plain = run()
+    keys = ("spmd", "data.shard_arena") if key == "spmd" else (key,)
+    pipe, summary = run(*keys)
+    assert (pipe.mesh is not None) == (key == "spmd")
+    if key == "spmd":
+        assert pipe.mesh.size == 1 and pipe._trainer.mesh is pipe.mesh
+        assert type(pipe._trainer._arena).__name__ == "ShardedArena"
+    for metric in ("mean_train_c_index", "mean_val_c_index", "mean_test_c_index"):
+        assert summary[metric] == plain[metric], metric
 
 
 def test_cli_needs_a_gpu_or_device_cpu(cohort):
