@@ -234,7 +234,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    sharded over seq with a halo of 4,096 rows, gathered bit-equal to the
    replicated gather; (d) the CLI with phase 13's config, spmd and
    ``data.shard_arena`` (one fold of one epoch) in the world of one;
-18. print how many profiler windows saw no device kernel (each window
+18. the data-ops CLI at full width: four synthetic slides of 131,072 x
+   131,072 pixels (a large 40x TCGA slide; five levels at a downsample of
+   4, stained tissue on white) drawn by a numpy stand-in for libopenslide
+   (:class:`SyntheticSlideLib`, put in ``etl/slides.py``'s ``_LIB``);
+   ``tasks.main(["preprocess", ..., "--step", "patch"])`` at level 2
+   (a 32 x 32 grid of 256-pixel patches), then ``--step features`` with
+   the ResNet-50 on the card (f32, TF32 off, batch 64, random weights from
+   a seeded ``torch.Generator``): (a) the first 64 patches of a slide on
+   the card against a CPU copy of the extractor, 1e-4 of the largest
+   feature, with the two ``log_compile_time`` lines and a batch's device
+   time under the profiler; (b) the coords read back through ``etl/h5.py``
+   equal a second ``patch_slide``; (c) ``TCGADataset`` reads every bag as
+   ``(n_coords, 2048)``, sized from the ``.npy`` header; (d) no projection,
+   flash or chain counter moves during extraction; then one slide again
+   through ``python3 -m healnet_tpu_torch.cli.tasks`` in a fresh process;
+   the patches per slide, the walls of the patch step, of region reading
+   and resizing on the host and of extraction, patches per second and peak
+   memory;
+19. print how many profiler windows saw no device kernel (each window
    stays open 50 ms before its first call and after its closing
    synchronise; one that still saw none is logged and taken again with
    three times the margin; a call whose six windows all saw none fails)
@@ -260,6 +278,7 @@ import sys
 import tempfile
 import time
 import zipfile
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -2469,9 +2488,17 @@ def write_tcga_tree(root: Path, host_rng, cases: int = CLI_CASES, long_bags: int
         written += feats.nbytes
     months = np.exp(3.2 - 0.7 * risk + 0.35 * host_rng.standard_normal(n)).astype(np.float32)
     censorship = (host_rng.uniform(size=n) < 0.3).astype(np.int64)
+    write_omic_csv(root, sids, omic, censorship, months)
+    return {"sids": sids, "bags": bags, "bytes": written,
+            "censored": float(censorship.mean())}
+
+
+def write_omic_csv(root: Path, sids, omic, censorship, months) -> None:
+    """``omic/tcga_brca_all_clean.csv.zip`` of a tree: a row a slide, the
+    genes, then the metadata columns the loader reads."""
     buf = io.StringIO()
     out = csv.writer(buf, lineterminator="\n")
-    out.writerow(["", *(f"gene_{i}" for i in range(CLI_GENES)), "site", "oncotree_code",
+    out.writerow(["", *(f"gene_{i}" for i in range(omic.shape[1])), "site", "oncotree_code",
                   "case_id", "slide_id", "train", "censorship", "survival_months"])
     for i, sid in enumerate(sids):
         out.writerow([i, *(repr(float(v)) for v in omic[i]), "breast", "IDC", sid[:12],
@@ -2479,8 +2506,6 @@ def write_tcga_tree(root: Path, host_rng, cases: int = CLI_CASES, long_bags: int
     with zipfile.ZipFile(root / "omic" / "tcga_brca_all_clean.csv.zip", "w",
                          compression=zipfile.ZIP_DEFLATED) as archive:
         archive.writestr("tcga_brca_all_clean.csv", buf.getvalue())
-    return {"sids": sids, "bags": bags, "bytes": written,
-            "censored": float(censorship.mean())}
 
 
 def yaml_scalar(value) -> str:
@@ -4225,6 +4250,261 @@ def phase_multi_device(host_rng) -> None:
     log(f"  phase 17 wall: {time.perf_counter() - t_phase:.2f} s")
 
 
+# --------------------------------------------------------------- phase 18
+
+# the data-ops slides: a large 40x TCGA slide's level 0 (131,072 pixels a
+# side), five levels at a downsample of 4; level 2 holds a 32 x 32 grid of
+# 256-pixel patches
+DATAOPS_SLIDES = 4
+DATAOPS_LEVELS = [(131072 >> 2 * i, 131072 >> 2 * i) for i in range(5)]
+DATAOPS_LEVEL, DATAOPS_PATCH, DATAOPS_BATCH = 2, 256, 64
+# ResNet-50's multiply-adds for one 224 x 224 image (convolutions and fc),
+# two operations each: the work a batch's bound counts
+RESNET50_FLOPS = 2 * 4.09e9
+DATAOPS_TOL = 1e-4  # cuDNN's f32 algorithms against the CPU's, of the largest feature
+
+
+class SyntheticSlideLib:
+    """A numpy stand-in for libopenslide, with the C call conventions of
+    ``tests/test_torch_port_explainer.py::FastFakeOpenSlideLib``: every path
+    opens a slide of ``DATAOPS_LEVELS``, white background with stained
+    tissue (a large ellipse and three discs, placed by the file's stem) of
+    textured colour, premultiplied ARGB with alpha 255."""
+
+    def __init__(self, levels=DATAOPS_LEVELS):
+        self.levels = [tuple(lv) for lv in levels]
+        self.slides = {}
+
+        class _Fn:
+            def __init__(self, impl):
+                self._impl, self.restype, self.argtypes = impl, None, None
+
+            def __call__(self, *args):
+                return self._impl(*args)
+
+        def openslide_open(path):
+            stem = path.decode().rsplit("/", 1)[-1].rsplit(".", 1)[0]
+            rng = np.random.default_rng(zlib.crc32(stem.encode()))
+            # (cx, cy, rx, ry) as fractions of the slide
+            blobs = [(rng.uniform(0.45, 0.55), rng.uniform(0.45, 0.55), rng.uniform(0.44, 0.47),
+                      rng.uniform(0.41, 0.44))]
+            blobs += [(*rng.uniform(0.12, 0.88, 2), *(rng.uniform(0.1, 0.14),) * 2)
+                      for _ in range(3)]
+            self.slides[len(self.slides) + 1] = np.array(blobs)
+            return len(self.slides)
+
+        def openslide_get_level_dimensions(handle, level, wref, href):
+            wref._obj.value, href._obj.value = self.levels[level]
+
+        def openslide_read_region(handle, buf, x, y, level, w, h):
+            (w0, h0), (wl, hl) = self.levels[0], self.levels[level]
+            px = np.arange(w, dtype=np.int64) + x * wl // w0
+            py = np.arange(h, dtype=np.int64) + y * hl // h0
+            fx, fy = (px[None, :] + 0.5) / wl, (py[:, None] + 0.5) / hl
+            inside = np.zeros((h, w), bool)
+            for cx, cy, rx, ry in self.slides[handle]:
+                inside |= ((fx - cx) / rx) ** 2 + ((fy - cy) / ry) ** 2 < 1.0
+            # texture at level 0's scale: a hash of the pixel's coordinates
+            noise = (((px[None, :] << 2 * level) * 73856093)
+                     ^ ((py[:, None] << 2 * level) * 19349663)) % 61
+            r = np.where(inside, 190 - noise, 238 + noise % 13)
+            g = np.where(inside, 90 + noise // 2, 238 + noise % 13)
+            b = np.where(inside, 180 - noise // 3, 238 + noise % 13)
+            np.ctypeslib.as_array(buf)[:] = (
+                (255 << 24) | (r << 16) | (g << 8) | b).reshape(-1).astype(np.uint32)
+
+        impls = dict(
+            openslide_open=openslide_open,
+            openslide_get_error=lambda handle: None,
+            openslide_get_level_count=lambda handle: len(self.levels),
+            openslide_get_level_dimensions=openslide_get_level_dimensions,
+            openslide_read_region=openslide_read_region,
+            openslide_get_property_names=lambda handle: [None],
+            openslide_get_property_value=lambda handle, key: b"",
+            openslide_close=lambda handle: None,
+        )
+        for name, impl in impls.items():
+            setattr(self, name, _Fn(impl))
+
+
+def install_synthetic_slides() -> bool:
+    """Put :class:`SyntheticSlideLib` in the port's slide binding (through
+    ``etl/slides.py::_configure`` and ``_LIB``); returns whether a real
+    libopenslide was found first."""
+    from healnet_tpu_torch.etl import slides
+
+    found = slides._load_lib() is not None
+    lib = SyntheticSlideLib()
+    slides._configure(lib)
+    slides._LIB, slides._LIB_ERROR = lib, None
+    return found
+
+
+def dataops_tree(root: Path, host_rng):
+    """Empty ``.svs`` files of ``DATAOPS_SLIDES`` slides under ``wsi/brca``
+    (the stand-in library draws them), the omics table the loader joins
+    them with, and a config pointing at the tree; returns (slide ids,
+    config path)."""
+    sids = [f"TCGA-DO-{i:04d}-01Z-00-DX1" for i in range(DATAOPS_SLIDES)]
+    (root / "wsi" / "brca").mkdir(parents=True)
+    (root / "omic").mkdir()
+    for sid in sids:
+        (root / "wsi" / "brca" / f"{sid}.svs").touch()
+    omic = host_rng.standard_normal((DATAOPS_SLIDES, 16), dtype=np.float32)
+    write_omic_csv(root, sids, omic, np.zeros(DATAOPS_SLIDES, np.int64),
+                   np.linspace(10.0, 40.0, DATAOPS_SLIDES))
+    config = root / "dataops.yml"
+    config.write_text(f"tcga_path: {json.dumps(str(root))}\n")
+    return sids, config
+
+
+def run_tasks(argv) -> tuple:
+    """``tasks.main(argv)`` in this process: (its result, its lines, wall s)."""
+    from healnet_tpu_torch.cli import tasks
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        result = tasks.main(argv)
+    torch.cuda.synchronize()
+    return result, said.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_dataops(host_rng, smi: str) -> None:
+    """Phase 18: the data-ops CLI at full width (see the module docstring)."""
+    from healnet_tpu_torch.cli import tasks
+    from healnet_tpu_torch.etl import TCGADataset, h5
+    from healnet_tpu_torch.etl.slides import OpenSlide
+    from healnet_tpu_torch.ops.resnet import PatchFeatureExtractor
+    from healnet_tpu_torch.utils.profiling import log_compile_time
+
+    log(f"phase 18: python -m healnet_tpu_torch.cli.tasks preprocess (patch, then features) on "
+        f"{DATAOPS_SLIDES} synthetic slides of {DATAOPS_LEVELS[0][0]:,} x "
+        f"{DATAOPS_LEVELS[0][1]:,} pixels, level {DATAOPS_LEVEL}, {DATAOPS_PATCH}-pixel patches; "
+        f"ResNet-50 on the card in f32, TF32 off, batch {DATAOPS_BATCH}, random weights")
+    t_phase = time.perf_counter()
+    found = install_synthetic_slides()
+    log(f"  a real libopenslide was {'found' if found else 'not found'}; the slides are drawn "
+        "by a numpy stand-in for it, installed through etl/slides.py::_configure and _LIB")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        sids, config = dataops_tree(root, host_rng)
+        common = ["--dataset", "brca", "--config", str(config), "--level", str(DATAOPS_LEVEL),
+                  "--patch_size", str(DATAOPS_PATCH)]
+        _, _, patch_wall = run_tasks(["preprocess", *common, "--step", "patch"])
+        prep = root / "wsi" / f"brca_preprocessed_level{DATAOPS_LEVEL}"
+        coords = {sid: h5.read_dataset(prep / "patches" / f"{sid}.h5", "coords") for sid in sids}
+        counts = {sid: len(c) for sid, c in coords.items()}
+        grid = (DATAOPS_LEVELS[DATAOPS_LEVEL][0] // DATAOPS_PATCH) ** 2
+        log(f"  patch step: {patch_wall:.4f} s wall for {DATAOPS_SLIDES} slides; tissue patches "
+            f"per slide {list(counts.values())} of {grid}; {smi}")
+        # (b) the coords read back equal a second patching of the slide
+        slide = OpenSlide(root / "wsi" / "brca" / f"{sids[0]}.svs")
+        again = tasks.patch_slide(slide, level=DATAOPS_LEVEL, patch_size=DATAOPS_PATCH)
+        attrs = h5.read_attrs(prep / "patches" / f"{sids[0]}.h5", "coords")
+        if not (np.array_equal(again, coords[sids[0]]) and again.dtype == np.int64
+                and {k: int(v) for k, v in attrs.items()} == {
+                    "patch_size": DATAOPS_PATCH, "patch_level": DATAOPS_LEVEL}):
+            raise AssertionError(f"(b) the h5 coords or attrs {attrs} differ from patch_slide's")
+        if min(counts.values()) < DATAOPS_BATCH:
+            raise AssertionError(f"a slide has fewer than {DATAOPS_BATCH} tissue patches: {counts}")
+        log(f"  (b) {sids[0]}: the h5 coords ({len(again)} x 2 int64) and attrs {dict(attrs)} "
+            "equal a second patch_slide")
+
+        # (a) the first 64 patches of one slide, the card against a CPU copy
+        patches = tasks.read_patches(slide, coords[sids[0]][:DATAOPS_BATCH], DATAOPS_LEVEL,
+                                     DATAOPS_PATCH)
+        card = PatchFeatureExtractor(batch_size=DATAOPS_BATCH)
+        timed = log_compile_time(card, name="PatchFeatureExtractor")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            got = timed(patches)
+            timed(patches)
+        for line in said.getvalue().splitlines():
+            log(f"  {line} ({smi})")
+        want = PatchFeatureExtractor(batch_size=DATAOPS_BATCH, device="cpu")(patches)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(f"(a) card vs CPU features of {sids[0]}'s first {DATAOPS_BATCH} patches, relative "
+              "to the largest", err, DATAOPS_TOL)
+        x = torch.from_numpy(patches).cuda()
+        wall, busy, count, _ = device_profile(lambda: card.embed(x))
+        bound, bound_by = bound_ms(nbytes(x) + DATAOPS_BATCH * 2048 * 4,
+                                   DATAOPS_BATCH * RESNET50_FLOPS, torch.float32)
+        log(f"  one batch of {DATAOPS_BATCH} on the card (uint8 on the device, normalise, "
+            f"ResNet-50): device busy {busy:.4f} ms (profiler), wall {wall:.4f} ms, "
+            f"{count:.0f} kernels and copies, bound {bound:.4f} ms ({bound_by}, f32 without "
+            f"TF32); {DATAOPS_BATCH / busy * 1e3:.2f} patches/s of device time; {smi}")
+
+        # the features step, in this process through main, every counter at 0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        feats, feat_lines, feat_wall = run_tasks(["preprocess", *common, "--step", "features"])
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        moved = {name: getattr(*KERNELS[name]) for name in KERNELS if getattr(*KERNELS[name])}
+        if moved:
+            raise AssertionError(f"(d) the extraction launched the port's kernels: {moved}")
+        total = sum(counts.values())
+        if feats["patches"] != total or feat_lines[-1] != (
+                f"features: {DATAOPS_SLIDES} extracted, 0 already present, 0 without a patches h5"):
+            raise AssertionError(f"the features step said {feat_lines[-3:]}")
+        log(f"  features step: {feat_wall:.4f} s wall for {total} patches "
+            f"({total / feat_wall:.2f} patches/s end to end); region reading and resize on the "
+            f"host {feats['read_s']:.4f} s ({total / feats['read_s']:.2f} patches/s), extraction "
+            f"{feats['extract_s']:.4f} s ({total / feats['extract_s']:.2f} patches/s, the first "
+            f"call's cuDNN set-up included); peak memory {peak:.1f} MiB; {smi}")
+        log("  (d) no projection, flash or chain counter moved during extraction")
+
+        written = np.load(prep / "patch_features" / f"{sids[0]}.npy")[:DATAOPS_BATCH]
+        d_written = float(np.abs(written - got).max())
+        log(f"  the main path's features of {sids[0]}'s first {DATAOPS_BATCH} patches: max|d| "
+            f"{d_written:.3g} from the (a) extractor's")
+        if not d_written <= DATAOPS_TOL * np.abs(want).max():
+            raise AssertionError("the written features differ from the extractor's")
+
+        # (c) the loader reads every bag, sized from the .npy header
+        data = TCGADataset("brca", {"tcga_path": str(root)}, level=DATAOPS_LEVEL)
+        for sid in data.slide_ids:
+            bag = data.load_patch_features(sid)
+            if data._bag_sizes[sid] != counts[sid] or bag.shape != (counts[sid], 2048) \
+                    or not np.isfinite(bag).all():
+                raise AssertionError(f"(c) {sid}: header {data._bag_sizes[sid]}, bag "
+                                     f"{bag.shape}, coords {counts[sid]}")
+        if sorted(data.slide_ids) != sids:
+            raise AssertionError(f"(c) the loader found {data.slide_ids}")
+        log(f"  (c) TCGADataset reads the {len(sids)} bags, {sorted(counts.values())} x 2048, "
+            "sized from the .npy headers")
+
+        # the module entry point in a fresh process, on one slide
+        out = prep / "patch_features" / f"{sids[-1]}.npy"
+        first = np.load(out)
+        out.unlink()
+        code = ("import runpy, torch, chip_smoke\n"
+                "torch.backends.cudnn.allow_tf32 = False\n"
+                "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                "chip_smoke.install_synthetic_slides()\n"
+                "runpy.run_module('healnet_tpu_torch.cli.tasks', run_name='__main__', "
+                "alter_sys=True)\n")
+        t0 = time.perf_counter()
+        env = {**os.environ,
+               "PYTHONPATH": f"{REPO}{os.pathsep}{os.environ.get('PYTHONPATH', '')}"}
+        proc = subprocess.run([sys.executable, "-c", code, "preprocess", *common, "--step",
+                               "features"], cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+        fresh_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python3 -m healnet_tpu_torch.cli.tasks failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        said = proc.stdout.splitlines()
+        again = np.load(out)
+        diff = float(np.abs(again - first).max())
+        if said[-1] != f"features: 1 extracted, {DATAOPS_SLIDES - 1} already present, 0 without " \
+                       "a patches h5" or not diff <= DATAOPS_TOL * np.abs(first).max():
+            raise AssertionError(f"the fresh process said {said[-2:]}; max|d| {diff}")
+        log(f"  python3 -m healnet_tpu_torch.cli.tasks preprocess --step features in a fresh "
+            f"process: {fresh_wall:.2f} s wall, '{said[-1]}'; {sids[-1]}'s features "
+            f"{'bit-equal' if diff == 0 else f'max|d| {diff:.3g}'} to the in-process run's")
+    log(f"  phase 18 wall: {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4268,6 +4548,7 @@ def main() -> int:
     phase_explainer(np.random.default_rng(8))
     phase_baselines(np.random.default_rng(9))
     phase_multi_device(np.random.default_rng(10))
+    phase_dataops(np.random.default_rng(11), smi)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: {**k, "launches": launches[k["name"]]}[key] for key in order}

@@ -18,6 +18,11 @@ cells' ``ir`` / ``iz`` / ``in`` / ``hr`` / ``hz`` / ``hn`` are Dense scopes
 of their own. The inverse reads the same rules backwards (a 1-D
 ``weight`` is a ``scale``), so the round trip is exact. The tree is nested
 mappings of numpy arrays (or anything ``np.asarray`` accepts).
+
+:func:`state_dict_from_flax_resnet` maps the Flax ResNet-50's variables
+(``params`` and ``batch_stats``) onto the port's ResNet-50, whose names
+are torchvision's: the inverse of the JAX package's
+``params_from_torchvision_state_dict``.
 """
 
 from __future__ import annotations
@@ -91,3 +96,46 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, An
 def is_flax_tree(params: Mapping) -> bool:
     """True for a nested Flax tree, False for a flat state_dict."""
     return any(isinstance(v, Mapping) for v in params.values())
+
+
+def state_dict_from_flax_resnet(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ResNet-50 variables (``{"params": ...,
+    "batch_stats": ...}``) -> the port's ResNet-50 state_dict (float32 CPU
+    tensors). Convolution kernels go HWIO -> OIHW; a BatchNorm's ``scale``,
+    ``bias``, ``mean`` and ``var`` become ``weight``, ``bias``,
+    ``running_mean`` and ``running_var``; ``layerS_B`` becomes ``layerS.B``
+    and its ``downsample_conv`` / ``downsample_bn`` ``downsample.0`` /
+    ``downsample.1``; a Dense ``fc`` is transposed."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, value):
+        out[key] = torch.from_numpy(np.ascontiguousarray(np.array(value, dtype=np.float32)))
+
+    def conv(p, key):
+        put(f"{key}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def bn(p, s, key):
+        put(f"{key}.weight", p["scale"])
+        put(f"{key}.bias", p["bias"])
+        put(f"{key}.running_mean", s["mean"])
+        put(f"{key}.running_var", s["var"])
+
+    for scope, p in params.items():
+        if scope == "fc":
+            put("fc.weight", np.asarray(p["kernel"]).T)
+            put("fc.bias", p["bias"])
+        elif scope == "conv1":
+            conv(p, "conv1")
+        elif scope == "bn1":
+            bn(p, stats["bn1"], "bn1")
+        else:  # a bottleneck, layerS_B -> layerS.B
+            block = scope.replace("_", ".")
+            for name, leaf in p.items():
+                key = {"downsample_conv": "downsample.0",
+                       "downsample_bn": "downsample.1"}.get(name, name)
+                if "kernel" in leaf:
+                    conv(leaf, f"{block}.{key}")
+                else:
+                    bn(leaf, stats[scope][name], f"{block}.{key}")
+    return out

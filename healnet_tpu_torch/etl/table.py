@@ -137,9 +137,11 @@ class Table:
 
     # ------------------------------------------------------------ files
     @classmethod
-    def read_csv(cls, path: Union[str, Path]) -> "Table":
-        """A CSV file, or the one CSV member of a ``.zip``; the first column
-        is the index."""
+    def read_csv(cls, path: Union[str, Path], sep: str = ",", index: bool = True) -> "Table":
+        """A CSV file, or the one CSV member of a ``.zip``, its fields split
+        at ``sep``; the first column is the index, or with ``index=False``
+        a column like the others (the index then counts the rows, as
+        pandas' ``read_csv`` without ``index_col``)."""
         path = Path(path)
         if path.suffix == ".zip":
             with zipfile.ZipFile(path) as archive:
@@ -150,7 +152,7 @@ class Table:
                 text = archive.read(members[0]).decode("utf-8")
         else:
             text = path.read_text()
-        rows = [r for r in csv.reader(io.StringIO(text)) if r]
+        rows = [r for r in csv.reader(io.StringIO(text), delimiter=sep) if r]
         if not rows:
             raise ValueError(f"{path}: no header")
         header, body = rows[0], rows[1:]
@@ -160,20 +162,24 @@ class Table:
                 raise ValueError(f"{path}, row {no}: {len(row)} fields, the header {width}")
             row.extend([""] * (width - len(row)))
         cells = list(zip(*body)) if body else [()] * width
+        if not index:
+            return cls({name: _column(list(col)) for name, col in zip(header, cells)})
         columns = {name: _column(list(col)) for name, col in zip(header[1:], cells[1:])}
-        table = cls(columns, index=np.asarray(cells[0], object), index_name=header[0])
-        return table
+        return cls(columns, index=np.asarray(cells[0], object), index_name=header[0])
 
-    def to_csv(self, path: Union[str, Path]) -> None:
-        """Write the table as pandas' ``to_csv`` does; zipped when ``path``
-        ends in ``.zip`` (one member, named as the file without ``.zip``)."""
+    def to_csv(self, path: Union[str, Path], sep: str = ",", index: bool = True) -> None:
+        """Write the table as pandas' ``to_csv`` does, its fields joined by
+        ``sep``, the index first unless ``index=False``; zipped when
+        ``path`` ends in ``.zip`` (one member, named as the file without
+        ``.zip``)."""
         path = Path(path)
         buf = io.StringIO()
-        writer = csv.writer(buf, lineterminator="\n")
-        writer.writerow([self.index_name, *self._data])
+        writer = csv.writer(buf, delimiter=sep, lineterminator="\n")
         cols = list(self._data.values())
+        writer.writerow([self.index_name, *self._data] if index else list(self._data))
         for i, label in enumerate(self.index):
-            writer.writerow([csv_cell(label), *(csv_cell(c[i]) for c in cols)])
+            cells = [csv_cell(c[i]) for c in cols]
+            writer.writerow([csv_cell(label), *cells] if index else cells)
         if path.suffix == ".zip":
             with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as archive:
                 archive.writestr(path.stem, buf.getvalue())

@@ -1,6 +1,7 @@
 """Composable array transforms: the port's copy of
-``healnet_tpu/etl/transforms.py`` (einops and numpy; cv2 for resizing), and
-:func:`resize_linear_uint8`, OpenCV's bilinear resize of uint8 images in numpy."""
+``healnet_tpu/etl/transforms.py`` (einops and numpy), with OpenCV's
+bilinear resize in numpy in place of cv2's: :func:`resize_linear_uint8`
+for uint8 images, :func:`resize_linear_float` for float ones."""
 
 from __future__ import annotations
 
@@ -46,18 +47,19 @@ class RepeatTransform:
 
 
 class ResizeTransform:
-    """Bilinear resize to (height, width) via cv2 (channels-last uint8/float)."""
+    """Bilinear resize to (height, width) of a channels-last uint8 or float
+    image, as ``cv2.resize(x, (width, height), interpolation=INTER_LINEAR)``
+    (a one-channel image comes back 2-D, as from cv2)."""
 
     def __init__(self, height: int, width: int):
         self.height = height
         self.width = width
 
     def __call__(self, x):
-        import cv2
-
-        return cv2.resize(
-            np.asarray(x), (self.width, self.height), interpolation=cv2.INTER_LINEAR
-        )
+        x = np.asarray(x)
+        resize = resize_linear_uint8 if x.dtype == np.uint8 else resize_linear_float
+        out = resize(x, self.width, self.height)
+        return out[:, :, 0] if out.ndim == 3 and out.shape[2] == 1 else out
 
 
 class ToFloat:
@@ -72,21 +74,52 @@ class ToFloat:
 _ROWS_PER_BLOCK = 256
 
 
-def _linear_taps(src: int, dst: int):
-    """Source indices and 11-bit weights of a half-pixel-centred linear
-    resize from ``src`` to ``dst`` samples, as OpenCV's ``INTER_LINEAR``
-    computes them: the position in float32, the weights rounded from
-    ``w * 2048``, both taps on the edge sample outside the image."""
+def _linear_positions(src: int, dst: int, dtype=np.float32):
+    """Source indices and fractions of a half-pixel-centred linear resize
+    from ``src`` to ``dst`` samples, as OpenCV's ``INTER_LINEAR`` computes
+    them: the position in ``dtype`` (float32 on its uint8 path, float64 on
+    its float one), both taps on the edge sample outside the image."""
     scale = 1.0 / (dst / src)
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(dtype)
     s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(np.float32)
+    f = (f - s.astype(dtype)).astype(dtype)
     low, high = s < 0, s >= src - 1
     f[low | high] = 0.0
     s = np.where(low, 0, np.where(high, src - 1, s))
+    return s, np.minimum(s + 1, src - 1), f
+
+
+def _linear_taps(src: int, dst: int):
+    """:func:`_linear_positions` with the weights rounded to 11 bits from
+    ``w * 2048``, as OpenCV's fixed-point path for uint8 takes them."""
+    s0, s1, f = _linear_positions(src, dst)
     w0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int32)
     w1 = np.rint(f * np.float32(2048)).astype(np.int32)
-    return s, np.minimum(s + 1, src - 1), w0, w1
+    return s0, s1, w0, w1
+
+
+def resize_linear_float(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Bilinear resize of an ``(h, w[, c])`` float image to ``(height,
+    width[, c])``, standing in for ``cv2.resize(img, (width, height),
+    interpolation=cv2.INTER_LINEAR)`` on float32 (float16 is computed in
+    float32) and float64 images: positions in float64, the weights in the
+    image's precision, a horizontal then a vertical pass. OpenCV's vector
+    code may round the products' sums in another order: within a few
+    ulps."""
+    img = np.asarray(img)
+    if img.dtype.kind != "f":
+        raise ValueError(f"resize_linear_float takes a float image, got {img.dtype}")
+    dtype = np.float64 if img.dtype == np.float64 else np.float32
+    squeeze = img.ndim == 2
+    src = (img[:, :, None] if squeeze else img).astype(dtype, copy=False)
+    h, w = src.shape[:2]
+    xs0, xs1, fx = _linear_positions(w, width, np.float64)
+    ys0, ys1, fy = _linear_positions(h, height, np.float64)
+    a0, a1 = (1.0 - fx).astype(dtype), fx.astype(dtype)
+    b0, b1 = (1.0 - fy).astype(dtype), fy.astype(dtype)
+    horiz = src[:, xs0] * a0[None, :, None] + src[:, xs1] * a1[None, :, None]
+    out = horiz[ys0] * b0[:, None, None] + horiz[ys1] * b1[:, None, None]
+    return out[:, :, 0] if squeeze else out
 
 
 def resize_linear_uint8(img: np.ndarray, width: int, height: int) -> np.ndarray:

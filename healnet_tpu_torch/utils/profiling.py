@@ -8,7 +8,9 @@
   reading the clock;
 - :func:`enable_compilation_cache`: where the port keeps what it compiles
   (its nvcc builds of ``ops/csrc`` and the host runtime library), which
-  later processes reuse.
+  later processes reuse;
+- :func:`log_compile_time`: first-call against steady-state latency of a
+  function.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -94,3 +96,30 @@ class StepTimer:
             "samples_per_sec": float(self.samples_per_step / ds.mean()),
         }
 
+
+
+def log_compile_time(fn: Callable, name: Optional[str] = None) -> Callable:
+    """Wrap ``fn``; print its first call's latency ("incl. compile", in
+    seconds) and its second's ("steady-state dispatch", in milliseconds).
+
+    Like the JAX package's, it times the Python call and does not
+    synchronise: on the card a call that returns a device tensor is timed
+    to its launch, one that returns host data (a numpy array) to its end.
+    A first call there can include nvcc's build of the port's kernels
+    (:mod:`healnet_tpu_torch.ops.cuda_build`) and cuDNN's set-up."""
+    label = name or getattr(fn, "__name__", "fn")
+    state = {"calls": 0, "first": None}
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        state["calls"] += 1
+        if state["calls"] == 1:
+            state["first"] = dt
+            print(f"[{label}] first call (incl. compile): {dt:.2f}s")
+        elif state["calls"] == 2:
+            print(f"[{label}] steady-state dispatch: {dt * 1e3:.2f}ms")
+        return out
+
+    return wrapped

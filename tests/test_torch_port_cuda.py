@@ -1225,3 +1225,27 @@ def test_flash_row_offset_keeps_the_whole_calls_rows(gen, d, dtype):
     assert torch.equal(got.reshape(2, lq, 1, d)[..., :lkv] != 0,
                        whole.reshape(b, lq, h, d)[2:4, :, 1:2, :lkv] != 0)
     assert torch.equal(got.reshape(2, lq, d)[..., :lkv] != 0, keep[2:4, 1])
+
+
+def test_patch_extractor_on_card_matches_cpu(gen, monkeypatch):
+    """The data-ops ResNet-50 on the card (cuDNN, TF32 off) against its CPU
+    copy on the same 8 uint8 patches: within 1e-4 of the largest feature,
+    and no port kernel launched."""
+    from healnet_tpu_torch.ops.resnet import PatchFeatureExtractor
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    patches = np.random.default_rng(0).integers(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+    card = PatchFeatureExtractor(batch_size=4, seed=3)
+    cpu = PatchFeatureExtractor(batch_size=4, seed=3, device="cpu")
+    for counter in PROJECT_COUNTERS:
+        setattr(fused_project_kernel, counter, 0)
+    for counter in LAUNCH_COUNTERS:
+        setattr(flash_attention_kernel, counter, 0)
+    fused_chain_kernel.launches = 0
+    got, want = card(patches), cpu(patches)
+    assert got.shape == (8, 2048) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert sum(getattr(fused_project_kernel, c) for c in PROJECT_COUNTERS) == 0
+    assert sum(getattr(flash_attention_kernel, c) for c in LAUNCH_COUNTERS) == 0
+    assert fused_chain_kernel.launches == 0

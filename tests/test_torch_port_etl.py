@@ -552,7 +552,8 @@ def test_sweep_same_trials_for_the_same_seed(method, seed, tmp_path):
 # ------------------------------------------------------------------ imports
 
 
-FORBIDDEN = ("jax", "flax", "optax", "healnet_tpu", "pandas", "yaml", "h5py")
+FORBIDDEN = ("jax", "flax", "optax", "healnet_tpu", "pandas", "yaml", "h5py", "cv2",
+             "torchvision")
 
 
 @pytest.mark.parametrize("path", sorted(
