@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from healnet_tpu_torch.utils import profiling
+
 #: a bucket's steps are rounded up to a multiple of this (JAX's SCAN_QUANTUM)
 SCAN_QUANTUM = 8
 
@@ -122,22 +124,23 @@ class StepTable:
     def upload(self, batches: List[Dict[str, Any]]) -> None:
         """Every batch into its slot, in order, with one host-to-device copy
         (from pinned memory on the card; the rest of the slots stay as they
-        are and are never run)."""
+        are and are never run); the span ``fused.upload``."""
         if len(batches) > self.steps:
             raise ValueError(f"{len(batches)} batches for a table of {self.steps} steps")
-        host = np.zeros((len(batches), self.slot_bytes), np.uint8)
-        for i, hb in enumerate(batches):
-            for (path, arr), (want, dtype, shape, offset) in zip(_fields(hb), self.layout):
-                if path != want or (arr is None) != (dtype is None) or (
-                        arr is not None and (arr.dtype != dtype or arr.shape != shape)):
-                    raise ValueError(f"batch {i} does not fit the table at {path}")
-                if arr is not None:
-                    raw = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
-                    host[i, offset:offset + raw.size] = raw
-        src = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            src = src.pin_memory()
-        self.table[:len(batches)].copy_(src, non_blocking=True)
+        with profiling.span("fused.upload"):
+            host = np.zeros((len(batches), self.slot_bytes), np.uint8)
+            for i, hb in enumerate(batches):
+                for (path, arr), (want, dtype, shape, offset) in zip(_fields(hb), self.layout):
+                    if path != want or (arr is None) != (dtype is None) or (
+                            arr is not None and (arr.dtype != dtype or arr.shape != shape)):
+                        raise ValueError(f"batch {i} does not fit the table at {path}")
+                    if arr is not None:
+                        raw = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
+                        host[i, offset:offset + raw.size] = raw
+            src = torch.from_numpy(host)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            self.table[:len(batches)].copy_(src, non_blocking=True)
 
     def select(self) -> None:
         """Slot ``counter`` of the table into the slot buffer (one gather)."""
@@ -160,7 +163,9 @@ def run_steps(table: StepTable, body: Callable[[], None], n_real: int,
     optimizer's state at fixed addresses), then the body is captured on
     that stream, with ``generator``'s state registered so that each replay
     draws the next masks, and the other steps replay it. A failed capture
-    or replay raises: there is no stepwise fallback."""
+    or replay raises: there is no stepwise fallback. The warm-up and the
+    capture are the span ``fused.capture``, each capture one count of
+    ``fused.captures``."""
     table.counter.zero_()
     if table.device.type != "cuda":
         for _ in range(n_real):
@@ -168,17 +173,19 @@ def run_steps(table: StepTable, body: Callable[[], None], n_real: int,
         return
     done = 0
     if table.graph is None:
-        current = torch.cuda.current_stream(table.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            body()
-        current.wait_stream(stream)
-        done = 1
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, stream=stream):
-            body()
-        table.graph = graph
+        with profiling.span("fused.capture"):
+            current = torch.cuda.current_stream(table.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                body()
+            current.wait_stream(stream)
+            done = 1
+            graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                graph.register_generator_state(generator)
+            with torch.cuda.graph(graph, stream=stream):
+                body()
+            table.graph = graph
+        profiling.count("fused.captures")
     for _ in range(n_real - done):
         table.graph.replay()

@@ -115,6 +115,7 @@ from healnet_tpu_torch.train.losses import (
 )
 from healnet_tpu_torch.train.metrics import concordance_index_native
 from healnet_tpu_torch.train.schedule import make_optimizer, progress_hyperparams
+from healnet_tpu_torch.utils import profiling
 from healnet_tpu_torch.utils.train_utils import EarlyStopping, calc_reg_loss, forward_keywords
 
 _META = ("censorship", "event_time", "sample_mask")
@@ -375,24 +376,26 @@ class SurvivalTrainer:
     def set_fold(self, *, seed: int, class_weights=None, checkpoint_dir=None):
         """Point the trainer at a new fold: the seed, class weights and
         checkpoint directory; the module's weights drawn anew from a
-        generator seeded with ``seed`` and a fresh optimizer."""
-        self.seed = seed
-        self.class_weights = (
-            None if class_weights is None
-            else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
-                                 device=self.device)
-        )
-        self.checkpoint_dir = checkpoint_dir
-        # drawn on the host at full size, as a new module's weights are
-        unshard_shapes_(self.module)
-        self.module.to("cpu")
-        self.module.reset_parameters(torch.Generator().manual_seed(seed))
-        self.module.to(self.device)
-        if self._mesh_module:
-            shard_module(self.module, self.mesh, self.tensor_parallel)
-        self._new_optimizer()
-        self.generator.manual_seed(seed)
-        self.seed_generator.manual_seed(seed + 1)
+        generator seeded with ``seed`` and a fresh optimizer (the span
+        ``fold.set_fold``)."""
+        with profiling.span("fold.set_fold"):
+            self.seed = seed
+            self.class_weights = (
+                None if class_weights is None
+                else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
+                                     device=self.device)
+            )
+            self.checkpoint_dir = checkpoint_dir
+            # drawn on the host at full size, as a new module's weights are
+            unshard_shapes_(self.module)
+            self.module.to("cpu")
+            self.module.reset_parameters(torch.Generator().manual_seed(seed))
+            self.module.to(self.device)
+            if self._mesh_module:
+                shard_module(self.module, self.mesh, self.tensor_parallel)
+            self._new_optimizer()
+            self.generator.manual_seed(seed)
+            self.seed_generator.manual_seed(seed + 1)
         return self
 
     def _new_optimizer(self) -> None:
@@ -678,7 +681,9 @@ class SurvivalTrainer:
         """An epoch's steps bucket by bucket; returns the last step's
         gradient norms."""
         gstats = None
-        for blist in bucket_groups(batches).values():
+        with profiling.span("fit.batches"):
+            groups = bucket_groups(batches)
+        for blist in groups.values():
             loss, risk, gstats = self._fused_train_bucket(blist)
             losses.append(loss)
             risks.append(risk.reshape(-1))
@@ -689,7 +694,9 @@ class SurvivalTrainer:
         """Evaluation bucket by bucket (JAX's ``scan_eval``)."""
         self._widen_halo(batches[0])
         self._device_arena()
-        for blist in bucket_groups(batches).values():
+        with profiling.span("fit.batches"):
+            groups = bucket_groups(batches)
+        for blist in groups.values():
             n_real, b = len(blist), int(np.asarray(blist[0]["sample_mask"]).shape[0])
             table = self._step_table("eval", blist, 1 + b)
             table.upload(blist)
@@ -757,7 +764,24 @@ class SurvivalTrainer:
         ``stopped_epoch``, ``history`` (one dict an epoch), ``params`` (the
         module's ``state_dict``), and with ``test_data`` the test loss and
         c-index (and ``missing_performance``: the test c-index with modality
-        "50" / "omic" / "wsi" missing, with ``missing_ablation``)."""
+        "50" / "omic" / "wsi" missing, with ``missing_ablation``).
+
+        The span ``fit`` and, while recording on a CUDA device, the count
+        ``device_allocs`` of the device allocations it made; inside it
+        ``fit.epoch`` an epoch, ``fit.validate`` each validation (and the
+        test split's) and ``fit.metrics`` each split's loss and c-index."""
+        allocs = profiling.is_recording() and self.device.type == "cuda"
+        before = torch.cuda.memory_stats(self.device)["num_device_alloc"] if allocs else 0
+        with profiling.span("fit"):
+            results = self._fit(train_data, val_data, test_data, fold, missing_ablation,
+                                missing_semantics, verbose)
+        if allocs:
+            profiling.count("device_allocs",
+                            torch.cuda.memory_stats(self.device)["num_device_alloc"] - before)
+        return results
+
+    def _fit(self, train_data, val_data, test_data, fold, missing_ablation, missing_semantics,
+             verbose) -> Dict[str, Any]:
         horizon = float(self._steps_per_epoch(train_data) * self.epochs)
         self._new_optimizer()
         self._horizon.fill_(horizon)
@@ -784,63 +808,70 @@ class SurvivalTrainer:
                 print(f"Fold already complete at epoch {start_epoch - 1}; "
                       "re-evaluating restored checkpoint")
             train_loss, train_c = self.evaluate(train_data)
-            val_loss, val_c = self.evaluate(val_data)
+            with profiling.span("fit.validate"):
+                val_loss, val_c = self.evaluate(val_data)
             history.append(dict(epoch=start_epoch - 1, train_loss=train_loss,
                                 train_c_index=train_c, val_loss=val_loss, val_c_index=val_c,
                                 seconds=0.0, resumed_complete=True))
         epoch = start_epoch - 1
         for epoch in range(start_epoch, self.epochs + 1):
-            t0 = time.time()
-            self._seed_epoch(fold, epoch)
-            batches = iterate_batches(
-                train_data, self.batch_size, shuffle=True,
-                rng=np.random.default_rng(self.seed + fold + 977 * epoch),
-                bucket_boundaries=self.bucket_boundaries)
-            losses, risks, cens, times, masks = [], [], [], [], []
-            if self.fused_epochs:
-                gstats = self._fused_train_epoch(batches, losses, risks, cens, times, masks)
-            else:
-                gstats = self._stepwise_epoch(batches, horizon, losses, risks, cens, times,
-                                              masks)
-            train_loss = self._weighted_loss(losses, cens, masks)
-            train_c = self._c_index(cens, times, risks, masks, "train")
+            with profiling.span("fit.epoch"):
+                t0 = time.perf_counter()
+                self._seed_epoch(fold, epoch)
+                batches = iterate_batches(
+                    train_data, self.batch_size, shuffle=True,
+                    rng=np.random.default_rng(self.seed + fold + 977 * epoch),
+                    bucket_boundaries=self.bucket_boundaries)
+                losses, risks, cens, times, masks = [], [], [], [], []
+                if self.fused_epochs:
+                    gstats = self._fused_train_epoch(batches, losses, risks, cens, times, masks)
+                else:
+                    gstats = self._stepwise_epoch(batches, horizon, losses, risks, cens, times,
+                                                  masks)
+                with profiling.span("fit.metrics"):
+                    train_loss = self._weighted_loss(losses, cens, masks)
+                    train_c = self._c_index(cens, times, risks, masks, "train")
 
-            do_eval = epoch % self.eval_interval == 0 or epoch == self.epochs
-            val_loss, val_c = self.evaluate(val_data) if do_eval else (float("nan"),) * 2
-            history.append(dict(epoch=epoch, train_loss=train_loss, train_c_index=train_c,
-                                val_loss=val_loss, val_c_index=val_c, seconds=time.time() - t0))
-            if verbose:
-                val_str = f"val_loss {val_loss:.4f} c {val_c:.4f}" if do_eval else "val skipped"
-                print(f"Epoch {epoch}: train_loss {train_loss:.4f} c {train_c:.4f} | "
-                      f"{val_str} | {history[-1]['seconds']:.1f}s")
-            if self.tracker is not None and self._rank() == 0:
-                step = epoch if fold == 1 else None
-                metrics_log = {f"fold_{fold}_train_loss": train_loss,
-                               f"fold_{fold}_train_c_index": train_c}
+                do_eval = epoch % self.eval_interval == 0 or epoch == self.epochs
+                val_loss = val_c = float("nan")
                 if do_eval:
-                    metrics_log[f"fold_{fold}_val_loss"] = val_loss
-                    metrics_log[f"fold_{fold}_val_c_index"] = val_c
-                self.tracker.log(metrics_log, step=step)
-                self.tracker.watch(
-                    params={k: v.detach().cpu().numpy()
-                            for k, v in self.module.state_dict().items()},
-                    grad_stats=None if gstats is None else {k: float(v)
-                                                            for k, v in gstats.items()},
-                    step=step, prefix=f"fold_{fold}_")
-            if ckpt is not None and self._writes_checkpoints():
-                ckpt.save(step=epoch, params=self.module.state_dict(),
-                          opt_state=self.optimizer.state_dict(),
-                          metrics={"val_loss": val_loss, "val_c_index": val_c} if do_eval
-                          else None,
-                          keep_last=self.keep_checkpoints)
-            # patience counts evaluations
-            if do_eval and self.early_stopping and stopper.step(val_loss, self.module):
+                    with profiling.span("fit.validate"):
+                        val_loss, val_c = self.evaluate(val_data)
+                history.append(dict(epoch=epoch, train_loss=train_loss, train_c_index=train_c,
+                                    val_loss=val_loss, val_c_index=val_c,
+                                    seconds=time.perf_counter() - t0))
                 if verbose:
-                    print(f"Early stopping at epoch {epoch}")
-                best = stopper.load_best_weights()
-                if best is not None:
-                    self.module.load_state_dict(best)
-                break
+                    val_str = f"val_loss {val_loss:.4f} c {val_c:.4f}" if do_eval else "val skipped"
+                    print(f"Epoch {epoch}: train_loss {train_loss:.4f} c {train_c:.4f} | "
+                          f"{val_str} | {history[-1]['seconds']:.1f}s")
+                if self.tracker is not None and self._rank() == 0:
+                    step = epoch if fold == 1 else None
+                    metrics_log = {f"fold_{fold}_train_loss": train_loss,
+                                   f"fold_{fold}_train_c_index": train_c}
+                    if do_eval:
+                        metrics_log[f"fold_{fold}_val_loss"] = val_loss
+                        metrics_log[f"fold_{fold}_val_c_index"] = val_c
+                    self.tracker.log(metrics_log, step=step)
+                    self.tracker.watch(
+                        params={k: v.detach().cpu().numpy()
+                                for k, v in self.module.state_dict().items()},
+                        grad_stats=None if gstats is None else {k: float(v)
+                                                                for k, v in gstats.items()},
+                        step=step, prefix=f"fold_{fold}_")
+                if ckpt is not None and self._writes_checkpoints():
+                    ckpt.save(step=epoch, params=self.module.state_dict(),
+                              opt_state=self.optimizer.state_dict(),
+                              metrics={"val_loss": val_loss, "val_c_index": val_c} if do_eval
+                              else None,
+                              keep_last=self.keep_checkpoints)
+                # patience counts evaluations
+                if do_eval and self.early_stopping and stopper.step(val_loss, self.module):
+                    if verbose:
+                        print(f"Early stopping at epoch {epoch}")
+                    best = stopper.load_best_weights()
+                    if best is not None:
+                        self.module.load_state_dict(best)
+                    break
 
         results: Dict[str, Any] = {
             "params": self.module.state_dict(),
@@ -850,7 +881,8 @@ class SurvivalTrainer:
             "history": history,
         }
         if test_data is not None:
-            test_loss, test_c = self.evaluate(test_data)
+            with profiling.span("fit.validate"):
+                test_loss, test_c = self.evaluate(test_data)
             results.update(test_loss=test_loss, test_c_index=test_c)
             if self.tracker is not None and self._rank() == 0:
                 self.tracker.log({f"fold_{fold}_test_loss": test_loss,
@@ -953,9 +985,13 @@ class SurvivalTrainer:
             # fused evaluation needs the split's (index-only) arena batches on
             # the host; peek at one so that a stream of feature tensors stays
             # a stream, as in JAX
-            first = next(batches, None)
-            if first is not None and first.get("patch_offsets") is not None:
-                self._fused_evaluate([first, *batches], losses, risks, cens, times, masks)
+            with profiling.span("fit.batches"):
+                first = next(batches, None)
+                fused = first is not None and first.get("patch_offsets") is not None
+                if fused:
+                    batches = [first, *batches]
+            if fused:
+                self._fused_evaluate(batches, losses, risks, cens, times, masks)
                 batches = iter(())
             else:
                 batches = itertools.chain([] if first is None else [first], batches)
@@ -973,5 +1009,7 @@ class SurvivalTrainer:
             cens.append(np.asarray(batch["censorship"]))
             times.append(np.asarray(batch["event_time"]))
             masks.append(np.asarray(batch["sample_mask"]))
-        c_index = self._c_index(cens, times, risks, masks, "split")
-        return self._weighted_loss(losses, cens, masks), c_index
+        with profiling.span("fit.metrics"):
+            c_index = self._c_index(cens, times, risks, masks, "split")
+            loss = self._weighted_loss(losses, cens, masks)
+        return loss, c_index

@@ -1,7 +1,7 @@
 from healnet_tpu_torch.utils.boxdict import Box
 from healnet_tpu_torch.utils.config import Config, flatten_config, unflatten_config
 from healnet_tpu_torch.utils.io import pickle_obj, unpickle
-from healnet_tpu_torch.utils.profiling import StepTimer, enable_compilation_cache, trace
+from healnet_tpu_torch.utils.profiling import enable_compilation_cache
 from healnet_tpu_torch.utils.tracking import Tracker, wandb_available
 from healnet_tpu_torch.utils.train_utils import (
     EarlyStopping,
@@ -25,7 +25,5 @@ __all__ = [
     "l1_norm",
     "Tracker",
     "wandb_available",
-    "StepTimer",
     "enable_compilation_cache",
-    "trace",
 ]

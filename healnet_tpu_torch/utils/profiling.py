@@ -1,27 +1,120 @@
-"""Tracing and timing helpers: the port's counterpart of
+"""Spans, counters and timing helpers: the port's counterpart of
 ``healnet_tpu/utils/profiling.py``.
 
-- :func:`trace`: ``torch.profiler`` over the enclosed block, written as a
-  Chrome trace (``trace.json``) into ``log_dir``;
-- :class:`StepTimer`: wall-clock step statistics whose ``stop`` fences on
-  the device: CUDA work is asynchronous, so it synchronises the card before
-  reading the clock;
+- :func:`span` and :func:`count`: named host intervals and counters where
+  the program does its work (the fold loop, the fused epochs), kept in
+  memory inside :func:`recording`. While a ``torch.profiler`` session runs,
+  a span is also a ``record_function`` range: a host range of the
+  profiler's trace, on the clock of the device's kernels and copies. With
+  neither on, a span costs two flag reads and a count one;
 - :func:`enable_compilation_cache`: where the port keeps what it compiles
   (its nvcc builds of ``ops/csrc`` and the host runtime library), which
   later processes reuse;
 - :func:`log_compile_time`: first-call against steady-state latency of a
   function.
+
+No span or count may sit where a CUDA graph captures (a step body, the
+model): it would run once, at the capture, and never at a replay.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+
+@dataclass
+class Span:
+    """One span: its name, the index of the span it opened inside
+    (``parent``, None for an outermost one), the index of the outermost
+    span it lies in (``root``, its own for an outermost one) and its
+    start and end on ``time.perf_counter_ns``."""
+
+    name: str
+    parent: Optional[int]
+    root: int
+    start_ns: int
+    end_ns: Optional[int] = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+@dataclass
+class Record:
+    """What :func:`recording` kept: the spans in the order they opened and
+    the counters by name."""
+
+    spans: List[Span] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+    open: List[int] = field(default_factory=list, repr=False)
+
+
+_record: Optional[Record] = None
+_NULL = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Record]:
+    """Record every span and count of the enclosed block; yields the
+    :class:`Record`, filled as the block runs. Nothing is written out. A
+    recording opened inside another keeps what its block records to
+    itself."""
+    global _record
+    outer, _record = _record, Record()
+    try:
+        yield _record
+    finally:
+        _record = outer
+
+
+def is_recording() -> bool:
+    return _record is not None
+
+
+def span(name: str):
+    """A context manager around a stretch of the program's host work,
+    recorded under ``name`` inside :func:`recording` and mirrored into the
+    trace of a running ``torch.profiler`` session."""
+    if _record is None and not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _span(name)
+
+
+@contextlib.contextmanager
+def _span(name: str):
+    record = _record
+    mirror = (torch.profiler.record_function(name) if _autograd_profiler._is_profiler_enabled
+              else _NULL)
+    with mirror:
+        if record is None:
+            yield
+            return
+        index = len(record.spans)
+        parent = record.open[-1] if record.open else None
+        root = index if parent is None else record.spans[parent].root
+        record.spans.append(Span(name, parent, root, time.perf_counter_ns()))
+        record.open.append(index)
+        try:
+            yield
+        finally:
+            record.open.pop()
+            record.spans[index].end_ns = time.perf_counter_ns()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the open recording, if any."""
+    record = _record
+    if record is None:
+        return
+    record.counters[name] = record.counters.get(name, 0) + n
 
 
 def enable_compilation_cache(directory: Optional[str] = None,
@@ -39,63 +132,6 @@ def enable_compilation_cache(directory: Optional[str] = None,
 
     cuda_build.BUILD_ROOT = Path(directory)
     runtime.BUILD_ROOT = Path(directory)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str = "logs/torch-trace"):
-    """Profile the enclosed block (host and, where present, CUDA activity)
-    and write ``<log_dir>/trace.json``, a Chrome trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
-
-
-class StepTimer:
-    """Accumulates fenced step timings; report percentiles and throughput."""
-
-    def __init__(self, samples_per_step: int = 1):
-        self.samples_per_step = samples_per_step
-        self._durations: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, fence=None) -> float:
-        """End the step. ``fence``: a tensor (or a device) whose device's
-        queued work the step waits for; on a CUDA device that is
-        ``torch.cuda.synchronize``. None waits for nothing."""
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop() called before start()")
-        if fence is not None:
-            device = fence.device if isinstance(fence, torch.Tensor) else torch.device(fence)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        dt = time.perf_counter() - self._t0
-        self._durations.append(dt)
-        return dt
-
-    def summary(self, skip_warmup: int = 1) -> Dict[str, float]:
-        ds = np.asarray(self._durations[skip_warmup:] or self._durations)
-        if ds.size == 0:  # no steps recorded: well-defined empty summary
-            return {
-                "steps": 0, "mean_s": float("nan"), "p50_s": float("nan"),
-                "p95_s": float("nan"), "samples_per_sec": float("nan"),
-            }
-        return {
-            "steps": len(ds),
-            "mean_s": float(ds.mean()),
-            "p50_s": float(np.percentile(ds, 50)),
-            "p95_s": float(np.percentile(ds, 95)),
-            "samples_per_sec": float(self.samples_per_step / ds.mean()),
-        }
-
 
 
 def log_compile_time(fn: Callable, name: Optional[str] = None) -> Callable:

@@ -44,6 +44,7 @@ from healnet_tpu_torch.ops.fused_chain import (
     weight_shapes,
 )
 from healnet_tpu_torch.train.loop import SurvivalTrainer
+from healnet_tpu_torch.utils import profiling
 from healnet_tpu_torch.ops.fused_project import (
     _prep,
     _project_launch,
@@ -1153,6 +1154,27 @@ def test_graph_replays_after_set_fold(gen):
     want = fresh.fit(data, data, verbose=False)
     assert [h["train_loss"] for h in got["history"]] == [h["train_loss"] for h in want["history"]]
     assert got["val_c_index"] == want["val_c_index"]
+
+
+def test_recorded_fit_counts_one_capture_a_table(gen):
+    """A fused fold under ``recording()`` captures each table it made once,
+    in one ``fused.capture`` span each, and makes device allocations; a
+    second fold on the same trainer captures every table again (``fit``
+    drops the captured steps with the optimizer)."""
+    data, arena = _capture_data()
+    trainer = _capture_trainer(arena, True, torch.float32)
+    for fold in range(2):
+        with profiling.recording() as record:
+            trainer.fit(data, data, verbose=False)
+        tables = len(trainer._tables)
+        assert tables >= 2 and all(t.graph is not None for t in trainer._tables.values())
+        assert record.counters["fused.captures"] == tables
+        captures = [s for s in record.spans if s.name == "fused.capture"]
+        assert len(captures) == tables and all(s.seconds > 0 for s in captures)
+        assert {record.spans[s.parent].name for s in captures} <= {"fit.epoch", "fit.validate"}
+        if fold == 0:
+            assert record.counters["device_allocs"] > 0
+        assert record.counters["device_allocs"] >= 0
 
 
 def test_quantize_context_on_card_equals_host(gen):

@@ -52,11 +52,9 @@ from healnet_tpu_torch.train.sweep import Sweep
 from healnet_tpu_torch.utils import (
     Box,
     Config,
-    StepTimer,
     Tracker,
     enable_compilation_cache,
     flatten_config,
-    trace,
     unflatten_config,
 )
 from healnet_tpu_torch.utils.yaml_reader import YamlSubsetError, loads
@@ -473,21 +471,6 @@ def test_compilation_cache_default_leaves_the_build_directory(tmp_path, monkeypa
     enable_compilation_cache(str(tmp_path))
     assert cuda_build.build_dir().parent == tmp_path
     assert runtime.library_path().parents[1] == tmp_path
-
-
-def test_step_timer_and_trace(tmp_path):
-    timer = StepTimer(samples_per_step=4)
-    for _ in range(3):
-        timer.start()
-        timer.stop(fence=torch.ones(2))
-    summary = timer.summary()
-    assert summary["steps"] == 2 and summary["samples_per_sec"] > 0
-    assert StepTimer().summary()["steps"] == 0
-    with pytest.raises(RuntimeError):
-        StepTimer().stop()
-    with trace(str(tmp_path / "trace")) as where:
-        torch.ones(8).sum()
-    assert json.loads((Path(where) / "trace.json").read_text())
 
 
 def test_tracker_logs_and_norms_as_jax(tmp_path, rng):
