@@ -41,7 +41,9 @@ order the stepwise path draws them) go to the device in one copy
 (:class:`healnet_tpu_torch.train.fused.StepTable`), and the step runs from
 there: captured as one CUDA graph per bucket shape on the card and
 replayed once a step, eagerly on the CPU. Validation runs the same way.
-Losses, risks and gradient norms come back once a bucket.
+Losses, risks and gradient norms come back once a bucket. A graph is kept
+across folds: ``set_fold`` writes the new fold's weights, optimizer state
+and class weights into the tensors the graph reads.
 
 Any module of the port trains here: HealNet and the baselines
 (:mod:`healnet_tpu_torch.models.baselines`). A module is called with the
@@ -74,6 +76,7 @@ tracker: no two ranks write one file.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import time
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
@@ -203,6 +206,11 @@ def _micro_batches(batch: Mapping[str, Any], a: int) -> List[Dict[str, Any]]:
     return [{k: v[i] for k, v in parts.items()} for i in range(a)]
 
 
+def _tensors(module: torch.nn.Module) -> Iterator[torch.Tensor]:
+    """A module's parameters, then its buffers."""
+    return itertools.chain(module.parameters(), module.buffers())
+
+
 class SurvivalTrainer:
     """Trains a HealNet-style module for discrete-time survival, one device.
 
@@ -327,11 +335,9 @@ class SurvivalTrainer:
             shard_module(self.module, mesh, self.tensor_parallel)
         self.loss_type, self.alpha = loss_type, alpha
         self.l1 = float(l1)
-        self.class_weights = (
-            None if class_weights is None
-            else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
-                                 device=self.device)
-        )
+        self.class_weights = None
+        self._tables: Dict[tuple, StepTable] = {}
+        self._set_class_weights(class_weights)
         self.gc_compat = gc_compat
         self.batch_size, self.epochs, self.max_lr = batch_size, epochs, max_lr
         self.patience, self.early_stopping = patience, early_stopping
@@ -370,40 +376,77 @@ class SurvivalTrainer:
             arena_halo = max(candidates) if candidates else None
         self.arena_halo = arena_halo
         self._horizon = torch.ones((), dtype=torch.float32, device=self.device)
-        self._tables: Dict[tuple, StepTable] = {}
         self._capture_stream = None
+        self._host_module = None  # the module's host twin that set_fold draws weights in
 
     def set_fold(self, *, seed: int, class_weights=None, checkpoint_dir=None):
         """Point the trainer at a new fold: the seed, class weights and
         checkpoint directory; the module's weights drawn anew from a
-        generator seeded with ``seed`` and a fresh optimizer (the span
-        ``fold.set_fold``)."""
+        generator seeded with ``seed`` and the optimizer's state zeroed (the
+        span ``fold.set_fold``).
+
+        The weights, the optimizer's state and the class weights are
+        written in place, so the fused epochs' captured steps, which read
+        them at their addresses, replay in the new fold. On a mesh the
+        weights are sliced anew and the captured steps are dropped."""
         with profiling.span("fold.set_fold"):
             self.seed = seed
-            self.class_weights = (
-                None if class_weights is None
-                else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
-                                     device=self.device)
-            )
+            self._set_class_weights(class_weights)
             self.checkpoint_dir = checkpoint_dir
-            # drawn on the host at full size, as a new module's weights are
-            unshard_shapes_(self.module)
-            self.module.to("cpu")
-            self.module.reset_parameters(torch.Generator().manual_seed(seed))
-            self.module.to(self.device)
+            generator = torch.Generator().manual_seed(seed)
             if self._mesh_module:
+                # drawn on the host at full size, as a new module's weights are
+                unshard_shapes_(self.module)
+                self.module.to("cpu")
+                self.module.reset_parameters(generator)
+                self.module.to(self.device)
                 shard_module(self.module, self.mesh, self.tensor_parallel)
-            self._new_optimizer()
+                self._drop_graphs()
+            else:
+                self._draw_weights(generator)
+            self.optimizer.reset_()
             self.generator.manual_seed(seed)
             self.seed_generator.manual_seed(seed + 1)
         return self
 
-    def _new_optimizer(self) -> None:
-        """A fresh optimizer; the captured steps, which point at the old
-        one's state, are dropped (the next fused epoch captures anew)."""
-        self.optimizer = make_optimizer(self.module.parameters(), self.cycle_momentum)
+    def _draw_weights(self, generator: torch.Generator) -> None:
+        """The module's weights drawn on the host, in module order, as a new
+        module's are, and copied into its tensors. The host twin that draws
+        them is made once, from copies of the module's parameters and
+        buffers."""
+        if self._host_module is None:
+            memo = {}
+            for t in _tensors(self.module):
+                host = t.detach().to("cpu", copy=True)
+                memo[id(t)] = (torch.nn.Parameter(host, t.requires_grad)
+                               if isinstance(t, torch.nn.Parameter) else host)
+            self._host_module = copy.deepcopy(self.module, memo)
+        self._host_module.reset_parameters(generator)
+        with torch.no_grad():
+            for dst, src in zip(_tensors(self.module), _tensors(self._host_module)):
+                dst.copy_(src)
+
+    def _set_class_weights(self, class_weights) -> None:
+        """The fold's class weights, in the trainer's own buffer. A captured
+        loss reads that buffer: weights of its shape are copied into it;
+        none where there were some, some where there were none, or another
+        shape change what a step computes, and drop the captured steps."""
+        new = None if class_weights is None else torch.tensor(
+            np.asarray(class_weights), dtype=torch.float32)
+        old = self.class_weights
+        if new is not None and old is not None and new.shape == old.shape:
+            old.copy_(new)
+        elif new is not None or old is not None:
+            self._drop_graphs()
+            self.class_weights = None if new is None else new.to(self.device)
+
+    def _drop_graphs(self) -> None:
+        """Drop the captured steps, each one count of ``fused.graphs_dropped``;
+        the next fused epoch captures anew."""
         for table in self._tables.values():
-            table.graph = None
+            if table.graph is not None:
+                table.graph = None
+                profiling.count("fused.graphs_dropped")
 
     def _seed_epoch(self, fold: int, epoch: int) -> None:
         """Reseed the dropout generators from ``(seed + 1000 * fold,
@@ -783,7 +826,7 @@ class SurvivalTrainer:
     def _fit(self, train_data, val_data, test_data, fold, missing_ablation, missing_semantics,
              verbose) -> Dict[str, Any]:
         horizon = float(self._steps_per_epoch(train_data) * self.epochs)
-        self._new_optimizer()
+        self.optimizer.reset_()
         self._horizon.fill_(horizon)
         stopper = EarlyStopping(patience=self.patience, mode="min", verbose=verbose)
 
@@ -795,6 +838,8 @@ class SurvivalTrainer:
                 restored = ckpt.restore(step=latest, map_location=self.device)
                 self.module.load_state_dict(restored["params"])
                 self.optimizer.load_state_dict(restored["opt_state"])
+                # the restored moments are new tensors, which no captured step reads
+                self._drop_graphs()
                 start_epoch = latest + 1
                 if verbose:
                     print(f"Resumed from checkpoint epoch {latest}")

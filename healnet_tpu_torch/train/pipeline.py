@@ -470,7 +470,7 @@ class Pipeline:
     def make_trainer(self, train_view, fold: int, cw) -> SurvivalTrainer:
         # one trainer across folds: the module and loss are fold-independent,
         # so fold 2 on only redraws the weights (seeded by the fold) and
-        # drops the optimizer and captured steps
+        # zeroes the optimizer, in place, and replays the captured steps
         if self._trainer is not None:
             self._trainer.set_fold(
                 seed=fold, class_weights=cw, checkpoint_dir=self._fold_checkpoint_dir(fold))

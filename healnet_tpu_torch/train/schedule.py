@@ -224,6 +224,20 @@ class Adam(torch.optim.Optimizer):
         self._bind()
 
     @torch.no_grad()
+    def reset_(self) -> None:
+        """Back to a new optimizer's state in place: every moment, the
+        count and lr zero, beta1 its initial value. Each state tensor keeps
+        its address, so a captured update replays from the new state; a
+        zero moment takes the first update a new optimizer's does."""
+        moments = [state[key] for state in self.state.values()
+                   for key in ("exp_avg", "exp_avg_sq") if key in state]
+        if moments:
+            torch._foreach_zero_(moments)
+        self.count.zero_()
+        self.lr.zero_()
+        self.beta1.fill_(float(self.defaults["betas"][0]))
+
+    @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam takes no closure")

@@ -1075,12 +1075,20 @@ def _capture_data(n=12, width=24):
     return data, arena
 
 
-def _capture_trainer(arena, fused, dtype, seed=0, init=0):
+def _capture_trainer(arena, fused, dtype, seed=0, init=0, **kw):
     module = HealNetModule(**CAPTURE_CFG, attention_impl="flash", dtype=dtype, device="cuda",
                            generator=torch.Generator().manual_seed(init))
     return SurvivalTrainer(module, batch_size=4, epochs=2, l1=1e-4, max_lr=1e-3, seed=seed,
                            device="cuda", feature_arena=arena, fused_epochs=fused,
-                           early_stopping=False, prefetch=0)
+                           early_stopping=False, prefetch=0, **kw)
+
+
+def _same_fold(got, want, a, b):
+    """Two folds' histories (but their seconds) and weights, bit for bit."""
+    strip = lambda r: [{k: v for k, v in h.items() if k != "seconds"} for h in r["history"]]
+    assert strip(got) == strip(want)
+    for (name, x), y in zip(a.module.named_parameters(), b.module.parameters()):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1141,40 +1149,99 @@ def test_two_replays_drop_different_entries(gen, d, dtype):
 
 
 def test_graph_replays_after_set_fold(gen):
-    """``set_fold`` gives the trainer a new optimizer: its captured steps
-    are dropped and captured again, and the new fold trains as a fresh
-    fused trainer with that seed does (bit for bit)."""
+    """``set_fold`` writes the new fold's weights and zeroed optimizer into
+    the tensors the captured steps read: the graphs are kept, and the new
+    fold, every step of it replayed, trains as a fresh fused trainer with
+    that seed does (bit for bit)."""
     data, arena = _capture_data()
     trainer = _capture_trainer(arena, True, torch.float32)
     trainer.fit(data, data, verbose=False)
+    graphs = {key: table.graph for key, table in trainer._tables.items()}
     trainer.set_fold(seed=7)
-    assert all(t.graph is None for t in trainer._tables.values())
     got = trainer.fit(data, data, verbose=False)
+    assert all(g is not None for g in graphs.values())
+    assert all(t.graph is graphs[k] for k, t in trainer._tables.items())
     fresh = _capture_trainer(arena, True, torch.float32, seed=7, init=7)
-    want = fresh.fit(data, data, verbose=False)
-    assert [h["train_loss"] for h in got["history"]] == [h["train_loss"] for h in want["history"]]
-    assert got["val_c_index"] == want["val_c_index"]
+    _same_fold(got, fresh.fit(data, data, verbose=False), trainer, fresh)
 
 
 def test_recorded_fit_counts_one_capture_a_table(gen):
     """A fused fold under ``recording()`` captures each table it made once,
     in one ``fused.capture`` span each, and makes device allocations; a
-    second fold on the same trainer captures every table again (``fit``
-    drops the captured steps with the optimizer)."""
+    second fold on the same trainer (``set_fold``, then ``fit``) replays
+    the kept graphs: no capture, no graph dropped, fewer than 5 device
+    allocations."""
     data, arena = _capture_data()
     trainer = _capture_trainer(arena, True, torch.float32)
     for fold in range(2):
         with profiling.recording() as record:
+            if fold:
+                trainer.set_fold(seed=7)
             trainer.fit(data, data, verbose=False)
         tables = len(trainer._tables)
         assert tables >= 2 and all(t.graph is not None for t in trainer._tables.values())
-        assert record.counters["fused.captures"] == tables
         captures = [s for s in record.spans if s.name == "fused.capture"]
-        assert len(captures) == tables and all(s.seconds > 0 for s in captures)
-        assert {record.spans[s.parent].name for s in captures} <= {"fit.epoch", "fit.validate"}
+        assert "fused.graphs_dropped" not in record.counters
         if fold == 0:
+            assert record.counters["fused.captures"] == tables
+            assert len(captures) == tables and all(s.seconds > 0 for s in captures)
+            assert {record.spans[s.parent].name for s in captures} <= {"fit.epoch",
+                                                                       "fit.validate"}
             assert record.counters["device_allocs"] > 0
-        assert record.counters["device_allocs"] >= 0
+        else:
+            assert "fused.captures" not in record.counters and not captures
+            assert 0 <= record.counters["device_allocs"] < 5
+
+
+def test_kept_graphs_read_the_new_folds_tensors(gen, tmp_path):
+    """The stale-address trap: two fused folds on one trainer with other
+    class weights, and the second fold, replayed from the first fold's
+    graphs, equals a fresh trainer's bit for bit. A fold that moves from no
+    class weights to some, and a resumed ``fit``, drop the graphs (one
+    count of ``fused.graphs_dropped`` each), capture anew and still train
+    as a fresh trainer does."""
+    data, arena = _capture_data()
+    first, second = np.array([1.0, 2.0, 0.5, 1.5]), np.array([0.25, 3.0, 1.0, 0.5])
+    want_tr = _capture_trainer(arena, True, torch.float32, seed=7, init=7, class_weights=second)
+    want = want_tr.fit(data, data, verbose=False)
+
+    trainer = _capture_trainer(arena, True, torch.float32, class_weights=first)
+    trainer.fit(data, data, verbose=False)
+    with profiling.recording() as record:
+        trainer.set_fold(seed=7, class_weights=second)
+        got = trainer.fit(data, data, verbose=False)
+    assert not {"fused.captures", "fused.graphs_dropped"} & set(record.counters)
+    _same_fold(got, want, trainer, want_tr)
+
+    plain = _capture_trainer(arena, True, torch.float32)
+    plain.fit(data, data, verbose=False)
+    with profiling.recording() as record:
+        plain.set_fold(seed=7, class_weights=second)
+        got = plain.fit(data, data, verbose=False)
+    assert record.counters["fused.graphs_dropped"] == len(plain._tables)
+    assert record.counters["fused.captures"] == len(plain._tables)
+    _same_fold(got, want, plain, want_tr)
+
+    class CrashAt2:
+        def log(self, metrics, step=None):
+            if step == 2:
+                raise RuntimeError("crash")
+
+        def watch(self, **kw):
+            pass
+
+    crashed = _capture_trainer(arena, True, torch.float32, seed=7, init=7,
+                               class_weights=second, checkpoint_dir=tmp_path,
+                               tracker=CrashAt2())
+    with pytest.raises(RuntimeError, match="crash"):
+        crashed.fit(data, data, verbose=False)
+    crashed.tracker, crashed.resume = None, True
+    tables = sum(t.graph is not None for t in crashed._tables.values())
+    with profiling.recording() as record:
+        got = crashed.fit(data, data, verbose=False)
+    assert tables and record.counters["fused.graphs_dropped"] == tables
+    assert got["history"][0]["epoch"] == 2
+    _same_fold(got, dict(want, history=want["history"][1:]), crashed, want_tr)
 
 
 def test_quantize_context_on_card_equals_host(gen):

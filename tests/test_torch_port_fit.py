@@ -269,17 +269,28 @@ def test_already_complete_fold_re_evaluates(rng, tmp_path):
 
 
 def test_set_fold_resets_weights_and_optimizer(rng, tmp_path):
+    """``set_fold`` draws the seed's weights and zeroes the optimizer in
+    place: every moment, the count and lr zero, beta1 its initial value,
+    in the same tensor objects as before."""
     train, val, _ = _splits(rng)
     trainer = _dropout_trainer(tmp_path, "fold1", epochs=1)
     trainer.fit(train, val, verbose=False)
-    assert trainer.optimizer.state
+    opt = trainer.optimizer
+    assert opt.state and float(opt.count) > 0
+    before = {id(p): dict(state) for p, state in opt.state.items()}
     trainer.set_fold(seed=123, class_weights=np.ones(4), checkpoint_dir=tmp_path / "fold2")
     fresh = HealNetModule(**CFG, attn_dropout=0.2, ff_dropout=0.3, device="cpu",
                           generator=torch.Generator().manual_seed(123))
     for (name, a), b in zip(trainer.module.state_dict().items(),
                             fresh.state_dict().values()):
         assert torch.equal(a, b), name
-    assert not trainer.optimizer.state and trainer.seed == 123
+    assert trainer.optimizer is opt and trainer.seed == 123
+    assert {id(p) for p in opt.state} == set(before)
+    for p, state in opt.state.items():
+        assert all(state[k] is before[id(p)][k] for k in state)
+        assert not state["exp_avg"].any() and not state["exp_avg_sq"].any()
+    assert float(opt.count) == 0.0 and float(opt.lr) == 0.0
+    assert float(opt.beta1) == pytest.approx(0.95)
     assert trainer.checkpoint_dir == tmp_path / "fold2"
     assert torch.equal(trainer.class_weights, torch.ones(4))
 

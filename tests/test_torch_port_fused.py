@@ -34,6 +34,7 @@ from healnet_tpu_torch.train import fused as tfused
 from healnet_tpu_torch.train import schedule as tschedule
 from healnet_tpu_torch.train.checkpoint import Checkpointer
 from healnet_tpu_torch.train.loop import SurvivalTrainer
+from healnet_tpu_torch.utils import profiling
 
 CFG = dict(n_modalities=2, channel_dims=(40, 32), num_spatial_axes=(1, 1), out_dims=4,
            depth=2, l_c=17, l_d=30, x_heads=1, cross_dim_head=15, l_heads=2,
@@ -249,6 +250,38 @@ def test_adam_matches_torch_adam_and_loads_its_state(rng):
             opt = loaded
 
 
+def test_adam_reset_takes_a_new_optimizers_updates(rng):
+    """``Adam.reset_`` zeroes the moments, count and lr and restores beta1
+    in the same tensors; the updates after it equal a new optimizer's from
+    the same weights, bit for bit."""
+    w0 = rng.normal(size=(5, 7)).astype(np.float32)
+    grads = [rng.normal(size=(5, 7)).astype(np.float32) * s for s in (1, 0.1, 3)]
+    ours = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    theirs = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    opt = tschedule.make_optimizer([ours])
+
+    def steps(o, p):
+        for g in grads:
+            tschedule.progress_hyperparams(o, 10.0, 8e-3)
+            p.grad = torch.from_numpy(g.copy())
+            o.step()
+
+    steps(opt, ours)
+    tensors = [opt.lr, opt.beta1, opt.count, *opt.state[ours].values()]
+    opt.reset_()
+    assert all(a is b for a, b in zip(tensors, [opt.lr, opt.beta1, opt.count,
+                                                *opt.state[ours].values()]))
+    assert not opt.state[ours]["exp_avg"].any() and not opt.state[ours]["exp_avg_sq"].any()
+    assert float(opt.count) == float(opt.lr) == 0.0 and float(opt.beta1) == np.float32(0.95)
+    with torch.no_grad():
+        ours.copy_(torch.from_numpy(w0))
+    fresh = tschedule.make_optimizer([theirs])
+    steps(opt, ours)
+    steps(fresh, theirs)
+    assert torch.equal(ours, theirs)
+    assert torch.equal(opt.state[ours]["exp_avg_sq"], fresh.state[theirs]["exp_avg_sq"])
+
+
 # ---------------------------------------------------------- fused epochs
 
 
@@ -385,21 +418,100 @@ def test_fused_fold_resumes_from_a_checkpoint(rng, tmp_path):
 
 
 def test_set_fold_drops_the_captured_steps(rng):
-    """A new fold's optimizer state is new: the tables stay, their graphs
-    go (the next epoch captures anew), and the fold trains as a fresh
-    trainer would."""
+    """``set_fold`` writes the new fold into the tensors the captured steps
+    read, so it keeps them, and the fold trains as a fresh trainer would;
+    class weights where there were none change what a step computes, and
+    drop them, one count of ``fused.graphs_dropped`` a graph."""
     data, arena = _arena_data(rng, 9)
     trainer = _trainer(arena, True, epochs=1)
     trainer.fit(data, data, verbose=False)
-    for table in trainer._tables.values():
-        table.graph = object()  # what a capture on the card leaves
-    trainer.set_fold(seed=11)
-    assert trainer._tables and all(t.graph is None for t in trainer._tables.values())
+    graphs = {key: object() for key in trainer._tables}  # what captures on the card leave
+    for key, table in trainer._tables.items():
+        table.graph = graphs[key]
+    with profiling.recording() as record:
+        trainer.set_fold(seed=11)
+    assert trainer._tables and all(t.graph is graphs[k] for k, t in trainer._tables.items())
+    assert "fused.graphs_dropped" not in record.counters
     got = trainer.fit(data, data, verbose=False)
     fresh = SurvivalTrainer(_module(), **{**TRAIN, "epochs": 1, "seed": 11}, device="cpu",
                             feature_arena=arena, fused_epochs=True)
     fresh.module.reset_parameters(torch.Generator().manual_seed(11))
     assert got["train_loss"] == fresh.fit(data, data, verbose=False)["train_loss"]
+    with profiling.recording() as record:
+        trainer.set_fold(seed=11, class_weights=np.ones(4))
+    assert all(t.graph is None for t in trainer._tables.values())
+    assert record.counters["fused.graphs_dropped"] == len(trainer._tables)
+
+
+def _no_seconds(history):
+    return [{k: v for k, v in h.items() if k != "seconds"} for h in history]
+
+
+def test_set_fold_keeps_every_address_a_captured_step_reads(rng):
+    """After ``set_fold`` every parameter and buffer, every Adam state
+    tensor, the optimizer's lr, beta1 and count and the class-weight buffer
+    are the tensors they were; the weights are a new module's of the seed,
+    bit for bit, and a fold with other class weights on the reused trainer
+    ends as a fresh trainer's with that seed and those weights."""
+    data, arena = _arena_data(rng, 9)
+    first_weights = np.array([1.0, 2.0, 0.5, 1.5], np.float32)
+    trainer = _trainer(arena, True, epochs=2, class_weights=first_weights)
+    trainer.fit(data, data, verbose=False)
+    module, opt = trainer.module, trainer.optimizer
+    ptrs = [t.data_ptr() for t in (*module.parameters(), *module.buffers())]
+    state = {p: dict(s) for p, s in opt.state.items()}
+    scalars = (opt.lr, opt.beta1, opt.count)
+    weights, weights_ptr = trainer.class_weights, trainer.class_weights.data_ptr()
+    cw = np.array([0.5, 1.0, 3.0, 0.25])
+    trainer.set_fold(seed=21, class_weights=cw)
+    assert [t.data_ptr() for t in (*module.parameters(), *module.buffers())] == ptrs
+    assert trainer.optimizer is opt and list(opt.state) == list(state)
+    assert all(s[k] is state[p][k] for p, s in opt.state.items() for k in s)
+    assert all(a is b for a, b in zip((opt.lr, opt.beta1, opt.count), scalars))
+    assert trainer.class_weights is weights and weights.data_ptr() == weights_ptr
+    assert torch.equal(weights, torch.tensor(cw, dtype=torch.float32))
+    np.testing.assert_array_equal(first_weights, [1.0, 2.0, 0.5, 1.5])
+    drawn = HealNetModule(**CFG, attn_dropout=0.2, ff_dropout=0.3, device="cpu",
+                          generator=torch.Generator().manual_seed(21))
+    for (name, a), b in zip(module.state_dict().items(), drawn.state_dict().values()):
+        assert torch.equal(a, b), name
+    got = trainer.fit(data, data, verbose=False)
+    fresh = SurvivalTrainer(drawn, **{**TRAIN, "seed": 21}, class_weights=cw, device="cpu",
+                            feature_arena=arena, fused_epochs=True)
+    want = fresh.fit(data, data, verbose=False)
+    assert _no_seconds(got["history"]) == _no_seconds(want["history"])
+    for (name, a), b in zip(got["params"].items(), want["params"].values()):
+        assert torch.equal(a, b), name
+
+
+def test_resumed_fit_drops_the_captured_steps(rng, tmp_path):
+    """A resumed ``fit`` loads the optimizer's moments into new tensors,
+    which no captured step reads: it drops the captured steps, one count of
+    ``fused.graphs_dropped`` a graph, and ends as an uninterrupted fold."""
+    data, arena = _arena_data(rng, 14)
+
+    class CrashAt2:
+        def log(self, metrics, step=None):
+            if step == 2:
+                raise _Crash
+
+        def watch(self, **kw):
+            pass
+
+    whole = _trainer(arena, True, epochs=2)
+    ref = whole.fit(data, data, verbose=False)
+    trainer = _trainer(arena, True, epochs=2, checkpoint_dir=tmp_path, tracker=CrashAt2())
+    with pytest.raises(_Crash):
+        trainer.fit(data, data, verbose=False)
+    for table in trainer._tables.values():
+        table.graph = object()
+    trainer.tracker, trainer.resume = None, True
+    with profiling.recording() as record:
+        got = trainer.fit(data, data, verbose=False)
+    assert record.counters["fused.graphs_dropped"] == len(trainer._tables) > 0
+    assert all(t.graph is None for t in trainer._tables.values())
+    assert _no_seconds(got["history"]) == _no_seconds(ref["history"][1:])
+    _same_weights(trainer, whole, rtol=0)
 
 
 def test_fused_fit_matches_jax_fused_epochs(rng):
